@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive se_tpu_torch's main path, Uformer waveform enhancement, on one
-NVIDIA GPU, and hold every CUDA kernel of that path against its plain
-PyTorch twin.
+"""Drive se_tpu_torch's two main paths, Uformer waveform enhancement and
+FullSubNet (cIRM) enhancement, on one NVIDIA GPU, and hold every CUDA
+kernel of those paths against its plain PyTorch twin.
 
     python3 chip_smoke.py
 
@@ -9,22 +9,30 @@ Phases, one JSON line per result:
   1. env:    the card (nvidia-smi name and power limit), torch and CUDA;
              TF32 off for matmuls and cuDNN.
   2. build:  nvcc builds se_tpu_torch/csrc/*.cu (timed).
-  3. kernel: each kernel at every shape one Uformer forward gives it at
-             B = 4 x 4 s (T = 401), against its twin on the same CUDA
-             inputs: max abs error within 1e-4 * max(1, max|twin|), kernel
-             and twin times (CUDA events, median of 5 runs of 10 launches
-             after warm-up), the bound from the shapes, and for attention
-             F.scaled_dot_product_attention's time as a yardstick the port
-             never calls.
-  4. main:   Uformer from a seed (BN statistics moved off their defaults),
+  3. kernel: each kernel at every shape one forward at B = 4 x 4 s gives
+             it (Uformer: T = 401; FullSubNet: T = 253), against its twin on
+             the same CUDA inputs: max abs error within 1e-4 * max(1,
+             max|twin|), kernel and twin times (CUDA events, median of 5
+             runs after warm-up), the bound from the shapes, and as a
+             yardstick the port never calls F.scaled_dot_product_attention
+             (attention) and cuDNN's LSTM (lstm). The single DSConv block,
+             which left the eval path for the pair entry, is checked at the
+             shapes the stage gives it; the LSTM also in reverse and with a
+             ragged batch and a non-zero carry.
+  4. main:   Uformer (BN statistics moved off their defaults) and then
+             FullSubNet, each from a seed at its published widths,
              `enhance_waveform` on B = 4 x 4 s on the card with the launch
              counts set to 0 just before and read just after: every kernel
-             must have launched, the output must be finite and within
-             1e-3 * max|cpu| of the same weights run on the CPU.
-  5. speed:  fp32 enhance throughput at B = 32 and B = 256 x 4 s, median
-             audio-seconds/s of 5 timed calls, with peak device memory.
-  6. profile: torch.profiler over one enhance call at B = 32: device time
-             by kernel name and the device's busy share of the wall time.
+             of the path must have launched (dsconv_pair 8 times, lstm 4
+             times), the output must be finite and within 1e-3 * max|cpu|
+             of the same weights run on the CPU (utterance 0).
+  5. speed:  fp32 enhance throughput of both models at B = 32 and B = 256
+             x 4 s, median audio-seconds/s of 5 timed calls (2 where one
+             call takes over 20 s, said so in the line), with peak device
+             memory.
+  6. profile: torch.profiler over one enhance call of each model at
+             B = 32: device time by kernel name and the device's busy share
+             of the wall time.
 Then the kernel table as one JSON line and, last, the device line. Any
 failure exits non-zero; without a CUDA device, or without the se_tpu_torch
 package beside this file, it exits 1 before printing any result.
@@ -43,6 +51,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SR, HOP, SECONDS, B_MAIN = 16000, 160, 4, 4
 T_FRAMES = SECONDS * SR // HOP + 1  # 401
+# FullSubNet: 512/256 STFT, 251 frames + a look-ahead of 2, 257 bins
+FSN_T, FSN_F = SECONDS * SR // 256 + 1 + 2, 257
+FSN_LAYERS = ((FSN_F, 512), (512, 512), (32, 384), (384, 384))  # (In, H)
+SLOW_CALL_S = 20.0
 KERNELS = (1, 8, 16, 32, 64, 128, 128)
 DILATIONS = (1, 2, 4, 8, 16, 32, 64, 128)
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
@@ -101,6 +113,7 @@ def valid_taps(n: int, positions) -> int:
 
 def attention_cases(gen, dev):
     import torch
+    import torch.nn.functional as F
 
     b, t, f = B_MAIN, T_FRAMES, 4
     for n, h, l in ((b * f, 8, t), (b * f, 1, t), (b * t, 8, f),
@@ -108,8 +121,10 @@ def attention_cases(gen, dev):
         q, k, v = (torch.randn(n, h, l, 16, generator=gen).to(dev) * 0.5
                    for _ in range(3))
         flops = 4.0 * n * h * l * l * 16
-        yield f"attention {n}x{h}x{l}x16", (q, k, v, 0.25), flops, \
-            nbytes(q, k, v, q)
+        yield (f"attention {n}x{h}x{l}x16", (q, k, v, 0.25), flops,
+               nbytes(q, k, v, q),
+               lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                   q, k, v, scale=0.25), True)
 
 
 def dsconv_params(gen, cin, tot, dev):
@@ -135,20 +150,12 @@ def dsconv_cases(gen, dev):
     for ncomp, cin, tot in ((2, 256, 64), (1, 128, 32)):
         params = dsconv_params(gen, cin, tot, dev)
         x = torch.randn(b, t, f, cin, generator=gen).to(dev)
-        # the two 1x1 convs on every row; the dilated 3x3 convs only on the
-        # taps that land inside (T, F), zero padding being no work
-        f_taps = valid_taps(f, ((ff, [ff - 1, ff, ff + 1])
-                                for ff in range(f)))
         for i, d1 in enumerate(DILATIONS):
             d2 = DILATIONS[n - i - 1]
-            t_taps = sum(valid_taps(t, ((tt, [tt - d, tt, tt + d])
-                                        for tt in range(t)))
-                         for d in (d1, d2))
-            flops = 2.0 * b * (t * f * 2 * cin * tot
-                               + t_taps * f_taps * tot * tot)
             yield (f"dsconv ncomp={ncomp} {b}x{t}x{f}x{cin} d=({d1},{d2})",
-                   (x, params, d1, d2, ncomp), flops,
-                   nbytes(x, params, x))
+                   (x, params, d1, d2, ncomp),
+                   dsconv_flops(b, t, f, cin, tot, d1, d2),
+                   nbytes(x, params, x), None, True)
 
 
 def level_params(gen, shapes, dev):
@@ -186,7 +193,8 @@ def encoder_cases(gen, dev):
         flops = 2.0 * b * t_taps * f_taps * 5 * cin * cout
         out_bytes = b * t * (f // 2) * 3 * cout * 4
         yield (f"encoder level {i} {b}x{t}x{f}x{cin}->{cout}",
-               (xc, xm, params), flops, nbytes(xc, xm, params) + out_bytes)
+               (xc, xm, params), flops, nbytes(xc, xm, params) + out_bytes,
+               None, True)
 
 
 def decoder_cases(gen, dev):
@@ -211,66 +219,155 @@ def decoder_cases(gen, dev):
         out_bytes = b * t * 2 * f * 3 * cout * 4
         yield (f"decoder level {i} {b}x{t}x{f}x{cc}->{cout}",
                (xc, xm, params, i < 5), flops,
-               nbytes(xc, xm, params) + out_bytes)
+               nbytes(xc, xm, params) + out_bytes, None, True)
+
+
+def dsconv_flops(b, t, f, cin, tot, d1, d2) -> float:
+    """The two 1x1 convs on every row; the dilated 3x3 convs only on the
+    taps that land inside (T, F), zero padding being no work."""
+    f_taps = valid_taps(f, ((ff, [ff - 1, ff, ff + 1]) for ff in range(f)))
+    t_taps = sum(valid_taps(t, ((tt, [tt - d, tt, tt + d])
+                                for tt in range(t)))
+                 for d in (d1, d2))
+    return 2.0 * b * (t * f * 2 * cin * tot + t_taps * f_taps * tot * tot)
+
+
+def pair_cases(gen, dev):
+    import torch
+
+    b, t, f = B_MAIN, T_FRAMES, 4
+    n = len(DILATIONS)
+    pc = dsconv_params(gen, 256, 64, dev)
+    pm = dsconv_params(gen, 128, 32, dev)
+    xc = torch.randn(b, t, f, 256, generator=gen).to(dev)
+    xm = torch.randn(b, t, f, 128, generator=gen).to(dev)
+    for i, d1 in enumerate(DILATIONS):
+        d2 = DILATIONS[n - i - 1]
+        # both blocks; the fusion's ~10 flops a channel are left out
+        flops = (dsconv_flops(b, t, f, 256, 64, d1, d2)
+                 + dsconv_flops(b, t, f, 128, 32, d1, d2))
+        yield (f"dsconv_pair {b}x{t}x{f}x(256+128) d=({d1},{d2})",
+               (xc, xm, pc, pm, d1, d2), flops,
+               nbytes(xc, xm, pc, pm, xc, xm), None, True)
+
+
+def lstm_cases(gen, dev):
+    """The four layer calls of a FullSubNet forward at B = 4 (full band
+    Bf = 4, sub band Bf = 4 * 257), each also in reverse, and a ragged
+    sub-band batch with a non-zero carry. Weights U(+-1/sqrt(H)) as
+    torch's init; yardstick: cuDNN's LSTM with the same weights."""
+    import torch
+
+    def case(bf, in_dim, h, reverse=False, carry=False):
+        bound_w = h ** -0.5
+        x = torch.randn(bf, FSN_T, in_dim, generator=gen).to(dev)
+        wx, wh, b = ((torch.rand(*shape, generator=gen) * 2 - 1).mul(bound_w)
+                     .to(dev) for shape in ((in_dim, 4 * h), (h, 4 * h),
+                                            (4 * h,)))
+        h0 = c0 = None
+        if carry:
+            h0, c0 = (torch.randn(bf, h, generator=gen).mul(0.5).to(dev)
+                      for _ in range(2))
+        lib = torch.nn.LSTM(in_dim, h, batch_first=True).to(dev)
+        with torch.no_grad():
+            lib.weight_ih_l0.copy_(wx.t())
+            lib.weight_hh_l0.copy_(wh.t())
+            lib.bias_ih_l0.copy_(b)
+            lib.bias_hh_l0.zero_()
+        xl = x.flip(1) if reverse else x
+        state = None if h0 is None else (h0[None], c0[None])
+        flops = 2.0 * FSN_T * bf * (in_dim + h) * 4 * h
+        moved = nbytes(x, wx, wh, b) + 4 * bf * h * (FSN_T + 2) + \
+            (nbytes(h0, c0) if carry else 0)
+        label = (f"lstm {bf}x{FSN_T}x{in_dim}->{h}"
+                 + (" reverse" if reverse else "") + (" carry" if carry
+                                                      else ""))
+        return (label, (x, wx, wh, b, reverse, h0, c0), flops, moved,
+                lambda: lib(xl, state), not (reverse or carry))
+
+    for bf, (in_dim, h) in zip((B_MAIN, B_MAIN, B_MAIN * FSN_F,
+                                B_MAIN * FSN_F), FSN_LAYERS):
+        for reverse in (False, True):
+            yield case(bf, in_dim, h, reverse)
+    yield case(B_MAIN * FSN_F + 3, 384, 384, carry=True)
+
+
+def _flat_lstm(fn):
+    def run(*args):
+        ys, (h, c) = fn(*args)
+        return ys, h, c
+    return run
 
 
 def check_kernels(dev) -> dict:
+    """Phase 3. A row sums, over the cases a forward gives the kernel, its
+    ms, twin ms, bound and yardstick ms; every case counts in its error."""
     import torch
-    import torch.nn.functional as F
 
-    from se_tpu_torch.ops import attention, decoder, dsconv, encoder
+    from se_tpu_torch.ops import attention, decoder, dsconv, encoder, lstm
 
     gen = torch.Generator().manual_seed(1)
+    # name: (kernel, twin, cases, source, replaces, launches per timing)
     kinds = {
         "attention": (attention.sdp_attention, attention._reference,
                       attention_cases, "se_tpu_torch/csrc/attention.cu",
-                      "se_tpu/ops/pallas_attention.py:53"),
+                      "se_tpu/ops/pallas_attention.py:53", 10),
         "dsconv": (dsconv.dsconv_block, dsconv._reference, dsconv_cases,
                    "se_tpu_torch/csrc/dsconv.cu",
-                   "se_tpu/ops/pallas_dsconv.py:113"),
+                   "se_tpu/ops/pallas_dsconv.py:113", 10),
+        "dsconv_pair": (dsconv.dsconv_pair_block, dsconv._pair_reference,
+                        pair_cases, "se_tpu_torch/csrc/dsconv.cu",
+                        "se_tpu/ops/pallas_dsconv.py:325", 10),
         "encoder": (encoder.encoder_level, encoder._reference,
                     encoder_cases, "se_tpu_torch/csrc/encoder.cu",
-                    "se_tpu/ops/pallas_encoder.py:98"),
+                    "se_tpu/ops/pallas_encoder.py:98", 10),
         "decoder": (decoder.decoder_level, decoder._reference,
                     decoder_cases, "se_tpu_torch/csrc/decoder.cu",
-                    "se_tpu/ops/pallas_decoder.py:117"),
+                    "se_tpu/ops/pallas_decoder.py:117", 10),
+        "lstm": (_flat_lstm(lstm.lstm_layer_kernel),
+                 _flat_lstm(lstm._reference), lstm_cases,
+                 "se_tpu_torch/csrc/lstm.cu",
+                 "se_tpu/ops/pallas_lstm.py:60", 2),
     }
     table = {}
-    for name, (kernel, twin, cases, source, replaces) in kinds.items():
+    for name, (kernel, twin, cases, source, replaces, reps) in kinds.items():
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
                "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-               "library_ms": 0.0 if name == "attention" else None}
+               "library_ms": None}
         t_ops = t_bytes = 0.0
-        for label, args, flops, moved in cases(gen, dev):
-            got = kernel(*args)
-            want = twin(*args)
-            torch.cuda.synchronize()
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-            scale = max(1.0, max(float(w.abs().max()) for w in want))
-            tol = 1e-4 * scale
-            ms = cuda_ms(lambda: kernel(*args))
-            plain = cuda_ms(lambda: twin(*args))
+        for label, args, flops, moved, library, in_forward in cases(gen,
+                                                                    dev):
+            with torch.no_grad():
+                got = kernel(*args)
+                want = twin(*args)
+                torch.cuda.synchronize()
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                err = max(float((g - w).abs().max())
+                          for g, w in zip(got, want))
+                scale = max(1.0, max(float(w.abs().max()) for w in want))
+                tol = 1e-4 * scale
+                del got, want
+                ms = cuda_ms(lambda: kernel(*args), reps=reps)
+                plain = cuda_ms(lambda: twin(*args), reps=reps)
+                lib = cuda_ms(library, reps=reps) if library else None
             b_ms, b_by = bound(flops, moved)
-            res = {"phase": "kernel", "kernel": name, "case": label,
-                   "max_abs_err": err, "tol": tol, "ms": ms,
-                   "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-                   "gflop": flops / 1e9, "mbytes": moved / 1e6}
-            if name == "attention":
-                q, k, v, s = args
-                lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, scale=s))
-                res["library_ms"] = lib
-                row["library_ms"] += lib
-            emit(res)
+            emit({"phase": "kernel", "kernel": name, "case": label,
+                  "max_abs_err": err, "tol": tol, "ms": ms,
+                  "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+                  "bound_by": b_by, "gflop": flops / 1e9,
+                  "mbytes": moved / 1e6, "in_forward": in_forward})
             if not err <= tol:
                 fail(f"{label}: kernel and twin differ by {err} > {tol}")
             row["max_abs_err"] = max(row["max_abs_err"], err)
+            if not in_forward:
+                continue
             row["ms"] += ms
             row["plain_ms"] += plain
             row["bound_ms"] += b_ms
+            if lib is not None:
+                row["library_ms"] = (row["library_ms"] or 0.0) + lib
             t_ops += flops / PEAK_FP32_FLOPS
             t_bytes += moved / PEAK_BYTES
         row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
@@ -301,80 +398,116 @@ def seeded_uformer(seed: int):
     return model.eval()
 
 
-def main_path(dev, launches):
-    import numpy as np
+def seeded_fullsubnet(seed: int):
+    """FullSubNet at its published widths on the CPU from a seed (torch's
+    LSTM and Linear init)."""
     import torch
+
+    from se_tpu_torch.models.fullsubnet import FullSubNet
+
+    return FullSubNet(device="cpu",
+                      generator=torch.Generator().manual_seed(seed)).eval()
+
+
+# model name: (seeded CPU model, launches a B = 4 forward must show; None
+# means at least one)
+MAIN_PATHS = {
+    "uformer": (seeded_uformer, {"attention": None, "dsconv_pair": 8,
+                                 "encoder": None, "decoder": None}),
+    "fullsubnet": (seeded_fullsubnet, {"lstm": 4}),
+}
+
+
+def waveforms(batch: int, seed: int):
+    import numpy as np
+
+    return (np.random.default_rng(seed).standard_normal(
+        (batch, SECONDS * SR)) * 0.1).astype(np.float32)
+
+
+def main_path(name: str, dev, launches):
+    """Phase 4 for one model: its launch counts and the card against the
+    CPU. Returns the model on the card and the counts."""
+    import numpy as np
 
     from se_tpu_torch.eval.enhance import enhance_waveform
 
-    cpu_model = seeded_uformer(0)
+    make, required = MAIN_PATHS[name]
+    cpu_model = make(0)
     model = copy.deepcopy(cpu_model).to(dev)
-    wav = (np.random.default_rng(0).standard_normal(
-        (B_MAIN, SECONDS * SR)) * 0.1).astype(np.float32)
+    wav = waveforms(B_MAIN, 0)
 
     launches.clear()
-    est = enhance_waveform("uformer", model, wav)
+    est = enhance_waveform(name, model, wav)
     counts = dict(launches)
-    emit({"phase": "main", "launches": counts, "shape": list(est.shape)})
-    for name in ("attention", "dsconv", "encoder", "decoder"):
-        if counts.get(name, 0) <= 0:
-            fail(f"the main path launched no {name} kernel")
+    emit({"phase": "main", "model": name, "launches": counts,
+          "shape": list(est.shape)})
+    for kernel, want in required.items():
+        got = counts.get(kernel, 0)
+        if got <= 0 or (want is not None and got != want):
+            fail(f"{name}: a B = {B_MAIN} forward launched {kernel} {got} "
+                 f"times, expected {want or 'at least 1'}")
     if est.shape != wav.shape or not np.isfinite(est).all():
-        fail(f"enhanced output of shape {est.shape} is not finite/complete")
-    ref = enhance_waveform("uformer", cpu_model, wav[:1], device="cpu")[0]
+        fail(f"{name}: enhanced output of shape {est.shape} is not "
+             "finite/complete")
+    ref = enhance_waveform(name, cpu_model, wav[:1], device="cpu")[0]
     err = float(np.abs(est[0] - ref).max())
     tol = 1e-3 * float(np.abs(ref).max())
-    emit({"phase": "main", "check": "card vs cpu, utterance 0",
+    emit({"phase": "main", "model": name, "check": "card vs cpu, utterance 0",
           "max_abs_err": err, "tol": tol})
     if not err <= tol:
-        fail(f"card output differs from the CPU's by {err} > {tol}")
+        fail(f"{name}: card output differs from the CPU's by {err} > {tol}")
     return model, counts
 
 
-def throughput(model, dev, card: str) -> None:
-    import numpy as np
+def throughput(name: str, model, card: str) -> None:
     import torch
 
     from se_tpu_torch.eval.enhance import enhance_waveform
 
     for batch in (32, 256):
-        wav = (np.random.default_rng(batch).standard_normal(
-            (batch, SECONDS * SR)) * 0.1).astype(np.float32)
-        enhance_waveform("uformer", model, wav)  # warm-up
-        torch.cuda.synchronize()
+        wav = waveforms(batch, batch)
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        enhance_waveform(name, model, wav)  # warm-up
+        warm_s = time.perf_counter() - t0
+        repeats = 2 if warm_s > SLOW_CALL_S else 5
         times = []
-        for _ in range(5):
+        for _ in range(repeats):
             t0 = time.perf_counter()
-            enhance_waveform("uformer", model, wav)
+            enhance_waveform(name, model, wav)
             times.append(time.perf_counter() - t0)
         rates = [batch * SECONDS / t for t in times]
-        emit({"phase": "speed", "metric": "uformer_enhance_fp32",
-              "batch": batch, "seconds_audio": SECONDS,
-              "audio_s_per_s": statistics.median(rates),
-              "min": min(rates), "max": max(rates), "repeats": len(rates),
-              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-              "card": card})
+        line = {"phase": "speed", "metric": f"{name}_enhance_fp32",
+                "batch": batch, "seconds_audio": SECONDS,
+                "audio_s_per_s": statistics.median(rates),
+                "min": min(rates), "max": max(rates), "repeats": repeats,
+                "warmup_s": warm_s,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "card": card}
+        if repeats < 5:
+            line["note"] = (f"the warm-up call took {warm_s:.1f} s > "
+                            f"{SLOW_CALL_S:.0f} s: 2 timed calls, not 5")
+        emit(line)
 
 
-def profile(model, card: str) -> None:
+def profile(name: str, model, card: str) -> None:
     """Device time by kernel over one enhance call at B = 32 x 4 s, and the
     device's busy share of the call's wall time (one stream: kernels do
     not overlap)."""
-    import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     from se_tpu_torch.eval.enhance import enhance_waveform
 
-    wav = (np.random.default_rng(1).standard_normal(
-        (32, SECONDS * SR)) * 0.1).astype(np.float32)
-    enhance_waveform("uformer", model, wav)
+    wav = waveforms(32, 1)
+    enhance_waveform(name, model, wav)
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        enhance_waveform("uformer", model, wav)
+        enhance_waveform(name, model, wav)
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only: the host ops that launched them carry the
     # same device time and would count it twice
@@ -383,11 +516,11 @@ def profile(model, card: str) -> None:
             if evt.device_type == DeviceType.CUDA]
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
-    emit({"phase": "profile", "batch": 32, "wall_ms": wall_ms,
-          "device_ms": device_ms,
+    emit({"phase": "profile", "model": name, "batch": 32,
+          "wall_ms": wall_ms, "device_ms": device_ms,
           "device_busy_share": device_ms / wall_ms if wall_ms else None,
-          "top": [{"ms": ms, "calls": n, "name": name[:90]}
-                  for ms, n, name in rows[:12]], "card": card})
+          "top": [{"ms": ms, "calls": n, "name": key[:90]}
+                  for ms, n, key in rows[:12]], "card": card})
 
 
 def main() -> None:
@@ -421,11 +554,17 @@ def main() -> None:
                     or ln.startswith("==")]})
 
     table = check_kernels(dev)
-    model, counts = main_path(dev, _build.LAUNCHES)
+    models, counts = {}, {}
+    for name in MAIN_PATHS:
+        models[name], path_counts = main_path(name, dev, _build.LAUNCHES)
+        for kernel, n in path_counts.items():
+            counts[kernel] = counts.get(kernel, 0) + n
     for name, row in table.items():
-        row["launches"] = counts[name]
-    throughput(model, dev, card)
-    profile(model, card)
+        row["launches"] = counts.get(name, 0)
+    for name, model in models.items():
+        throughput(name, model, card)
+    for name, model in models.items():
+        profile(name, model, card)
 
     print(card, flush=True)
     emit({"kernels": list(table.values())})

@@ -1,5 +1,6 @@
 """Enhancement (decode) entry point: the port of se_tpu/eval/enhance.py for
-io-kind "waveform" (Uformer: STFT, network and iSTFT in the model).
+io-kinds "waveform" (Uformer: STFT, network and iSTFT in the model) and
+"cirm" (FullSubNet: magnitude in, complex ratio mask out).
 
 Per-utterance RMS gain c = sqrt(n / energy) is applied before the model and
 removed after it. Other io-kinds are not ported yet (ROADMAP.md, Queue 1).
@@ -13,6 +14,7 @@ import torch.nn.functional as F
 
 from se_tpu_torch.device import resolve_device
 from se_tpu_torch.models.registry import ModelEntry, get_model
+from se_tpu_torch.ops.stft import istft, stft
 
 # io-kind -> the ROADMAP.md item that ports its decode branch
 _NOT_PORTED = {
@@ -20,15 +22,41 @@ _NOT_PORTED = {
     "complex_map": "Queue 1 items 7-9 (gcrn, dpcrn, dccrn, ctsnet, g2net, "
                    "taylorsenet)",
     "complex_mask": "Queue 1 item 8 (dpcrn)",
-    "cirm": "Queue 1 item 6 (fullsubnet)",
     "hybrid": "Queue 1 item 10 (deepxi)",
 }
 
 
+def _magphase(re, im):
+    return torch.sqrt(re * re + im * im), torch.atan2(im, re)
+
+
+def _cirm(entry: ModelEntry, model: torch.nn.Module, wav: torch.Tensor,
+          length: int, compressed: bool) -> torch.Tensor:
+    """The cirm branch of se_tpu's `_enhance_jit`: the mask multiplies the
+    (compressed) complex feature, then decompression and iSTFT."""
+    cfg = entry.stft
+    mag, phase = _magphase(*stft(wav, cfg))
+    if compressed:
+        mag = mag ** 0.5
+    feat_re, feat_im = mag * torch.cos(phase), mag * torch.sin(phase)
+    mask = model(mag)
+    m_re, m_im = mask[..., 0], mask[..., 1]
+    out_re = m_re * feat_re - m_im * feat_im
+    out_im = m_re * feat_im + m_im * feat_re
+    if compressed:
+        est_mag, est_phase = _magphase(out_re, out_im)
+        est_mag = est_mag ** 2
+        out_re = est_mag * torch.cos(est_phase)
+        out_im = est_mag * torch.sin(est_phase)
+    return istft(out_re, out_im, cfg, length=length)
+
+
 @torch.no_grad()
 def _enhance(entry: ModelEntry, model: torch.nn.Module, wav: torch.Tensor,
-             length: int) -> torch.Tensor:
-    """The waveform branch of se_tpu's `_enhance_jit`, fp32."""
+             length: int, compressed: bool = True) -> torch.Tensor:
+    """se_tpu's `_enhance_jit` for the ported io-kinds, fp32."""
+    if entry.io_kind == "cirm":
+        return _cirm(entry, model, wav, length, compressed)
     if entry.io_kind != "waveform":
         where = _NOT_PORTED.get(entry.io_kind, "no ROADMAP item")
         raise NotImplementedError(
@@ -41,11 +69,12 @@ def _enhance(entry: ModelEntry, model: torch.nn.Module, wav: torch.Tensor,
 
 
 def enhance_waveform(name: str, model: torch.nn.Module, wav: np.ndarray,
-                     device=None) -> np.ndarray:
+                     compressed: bool = True, device=None) -> np.ndarray:
     """Enhance a batch (B, N) or one (N,) waveform with `model`, a module
     of family `name` whose weights already live on `device` (None means the
-    card; raises when CUDA is absent). Returns float32 numpy of the input
-    shape."""
+    card; raises when CUDA is absent). `compressed` selects the mag**0.5
+    regime of the spectral io-kinds; Uformer ignores it (its regime is a
+    constructor argument). Returns float32 numpy of the input shape."""
     entry = get_model(name)
     dev = resolve_device(device)
     wdev = next(model.parameters()).device
@@ -59,6 +88,7 @@ def enhance_waveform(name: str, model: torch.nn.Module, wav: np.ndarray,
     energy = np.sum(np.square(x), axis=-1, keepdims=True)
     c = np.sqrt(n / np.maximum(energy, 1e-12)).astype(np.float32)
     model.eval()
-    est = _enhance(entry, model, torch.from_numpy(x * c).to(dev), n)
+    est = _enhance(entry, model, torch.from_numpy(x * c).to(dev), n,
+                   compressed)
     est = est.cpu().numpy() / c
     return est[0] if single else est

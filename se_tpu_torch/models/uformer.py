@@ -14,9 +14,11 @@ Every module keeps the reference PyTorch parameter names, so
 `se_tpu.models.uformer.from_reference_state_dict(model.state_dict())`
 loads the same weights into JAX, and `from_jax_variables` goes the other
 way. The U-net levels run `ops.encoder.encoder_level` and
-`ops.decoder.decoder_level`, the conformer `ops.dsconv.dsconv_block` and
-`ops.attention.sdp_attention`: CUDA kernels on the card, their plain twins
-on the CPU. Eval mode only (BN reads running statistics, no dropout).
+`ops.decoder.decoder_level`, the conformer `ops.dsconv.dsconv_pair_block`
+(one entry a DSConv stage) and `ops.attention.sdp_attention`: CUDA kernels
+on the card, their plain twins on the CPU. `DSConvCplx`/`DSConvReal` keep
+the single-block `ops.dsconv.dsconv_block` as their own forward, the path
+se_tpu takes outside eval. Eval mode only (BN reads running statistics, no dropout).
 
 Quirks kept from se_tpu: EPS inside sqrt(max(., EPS)), `b + EPS` in
 `unit_phase`, tanh(mask_mags + EPS), the DC bin stripped before the U-net
@@ -43,7 +45,7 @@ from se_tpu_torch.nn.conv import (
 )
 from se_tpu_torch.ops.attention import sdp_attention
 from se_tpu_torch.ops.decoder import decoder_level, split_phase_weights
-from se_tpu_torch.ops.dsconv import dsconv_block
+from se_tpu_torch.ops.dsconv import dsconv_block, dsconv_pair_block
 from se_tpu_torch.ops.encoder import encoder_level, fusion
 from se_tpu_torch.ops.stft import PRESET_UFORMER, istft, stft
 
@@ -338,9 +340,13 @@ class DilatedDualpathConformer(nn.Module):
         re, im = self.cplx_fatt(re, im)
         re, im, mag = fusion(re, im, self.mag_fatt(mag))
         c = re.shape[-1]
+        xc, mag = torch.cat([re, im], dim=-1), mag.contiguous()
         for blk_c, blk_m in zip(self.dsconv_cplx, self.dsconv_real):
-            xc = blk_c(torch.cat([re, im], dim=-1))
-            re, im, mag = fusion(xc[..., :c], xc[..., c:], blk_m(mag))
+            # one stage: both blocks and the fusion in one kernel entry
+            xc, mag = dsconv_pair_block(xc, mag, blk_c.params(),
+                                        blk_m.params(), blk_c.dilation1,
+                                        blk_c.dilation2)
+        re, im = xc[..., :c], xc[..., c:]
         re, im = self.ff2_cplx(re, im)
         re, im, mag = fusion(re, im, self.ff2_mag(mag))
         ln = self.ln_conformer_cplx

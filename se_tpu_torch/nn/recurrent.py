@@ -1,0 +1,106 @@
+"""LSTM layers with torch's parameters: the port of se_tpu/nn/recurrent.py.
+
+`lstm_layer` runs one direction of one layer through
+`ops.lstm.lstm_layer_kernel`: the CUDA kernel on the card for every batch
+size and with or without a carry, the plain twin on the CPU. `LSTM` is the
+multi-layer, optionally bidirectional stack with torch.nn.LSTM's names and
+shapes (`weight_ih_l{k}` (4H, In), `weight_hh_l{k}` (4H, H), `bias_ih_l{k}`,
+`bias_hh_l{k}`, `_reverse` for the backward direction), so a reference
+state_dict loads as it is and `se_tpu.utils.torch_compat.lstm` maps it to
+se_tpu's tree.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from se_tpu_torch.device import resolve_device
+from se_tpu_torch.ops.lstm import lstm_layer_kernel
+
+
+def lstm_layer(x: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
+               b: torch.Tensor, reverse: bool = False, carry=None,
+               return_carry: bool = False):
+    """(B, T, In) -> (B, T, H); wx (In, 4H), wh (H, 4H), b (4H,) the
+    combined bias. `carry=(h, c)` seeds the recurrence; `return_carry`
+    returns `(out, (h, c))` as well."""
+    h0, c0 = (None, None) if carry is None else carry
+    ys, out_carry = lstm_layer_kernel(x.contiguous(), wx, wh, b, reverse,
+                                      h0, c0)
+    return (ys, out_carry) if return_carry else ys
+
+
+class LSTM(nn.Module):
+    """torch.nn.LSTM(batch_first=True) in eval: input (B, T, In), output
+    (B, T, H * directions), zero initial state unless `carry` is given."""
+
+    def __init__(self, input_size: int, hidden_size: int,
+                 num_layers: int = 1, bidirectional: bool = False):
+        super().__init__()
+        self.input_size, self.hidden_size = input_size, hidden_size
+        self.num_layers, self.bidirectional = num_layers, bidirectional
+        h = hidden_size
+        for layer in range(num_layers):
+            in_dim = input_size if layer == 0 else h * self.directions
+            for sfx in self._suffixes(layer):
+                self.register_parameter(f"weight_ih_{sfx}",
+                                        nn.Parameter(torch.zeros(4 * h, in_dim)))
+                self.register_parameter(f"weight_hh_{sfx}",
+                                        nn.Parameter(torch.zeros(4 * h, h)))
+                self.register_parameter(f"bias_ih_{sfx}",
+                                        nn.Parameter(torch.zeros(4 * h)))
+                self.register_parameter(f"bias_hh_{sfx}",
+                                        nn.Parameter(torch.zeros(4 * h)))
+
+    @property
+    def directions(self) -> int:
+        return 2 if self.bidirectional else 1
+
+    def _suffixes(self, layer: int):
+        return [f"l{layer}"] + ([f"l{layer}_reverse"] if self.bidirectional
+                                else [])
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """torch's init: every tensor U(+-1/sqrt(H))."""
+        bound = 1.0 / math.sqrt(self.hidden_size)
+        with torch.no_grad():
+            for p in self.parameters():
+                p.uniform_(-bound, bound, generator=generator)
+
+    def layer_weights(self, sfx: str):
+        """se_tpu's (wx (In, 4H), wh (H, 4H), b (4H,)) of one direction."""
+        return (getattr(self, f"weight_ih_{sfx}").t().contiguous(),
+                getattr(self, f"weight_hh_{sfx}").t().contiguous(),
+                getattr(self, f"bias_ih_{sfx}") + getattr(self, f"bias_hh_{sfx}"))
+
+    def forward(self, x: torch.Tensor, carry=None):
+        """`carry`: a list of per-layer (h, c), uni-directional only; when
+        given, returns (out, new_carry)."""
+        if carry is not None and self.bidirectional:
+            raise ValueError("carry is only supported uni-directionally")
+        new_carry = []
+        for layer in range(self.num_layers):
+            outs = []
+            for sfx in self._suffixes(layer):
+                wx, wh, b = self.layer_weights(sfx)
+                if carry is not None:
+                    out, lc = lstm_layer(x, wx, wh, b, carry=carry[layer],
+                                         return_carry=True)
+                    new_carry.append(lc)
+                else:
+                    out = lstm_layer(x, wx, wh, b,
+                                     reverse=sfx.endswith("_reverse"))
+                outs.append(out)
+            x = outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
+        return (x, new_carry) if carry is not None else x
+
+    @staticmethod
+    def zero_carry(batch: int, features: int, num_layers: int, device=None):
+        """Zero (h, c) per layer on `device` (None means the card)."""
+        dev = resolve_device(device)
+        return [(torch.zeros(batch, features, device=dev),
+                 torch.zeros(batch, features, device=dev))
+                for _ in range(num_layers)]

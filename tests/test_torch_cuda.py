@@ -13,9 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from se_tpu_torch.ops import attention, decoder, dsconv, encoder
+from se_tpu_torch.ops import attention, decoder, dsconv, encoder, lstm
 from torch_kernel_inputs import (
-    att_inputs, close, dec_params, dsconv_params, enc_params, rand, to_torch,
+    att_inputs, close, dec_params, dsconv_params, enc_params, lstm_inputs,
+    pair_inputs, rand, to_torch,
 )
 
 ATOL = 1e-4
@@ -83,6 +84,49 @@ def test_decoder_kernel_matches_twin(gen, dev, has_bn):
                     (xc, xm, params), dev)
 
 
+@pytest.mark.parametrize("c,cm,d1,d2", [(128, 32, 1, 128), (128, 32, 16, 8),
+                                        (64, 4, 2, 1)])
+def test_dsconv_pair_kernel_matches_twin(gen, dev, c, cm, d1, d2):
+    """The conformer's widths (complex 2 x 128 channels, real 128, Cm 32),
+    and a narrow Cm whose outputs do not fit in the tap buffer."""
+    xc, xm, pc, pm = pair_inputs(gen, 2, 50, 4, c, cm)
+    pc, pm = to_torch(pc), to_torch(pm)
+    _kernel_vs_twin(lambda a, b, p, q: dsconv.dsconv_pair_block(a, b, p, q,
+                                                                d1, d2),
+                    (*to_torch((xc, xm)), pc, pm), dev)
+
+
+# (Bf, In, H): the full band (Bf = B = 4: the 8 x 8 tile) and a ragged
+# sub band (Bf = 1030: the 64 x 32 tile, 17 x 12 blocks)
+LSTM_SHAPES = [(4, 257, 512), (1030, 32, 384)]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("bf,in_dim,h", LSTM_SHAPES)
+def test_lstm_kernel_matches_twin(gen, dev, reverse, bf, in_dim, h):
+    x, wx, wh, b = lstm_inputs(gen, bf, 12, in_dim, h)
+    wx, wh = wx * (in_dim + h) ** -0.5 * 5, wh * (in_dim + h) ** -0.5 * 5
+    _kernel_vs_twin(lambda *a: _flat(lstm.lstm_layer_kernel(*a, reverse)),
+                    to_torch((x, wx, wh, b)), dev)
+
+
+@pytest.mark.parametrize("bf,in_dim,h", LSTM_SHAPES)
+def test_lstm_kernel_carry_matches_twin(gen, dev, bf, in_dim, h):
+    """Non-zero h0/c0 in, (h_T, c_T) out."""
+    x, wx, wh, b = lstm_inputs(gen, bf, 7, in_dim, h)
+    wx, wh = wx * (in_dim + h) ** -0.5 * 5, wh * (in_dim + h) ** -0.5 * 5
+    h0, c0 = rand(gen, bf, h, scale=0.5), rand(gen, bf, h, scale=0.5)
+    args = to_torch((x, wx, wh, b))
+    _kernel_vs_twin(lambda x, wx, wh, b, h0, c0: _flat(
+        lstm.lstm_layer_kernel(x, wx, wh, b, False, h0, c0)),
+        (*args, *to_torch((h0, c0))), dev)
+
+
+def _flat(out):
+    ys, (h, c) = out
+    return ys, h, c
+
+
 def test_wrappers_refuse_other_dtypes_and_layouts(gen, dev):
     q, k, v = (t.to(dev) for t in to_torch(att_inputs(gen, 1, 1, 8)))
     with pytest.raises(TypeError):
@@ -90,3 +134,8 @@ def test_wrappers_refuse_other_dtypes_and_layouts(gen, dev):
     with pytest.raises(ValueError, match="contiguous"):
         attention.sdp_attention(q.transpose(2, 3).contiguous()
                                 .transpose(2, 3), k, v, 0.25)
+    x, wx, wh, b = (t.to(dev) for t in to_torch(lstm_inputs(gen, 2, 3, 4, 5)))
+    with pytest.raises(TypeError):
+        lstm.lstm_layer_kernel(x.double(), wx, wh, b)
+    with pytest.raises(ValueError, match="shape"):
+        lstm.lstm_layer_kernel(x, wx, wh, b, h0=torch.zeros(3, 5, device=dev))

@@ -10,9 +10,11 @@ import pytest
 import torch
 
 from se_tpu_torch.eval import enhance
-from se_tpu_torch.models import get_model
+from se_tpu_torch.models import available_models, get_model
+from se_tpu_torch.models.fullsubnet import FullSubNet
 from se_tpu_torch.models.registry import ModelEntry
 from se_tpu_torch.models.uformer import Uformer
+from se_tpu_torch.nn import LSTM
 from se_tpu_torch.ops.stft import PRESET_320
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -56,14 +58,27 @@ def test_enhance_refuses_weights_on_another_device():
 
 
 def test_unported_io_kind_names_its_roadmap_item():
-    entry = ModelEntry("fullsubnet", make=None, stft=PRESET_320,
-                       io_kind="cirm")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    entry = ModelEntry("lstm", make=None, stft=PRESET_320,
+                       io_kind="mag_mask")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         enhance._enhance(entry, None, torch.zeros(1, 1600), 1600)
+
+
+def test_fullsubnet_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FullSubNet(fb_hidden=4, sb_hidden=4)
+    model = FullSubNet(fb_hidden=4, sb_hidden=4, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        enhance.enhance_waveform("fullsubnet", model,
+                                 np.zeros(1600, np.float32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LSTM.zero_carry(1, 4, 1)
 
 
 def test_registry_holds_uformer():
     entry = get_model("uformer")
     assert entry.io_kind == "waveform" and entry.make is Uformer
+    assert available_models() == ["fullsubnet", "uformer"]
     with pytest.raises(KeyError, match="uformer"):
         get_model("dccrn")

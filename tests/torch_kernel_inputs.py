@@ -42,6 +42,14 @@ def dsconv_params(rng, cin, cm, ncomp):
             rand(rng, tot, cin, scale=tot ** -0.5), rand(rng, 1, cin, scale=0.2))
 
 
+def pair_inputs(rng, b, t, f, c, cm):
+    """One conformer stage: xc (B, T, F, 2C) = [re | im], xm (B, T, F, C)
+    and the complex and real blocks' 13-tuples, Cm per component."""
+    return (rand(rng, b, t, f, 2 * c, scale=0.5),
+            rand(rng, b, t, f, c, scale=0.5),
+            dsconv_params(rng, 2 * c, cm, 2), dsconv_params(rng, c, cm, 1))
+
+
 def enc_params(rng, cin, cout):
     """The 10-tuple of encoder_level."""
     out = []
@@ -66,3 +74,10 @@ def dec_params(rng, cc, cout):
                 rand(rng, 1, cb_out, scale=0.1),
                 np.full((1, 1), 0.2, np.float32)]
     return tuple(out)
+
+
+def lstm_inputs(rng, bf, t, in_dim, h):
+    """x (Bf, T, In), wx (In, 4H), wh (H, 4H), b (4H,) as se_tpu's tests
+    draw them."""
+    return (rand(rng, bf, t, in_dim), rand(rng, in_dim, 4 * h, scale=0.2),
+            rand(rng, h, 4 * h, scale=0.2), rand(rng, 4 * h, scale=0.1))
