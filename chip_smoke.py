@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Drive se_tpu_torch's two main paths, Uformer waveform enhancement and
-FullSubNet (cIRM) enhancement, on one NVIDIA GPU, and hold every CUDA
-kernel of those paths against its plain PyTorch twin.
+"""Drive se_tpu_torch's main paths on one NVIDIA GPU, and hold every CUDA
+kernel of those paths against its plain PyTorch twin. The paths are the
+enhancement of seven model families: Uformer (waveform), FullSubNet
+(cirm), DCCRN and GCRN (complex_map), LSTMNet and CRN (mag_mask) and DPCRN
+(complex_mask).
 
     python3 chip_smoke.py
 
@@ -10,30 +12,37 @@ Phases, one JSON line per result:
              TF32 off for matmuls and cuDNN.
   2. build:  nvcc builds se_tpu_torch/csrc/*.cu (timed).
   3. kernel: each kernel at every shape one forward at B = 4 x 4 s gives
-             it (Uformer: T = 401; FullSubNet: T = 253), against its twin on
-             the same CUDA inputs: max abs error within 1e-4 * max(1,
-             max|twin|), kernel and twin times (CUDA events, median of 5
-             runs after warm-up), the bound from the shapes, and as a
-             yardstick the port never calls F.scaled_dot_product_attention
-             (attention) and cuDNN's LSTM (lstm). The single DSConv block,
-             which left the eval path for the pair entry, is checked at the
-             shapes the stage gives it; the LSTM also in reverse and with a
-             ragged batch and a non-zero carry.
-  4. main:   Uformer (BN statistics moved off their defaults) and then
-             FullSubNet, each from a seed at its published widths,
+             it (Uformer: T = 401; FullSubNet: T = 253; DCCRN: T = 501;
+             the PRESET_320 models: T = 401), against its twin on the same
+             CUDA inputs: max abs error within 1e-4 * max(1, max|twin|),
+             kernel and twin times (CUDA events, median of 5 runs after
+             warm-up), the bound from the shapes, and as a yardstick the
+             port never calls F.scaled_dot_product_attention (attention),
+             cuDNN's LSTM (lstm) and torch.stft, cuFFT (stft, center
+             cases). The single DSConv block, which left the eval path for
+             the pair entry, is checked at the shapes the stage gives it;
+             the LSTM also in reverse and with a ragged batch and a
+             non-zero carry, the STFT also with pad_end and valid framing.
+             A kernel's row of the table sums the cases of one forward,
+             named in its "note": the shapes of the other paths are the
+             per-case lines.
+  4. main:   each family from a seed at its published widths, BN
+             statistics and affines moved off their defaults,
              `enhance_waveform` on B = 4 x 4 s on the card with the launch
              counts set to 0 just before and read just after: every kernel
-             of the path must have launched (dsconv_pair 8 times, lstm 4
-             times), the output must be finite and within 1e-3 * max|cpu|
-             of the same weights run on the CPU (utterance 0).
-  5. speed:  fp32 enhance throughput of both models at B = 32 and B = 256
+             of the path must have launched (counts in MAIN_PATHS), the
+             output must be finite and within 1e-3 * max|cpu| of the same
+             weights run on the CPU (utterance 0).
+  5. speed:  fp32 enhance throughput of every family at B = 32 and B = 256
              x 4 s, median audio-seconds/s of 5 timed calls (2 where one
              call takes over 20 s, said so in the line), with peak device
              memory.
-  6. profile: torch.profiler over one enhance call of each model at
+  6. profile: torch.profiler over one enhance call of each family at
              B = 32: device time by kernel name and the device's busy share
              of the wall time.
-Then the kernel table as one JSON line and, last, the device line. Any
+Then the kernel table as one JSON line (a row's "launches" are those of the
+phase-4 forward its note names, "launches_all_paths" those of all seven)
+and, last, the device line. Any
 failure exits non-zero; without a CUDA device, or without the se_tpu_torch
 package beside this file, it exits 1 before printing any result.
 """
@@ -54,6 +63,7 @@ T_FRAMES = SECONDS * SR // HOP + 1  # 401
 # FullSubNet: 512/256 STFT, 251 frames + a look-ahead of 2, 257 bins
 FSN_T, FSN_F = SECONDS * SR // 256 + 1 + 2, 257
 FSN_LAYERS = ((FSN_F, 512), (512, 512), (32, 384), (384, 384))  # (In, H)
+DCCRN_T = SECONDS * SR // 128 + 1  # 501: 512/128 center framing
 SLOW_CALL_S = 20.0
 KERNELS = (1, 8, 16, 32, 64, 128, 128)
 DILATIONS = (1, 2, 4, 8, 16, 32, 64, 128)
@@ -254,13 +264,16 @@ def pair_cases(gen, dev):
 def lstm_cases(gen, dev):
     """The four layer calls of a FullSubNet forward at B = 4 (full band
     Bf = 4, sub band Bf = 4 * 257), each also in reverse, and a ragged
-    sub-band batch with a non-zero carry. Weights U(+-1/sqrt(H)) as
-    torch's init; yardstick: cuDNN's LSTM with the same weights."""
+    sub-band batch with a non-zero carry; then the layer shapes of the
+    other families at B = 4 (per-case lines, outside the row). Weights
+    U(+-1/sqrt(H)) as torch's init; yardstick: cuDNN's LSTM with the same
+    weights."""
     import torch
 
-    def case(bf, in_dim, h, reverse=False, carry=False):
+    def case(label, bf, t_len, in_dim, h, reverse=False, carry=False,
+             in_row=True):
         bound_w = h ** -0.5
-        x = torch.randn(bf, FSN_T, in_dim, generator=gen).to(dev)
+        x = torch.randn(bf, t_len, in_dim, generator=gen).to(dev)
         wx, wh, b = ((torch.rand(*shape, generator=gen) * 2 - 1).mul(bound_w)
                      .to(dev) for shape in ((in_dim, 4 * h), (h, 4 * h),
                                             (4 * h,)))
@@ -276,20 +289,69 @@ def lstm_cases(gen, dev):
             lib.bias_hh_l0.zero_()
         xl = x.flip(1) if reverse else x
         state = None if h0 is None else (h0[None], c0[None])
-        flops = 2.0 * FSN_T * bf * (in_dim + h) * 4 * h
-        moved = nbytes(x, wx, wh, b) + 4 * bf * h * (FSN_T + 2) + \
+        flops = 2.0 * t_len * bf * (in_dim + h) * 4 * h
+        moved = nbytes(x, wx, wh, b) + 4 * bf * h * (t_len + 2) + \
             (nbytes(h0, c0) if carry else 0)
-        label = (f"lstm {bf}x{FSN_T}x{in_dim}->{h}"
+        label = (f"lstm {label} {bf}x{t_len}x{in_dim}->{h}"
                  + (" reverse" if reverse else "") + (" carry" if carry
                                                       else ""))
         return (label, (x, wx, wh, b, reverse, h0, c0), flops, moved,
-                lambda: lib(xl, state), not (reverse or carry))
+                lambda: lib(xl, state), in_row and not (reverse or carry))
 
-    for bf, (in_dim, h) in zip((B_MAIN, B_MAIN, B_MAIN * FSN_F,
-                                B_MAIN * FSN_F), FSN_LAYERS):
+    b = B_MAIN
+    for bf, (in_dim, h) in zip((b, b, b * FSN_F, b * FSN_F), FSN_LAYERS):
         for reverse in (False, True):
-            yield case(bf, in_dim, h, reverse)
-    yield case(B_MAIN * FSN_F + 3, 384, 384, carry=True)
+            yield case("FullSubNet", bf, FSN_T, in_dim, h, reverse)
+    yield case("FullSubNet", b * FSN_F + 3, FSN_T, 384, 384, carry=True)
+    for label, bf, t_len, in_dim, h, reverse in (
+            ("DCCRN clstm0", 2 * b, DCCRN_T, 512, 128, False),
+            ("DCCRN clstm1", 2 * b, DCCRN_T, 128, 128, False),
+            ("LSTMNet lstm1", b, T_FRAMES, 161, 1024, False),
+            ("LSTMNet lstm2 / CRN", b, T_FRAMES, 1024, 1024, False),
+            ("GCRN glstm", b, T_FRAMES, 512, 512, False),
+            ("DPCRN intra", b * T_FRAMES, 4, 128, 64, False),
+            ("DPCRN intra", b * T_FRAMES, 4, 128, 64, True),
+            ("DPCRN inter", b * 4, T_FRAMES, 128, 128, False)):
+        yield case(label, bf, t_len, in_dim, h, reverse, in_row=False)
+
+
+def stft_cases(gen, dev):
+    """The STFT of each spectral family's B = 4 forward (DCCRN's 512/128
+    sums in the row), then pad_end and valid framing. The bound is the
+    function's, not the kernel's matmul-DFT: a real FFT a frame
+    (2.5 n log2 n flops) plus the window's frame_len products, and the
+    bytes of the waveform in and the spectrum out (no basis: an FFT reads
+    none). Yardstick for the center cases: torch.stft (cuFFT)."""
+    import math
+
+    import torch
+
+    from se_tpu_torch.ops import stft as plain
+    from se_tpu_torch.ops.windows import get_window
+
+    x = torch.randn(B_MAIN, SECONDS * SR, generator=gen).mul(0.1).to(dev)
+    for label, cfg, in_row in (
+            ("DCCRN 512/128 k=4", plain.PRESET_512_128, True),
+            ("FullSubNet 512/256 k=2", plain.PRESET_512_256, False),
+            ("PRESET_320 320/160 k=2", plain.PRESET_320, False),
+            ("pad_end hamming 512/256", plain.StftConfig(
+                512, 256, 512, window="hamming", convention="pad_end"),
+             False),
+            ("valid 400/100", plain.StftConfig(400, 100, 512,
+                                               convention="valid"), False)):
+        t_len, n2 = plain.num_frames(x.shape[1], cfg), 2 * cfg.bins
+        flops = B_MAIN * t_len * (2.5 * cfg.fft * math.log2(cfg.fft)
+                                  + cfg.frame_len)
+        moved = nbytes(x) + 4 * B_MAIN * t_len * n2
+        library = None
+        if cfg.convention == "center":
+            win = torch.from_numpy(get_window(cfg.window, cfg.win_length,
+                                              cfg.periodic)).to(dev)
+            library = (lambda cfg=cfg, win=win: torch.stft(
+                x, cfg.fft, cfg.hop, cfg.win_length, win, center=True,
+                pad_mode="reflect", return_complex=True))
+        yield (f"stft {label} {B_MAIN}x{x.shape[1]}", (x, cfg), flops, moved,
+               library, in_row)
 
 
 def _flat_lstm(fn):
@@ -300,44 +362,61 @@ def _flat_lstm(fn):
 
 
 def check_kernels(dev) -> dict:
-    """Phase 3. A row sums, over the cases a forward gives the kernel, its
-    ms, twin ms, bound and yardstick ms; every case counts in its error."""
+    """Phase 3. A row sums, over the cases of the forward its note names,
+    its ms, twin ms, bound and yardstick ms; every case counts in its
+    error."""
     import torch
 
-    from se_tpu_torch.ops import attention, decoder, dsconv, encoder, lstm
+    from se_tpu_torch.ops import (
+        attention, decoder, dsconv, encoder, lstm, stft_fused,
+    )
 
     gen = torch.Generator().manual_seed(1)
-    # name: (kernel, twin, cases, source, replaces, launches per timing)
+    # name: (kernel, twin, cases, source, replaces, launches per timing,
+    # what the row sums)
+    b4 = f"one B = {B_MAIN} x {SECONDS} s forward"
     kinds = {
         "attention": (attention.sdp_attention, attention._reference,
                       attention_cases, "se_tpu_torch/csrc/attention.cu",
-                      "se_tpu/ops/pallas_attention.py:53", 10),
+                      "se_tpu/ops/pallas_attention.py:53", 10,
+                      f"the 4 calls of Uformer's {b4}"),
         "dsconv": (dsconv.dsconv_block, dsconv._reference, dsconv_cases,
                    "se_tpu_torch/csrc/dsconv.cu",
-                   "se_tpu/ops/pallas_dsconv.py:113", 10),
+                   "se_tpu/ops/pallas_dsconv.py:113", 10,
+                   f"the 16 block shapes of Uformer's {b4} (its stage runs "
+                   "dsconv_pair)"),
         "dsconv_pair": (dsconv.dsconv_pair_block, dsconv._pair_reference,
                         pair_cases, "se_tpu_torch/csrc/dsconv.cu",
-                        "se_tpu/ops/pallas_dsconv.py:325", 10),
+                        "se_tpu/ops/pallas_dsconv.py:325", 10,
+                        f"the 8 stages of Uformer's {b4}"),
         "encoder": (encoder.encoder_level, encoder._reference,
                     encoder_cases, "se_tpu_torch/csrc/encoder.cu",
-                    "se_tpu/ops/pallas_encoder.py:98", 10),
+                    "se_tpu/ops/pallas_encoder.py:98", 10,
+                    f"the 6 levels of Uformer's {b4}"),
         "decoder": (decoder.decoder_level, decoder._reference,
                     decoder_cases, "se_tpu_torch/csrc/decoder.cu",
-                    "se_tpu/ops/pallas_decoder.py:117", 10),
+                    "se_tpu/ops/pallas_decoder.py:117", 10,
+                    f"the 6 levels of Uformer's {b4}"),
         "lstm": (_flat_lstm(lstm.lstm_layer_kernel),
                  _flat_lstm(lstm._reference), lstm_cases,
                  "se_tpu_torch/csrc/lstm.cu",
-                 "se_tpu/ops/pallas_lstm.py:60", 2),
+                 "se_tpu/ops/pallas_lstm.py:60", 2,
+                 f"the 4 layer calls of FullSubNet's {b4}; the other "
+                 "families' layer shapes are per-case lines"),
+        "stft": (stft_fused.stft_fused, stft_fused._reference, stft_cases,
+                 "se_tpu_torch/csrc/stft.cu", "se_tpu/ops/pallas_stft.py:67",
+                 10, f"the 1 call of DCCRN's {b4}; the other presets are "
+                 "per-case lines"),
     }
     table = {}
-    for name, (kernel, twin, cases, source, replaces, reps) in kinds.items():
+    for name, (kernel, twin, cases, source, replaces, reps,
+               note) in kinds.items():
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
                "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-               "library_ms": None}
+               "library_ms": None, "note": note}
         t_ops = t_bytes = 0.0
-        for label, args, flops, moved, library, in_forward in cases(gen,
-                                                                    dev):
+        for label, args, flops, moved, library, in_row in cases(gen, dev):
             with torch.no_grad():
                 got = kernel(*args)
                 want = twin(*args)
@@ -357,11 +436,11 @@ def check_kernels(dev) -> dict:
                   "max_abs_err": err, "tol": tol, "ms": ms,
                   "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
                   "bound_by": b_by, "gflop": flops / 1e9,
-                  "mbytes": moved / 1e6, "in_forward": in_forward})
+                  "mbytes": moved / 1e6, "in_row": in_row})
             if not err <= tol:
                 fail(f"{label}: kernel and twin differ by {err} > {tol}")
             row["max_abs_err"] = max(row["max_abs_err"], err)
-            if not in_forward:
+            if not in_row:
                 continue
             row["ms"] += ms
             row["plain_ms"] += plain
@@ -377,16 +456,16 @@ def check_kernels(dev) -> dict:
 
 # ------------------------------------------------------------- main path
 
-def seeded_uformer(seed: int):
-    """Uformer on the CPU from a seed, BN statistics and affines moved off
-    their defaults."""
+def seeded(name: str, seed: int):
+    """Family `name` at its published widths on the CPU from a seed
+    (torch's init), BN statistics and affines moved off their defaults."""
     import torch
 
-    from se_tpu_torch.models.uformer import Uformer
+    from se_tpu_torch.models import get_model
     from se_tpu_torch.nn import BatchNorm
 
     gen = torch.Generator().manual_seed(seed)
-    model = Uformer(device="cpu", generator=gen)
+    model = get_model(name).make(device="cpu", generator=gen)
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, BatchNorm):
@@ -398,24 +477,24 @@ def seeded_uformer(seed: int):
     return model.eval()
 
 
-def seeded_fullsubnet(seed: int):
-    """FullSubNet at its published widths on the CPU from a seed (torch's
-    LSTM and Linear init)."""
-    import torch
-
-    from se_tpu_torch.models.fullsubnet import FullSubNet
-
-    return FullSubNet(device="cpu",
-                      generator=torch.Generator().manual_seed(seed)).eval()
-
-
-# model name: (seeded CPU model, launches a B = 4 forward must show; None
-# means at least one)
+# family: the launches a B = 4 forward must show (None: at least one). The
+# LSTM layer calls: FullSubNet 2 + 2; DCCRN 2 complex LSTMs x (real, imag);
+# LSTMNet 1 + 2; CRN 2; GCRN 2 groups x 2 stages; DPCRN (intra 2 layers x 2
+# directions + inter 2 layers) x the block applied twice.
 MAIN_PATHS = {
-    "uformer": (seeded_uformer, {"attention": None, "dsconv_pair": 8,
-                                 "encoder": None, "decoder": None}),
-    "fullsubnet": (seeded_fullsubnet, {"lstm": 4}),
+    "uformer": {"attention": None, "dsconv_pair": 8, "encoder": None,
+                "decoder": None},
+    "fullsubnet": {"lstm": 4, "stft": 1},
+    "dccrn": {"lstm": 4, "stft": 1},
+    "lstm": {"lstm": 3, "stft": 1},
+    "crn": {"lstm": 2, "stft": 1},
+    "gcrn": {"lstm": 4, "stft": 1},
+    "dpcrn": {"lstm": 12, "stft": 1},
 }
+# kernel: the main path whose B = 4 forward its row of the table sums
+ROW_PATH = {"attention": "uformer", "dsconv": "uformer",
+            "dsconv_pair": "uformer", "encoder": "uformer",
+            "decoder": "uformer", "lstm": "fullsubnet", "stft": "dccrn"}
 
 
 def waveforms(batch: int, seed: int):
@@ -432,8 +511,8 @@ def main_path(name: str, dev, launches):
 
     from se_tpu_torch.eval.enhance import enhance_waveform
 
-    make, required = MAIN_PATHS[name]
-    cpu_model = make(0)
+    required = MAIN_PATHS[name]
+    cpu_model = seeded(name, 0)
     model = copy.deepcopy(cpu_model).to(dev)
     wav = waveforms(B_MAIN, 0)
 
@@ -554,13 +633,15 @@ def main() -> None:
                     or ln.startswith("==")]})
 
     table = check_kernels(dev)
-    models, counts = {}, {}
+    models, counts, totals = {}, {}, {}
     for name in MAIN_PATHS:
-        models[name], path_counts = main_path(name, dev, _build.LAUNCHES)
-        for kernel, n in path_counts.items():
-            counts[kernel] = counts.get(kernel, 0) + n
+        models[name], counts[name] = main_path(name, dev, _build.LAUNCHES)
+        for kernel, n in counts[name].items():
+            totals[kernel] = totals.get(kernel, 0) + n
     for name, row in table.items():
-        row["launches"] = counts.get(name, 0)
+        # the launches of the forward whose times the row sums
+        row["launches"] = counts[ROW_PATH[name]].get(name, 0)
+        row["launches_all_paths"] = totals.get(name, 0)
     for name, model in models.items():
         throughput(name, model, card)
     for name, model in models.items():

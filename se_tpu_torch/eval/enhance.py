@@ -1,9 +1,14 @@
 """Enhancement (decode) entry point: the port of se_tpu/eval/enhance.py for
-io-kinds "waveform" (Uformer: STFT, network and iSTFT in the model) and
-"cirm" (FullSubNet: magnitude in, complex ratio mask out).
+io-kinds "waveform" (Uformer: STFT, network and iSTFT in the model),
+"mag_mask" (LSTM, CRN: magnitude in, magnitude out, noisy phase reused),
+"complex_map" (GCRN, DCCRN: complex spectrum in and out), "complex_mask"
+(DPCRN: its mask applied inside the model) and "cirm" (FullSubNet:
+magnitude in, complex ratio mask out).
 
 Per-utterance RMS gain c = sqrt(n / energy) is applied before the model and
-removed after it. Other io-kinds are not ported yet (ROADMAP.md, Queue 1).
+removed after it. Every spectral branch takes its STFT from
+`ops.stft_fused.stft_auto`: the fused CUDA kernel on the card. The
+"hybrid" io-kind (DeepXi) is not ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -14,14 +19,11 @@ import torch.nn.functional as F
 
 from se_tpu_torch.device import resolve_device
 from se_tpu_torch.models.registry import ModelEntry, get_model
-from se_tpu_torch.ops.stft import istft, stft
+from se_tpu_torch.ops.stft import istft
+from se_tpu_torch.ops.stft_fused import stft_auto
 
 # io-kind -> the ROADMAP.md item that ports its decode branch
 _NOT_PORTED = {
-    "mag_mask": "Queue 1 item 8 (lstm, crn)",
-    "complex_map": "Queue 1 items 7-9 (gcrn, dpcrn, dccrn, ctsnet, g2net, "
-                   "taylorsenet)",
-    "complex_mask": "Queue 1 item 8 (dpcrn)",
     "hybrid": "Queue 1 item 10 (deepxi)",
 }
 
@@ -30,24 +32,42 @@ def _magphase(re, im):
     return torch.sqrt(re * re + im * im), torch.atan2(im, re)
 
 
-def _cirm(entry: ModelEntry, model: torch.nn.Module, wav: torch.Tensor,
-          length: int, compressed: bool) -> torch.Tensor:
-    """The cirm branch of se_tpu's `_enhance_jit`: the mask multiplies the
-    (compressed) complex feature, then decompression and iSTFT."""
-    cfg = entry.stft
-    mag, phase = _magphase(*stft(wav, cfg))
+def _spectral(entry: ModelEntry, model: torch.nn.Module, wav: torch.Tensor,
+              length: int, compressed: bool) -> torch.Tensor:
+    """The spectral branches of se_tpu's `_enhance_jit`: STFT, the
+    (compressed) magnitude and phase, the model, decompression, iSTFT."""
+    cfg, kind = entry.stft, entry.io_kind
+    mag, phase = _magphase(*stft_auto(wav, cfg))
     if compressed:
         mag = mag ** 0.5
-    feat_re, feat_im = mag * torch.cos(phase), mag * torch.sin(phase)
-    mask = model(mag)
-    m_re, m_im = mask[..., 0], mask[..., 1]
-    out_re = m_re * feat_re - m_im * feat_im
-    out_im = m_re * feat_im + m_im * feat_re
-    if compressed:
-        est_mag, est_phase = _magphase(out_re, out_im)
-        est_mag = est_mag ** 2
+
+    if kind == "mag_mask":  # the estimate is a magnitude: noisy phase
+        est = model(mag)
+        if compressed:
+            est = est ** 2
+        out_re, out_im = est * torch.cos(phase), est * torch.sin(phase)
+    elif kind in ("complex_map", "complex_mask"):
+        spec = torch.stack([mag * torch.cos(phase), mag * torch.sin(phase)],
+                           dim=-1)
+        est = model(spec)
+        if est.ndim == 5:  # multi-stage (G2Net): the last stage
+            est = est[-1]
+        est_mag, est_phase = _magphase(est[..., 0], est[..., 1])
+        if compressed:
+            est_mag = est_mag ** 2
         out_re = est_mag * torch.cos(est_phase)
         out_im = est_mag * torch.sin(est_phase)
+    else:  # cirm: the mask multiplies the (compressed) complex feature
+        feat_re, feat_im = mag * torch.cos(phase), mag * torch.sin(phase)
+        mask = model(mag)
+        m_re, m_im = mask[..., 0], mask[..., 1]
+        out_re = m_re * feat_re - m_im * feat_im
+        out_im = m_re * feat_im + m_im * feat_re
+        if compressed:
+            est_mag, est_phase = _magphase(out_re, out_im)
+            est_mag = est_mag ** 2
+            out_re = est_mag * torch.cos(est_phase)
+            out_im = est_mag * torch.sin(est_phase)
     return istft(out_re, out_im, cfg, length=length)
 
 
@@ -55,8 +75,8 @@ def _cirm(entry: ModelEntry, model: torch.nn.Module, wav: torch.Tensor,
 def _enhance(entry: ModelEntry, model: torch.nn.Module, wav: torch.Tensor,
              length: int, compressed: bool = True) -> torch.Tensor:
     """se_tpu's `_enhance_jit` for the ported io-kinds, fp32."""
-    if entry.io_kind == "cirm":
-        return _cirm(entry, model, wav, length, compressed)
+    if entry.io_kind in ("mag_mask", "complex_map", "complex_mask", "cirm"):
+        return _spectral(entry, model, wav, length, compressed)
     if entry.io_kind != "waveform":
         where = _NOT_PORTED.get(entry.io_kind, "no ROADMAP item")
         raise NotImplementedError(

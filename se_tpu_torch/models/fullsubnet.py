@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from se_tpu_torch.device import resolve_device
+from se_tpu_torch.models import jax_tree as jt
 from se_tpu_torch.models.registry import ModelEntry, register
 from se_tpu_torch.nn import LSTM, Linear
 from se_tpu_torch.ops.stft import PRESET_512_256
@@ -124,25 +125,6 @@ class FullSubNet(nn.Module):
         return mask[:, self.look_ahead:]
 
 
-def _np(a) -> torch.Tensor:
-    return torch.tensor(np.asarray(a, np.float32))  # a contiguous copy
-
-
-def _put_sequence_model(sd: dict, prefix: str, tree: dict) -> None:
-    lstm = tree["lstm"]
-    layer = 0
-    while f"l{layer}_wx" in lstm:
-        p, sfx = f"{prefix}.sequence_model", f"l{layer}"
-        sd[f"{p}.weight_ih_{sfx}"] = _np(np.asarray(lstm[f"{sfx}_wx"]).T)
-        sd[f"{p}.weight_hh_{sfx}"] = _np(np.asarray(lstm[f"{sfx}_wh"]).T)
-        sd[f"{p}.bias_ih_{sfx}"] = _np(lstm[f"{sfx}_b"])
-        sd[f"{p}.bias_hh_{sfx}"] = torch.zeros_like(sd[f"{p}.bias_ih_{sfx}"])
-        layer += 1
-    sd[f"{prefix}.fc_output_layer.weight"] = _np(
-        np.asarray(tree["fc"]["kernel"]).T)
-    sd[f"{prefix}.fc_output_layer.bias"] = _np(tree["fc"]["bias"])
-
-
 def from_jax_variables(variables: dict) -> dict:
     """se_tpu's FullSubNet {"params"} tree (numpy or jax arrays) -> this
     port's state_dict. se_tpu keeps one combined LSTM bias: it becomes
@@ -150,7 +132,8 @@ def from_jax_variables(variables: dict) -> dict:
     prm = variables["params"]
     sd: dict = {}
     for name in ("fb_model", "sb_model"):
-        _put_sequence_model(sd, name, prm[name])
+        jt.put_lstm(sd, f"{name}.sequence_model", prm[name]["lstm"])
+        jt.put_dense(sd, f"{name}.fc_output_layer", prm[name]["fc"])
     return sd
 
 

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from se_tpu_torch.device import resolve_device
+from se_tpu_torch.models import jax_tree as jt
 from se_tpu_torch.models.registry import ModelEntry, register
 from se_tpu_torch.nn import (
     BatchNorm, ComplexDense, ConvParams, LayerNorm, Linear, PReLU,
@@ -491,14 +492,8 @@ class Uformer(nn.Module):
 # kernels are (kt, kf, I, O), torch's Conv2d (O, I, kf, kt) and
 # ConvTranspose2d (I, O, kf, kt), unflipped; Dense (I, O), Linear (O, I).
 
-def _np(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))
-
-
 def _put_conv(sd, p, tree, transpose=False):
-    axes = (2, 3, 1, 0) if transpose else (3, 2, 1, 0)
-    sd[f"{p}.weight"] = _np(np.transpose(tree["kernel"], axes))
-    sd[f"{p}.bias"] = _np(tree["bias"])
+    jt.put_conv(sd, p, tree, transpose, freq_first=True)
 
 
 def _put_cconv(sd, p, tree, transpose=False):
@@ -506,35 +501,19 @@ def _put_cconv(sd, p, tree, transpose=False):
         _put_conv(sd, f"{p}.{name}", tree[name], transpose)
 
 
-def _put_ln(sd, p, tree):
-    sd[f"{p}.weight"] = _np(tree["scale"])
-    sd[f"{p}.bias"] = _np(tree["bias"])
-
-
 def _put_prelu(sd, p, tree):
-    sd[f"{p}.weight"] = _np(tree["weight"]).reshape(1)
-
-
-def _put_dense(sd, p, tree):
-    sd[f"{p}.weight"] = _np(np.asarray(tree["kernel"]).T)
-    sd[f"{p}.bias"] = _np(tree["bias"])
+    """se_tpu's own PReLU names its slope `weight`, as torch does."""
+    sd[f"{p}.weight"] = jt.tensor(tree["weight"]).reshape(1)
 
 
 def _put_cdense(sd, p, tree):
-    _put_dense(sd, f"{p}.real_linear", tree["linear_real"])
-    _put_dense(sd, f"{p}.imag_linear", tree["linear_imag"])
-
-
-def _put_bn(sd, p, params, stats):
-    sd[f"{p}.weight"] = _np(params["bn"]["scale"])
-    sd[f"{p}.bias"] = _np(params["bn"]["bias"])
-    sd[f"{p}.running_mean"] = _np(stats["bn"]["mean"])
-    sd[f"{p}.running_var"] = _np(stats["bn"]["var"])
+    jt.put_dense(sd, f"{p}.real_linear", tree["linear_real"])
+    jt.put_dense(sd, f"{p}.imag_linear", tree["linear_imag"])
 
 
 def _put_att_proj(sd, p, tree):
     for name in ("query", "key", "value"):
-        _put_dense(sd, f"{p}.{name}.linear", tree[name])
+        jt.put_dense(sd, f"{p}.{name}.linear", tree[name])
 
 
 def from_jax_variables(variables: dict) -> dict:
@@ -544,62 +523,62 @@ def from_jax_variables(variables: dict) -> dict:
     sd: dict = {}
     for i in range(6):
         _put_cconv(sd, f"encoder.{i}.0", prm[f"enc{i}"])
-        _put_bn(sd, f"encoder.{i}.1", prm[f"enc_bn{i}"]["bn3d"],
-                st[f"enc_bn{i}"]["bn3d"])
+        jt.put_batchnorm(sd, f"encoder.{i}.1", prm[f"enc_bn{i}"]["bn3d"],
+                         st[f"enc_bn{i}"]["bn3d"])
         _put_prelu(sd, f"encoder.{i}.2", prm[f"enc_act{i}"])
         _put_conv(sd, f"encoder_real.{i}.0.conv", prm[f"enc_real{i}"]["conv"])
-        _put_bn(sd, f"encoder_real.{i}.1", prm[f"enc_real_bn{i}"],
-                st[f"enc_real_bn{i}"])
+        jt.put_batchnorm(sd, f"encoder_real.{i}.1", prm[f"enc_real_bn{i}"],
+                         st[f"enc_real_bn{i}"])
         _put_prelu(sd, f"encoder_real.{i}.2", prm[f"enc_real_act{i}"])
         _put_cconv(sd, f"decoder.{i}.0", prm[f"dec{i}"], transpose=True)
         _put_conv(sd, f"decoder_real.{i}.0.conv", prm[f"dec_real{i}"]["conv"],
                   transpose=True)
         if i < 5:
-            _put_bn(sd, f"decoder.{i}.1", prm[f"dec_bn{i}"]["bn3d"],
-                    st[f"dec_bn{i}"]["bn3d"])
+            jt.put_batchnorm(sd, f"decoder.{i}.1", prm[f"dec_bn{i}"]["bn3d"],
+                             st[f"dec_bn{i}"]["bn3d"])
             _put_prelu(sd, f"decoder.{i}.2", prm[f"dec_act{i}"])
-            _put_bn(sd, f"decoder_real.{i}.1", prm[f"dec_real_bn{i}"],
-                    st[f"dec_real_bn{i}"])
+            jt.put_batchnorm(sd, f"decoder_real.{i}.1",
+                             prm[f"dec_real_bn{i}"], st[f"dec_real_bn{i}"])
             _put_prelu(sd, f"decoder_real.{i}.2", prm[f"dec_real_act{i}"])
 
     conf = prm["conformer"]
     for k in ("ff1", "ff2"):
         p, t = f"conformer.{k}_cplx", conf[f"{k}_cplx"]
-        _put_ln(sd, f"{p}.layernorm_linear", t["ln"])
+        jt.put_layernorm(sd, f"{p}.layernorm_linear", t["ln"])
         _put_cdense(sd, f"{p}.linear1", t["linear1"])
         _put_cdense(sd, f"{p}.linear2", t["linear2"])
         _put_prelu(sd, f"{p}.prelu", t["prelu"])
         p, t = f"conformer.{k}_mag", conf[f"{k}_mag"]
-        _put_ln(sd, f"{p}.layernorm_linear", t["ln"])
-        _put_dense(sd, f"{p}.linear1.linear", t["linear1"])
-        _put_dense(sd, f"{p}.linear2.linear", t["linear2"])
+        jt.put_layernorm(sd, f"{p}.layernorm_linear", t["ln"])
+        jt.put_dense(sd, f"{p}.linear1.linear", t["linear1"])
+        jt.put_dense(sd, f"{p}.linear2.linear", t["linear2"])
         _put_prelu(sd, f"{p}.prelu", t["prelu"])
     for axis, name in (("t", "T_att"), ("f", "F_att")):
         p, t = f"conformer.cplx_{axis}att", conf[f"cplx_{axis}att"]
         heads = f"{p}.attn_heads.0"
         for k in range(1, 9):
             _put_att_proj(sd, f"{heads}.{name}{k}", t["att"][f"att{k}"])
-        _put_ln(sd, f"{heads}.layernorm1", t["att"]["ln1"])
-        _put_ln(sd, f"{heads}.layernorm2", t["att"]["ln2"])
+        jt.put_layernorm(sd, f"{heads}.layernorm1", t["att"]["ln1"])
+        jt.put_layernorm(sd, f"{heads}.layernorm2", t["att"]["ln2"])
         _put_cdense(sd, f"{p}.transform_linear", t["transform"])
-        _put_ln(sd, f"{p}.layernorm3", t["ln3"])
+        jt.put_layernorm(sd, f"{p}.layernorm3", t["ln3"])
         _put_prelu(sd, f"{p}.prelu", t["prelu"])
         p, t = f"conformer.mag_{axis}att", conf[f"mag_{axis}att"]
         heads = f"{p}.attn_heads.0"
         _put_att_proj(sd, f"{heads}.{name}", t["att"])
-        _put_ln(sd, f"{heads}.layernorm1", t["ln1"])
-        _put_ln(sd, f"{heads}.layernorm2", t["ln2"])
-        _put_dense(sd, f"{p}.transform_linear.linear", t["transform"])
-        _put_ln(sd, f"{p}.layernorm3", t["ln3"])
+        jt.put_layernorm(sd, f"{heads}.layernorm1", t["ln1"])
+        jt.put_layernorm(sd, f"{heads}.layernorm2", t["ln2"])
+        jt.put_dense(sd, f"{p}.transform_linear.linear", t["transform"])
+        jt.put_layernorm(sd, f"{p}.layernorm3", t["ln3"])
         _put_prelu(sd, f"{p}.prelu", t["prelu"])
-    _put_ln(sd, "conformer.ln_conformer_cplx", conf["ln_conformer_cplx"])
-    _put_ln(sd, "conformer.ln_conformer_mag", conf["ln_conformer_mag"])
+    for name in ("ln_conformer_cplx", "ln_conformer_mag"):
+        jt.put_layernorm(sd, f"conformer.{name}", conf[name])
     for idx in range(len(DILATIONS)):
         for kind, put in (("cplx", _put_cconv), ("real", None)):
             p, t = f"conformer.dsconv_{kind}.{idx}", \
                 conf[f"dsconv_{kind}{idx}"]
-            _put_ln(sd, f"{p}.layernorm_conv1", t["ln1"])
-            _put_ln(sd, f"{p}.layernorm_conv2", t["ln2"])
+            jt.put_layernorm(sd, f"{p}.layernorm_conv1", t["ln1"])
+            jt.put_layernorm(sd, f"{p}.layernorm_conv2", t["ln2"])
             _put_prelu(sd, f"{p}.prelu", t["prelu"])
             for conv in ("conv1x1", "dconv1", "dconv2", "sconv"):
                 if put is None:

@@ -1,9 +1,14 @@
 """Convolution and dense primitives in NHWC = (B, T, F, C) layout
 (se_tpu/nn/conv.py).
 
-Parameters keep the reference PyTorch layouts, whose spatial axes are
-(F, T): Conv2d weights are (O, I, kf, kt), ConvTranspose2d weights
-(I, O, kf, kt), unflipped. `hwio()` gives se_tpu's (kt, kf, I, O) view.
+Parameters keep the reference PyTorch layouts: Conv2d weights (O, I, ka,
+kb), ConvTranspose2d weights (I, O, ka, kb), unflipped, where (ka, kb) is
+(kf, kt) for references that run on (B, C, F, T) (Uformer, DCCRN:
+`freq_first=True`) and (kt, kf) for those on (B, C, T, F) (CRN, GCRN,
+DPCRN). `hwio()` gives se_tpu's (kt, kf, I, O) view. `Conv2d` and
+`ConvTranspose2d` run torch's convolutions (these convs are outside any
+Pallas kernel in se_tpu), with torch's geometry: a transposed conv gives
+(in - 1) * stride - 2 * pad + kernel + output_padding.
 """
 
 from __future__ import annotations
@@ -25,12 +30,13 @@ class ConvParams(nn.Module):
     names and init, for layers that run the conv inside a kernel."""
 
     def __init__(self, cin: int, cout: int, kernel: tuple[int, int],
-                 transpose: bool = False):
+                 transpose: bool = False, freq_first: bool = True):
         super().__init__()
         kt, kf = kernel
-        self.transpose = transpose
-        shape = (cin, cout, kf, kt) if transpose else (cout, cin, kf, kt)
-        self.weight = nn.Parameter(torch.zeros(shape))
+        self.transpose, self.freq_first = transpose, freq_first
+        spatial = (kf, kt) if freq_first else (kt, kf)
+        shape = (cin, cout) if transpose else (cout, cin)
+        self.weight = nn.Parameter(torch.zeros(*shape, *spatial))
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -46,9 +52,67 @@ class ConvParams(nn.Module):
 
     def hwio(self) -> torch.Tensor:
         """(kt, kf, I, O) kernel, unflipped for a transposed conv."""
-        if self.transpose:
-            return self.weight.permute(3, 2, 0, 1)
-        return self.weight.permute(3, 2, 1, 0)
+        w = self.weight.transpose(2, 3) if self.freq_first else self.weight
+        return w.permute(2, 3, 0, 1) if self.transpose else \
+            w.permute(2, 3, 1, 0)
+
+
+class Conv2d(ConvParams):
+    """se_tpu.nn.Conv2d: correlation over (T, F) with explicit padding
+    ((t_lo, t_hi), (f_lo, f_hi)); weight (O, I, kt, kf)."""
+
+    def __init__(self, cin: int, cout: int, kernel: tuple[int, int],
+                 stride=(1, 1), padding=((0, 0), (0, 0))):
+        super().__init__(cin, cout, kernel, transpose=False, freq_first=False)
+        self.stride, self.padding = tuple(stride), padding
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d_nhwc(x, self.hwio(), self.stride,
+                           self.padding) + self.bias
+
+
+class ConvTranspose2d(ConvParams):
+    """se_tpu.nn.ConvTranspose2d: torch.nn.ConvTranspose2d over (T, F);
+    weight (I, O, kt, kf)."""
+
+    def __init__(self, cin: int, cout: int, kernel: tuple[int, int],
+                 stride=(1, 1), padding=(0, 0), output_padding=(0, 0)):
+        super().__init__(cin, cout, kernel, transpose=True, freq_first=False)
+        self.stride, self.padding = tuple(stride), tuple(padding)
+        self.output_padding = tuple(output_padding)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_transpose2d_nhwc(x, self.hwio(), self.stride,
+                                     self.padding,
+                                     self.output_padding) + self.bias
+
+
+class GluConv2d(nn.Module):
+    """conv1(x) * sigmoid(conv2(x)) (se_tpu.nn.GluConv2d)."""
+
+    def __init__(self, cin: int, cout: int, kernel: tuple[int, int],
+                 stride=(1, 1)):
+        super().__init__()
+        self.conv1 = Conv2d(cin, cout, kernel, stride)
+        self.conv2 = Conv2d(cin, cout, kernel, stride)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv1(x) * torch.sigmoid(self.conv2(x))
+
+
+class GluConvTranspose2d(nn.Module):
+    """deconv1(x) * sigmoid(deconv2(x)) (se_tpu.nn.GluConvTranspose2d)."""
+
+    def __init__(self, cin: int, cout: int, kernel: tuple[int, int],
+                 stride=(1, 1), output_padding=(0, 0)):
+        super().__init__()
+        self.conv1 = ConvTranspose2d(cin, cout, kernel, stride,
+                                     output_padding=output_padding)
+        self.conv2 = ConvTranspose2d(cin, cout, kernel, stride,
+                                     output_padding=output_padding)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv1(x) * torch.sigmoid(self.conv2(x))
 
 
 class Linear(nn.Module):
@@ -90,4 +154,15 @@ def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, strides=(1, 1),
     xn = F.pad(x.permute(0, 3, 1, 2), (f_lo, f_hi, t_lo, t_hi))
     out = F.conv2d(xn, w.permute(3, 2, 0, 1), stride=tuple(strides),
                    dilation=tuple(dilation))
+    return out.permute(0, 2, 3, 1)
+
+
+def conv_transpose2d_nhwc(x: torch.Tensor, w: torch.Tensor, strides=(1, 1),
+                          padding=(0, 0), output_padding=(0, 0)):
+    """torch.nn.ConvTranspose2d's geometry on x (B, T, F, Cin) with an
+    unflipped (kt, kf, Cin, Cout) kernel: each axis gives (in - 1) *
+    stride - 2 * pad + kernel + output_padding."""
+    out = F.conv_transpose2d(x.permute(0, 3, 1, 2), w.permute(2, 3, 0, 1),
+                             stride=tuple(strides), padding=tuple(padding),
+                             output_padding=tuple(output_padding))
     return out.permute(0, 2, 3, 1)

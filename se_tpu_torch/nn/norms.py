@@ -8,19 +8,22 @@ from torch import nn
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm over the last axis, eps 1e-5, statistics in fp32:
+    """LayerNorm over the trailing axes of `shape` (an int: the last axis;
+    DPCRN's (F, C): the last two), eps 1e-5, statistics in fp32:
     (x - mean) / sqrt(var + eps) * weight + bias."""
 
-    def __init__(self, dim: int, eps: float = 1e-5):
+    def __init__(self, shape: int | tuple[int, ...], eps: float = 1e-5):
         super().__init__()
+        shape = (shape,) if isinstance(shape, int) else tuple(shape)
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(dim))
-        self.bias = nn.Parameter(torch.zeros(dim))
+        self.axes = tuple(range(-len(shape), 0))
+        self.weight = nn.Parameter(torch.ones(shape))
+        self.bias = nn.Parameter(torch.zeros(shape))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
-        mean = xf.mean(-1, keepdim=True)
-        var = (xf - mean).square().mean(-1, keepdim=True)
+        mean = xf.mean(self.axes, keepdim=True)
+        var = (xf - mean).square().mean(self.axes, keepdim=True)
         y = (xf - mean) * torch.reciprocal(torch.sqrt(var + self.eps))
         return (y * self.weight + self.bias).to(x.dtype)
 

@@ -154,23 +154,28 @@ def _pad_last(x: torch.Tensor, lo: int, hi: int, mode: str = "constant"):
     return F.pad(x, (lo, hi))
 
 
-def frame_signal(x: torch.Tensor, cfg: StftConfig) -> torch.Tensor:
-    """(..., n) waveform -> (..., T, frame_len) frames."""
+def pad_signal(x: torch.Tensor, cfg: StftConfig) -> torch.Tensor:
+    """(..., n) waveform -> (..., n') padded per the convention, n' >= (T -
+    1) * hop + frame_len so that frame t is x[..., t*hop : t*hop +
+    frame_len]."""
     n = x.shape[-1]
-    t_frames = num_frames(n, cfg)
-    hop = cfg.hop
-    frame_len = cfg.frame_len
-
+    needed = (num_frames(n, cfg) - 1) * cfg.hop + cfg.frame_len
     if cfg.convention == "center":
         pad = cfg.fft // 2
         x = _pad_last(x, pad, pad, mode="reflect")
     elif cfg.convention == "pad_end":
-        total = (t_frames - 1) * hop + frame_len
-        x = _pad_last(x, 0, total - n)
-
-    needed = (t_frames - 1) * hop + frame_len
+        x = _pad_last(x, 0, needed - n)
     if x.shape[-1] < needed:  # center with n % hop != 0 may fall short
         x = _pad_last(x, 0, needed - x.shape[-1])
+    return x
+
+
+def frame_signal(x: torch.Tensor, cfg: StftConfig) -> torch.Tensor:
+    """(..., n) waveform -> (..., T, frame_len) frames."""
+    t_frames = num_frames(x.shape[-1], cfg)
+    hop = cfg.hop
+    frame_len = cfg.frame_len
+    x = pad_signal(x, cfg)
 
     if frame_len % hop == 0:
         k = frame_len // hop

@@ -13,7 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from se_tpu_torch.ops import attention, decoder, dsconv, encoder, lstm
+from se_tpu_torch.ops import _build, attention, decoder, dsconv, encoder, lstm
+from se_tpu_torch.ops import stft as plain_stft
+from se_tpu_torch.ops import stft_fused
 from torch_kernel_inputs import (
     att_inputs, close, dec_params, dsconv_params, enc_params, lstm_inputs,
     pair_inputs, rand, to_torch,
@@ -96,9 +98,11 @@ def test_dsconv_pair_kernel_matches_twin(gen, dev, c, cm, d1, d2):
                     (*to_torch((xc, xm)), pc, pm), dev)
 
 
-# (Bf, In, H): the full band (Bf = B = 4: the 8 x 8 tile) and a ragged
-# sub band (Bf = 1030: the 64 x 32 tile, 17 x 12 blocks)
-LSTM_SHAPES = [(4, 257, 512), (1030, 32, 384)]
+# (Bf, In, H): the full band (Bf = B = 4: the 8 x 8 tile), a ragged
+# sub band (Bf = 1030: the 64 x 32 tile, 17 x 12 blocks), DCCRN's complex
+# LSTM (re and im stacked: Bf = 2B) and CRN's LSTM(1024)
+LSTM_SHAPES = [(4, 257, 512), (1030, 32, 384), (8, 512, 128),
+               (4, 1024, 1024)]
 
 
 @pytest.mark.parametrize("reverse", [False, True])
@@ -139,3 +143,39 @@ def test_wrappers_refuse_other_dtypes_and_layouts(gen, dev):
         lstm.lstm_layer_kernel(x.double(), wx, wh, b)
     with pytest.raises(ValueError, match="shape"):
         lstm.lstm_layer_kernel(x, wx, wh, b, h0=torch.zeros(3, 5, device=dev))
+
+
+STFT_CFGS = {
+    "512_128": plain_stft.PRESET_512_128,
+    "512_256": plain_stft.PRESET_512_256,
+    "320": plain_stft.PRESET_320,
+    "pad_end": plain_stft.StftConfig(512, 256, 512, window="hamming",
+                                     convention="pad_end"),
+    "valid": plain_stft.StftConfig(400, 100, 512, convention="valid"),
+    # hop and frame not multiples of 4: the kernel's scalar-load variant
+    "valid_hop134": plain_stft.StftConfig(402, 134, 512, convention="valid"),
+}
+
+
+@pytest.mark.parametrize("n", [16000, 4321])
+@pytest.mark.parametrize("name", sorted(STFT_CFGS))
+def test_stft_kernel_matches_twin(gen, dev, name, n):
+    """Tolerance 1e-4 * max(1, max|twin|): K-long fp32 sums in another
+    order on spectra of O(10)."""
+    cfg = STFT_CFGS[name]
+    (x,) = to_torch((rand(gen, 3, n),))
+    want = stft_fused._reference(x, cfg)
+    got = stft_fused.stft_fused(x.to(dev), cfg)
+    torch.cuda.synchronize()
+    assert all(g.device.type == "cuda" for g in got)
+    scale = max(1.0, max(float(w.abs().max()) for w in want))
+    close(got, want, 1e-4 * scale)
+
+
+def test_stft_auto_takes_the_kernel_on_the_card(gen, dev):
+    (x,) = to_torch((rand(gen, 2, 8000),), device=dev)
+    before = dict(_build.LAUNCHES)
+    stft_fused.stft_auto(x, plain_stft.PRESET_320)
+    stft_fused.stft_auto(x, plain_stft.PRESET_UFORMER)  # 512 % 160 != 0
+    launched = _build.LAUNCHES["stft"] - before.get("stft", 0)
+    assert launched == 1

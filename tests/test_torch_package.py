@@ -11,6 +11,7 @@ import torch
 
 from se_tpu_torch.eval import enhance
 from se_tpu_torch.models import available_models, get_model
+from se_tpu_torch.models.dccrn import DCCRN
 from se_tpu_torch.models.fullsubnet import FullSubNet
 from se_tpu_torch.models.registry import ModelEntry
 from se_tpu_torch.models.uformer import Uformer
@@ -58,9 +59,9 @@ def test_enhance_refuses_weights_on_another_device():
 
 
 def test_unported_io_kind_names_its_roadmap_item():
-    entry = ModelEntry("lstm", make=None, stft=PRESET_320,
-                       io_kind="mag_mask")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    entry = ModelEntry("deepxi", make=None, stft=PRESET_320,
+                       io_kind="hybrid")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         enhance._enhance(entry, None, torch.zeros(1, 1600), 1600)
 
 
@@ -79,6 +80,24 @@ def test_fullsubnet_entry_points_raise_without_cuda(monkeypatch):
 def test_registry_holds_uformer():
     entry = get_model("uformer")
     assert entry.io_kind == "waveform" and entry.make is Uformer
-    assert available_models() == ["fullsubnet", "uformer"]
+    assert available_models() == ["crn", "dccrn", "dpcrn", "fullsubnet",
+                                  "gcrn", "lstm", "uformer"]
     with pytest.raises(KeyError, match="uformer"):
-        get_model("dccrn")
+        get_model("deepxi")
+
+
+def test_dccrn_entry_points_raise_without_cuda(monkeypatch):
+    narrow = dict(kernel_num=(4, 4, 4, 4, 4, 4), rnn_units=4)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DCCRN(**narrow)
+    model = DCCRN(**narrow, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        enhance.enhance_waveform("dccrn", model, np.zeros(1600, np.float32))
+
+
+@pytest.mark.parametrize("name", ["crn", "dpcrn", "gcrn", "lstm"])
+def test_recurrent_zoo_constructors_raise_without_cuda(monkeypatch, name):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_model(name).make()

@@ -81,3 +81,40 @@ def lstm_inputs(rng, bf, t, in_dim, h):
     draw them."""
     return (rand(rng, bf, t, in_dim), rand(rng, in_dim, 4 * h, scale=0.2),
             rand(rng, h, 4 * h, scale=0.2), rand(rng, 4 * h, scale=0.1))
+
+
+def fill_tree(shapes, seed: int) -> dict:
+    """Numpy values for a nest of dicts of shaped leaves (se_tpu's
+    `jax.eval_shape(model.init, ...)`), drawn from `seed` by leaf name:
+    LSTM weights and biases U(+-1/sqrt(H)), kernels U(+-1/sqrt(fan_in)),
+    biases U(+-0.1), BN/LN scales 1 + 0.1 N, PReLU slopes 0.25 + 0.05 N, BN
+    running means 0.1 N and variances 0.5 + U(0, 1): every statistic and
+    affine off its default."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(name, shape):
+        if name.endswith(("_wx", "_wh", "_b")):
+            h = shape[-1] // 4
+            arr = rng.uniform(-h ** -0.5, h ** -0.5, shape)
+        elif name == "kernel":
+            fan = int(np.prod(shape[:-1]))
+            arr = rng.uniform(-fan ** -0.5, fan ** -0.5, shape)
+        elif name == "bias":
+            arr = rng.uniform(-0.1, 0.1, shape)
+        elif name == "scale":
+            arr = 1 + 0.1 * rng.standard_normal(shape)
+        elif name == "negative_slope":
+            arr = 0.25 + 0.05 * rng.standard_normal(shape)
+        elif name == "mean":
+            arr = 0.1 * rng.standard_normal(shape)
+        elif name == "var":
+            arr = 0.5 + rng.uniform(0, 1, shape)
+        else:
+            raise KeyError(name)
+        return np.asarray(arr, np.float32)
+
+    def walk(node):
+        return {k: walk(v) if isinstance(v, dict) else leaf(k, tuple(v.shape))
+                for k, v in sorted(node.items())}
+
+    return walk(shapes)
