@@ -5,7 +5,11 @@ enhancement of seven model families: Uformer (waveform), FullSubNet
 (cirm), DCCRN and GCRN (complex_map), LSTMNet and CRN (mag_mask) and DPCRN
 (complex_mask).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels lstm,...] [--families fullsubnet,...]
+
+With no options, every kernel and every family; the options narrow
+phase 3 to some kernels and phases 4-6 to some families, for comparing
+two versions of the package (run the script in each tree).
 
 Phases, one JSON line per result:
   1. env:    the card (nvidia-smi name and power limit), torch and CUDA;
@@ -16,13 +20,17 @@ Phases, one JSON line per result:
              the PRESET_320 models: T = 401), against its twin on the same
              CUDA inputs: max abs error within 1e-4 * max(1, max|twin|),
              kernel and twin times (CUDA events, median of 5 runs after
-             warm-up), the bound from the shapes, and as a yardstick the
+             warm-up), the bound from the shapes (operations at the
+             card's fp32-accurate tensor-core rate, bytes at HBM's; the
+             larger), and as a yardstick the
              port never calls F.scaled_dot_product_attention (attention),
              cuDNN's LSTM (lstm) and torch.stft, cuFFT (stft, center
              cases). The single DSConv block, which left the eval path for
              the pair entry, is checked at the shapes the stage gives it;
              the LSTM also in reverse and with a ragged batch and a
-             non-zero carry, the STFT also with pad_end and valid framing.
+             non-zero carry and at phase 5's B = 32 where it takes the
+             tensor-core step, the STFT also with pad_end and valid
+             framing.
              A kernel's row of the table sums the cases of one forward,
              named in its "note": the shapes of the other paths are the
              per-case lines.
@@ -67,8 +75,11 @@ DCCRN_T = SECONDS * SR // 128 + 1  # 501: 512/128 center framing
 SLOW_CALL_S = 20.0
 KERNELS = (1, 8, 16, 32, 64, 128, 128)
 DILATIONS = (1, 2, 4, 8, 16, 32, 64, 128)
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
-PEAK_FP32_FLOPS = 67e12
+# H100 SXM peaks (NVIDIA data sheet). Operations: fp32-accurate products
+# on the tensor cores, 495 TFLOP/s TF32 in three passes (3xTF32), the least
+# time this card takes for an fp32 operation count by any route (the
+# CUDA cores' fp32 peak is 67 TFLOP/s). Bytes: HBM3.
+PEAK_FP32_ACCURATE_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12
 
 
@@ -100,7 +111,7 @@ def cuda_ms(fn, reps: int = 10, rounds: int = 5) -> float:
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / PEAK_FP32_ACCURATE_FLOPS, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -265,7 +276,8 @@ def lstm_cases(gen, dev):
     """The four layer calls of a FullSubNet forward at B = 4 (full band
     Bf = 4, sub band Bf = 4 * 257), each also in reverse, and a ragged
     sub-band batch with a non-zero carry; then the layer shapes of the
-    other families at B = 4 (per-case lines, outside the row). Weights
+    other families at B = 4 and the two that take the tensor-core step at
+    B = 32 (per-case lines, outside the row). Weights
     U(+-1/sqrt(H)) as torch's init; yardstick: cuDNN's LSTM with the same
     weights."""
     import torch
@@ -311,7 +323,10 @@ def lstm_cases(gen, dev):
             ("GCRN glstm", b, T_FRAMES, 512, 512, False),
             ("DPCRN intra", b * T_FRAMES, 4, 128, 64, False),
             ("DPCRN intra", b * T_FRAMES, 4, 128, 64, True),
-            ("DPCRN inter", b * 4, T_FRAMES, 128, 128, False)):
+            ("DPCRN inter", b * 4, T_FRAMES, 128, 128, False),
+            # the tensor-core step at phase 5's B = 32
+            ("FullSubNet B=32", 32 * FSN_F, FSN_T, 384, 384, False),
+            ("DPCRN intra B=32", 32 * T_FRAMES, 4, 128, 64, False)):
         yield case(label, bf, t_len, in_dim, h, reverse, in_row=False)
 
 
@@ -361,10 +376,10 @@ def _flat_lstm(fn):
     return run
 
 
-def check_kernels(dev) -> dict:
-    """Phase 3. A row sums, over the cases of the forward its note names,
-    its ms, twin ms, bound and yardstick ms; every case counts in its
-    error."""
+def check_kernels(dev, only) -> dict:
+    """Phase 3 for the kernels named in `only`. A row sums, over the cases
+    of the forward its note names, its ms, twin ms, bound and yardstick ms;
+    every case counts in its error."""
     import torch
 
     from se_tpu_torch.ops import (
@@ -411,6 +426,8 @@ def check_kernels(dev) -> dict:
     table = {}
     for name, (kernel, twin, cases, source, replaces, reps,
                note) in kinds.items():
+        if name not in only:
+            continue
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
                "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
@@ -447,7 +464,7 @@ def check_kernels(dev) -> dict:
             row["bound_ms"] += b_ms
             if lib is not None:
                 row["library_ms"] = (row["library_ms"] or 0.0) + lib
-            t_ops += flops / PEAK_FP32_FLOPS
+            t_ops += flops / PEAK_FP32_ACCURATE_FLOPS
             t_bytes += moved / PEAK_BYTES
         row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
         table[name] = row
@@ -602,7 +619,28 @@ def profile(name: str, model, card: str) -> None:
                   for ms, n, key in rows[:12]], "card": card})
 
 
+def parse_args():
+    import argparse
+
+    p = argparse.ArgumentParser(
+        description="Drive se_tpu_torch's main paths on one NVIDIA GPU and "
+        "hold every kernel against its twin (all of them by default).")
+    p.add_argument("--kernels", default=",".join(ROW_PATH),
+                   help="phase 3 for these kernels only (comma-separated)")
+    p.add_argument("--families", default=",".join(MAIN_PATHS),
+                   help="phases 4-6 for these families only")
+    args = p.parse_args()
+    args.kernels = args.kernels.split(",")
+    args.families = args.families.split(",")
+    unknown = (set(args.kernels) - set(ROW_PATH)) | (set(args.families)
+                                                     - set(MAIN_PATHS))
+    if unknown:
+        p.error(f"unknown kernel or family: {', '.join(sorted(unknown))}")
+    return args
+
+
 def main() -> None:
+    args = parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -632,15 +670,15 @@ def main() -> None:
                     if "registers" in ln or "spill" in ln
                     or ln.startswith("==")]})
 
-    table = check_kernels(dev)
+    table = check_kernels(dev, args.kernels)
     models, counts, totals = {}, {}, {}
-    for name in MAIN_PATHS:
+    for name in args.families:
         models[name], counts[name] = main_path(name, dev, _build.LAUNCHES)
         for kernel, n in counts[name].items():
             totals[kernel] = totals.get(kernel, 0) + n
     for name, row in table.items():
         # the launches of the forward whose times the row sums
-        row["launches"] = counts[ROW_PATH[name]].get(name, 0)
+        row["launches"] = counts.get(ROW_PATH[name], {}).get(name, 0)
         row["launches_all_paths"] = totals.get(name, 0)
     for name, model in models.items():
         throughput(name, model, card)

@@ -124,14 +124,17 @@ def check(t: torch.Tensor, shape: tuple, name: str) -> None:
 
 
 def launch(entry: str, *args) -> None:
-    """Call C entry `entry` with tensors as pointers, ints as int and floats
-    as float, plus the current stream; raise if it reports an error."""
+    """Call C entry `entry` with tensors as pointers (None as NULL), ints
+    as int and floats as float, plus the current stream; raise if it
+    reports an error."""
     lib = library()
     fn = getattr(lib, entry)
     conv = []
     for a in args:
         if isinstance(a, torch.Tensor):
             conv.append(ctypes.c_void_p(a.data_ptr()))
+        elif a is None:  # a NULL pointer
+            conv.append(ctypes.c_void_p(None))
         elif isinstance(a, int):  # bool included
             conv.append(ctypes.c_int(int(a)))
         elif isinstance(a, float):

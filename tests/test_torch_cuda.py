@@ -98,11 +98,17 @@ def test_dsconv_pair_kernel_matches_twin(gen, dev, c, cm, d1, d2):
                     (*to_torch((xc, xm)), pc, pm), dev)
 
 
-# (Bf, In, H): the full band (Bf = B = 4: the 8 x 8 tile), a ragged
-# sub band (Bf = 1030: the 64 x 32 tile, 17 x 12 blocks), DCCRN's complex
-# LSTM (re and im stacked: Bf = 2B) and CRN's LSTM(1024)
+# (Bf, In, H): the full band (Bf = B = 4: the split-K step), a ragged
+# sub band (Bf = 1030: the tensor-core step, 17 x 24 blocks), DCCRN's
+# complex LSTM (re and im stacked: Bf = 2B) and CRN's LSTM(1024); then the
+# tensor-core step's edges (on 132 SMs): a ragged Bf just above the
+# dispatch threshold (321: 6 x 24 blocks, one row in the last tile) and
+# one just below it (319: 5 x 24, the split-K step), H = 40 (not a
+# multiple of the 16-unit tile) at a ragged Bf of 2900, DPCRN's intra
+# LSTM at B = 32 (Bf = 401 * 32, H = 64), and In = 33 (4-byte copies)
 LSTM_SHAPES = [(4, 257, 512), (1030, 32, 384), (8, 512, 128),
-               (4, 1024, 1024)]
+               (4, 1024, 1024), (321, 32, 384), (319, 32, 384),
+               (2900, 32, 40), (12832, 128, 64), (1030, 33, 384)]
 
 
 @pytest.mark.parametrize("reverse", [False, True])
