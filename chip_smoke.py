@@ -24,13 +24,16 @@ Phases, one JSON line per result:
              card's fp32-accurate tensor-core rate, bytes at HBM's; the
              larger), and as a yardstick the
              port never calls F.scaled_dot_product_attention (attention),
-             cuDNN's LSTM (lstm) and torch.stft, cuFFT (stft, center
-             cases). The single DSConv block, which left the eval path for
-             the pair entry, is checked at the shapes the stage gives it;
-             the LSTM also in reverse and with a ragged batch and a
-             non-zero carry and at phase 5's B = 32 where it takes the
-             tensor-core step, the STFT also with pad_end and valid
-             framing.
+             cuDNN's LSTM (lstm), torch.addmm (lstm_project) and
+             torch.stft, cuFFT (stft, center cases). The single DSConv
+             block, which left the eval path for the pair entry, is checked
+             at the shapes the stage gives it; the LSTM layer also in
+             reverse and with a ragged batch and a non-zero carry, at phase
+             5's B = 32 and 256 on both designs, and on the sub band at
+             T = 506 and 1012; the small fold's two kernels (lstm_project,
+             lstm_recur) also alone, and the recurrence's planned grid
+             against the kernel's shared memory and occupancy; the STFT
+             also with pad_end and valid framing.
              A kernel's row of the table sums the cases of one forward,
              named in its "note": the shapes of the other paths are the
              per-case lines.
@@ -44,7 +47,9 @@ Phases, one JSON line per result:
   5. speed:  fp32 enhance throughput of every family at B = 32 and B = 256
              x 4 s, median audio-seconds/s of 5 timed calls (2 where one
              call takes over 20 s, said so in the line), with peak device
-             memory.
+             memory; where the B = 256 batch takes the tensor-core LSTM
+             step (LSTM, CRN, DPCRN), its last utterance against the CPU
+             on that utterance alone, within 1e-3 * max|cpu|.
   6. profile: torch.profiler over one enhance call of each family at
              B = 32: device time by kernel name and the device's busy share
              of the wall time.
@@ -272,23 +277,31 @@ def pair_cases(gen, dev):
                nbytes(xc, xm, pc, pm, xc, xm), None, True)
 
 
+def lstm_weights(gen, dev, in_dim, h):
+    """wx (In, 4H), wh (H, 4H), b (4H) U(+-1/sqrt(H)) as torch's init."""
+    import torch
+
+    return tuple((torch.rand(*shape, generator=gen) * 2 - 1).mul(h ** -0.5)
+                 .to(dev) for shape in ((in_dim, 4 * h), (h, 4 * h),
+                                        (4 * h,)))
+
+
 def lstm_cases(gen, dev):
     """The four layer calls of a FullSubNet forward at B = 4 (full band
     Bf = 4, sub band Bf = 4 * 257), each also in reverse, and a ragged
     sub-band batch with a non-zero carry; then the layer shapes of the
-    other families at B = 4 and the two that take the tensor-core step at
-    B = 32 (per-case lines, outside the row). Weights
-    U(+-1/sqrt(H)) as torch's init; yardstick: cuDNN's LSTM with the same
+    other families at B = 4, 32 and 256 on both designs (DPCRN's intra
+    LSTM, T = 4, on the tensor-core step also at B = 4 and 5), DCCRN's
+    small fold in reverse and with a carry, and the sub band at T = 506 and
+    1012 (the error against T). The row sums the two sub-band calls, the
+    rest are per-case lines. Yardstick: cuDNN's LSTM with the same
     weights."""
     import torch
 
     def case(label, bf, t_len, in_dim, h, reverse=False, carry=False,
-             in_row=True):
-        bound_w = h ** -0.5
+             in_row=False):
         x = torch.randn(bf, t_len, in_dim, generator=gen).to(dev)
-        wx, wh, b = ((torch.rand(*shape, generator=gen) * 2 - 1).mul(bound_w)
-                     .to(dev) for shape in ((in_dim, 4 * h), (h, 4 * h),
-                                            (4 * h,)))
+        wx, wh, b = lstm_weights(gen, dev, in_dim, h)
         h0 = c0 = None
         if carry:
             h0, c0 = (torch.randn(bf, h, generator=gen).mul(0.5).to(dev)
@@ -308,26 +321,152 @@ def lstm_cases(gen, dev):
                  + (" reverse" if reverse else "") + (" carry" if carry
                                                       else ""))
         return (label, (x, wx, wh, b, reverse, h0, c0), flops, moved,
-                lambda: lib(xl, state), in_row and not (reverse or carry))
+                lambda: lib(xl, state), in_row)
 
     b = B_MAIN
     for bf, (in_dim, h) in zip((b, b, b * FSN_F, b * FSN_F), FSN_LAYERS):
         for reverse in (False, True):
-            yield case("FullSubNet", bf, FSN_T, in_dim, h, reverse)
+            # the row sums the sub band, the calls that take lstm_step_tc
+            yield case("FullSubNet", bf, FSN_T, in_dim, h, reverse,
+                       in_row=bf > b and not reverse)
     yield case("FullSubNet", b * FSN_F + 3, FSN_T, 384, 384, carry=True)
-    for label, bf, t_len, in_dim, h, reverse in (
-            ("DCCRN clstm0", 2 * b, DCCRN_T, 512, 128, False),
-            ("DCCRN clstm1", 2 * b, DCCRN_T, 128, 128, False),
-            ("LSTMNet lstm1", b, T_FRAMES, 161, 1024, False),
-            ("LSTMNet lstm2 / CRN", b, T_FRAMES, 1024, 1024, False),
-            ("GCRN glstm", b, T_FRAMES, 512, 512, False),
-            ("DPCRN intra", b * T_FRAMES, 4, 128, 64, False),
-            ("DPCRN intra", b * T_FRAMES, 4, 128, 64, True),
-            ("DPCRN inter", b * 4, T_FRAMES, 128, 128, False),
-            # the tensor-core step at phase 5's B = 32
-            ("FullSubNet B=32", 32 * FSN_F, FSN_T, 384, 384, False),
-            ("DPCRN intra B=32", 32 * T_FRAMES, 4, 128, 64, False)):
-        yield case(label, bf, t_len, in_dim, h, reverse, in_row=False)
+    for label, bf, t_len, in_dim, h, reverse, carry in (
+            ("DCCRN clstm0", 2 * b, DCCRN_T, 512, 128, False, False),
+            ("DCCRN clstm1", 2 * b, DCCRN_T, 128, 128, False, False),
+            ("DCCRN clstm1", 2 * b, DCCRN_T, 128, 128, True, False),
+            ("DCCRN clstm1", 2 * b, DCCRN_T, 128, 128, False, True),
+            ("LSTMNet lstm1", b, T_FRAMES, 161, 1024, False, False),
+            ("LSTMNet lstm2 / CRN", b, T_FRAMES, 1024, 1024, False, False),
+            ("GCRN glstm", b, T_FRAMES, 512, 512, False, False),
+            # T = 4 < SHORT_T: the tensor-core step, B = 4 and 5
+            ("DPCRN intra", b * T_FRAMES, 4, 128, 64, False, False),
+            ("DPCRN intra", b * T_FRAMES, 4, 128, 64, True, False),
+            ("DPCRN intra B=5", 5 * T_FRAMES, 4, 128, 64, False, False),
+            ("DPCRN inter", b * 4, T_FRAMES, 128, 128, False, False),
+            # phase 5's B = 32: the small fold ...
+            ("LSTMNet lstm2 / CRN B=32", 32, T_FRAMES, 1024, 1024, False,
+             False),
+            ("GCRN glstm B=32", 32, T_FRAMES, 512, 512, False, False),
+            ("DCCRN clstm0 B=32", 64, DCCRN_T, 512, 128, False, False),
+            ("DPCRN inter B=32", 128, T_FRAMES, 128, 128, False, False),
+            # ... and the tensor-core step
+            ("FullSubNet B=32", 32 * FSN_F, FSN_T, 384, 384, False, False),
+            ("DPCRN intra B=32", 32 * T_FRAMES, 4, 128, 64, False, False),
+            # phase 5's B = 256: the small fold ...
+            ("GCRN glstm B=256", 256, T_FRAMES, 512, 512, False, False),
+            ("DPCRN inter B=256", 1024, T_FRAMES, 128, 128, False, False),
+            # ... and the tensor-core step at H = 1024
+            ("LSTMNet lstm1 B=256", 256, T_FRAMES, 161, 1024, False, False),
+            ("LSTMNet lstm2 / CRN B=256", 256, T_FRAMES, 1024, 1024, False,
+             False),
+            # the sub band over longer inputs: error against T
+            ("FullSubNet T=506", b * FSN_F, 2 * FSN_T, 384, 384, False,
+             False),
+            ("FullSubNet T=1012", b * FSN_F, 4 * FSN_T, 384, 384, False,
+             False)):
+        yield case(label, bf, t_len, in_dim, h, reverse, carry)
+
+
+LSTMNET_LAYERS = (("lstm1", 161), ("lstm2", 1024), ("lstm3", 1024))
+
+
+def lstm_project_cases(gen, dev):
+    """The small fold's projection (XP = x . Wx + b over Bf T rows) at the
+    three layer calls of LSTMNet's B = 4 forward, then at DCCRN's, GCRN's
+    and LSTMNet's B = 32 shapes. Yardstick: torch.addmm (cuBLAS)."""
+    import torch
+
+    def case(label, bf, t_len, in_dim, h, in_row):
+        x = torch.randn(bf, t_len, in_dim, generator=gen).to(dev)
+        wx, _, b = lstm_weights(gen, dev, in_dim, h)
+        x2 = x.view(bf * t_len, in_dim)
+        return (f"lstm_project {label} {bf}x{t_len}x{in_dim}->{4 * h}",
+                (x, wx, b), 2.0 * bf * t_len * in_dim * 4 * h,
+                nbytes(x, wx, b) + 4 * bf * t_len * 4 * h,
+                lambda: torch.addmm(b, x2, wx), in_row)
+
+    for label, in_dim in LSTMNET_LAYERS:
+        yield case(f"LSTMNet {label}", B_MAIN, T_FRAMES, in_dim, 1024, True)
+    for label, bf, t_len, in_dim, h in (
+            ("DCCRN clstm0", 2 * B_MAIN, DCCRN_T, 512, 128),
+            ("DCCRN clstm0 B=32", 64, DCCRN_T, 512, 128),
+            ("GCRN glstm B=32", 32, T_FRAMES, 512, 512),
+            ("LSTMNet lstm1 B=32", 32, T_FRAMES, 161, 1024)):
+        yield case(label, bf, t_len, in_dim, h, False)
+
+
+def lstm_recur_cases(gen, dev):
+    """The small fold's persistent recurrence over a given XP at the three
+    layer calls of LSTMNet's B = 4 forward, then DCCRN's (also in reverse
+    and with a carry), GCRN's and LSTMNet's B = 32 and DPCRN's intra at
+    B = 4 (1604 rows, four row chunks a block). No single PyTorch call
+    computes the recurrence alone."""
+    import torch
+
+    def case(label, bf, t_len, h, in_row=False, reverse=False, carry=False):
+        xp = torch.randn(bf, t_len, 4 * h, generator=gen).to(dev)
+        _, wh, _ = lstm_weights(gen, dev, h, h)
+        h0 = c0 = None
+        if carry:
+            h0, c0 = (torch.randn(bf, h, generator=gen).mul(0.5).to(dev)
+                      for _ in range(2))
+        moved = nbytes(xp, wh) + 4 * bf * h * (t_len + 2) + \
+            (nbytes(h0, c0) if carry else 0)
+        return (f"lstm_recur {label} {bf}x{t_len}x{h}"
+                + (" reverse" if reverse else "") + (" carry" if carry
+                                                     else ""),
+                (xp, wh, reverse, h0, c0), 2.0 * bf * t_len * h * 4 * h,
+                moved, None, in_row)
+
+    for label, _ in LSTMNET_LAYERS:
+        yield case(f"LSTMNet {label}", B_MAIN, T_FRAMES, 1024, in_row=True)
+    yield case("DCCRN clstm", 2 * B_MAIN, DCCRN_T, 128)
+    yield case("DCCRN clstm", 2 * B_MAIN, DCCRN_T, 128, reverse=True)
+    yield case("DCCRN clstm", 2 * B_MAIN, DCCRN_T, 128, carry=True)
+    yield case("DCCRN clstm B=32", 64, DCCRN_T, 128)
+    yield case("GCRN glstm B=32", 32, T_FRAMES, 512)
+    yield case("LSTMNet B=32", 32, T_FRAMES, 1024)
+    yield case("DPCRN intra", B_MAIN * T_FRAMES, 4, 64)
+
+
+# (family, In -> H, Bf at B, T) of every LSTM layer call on the seven paths
+LSTM_CALLS = (("FullSubNet full band", 512, lambda b: b, FSN_T),
+              ("FullSubNet sub band", 384, lambda b: FSN_F * b, FSN_T),
+              ("DCCRN clstm", 128, lambda b: 2 * b, DCCRN_T),
+              ("LSTMNet / CRN", 1024, lambda b: b, T_FRAMES),
+              ("GCRN glstm", 512, lambda b: b, T_FRAMES),
+              ("DPCRN intra", 64, lambda b: T_FRAMES * b, 4),
+              ("DPCRN inter", 128, lambda b: 4 * b, T_FRAMES))
+
+
+def check_recur_plans(dev) -> None:
+    """For every small-fold layer call of the seven paths at B = 4, 32 and
+    256: the shared memory ops/lstm.py plans for the recurrence's block is
+    the kernel's, and the occupancy API lets as many blocks share an SM as
+    the plan assumes (else the C entry refuses the launch)."""
+    import torch
+
+    from se_tpu_torch.ops import lstm
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    checked = []
+    for label, h, fold, t_len in LSTM_CALLS:
+        for batch in (4, 32, 256):
+            bf = fold(batch)
+            if lstm.step_variant(bf, t_len, h, sms) != "persistent":
+                continue
+            plan = lstm.persistent_plan(bf, h, sms)
+            smem, per_sm = lstm.recur_fit(h, plan.chunks, dev)
+            checked.append({"call": f"{label} B={batch}", "bf": bf, "h": h,
+                            "plan_smem": plan.smem, "kernel_smem": smem,
+                            "plan_blocks_sm": plan.blocks_sm,
+                            "occupancy_blocks_sm": per_sm})
+            if smem != plan.smem or per_sm < plan.blocks_sm:
+                fail(f"lstm_recur plan for {label} B={batch}: "
+                     f"{checked[-1]}")
+    emit({"phase": "kernel", "kernel": "lstm_recur",
+          "check": "persistent_plan against the kernel's shared memory "
+          "and occupancy", "calls": checked})
 
 
 def stft_cases(gen, dev):
@@ -387,47 +526,67 @@ def check_kernels(dev, only) -> dict:
     )
 
     gen = torch.Generator().manual_seed(1)
-    # name: (kernel, twin, cases, source, replaces, launches per timing,
-    # what the row sums)
+    # name: () -> (kernel, twin, cases, source, replaces, launches per
+    # timing, what the row sums), built only for the kernels asked for, so
+    # the script also measures an older package that lacks a newer kernel
     b4 = f"one B = {B_MAIN} x {SECONDS} s forward"
     kinds = {
-        "attention": (attention.sdp_attention, attention._reference,
-                      attention_cases, "se_tpu_torch/csrc/attention.cu",
-                      "se_tpu/ops/pallas_attention.py:53", 10,
-                      f"the 4 calls of Uformer's {b4}"),
-        "dsconv": (dsconv.dsconv_block, dsconv._reference, dsconv_cases,
-                   "se_tpu_torch/csrc/dsconv.cu",
-                   "se_tpu/ops/pallas_dsconv.py:113", 10,
-                   f"the 16 block shapes of Uformer's {b4} (its stage runs "
-                   "dsconv_pair)"),
-        "dsconv_pair": (dsconv.dsconv_pair_block, dsconv._pair_reference,
-                        pair_cases, "se_tpu_torch/csrc/dsconv.cu",
-                        "se_tpu/ops/pallas_dsconv.py:325", 10,
-                        f"the 8 stages of Uformer's {b4}"),
-        "encoder": (encoder.encoder_level, encoder._reference,
-                    encoder_cases, "se_tpu_torch/csrc/encoder.cu",
-                    "se_tpu/ops/pallas_encoder.py:98", 10,
-                    f"the 6 levels of Uformer's {b4}"),
-        "decoder": (decoder.decoder_level, decoder._reference,
-                    decoder_cases, "se_tpu_torch/csrc/decoder.cu",
-                    "se_tpu/ops/pallas_decoder.py:117", 10,
-                    f"the 6 levels of Uformer's {b4}"),
-        "lstm": (_flat_lstm(lstm.lstm_layer_kernel),
-                 _flat_lstm(lstm._reference), lstm_cases,
-                 "se_tpu_torch/csrc/lstm.cu",
-                 "se_tpu/ops/pallas_lstm.py:60", 2,
-                 f"the 4 layer calls of FullSubNet's {b4}; the other "
-                 "families' layer shapes are per-case lines"),
-        "stft": (stft_fused.stft_fused, stft_fused._reference, stft_cases,
-                 "se_tpu_torch/csrc/stft.cu", "se_tpu/ops/pallas_stft.py:67",
-                 10, f"the 1 call of DCCRN's {b4}; the other presets are "
-                 "per-case lines"),
+        "attention": lambda: (
+            attention.sdp_attention, attention._reference, attention_cases,
+            "se_tpu_torch/csrc/attention.cu",
+            "se_tpu/ops/pallas_attention.py:53", 10,
+            f"the 4 calls of Uformer's {b4}"),
+        "dsconv": lambda: (
+            dsconv.dsconv_block, dsconv._reference, dsconv_cases,
+            "se_tpu_torch/csrc/dsconv.cu", "se_tpu/ops/pallas_dsconv.py:113",
+            10, f"the 16 block shapes of Uformer's {b4} (its stage runs "
+            "dsconv_pair)"),
+        "dsconv_pair": lambda: (
+            dsconv.dsconv_pair_block, dsconv._pair_reference, pair_cases,
+            "se_tpu_torch/csrc/dsconv.cu", "se_tpu/ops/pallas_dsconv.py:325",
+            10, f"the 8 stages of Uformer's {b4}"),
+        "encoder": lambda: (
+            encoder.encoder_level, encoder._reference, encoder_cases,
+            "se_tpu_torch/csrc/encoder.cu", "se_tpu/ops/pallas_encoder.py:98",
+            10, f"the 6 levels of Uformer's {b4}"),
+        "decoder": lambda: (
+            decoder.decoder_level, decoder._reference, decoder_cases,
+            "se_tpu_torch/csrc/decoder.cu",
+            "se_tpu/ops/pallas_decoder.py:117", 10,
+            f"the 6 levels of Uformer's {b4}"),
+        "lstm": lambda: (
+            _flat_lstm(lstm.lstm_layer_kernel), _flat_lstm(lstm._reference),
+            lstm_cases, "se_tpu_torch/csrc/lstm.cu",
+            "se_tpu/ops/pallas_lstm.py:60", 2,
+            "lstm_step_tc, a launch a frame: the 2 sub-band layer calls of "
+            f"FullSubNet's {b4}; its full band takes the small fold (rows "
+            "lstm_project, lstm_recur); every case runs the layer as "
+            "lstm_layer_kernel dispatches it, the other shapes are "
+            "per-case lines"),
+        "lstm_project": lambda: (
+            lstm.lstm_project, lstm._project_reference, lstm_project_cases,
+            "se_tpu_torch/csrc/lstm.cu", "se_tpu/ops/pallas_lstm.py:60", 10,
+            "lstm_proj_tc, the small fold's projection (inside the TPU "
+            f"kernel's body, :44): the 3 layer calls of LSTMNet's {b4}"),
+        "lstm_recur": lambda: (
+            _flat_lstm(lstm.lstm_recur), _flat_lstm(lstm._recur_reference),
+            lstm_recur_cases, "se_tpu_torch/csrc/lstm.cu",
+            "se_tpu/ops/pallas_lstm.py:60", 2,
+            "lstm_recur_persistent, the small fold's time loop in one "
+            f"launch: the 3 layer calls of LSTMNet's {b4}"),
+        "stft": lambda: (
+            stft_fused.stft_fused, stft_fused._reference, stft_cases,
+            "se_tpu_torch/csrc/stft.cu", "se_tpu/ops/pallas_stft.py:67", 10,
+            f"the 1 call of DCCRN's {b4}; the other presets are per-case "
+            "lines"),
     }
+    if "lstm_recur" in only:
+        check_recur_plans(dev)
     table = {}
-    for name, (kernel, twin, cases, source, replaces, reps,
-               note) in kinds.items():
+    for name, kind in kinds.items():
         if name not in only:
             continue
+        kernel, twin, cases, source, replaces, reps, note = kind()
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
                "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
@@ -494,24 +653,32 @@ def seeded(name: str, seed: int):
     return model.eval()
 
 
-# family: the launches a B = 4 forward must show (None: at least one). The
-# LSTM layer calls: FullSubNet 2 + 2; DCCRN 2 complex LSTMs x (real, imag);
-# LSTMNet 1 + 2; CRN 2; GCRN 2 groups x 2 stages; DPCRN (intra 2 layers x 2
-# directions + inter 2 layers) x the block applied twice.
+# family: the launches a B = 4 forward must show (None: at least one; 0:
+# none). The LSTM layer calls: FullSubNet 2 full band (small fold) + 2 sub
+# band (the tensor-core step, `lstm`); DCCRN 2 complex LSTMs x (real,
+# imag); LSTMNet 1 + 2; CRN 2; GCRN 2 groups x 2 stages, all small folds
+# (a projection and a persistent recurrence each); DPCRN x the block
+# applied twice: intra 2 layers x 2 directions over T = 4 bins (the
+# tensor-core step) + inter 2 layers (small fold).
 MAIN_PATHS = {
     "uformer": {"attention": None, "dsconv_pair": 8, "encoder": None,
                 "decoder": None},
-    "fullsubnet": {"lstm": 4, "stft": 1},
-    "dccrn": {"lstm": 4, "stft": 1},
-    "lstm": {"lstm": 3, "stft": 1},
-    "crn": {"lstm": 2, "stft": 1},
-    "gcrn": {"lstm": 4, "stft": 1},
-    "dpcrn": {"lstm": 12, "stft": 1},
+    "fullsubnet": {"lstm": 2, "lstm_project": 2, "lstm_recur": 2,
+                   "stft": 1},
+    "dccrn": {"lstm": 0, "lstm_project": 4, "lstm_recur": 4, "stft": 1},
+    "lstm": {"lstm": 0, "lstm_project": 3, "lstm_recur": 3, "stft": 1},
+    "crn": {"lstm": 0, "lstm_project": 2, "lstm_recur": 2, "stft": 1},
+    "gcrn": {"lstm": 0, "lstm_project": 4, "lstm_recur": 4, "stft": 1},
+    "dpcrn": {"lstm": 8, "lstm_project": 4, "lstm_recur": 4, "stft": 1},
 }
 # kernel: the main path whose B = 4 forward its row of the table sums
 ROW_PATH = {"attention": "uformer", "dsconv": "uformer",
             "dsconv_pair": "uformer", "encoder": "uformer",
-            "decoder": "uformer", "lstm": "fullsubnet", "stft": "dccrn"}
+            "decoder": "uformer", "lstm": "fullsubnet",
+            "lstm_project": "lstm", "lstm_recur": "lstm", "stft": "dccrn"}
+# families whose B = 256 batch takes lstm_step_tc in some layer call:
+# phase 5 checks one of its utterances against the CPU
+TC_BATCH_CHECK = ("lstm", "crn", "dpcrn")
 
 
 def waveforms(batch: int, seed: int):
@@ -521,9 +688,28 @@ def waveforms(batch: int, seed: int):
         (batch, SECONDS * SR)) * 0.1).astype(np.float32)
 
 
+def card_vs_cpu(name: str, est, cpu_model, wav, index: int, check: str):
+    """Utterance `index` of the card's batch output against the same
+    weights run on the CPU on that utterance alone."""
+    import numpy as np
+
+    from se_tpu_torch.eval.enhance import enhance_waveform
+
+    ref = enhance_waveform(name, cpu_model, wav[index:index + 1],
+                           device="cpu")[0]
+    err = float(np.abs(est[index] - ref).max())
+    tol = 1e-3 * float(np.abs(ref).max())
+    emit({"phase": "main", "model": name, "check": check,
+          "max_abs_err": err, "tol": tol})
+    if not err <= tol:
+        fail(f"{name}: {check}: card output differs from the CPU's by "
+             f"{err} > {tol}")
+
+
 def main_path(name: str, dev, launches):
     """Phase 4 for one model: its launch counts and the card against the
-    CPU. Returns the model on the card and the counts."""
+    CPU. Returns the model on the card, the model on the CPU and the
+    counts."""
     import numpy as np
 
     from se_tpu_torch.eval.enhance import enhance_waveform
@@ -540,23 +726,18 @@ def main_path(name: str, dev, launches):
           "shape": list(est.shape)})
     for kernel, want in required.items():
         got = counts.get(kernel, 0)
-        if got <= 0 or (want is not None and got != want):
+        ok = got > 0 if want is None else got == want
+        if not ok:
             fail(f"{name}: a B = {B_MAIN} forward launched {kernel} {got} "
-                 f"times, expected {want or 'at least 1'}")
+                 f"times, expected {'at least 1' if want is None else want}")
     if est.shape != wav.shape or not np.isfinite(est).all():
         fail(f"{name}: enhanced output of shape {est.shape} is not "
              "finite/complete")
-    ref = enhance_waveform(name, cpu_model, wav[:1], device="cpu")[0]
-    err = float(np.abs(est[0] - ref).max())
-    tol = 1e-3 * float(np.abs(ref).max())
-    emit({"phase": "main", "model": name, "check": "card vs cpu, utterance 0",
-          "max_abs_err": err, "tol": tol})
-    if not err <= tol:
-        fail(f"{name}: card output differs from the CPU's by {err} > {tol}")
-    return model, counts
+    card_vs_cpu(name, est, cpu_model, wav, 0, "card vs cpu, utterance 0")
+    return model, cpu_model, counts
 
 
-def throughput(name: str, model, card: str) -> None:
+def throughput(name: str, model, cpu_model, card: str) -> None:
     import torch
 
     from se_tpu_torch.eval.enhance import enhance_waveform
@@ -566,8 +747,13 @@ def throughput(name: str, model, card: str) -> None:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        enhance_waveform(name, model, wav)  # warm-up
+        est = enhance_waveform(name, model, wav)  # warm-up
         warm_s = time.perf_counter() - t0
+        if batch == 256 and name in TC_BATCH_CHECK:
+            card_vs_cpu(name, est, cpu_model, wav, batch - 1,
+                        f"card vs cpu, utterance {batch - 1} of a B = "
+                        f"{batch} batch (lstm_step_tc)")
+        del est
         repeats = 2 if warm_s > SLOW_CALL_S else 5
         times = []
         for _ in range(repeats):
@@ -673,16 +859,18 @@ def main() -> None:
     table = check_kernels(dev, args.kernels)
     models, counts, totals = {}, {}, {}
     for name in args.families:
-        models[name], counts[name] = main_path(name, dev, _build.LAUNCHES)
+        model, cpu_model, counts[name] = main_path(name, dev,
+                                                   _build.LAUNCHES)
+        models[name] = model, cpu_model
         for kernel, n in counts[name].items():
             totals[kernel] = totals.get(kernel, 0) + n
     for name, row in table.items():
         # the launches of the forward whose times the row sums
         row["launches"] = counts.get(ROW_PATH[name], {}).get(name, 0)
         row["launches_all_paths"] = totals.get(name, 0)
-    for name, model in models.items():
-        throughput(name, model, card)
-    for name, model in models.items():
+    for name, (model, cpu_model) in models.items():
+        throughput(name, model, cpu_model, card)
+    for name, (model, _) in models.items():
         profile(name, model, card)
 
     print(card, flush=True)

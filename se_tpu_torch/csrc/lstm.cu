@@ -6,10 +6,7 @@
 // Per frame t, for every row of the folded batch:
 //   gates = x_t . Wx + h_{t-1} . Wh + b          (i, f, g, o: torch's order)
 //   c_t = sigmoid(f) c_{t-1} + sigmoid(i) tanh(g);  h_t = sigmoid(o) tanh(c_t)
-// with h and c in fp32. The input projection x_t . Wx is done inside the
-// kernel: the (T, Bf, 4H) gate tensor never reaches device memory (at
-// FullSubNet's sub-band fold at B = 256 it would be 253 x 65,792 x 1536 x
-// 4 B = 102 GB). `reverse` walks t from T - 1 down by index.
+// with h and c in fp32. `reverse` walks t from T - 1 down by index.
 //
 // Bound on the H100: by operations. A frame costs 2 (In + H) 4H flops a
 // row (sub band, H = 384: 0.64 and 1.18 Mflop for the two layers) on
@@ -17,31 +14,65 @@
 // Done in fp32-accurate 3xTF32 on the tensor cores (below), the least time
 // is the flops over 495 / 3 = 165 TFLOP/s.
 //
-// Design. The TPU kernel walks time inside one call with h and c in VMEM;
-// on the card blocks cannot wait on each other within a launch, so the C
-// entry enqueues one step kernel per frame on the stream, and the stream
-// orders the frames. Each step is a GEMM over K = In + H with the LSTM
-// cell as its epilogue. A block owns a tile of rows x hidden units and
-// computes the four gate columns of each of its units, so the cell update
-// needs no other block's sums; it owns the c entries of its tile for the
-// whole layer, updated in place, and writes h_t to the other half of a
-// ping-pong buffer and to y. x is read in place from (Bf, T, In), h_{t-1}
-// from the ping-pong buffer. Two step kernels; the wrapper
-// (ops/lstm.py `step_variant`) picks one a layer call:
-//   - lstm_step_tc when its grid, ceil(Bf / 64) x ceil(H / 16) blocks, gives
-//     every SM at least one block (on 132 SMs: FullSubNet's sub band from
-//     B = 2, DPCRN's intra BiLSTM from B = 6, LSTMNet's and CRN's H = 1024
-//     from B = 129), or when the split kernel's rows would not fit in
-//     shared memory;
-//   - lstm_step_split otherwise (a small fold: the full band, DCCRN, GCRN,
-//     DPCRN's inter LSTM): 8 rows x 8 units, the 32 gate columns one a
-//     lane, K split over the block's 8 warps and summed in shared memory at
-//     the end. The rows' [x_t | h_{t-1}] sit in shared memory and each lane
-//     streams its weight column from L2 with no barrier inside the K loop,
-//     so a step is one pass over the weights instead of a chain of K tiles,
-//     and a batch of 4 still spreads over H / 8 blocks.
+// Design. The TPU kernel walks time inside one call with h and c in VMEM.
+// The wrapper (ops/lstm.py `step_variant`) picks one of two designs a layer
+// call, by shape:
+//   - the large fold, when ceil(Bf / 64) x ceil(H / 16) step blocks give
+//     every SM at least one (on 132 SMs: FullSubNet's sub band from B = 2,
+//     DPCRN's intra BiLSTM from B = 6, LSTMNet's and CRN's H = 1024 from
+//     B = 129), when the small fold's Wh slices do not fit, or when the
+//     sequence is shorter than ops/lstm.py SHORT_T frames (DPCRN's intra
+//     BiLSTM walks 4 bins: too few frames to repay the small fold's two
+//     launches and packing): one lstm_step_tc launch a frame, enqueued by
+//     one C call, the stream ordering the frames. Each step is a GEMM over K = In + H with the
+//     cell as its epilogue; the projection x_t . Wx is inside it, so the
+//     (T, Bf, 4H) gate tensor never reaches device memory (at FullSubNet's
+//     sub band at B = 256 it would be 253 x 65,792 x 1536 x 4 B = 102 GB).
+//   - the small fold otherwise (the full band, DCCRN, GCRN, DPCRN's inter
+//     LSTM, LSTMNet and CRN up to B = 128): too few rows to fill the card a
+//     frame, so a launch a frame is paced by launch spacing (7.7 us a step
+//     at DCCRN's H = 128, of which cuDNN needs 2.3), and a step that redoes
+//     x_t . Wx streams [Wx; Wh] from L2 every frame (32 MB at H = 1024).
+//     Two launches a layer instead: lstm_proj_tc computes XP = x . Wx + b
+//     for all frames as one GEMM over Bf T rows (the tensor-core step's main
+//     loop with a store epilogue), then lstm_recur_persistent walks the
+//     whole time loop in one cooperative launch, each block's slice of Wh
+//     resident in shared memory and one grid barrier a frame. Here XP may
+//     reach device memory: the small fold has ceil(Bf / 64) ceil(H / 16) <
+//     132, so 4H Bf < 540k floats a frame, at most 1.1 GB at T = 501 (GCRN
+//     at B = 256: 840 MB).
+// Both keep the C entries' contract: h_{t-1} in one half of a ping-pong
+// buffer, h_t written to the other half and to y, c updated in place.
 //
-// lstm_step_tc, the large-fold step, on the tensor cores:
+// lstm_recur_persistent, the small fold's recurrence:
+//   - A block owns 8 hidden units (the 32 packed columns of pack_recurrent,
+//     the i, f, g, o of each unit) for the rows of some 16-row chunks. Its
+//     Wh slice (H x 32 floats: 128 KB at H = 1024) and its c entries stay
+//     in shared memory for the whole layer. A step, per chunk: h_{t-1} of
+//     the 16 rows staged in shared memory, the 3xTF32 product (one m16 tile
+//     x four n8 tiles, K split over 8 warps, the partial sums added in
+//     shared memory), the cell with XP's four gate inputs, read before the
+//     product. Then one grid barrier (cooperative_groups grid sync).
+//   - Grid: ceil(H / 8) unit tiles x ng row groups, ng as large as the
+//     resident blocks allow (ops/lstm.py `persistent_plan`, from the shared
+//     memory a block needs and two blocks an SM at most); the entry checks
+//     the occupancy and cudaLaunchCooperativeKernel refuses a grid that
+//     does not fit, rather than hang at the barrier. H = 1024: 128 blocks of
+//     210 KB, one an SM.
+//   - Traps. h_{t-1} is written by other blocks: read only through L2
+//     (cp.async.cg, __ldcg), never a cached L1 line; the grid sync orders
+//     the writes before it (a fence and the barrier's atomic). h ping-pongs,
+//     so a block writing h_t never races a block still reading h_{t-1}.
+//     XP is indexed by t as x is, so reverse needs nothing else. Rows past
+//     Bf, units past H and K past H are zero in the staged rows and in the
+//     packed slice: no bounds check in the product. A cooperative launch is
+//     stream-ordered, so it waits for the projection (and for any earlier
+//     kernel, under the profiler too). A grid barrier costs about 1-3 us:
+//     the floor of a step here.
+//
+// lstm_step_tc, the large-fold step, on the tensor cores (lstm_proj_tc runs
+// the same main loop, tc_mainloop, over the Bf T rows of x with K = In, the
+// weights from pack_input in torch's column order, and a store epilogue):
 //   - 3xTF32 with mma.sync.m16n8k8 (.tf32, fp32 accumulate). Each operand
 //     v is split into big, v rounded to TF32 (to nearest, ties away from
 //     zero), and small = v - big, exact in fp32; a tile sums small.big +
@@ -84,18 +115,23 @@
 //     wave on 132 SMs. A 128-row tile (two blocks an SM, half the L2 reads
 //     a flop) was no faster at B = 32 and slower at B = 4: the mma issue
 //     rate, not L2, sets the pace (about a third of the card's TF32 peak).
-//   - Not here: wgmma, TMA, clusters, persistent blocks, CUDA graphs, bf16.
-//     A wgmma version takes TF32 only with A and B both K-major in shared
-//     memory: the packed weights already are, and A's [x_t | h_{t-1}] rows
+//   - Not here: wgmma, TMA, clusters, CUDA graphs, bf16. A wgmma version
+//     takes TF32 only with A and B both K-major in shared memory: the
+//     packed weights already are, and A's [x_t | h_{t-1}] rows
 //     are K-contiguous; it needs 64-row warpgroup tiles, the 128-byte
 //     swizzle in place of the padding, and the cell epilogue mapped to
 //     wgmma's accumulator layout.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
+
+constexpr int GROUP_UNITS = 8;  // packed columns: 4 gates x 8 units a run
 
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
@@ -117,16 +153,6 @@ __device__ __forceinline__ void cell(const float* __restrict__ bias,
   c[ci] = cn;
   h_next[ci] = hn;
   y[((size_t)row * T + t) * H + u] = hn;
-}
-
-// Row r, column k of [x_t | h_{t-1}] (0 past the batch or past K).
-__device__ __forceinline__ float a_at(const float* __restrict__ x,
-                                      const float* __restrict__ h_prev,
-                                      int row, int k, int Bf, int T, int In,
-                                      int H, int t) {
-  if (row >= Bf || k >= In + H) return 0.f;
-  return k < In ? x[((size_t)row * T + t) * In + k]
-                : h_prev[(size_t)row * H + (k - In)];
 }
 
 // ------------------------------------------------ tensor-core step (3xTF32)
@@ -201,39 +227,35 @@ __device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// One frame for TM rows x TU units. w: packed (4Hp, Kp), K-major; VEC:
-// 16-byte copies of A (In % 4 == 0, H % 4 == 0, x 16-byte aligned).
+// The 3xTF32 main loop of one TM x TN tile: acc += A[r0 : r0 + TM, :K] .
+// w[col0 : col0 + TN, :K]^T, K = In + H. Row r of A is [x_r,t | h_prev_r]:
+// x (rows, T, In) read at frame t, h_prev (rows, H). w: packed (columns,
+// Kp), K-major, zero-padded to whole tiles; rows past `rows` and K past
+// In + H are zero-filled by the copies. VEC: 16-byte copies of A (In % 4 ==
+// 0, H % 4 == 0, x 16-byte aligned). sm: STAGES x (TM + TN) x LDS floats.
 template <bool VEC>
-__global__ void __launch_bounds__(TC_THREADS, TC_BLOCKS_SM)
-lstm_step_tc(const float* __restrict__ x, const float* __restrict__ w,
-             const float* __restrict__ bias, const float* __restrict__ h_prev,
-             float* __restrict__ h_next, float* __restrict__ c,
-             float* __restrict__ y, int Bf, int T, int In, int H, int Kp,
-             int t) {
-  extern __shared__ __align__(16) float sm[];
+__device__ __forceinline__ void tc_mainloop(
+    float (&acc)[2][4][4], float* sm, const float* __restrict__ x,
+    const float* __restrict__ h_prev, const float* __restrict__ w, int rows,
+    int T, int In, int H, int Kp, int t, int r0, int col0) {
   float* As = sm;                      // STAGES x TM x LDS
   float* Bs = sm + STAGES * TM * LDS;  // STAGES x TN x LDS
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp % WM, wn = warp / WM;
-  const int gid = lane >> 2, tq = lane & 3;  // the mma's group and thread
-  // unit tiles vary fastest: the blocks of one row tile run together and
-  // read its [x_t | h_{t-1}] from L2 (at FullSubNet's B = 256 a frame's A
-  // is 200 MB, the weights 4.7 MB)
-  const int r0 = blockIdx.y * TM, u0 = blockIdx.x * TU;
   const int K = In + H, nk = Kp / TK;
   // a thread's copies: 16-byte chunk cq of rows crow + RSTEP i in every
   // stage (VEC; B always), so their row pointers are set once
   constexpr int CH = TK / 4, RSTEP = TC_THREADS / CH;  // 8 chunks a row
   constexpr int NA = TM / RSTEP, NB = TN / RSTEP;      // rows a thread copies
   const int crow = tid / CH, cq = tid % CH;
-  const float* wq = w + ((size_t)blockIdx.x * TN + crow) * Kp + 4 * cq;
+  const float* wq = w + ((size_t)col0 + crow) * Kp + 4 * cq;
   const float* xrow[NA];
   const float* hrow[NA];
   bool live[NA];
 #pragma unroll
   for (int i = 0; i < NA; ++i) {
     const int row = r0 + crow + i * RSTEP;
-    live[i] = row < Bf;
+    live[i] = row < rows;
     const size_t r = live[i] ? row : 0;
     xrow[i] = x + (r * T + t) * In;
     hrow[i] = h_prev + r * H;
@@ -262,7 +284,7 @@ lstm_step_tc(const float* __restrict__ x, const float* __restrict__ w,
         const int row = r0 + r, k = k0 + kk;
         const float* src = x;
         int bytes = 0;
-        if (row < Bf && k < K) {
+        if (row < rows && k < K) {
           src = k < In ? x + ((size_t)row * T + t) * In + k
                        : h_prev + (size_t)row * H + (k - In);
           bytes = 4;
@@ -272,8 +294,6 @@ lstm_step_tc(const float* __restrict__ x, const float* __restrict__ w,
     }
   };
 
-  // acc[m tile][gate][fragment]: rows gid (+8), units 2 tq (+1)
-  float acc[2][4][4];
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -293,8 +313,8 @@ lstm_step_tc(const float* __restrict__ x, const float* __restrict__ w,
     if (next < nk) load_stage(next, next % STAGES);
     cp_async_commit();
     // ldmatrix row addresses: A's four 8 x 4 matrices are rows +0 / +8,
-    // k +0 / +4 of an m16 tile (a0..a3); B's are k +0 / +4 of gate g, then
-    // of gate g + 1 (b0, b1 of two n8 tiles)
+    // k +0 / +4 of an m16 tile (a0..a3); B's are k +0 / +4 of n8 tile g,
+    // then of tile g + 1 (b0, b1 of two n8 tiles)
     const float* as = As + (kt % STAGES) * TM * LDS +
                       (wm * 32 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
                       (lane >> 4) * 4;
@@ -330,6 +350,29 @@ lstm_step_tc(const float* __restrict__ x, const float* __restrict__ w,
     }
   }
   cp_async_wait<0>();
+}
+
+// One frame for TM rows x TU units: the main loop over [x_t | h_{t-1}],
+// then the cell. w: pack_weights' (4Hp, Kp).
+template <bool VEC>
+__global__ void __launch_bounds__(TC_THREADS, TC_BLOCKS_SM)
+lstm_step_tc(const float* __restrict__ x, const float* __restrict__ w,
+             const float* __restrict__ bias, const float* __restrict__ h_prev,
+             float* __restrict__ h_next, float* __restrict__ c,
+             float* __restrict__ y, int Bf, int T, int In, int H, int Kp,
+             int t) {
+  extern __shared__ __align__(16) float sm[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp % WM, wn = warp / WM;
+  const int gid = lane >> 2, tq = lane & 3;  // the mma's group and thread
+  // unit tiles vary fastest: the blocks of one row tile run together and
+  // read its [x_t | h_{t-1}] from L2 (at FullSubNet's B = 256 a frame's A
+  // is 200 MB, the weights 4.7 MB)
+  const int r0 = blockIdx.y * TM, u0 = blockIdx.x * TU;
+  // acc[m tile][gate][fragment]: rows gid (+8), units 2 tq (+1)
+  float acc[2][4][4];
+  tc_mainloop<VEC>(acc, sm, x, h_prev, w, Bf, T, In, H, Kp, t, r0,
+                   blockIdx.x * TN);
 
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
@@ -346,139 +389,352 @@ lstm_step_tc(const float* __restrict__ x, const float* __restrict__ w,
     }
 }
 
-// Split-K step: RS rows x HS units a block, HS * 4 = 32 gate columns (one a
-// lane), K split over WS warps.
-constexpr int RS = 8, HS = 8, WS = 8;
+// XP = x . Wx + b for all frames at once: the main loop over rows of x
+// (M = Bf T rows, K = In), then a store. w: pack_input's (Np, Kp), torch's
+// column order (no gate interleave: no cell here). A 1-D grid, column
+// tiles fastest, so the blocks of a row tile run together and read it from
+// L2.
+template <bool VEC>
+__global__ void __launch_bounds__(TC_THREADS, TC_BLOCKS_SM)
+lstm_proj_tc(const float* __restrict__ x, const float* __restrict__ w,
+             const float* __restrict__ bias, float* __restrict__ xp, int M,
+             int In, int N, int Kp) {
+  extern __shared__ __align__(16) float sm[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp % WM, wn = warp / WM;
+  const int gid = lane >> 2, tq = lane & 3;
+  const int ncol = (N + TN - 1) / TN;
+  const int col0 = (blockIdx.x % ncol) * TN, r0 = (blockIdx.x / ncol) * TM;
+  float acc[2][4][4];
+  tc_mainloop<VEC>(acc, sm, x, x, w, M, 1, In, 0, Kp, 0, r0, col0);
 
-__global__ void __launch_bounds__(WS * 32)
-lstm_step_split(const float* __restrict__ x, const float* __restrict__ wx,
-                const float* __restrict__ wh, const float* __restrict__ bias,
-                const float* __restrict__ h_prev, float* __restrict__ h_next,
-                float* __restrict__ c, float* __restrict__ y, int Bf, int T,
-                int In, int H, int t) {
-  extern __shared__ float sm[];
-  const int K = In + H;
-  float* A = sm;              // RS x K: the rows' [x_t | h_{t-1}]
-  float* red = sm + RS * K;   // WS x RS x 32: per-warp partial sums
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int r0 = blockIdx.x * RS, j0 = blockIdx.y * HS;
-  for (int e = threadIdx.x; e < RS * K; e += blockDim.x)
-    A[e] = a_at(x, h_prev, r0 + e / K, e % K, Bf, T, In, H, t);
-  __syncthreads();
-
-  // lane -> gate g, unit u: a warp reads 4 runs of HS consecutive floats
-  const int g = lane / HS, u = j0 + lane % HS;
-  float acc[RS];
 #pragma unroll
-  for (int r = 0; r < RS; ++r) acc[r] = 0.f;
-  if (u < H) {
-    const size_t h4 = 4 * (size_t)H, col = (size_t)g * H + u;
-#pragma unroll 8
-    for (int k = w; k < In; k += WS) {
-      const float wv = wx[(size_t)k * h4 + col];
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int r = 0; r < RS; ++r) acc[r] = fmaf(A[r * K + k], wv, acc[r]);
-    }
-#pragma unroll 8
-    for (int k = w; k < H; k += WS) {
-      const float wv = wh[(size_t)k * h4 + col];
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = r0 + wm * 32 + mi * 16 + hh * 8 + gid;
+      if (row >= M) continue;
 #pragma unroll
-      for (int r = 0; r < RS; ++r)
-        acc[r] = fmaf(A[r * K + In + k], wv, acc[r]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < RS; ++r) red[(w * RS + r) * 32 + lane] = acc[r];
-  __syncthreads();
-
-  if (threadIdx.x < RS * HS) {
-    const int r = threadIdx.x / HS, ul = threadIdx.x % HS;
-    const int row = r0 + r, uu = j0 + ul;
-    if (row < Bf && uu < H) {
-      float gs[4];
-#pragma unroll
-      for (int gg = 0; gg < 4; ++gg) {
-        float s = 0.f;
-#pragma unroll
-        for (int ww = 0; ww < WS; ++ww)
-          s += red[(ww * RS + r) * 32 + gg * HS + ul];
-        gs[gg] = s;
+      for (int g = 0; g < 4; ++g) {
+        // N = 4H is even and col is: a float2 stays inside the row
+        const int col = col0 + wn * 32 + g * 8 + 2 * tq;
+        if (col < N)
+          *reinterpret_cast<float2*>(xp + (size_t)row * N + col) =
+              make_float2(acc[mi][g][hh * 2] + bias[col],
+                          acc[mi][g][hh * 2 + 1] + bias[col + 1]);
       }
-      cell(bias, c, h_next, y, gs[0], gs[1], gs[2], gs[3], row, uu, T, H, t);
     }
+}
+
+// ------------------------------------ persistent recurrence (small fold)
+
+constexpr int PU = GROUP_UNITS;  // hidden units a block: 4 PU packed columns
+constexpr int PR = 16;           // rows a chunk: one m16 tile
+constexpr int PWARPS = 8;        // K split over the block's warps
+constexpr int P_THREADS = 32 * PWARPS;
+constexpr int P_BLOCKS_SM = 2;   // register cap (__launch_bounds__)
+constexpr int RED_LD = 4 * PU + 4;  // partial-sum row stride, floats
+
+// Dynamic shared memory of lstm_recur_persistent (ops/lstm.py
+// `persistent_plan` computes the same; through se_lstm_recur_fit the card
+// tests and chip_smoke.py check that the two agree): the Wh slice and the
+// staged h rows, both with rows of Hk + 4 floats (conflict-free ldmatrix),
+// the warps' partial sums, and the block's c.
+size_t persistent_smem(int Hk, int chunks) {
+  return ((size_t)(4 * PU + PR) * (Hk + 4) + (size_t)PWARPS * PR * RED_LD +
+          (size_t)chunks * PR * PU) *
+         sizeof(float);
+}
+
+// The whole time loop of one layer, one cooperative launch. Block b owns
+// units ut * PU .. + PU (ut = b % nu) of the rows of chunks g, g + ng, ...
+// (g = b / nu, chunks of PR rows). Its slice of Wh, whp rows 4 PU ut .. +
+// 4 PU (pack_recurrent: the i, f, g, o columns of its PU units, K-major,
+// zero-padded to Hk), sits in shared memory for the whole layer, and so do
+// its c entries. A step, per chunk: stage h_{t-1} of the chunk's rows
+// (cp.async.cg: from L2, never a stale L1 line), the 3xTF32 product over
+// K = Hk split over the warps, the partial sums through shared memory, the
+// cell (thread tid < PR PU owns row tid / PU, unit tid % PU) with the
+// gate inputs xp read ahead; h_t goes to the other half of hbuf and to y.
+// Then one grid barrier: every block's h_t is written before any block
+// reads it.
+template <bool VEC>
+__global__ void __launch_bounds__(P_THREADS, P_BLOCKS_SM)
+lstm_recur_persistent(const float* __restrict__ xp,
+                      const float* __restrict__ whp, float* __restrict__ hbuf,
+                      float* __restrict__ c, float* __restrict__ y, int Bf,
+                      int T, int H, int Hk, int ng, int reverse) {
+  extern __shared__ __align__(16) float sm[];
+  const int ld = Hk + 4;
+  float* Ws = sm;                            // 4 PU x ld
+  float* As = Ws + 4 * PU * ld;              // PR x ld
+  float* red = As + PR * ld;                 // PWARPS x PR x RED_LD
+  float* cs = red + PWARPS * PR * RED_LD;    // chunks x PR x PU
+  const int nu = (H + PU - 1) / PU, nr = (Bf + PR - 1) / PR;
+  const int ut = blockIdx.x % nu, g0 = blockIdx.x / nu;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tq = lane & 3;
+  const size_t half = (size_t)Bf * H, H4 = 4 * (size_t)H;
+  // the cell's thread: row er of a chunk, unit eu of the block
+  const int er = tid / PU, eu = tid % PU, unit = ut * PU + eu;
+  const bool cell_thread = tid < PR * PU && unit < H;
+
+  const int q4 = Hk / 4;  // 16-byte chunks a row
+  const float* wsrc = whp + (size_t)ut * 4 * PU * Hk;
+  for (int e = tid; e < 4 * PU * q4; e += P_THREADS)
+    cp_async16(Ws + (e / q4) * ld + 4 * (e % q4),
+               wsrc + (size_t)(e / q4) * Hk + 4 * (e % q4), 16);
+  cp_async_commit();
+  for (int q = g0, j = 0; q < nr; q += ng, ++j) {
+    const int row = q * PR + er;
+    if (tid < PR * PU)
+      cs[j * PR * PU + tid] =
+          cell_thread && row < Bf ? c[(size_t)row * H + unit] : 0.f;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // ldmatrix row addresses, as in tc_mainloop: A's m16 tile, B's n8 tiles
+  // g and g + 1
+  const float* as = As + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld +
+                    (lane >> 4) * 4;
+  const float* bs = Ws + ((lane >> 4) * 8 + (lane & 7)) * ld +
+                    ((lane >> 3) & 1) * 4;
+  cg::grid_group grid = cg::this_grid();
+  for (int s = 0; s < T; ++s) {
+    const int t = reverse ? T - 1 - s : s;
+    const float* hp = hbuf + (size_t)(s & 1) * half;
+    float* hn = hbuf + (size_t)((s + 1) & 1) * half;
+    for (int q = g0, j = 0; q < nr; q += ng, ++j) {
+      const int r0 = q * PR, row = r0 + er;
+      const bool live = cell_thread && row < Bf;
+      float xg[4] = {0.f, 0.f, 0.f, 0.f};
+      if (live) {
+        const float* p = xp + ((size_t)row * T + t) * H4 + unit;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) xg[g] = __ldg(p + g * H);
+      }
+      // h_{t-1} of rows r0 .. r0 + PR, zero past Bf and past H
+      if (VEC) {
+        for (int e = tid; e < PR * q4; e += P_THREADS) {
+          const int r = e / q4, k = 4 * (e % q4);
+          const bool in = r0 + r < Bf && k < H;
+          cp_async16(As + r * ld + k,
+                     in ? hp + (size_t)(r0 + r) * H + k : hp, in ? 16 : 0);
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
+      } else {
+        for (int e = tid; e < PR * Hk; e += P_THREADS) {
+          const int r = e / Hk, k = e % Hk;
+          As[r * ld + k] = r0 + r < Bf && k < H
+                               ? __ldcg(hp + (size_t)(r0 + r) * H + k)
+                               : 0.f;
+        }
+      }
+      __syncthreads();
+
+      float acc[4][4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[g][i] = 0.f;
+      for (int kk = warp * 8; kk < Hk; kk += PWARPS * 8) {
+        uint32_t a[4], b[4][2], a_big[4], a_small[4], b_big[4][2],
+            b_small[4][2];
+        ldsm_x4(a, as + kk);
+        ldsm_x4(b[0], bs + kk);
+        ldsm_x4(b[2], bs + 16 * ld + kk);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          split_tf32(__uint_as_float(a[i]), a_big[i], a_small[i]);
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            split_tf32(__uint_as_float(b[g][i]), b_big[g][i], b_small[g][i]);
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          mma_tf32(acc[g], a_small, b_big[g]);
+          mma_tf32(acc[g], a_big, b_small[g]);
+          mma_tf32(acc[g], a_big, b_big[g]);
+        }
+      }
+      // acc[g]: rows gid (+8), packed columns g PU + 2 tq (+1)
+      float* rw = red + warp * PR * RED_LD;
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          rw[(gid + (i >> 1) * 8) * RED_LD + g * PU + 2 * tq + (i & 1)] =
+              acc[g][i];
+      __syncthreads();  // the partial sums are in; As may be restaged
+
+      if (live) {
+        float gs[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          float sum = xg[g];
+#pragma unroll
+          for (int w = 0; w < PWARPS; ++w)
+            sum += red[(w * PR + er) * RED_LD + g * PU + eu];
+          gs[g] = sum;
+        }
+        float& cc = cs[j * PR * PU + tid];
+        const float cn = sigmoidf(gs[1]) * cc + sigmoidf(gs[0]) * tanhf(gs[2]);
+        const float hv = sigmoidf(gs[3]) * tanhf(cn);
+        cc = cn;
+        hn[(size_t)row * H + unit] = hv;
+        y[((size_t)row * T + t) * H + unit] = hv;
+      }
+    }
+    if (s + 1 < T) grid.sync();  // h_t of every block in before step s + 1
+  }
+  for (int q = g0, j = 0; q < nr; q += ng, ++j) {
+    const int row = q * PR + er;
+    if (cell_thread && row < Bf)
+      c[(size_t)row * H + unit] = cs[j * PR * PU + tid];
   }
 }
 
-// Enqueue the T step kernels; `step(h_prev, h_next, t)` launches one.
-template <class Step>
-int run_layer(Step step, float* hbuf, int Bf, int T, int H, int reverse) {
-  const size_t half = (size_t)Bf * H;
-  for (int s = 0; s < T; ++s) {
-    step(hbuf + (s & 1) * half, hbuf + ((s + 1) & 1) * half,
-         reverse ? T - 1 - s : s);
-    if (s == 0) {
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-    }
-  }
-  return (int)cudaGetLastError();
+template <class K>
+cudaError_t max_smem(K kernel, size_t bytes) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  return err;
 }
 
 template <bool VEC>
 int run_tc(const float* x, const float* wp, const float* b, float* hbuf,
            float* c, float* y, int Bf, int T, int In, int H, int Hp, int Kp,
            int reverse, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_step_tc<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      TC_SMEM);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(lstm_step_tc<VEC>,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               (int)cudaSharedmemCarveoutMaxShared);
+  cudaError_t err = max_smem(lstm_step_tc<VEC>, TC_SMEM);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(Hp / TU, (Bf + TM - 1) / TM);
-  return run_layer(
-      [&](const float* hp, float* hn, int t) {
-        lstm_step_tc<VEC><<<grid, TC_THREADS, TC_SMEM, st>>>(
-            x, wp, b, hp, hn, c, y, Bf, T, In, H, Kp, t);
-      },
-      hbuf, Bf, T, H, reverse);
+  const size_t half = (size_t)Bf * H;
+  for (int s = 0; s < T; ++s) {
+    lstm_step_tc<VEC><<<grid, TC_THREADS, TC_SMEM, st>>>(
+        x, wp, b, hbuf + (s & 1) * half, hbuf + ((s + 1) & 1) * half, c, y,
+        Bf, T, In, H, Kp, reverse ? T - 1 - s : s);
+    if (s == 0 && (err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <bool VEC>
+int run_proj(const float* x, const float* wp, const float* b, float* xp,
+             int M, int In, int N, int Kp, cudaStream_t st) {
+  cudaError_t err = max_smem(lstm_proj_tc<VEC>, TC_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const long blocks = (long)((N + TN - 1) / TN) * ((M + TM - 1) / TM);
+  lstm_proj_tc<VEC><<<(unsigned)blocks, TC_THREADS, TC_SMEM, st>>>(
+      x, wp, b, xp, M, In, N, Kp);
+  return (int)cudaGetLastError();
+}
+
+template <bool VEC>
+int run_recur(const float* xp, const float* whp, float* hbuf, float* c,
+              float* y, int Bf, int T, int H, int Hk, int ng, int reverse,
+              cudaStream_t st) {
+  const int nu = (H + PU - 1) / PU, nr = (Bf + PR - 1) / PR;
+  const unsigned blocks = (unsigned)nu * ng;
+  const size_t smem = persistent_smem(Hk, (nr + ng - 1) / ng);
+  auto kernel = lstm_recur_persistent<VEC>;
+  cudaError_t err = max_smem(kernel, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        P_THREADS, smem);
+  if (err != cudaSuccess) return (int)err;
+  // every block resident, or the grid barrier would never open
+  if ((long)per_sm * sms < (long)blocks)
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {(void*)&xp, (void*)&whp, (void*)&hbuf, (void*)&c,
+                  (void*)&y,  (void*)&Bf,  (void*)&T,    (void*)&H,
+                  (void*)&Hk, (void*)&ng,  (void*)&reverse};
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks),
+                                    dim3(P_THREADS), args, smem, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x (Bf, T, In), wx (In, 4H), wh (H, 4H), b (4H); hbuf (2, Bf, H) with h0
-// in its first half; c (Bf, H) holding c0, updated in place; y (Bf, T, H).
-// wp: NULL for the split-K step, else the tensor-core step's packed
-// weights (4Hp, Kp) (ops/lstm.py `pack_weights`: Hp a multiple of 16 and
-// Kp of 32, neither below H and In + H). After the call h_T is in half
-// T % 2 of hbuf and c_T in c.
-extern "C" int se_lstm_layer(const float* x, const float* wx, const float* wh,
-                             const float* wp, const float* b, float* hbuf,
-                             float* c, float* y, int Bf, int T, int In, int H,
-                             int Hp, int Kp, int reverse, void* stream) {
+// The large fold, one lstm_step_tc a frame. x (Bf, T, In); wp: pack_weights'
+// (4Hp, Kp) (Hp a multiple of 16 and Kp of 32, neither below H and In + H);
+// b (4H); hbuf (2, Bf, H) with h0 in its first half; c (Bf, H) holding c0,
+// updated in place; y (Bf, T, H). After the call h_T is in half T % 2 of
+// hbuf and c_T in c.
+extern "C" int se_lstm_layer(const float* x, const float* wp, const float* b,
+                             float* hbuf, float* c, float* y, int Bf, int T,
+                             int In, int H, int Hp, int Kp, int reverse,
+                             void* stream) {
+  if (Hp % TU != 0 || Hp < H || Kp % TK != 0 || Kp < In + H)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = In % 4 == 0 && H % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (wp != nullptr) {
-    if (Hp % TU != 0 || Hp < H || Kp % TK != 0 || Kp < In + H)
-      return (int)cudaErrorInvalidValue;
-    const bool vec = In % 4 == 0 && H % 4 == 0 &&
-                     reinterpret_cast<uintptr_t>(x) % 16 == 0;
-    return vec ? run_tc<true>(x, wp, b, hbuf, c, y, Bf, T, In, H, Hp, Kp,
-                              reverse, st)
-               : run_tc<false>(x, wp, b, hbuf, c, y, Bf, T, In, H, Hp, Kp,
-                               reverse, st);
-  }
-  const size_t split_smem =
-      ((size_t)RS * (In + H) + (size_t)WS * RS * 32) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_step_split, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)split_smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Bf + RS - 1) / RS, (H + HS - 1) / HS);
-  return run_layer(
-      [&](const float* hp, float* hn, int t) {
-        lstm_step_split<<<grid, WS * 32, split_smem, st>>>(
-            x, wx, wh, b, hp, hn, c, y, Bf, T, In, H, t);
-      },
-      hbuf, Bf, T, H, reverse);
+  return vec ? run_tc<true>(x, wp, b, hbuf, c, y, Bf, T, In, H, Hp, Kp,
+                            reverse, st)
+             : run_tc<false>(x, wp, b, hbuf, c, y, Bf, T, In, H, Hp, Kp,
+                             reverse, st);
+}
+
+// The small fold's projection: xp (M, N) = x (M, In) . Wx + b, N = 4H. wp:
+// pack_input's (Np, Kp), Np = N and Kp = In rounded up to 64 and 32.
+extern "C" int se_lstm_project(const float* x, const float* wp,
+                               const float* b, float* xp, int M, int In,
+                               int N, int Kp, void* stream) {
+  if (Kp % TK != 0 || Kp < In || N % 2 != 0) return (int)cudaErrorInvalidValue;
+  if (M == 0) return 0;
+  const bool vec =
+      In % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  return vec ? run_proj<true>(x, wp, b, xp, M, In, N, Kp, st)
+             : run_proj<false>(x, wp, b, xp, M, In, N, Kp, st);
+}
+
+// The small fold's recurrence over xp (Bf, T, 4H), one cooperative launch:
+// whp pack_recurrent's (4Hk, Hk), Hk = H rounded up to 8; hbuf, c and y as
+// se_lstm_layer's; ng row groups (ops/lstm.py `persistent_plan`), so the
+// grid is ceil(H / 8) ng blocks, every one resident or the call fails.
+extern "C" int se_lstm_recur(const float* xp, const float* whp, float* hbuf,
+                             float* c, float* y, int Bf, int T, int H, int Hk,
+                             int ng, int reverse, void* stream) {
+  const int nr = (Bf + PR - 1) / PR;
+  if (Hk % PU != 0 || Hk < H || ng < 1 || ng > nr)
+    return (int)cudaErrorInvalidValue;
+  if (T == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  return H % 4 == 0
+             ? run_recur<true>(xp, whp, hbuf, c, y, Bf, T, H, Hk, ng,
+                               reverse, st)
+             : run_recur<false>(xp, whp, hbuf, c, y, Bf, T, H, Hk, ng,
+                                reverse, st);
+}
+
+// What se_lstm_recur would ask for at H with `chunks` row chunks a block:
+// the dynamic shared memory of a block (*smem) and the blocks an SM the
+// occupancy API allows at that size (*per_sm). ops/lstm.py `recur_fit`
+// holds its own plan (`persistent_smem`, PERSIST_BLOCKS_SM) against these.
+extern "C" int se_lstm_recur_fit(int H, int Hk, int chunks, long* smem,
+                                 int* per_sm) {
+  if (Hk % PU != 0 || Hk < H || chunks < 1) return (int)cudaErrorInvalidValue;
+  *smem = (long)persistent_smem(Hk, chunks);
+  auto fit = [&](auto kernel) {
+    cudaError_t err = max_smem(kernel, (size_t)*smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                          P_THREADS, *smem);
+    return (int)err;
+  };
+  return H % 4 == 0 ? fit(lstm_recur_persistent<true>)
+                    : fit(lstm_recur_persistent<false>);
 }

@@ -8,8 +8,11 @@ so a changed source builds anew and an unchanged one is loaded as it is.
 
 Every C entry takes its pointers, sizes and the CUDA stream, enqueues its
 kernel(s) on that stream and returns `cudaGetLastError()`; `launch` raises
-on a non-zero code. `LAUNCHES` counts the wrapper calls that launched a
-kernel, by kernel name.
+on a non-zero code. `launch` runs an entry on the device its tensors lie
+on: that device's current stream, and that device made current in the
+library (which links its own CUDA runtime, so `torch.cuda.device` does not
+reach it) before the call. `LAUNCHES` counts the wrapper calls that
+launched a kernel, by kernel name.
 """
 
 from __future__ import annotations
@@ -107,6 +110,8 @@ def library() -> ctypes.CDLL:
         _lib = ctypes.CDLL(str(build()))
         _lib.se_error_string.restype = ctypes.c_char_p
         _lib.se_error_string.argtypes = [ctypes.c_int]
+        _lib.se_set_device.restype = ctypes.c_int
+        _lib.se_set_device.argtypes = [ctypes.c_int]
     return _lib
 
 
@@ -123,10 +128,31 @@ def check(t: torch.Tensor, shape: tuple, name: str) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def launch_device(devices) -> torch.device:
+    """The one CUDA device of a launch's tensors; raise if they span
+    devices or none lies on a CUDA device."""
+    found = set(devices)
+    if len(found) != 1:
+        raise ValueError("a kernel's tensors must lie on one CUDA device, got "
+                         + (", ".join(sorted(map(str, found))) or "none"))
+    (dev,) = found
+    if dev.type != "cuda" or dev.index is None:
+        raise ValueError(f"a kernel's tensors must lie on a CUDA device, "
+                         f"got {dev}")
+    return dev
+
+
+def _check(lib, entry: str, err: int) -> None:
+    if err != 0:
+        msg = lib.se_error_string(err).decode()
+        raise RuntimeError(f"{entry}: CUDA error {err}: {msg}")
+
+
 def launch(entry: str, *args) -> None:
     """Call C entry `entry` with tensors as pointers (None as NULL), ints
-    as int and floats as float, plus the current stream; raise if it
-    reports an error."""
+    as int and floats as float, plus the current stream of the tensors'
+    device, made current first; raise if it reports an error."""
+    dev = launch_device(a.device for a in args if isinstance(a, torch.Tensor))
     lib = library()
     fn = getattr(lib, entry)
     conv = []
@@ -141,12 +167,10 @@ def launch(entry: str, *args) -> None:
             conv.append(ctypes.c_float(a))
         else:
             raise TypeError(f"{entry}: cannot pass {type(a).__name__}")
-    conv.append(ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    conv.append(ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if entry not in _declared:
         fn.argtypes = [type(c) for c in conv]
         fn.restype = ctypes.c_int
         _declared.add(entry)
-    err = fn(*conv)
-    if err != 0:
-        msg = lib.se_error_string(err).decode()
-        raise RuntimeError(f"{entry}: CUDA error {err}: {msg}")
+    _check(lib, "se_set_device", lib.se_set_device(dev.index))
+    _check(lib, entry, fn(*conv))

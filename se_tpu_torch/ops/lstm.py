@@ -4,18 +4,26 @@ plain math `_scan_forward`).
 
 x (Bf, T, In) -> y (Bf, T, H) with torch's gate order (i, f, g, o):
 wx (In, 4H), wh (H, 4H), b (4H,) the combined bias, h and c in fp32. On a
-CUDA tensor `lstm_layer_kernel` launches csrc/lstm.cu (one step kernel a
-frame, enqueued by one C call; the input projection inside the kernel),
-for any Bf, either direction and any initial carry; on a CPU tensor it
-runs `_reference`, the plain twin: the projection as one matmul, then a
-step loop.
+CUDA tensor `lstm_layer_kernel` launches csrc/lstm.cu for any Bf, either
+direction and any initial carry; on a CPU tensor it runs `_reference`, the
+plain twin: `_project_reference` (the projection as one matmul) then
+`_recur_reference` (a step loop).
 
-Two step kernels, chosen per layer call by `step_variant`: the tensor-core
-step (3xTF32 `mma.sync`, weights from `pack_weights`) when its grid gives
-every SM a block, the split-K step otherwise.
+Two designs, chosen per layer call by `step_variant`:
+- "tensor_core", the large fold and short sequences: `lstm_step`, one C
+  call that enqueues a tensor-core step kernel a frame (3xTF32 `mma.sync`,
+  the projection inside each step, weights from `pack_weights`);
+- "persistent", the small fold: `lstm_project` (a tensor-core GEMM for all
+  frames, twin `_project_reference`), then `lstm_recur` (the whole time
+  loop in one cooperative launch, each block's slice of Wh resident in
+  shared memory, grid from `persistent_plan`; twin `_recur_reference`).
+Each of the three wrappers counts its own launches in `_build.LAUNCHES`
+(`lstm`, `lstm_project`, `lstm_recur`).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -23,52 +31,154 @@ import torch.nn.functional as F
 from se_tpu_torch.ops import _build
 
 # the tensor-core step's block: ROW_TILE rows x UNIT_TILE units, K in stages
-# of K_TILE (csrc/lstm.cu TM, TU, TK); the split-K step's rows a block and
-# warps (RS, WS)
+# of K_TILE (csrc/lstm.cu TM, TU, TK); the projection's column tile
 ROW_TILE, UNIT_TILE, K_TILE = 64, 16, 32
-SPLIT_ROWS, SPLIT_WARPS = 8, 8
+COL_TILE = 4 * UNIT_TILE
 # packed columns run in groups of 8 units x the 4 gates (the mma's n8 tile)
 GROUP = 8
-# shared memory a block may opt into on sm_90 (the only target built)
-SMEM_OPTIN = 232448
+# the persistent recurrence (csrc/lstm.cu PU, PR, PWARPS, P_BLOCKS_SM,
+# RED_LD): GROUP units a block, rows in chunks of PERSIST_ROWS, K over
+# PERSIST_WARPS warps, at most PERSIST_BLOCKS_SM blocks an SM
+PERSIST_ROWS, PERSIST_WARPS, PERSIST_BLOCKS_SM = 16, 8, 2
+RED_LD = 4 * GROUP + 4
+# shared memory a block may opt into on sm_90 (the only target built), and
+# an SM's for its resident blocks, each of which also holds 1 KB reserved
+SMEM_OPTIN, SMEM_SM, SMEM_RESERVED = 232448, 233472, 1024
+# sequences shorter than this take the tensor-core step even in a small
+# fold: their few frames do not repay the persistent design's fixed cost
+# (two launches, packing Wx and Wh, the occupancy query); measured by
+# lstm_dispatch_sweep.py
+SHORT_T = 16
 
 
 def _ceil_to(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def step_variant(bf: int, in_dim: int, h_dim: int, sms: int) -> str:
-    """The step a layer call takes: "tensor_core" when that step's grid
-    gives each of `sms` SMs at least one block, or when the split-K step's
-    rows would not fit in shared memory; "split" otherwise."""
+class Plan(NamedTuple):
+    """The persistent recurrence's grid: `units` unit tiles x `row_groups`
+    row groups; block b owns unit tile b % units and the row chunks
+    b // units + row_groups j; `chunks` a block at most, `smem` bytes a
+    block, `blocks_sm` resident blocks an SM assumed."""
+    units: int
+    row_groups: int
+    chunks: int
+    smem: int
+    blocks_sm: int
+
+    @property
+    def blocks(self) -> int:
+        return self.units * self.row_groups
+
+
+def persistent_smem(h_dim: int, chunks: int) -> int:
+    """csrc/lstm.cu `persistent_smem`: the Wh slice and the staged rows
+    (Hk + 4 floats a row), the warps' partial sums and the block's c."""
+    ld = _ceil_to(h_dim, GROUP) + 4
+    return 4 * ((4 * GROUP + PERSIST_ROWS) * ld
+                + PERSIST_WARPS * PERSIST_ROWS * RED_LD
+                + chunks * PERSIST_ROWS * GROUP)
+
+
+def persistent_plan(bf: int, h_dim: int, sms: int) -> Plan | None:
+    """The largest grid of resident blocks for the small fold's recurrence,
+    or None when even one block an SM cannot hold every unit tile's Wh
+    slice at once (the barrier needs every block resident)."""
+    units = -(-h_dim // GROUP)
+    chunks_total = -(-bf // PERSIST_ROWS)
+    for blocks_sm in range(PERSIST_BLOCKS_SM, 0, -1):
+        groups = min(chunks_total, blocks_sm * sms // units)
+        if groups == 0:
+            return None
+        chunks = -(-chunks_total // groups)
+        smem = persistent_smem(h_dim, chunks)
+        if (smem <= SMEM_OPTIN
+                and blocks_sm * (smem + SMEM_RESERVED) <= SMEM_SM):
+            return Plan(units, groups, chunks, smem, blocks_sm)
+    return None
+
+
+def step_variant(bf: int, t_len: int, h_dim: int, sms: int) -> str:
+    """The design a layer call takes: "persistent" when the tensor-core
+    step's grid would leave some of the `sms` SMs without a block, the
+    sequence has at least SHORT_T frames and the recurrence's Wh slices fit
+    the resident blocks; "tensor_core" otherwise."""
     tc_blocks = -(-bf // ROW_TILE) * -(-h_dim // UNIT_TILE)
-    split_smem = (SPLIT_ROWS * (in_dim + h_dim)
-                  + SPLIT_WARPS * SPLIT_ROWS * 32) * 4
-    if tc_blocks < sms and split_smem <= SMEM_OPTIN:
-        return "split"
+    if (tc_blocks < sms and t_len >= SHORT_T
+            and persistent_plan(bf, h_dim, sms) is not None):
+        return "persistent"
     return "tensor_core"
 
 
-def pack_weights(wx: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
-    """[Wx; Wh] (K = In + H, 4H) -> (4Hp, Kp), K-major, for the tensor-core
-    step: packed column (u // 8) * 32 + g * 8 + u % 8 is gate g of unit u,
-    so each 32 columns hold the i, f, g, o columns of 8 units. Hp = H and
-    Kp = K rounded up to UNIT_TILE and K_TILE, the padding zero."""
-    in_dim, h_dim = wx.shape[0], wh.shape[0]
-    k = in_dim + h_dim
-    hp, kp = _ceil_to(h_dim, UNIT_TILE), _ceil_to(k, K_TILE)
-    w = F.pad(torch.cat([wx, wh]).view(k, 4, h_dim), (0, hp - h_dim))
+def recur_fit(h_dim: int, chunks: int, device=None) -> tuple[int, int]:
+    """What csrc/lstm.cu computes for a recurrence of `chunks` row chunks a
+    block at H = `h_dim`: its shared memory a block, and the blocks an SM
+    the occupancy API allows at that size (the C entry refuses a grid
+    larger than this times the SM count). The card's check that
+    `persistent_smem` and PERSIST_BLOCKS_SM agree with the kernel's."""
+    import ctypes
+
+    lib = _build.library()
+    smem, per_sm = ctypes.c_long(0), ctypes.c_int(0)
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    _build._check(lib, "se_set_device", lib.se_set_device(idx))
+    fn = lib.se_lstm_recur_fit
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_long), ctypes.POINTER(ctypes.c_int)]
+    _build._check(lib, "se_lstm_recur_fit",
+                  fn(h_dim, _ceil_to(h_dim, GROUP), chunks,
+                     ctypes.byref(smem), ctypes.byref(per_sm)))
+    return smem.value, per_sm.value
+
+
+def _interleave(w: torch.Tensor, h_dim: int, hp: int, kp: int):
+    """w (K, 4H) -> (4hp, kp), K-major: packed column (u // 8) * 32 +
+    g * 8 + u % 8 is gate g of unit u, the padding zero."""
+    k = w.shape[0]
+    w = F.pad(w.view(k, 4, h_dim), (0, hp - h_dim))
     w = w.view(k, 4, hp // GROUP, GROUP).permute(2, 1, 3, 0)
     return F.pad(w.reshape(4 * hp, k), (0, kp - k)).contiguous()
 
 
-def _reference(x, wx, wh, b, reverse: bool = False, h0=None, c0=None):
-    bf, t_len, _ = x.shape
+def pack_weights(wx: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
+    """[Wx; Wh] (K = In + H, 4H) -> (4Hp, Kp), K-major, for the tensor-core
+    step: each 32 packed columns hold the i, f, g, o columns of 8 units.
+    Hp = H and Kp = K rounded up to UNIT_TILE and K_TILE."""
+    in_dim, h_dim = wx.shape[0], wh.shape[0]
+    return _interleave(torch.cat([wx, wh]), h_dim, _ceil_to(h_dim, UNIT_TILE),
+                       _ceil_to(in_dim + h_dim, K_TILE))
+
+
+def pack_recurrent(wh: torch.Tensor) -> torch.Tensor:
+    """Wh (H, 4H) -> (4Hk, Hk), K-major and interleaved as `pack_weights`,
+    for the persistent recurrence: Hk = H rounded up to 8 (a unit tile and
+    an mma's K)."""
     h_dim = wh.shape[0]
-    xp = torch.matmul(x, wx) + b  # (Bf, T, 4H)
-    h = x.new_zeros(bf, h_dim) if h0 is None else h0
-    c = x.new_zeros(bf, h_dim) if c0 is None else c0
-    ys = x.new_empty(bf, t_len, h_dim)
+    hk = _ceil_to(h_dim, GROUP)
+    return _interleave(wh, h_dim, hk, hk)
+
+
+def pack_input(wx: torch.Tensor) -> torch.Tensor:
+    """Wx (In, 4H) -> (Np, Kp) = Wx^T zero-padded, torch's column order, for
+    the projection: Np = 4H and Kp = In rounded up to COL_TILE and
+    K_TILE."""
+    in_dim, n = wx.shape
+    return F.pad(wx.t(), (0, _ceil_to(in_dim, K_TILE) - in_dim,
+                          0, _ceil_to(n, COL_TILE) - n)).contiguous()
+
+
+def _project_reference(x, wx, b):
+    return torch.matmul(x, wx) + b  # (Bf, T, 4H)
+
+
+def _recur_reference(xp, wh, reverse: bool = False, h0=None, c0=None):
+    bf, t_len, _ = xp.shape
+    h_dim = wh.shape[0]
+    h = xp.new_zeros(bf, h_dim) if h0 is None else h0
+    c = xp.new_zeros(bf, h_dim) if c0 is None else c0
+    ys = xp.new_empty(bf, t_len, h_dim)
     for t in (range(t_len - 1, -1, -1) if reverse else range(t_len)):
         i, f, g, o = (xp[:, t] + torch.matmul(h, wh)).chunk(4, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
@@ -77,13 +187,72 @@ def _reference(x, wx, wh, b, reverse: bool = False, h0=None, c0=None):
     return ys, (h, c)
 
 
-def lstm_layer_kernel(x: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
-                      b: torch.Tensor, reverse: bool = False, h0=None,
-                      c0=None):
-    """-> (ys (Bf, T, H), (h_T, c_T)), h_T/c_T after the last frame walked
-    (frame 0 when `reverse`). h0/c0 (Bf, H) default to zeros."""
+def _reference(x, wx, wh, b, reverse: bool = False, h0=None, c0=None):
+    return _recur_reference(_project_reference(x, wx, b), wh, reverse, h0,
+                            c0)
+
+
+def _state(ref: torch.Tensor, bf: int, h_dim: int, h0, c0):
+    """The C entries' carry buffers: hbuf (2, Bf, H) with h0 in its first
+    half, c (Bf, H) holding c0 (zeros by default)."""
+    hbuf = ref.new_zeros(2, bf, h_dim)
+    if h0 is not None:
+        _build.check(h0, (bf, h_dim), "h0")
+        hbuf[0].copy_(h0)
+    if c0 is not None:
+        _build.check(c0, (bf, h_dim), "c0")
+        c = c0.clone()
+    else:
+        c = ref.new_zeros(bf, h_dim)
+    return hbuf, c
+
+
+def lstm_project(x: torch.Tensor, wx: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """x (Bf, T, In) -> XP = x . wx + b (Bf, T, 4H): csrc/lstm.cu
+    `lstm_proj_tc` on a CUDA tensor."""
     if x.device.type == "cpu":
-        return _reference(x, wx, wh, b, reverse, h0, c0)
+        return _project_reference(x, wx, b)
+    bf, t_len, in_dim = x.shape
+    n = wx.shape[1]
+    _build.check(x, (bf, t_len, in_dim), "x")
+    _build.check(wx, (in_dim, n), "wx")
+    _build.check(b, (n,), "b")
+    xp = x.new_empty(bf, t_len, n)
+    _build.launch("se_lstm_project", x, pack_input(wx), b, xp, bf * t_len,
+                  in_dim, n, _ceil_to(in_dim, K_TILE))
+    _build.LAUNCHES["lstm_project"] += 1
+    return xp
+
+
+def lstm_recur(xp: torch.Tensor, wh: torch.Tensor, reverse: bool = False,
+               h0=None, c0=None):
+    """The recurrence over XP (Bf, T, 4H) -> (ys (Bf, T, H), (h_T, c_T)):
+    csrc/lstm.cu `lstm_recur_persistent` on a CUDA tensor, one cooperative
+    launch; raises when the Wh slices do not fit the resident blocks."""
+    if xp.device.type == "cpu":
+        return _recur_reference(xp, wh, reverse, h0, c0)
+    bf, t_len, _ = xp.shape
+    h_dim = wh.shape[0]
+    if bf == 0:
+        raise ValueError("lstm kernel: empty batch")
+    _build.check(xp, (bf, t_len, 4 * h_dim), "xp")
+    _build.check(wh, (h_dim, 4 * h_dim), "wh")
+    sms = torch.cuda.get_device_properties(xp.device).multi_processor_count
+    plan = persistent_plan(bf, h_dim, sms)
+    if plan is None:
+        raise ValueError(f"lstm_recur: H = {h_dim}'s Wh slices do not fit "
+                         f"the resident blocks of {sms} SMs")
+    hbuf, c = _state(xp, bf, h_dim, h0, c0)
+    ys = xp.new_empty(bf, t_len, h_dim)
+    _build.launch("se_lstm_recur", xp, pack_recurrent(wh), hbuf, c, ys, bf,
+                  t_len, h_dim, _ceil_to(h_dim, GROUP), plan.row_groups,
+                  bool(reverse))
+    _build.LAUNCHES["lstm_recur"] += 1
+    return ys, (hbuf[t_len % 2], c)
+
+
+def _check_layer(x, wx, wh, b):
     bf, t_len, in_dim = x.shape
     h_dim = wh.shape[0]
     if bf == 0:
@@ -92,22 +261,37 @@ def lstm_layer_kernel(x: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
     _build.check(wx, (in_dim, 4 * h_dim), "wx")
     _build.check(wh, (h_dim, 4 * h_dim), "wh")
     _build.check(b, (4 * h_dim,), "b")
-    hbuf = x.new_zeros(2, bf, h_dim)
-    if h0 is not None:
-        _build.check(h0, (bf, h_dim), "h0")
-        hbuf[0].copy_(h0)
-    if c0 is not None:
-        _build.check(c0, (bf, h_dim), "c0")
-        c = c0.clone()
-    else:
-        c = x.new_zeros(bf, h_dim)
+
+
+def lstm_step(x: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
+              b: torch.Tensor, reverse: bool = False, h0=None, c0=None):
+    """The layer on the tensor-core step: csrc/lstm.cu `lstm_step_tc` a
+    frame, enqueued by one C call, on a CUDA tensor."""
+    if x.device.type == "cpu":
+        return _reference(x, wx, wh, b, reverse, h0, c0)
+    _check_layer(x, wx, wh, b)
+    bf, t_len, in_dim = x.shape
+    h_dim = wh.shape[0]
+    hbuf, c = _state(x, bf, h_dim, h0, c0)
     ys = x.new_empty(bf, t_len, h_dim)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    wp = None
-    if step_variant(bf, in_dim, h_dim, sms) == "tensor_core":
-        wp = pack_weights(wx, wh)
-    _build.launch("se_lstm_layer", x, wx, wh, wp, b, hbuf, c, ys, bf, t_len,
-                  in_dim, h_dim, _ceil_to(h_dim, UNIT_TILE),
+    _build.launch("se_lstm_layer", x, pack_weights(wx, wh), b, hbuf, c, ys,
+                  bf, t_len, in_dim, h_dim, _ceil_to(h_dim, UNIT_TILE),
                   _ceil_to(in_dim + h_dim, K_TILE), bool(reverse))
     _build.LAUNCHES["lstm"] += 1
     return ys, (hbuf[t_len % 2], c)
+
+
+def lstm_layer_kernel(x: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
+                      b: torch.Tensor, reverse: bool = False, h0=None,
+                      c0=None):
+    """-> (ys (Bf, T, H), (h_T, c_T)), h_T/c_T after the last frame walked
+    (frame 0 when `reverse`). h0/c0 (Bf, H) default to zeros. On a CUDA
+    tensor, the design `step_variant` names for the shape."""
+    if x.device.type == "cpu":
+        return _reference(x, wx, wh, b, reverse, h0, c0)
+    _check_layer(x, wx, wh, b)
+    bf, t_len, _ = x.shape
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    if step_variant(bf, t_len, wh.shape[0], sms) == "persistent":
+        return lstm_recur(lstm_project(x, wx, b), wh, reverse, h0, c0)
+    return lstm_step(x, wx, wh, b, reverse, h0, c0)

@@ -98,23 +98,32 @@ def test_dsconv_pair_kernel_matches_twin(gen, dev, c, cm, d1, d2):
                     (*to_torch((xc, xm)), pc, pm), dev)
 
 
-# (Bf, In, H): the full band (Bf = B = 4: the split-K step), a ragged
-# sub band (Bf = 1030: the tensor-core step, 17 x 24 blocks), DCCRN's
-# complex LSTM (re and im stacked: Bf = 2B) and CRN's LSTM(1024); then the
-# tensor-core step's edges (on 132 SMs): a ragged Bf just above the
-# dispatch threshold (321: 6 x 24 blocks, one row in the last tile) and
-# one just below it (319: 5 x 24, the split-K step), H = 40 (not a
-# multiple of the 16-unit tile) at a ragged Bf of 2900, DPCRN's intra
-# LSTM at B = 32 (Bf = 401 * 32, H = 64), and In = 33 (4-byte copies)
+# (Bf, In, H) on 132 SMs. The small fold (the projection kernel, then the
+# persistent recurrence): the full band (Bf = B = 4), DCCRN's complex LSTM
+# (re and im stacked: Bf = 2B), CRN's LSTM(1024) at B = 4 and 32 (one block
+# an SM, two row chunks at 32), a Bf of 319 just below the tensor-core
+# threshold (5 x 24 blocks), DPCRN's intra LSTM at B = 4 (Bf = 1604: many
+# row chunks a block), H = 20 (4-byte staging) and H = 44 (a zero-filled
+# 16-byte chunk). The tensor-core step (one launch a frame): a ragged sub
+# band (Bf = 1030, 17 x 24 blocks), a ragged Bf just above the threshold
+# (321: 6 x 24 blocks, one row in the last tile), H = 40 (not a multiple of
+# the 16-unit tile) at a ragged Bf of 2900, DPCRN's intra LSTM at B = 32
+# (Bf = 401 * 32, H = 64), In = 33 (4-byte copies), and LSTMNet's two
+# layers at B = 256 (In = 161: 4-byte copies, K = 1185; then K = 2048).
+# T_LONG frames, so the small-fold shapes take the small fold (shorter
+# sequences take the tensor-core step whatever the fold).
+T_LONG = lstm.SHORT_T + 3
 LSTM_SHAPES = [(4, 257, 512), (1030, 32, 384), (8, 512, 128),
                (4, 1024, 1024), (321, 32, 384), (319, 32, 384),
-               (2900, 32, 40), (12832, 128, 64), (1030, 33, 384)]
+               (2900, 32, 40), (12832, 128, 64), (1030, 33, 384),
+               (256, 161, 1024), (256, 1024, 1024), (32, 1024, 1024),
+               (1604, 128, 64), (30, 12, 20), (19, 33, 44)]
 
 
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("bf,in_dim,h", LSTM_SHAPES)
 def test_lstm_kernel_matches_twin(gen, dev, reverse, bf, in_dim, h):
-    x, wx, wh, b = lstm_inputs(gen, bf, 12, in_dim, h)
+    x, wx, wh, b = lstm_inputs(gen, bf, T_LONG, in_dim, h)
     wx, wh = wx * (in_dim + h) ** -0.5 * 5, wh * (in_dim + h) ** -0.5 * 5
     _kernel_vs_twin(lambda *a: _flat(lstm.lstm_layer_kernel(*a, reverse)),
                     to_torch((x, wx, wh, b)), dev)
@@ -123,7 +132,7 @@ def test_lstm_kernel_matches_twin(gen, dev, reverse, bf, in_dim, h):
 @pytest.mark.parametrize("bf,in_dim,h", LSTM_SHAPES)
 def test_lstm_kernel_carry_matches_twin(gen, dev, bf, in_dim, h):
     """Non-zero h0/c0 in, (h_T, c_T) out."""
-    x, wx, wh, b = lstm_inputs(gen, bf, 7, in_dim, h)
+    x, wx, wh, b = lstm_inputs(gen, bf, T_LONG, in_dim, h)
     wx, wh = wx * (in_dim + h) ** -0.5 * 5, wh * (in_dim + h) ** -0.5 * 5
     h0, c0 = rand(gen, bf, h, scale=0.5), rand(gen, bf, h, scale=0.5)
     args = to_torch((x, wx, wh, b))
@@ -135,6 +144,69 @@ def test_lstm_kernel_carry_matches_twin(gen, dev, bf, in_dim, h):
 def _flat(out):
     ys, (h, c) = out
     return ys, h, c
+
+
+@pytest.mark.parametrize("bf,t,in_dim,h", [(8, 12, 512, 128), (37, 5, 161, 20),
+                                           (3, 70, 33, 44)])
+def test_lstm_project_kernel_matches_twin(gen, dev, bf, t, in_dim, h):
+    """Bf T = 96, 185 and 210 rows: ragged 64-row tiles; In = 161 and 33:
+    4-byte copies; 4H = 80 and 176: ragged 64-column tiles."""
+    x, wx, _, b = lstm_inputs(gen, bf, t, in_dim, h)
+    _kernel_vs_twin(lstm.lstm_project, to_torch((x, wx, b)), dev)
+
+
+@pytest.mark.parametrize("reverse,carry", [(False, False), (True, False),
+                                           (False, True)])
+@pytest.mark.parametrize("bf,h", [(8, 128), (4, 1024), (1604, 64), (30, 20)])
+def test_lstm_recur_kernel_matches_twin(gen, dev, reverse, carry, bf, h):
+    xp = rand(gen, bf, 9, 4 * h)
+    wh = rand(gen, h, 4 * h, scale=0.2) * h ** -0.5 * 5
+    h0 = c0 = None
+    if carry:
+        h0, c0 = to_torch((rand(gen, bf, h, scale=0.5),
+                           rand(gen, bf, h, scale=0.5)))
+    _kernel_vs_twin(lambda xp, wh, h0, c0: _flat(lstm.lstm_recur(
+        xp, wh, reverse, h0, c0)), (*to_torch((xp, wh)), h0, c0), dev)
+
+
+@pytest.mark.parametrize("bf,t,small", [(8, lstm.SHORT_T, True),
+                                         (8, lstm.SHORT_T - 1, False),
+                                         (1604, 4, False),
+                                         (1030, lstm.SHORT_T, False)])
+def test_lstm_layer_takes_the_design_of_its_shape(gen, dev, bf, t, small):
+    """A small fold over SHORT_T frames or more launches the projection and
+    the recurrence once each and no tensor-core step; a shorter sequence
+    (DPCRN's intra LSTM at B = 4: Bf 1604, T = 4) or a large fold launches
+    the tensor-core step alone. Each wrapper counts only its own launch."""
+    x, wx, wh, b = (a.to(dev) for a in
+                    to_torch(lstm_inputs(gen, bf, t, 32, 384)))
+    before = dict(_build.LAUNCHES)
+    lstm.lstm_layer_kernel(x, wx, wh, b)
+    got = {k: _build.LAUNCHES[k] - before.get(k, 0)
+           for k in ("lstm", "lstm_project", "lstm_recur")}
+    assert got == {"lstm": int(not small), "lstm_project": int(small),
+                   "lstm_recur": int(small)}
+
+
+# (H, Bf) of the small-fold layer calls of the seven paths at B = 4, 32
+# and 256 (tests/test_torch_lstm_tc.py VARIANTS), and the edges H = 20, 44,
+# 1056
+RECUR_PLANS = [(512, 4), (512, 32), (512, 256), (128, 8), (128, 64),
+               (128, 512), (1024, 4), (1024, 32), (128, 16), (128, 128),
+               (128, 1024), (20, 30), (44, 19), (1056, 4)]
+
+
+@pytest.mark.parametrize("h,bf", RECUR_PLANS)
+def test_persistent_plan_is_the_kernels(dev, h, bf):
+    """ops/lstm.py's plan of the recurrence (`persistent_smem`,
+    PERSIST_BLOCKS_SM) agrees with csrc/lstm.cu: the same shared memory a
+    block, and the occupancy API lets the planned blocks share an SM."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = lstm.persistent_plan(bf, h, sms)
+    assert plan is not None
+    smem, per_sm = lstm.recur_fit(h, plan.chunks, dev)
+    assert smem == plan.smem
+    assert per_sm >= plan.blocks_sm
 
 
 def test_wrappers_refuse_other_dtypes_and_layouts(gen, dev):

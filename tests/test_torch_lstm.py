@@ -4,8 +4,11 @@ The port's `lstm_layer` (its plain twin on a CPU tensor) against
 `se_tpu.nn.recurrent.lstm_layer` (the lax.scan path) and against the
 Pallas kernel `se_tpu.ops.pallas_lstm.pallas_lstm_layer` run with
 `interpret=True`, forward and reverse, with a ragged batch and with a
-carry. The multi-layer bidirectional `LSTM` module against se_tpu's `LSTM`
-and against torch.nn.LSTM on the same weights. Tolerance 1e-5 absolute on
+carry. The two halves of the plain twin, `_project_reference` and
+`_recur_reference` (the twins of the small fold's two kernels), composed,
+against `_scan_forward`, the Pallas kernel and the scan path. The
+multi-layer bidirectional `LSTM` module against se_tpu's `LSTM` and against
+torch.nn.LSTM on the same weights. Tolerance 1e-5 absolute on
 outputs in (-1, 1): fp32 on both sides, sums in another order.
 """
 
@@ -16,10 +19,11 @@ import torch
 
 from se_tpu.nn.recurrent import LSTM as JLSTM
 from se_tpu.nn.recurrent import lstm_layer as j_lstm_layer
-from se_tpu.ops.pallas_lstm import pallas_lstm_layer
+from se_tpu.ops.pallas_lstm import _scan_forward, pallas_lstm_layer
 from se_tpu.utils.torch_compat import lstm as torch_lstm_to_jax
 from se_tpu_torch.nn import LSTM, lstm_layer
 from se_tpu_torch.ops import _build
+from se_tpu_torch.ops import lstm as ops_lstm
 from se_tpu_torch.ops.lstm import lstm_layer_kernel
 from torch_kernel_inputs import close, lstm_inputs, to_torch
 
@@ -54,6 +58,38 @@ def test_lstm_layer_carry_matches_jax(rng):
                             return_carry=True)
     second = lstm_layer(tx[:, 4:], twx, twh, tb, carry=mid)
     close([torch.cat([first, second], 1)], [got], ATOL)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("bf,t,in_dim,h", [(5, 12, 7, 8), (17, 6, 3, 20),
+                                           (2, 9, 12, 44)])
+def test_project_then_recur_matches_jax(rng, reverse, bf, t, in_dim, h):
+    """The split twin: projection for all frames, then the recurrence."""
+    x, wx, wh, b = lstm_inputs(rng, bf, t, in_dim, h)
+    tx, twx, twh, tb = to_torch((x, wx, wh, b))
+    xp = ops_lstm._project_reference(tx, twx, tb)
+    assert xp.shape == (bf, t, 4 * h)
+    got, (hn, cn) = ops_lstm._recur_reference(xp, twh, reverse)
+    close([got], [pallas_lstm_layer(x, wx, wh, b, reverse=reverse,
+                                    interpret=True)], ATOL)
+    want, (jh, jc) = j_lstm_layer(x, wx, wh, b, reverse=reverse,
+                                  return_carry=True)
+    close([got, hn, cn], [want, jh, jc], ATOL)
+    if not reverse:
+        close([got], [_scan_forward(x, wx, wh, b)], ATOL)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_project_then_recur_carry_matches_jax(rng, reverse):
+    x, wx, wh, b = lstm_inputs(rng, 4, 10, 6, 12)
+    h0 = (rng.standard_normal((4, 12)) * 0.5).astype(np.float32)
+    c0 = (rng.standard_normal((4, 12)) * 0.5).astype(np.float32)
+    tx, twx, twh, tb, th0, tc0 = to_torch((x, wx, wh, b, h0, c0))
+    got, (h, c) = ops_lstm._recur_reference(
+        ops_lstm._project_reference(tx, twx, tb), twh, reverse, th0, tc0)
+    want, (jh, jc) = j_lstm_layer(x, wx, wh, b, reverse=reverse,
+                                  carry=(h0, c0), return_carry=True)
+    close([got, h, c], [want, jh, jc], ATOL)
 
 
 def test_reverse_carry_is_state_at_frame_zero(rng):

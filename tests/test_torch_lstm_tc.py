@@ -1,7 +1,8 @@
-"""What surrounds the tensor-core LSTM step (csrc/lstm.cu `lstm_step_tc`),
-on the CPU: the kernel itself runs only on the card
-(tests/test_torch_cuda.py), so its layout and its arithmetic are held here
-in plain torch.
+"""What surrounds the tensor-core LSTM kernels (csrc/lstm.cu: the large
+fold's `lstm_step_tc`, the small fold's `lstm_proj_tc` and
+`lstm_recur_persistent`), on the CPU: the kernels themselves run only on
+the card (tests/test_torch_cuda.py), so their layouts, their arithmetic
+and the persistent kernel's grid are held here in plain torch.
 
 - `pack_weights` is an exact permutation of [Wx; Wh] with zero padding,
   and a plain step that multiplies with the packed weights in the packed
@@ -13,8 +14,14 @@ in plain torch.
   `cvt.rna.tf32.f32`; small = v - big, which the mma reads truncated to
   TF32) stay within 1e-6 of max|C| against fp64 at the sub band's
   K = 768; one TF32 pass does not. That is the reason for three passes.
-- `step_variant` takes each layer call of the seven paths to the step the
-  kernel's header names, on a 132-SM H100.
+- The same for the small fold: the projection with `pack_input`'s weights
+  and the recurrence with `pack_recurrent`'s, in fp32 or 3xTF32, and the
+  recurrence-only product at K = H = 1024 within 1e-6 of max|C|.
+- `step_variant` takes each layer call of the seven paths to the design
+  the kernel's header names, on a 132-SM H100 (short sequences, DPCRN's
+  intra LSTM over 4 bins, to the tensor-core step), and `persistent_plan`
+  gives each small-fold call a grid that owns every (row, unit) once, fits
+  in shared memory and is resident in one wave.
 """
 
 import numpy as np
@@ -78,6 +85,34 @@ def packed_layer(x, wx, wh, b, passes: str, reverse: bool = False):
     return ys
 
 
+def persistent_layer(x, wx, wh, b, passes: str, reverse: bool = False,
+                     h0=None, c0=None):
+    """One layer as the small fold computes it: XP = x . Wx + b with
+    `pack_input`'s weights (lstm_proj_tc), then per frame h_{t-1}
+    zero-padded to Hk times `pack_recurrent`'s (4Hk, Hk) weights
+    (lstm_recur_persistent), gates read back from the packed order."""
+    bf, t_len, in_dim = x.shape
+    h_dim = wh.shape[0]
+    mul = matmul_3xtf32 if passes == "3xtf32" else torch.matmul
+    wi, wr = lstm.pack_input(wx), lstm.pack_recurrent(wh)
+    xk = torch.nn.functional.pad(x, (0, wi.shape[1] - in_dim))
+    xp = mul(xk.reshape(bf * t_len, -1), wi.t())[:, :4 * h_dim] + b
+    xp = xp.view(bf, t_len, 4 * h_dim)
+    hk = wr.shape[1]
+    h = x.new_zeros(bf, h_dim) if h0 is None else h0
+    c = x.new_zeros(bf, h_dim) if c0 is None else c0
+    ys = x.new_empty(bf, t_len, h_dim)
+    for t in (range(t_len - 1, -1, -1) if reverse else range(t_len)):
+        gp = mul(torch.nn.functional.pad(h, (0, hk - h_dim)), wr.t())
+        gp = gp.view(bf, hk // lstm.GROUP, 4, lstm.GROUP)
+        i, f, g, o = (gp[:, :, q].reshape(bf, hk)[:, :h_dim]
+                      + xp[:, t, q * h_dim:(q + 1) * h_dim] for q in range(4))
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        ys[:, t] = h
+    return ys, h, c
+
+
 @pytest.mark.parametrize("in_dim,h", [(6, 20), (33, 40), (32, 16)])
 def test_pack_weights_is_an_exact_permutation(rng, in_dim, h):
     _, wx, wh, _ = to_torch(lstm_inputs(rng, 1, 1, in_dim, h))
@@ -106,6 +141,43 @@ def test_packed_step_matches_reference_and_jax_scan(rng, passes, bf, t,
     want, _ = lstm._reference(tx, twx, twh, tb)
     close([got], [want], ATOL)
     close([got], [_scan_forward(x, wx, wh, b)], ATOL)
+
+
+@pytest.mark.parametrize("in_dim,h", [(6, 20), (33, 44), (32, 16)])
+def test_pack_input_and_recurrent_are_exact_permutations(rng, in_dim, h):
+    _, wx, wh, _ = to_torch(lstm_inputs(rng, 1, 1, in_dim, h))
+    wi, wr = lstm.pack_input(wx), lstm.pack_recurrent(wh)
+    hk = -(-h // lstm.GROUP) * lstm.GROUP
+    assert wi.shape == (-(-4 * h // lstm.COL_TILE) * lstm.COL_TILE,
+                        -(-in_dim // lstm.K_TILE) * lstm.K_TILE)
+    assert torch.equal(wi[:4 * h, :in_dim], wx.t())
+    assert not wi[4 * h:].any() and not wi[:, in_dim:].any()
+    want = torch.zeros(4 * hk, hk)
+    for g in range(4):
+        for u in range(h):
+            want[(u // 8) * 32 + g * 8 + u % 8, :h] = wh[:, g * h + u]
+    assert wr.is_contiguous() and torch.equal(wr, want)
+
+
+@pytest.mark.parametrize("passes", ["fp32", "3xtf32"])
+@pytest.mark.parametrize("reverse,carry", [(False, False), (True, False),
+                                           (False, True)])
+@pytest.mark.parametrize("bf,t,in_dim,h", [(5, 9, 6, 20), (19, 6, 33, 44)])
+def test_persistent_layer_matches_reference_and_jax_scan(
+        rng, passes, reverse, carry, bf, t, in_dim, h):
+    """H = 20 (not a multiple of 4: the kernel's 4-byte staging) and 44
+    (Hk = 48: a zero-filled 16-byte chunk); Bf = 19, two row chunks."""
+    x, wx, wh, b = lstm_inputs(rng, bf, t, in_dim, h)
+    h0 = c0 = None
+    if carry:
+        h0, c0 = to_torch((rng.uniform(-0.5, 0.5, (bf, h)).astype(np.float32),
+                           rng.uniform(-0.5, 0.5, (bf, h)).astype(np.float32)))
+    tx, twx, twh, tb = to_torch((x, wx, wh, b))
+    got = persistent_layer(tx, twx, twh, tb, passes, reverse, h0, c0)
+    ys, (hn, cn) = lstm._reference(tx, twx, twh, tb, reverse, h0, c0)
+    close(got, [ys, hn, cn], ATOL)
+    if not (reverse or carry):
+        close([got[0]], [_scan_forward(x, wx, wh, b)], ATOL)
 
 
 @pytest.mark.parametrize("passes", ["fp32", "3xtf32"])
@@ -152,43 +224,121 @@ def test_three_tf32_passes_keep_fp32_accuracy_and_one_does_not(rng):
     assert one > 1e-5
 
 
-# (path, layer, In, H, Bf of batch B, {B: step}) on 132 SMs
+def test_three_tf32_passes_keep_fp32_accuracy_on_the_recurrent_product(rng):
+    """lstm_recur_persistent's product at LSTMNet's K = H = 1024: A rows
+    h_{t-1} in (-1, 1) (a 16-row chunk), B the packed Wh, U(+-1/32) as
+    torch's init (a quarter of its 4096 columns)."""
+    m, k, n = 16, 1024, 1024
+    a = rng.uniform(-1, 1, (m, k)).astype(np.float32)
+    w = (rng.uniform(-1, 1, (k, n)) / 32).astype(np.float32)
+    ta, tw = torch.from_numpy(a), torch.from_numpy(w)
+    exact = ta.double() @ tw.double()
+    scale = float(exact.abs().max())
+
+    def rel(c):
+        return float((c.double() - exact).abs().max()) / scale
+
+    three = rel(matmul_3xtf32(ta, tw))
+    assert three <= 1e-6
+    assert three <= 2 * rel(ta @ tw)
+    assert rel(tf32(ta) @ tf32(tw)) > 1e-5
+
+
+# (path, layer In, H, Bf of batch B, T, {B: design}) on 132 SMs
 VARIANTS = [
-    ("fullsubnet full band", 257, 512, lambda b: b,
-     {4: "split", 32: "split", 256: "split"}),
-    ("fullsubnet full band", 512, 512, lambda b: b,
-     {4: "split", 32: "split", 256: "split"}),
-    ("fullsubnet sub band", 32, 384, lambda b: 257 * b,
-     {1: "split", 2: "tensor_core", 4: "tensor_core", 32: "tensor_core",
+    ("fullsubnet full band", 257, 512, lambda b: b, 253,
+     {4: "persistent", 32: "persistent", 256: "persistent"}),
+    ("fullsubnet full band", 512, 512, lambda b: b, 253,
+     {4: "persistent", 32: "persistent", 256: "persistent"}),
+    ("fullsubnet sub band", 32, 384, lambda b: 257 * b, 253,
+     {1: "persistent", 2: "tensor_core", 4: "tensor_core", 32: "tensor_core",
       256: "tensor_core"}),
-    ("fullsubnet sub band", 384, 384, lambda b: 257 * b,
+    ("fullsubnet sub band", 384, 384, lambda b: 257 * b, 253,
      {4: "tensor_core", 32: "tensor_core", 256: "tensor_core"}),
-    ("dccrn clstm", 512, 128, lambda b: 2 * b,
-     {4: "split", 32: "split", 256: "split"}),
-    ("dccrn clstm", 128, 128, lambda b: 2 * b,
-     {4: "split", 32: "split", 256: "split"}),
-    ("lstm", 161, 1024, lambda b: b,
-     {4: "split", 32: "split", 128: "split", 129: "tensor_core",
+    ("dccrn clstm", 512, 128, lambda b: 2 * b, 501,
+     {4: "persistent", 32: "persistent", 256: "persistent"}),
+    ("dccrn clstm", 128, 128, lambda b: 2 * b, 501,
+     {4: "persistent", 32: "persistent", 256: "persistent"}),
+    ("lstm", 161, 1024, lambda b: b, 401,
+     {4: "persistent", 32: "persistent", 128: "persistent", 129: "tensor_core",
       256: "tensor_core"}),
-    ("lstm / crn", 1024, 1024, lambda b: b,
-     {4: "split", 32: "split", 256: "tensor_core"}),
-    ("gcrn glstm", 512, 512, lambda b: b,
-     {4: "split", 32: "split", 256: "split"}),
-    ("dpcrn intra", 128, 64, lambda b: 401 * b,
-     {4: "split", 5: "split", 6: "tensor_core", 32: "tensor_core",
-      256: "tensor_core"}),
-    ("dpcrn inter", 128, 128, lambda b: 4 * b,
-     {4: "split", 32: "split", 256: "split"}),
+    ("lstm / crn", 1024, 1024, lambda b: b, 401,
+     {4: "persistent", 32: "persistent", 256: "tensor_core"}),
+    ("gcrn glstm", 512, 512, lambda b: b, 401,
+     {4: "persistent", 32: "persistent", 256: "persistent"}),
+    # 4 frequency bins: too short for the small fold at any batch
+    ("dpcrn intra", 128, 64, lambda b: 401 * b, 4,
+     {4: "tensor_core", 5: "tensor_core", 6: "tensor_core",
+      32: "tensor_core", 256: "tensor_core"}),
+    ("dpcrn inter", 128, 128, lambda b: 4 * b, 401,
+     {4: "persistent", 32: "persistent", 256: "persistent"}),
 ]
 
 
-@pytest.mark.parametrize("path,in_dim,h,fold,want", VARIANTS,
+@pytest.mark.parametrize("path,in_dim,h,fold,t,want", VARIANTS,
                          ids=[f"{v[0]} {v[1]}-{v[2]}" for v in VARIANTS])
-def test_step_variant_of_each_layer_call(path, in_dim, h, fold, want):
-    got = {b: lstm.step_variant(fold(b), in_dim, h, 132) for b in want}
+def test_step_variant_of_each_layer_call(path, in_dim, h, fold, t, want):
+    got = {b: lstm.step_variant(fold(b), t, h, 132) for b in want}
     assert got == want
 
 
 def test_step_variant_takes_tensor_cores_where_split_rows_do_not_fit():
-    assert lstm.step_variant(4, 7000, 1024, 132) == "tensor_core"
-    assert lstm.step_variant(4, 6000, 1000, 132) == "split"
+    """The small fold's edge: at H = 1024 the 128 unit tiles' Wh slices
+    (210 KB a block, one an SM) fit 132 SMs; at H = 1064 the 133 tiles do
+    not, and at H = 1100 neither, so those take the tensor-core step however
+    small the fold; on fewer SMs H = 1024 does not fit either."""
+    assert lstm.step_variant(4, 401, 1024, 132) == "persistent"
+    assert lstm.step_variant(4, 401, 1056, 132) == "persistent"
+    assert lstm.step_variant(4, 401, 1064, 132) == "tensor_core"
+    assert lstm.step_variant(4, 401, 1100, 132) == "tensor_core"
+    assert lstm.step_variant(4, 401, 1024, 114) == "tensor_core"
+    assert lstm.persistent_plan(4, 1064, 132) is None
+
+
+@pytest.mark.parametrize("batch", [4, 5])
+def test_step_variant_sends_short_sequences_to_tensor_cores(batch):
+    """DPCRN's intra LSTM at B = 4 and 5 (Bf = 401 B rows over T = 4 bins)
+    is a small fold, but its four frames do not repay the projection, the
+    packing and the cooperative launch: it takes the tensor-core step. At
+    SHORT_T frames the same fold takes the small fold, and one frame fewer
+    the tensor-core step, at every small-fold shape."""
+    bf = 401 * batch
+    assert lstm.step_variant(bf, 4, 64, 132) == "tensor_core"
+    assert lstm.step_variant(bf, lstm.SHORT_T, 64, 132) == "persistent"
+    for bf, h in ((4, 1024), (8, 128), (16, 128), (4, 512),
+                  (401 * batch, 64)):
+        assert lstm.step_variant(bf, lstm.SHORT_T, h, 132) == "persistent"
+        assert lstm.step_variant(bf, lstm.SHORT_T - 1, h, 132) \
+            == "tensor_core"
+
+
+# every small fold of the seven paths: the calls that take the persistent
+# design over SHORT_T frames or more (DPCRN's intra LSTM at B = 4 included:
+# its T = 4 sends it to the tensor-core step, but its grid is still planned
+# and held here)
+SMALL_FOLD = [(path, h, fold(b), b) for path, _, h, fold, _, want in VARIANTS
+              for b in want if b in (4, 32, 256)
+              and lstm.step_variant(fold(b), lstm.SHORT_T, h, 132)
+              == "persistent"]
+
+
+@pytest.mark.parametrize("path,h,bf,batch", SMALL_FOLD,
+                         ids=[f"{v[0]} H{v[1]} B{v[3]}" for v in SMALL_FOLD])
+def test_persistent_plan_of_each_small_fold_call(path, h, bf, batch):
+    """Every (row, unit) owned by one block, the block's shared memory
+    within the opt-in limit, the grid resident in one wave of 132 SMs."""
+    plan = lstm.persistent_plan(bf, h, 132)
+    assert plan is not None
+    assert plan.smem == lstm.persistent_smem(h, plan.chunks) <= 232448
+    assert plan.blocks_sm * (plan.smem + lstm.SMEM_RESERVED) <= lstm.SMEM_SM
+    assert plan.blocks <= plan.blocks_sm * 132
+    # block b: unit tile b % units, row chunks b // units + row_groups j
+    # (csrc/lstm.cu lstm_recur_persistent)
+    owner = np.zeros((bf, h), np.int64)
+    for block in range(plan.blocks):
+        tile, group = block % plan.units, block // plan.units
+        chunks = range(group, -(-bf // 16), plan.row_groups)
+        assert 1 <= len(chunks) <= plan.chunks
+        for q in chunks:
+            owner[16 * q:16 * q + 16, 8 * tile:8 * tile + 8] += 1
+    assert (owner == 1).all()

@@ -34,7 +34,7 @@ def _imported_roots(path: Path) -> set:
 
 def test_port_imports_no_jax_flax_or_se_tpu():
     files = sorted((ROOT / "se_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "lstm_dispatch_sweep.py"]
     assert len(files) > 10
     for path in files:
         bad = _imported_roots(path) & FORBIDDEN
