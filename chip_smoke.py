@@ -32,8 +32,13 @@ Phases, one JSON line per result:
              5's B = 32 and 256 on both designs, and on the sub band at
              T = 506 and 1012; the small fold's two kernels (lstm_project,
              lstm_recur) also alone, and the recurrence's planned grid
-             against the kernel's shared memory and occupancy; the STFT
-             also with pad_end and valid framing.
+             against the kernel's shared memory and occupancy; each
+             decoder level on the design it takes (named in its line), and
+             levels 4 and 5 also on the other; the STFT also with pad_end
+             and valid framing, at n_fft 384 and 2048 (a generic radix-3
+             stage; past the default shared memory), and its center
+             presets at B = 32 and 256, each case also as device time by
+             kernel (torch.profiler) beside torch.stft's.
              A kernel's row of the table sums the cases of one forward,
              named in its "note": the shapes of the other paths are the
              per-case lines.
@@ -113,6 +118,27 @@ def cuda_ms(fn, reps: int = 10, rounds: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20) -> dict:
+    """Device time a call by kernel name (torch.profiler over `reps` calls
+    after a warm-up), the largest first: what a call's CUDA-event time
+    holds besides the launch path on the host."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = sorted(((evt.device_time_total / 1e3 / reps, evt.key[:60])
+                   for evt in prof.key_averages()
+                   if evt.device_type == DeviceType.CUDA), reverse=True)
+    return {key: ms for ms, key in rows}
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -224,7 +250,14 @@ def encoder_cases(gen, dev):
 
 
 def decoder_cases(gen, dev):
+    """The six levels of Uformer's B = 4 forward, each on the design
+    `level_design` gives it (the tensor-core levels with their weights
+    packed once, as Uformer keeps them; named in the label), then levels
+    4 and 5 (Cout 8 and 1) also on the design they do not take: the times
+    are what `level_design`'s choice rests on."""
     import torch
+
+    from se_tpu_torch.ops import decoder
 
     b, t = B_MAIN, T_FRAMES
     t_taps = 2 * t - 1
@@ -243,9 +276,34 @@ def decoder_cases(gen, dev):
                                  for q in range(f)))
         flops = 2.0 * b * t_taps * f_taps * 5 * cc * cout
         out_bytes = b * t * 2 * f * 3 * cout * 4
-        yield (f"decoder level {i} {b}x{t}x{f}x{cc}->{cout}",
-               (xc, xm, params, i < 5), flops,
-               nbytes(xc, xm, params) + out_bytes, None, True)
+        design = decoder.level_design(cc, cout)
+        packed = decoder.pack_decoder_weights(params) if design == "tc" \
+            else None
+        label = f"decoder level {i} {b}x{t}x{f}x{cc}->{cout}"
+        moved = nbytes(xc, xm, params) + out_bytes
+        yield (f"{label} design={design}",
+               (xc, xm, params, i < 5, packed, None), flops, moved, None,
+               True)
+        if i >= 4:  # the narrow levels on the design they do not take
+            other = "cuda_core" if design == "tc" else "tc"
+            yield (f"{label} design={other} (not taken)",
+                   (xc, xm, params, i < 5, None, other), flops, moved, None,
+                   False)
+
+
+def _decoder_kernel(xc, xm, params, has_bn, packed, design):
+    """decoder_level as Uformer calls it, or one design forced."""
+    from se_tpu_torch.ops import decoder
+
+    if design is None:
+        return decoder.decoder_level(xc, xm, params, has_bn, packed=packed)
+    return decoder._launch(xc, xm, params, has_bn, design, packed)
+
+
+def _decoder_twin(xc, xm, params, has_bn, packed, design):
+    from se_tpu_torch.ops import decoder
+
+    return decoder._reference(xc, xm, params, has_bn)
 
 
 def dsconv_flops(b, t, f, cin, tot, d1, d2) -> float:
@@ -471,11 +529,13 @@ def check_recur_plans(dev) -> None:
 
 def stft_cases(gen, dev):
     """The STFT of each spectral family's B = 4 forward (DCCRN's 512/128
-    sums in the row), then pad_end and valid framing. The bound is the
-    function's, not the kernel's matmul-DFT: a real FFT a frame
-    (2.5 n log2 n flops) plus the window's frame_len products, and the
-    bytes of the waveform in and the spectrum out (no basis: an FFT reads
-    none). Yardstick for the center cases: torch.stft (cuFFT)."""
+    sums in the row), then pad_end and valid framing, two n_fft that run
+    generic radix stages (384: a radix 3; 2048: past the default shared
+    memory), then the three center presets at phase 5's B = 32 and 256. The bound is the function's, not
+    any kernel's: a real FFT a frame (2.5 n log2 n flops) plus the window's
+    frame_len products, and the bytes of the waveform in and the spectrum
+    out (no basis: an FFT reads none). Yardstick for the center cases:
+    torch.stft (cuFFT)."""
     import math
 
     import torch
@@ -483,28 +543,43 @@ def stft_cases(gen, dev):
     from se_tpu_torch.ops import stft as plain
     from se_tpu_torch.ops.windows import get_window
 
-    x = torch.randn(B_MAIN, SECONDS * SR, generator=gen).mul(0.1).to(dev)
-    for label, cfg, in_row in (
-            ("DCCRN 512/128 k=4", plain.PRESET_512_128, True),
-            ("FullSubNet 512/256 k=2", plain.PRESET_512_256, False),
-            ("PRESET_320 320/160 k=2", plain.PRESET_320, False),
-            ("pad_end hamming 512/256", plain.StftConfig(
-                512, 256, 512, window="hamming", convention="pad_end"),
-             False),
-            ("valid 400/100", plain.StftConfig(400, 100, 512,
-                                               convention="valid"), False)):
+    center = (("DCCRN 512/128 k=4", plain.PRESET_512_128),
+              ("FullSubNet 512/256 k=2", plain.PRESET_512_256),
+              ("PRESET_320 320/160 k=2", plain.PRESET_320))
+    cases = [(label, cfg, B_MAIN, i == 0) for i, (label, cfg)
+             in enumerate(center)]
+    cases += [("pad_end hamming 512/256", plain.StftConfig(
+                  512, 256, 512, window="hamming", convention="pad_end"),
+               B_MAIN, False),
+              ("valid 400/100", plain.StftConfig(400, 100, 512,
+                                                 convention="valid"),
+               B_MAIN, False),
+              ("center 384/128 radix 4 4 4 3", plain.StftConfig(384, 128,
+                                                                384),
+               B_MAIN, False),
+              ("center 2048/512", plain.StftConfig(2048, 512, 2048), B_MAIN,
+               False)]
+    cases += [(label, cfg, batch, False) for batch in (32, 256)
+              for label, cfg in center]
+    waves = {}
+    for label, cfg, batch, in_row in cases:
+        if batch not in waves:
+            waves.clear()  # one batch on the card at a time
+            waves[batch] = torch.randn(batch, SECONDS * SR,
+                                       generator=gen).mul(0.1).to(dev)
+        x = waves[batch]
         t_len, n2 = plain.num_frames(x.shape[1], cfg), 2 * cfg.bins
-        flops = B_MAIN * t_len * (2.5 * cfg.fft * math.log2(cfg.fft)
-                                  + cfg.frame_len)
-        moved = nbytes(x) + 4 * B_MAIN * t_len * n2
+        flops = batch * t_len * (2.5 * cfg.fft * math.log2(cfg.fft)
+                                 + cfg.frame_len)
+        moved = nbytes(x) + 4 * batch * t_len * n2
         library = None
         if cfg.convention == "center":
             win = torch.from_numpy(get_window(cfg.window, cfg.win_length,
                                               cfg.periodic)).to(dev)
-            library = (lambda cfg=cfg, win=win: torch.stft(
+            library = (lambda cfg=cfg, win=win, x=x: torch.stft(
                 x, cfg.fft, cfg.hop, cfg.win_length, win, center=True,
                 pad_mode="reflect", return_complex=True))
-        yield (f"stft {label} {B_MAIN}x{x.shape[1]}", (x, cfg), flops, moved,
+        yield (f"stft {label} {batch}x{x.shape[1]}", (x, cfg), flops, moved,
                library, in_row)
 
 
@@ -550,10 +625,12 @@ def check_kernels(dev, only) -> dict:
             "se_tpu_torch/csrc/encoder.cu", "se_tpu/ops/pallas_encoder.py:98",
             10, f"the 6 levels of Uformer's {b4}"),
         "decoder": lambda: (
-            decoder.decoder_level, decoder._reference, decoder_cases,
+            _decoder_kernel, _decoder_twin, decoder_cases,
             "se_tpu_torch/csrc/decoder.cu",
             "se_tpu/ops/pallas_decoder.py:117", 10,
-            f"the 6 levels of Uformer's {b4}"),
+            f"the 6 levels of Uformer's {b4}: levels 0-4 on the tensor "
+            "cores (decoder_level_tc), 5 on the CUDA cores "
+            "(decoder_level_cc)"),
         "lstm": lambda: (
             _flat_lstm(lstm.lstm_layer_kernel), _flat_lstm(lstm._reference),
             lstm_cases, "se_tpu_torch/csrc/lstm.cu",
@@ -577,8 +654,8 @@ def check_kernels(dev, only) -> dict:
         "stft": lambda: (
             stft_fused.stft_fused, stft_fused._reference, stft_cases,
             "se_tpu_torch/csrc/stft.cu", "se_tpu/ops/pallas_stft.py:67", 10,
-            f"the 1 call of DCCRN's {b4}; the other presets are per-case "
-            "lines"),
+            f"the 1 call of DCCRN's {b4}; the other presets and B = 32 "
+            "and 256 are per-case lines"),
     }
     if "lstm_recur" in only:
         check_recur_plans(dev)
@@ -608,11 +685,17 @@ def check_kernels(dev, only) -> dict:
                 plain = cuda_ms(lambda: twin(*args), reps=reps)
                 lib = cuda_ms(library, reps=reps) if library else None
             b_ms, b_by = bound(flops, moved)
-            emit({"phase": "kernel", "kernel": name, "case": label,
-                  "max_abs_err": err, "tol": tol, "ms": ms,
-                  "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
-                  "bound_by": b_by, "gflop": flops / 1e9,
-                  "mbytes": moved / 1e6, "in_row": in_row})
+            line = {"phase": "kernel", "kernel": name, "case": label,
+                    "max_abs_err": err, "tol": tol, "ms": ms,
+                    "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+                    "bound_by": b_by, "gflop": flops / 1e9,
+                    "mbytes": moved / 1e6, "in_row": in_row}
+            if name == "stft":  # a few-microsecond call: where its time is
+                with torch.no_grad():
+                    line["device_ms"] = device_ms(lambda: kernel(*args))
+                    if library:
+                        line["library_device_ms"] = device_ms(library)
+            emit(line)
             if not err <= tol:
                 fail(f"{label}: kernel and twin differ by {err} > {tol}")
             row["max_abs_err"] = max(row["max_abs_err"], err)
@@ -662,7 +745,7 @@ def seeded(name: str, seed: int):
 # tensor-core step) + inter 2 layers (small fold).
 MAIN_PATHS = {
     "uformer": {"attention": None, "dsconv_pair": 8, "encoder": None,
-                "decoder": None},
+                "decoder": 6},
     "fullsubnet": {"lstm": 2, "lstm_project": 2, "lstm_recur": 2,
                    "stft": 1},
     "dccrn": {"lstm": 0, "lstm_project": 4, "lstm_recur": 4, "stft": 1},

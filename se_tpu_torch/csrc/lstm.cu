@@ -127,6 +127,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tc_common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -169,64 +171,6 @@ constexpr int TC_THREADS = 32 * WM * WN;
 constexpr int TC_BLOCKS_SM = 4; // resident blocks an SM (register cap)
 constexpr int TC_SMEM = STAGES * (TM + TN) * LDS * (int)sizeof(float);
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          int bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// v = big + small: big is v rounded to TF32 (to nearest, ties away from
-// zero, as cvt.rna: add half a unit of the 13 dropped bits to the
-// magnitude, clear them), small = v - big exactly, which the mma reads as
-// TF32 (its low 13 bits dropped).
-__device__ __forceinline__ void split_tf32(float v, uint32_t& big,
-                                           uint32_t& small) {
-  big = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(v - __uint_as_float(big));
-}
-
-// Four 8 x 4 fp32 matrices from shared memory, one a lane group of 8 rows
-// (lane l gives the address of row l % 8 of matrix l / 8); register i of
-// lane l holds word l % 4 of row l / 4 of matrix i: the m16n8k8 TF32
-// fragment layout.
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const float* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s)
-      : "memory");
-}
-
-// d += a . b on a 16 x 8 x 8 tile, fp32 accumulate
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // The 3xTF32 main loop of one TM x TN tile: acc += A[r0 : r0 + TM, :K] .
 // w[col0 : col0 + TN, :K]^T, K = In + H. Row r of A is [x_r,t | h_prev_r]:
 // x (rows, T, In) read at frame t, h_prev (rows, H). w: packed (columns,
@@ -240,7 +184,7 @@ __device__ __forceinline__ void tc_mainloop(
     int T, int In, int H, int Kp, int t, int r0, int col0) {
   float* As = sm;                      // STAGES x TM x LDS
   float* Bs = sm + STAGES * TM * LDS;  // STAGES x TN x LDS
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, warp = tid >> 5;
   const int wm = warp % WM, wn = warp / WM;
   const int K = In + H, nk = Kp / TK;
   // a thread's copies: 16-byte chunk cq of rows crow + RSTEP i in every
@@ -294,62 +238,8 @@ __device__ __forceinline__ void tc_mainloop(
     }
   };
 
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int g = 0; g < 4; ++g)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mi][g][j] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load_stage(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();  // stage kt has landed
-    __syncthreads();              // ... for all, and stage kt - 1 is read
-    const int next = kt + STAGES - 1;  // into the slot stage kt - 1 held
-    if (next < nk) load_stage(next, next % STAGES);
-    cp_async_commit();
-    // ldmatrix row addresses: A's four 8 x 4 matrices are rows +0 / +8,
-    // k +0 / +4 of an m16 tile (a0..a3); B's are k +0 / +4 of n8 tile g,
-    // then of tile g + 1 (b0, b1 of two n8 tiles)
-    const float* as = As + (kt % STAGES) * TM * LDS +
-                      (wm * 32 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
-                      (lane >> 4) * 4;
-    const float* bs = Bs + (kt % STAGES) * TN * LDS +
-                      (wn * 32 + (lane >> 4) * 8 + (lane & 7)) * LDS +
-                      ((lane >> 3) & 1) * 4;
-#pragma unroll
-    for (int kk = 0; kk < TK; kk += 8) {
-      uint32_t a[2][4], b[4][2];
-      uint32_t a_big[2][4], a_small[2][4], b_big[4][2], b_small[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) ldsm_x4(a[mi], as + mi * 16 * LDS + kk);
-#pragma unroll
-      for (int g = 0; g < 4; g += 2) ldsm_x4(b[g], bs + g * 8 * LDS + kk);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          split_tf32(__uint_as_float(a[mi][j]), a_big[mi][j], a_small[mi][j]);
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          split_tf32(__uint_as_float(b[g][j]), b_big[g][j], b_small[g][j]);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          mma_tf32(acc[mi][g], a_small[mi], b_big[g]);
-          mma_tf32(acc[mi][g], a_big[mi], b_small[g]);
-          mma_tf32(acc[mi][g], a_big[mi], b_big[g]);
-        }
-    }
-  }
-  cp_async_wait<0>();
+  tc_ring<TM, TN, TK, LDS, STAGES, 4, false>(acc, As, Bs, nk, wm * 32,
+                                             wn * 32, load_stage);
 }
 
 // One frame for TM rows x TU units: the main loop over [x_t | h_{t-1}],
@@ -494,8 +384,8 @@ lstm_recur_persistent(const float* __restrict__ xp,
   cp_async_wait<0>();
   __syncthreads();
 
-  // ldmatrix row addresses, as in tc_mainloop: A's m16 tile, B's n8 tiles
-  // g and g + 1
+  // ldmatrix row addresses, as in tc_common.cuh tc_ring: A's m16 tile,
+  // B's n8 tiles g and g + 1
   const float* as = As + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld +
                     (lane >> 4) * 4;
   const float* bs = Ws + ((lane >> 4) * 8 + (lane & 7)) * ld +

@@ -1,143 +1,309 @@
-// Fused STFT: framing, window and DFT in one kernel, fp32.
+// Fused STFT: framing, window and a real FFT a frame in one kernel, fp32.
 //
-// Replaces: se_tpu/ops/pallas_stft.py, `stft_pallas` and its body `_kernel`.
+// Replaces: se_tpu/ops/pallas_stft.py, `stft_pallas` and its body
+// `_kernel` (a matmul-DFT there).
 //
-//   out[b, t, n] = sum_l xp[b, t * hop + l] * basis[l, n]
+//   out[b, t, :] = [Re | Im] of DFT_n(w * xp[b, t * hop : t * hop + K]),
 //
-// over the padded waveform xp (B, Lp) and the windowed real-DFT basis
-// (K = frame_len, N = 2F): cos columns [0, F), -sin columns [F, 2F). The
-// (B, T, K) frames matrix is a view with row stride `hop` over xp and is
-// never written anywhere: a block stages the waveform span of its TT frames
-// once in shared memory, (TT - 1) * hop + K floats (34 KB for 512/128),
-// which is what the TPU kernel's "tile + k - 1 hop slots" in VMEM does.
+// the frame of K = frame_len samples zero-padded to n = n_fft, F = n/2 + 1
+// bins, over the padded waveform xp, the waveform x (B, L) as
+// ops/stft.py `pad_signal` pads it: `pad` samples reflected at each end
+// (center; pad = 0 otherwise), then zeros. Neither xp nor the frames
+// tensor is ever written: each frame is read straight from x, its padding
+// applied at the load (`padded`).
 //
-// Bound on the H100: by bytes. The function needs only an FFT a frame,
-// ~2.5 n_fft log2(n_fft) flops, on 4 (hop + N) bytes it must move (its new
-// waveform samples and its output row): ~4.5 flops a byte at 512/128, under
-// the fp32 ridge of ~20. This kernel does the matmul-DFT's 2 K N flops a
-// frame instead, ~45x the FFT's at 512, so it sits far above that bound.
+// Bound on the H100: by bytes. A real FFT is ~2.5 n log2 n flops a frame
+// on 4 (hop + 2F) bytes it must move (its new samples and its output row):
+// ~4.5 flops a byte at 512/128, far under the fp32 ridge of ~20.
 //
-// Design. A block owns TT = 64 frames x TN = 128 output columns of one
-// utterance, 256 threads as 8 warps x 32 lanes. Warp w owns frames w + 8 i
-// (i < 8), lane l owns columns l + 32 j (j < 4): 32 sums a thread. Lanes
-// vary the column, never the frame, so a frame read is one shared-memory
-// broadcast to the whole warp. That matters because every hop in use (128,
-// 160, 256) is a multiple of 32 floats: frames t and t + 1 start on the
-// same bank, and lanes that varied t would serialize 32 ways. With hop and
-// K multiples of 4 a thread reads 4 consecutive samples of a frame as one
-// float4. Basis columns are streamed in K chunks of KC rows through shared
-// memory (conflict-free: lanes read consecutive columns). Every product is
-// an fp32 FMA; the sum over l runs in order.
+// Design. One warp a frame, up to four frames a block (enough blocks for
+// 132 SMs at B = 4: 501 at 512/128, 251 at 512/256). An even n is taken as
+// the N = n/2-point complex sequence z[m] = x[2m] + i x[2m+1] (the frame's
+// own float layout), so the load is the windowed frame as it lies: 16-byte
+// loads where hop, K, n, L and pad are multiples of 4 and the frame lies
+// inside x, 4-byte loads through the padding map otherwise (the first and
+// last frames of a center STFT);
+// an odd n as the N = n-point complex sequence x[m] + 0i. Then a Stockham
+// autosort FFT of N points in the warp's two shared buffers (ping-pong, 2 x
+// N float2: 4 KB at n = 512), one radix stage at a time from the plan
+// ops/stft_fused.py `radix_plan` gives (512 -> 4 4 4 4, 320 -> 4 4 2 5,
+// 384 -> 4 4 4 3; a device array of radices): butterfly j of a stage with
+// radix R after Ns points reads j + r N/R, multiplies by the twiddle
+// exp(-2 pi i r (j mod Ns) / (Ns R)) and writes (j / Ns) Ns R + (j mod Ns)
+// + r Ns. Radices 2, 4 and 5 run unrolled butterflies; any other (3, and
+// whatever prime is left of N) runs `stage_any`, R products an output with
+// the stage twiddle and the R-point DFT folded into one root of order Ns R.
+// Then, for an even n, the real-split post-pass: X[k] = E[k] + W^k O[k]
+// with E, O the even and odd halves recovered from Z[k] and conj(Z[N - k])
+// and W = exp(-2 pi i / n), for k = 0 .. N; for an odd n, X[k] = Z[k] for
+// k = 0 .. (n - 1) / 2. Written [re | im] coalesced. Twiddles come from a
+// table built in float64 on the host and cast to fp32 (ops/stft_fused.py
+// `twiddle_table`: each stage's (Ns, R - 1) block, or its Ns R roots for
+// `stage_any`, then W^k); the kernel computes no sine or cosine. The
+// radix-5 butterfly's constants are cos and sin of 2 pi / 5 and 4 pi / 5,
+// rounded from decimals. Past n = 1536 four frames' buffers outgrow the
+// default 48 KB: the entry opts into more shared memory and runs fewer
+// frames a block where even that is short (one at n = 16384).
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int TT = 64;         // frames a block
-constexpr int TN = 128;        // output columns a block
-constexpr int KC = 32;         // basis rows staged a step
-constexpr int NW = 8;          // warps a block
-constexpr int RM = TT / NW;    // frames a thread
-constexpr int CN = TN / 32;    // columns a lane
+constexpr int FPB = 4;  // frames a block at most, one warp each
 
-// Floats of the staged strip: the tile's frames plus the rounding of the
-// last frame up to a whole K chunk (zeros, met only by zero basis rows).
-__host__ __device__ inline int strip_len(int hop, int K) {
-  return (TT - 1) * hop + ((K + KC - 1) / KC) * KC;
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+// -i a
+__device__ __forceinline__ float2 mul_mi(float2 a) {
+  return make_float2(a.y, -a.x);
+}
+
+// In-place forward DFT of R points (sign -).
+template <int R>
+__device__ __forceinline__ void dft(float2 (&v)[R]);
+
+template <>
+__device__ __forceinline__ void dft<2>(float2 (&v)[2]) {
+  const float2 a = v[0], b = v[1];
+  v[0] = cadd(a, b);
+  v[1] = csub(a, b);
+}
+
+template <>
+__device__ __forceinline__ void dft<4>(float2 (&v)[4]) {
+  const float2 t0 = cadd(v[0], v[2]), t1 = csub(v[0], v[2]);
+  const float2 t2 = cadd(v[1], v[3]), t3 = mul_mi(csub(v[1], v[3]));
+  v[0] = cadd(t0, t2);
+  v[2] = csub(t0, t2);
+  v[1] = cadd(t1, t3);
+  v[3] = csub(t1, t3);
+}
+
+template <>
+__device__ __forceinline__ void dft<5>(float2 (&v)[5]) {
+  constexpr float C1 = 0.30901699437494745f;   // cos(2 pi / 5)
+  constexpr float C2 = -0.8090169943749475f;   // cos(4 pi / 5)
+  constexpr float S1 = 0.9510565162951535f;    // sin(2 pi / 5)
+  constexpr float S2 = 0.5877852522924731f;    // sin(4 pi / 5)
+  const float2 a0 = v[0];
+  const float2 b1 = cadd(v[1], v[4]), b2 = cadd(v[2], v[3]);
+  const float2 d1 = csub(v[1], v[4]), d2 = csub(v[2], v[3]);
+  const float2 e1 = make_float2(a0.x + C1 * b1.x + C2 * b2.x,
+                                a0.y + C1 * b1.y + C2 * b2.y);
+  const float2 e2 = make_float2(a0.x + C2 * b1.x + C1 * b2.x,
+                                a0.y + C2 * b1.y + C1 * b2.y);
+  const float2 f1 = mul_mi(make_float2(S1 * d1.x + S2 * d2.x,
+                                       S1 * d1.y + S2 * d2.y));
+  const float2 f2 = mul_mi(make_float2(S2 * d1.x - S1 * d2.x,
+                                       S2 * d1.y - S1 * d2.y));
+  v[0] = cadd(a0, cadd(b1, b2));
+  v[1] = cadd(e1, f1);
+  v[4] = csub(e1, f1);
+  v[2] = cadd(e2, f2);
+  v[3] = csub(e2, f2);
+}
+
+// One Stockham stage of radix R over N points after Ns points: in -> out,
+// the warp's lanes taking the N / R butterflies in turn. tw: this stage's
+// (Ns, R - 1) twiddles.
+template <int R>
+__device__ __forceinline__ void stage(const float2* __restrict__ in,
+                                      float2* __restrict__ out,
+                                      const float2* __restrict__ tw, int N,
+                                      int ns, int lane) {
+  const int nb = N / R;
+  for (int j = lane; j < nb; j += 32) {
+    const int k = j % ns;
+    float2 v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r] = in[j + r * nb];
+    const float2* w = tw + k * (R - 1);
+#pragma unroll
+    for (int r = 1; r < R; ++r) v[r] = cmul(v[r], __ldg(w + r - 1));
+    dft<R>(v);
+    const int d = (j / ns) * ns * R + k;
+#pragma unroll
+    for (int r = 0; r < R; ++r) out[d + r * ns] = v[r];
+  }
+}
+
+// A Stockham stage of any radix R: output r of butterfly j is sum_q
+// in[j + q N/R] w^(q (k + r Ns)), k = j mod Ns, w = exp(-2 pi i / (Ns R)):
+// the twiddle w^(q k) times the R-point DFT's w^(q r Ns). tw: this
+// stage's Ns R roots w^m. The lanes take the N (butterfly, output) pairs.
+__device__ __forceinline__ void stage_any(const float2* __restrict__ in,
+                                          float2* __restrict__ out,
+                                          const float2* __restrict__ tw,
+                                          int N, int ns, int R, int lane) {
+  const int nb = N / R, L = ns * R;
+  for (int e = lane; e < N; e += 32) {
+    const int j = e % nb, r = e / nb, k = j % ns, step = k + r * ns;
+    float2 acc = make_float2(0.f, 0.f);
+    for (int q = 0, m = 0; q < R; ++q) {
+      acc = cadd(acc, cmul(in[j + q * nb], __ldg(tw + m)));
+      m += step;  // step < L: one subtraction keeps m mod L
+      if (m >= L) m -= L;
+    }
+    out[(j / ns) * L + k + r * ns] = acc;
+  }
+}
+
+// Sample j of the padded waveform from x's row of L samples: x[j - pad],
+// reflected at the ends within `pad` samples of them (as torch's reflect
+// padding), zero past that.
+__device__ __forceinline__ float padded(const float* __restrict__ row,
+                                        long j, int pad, int L) {
+  long i = j - pad;
+  if (i < 0) i = -i;  // pad > 0: within the reflected head
+  if (i >= L) {
+    if (i >= (long)L + pad) return 0.f;
+    i = 2L * (L - 1) - i;
+  }
+  return __ldg(row + i);
 }
 
 template <bool V4>
-__global__ void __launch_bounds__(NW * 32)
-stft_kernel(const float* __restrict__ xp, const float* __restrict__ basis,
-            float* __restrict__ out, int Lp, int T, int K, int N, int hop) {
+__global__ void __launch_bounds__(FPB * 32)
+stft_fft(const float* __restrict__ x, const float* __restrict__ win,
+         const float2* __restrict__ tw, const int* __restrict__ radices,
+         float* __restrict__ out, int B, int L, int pad, int T, int K, int n,
+         int hop, int nst) {
   extern __shared__ float4 smem4[];
-  float* strip = reinterpret_cast<float*>(smem4);
-  const int slen = strip_len(hop, K);
-  float* bs = strip + ((slen + 3) & ~3);  // KC x TN basis chunk
-  const int b = blockIdx.z, t0 = blockIdx.y * TT, n0 = blockIdx.x * TN;
-  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
-  const int rows = min(TT, T - t0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool split = n % 2 == 0;  // the real-split form: N = n / 2
+  const int N = split ? n / 2 : n, bins = n / 2 + 1;
+  float2* a = reinterpret_cast<float2*>(smem4) + (size_t)warp * 2 * N;
+  float2* b2 = a + N;
+  const long g = (long)blockIdx.x * (blockDim.x >> 5) + warp;  // its frame
+  if (g >= (long)B * T) return;  // whole warps only: no block barrier below
+  const long b = g / T, t = g % T;
+  const float* row_x = x + b * L;
+  const long s0 = t * hop - pad;  // the frame's first sample in x
 
-  // the waveform span of this block's frames, zeros past it
-  const int span = (rows - 1) * hop + K;
-  const float* src = xp + (size_t)b * Lp + (size_t)t0 * hop;
-  for (int e = tid; e < slen; e += NW * 32) strip[e] = e < span ? src[e] : 0.f;
-
-  float acc[RM][CN];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < CN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    __syncthreads();  // the strip is complete; the last chunk is consumed
-    for (int e = tid; e < KC * TN; e += NW * 32) {
-      const int kk = k0 + e / TN, n = n0 + e % TN;
-      bs[e] = (kk < K && n < N) ? basis[(size_t)kk * N + n] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 4) {
-      float a[RM][4];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const float* p = strip + (w + NW * i) * hop + k0 + kk;
-        if (V4) {
-          const float4 v = *reinterpret_cast<const float4*>(p);
-          a[i][0] = v.x; a[i][1] = v.y; a[i][2] = v.z; a[i][3] = v.w;
-        } else {
-#pragma unroll
-          for (int q = 0; q < 4; ++q) a[i][q] = p[q];
-        }
+  // the windowed frame, zeros past K: z[m] = w x[2m] + i w x[2m+1] (even
+  // n), w x[m] + 0i (odd n)
+  float* af = reinterpret_cast<float*>(a);
+  if (V4 && s0 >= 0 && s0 + K <= L) {  // inside x: no padding to apply
+    const float4* src = reinterpret_cast<const float4*>(row_x + s0);
+    for (int c = lane; c < n / 4; c += 32) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (4 * c < K) {
+        const float4 xv = __ldg(src + c);
+        const float4 w = __ldg(reinterpret_cast<const float4*>(win) + c);
+        v = make_float4(xv.x * w.x, xv.y * w.y, xv.z * w.z, xv.w * w.w);
       }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float bv[CN];
-#pragma unroll
-        for (int j = 0; j < CN; ++j) bv[j] = bs[(kk + q) * TN + lane + 32 * j];
-#pragma unroll
-        for (int i = 0; i < RM; ++i)
-#pragma unroll
-          for (int j = 0; j < CN; ++j) acc[i][j] = fmaf(a[i][q], bv[j], acc[i][j]);
-      }
+      reinterpret_cast<float4*>(af)[c] = v;
     }
+  } else if (split) {
+    for (int l = lane; l < n; l += 32)
+      af[l] = l < K ? padded(row_x, t * hop + l, pad, L) * __ldg(win + l)
+                    : 0.f;
+  } else {
+    for (int l = lane; l < n; l += 32)
+      a[l] = make_float2(
+          l < K ? padded(row_x, t * hop + l, pad, L) * __ldg(win + l) : 0.f,
+          0.f);
+  }
+  __syncwarp();
+
+  float2* in = a;
+  float2* to = b2;
+  int ns = 1, off = 0;
+  for (int s = 0; s < nst; ++s) {
+    const int R = __ldg(radices + s);
+    if (R == 4) {
+      stage<4>(in, to, tw + off, N, ns, lane);
+      off += ns * 3;
+    } else if (R == 2) {
+      stage<2>(in, to, tw + off, N, ns, lane);
+      off += ns;
+    } else if (R == 5) {
+      stage<5>(in, to, tw + off, N, ns, lane);
+      off += ns * 4;
+    } else {
+      stage_any(in, to, tw + off, N, ns, R, lane);
+      off += ns * R;
+    }
+    __syncwarp();
+    ns *= R;
+    float2* tmp = in;
+    in = to;
+    to = tmp;
   }
 
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int r = w + NW * i;
-    if (r >= rows) continue;
-    float* dst = out + ((size_t)b * T + t0 + r) * N + n0;
-#pragma unroll
-    for (int j = 0; j < CN; ++j) {
-      const int c = lane + 32 * j;
-      if (n0 + c < N) dst[c] = acc[i][j];
+  float* row = out + g * 2 * bins;
+  if (!split) {  // X[k] = Z[k]
+    for (int k = lane; k < bins; k += 32) {
+      row[k] = in[k].x;
+      row[bins + k] = in[k].y;
     }
+    return;
   }
-}
-
-template <bool V4>
-int launch(const float* xp, const float* basis, float* out, int B, int Lp,
-           int T, int K, int N, int hop, cudaStream_t st) {
-  const int slen = strip_len(hop, K);
-  const size_t smem = (((size_t)slen + 3) / 4 * 4 + (size_t)KC * TN) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      stft_kernel<V4>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + TN - 1) / TN, (T + TT - 1) / TT, B);
-  stft_kernel<V4><<<grid, NW * 32, smem, st>>>(xp, basis, out, Lp, T, K, N, hop);
-  return (int)cudaGetLastError();
+  // X[k] = E + W^k O, E = (Z[k] + conj Z[N-k]) / 2, O = -i (Z[k] - conj
+  // Z[N-k]) / 2, indices mod N; row = [Re X[0..N] | Im X[0..N]]
+  const float2* wk = tw + off;
+  for (int k = lane; k <= N; k += 32) {
+    const float2 z = in[k == N ? 0 : k];
+    const float2 zc = in[k == 0 ? 0 : N - k];
+    const float2 e = make_float2(0.5f * (z.x + zc.x), 0.5f * (z.y - zc.y));
+    const float2 o = make_float2(0.5f * (z.y + zc.y), -0.5f * (z.x - zc.x));
+    const float2 xk = cadd(e, cmul(__ldg(wk + k), o));
+    row[k] = xk.x;
+    row[N + 1 + k] = xk.y;
+  }
 }
 
 }  // namespace
 
-// xp (B, Lp) the padded waveform, Lp >= (T - 1) * hop + K; basis (K, N);
-// out (B, T, N).
-extern "C" int se_stft_fwd(const float* xp, const float* basis, float* out,
-                           int B, int Lp, int T, int K, int N, int hop,
+// x (B, L) the waveform; pad: the samples reflected at each end (center),
+// 0 for zeros only, pad < L; frame t starts at sample t * hop of the
+// padded waveform; win (K,) the window; tw the table of ops/stft_fused.py
+// `twiddle_table` (float2); radices (nst,) int32 on the device, the plan
+// of `radix_plan`: the radices of the N-point FFT (N = n / 2 for an even
+// n, n for an odd one), their product N; out (B, T, 2 (n / 2 + 1)).
+extern "C" int se_stft_fwd(const float* x, const float* win, const float* tw,
+                           const int* radices, float* out, int B, int L,
+                           int pad, int T, int K, int n, int hop, int nst,
                            void* stream) {
+  if (n < 1 || K > n || K < 1 || nst < 0 || pad < 0 || (pad > 0 && pad >= L))
+    return (int)cudaErrorInvalidValue;
+  const long frames = (long)B * T;
+  if (frames == 0) return 0;
+  const int N = n % 2 == 0 ? n / 2 : n;
+  const size_t per_frame = (size_t)2 * N * sizeof(float2);
+  int fpb = FPB;
   cudaStream_t st = (cudaStream_t)stream;
-  if (hop % 4 == 0 && K % 4 == 0)
-    return launch<true>(xp, basis, out, B, Lp, T, K, N, hop, st);
-  return launch<false>(xp, basis, out, B, Lp, T, K, N, hop, st);
+  const bool v4 = hop % 4 == 0 && K % 4 == 0 && L % 4 == 0 &&
+                  pad % 4 == 0 && n % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(win) % 16 == 0;
+  auto kernel = v4 ? stft_fft<true> : stft_fft<false>;
+  if (FPB * per_frame > 48 * 1024) {  // past the default: opt in
+    int dev = 0, optin = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return (int)err;
+    fpb = (int)((size_t)optin / per_frame);
+    if (fpb < 1) return (int)cudaErrorInvalidValue;
+    if (fpb > FPB) fpb = FPB;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)(fpb * per_frame));
+    if (err != cudaSuccess) return (int)err;
+  }
+  const unsigned blocks = (unsigned)((frames + fpb - 1) / fpb);
+  kernel<<<blocks, fpb * 32, fpb * per_frame, st>>>(
+      x, win, reinterpret_cast<const float2*>(tw), radices, out, B, L, pad,
+      T, K, n, hop, nst);
+  return (int)cudaGetLastError();
 }

@@ -1,0 +1,163 @@
+// The tensor-core building blocks shared by csrc/lstm.cu and
+// csrc/decoder.cu: cp.async copies into shared memory (zero-filled past a
+// short source), the 3xTF32 operand split, ldmatrix of fp32 fragments, the
+// mma.sync.m16n8k8 TF32 product with fp32 accumulation, and the main loop
+// that runs them over a cp.async ring (`tc_ring`). sm_80 and up.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// v = big + small: big is v rounded to TF32 (to nearest, ties away from
+// zero, as cvt.rna: add half a unit of the 13 dropped bits to the
+// magnitude, clear them), small = v - big exactly, which the mma reads as
+// TF32 (its low 13 bits dropped).
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big,
+                                           uint32_t& small) {
+  big = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(v - __uint_as_float(big));
+}
+
+// Four 8 x 4 fp32 matrices from shared memory, one a lane group of 8 rows
+// (lane l gives the address of row l % 8 of matrix l / 8); register i of
+// lane l holds word l % 4 of row l / 4 of matrix i: the m16n8k8 TF32
+// fragment layout.
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const float* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s)
+      : "memory");
+}
+
+// d += a . b on a 16 x 8 x 8 tile, fp32 accumulate
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The 3xTF32 main loop: acc[m16 tile][n8 tile][fragment] = A . B^T over nk
+// K stages of TK, for the warp's 32 A rows from a_row0 and its NT n8 tiles
+// of B rows from b_row0. The stages pass through a STAGES-deep cp.async
+// ring in shared memory, As (STAGES, TM, LDS) and Bs (STAGES, BROWS, LDS);
+// load(kt, slot) issues stage kt's copies (every thread of the block) into
+// ring slot `slot`. FRESH: each stage sums into a fresh fragment that
+// joins acc by fp32 adds (the mma's own accumulation rounds toward zero,
+// which drifts over a long K); otherwise the mma accumulates into acc.
+// Returns with every copy landed; a caller that reuses the ring must
+// __syncthreads() first.
+template <int TM, int BROWS, int TK, int LDS, int STAGES, int NT, bool FRESH,
+          class Load>
+__device__ __forceinline__ void tc_ring(float (&acc)[2][NT][4],
+                                        const float* As, const float* Bs,
+                                        int nk, int a_row0, int b_row0,
+                                        Load&& load) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int g = 0; g < NT; ++g)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mi][g][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();  // stage kt has landed
+    __syncthreads();              // ... for all, and stage kt - 1 is read
+    const int next = kt + STAGES - 1;  // into the slot stage kt - 1 held
+    if (next < nk) load(next, next % STAGES);
+    cp_async_commit();
+    // ldmatrix row addresses: A's four 8 x 4 matrices are rows +0 / +8,
+    // k +0 / +4 of an m16 tile (a0..a3); B's are k +0 / +4 of n8 tile g,
+    // then of tile g + 1 (b0, b1 of two n8 tiles)
+    const float* as = As + (kt % STAGES) * TM * LDS +
+                      (a_row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
+                      (lane >> 4) * 4;
+    const float* bs = Bs + (kt % STAGES) * BROWS * LDS +
+                      (b_row0 + (lane >> 4) * 8 + (lane & 7)) * LDS +
+                      ((lane >> 3) & 1) * 4;
+    float part[2][NT][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int g = 0; g < NT; ++g)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) part[mi][g][j] = 0.f;
+    float (&sum)[2][NT][4] = FRESH ? part : acc;
+#pragma unroll
+    for (int kk = 0; kk < TK; kk += 8) {
+      uint32_t a[2][4], b[NT][2];
+      uint32_t a_big[2][4], a_small[2][4], b_big[NT][2], b_small[NT][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) ldsm_x4(a[mi], as + mi * 16 * LDS + kk);
+#pragma unroll
+      for (int g = 0; g < NT; g += 2) ldsm_x4(b[g], bs + g * 8 * LDS + kk);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          split_tf32(__uint_as_float(a[mi][j]), a_big[mi][j], a_small[mi][j]);
+#pragma unroll
+      for (int g = 0; g < NT; ++g)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          split_tf32(__uint_as_float(b[g][j]), b_big[g][j], b_small[g][j]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int g = 0; g < NT; ++g) {
+          mma_tf32(sum[mi][g], a_small[mi], b_big[g]);
+          mma_tf32(sum[mi][g], a_big[mi], b_small[g]);
+          mma_tf32(sum[mi][g], a_big[mi], b_big[g]);
+        }
+    }
+    if (FRESH) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int g = 0; g < NT; ++g)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[mi][g][j] += part[mi][g][j];
+    }
+  }
+  cp_async_wait<0>();
+}
+
+}  // namespace

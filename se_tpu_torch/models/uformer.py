@@ -45,7 +45,9 @@ from se_tpu_torch.nn.conv import (
     interleave_complex_bias, interleave_complex_kernel,
 )
 from se_tpu_torch.ops.attention import sdp_attention
-from se_tpu_torch.ops.decoder import decoder_level, split_phase_weights
+from se_tpu_torch.ops.decoder import (
+    decoder_level, level_design, pack_decoder_weights, split_phase_weights,
+)
 from se_tpu_torch.ops.dsconv import dsconv_block, dsconv_pair_block
 from se_tpu_torch.ops.encoder import encoder_level, fusion
 from se_tpu_torch.ops.stft import PRESET_UFORMER, istft, stft
@@ -415,6 +417,35 @@ class Uformer(nn.Module):
                 mod.reset_parameters(generator)
         self.to(resolve_device(device))
 
+    def _decoder_weights(self, i: int):
+        """Decoder level i's 12-tuple and, for a tensor-core level on the
+        card, its packed weights. Without autograd they are made once and
+        kept until a weight or BN buffer of the level moves or changes in
+        place (keyed by each tensor's device, storage and version counter); with autograd they are made anew, so gradients
+        reach the weights."""
+        dec, dec_r = self.decoder[i], self.decoder_real[i]
+        tensors = [*dec.parameters(), *dec.buffers(), *dec_r.parameters(),
+                   *dec_r.buffers()]
+        key = tuple((str(t.device), t.data_ptr(), t._version)
+                    for t in tensors)
+        cache = self.__dict__.setdefault("_decoder_cache", {})
+        hit = cache.get(i)
+        if not torch.is_grad_enabled() and hit is not None and hit[0] == key:
+            return hit[1], hit[2]
+        has_bn = len(dec) > 1
+        tail_c = tuple(dec[1:]) if has_bn else (None, None)
+        tail_m = tuple(dec_r[1:]) if has_bn else (None, None)
+        params = _level_params(dec[0], *tail_c, dec_r[0], *tail_m,
+                               split=True)
+        cc, cout = params[6].shape[1], params[6].shape[2]
+        packed = None
+        if params[0].device.type == "cuda" and \
+                level_design(cc, cout) == "tc":
+            packed = pack_decoder_weights(params)
+        if not torch.is_grad_enabled():
+            cache[i] = (key, params, packed)
+        return params, packed
+
     def forward(self, noisy: torch.Tensor, src: torch.Tensor):
         cfg = PRESET_UFORMER
         n_re, n_im = stft(noisy, cfg)  # (B, T, F)
@@ -457,11 +488,9 @@ class Uformer(nn.Module):
                              skip_c[..., cs:], xc[..., cx:]], dim=-1)
             min_ = torch.cat([skip_m, mag], dim=-1)
             has_bn = len(dec) > 1
-            tail_c = tuple(dec[1:]) if has_bn else (None, None)
-            tail_m = tuple(dec_r[1:]) if has_bn else (None, None)
-            params = _level_params(dec[0], *tail_c, dec_r[0], *tail_m,
-                                   split=True)
-            xc, mag = decoder_level(xin, min_, params, has_bn=has_bn)
+            params, packed = self._decoder_weights(i)
+            xc, mag = decoder_level(xin, min_, params, has_bn=has_bn,
+                                    packed=packed)
 
         # heads; the channel axis is 1 per component
         mag = F.pad(torch.sigmoid(mag[..., 0]), (1, 0)) * mag_full

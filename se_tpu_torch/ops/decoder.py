@@ -12,6 +12,13 @@ bias (1, Cout_b), bn_scale (1, Cout_b), bn_shift (1, Cout_b), alpha (1, 1)).
 The complex input is [skip_re | x_re | skip_im | x_im]. On a CUDA tensor
 `decoder_level` launches csrc/decoder.cu; on a CPU tensor it runs
 `_reference`, the plain twin.
+
+csrc/decoder.cu has two designs, picked a level by `level_design` from the
+shape: an implicit GEMM on the tensor cores (`se_decoder_level_tc`, Cout
+>= 8: Uformer's levels 0-4), whose weights `pack_decoder_weights` lays
+out once (Uformer caches them a model), and a CUDA-core kernel for the
+narrowest (`se_decoder_level_cc`, Cout < 8: level 5), which reads the
+12-tuple as it is.
 """
 
 from __future__ import annotations
@@ -63,13 +70,77 @@ def _reference(xc, xm, params, has_bn: bool):
     return fuse(branch(xc, *params[:6]), branch(xm, *params[6:12]))
 
 
+TC_CHANNELS = 16  # output channels a tensor-core block: Cout padded to it
+TC_K = 32         # K a stage: each tap's Cin padded to it
+TC_MIN_COUT = 8   # narrower levels take the CUDA cores
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def level_design(cc: int, cout: int) -> str:
+    """The design csrc/decoder.cu runs a level with: "tc" (the implicit GEMM
+    on the tensor cores) for Cout >= 8, Uformer's levels 0-4 (level 4's
+    Cout 8 fills half of each block's channels, and still ran 2.3-2.6x
+    faster than on the CUDA cores on the card), where Cc % 4 == 0 (16-byte
+    copies of both branches' channels); "cuda_core" otherwise (level 5,
+    Cout 1, bounded by bytes). The CUDA-core entry refuses a level whose
+    staged weights and input tile do not fit a block's shared memory."""
+    return "tc" if cout >= TC_MIN_COUT and cc % 4 == 0 else "cuda_core"
+
+
+def _pack_branch(w_even, w_odd, parts: int):
+    """(6, Cin, parts * Cout) and (4, Cin, parts * Cout) phase weights ->
+    (Coutp / 8 * 2 * parts * 8, 6 * Cinp). K index tap * Cinp + ci with tap
+    = it * 3 + jf over x[t - 1 + it, q - 1 + jf]: the even phase's taps as
+    they are, the odd phase's f-taps wf1/3 at jf = 1, 2 and zeros at jf = 0.
+    Column (g8, phase, part, c8) for channel 8 g8 + c8: per 8 channels the
+    n8 tiles [re even, im even, re odd, im odd] (complex) or [even, odd]
+    (real). Cin is zero-padded to Cinp (a multiple of 32), Cout to Coutp (a
+    multiple of 16)."""
+    _, cin, n = w_even.shape
+    cout = n // parts
+    cinp, coutp = _round_up(cin, TC_K), _round_up(cout, TC_CHANNELS)
+    even = w_even.reshape(2, 3, cin, parts, cout)
+    odd = w_odd.reshape(2, 2, cin, parts, cout)
+    odd = torch.cat([torch.zeros_like(odd[:, :1]), odd], dim=1)
+    full = torch.stack([even, odd])  # (phase, it, jf, ci, part, c)
+    full = F.pad(full, (0, coutp - cout, 0, 0, 0, cinp - cin))
+    full = full.reshape(2, 6, cinp, parts, coutp // 8, 8)
+    packed = full.permute(4, 0, 3, 5, 1, 2)  # (g8, phase, part, c8, tap, ci)
+    return packed.reshape(-1, 6 * cinp).contiguous()
+
+
+def pack_decoder_weights(params):
+    """The 12-tuple's phase weights packed for the tensor-core design, on
+    their device: complex (4 Coutp, 6 Cinp_c) and real (2 Coutp, 6 Cinp_m),
+    K-major. Done once a model (Uformer keeps them), not once a call."""
+    return (_pack_branch(params[0], params[1], 2),
+            _pack_branch(params[6], params[7], 1))
+
+
 def decoder_level(xc: torch.Tensor, xm: torch.Tensor, params,
-                  has_bn: bool):
+                  has_bn: bool, packed=None):
     """xc (B, T, F, 2*Cc) = [skip_re | x_re | skip_im | x_im], xm (B, T, F,
-    Cc) = [skip_m | m] -> ((B, T, 2F, 2*Cout), (B, T, 2F, Cout))."""
+    Cc) = [skip_m | m] -> ((B, T, 2F, 2*Cout), (B, T, 2F, Cout)). `packed`:
+    `pack_decoder_weights(params)`, where the caller keeps it; packed here
+    for a tensor-core level without it."""
     params = tuple(params)
     if xc.device.type == "cpu":
         return _reference(xc, xm, params, has_bn)
+    cout = params[6].shape[-1]
+    return _launch(xc, xm, params, has_bn,
+                   level_design(xc.shape[-1] // 2, cout), packed)
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x, or a fresh copy where its data does not start on 16 bytes."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _launch(xc, xm, params, has_bn: bool, design: str, packed=None):
+    """Launch `design` ("tc" or "cuda_core") on CUDA tensors."""
     b, t, f, c2 = xc.shape
     cc, cout = c2 // 2, params[6].shape[-1]
     names = ("wce", "wco", "bc", "sc", "tc", "ac",
@@ -85,7 +156,19 @@ def decoder_level(xc: torch.Tensor, xm: torch.Tensor, params,
     yc = torch.empty((b, t, 2 * f, 2 * cout), device=xc.device,
                      dtype=xc.dtype)
     ym = torch.empty((b, t, 2 * f, cout), device=xc.device, dtype=xc.dtype)
-    _build.launch("se_decoder_level", xc, xm, *params, yc, ym, b, t, f, cc,
-                  cout, bool(has_bn))
+    if design == "tc":
+        wc, wm = pack_decoder_weights(params) if packed is None else packed
+        coutp = _round_up(cout, TC_CHANNELS)
+        cinp_c, cinp_m = _round_up(2 * cc, TC_K), _round_up(cc, TC_K)
+        _build.check(wc, (4 * coutp, 6 * cinp_c), "packed wc")
+        _build.check(wm, (2 * coutp, 6 * cinp_m), "packed wm")
+        _build.launch("se_decoder_level_tc", _aligned(xc), _aligned(xm), wc,
+                      wm, *params[2:6], *params[8:12], yc, ym, b, t, f, cc,
+                      cout, cinp_c, cinp_m, bool(has_bn))
+    elif design == "cuda_core":
+        _build.launch("se_decoder_level_cc", xc, xm, *params, yc, ym, b, t, f,
+                      cc, cout, bool(has_bn))
+    else:
+        raise ValueError(f"unknown decoder design {design!r}")
     _build.LAUNCHES["decoder"] += 1
     return yc, ym

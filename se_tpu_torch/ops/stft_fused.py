@@ -1,25 +1,115 @@
-"""Fused STFT (framing + window + DFT): the port of
+"""Fused STFT (framing + window + FFT): the port of
 se_tpu/ops/pallas_stft.py (`stft_pallas`, kernel `_kernel`; dispatcher
 `stft_auto`).
 
-On a CUDA tensor `stft_fused` pads the waveform in torch, as `stft_pallas`
-pads outside its `pallas_call`, and launches csrc/stft.cu, which never
-writes the frames tensor; on a CPU tensor it runs `_reference`, the plain
-twin (`ops.stft.stft`: framing, then one matmul with the same basis).
+On a CUDA tensor `stft_fused` launches csrc/stft.cu, which reads each
+frame straight from the waveform with the convention's padding (as
+`pad_signal` makes it: reflected ends for `center`, then zeros) applied at
+the load, so neither a padded copy nor the frames tensor is written
+(`stft_pallas` pads outside its `pallas_call`; on an H100 a separate pad
+kernel took 24-37% of the device time at B = 256, chip_smoke.py phase
+3), windows it and takes its real FFT in shared memory: n real points as
+an n/2-point complex FFT in radix stages (`radix_plan`), then a
+real-split pass. On a CPU tensor it runs `_reference`, the plain twin
+(`ops.stft.stft`: framing, then one matmul with the DFT basis).
 
-`stft_auto` sends every 2-D CUDA input with frame_len % hop == 0 to the
-kernel. It drops the JAX dispatcher's k = frame_len / hop >= 3 threshold,
-a TPU v5e measurement; whether the kernel beats the plain path at k = 2 on
-the card is measured by chip_smoke.py.
+`stft_auto` sends a 2-D input to the kernel where frame_len % hop == 0
+(`takes_kernel`, decided from shapes alone), as the TPU entry's contract
+reads; the rest (other ranks, Uformer's 512/160) take the plain `stft`.
+The kernel takes every n_fft up to 2 * MAX_POINTS (a frame's two buffers
+in one block's shared memory): `radix_plan` factors any such n, radices
+2, 4 and 5 unrolled in the kernel and any other prime as a generic stage;
+past it `stft_fused` raises. `stft_auto` drops the JAX dispatcher's k =
+frame_len / hop >= 3 threshold, a TPU v5e measurement; chip_smoke.py
+measures the kernel against the plain path and torch.stft on the card at
+k = 2 and 4.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from se_tpu_torch.ops import _build
-from se_tpu_torch.ops.stft import StftConfig, _const, num_frames, pad_signal
+from se_tpu_torch.ops.stft import StftConfig, _const, num_frames
 from se_tpu_torch.ops.stft import stft as _reference
+
+RADICES = (4, 2, 5)  # the kernel's unrolled butterflies, in plan order
+MAX_POINTS = 8192    # complex points a frame: two buffers of 64 KB each
+
+
+def fft_points(n: int) -> int:
+    """The complex FFT length the kernel runs for a real n-point FFT: n/2
+    for an even n (the real-split form), n for an odd one."""
+    return n // 2 if n % 2 == 0 else n
+
+
+@functools.lru_cache(maxsize=None)
+def radix_plan(n: int) -> tuple[int, ...] | None:
+    """The radices of the `fft_points(n)`-point complex FFT the kernel runs
+    for a real n-point FFT: 4s, 2s and 5s first (the unrolled butterflies),
+    then the other prime factors, ascending (512 -> (4, 4, 4, 4), 320 ->
+    (4, 4, 2, 5), 384 -> (4, 4, 4, 3), 258 -> (3, 43)); None where it
+    takes no such n (n < 1, or more than MAX_POINTS points)."""
+    m = fft_points(n)
+    if n < 1 or m > MAX_POINTS:
+        return None
+    plan = []
+    for r in RADICES:
+        while m % r == 0:
+            plan.append(r)
+            m //= r
+    p = 3
+    while m > 1:
+        while m % p == 0:
+            plan.append(p)
+            m //= p
+        p += 2
+    return tuple(plan)
+
+
+@functools.lru_cache(maxsize=None)
+def twiddle_table(n: int) -> np.ndarray:
+    """(L, 2) float32 [cos, sin] rows, built in float64: for each stage of
+    `radix_plan(n)` with radix R after Ns points, an unrolled one's (R in
+    RADICES) exp(-2 pi i r k / (Ns R)) at row k (R - 1) + r - 1 of its
+    (Ns, R - 1) block (k < Ns, 1 <= r < R), a generic one's Ns R roots
+    exp(-2 pi i m / (Ns R)); then, for an even n, W^k = exp(-2 pi i k / n)
+    for k = 0 .. n/2, the real-split pass."""
+    plan = radix_plan(n)
+    if plan is None:
+        raise ValueError(f"fused stft: no radix plan for n_fft {n}")
+    blocks, ns = [], 1
+    for r in plan:
+        if r in RADICES:
+            ang = np.outer(np.arange(ns), np.arange(1, r)).reshape(-1)
+        else:
+            ang = np.arange(ns * r)
+        blocks.append(-2.0 * np.pi * ang / (ns * r))
+        ns *= r
+    if n % 2 == 0:
+        blocks.append(-2.0 * np.pi * np.arange(n // 2 + 1) / n)
+    ang = np.concatenate(blocks) if blocks else np.zeros(0)
+    return np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_consts(cfg: StftConfig, device: torch.device):
+    """What a launch for `cfg` reads besides the waveform, made once on
+    `device`: the window, the twiddle table and the plan's radices (int32)."""
+    plan = radix_plan(cfg.fft)
+    return (_const("window", cfg, device),
+            torch.from_numpy(twiddle_table(cfg.fft)).to(device),
+            torch.tensor(plan, dtype=torch.int32, device=device))
+
+
+def takes_kernel(x: torch.Tensor, cfg: StftConfig) -> bool:
+    """Whether `stft_auto` sends x to the kernel (on a CUDA device): a 2-D
+    waveform and frame_len % hop == 0. Shapes only: holds for a tensor on
+    any device, `meta` included."""
+    return x.ndim == 2 and cfg.frame_len % cfg.hop == 0
 
 
 def stft_fused(x: torch.Tensor, cfg: StftConfig):
@@ -27,28 +117,34 @@ def stft_fused(x: torch.Tensor, cfg: StftConfig):
     if cfg.frame_len % cfg.hop != 0:  # the TPU entry's contract
         raise ValueError(f"fused stft needs frame_len % hop == 0, got "
                          f"{cfg.frame_len} and {cfg.hop}")
+    if radix_plan(cfg.fft) is None:
+        raise ValueError(f"fused stft: no radix plan for n_fft {cfg.fft} "
+                         f"(over {MAX_POINTS} complex points a frame)")
     if x.device.type == "cpu":
         return _reference(x, cfg)
     if x.ndim != 2:
         raise ValueError(f"stft kernel: expected (B, n), got {tuple(x.shape)}")
     b, n = x.shape
+    pad = cfg.fft // 2 if cfg.convention == "center" else 0
+    if pad and pad >= n:  # torch's reflect padding refuses it too
+        raise ValueError(f"stft kernel: reflect padding {pad} needs more "
+                         f"than {pad} samples, got {n}")
+    x = x.contiguous()
+    _build.check(x, (b, n), "x")
     t_frames = num_frames(n, cfg)
-    xp = pad_signal(x, cfg).contiguous()
-    basis = _const("forward", cfg, x.device)
-    f2 = basis.shape[1]
-    _build.check(xp, (b, xp.shape[1]), "x")
-    out = x.new_empty(b, t_frames, f2)
-    _build.launch("se_stft_fwd", xp, basis, out, b, xp.shape[1], t_frames,
-                  cfg.frame_len, f2, cfg.hop)
+    win, tw, radices = _kernel_consts(cfg, x.device)
+    bins = cfg.bins
+    out = x.new_empty(b, t_frames, 2 * bins)
+    _build.launch("se_stft_fwd", x, win, tw, radices, out, b, n, pad,
+                  t_frames, cfg.frame_len, cfg.fft, cfg.hop, len(radices))
     _build.LAUNCHES["stft"] += 1
-    return out[..., :cfg.bins], out[..., cfg.bins:]
+    return out[..., :bins], out[..., bins:]
 
 
 def stft_auto(x: torch.Tensor, cfg: StftConfig):
-    """`stft_fused` for a 2-D waveform whose configuration it takes (on the
-    CPU that is its plain twin), the plain `stft` otherwise (other ranks,
-    frame_len % hop != 0 as Uformer's center 512/160). Decided from the
-    device and shapes only."""
-    if x.ndim == 2 and cfg.frame_len % cfg.hop == 0:
+    """`stft_fused` where `takes_kernel` (on the CPU that is its plain
+    twin), the plain `stft` otherwise (other ranks, frame_len % hop != 0 as
+    Uformer's center 512/160)."""
+    if takes_kernel(x, cfg):
         return stft_fused(x, cfg)
     return _reference(x, cfg)

@@ -86,6 +86,55 @@ def test_decoder_kernel_matches_twin(gen, dev, has_bn):
                     (xc, xm, params), dev)
 
 
+# (B, T, F, Cc, Cout): Uformer's six decoder levels (levels 0-4 take the
+# tensor cores, 5 the CUDA cores), then a ragged M at level 3's widths
+# (120 positions: two 64-row tiles, the second part empty), T = 1 and F = 4
+# at level 0's widths (4 positions), Cout 20 (padded to 32) and Cin 24 and
+# 12 (padded to 32) on the tensor cores, and a narrow level on the CUDA
+# cores.
+UFORMER_KERNELS = (1, 8, 16, 32, 64, 128, 128)
+DEC_SHAPES = [(2, 7, 4 << i, 2 * UFORMER_KERNELS[6 - i],
+               UFORMER_KERNELS[5 - i]) for i in range(6)] + [
+    (3, 5, 8, 64, 16), (1, 1, 4, 256, 128), (2, 3, 4, 12, 20),
+    (1, 3, 4, 6, 3)]
+
+
+@pytest.mark.parametrize("has_bn", [True, False])
+@pytest.mark.parametrize("b,t,f,cc,cout", DEC_SHAPES)
+def test_decoder_levels_match_twin(gen, dev, b, t, f, cc, cout, has_bn):
+    """Tolerance 1e-4 * max(1, max|twin|): 3xTF32 or fp32 sums over up to
+    K = 3072 in another order; the packed weights passed as Uformer passes
+    them."""
+    params = to_torch(dec_params(gen, cc, cout))
+    xc, xm = to_torch((rand(gen, b, t, f, 2 * cc), rand(gen, b, t, f, cc)))
+    want = decoder._reference(xc, xm, params, has_bn)
+    pd = tuple(p.to(dev) for p in params)
+    packed = None
+    if decoder.level_design(cc, cout) == "tc":
+        packed = decoder.pack_decoder_weights(pd)
+    got = decoder.decoder_level(xc.to(dev), xm.to(dev), pd, has_bn,
+                                packed=packed)
+    torch.cuda.synchronize()
+    scale = max(1.0, max(float(w.abs().max()) for w in want))
+    close(got, want, 1e-4 * scale)
+
+
+@pytest.mark.parametrize("design", ["tc", "cuda_core"])
+@pytest.mark.parametrize("level", [4, 5])
+def test_decoder_levels_4_5_on_either_design(gen, dev, level, design):
+    """Levels 4 (Cc 32, Cout 8) and 5 (Cc 16, Cout 1) run on either
+    design; chip_smoke.py times both."""
+    f, cc = 4 << level, 2 * UFORMER_KERNELS[6 - level]
+    params = to_torch(dec_params(gen, cc, UFORMER_KERNELS[5 - level]))
+    xc, xm = to_torch((rand(gen, 2, 5, f, 2 * cc), rand(gen, 2, 5, f, cc)))
+    want = decoder._reference(xc, xm, params, True)
+    got = decoder._launch(xc.to(dev), xm.to(dev),
+                          tuple(p.to(dev) for p in params), True, design)
+    torch.cuda.synchronize()
+    close(got, want, 1e-4 * max(1.0, max(float(w.abs().max())
+                                          for w in want)))
+
+
 @pytest.mark.parametrize("c,cm,d1,d2", [(128, 32, 1, 128), (128, 32, 16, 8),
                                         (64, 4, 2, 1)])
 def test_dsconv_pair_kernel_matches_twin(gen, dev, c, cm, d1, d2):
@@ -232,6 +281,17 @@ STFT_CFGS = {
     "valid": plain_stft.StftConfig(400, 100, 512, convention="valid"),
     # hop and frame not multiples of 4: the kernel's scalar-load variant
     "valid_hop134": plain_stft.StftConfig(402, 134, 512, convention="valid"),
+    # n/2 = 200: radices 4, 2, 5, 5; n = 1024 in the default shared memory
+    "400_100": plain_stft.StftConfig(400, 100, 400),
+    "1024_256": plain_stft.StftConfig(1024, 256, 1024),
+    # generic stages: n/2 = 192 = 4^3 x 3, 129 = 3 x 43; odd n = 321 = 3 x
+    # 107, no real split
+    "384_128": plain_stft.StftConfig(384, 128, 384),
+    "258_129": plain_stft.StftConfig(258, 129, 258),
+    "odd_321_107": plain_stft.StftConfig(321, 107, 321),
+    # past the default 48 KB: 4 frames a block in 64 KB, then 3 in 192 KB
+    "2048_512": plain_stft.StftConfig(2048, 512, 2048),
+    "8192_2048": plain_stft.StftConfig(8192, 2048, 8192),
 }
 
 
@@ -250,10 +310,24 @@ def test_stft_kernel_matches_twin(gen, dev, name, n):
     close(got, want, 1e-4 * scale)
 
 
+@pytest.mark.parametrize("name", ["512_128", "512_256", "320"])
+def test_stft_kernel_matches_twin_at_b256(gen, dev, name):
+    """B = 256 x 4 s, the throughput phase's batch; the twin on the card
+    (TF32 off)."""
+    cfg = STFT_CFGS[name]
+    x = torch.from_numpy(rand(gen, 256, 64000, scale=0.1)).to(dev)
+    want = stft_fused._reference(x, cfg)
+    got = stft_fused.stft_fused(x, cfg)
+    torch.cuda.synchronize()
+    scale = max(1.0, max(float(w.abs().max()) for w in want))
+    close(got, want, 1e-4 * scale)
+
+
 def test_stft_auto_takes_the_kernel_on_the_card(gen, dev):
     (x,) = to_torch((rand(gen, 2, 8000),), device=dev)
     before = dict(_build.LAUNCHES)
     stft_fused.stft_auto(x, plain_stft.PRESET_320)
     stft_fused.stft_auto(x, plain_stft.PRESET_UFORMER)  # 512 % 160 != 0
+    stft_fused.stft_auto(x, STFT_CFGS["384_128"])  # a generic radix-3 stage
     launched = _build.LAUNCHES["stft"] - before.get("stft", 0)
-    assert launched == 1
+    assert launched == 2
