@@ -228,7 +228,14 @@ def level_params(gen, shapes, dev):
 
 
 def encoder_cases(gen, dev):
+    """The six levels of Uformer's B = 4 forward, each on the design
+    `level_design` gives it (the tensor-core levels with their weights
+    packed once, as Uformer keeps them; named in the label), then levels
+    0-2 also on the design they do not take: the times are what
+    `level_design`'s choice rests on."""
     import torch
+
+    from se_tpu_torch.ops import encoder
 
     b, t = B_MAIN, T_FRAMES
     t_taps = 2 * t - 1
@@ -244,9 +251,32 @@ def encoder_cases(gen, dev):
                                 for fo in range(f // 2)))
         flops = 2.0 * b * t_taps * f_taps * 5 * cin * cout
         out_bytes = b * t * (f // 2) * 3 * cout * 4
-        yield (f"encoder level {i} {b}x{t}x{f}x{cin}->{cout}",
-               (xc, xm, params), flops, nbytes(xc, xm, params) + out_bytes,
-               None, True)
+        design = encoder.level_design(cin)
+        packed = encoder.pack_encoder_weights(params) if design == "tc" \
+            else None
+        label = f"encoder level {i} {b}x{t}x{f}x{cin}->{cout}"
+        moved = nbytes(xc, xm, params) + out_bytes
+        yield (f"{label} design={design}", (xc, xm, params, packed, None),
+               flops, moved, None, True)
+        if i <= 2:  # the shallow levels on the design they do not take
+            other = "cuda_core" if design == "tc" else "tc"
+            yield (f"{label} design={other} (not taken)",
+                   (xc, xm, params, None, other), flops, moved, None, False)
+
+
+def _encoder_kernel(xc, xm, params, packed, design):
+    """encoder_level as Uformer calls it, or one design forced."""
+    from se_tpu_torch.ops import encoder
+
+    if design is None:
+        return encoder.encoder_level(xc, xm, params, packed=packed)
+    return encoder._launch(xc, xm, params, design, packed)
+
+
+def _encoder_twin(xc, xm, params, packed, design):
+    from se_tpu_torch.ops import encoder
+
+    return encoder._reference(xc, xm, params)
 
 
 def decoder_cases(gen, dev):
@@ -317,22 +347,41 @@ def dsconv_flops(b, t, f, cin, tot, d1, d2) -> float:
 
 
 def pair_cases(gen, dev):
+    """The eight stages of Uformer's B = 4 forward (its dilation pairs),
+    with both blocks' weights packed once, as Uformer keeps them; then one
+    stage at phase 5's B = 32."""
     import torch
 
-    b, t, f = B_MAIN, T_FRAMES, 4
+    from se_tpu_torch.ops import dsconv
+
+    t, f = T_FRAMES, 4
     n = len(DILATIONS)
     pc = dsconv_params(gen, 256, 64, dev)
     pm = dsconv_params(gen, 128, 32, dev)
-    xc = torch.randn(b, t, f, 256, generator=gen).to(dev)
-    xm = torch.randn(b, t, f, 128, generator=gen).to(dev)
-    for i, d1 in enumerate(DILATIONS):
-        d2 = DILATIONS[n - i - 1]
+    packed = dsconv.pack_pair_weights(pc, pm)
+    stages = [(B_MAIN, d1, DILATIONS[n - i - 1], True)
+              for i, d1 in enumerate(DILATIONS)] + [(32, 1, 128, False)]
+    for b, d1, d2, in_row in stages:
+        xc = torch.randn(b, t, f, 256, generator=gen).to(dev)
+        xm = torch.randn(b, t, f, 128, generator=gen).to(dev)
         # both blocks; the fusion's ~10 flops a channel are left out
         flops = (dsconv_flops(b, t, f, 256, 64, d1, d2)
                  + dsconv_flops(b, t, f, 128, 32, d1, d2))
         yield (f"dsconv_pair {b}x{t}x{f}x(256+128) d=({d1},{d2})",
-               (xc, xm, pc, pm, d1, d2), flops,
-               nbytes(xc, xm, pc, pm, xc, xm), None, True)
+               (xc, xm, pc, pm, d1, d2, packed), flops,
+               nbytes(xc, xm, pc, pm, xc, xm), None, in_row)
+
+
+def _pair_kernel(xc, xm, pc, pm, d1, d2, packed):
+    from se_tpu_torch.ops import dsconv
+
+    return dsconv.dsconv_pair_block(xc, xm, pc, pm, d1, d2, packed=packed)
+
+
+def _pair_twin(xc, xm, pc, pm, d1, d2, packed):
+    from se_tpu_torch.ops import dsconv
+
+    return dsconv._pair_reference(xc, xm, pc, pm, d1, d2)
 
 
 def lstm_weights(gen, dev, in_dim, h):
@@ -596,9 +645,7 @@ def check_kernels(dev, only) -> dict:
     every case counts in its error."""
     import torch
 
-    from se_tpu_torch.ops import (
-        attention, decoder, dsconv, encoder, lstm, stft_fused,
-    )
+    from se_tpu_torch.ops import attention, dsconv, lstm, stft_fused
 
     gen = torch.Generator().manual_seed(1)
     # name: () -> (kernel, twin, cases, source, replaces, launches per
@@ -617,13 +664,17 @@ def check_kernels(dev, only) -> dict:
             10, f"the 16 block shapes of Uformer's {b4} (its stage runs "
             "dsconv_pair)"),
         "dsconv_pair": lambda: (
-            dsconv.dsconv_pair_block, dsconv._pair_reference, pair_cases,
+            _pair_kernel, _pair_twin, pair_cases,
             "se_tpu_torch/csrc/dsconv.cu", "se_tpu/ops/pallas_dsconv.py:325",
-            10, f"the 8 stages of Uformer's {b4}"),
+            10, f"the 8 stages of Uformer's {b4}: dsconv_pre_tc + "
+            "dsconv_post_tc a stage, on the tensor cores; B = 32 is a "
+            "per-case line"),
         "encoder": lambda: (
-            encoder.encoder_level, encoder._reference, encoder_cases,
+            _encoder_kernel, _encoder_twin, encoder_cases,
             "se_tpu_torch/csrc/encoder.cu", "se_tpu/ops/pallas_encoder.py:98",
-            10, f"the 6 levels of Uformer's {b4}"),
+            10, f"the 6 levels of Uformer's {b4}: level 0 on the CUDA "
+            "cores (encoder_level_cc), 1-5 on the tensor cores "
+            "(encoder_level_tc)"),
         "decoder": lambda: (
             _decoder_kernel, _decoder_twin, decoder_cases,
             "se_tpu_torch/csrc/decoder.cu",
@@ -690,7 +741,7 @@ def check_kernels(dev, only) -> dict:
                     "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
                     "bound_by": b_by, "gflop": flops / 1e9,
                     "mbytes": moved / 1e6, "in_row": in_row}
-            if name == "stft":  # a few-microsecond call: where its time is
+            if name in DEVICE_SPLIT:  # where a call's event time goes
                 with torch.no_grad():
                     line["device_ms"] = device_ms(lambda: kernel(*args))
                     if library:
@@ -744,7 +795,7 @@ def seeded(name: str, seed: int):
 # applied twice: intra 2 layers x 2 directions over T = 4 bins (the
 # tensor-core step) + inter 2 layers (small fold).
 MAIN_PATHS = {
-    "uformer": {"attention": None, "dsconv_pair": 8, "encoder": None,
+    "uformer": {"attention": None, "dsconv_pair": 8, "encoder": 6,
                 "decoder": 6},
     "fullsubnet": {"lstm": 2, "lstm_project": 2, "lstm_recur": 2,
                    "stft": 1},
@@ -753,6 +804,14 @@ MAIN_PATHS = {
     "crn": {"lstm": 0, "lstm_project": 2, "lstm_recur": 2, "stft": 1},
     "gcrn": {"lstm": 0, "lstm_project": 4, "lstm_recur": 4, "stft": 1},
     "dpcrn": {"lstm": 8, "lstm_project": 4, "lstm_recur": 4, "stft": 1},
+}
+# kernels whose phase-3 lines carry the device time by kernel name
+# (torch.profiler) beside the CUDA-event time
+DEVICE_SPLIT = ("stft", "encoder", "dsconv_pair")
+# family: the kernel names its phase-6 profile must show
+PROFILE_KERNELS = {
+    "uformer": ("encoder_level_cc", "encoder_level_tc", "dsconv_pre_tc",
+                "dsconv_post_tc", "decoder_level_tc", "decoder_level_cc"),
 }
 # kernel: the main path whose B = 4 forward its row of the table sums
 ROW_PATH = {"attention": "uformer", "dsconv": "uformer",
@@ -881,11 +940,19 @@ def profile(name: str, model, card: str) -> None:
             if evt.device_type == DeviceType.CUDA]
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
+    want = PROFILE_KERNELS.get(name, ())
+    seen = {k: sum(ms for ms, _, key in rows if k in key)
+            for k in want}
     emit({"phase": "profile", "model": name, "batch": 32,
           "wall_ms": wall_ms, "device_ms": device_ms,
           "device_busy_share": device_ms / wall_ms if wall_ms else None,
           "top": [{"ms": ms, "calls": n, "name": key[:90]}
-                  for ms, n, key in rows[:12]], "card": card})
+                  for ms, n, key in rows[:12]], "kernels_ms": seen,
+          "card": card})
+    missing = [k for k in want
+               if not any(k in key for _, _, key in rows)]
+    if missing:
+        fail(f"{name}: the profile shows no {', '.join(missing)}")
 
 
 def parse_args():

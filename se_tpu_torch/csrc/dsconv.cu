@@ -5,7 +5,7 @@
 //     `dsconv_block`): one block, C entry `se_dsconv_fwd`;
 //   - `_pallas_pair` and its body `_pair_kernel` / `_pair_math` (entry
 //     `dsconv_pair_block`): one conformer stage, the complex block, the
-//     real block and the cross-branch fusion, C entry `se_dsconv_pair_fwd`.
+//     real block and the cross-branch fusion, C entry `se_dsconv_pair_tc`.
 //
 // Bound on the H100: by operations. At the main path's shapes (x (B, T,
 // 4, 256) complex with Cm = 64, (B, T, 4, 128) real with Cm = 32) a row
@@ -15,43 +15,64 @@
 // T-taps. That is 175-186 kflop a row complex and 44-46 kflop real over
 // the eight dilation pairs (82-87% of the 213 and 53 kflop with every tap
 // counted), on 2*Cin*4 bytes (x read, out written): 86-91 and 43-45
-// flops a byte, above the fp32 ridge of ~20 (67 TFLOP/s over 3.35 TB/s).
+// flops a byte, about the fp32-accurate tensor-core ridge of ~50 (165
+// TFLOP/s over 3.35 TB/s).
 //
 // The TPU kernel held y = (T, F, Cm) of one batch item in VMEM. On the
 // card that is 401*4*64*4 B = 410 KB, more than a block's shared memory,
-// and each output row reads y at t +- d with d up to 128. So the block
-// is split at y, into two launches behind one entry:
-//   (a) dsconv_pre: 16 rows a block. LN1 per component segment -> 1x1
-//       conv -> PReLU, into the scratch tensor y (B, T, F, Cm).
-//   (b) dsconv_post: 16 rows a block. Gathers the 9 taps of y for each
-//       dilated conv (zero padding (d, d) on T, (1, 1) on F) into shared
-//       memory, then a * sigmoid(g) -> LN2 per component -> z * sigmoid(z)
-//       -> 1x1 conv -> + x.
-// In both, a thread computes one (row, out channel) sum at a time: the
-// row's input sits in shared memory (a broadcast), the weight column is
-// read from L1/L2 by consecutive threads (coalesced).
+// and each output row reads y at t +- d with d up to 128. So a stage is
+// split at y, into two launches (y, 20 MB at B = 32, stays in the 50 MB
+// L2 between them):
 //
-// The stage runs the pre kernel once for each branch and then one
-// dsconv_pair_post, which runs the post stage of both branches for the
-// same 16 rows into shared memory (40 KB at the conformer's widths, the
-// outputs kept in the dead part of the tap buffer) and applies the fusion
-// before it writes: no channel concat, no output round trip per branch
-// and no elementwise passes for the fusion. Its bound is the sum of the
-// two blocks' (the fusion is ~10 flops a channel).
+// dsconv_pre_tc: LN1 per component -> 1x1 conv -> PReLU of both branches,
+// into the scratch tensors y. A GEMM a branch on the tensor cores (3xTF32
+// mma.sync, tc_common.cuh `tc_ring`): M = rows, K = Cin (256 / 128), N =
+// Cm (64 / 32). A block of 64 rows first takes each (row, component
+// segment)'s mean and rstd, a warp a segment, two passes as the twin (mean,
+// then mean square deviation); the main loop's A tiles are x as it is,
+// normalised in the fragments before the 3xTF32 split ((v - mean) * rstd
+// * gamma + beta: tc_ring's `prep`). LN is not folded into the weights
+// (x . (gamma W) - mean . colsum(gamma W)): that cancels badly where
+// |mean| >> std. Bias and PReLU in the epilogue.
+//
+// dsconv_post_tc: the rest of both blocks and the fusion, 64 rows a block
+// (16 frames of F = 4), every channel of both branches:
+//   1. the two dilated 3x3 convs of a branch as implicit GEMMs through
+//      tc_ring: K = 9 taps x Cmp (each tap's Cm zero-padded to a multiple
+//      of 32: a stage lies in one tap), N = Cm; the copies gather y at (t +
+//      (i - 1) d, f + j - 1), zero-filled outside [0, T) x [0, F). The d2
+//      conv's gate sigmoid(g + bd2) goes to shared memory, then the d1
+//      conv's a + bd1 multiplies it there (the same thread owns the same
+//      (row, channel) in both: no barrier, half the accumulators live).
+//   2. LN2 per component segment in shared memory (a thread a (row,
+//      segment), two passes in fp32), then z * sigmoid(z) in place.
+//   3. the output 1x1 conv: K = Cm, N = the fusion's channels, 32 a pass
+//      (a ring of two passes of `ws` in shared memory, the next loading
+//      while this one computes); A is z from shared memory. `ws` is packed
+//      so that the thread holding complex re c also holds im c and the real
+//      branch's m c (per 8 channels the n8 tiles re, im; then m), so bias,
+//      the residual x and the fusion run in registers and oc, om are
+//      written once.
+// A block: 128 threads in 2 x 2 warps of 32 rows (4 complex, 2 real n8
+// tiles a warp); shared memory 83.5 KB at the conformer's widths (the
+// cp.async ring, both z tiles, LN2's statistics): two blocks an SM.
+//
+// The single block (`se_dsconv_fwd`, on no eval path since the stage runs
+// the pair entry) keeps its CUDA-core kernels: dsconv_pre and dsconv_post,
+// 16 rows a block, a thread one (row, out channel) sum at a time.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "tc_common.cuh"
+#include "unet_common.cuh"
 
 namespace {
 
 constexpr int R = 16;         // rows of (b, t, f) per block
 constexpr int THREADS = 128;
 constexpr float LN_EPS = 1e-5f;
-constexpr float FUSION_EPS = 1.1920929e-07f;  // float32 eps
-
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.f / (1.f + expf(-x));
-}
 
 // LN over each of `ncomp` equal segments of rows z (nrows, width) held in
 // shared memory, with shared gamma/beta pre-tiled to the full width.
@@ -195,69 +216,405 @@ dsconv_post(const float* __restrict__ x, const float* __restrict__ y,
             });
 }
 
-// Shared-memory layout of dsconv_pair_post, in floats: the gather buffer
-// P, then A. The complex branch's outputs Oc (R x cc) are written into P
-// past the part the real branch gathers into (P's complex taps are dead
-// by then), and the real branch's outputs Om (R x cm) over the real
-// branch's own taps, dead by then too, where they fit; so the stage needs
-// no more shared memory than the complex block alone (40 KB at the
-// conformer's widths: 5 blocks an SM, not 3 with separate buffers).
-struct PairLayout {
-  int oc, om, a, total;
-  __host__ __device__ PairLayout(int cm, int totc, int totm) {
-    const int cc = 2 * cm, totmax = totc > totm ? totc : totm;
-    oc = R * 9 * totm;
-    om = cm <= 9 * totm ? 0 : oc + R * cc;
-    int p = R * 9 * totmax;
-    p = p > oc + R * cc ? p : oc + R * cc;
-    p = p > om + R * cm ? p : om + R * cm;
-    a = p;
-    total = p + R * totmax;
-  }
+// ------------------------------------- the pair stage, tensor cores
+
+namespace tcp {
+
+constexpr int TM = 64;        // rows a block
+constexpr int TK = 32;        // K a stage
+constexpr int STAGES = 3;     // cp.async ring depth
+constexpr int LDS = TK + 4;   // ring row stride in floats
+constexpr int WM = 2;         // warps down the rows
+constexpr int WN = 2;         // warps across the columns
+constexpr int THREADS = 32 * WM * WN;
+constexpr int NT_C = 4;       // n8 tiles a warp: complex N <= 64
+constexpr int NT_M = 2;       // real N <= 32
+constexpr int N_C = WN * NT_C * 8;
+constexpr int N_M = WN * NT_M * 8;
+constexpr int CO = 32;        // fusion channels an output pass
+constexpr int RING = STAGES * (TM + N_C) * LDS;  // floats
+
+// One block's weights: the 13-tuple, w1 (N, K1p), g1 and b1 (K1p), wd1 and
+// wd2 (N, 9 Cmp) and ws packed (ops/dsconv.py `pack_pair_weights`), the
+// other vectors as they are.
+struct Branch {
+  const float *w1, *g1, *b1, *bb1, *alpha, *wd1, *bd1, *wd2, *bd2, *g2, *b2,
+      *ws, *bs;
 };
 
-// One conformer stage: the post stage of the complex block (ncomp 2, on
-// xc = [re | im], cc = 2 cm channels) and of the real block (ncomp 1, on
-// xm, cm channels) for the same R rows, each into shared memory, then
-// Uformer's fusion, written once:
-//   |z| = sqrt(max(re^2 + im^2, EPS)), s = sigmoid(m),
-//   oc = [re + s | im + s], om = m + sigmoid(|z|).
-__global__ void __launch_bounds__(THREADS)
-dsconv_pair_post(const float* __restrict__ xc, const float* __restrict__ yc,
-                 PostParams pc, const float* __restrict__ xm,
-                 const float* __restrict__ ym, PostParams pm,
-                 float* __restrict__ oc, float* __restrict__ om, int rows,
-                 int T, int F, int cm, int totc, int totm, int d1, int d2) {
-  extern __shared__ float smem[];
-  __shared__ float mu[2 * R], rs[2 * R];
-  const int cc = 2 * cm;
-  const PairLayout lay(cm, totc, totm);
-  float* P = smem;
-  float* A = smem + lay.a;
-  float* Oc = smem + lay.oc;
-  float* Om = smem + lay.om;
-  const int row0 = blockIdx.x * R;
-  const int nrows = min(R, rows - row0);
-  // the emit of a branch runs after its last read of P (post_rows)
-  post_rows(xc, yc, pc, row0, nrows, T, F, cc, totc, 2, d1, d2, P, A, mu,
-            rs, [&](int r, int ch, float v) { Oc[r * cc + ch] = v; });
-  __syncthreads();
-  post_rows(xm, ym, pm, row0, nrows, T, F, cm, totm, 1, d1, d2, P, A, mu,
-            rs, [&](int r, int ch, float v) { Om[r * cm + ch] = v; });
-  __syncthreads();
-  for (int i = threadIdx.x; i < nrows * cm; i += blockDim.x) {
-    const int r = i / cm, ch = i % cm;
-    const float re = Oc[r * cc + ch], im = Oc[r * cc + cm + ch];
-    const float m = Om[i];
-    const float s = sigmoidf(m);
-    const float mag = sqrtf(fmaxf(re * re + im * im, FUSION_EPS));
-    const size_t orow = (size_t)(row0 + r);
-    oc[orow * cc + ch] = re + s;
-    oc[orow * cc + cm + ch] = im + s;
-    om[orow * cm + ch] = m + sigmoidf(mag);
+__host__ __device__ inline int round_up(int n, int m) {
+  return (n + m - 1) / m * m;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// acc[mi][g][hh * 2 + j] of the warp (wm, wn) is local row wm 32 + mi 16 +
+// hh 8 + lane / 4, column wn NT 8 + 8 g + 2 (lane % 4) + j: fn(row, col, v).
+template <int NT, class Fn>
+__device__ __forceinline__ void each_frag(float (&acc)[2][NT][4], Fn&& fn) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp % WM, wn = warp / WM;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int g = 0; g < NT; ++g)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          fn(wm * 32 + mi * 16 + hh * 8 + (lane >> 2),
+             wn * NT * 8 + g * 8 + 2 * (lane & 3) + j, acc[mi][g][hh * 2 + j]);
+}
+
+// LN1's statistics of rows r0 .. r0 + TM of x (M, cin), nseg component
+// segments a row: a warp a (row, segment), the mean, then the mean square
+// deviation, as the twin. mu[row * 2 + s], rs likewise; 0 past M.
+__device__ void row_stats(const float* __restrict__ x, int M, int cin,
+                          int nseg, int r0, float* mu, float* rs) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cs = cin / nseg;
+  for (int q = warp; q < TM * nseg; q += THREADS / 32) {
+    const int r = q / nseg, s = q % nseg;
+    const long p = (long)r0 + r;
+    float mean = 0.f, rstd = 0.f;
+    if (p < M) {
+      const float* v = x + p * cin + s * cs;
+      float sum = 0.f;
+      for (int i = lane; i < cs; i += 32) sum += v[i];
+      mean = warp_sum(sum) / cs;
+      float sq = 0.f;
+      for (int i = lane; i < cs; i += 32) {
+        const float d = v[i] - mean;
+        sq += d * d;
+      }
+      rstd = rsqrtf(warp_sum(sq) / cs + LN_EPS);
+    }
+    if (lane == 0) {
+      mu[r * 2 + s] = mean;
+      rs[r * 2 + s] = rstd;
+    }
   }
 }
 
+// One branch of dsconv_pre_tc: y (M, tot) = PReLU(LN1(x) . w1 + bb1) for
+// rows r0 .. r0 + TM, x (M, cin) in nseg component segments.
+template <int NT>
+__device__ void pre_branch(float* sm, const float* __restrict__ x,
+                           const Branch& p, float* __restrict__ y, int M,
+                           int cin, int tot, int nseg, int r0) {
+  constexpr int NB_COLS = WN * NT * 8;
+  float* As = sm;
+  float* Bs = sm + STAGES * TM * LDS;
+  float* mu = sm + RING;  // TM x 2
+  float* rs = mu + 2 * TM;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WM, wn = warp / WM, gid = lane >> 2, tq = lane & 3;
+  const int kp = round_up(cin, TK), nk = kp / TK, cs = cin / nseg;
+  row_stats(x, M, cin, nseg, r0, mu, rs);
+  __syncthreads();
+  // the statistics of the thread's fragment rows, segment 0 and 1 (for
+  // one segment the same twice: past Cin gamma and beta are 0)
+  float m_[2][2][2], r_[2][2][2];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const int q = (wm * 32 + mi * 16 + hh * 8 + gid) * 2 +
+                      (s < nseg ? s : 0);
+        m_[mi][hh][s] = mu[q];
+        r_[mi][hh][s] = rs[q];
+      }
+
+  constexpr int CH = TK / 4, RSTEP = THREADS / CH;  // 8 chunks a row
+  constexpr int NA = TM / RSTEP, NB = NB_COLS / RSTEP;
+  const int crow = tid / CH, cq = tid % CH;
+  const float* wq = p.w1 + (size_t)crow * kp + 4 * cq;
+  auto load = [&](int kt, int slot) {
+    const int k0 = kt * TK, ci = k0 + 4 * cq;
+    float* bs = Bs + slot * NB_COLS * LDS + crow * LDS + 4 * cq;
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+      cp_async16(bs + i * RSTEP * LDS, wq + (size_t)i * RSTEP * kp + k0, 16);
+    float* as = As + slot * TM * LDS + crow * LDS + 4 * cq;
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const long row = (long)r0 + crow + i * RSTEP;
+      const bool ok = row < M && ci < cin;
+      cp_async16(as + i * RSTEP * LDS, ok ? x + row * cin + ci : x,
+                 ok ? 16 : 0);
+    }
+  };
+  // LN1 on the A fragments: register j of a[mi] is row hh = j & 1 at K
+  // index k + tq + 4 (j >> 1)
+  const float* __restrict__ g1 = p.g1;
+  const float* __restrict__ b1 = p.b1;
+  auto prep = [&](int k, uint32_t (&a)[2][4]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kk = k + tq + 4 * h;
+      const float g = __ldg(g1 + kk), b = __ldg(b1 + kk);
+      const bool s1 = kk >= cs;
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float mean = s1 ? m_[mi][hh][1] : m_[mi][hh][0];
+          const float rstd = s1 ? r_[mi][hh][1] : r_[mi][hh][0];
+          const float v = __uint_as_float(a[mi][2 * h + hh]);
+          a[mi][2 * h + hh] = __float_as_uint(fmaf((v - mean) * rstd, g, b));
+        }
+    }
+  };
+  float acc[2][NT][4];
+  tc_ring<TM, NB_COLS, TK, LDS, STAGES, NT, true>(acc, As, Bs, nk, wm * 32,
+                                                 wn * NT * 8, load, prep);
+  const float alpha = *p.alpha;
+  each_frag<NT>(acc, [&](int r, int c, float v) {
+    const long row = (long)r0 + r;
+    if (row < M && c < tot) {
+      v += p.bb1[c];
+      y[row * tot + c] = v >= 0.f ? v : alpha * v;
+    }
+  });
+  __syncthreads();  // the ring and the statistics are reused
+}
+
+__global__ void __launch_bounds__(THREADS, 4)
+dsconv_pre_tc(const float* __restrict__ xc, Branch pc, float* __restrict__ yc,
+              const float* __restrict__ xm, Branch pm, float* __restrict__ ym,
+              int M, int cm, int totc, int totm) {
+  extern __shared__ __align__(16) float sm[];
+  const int r0 = blockIdx.x * TM;
+  pre_branch<NT_C>(sm, xc, pc, yc, M, 2 * cm, totc, 2, r0);
+  pre_branch<NT_M>(sm, xm, pm, ym, M, cm, totm, 1, r0);
+}
+
+// acc = the dilated 3x3 conv of y (M, tot) = (B, T, F, tot) with w (N, 9
+// totp) packed, for rows r0 .. r0 + TM: A's row r is the 9 taps (i, j) of
+// row r0 + r at (t + (i - 1) d, f + j - 1), each zero-padded to totp.
+template <int NT>
+__device__ void dilated(float (&acc)[2][NT][4], float* ring,
+                        const float* __restrict__ y,
+                        const float* __restrict__ w, int M, int T, int F,
+                        int tot, int d, int r0) {
+  constexpr int NB_COLS = WN * NT * 8;
+  float* As = ring;
+  float* Bs = ring + STAGES * TM * LDS;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int wm = warp % WM, wn = warp / WM;
+  const int totp = round_up(tot, TK), kp = 9 * totp, nk = kp / TK;
+  constexpr int CH = TK / 4, RSTEP = THREADS / CH;
+  constexpr int NA = TM / RSTEP, NB = NB_COLS / RSTEP;
+  const int crow = tid / CH, cq = tid % CH;
+  const float* wq = w + (size_t)crow * kp + 4 * cq;
+  int tt[NA], ff[NA];  // the thread's A rows' frame and bin; tt < 0: past M
+#pragma unroll
+  for (int i = 0; i < NA; ++i) {
+    const int p = r0 + crow + i * RSTEP;
+    ff[i] = p % F;
+    tt[i] = p < M ? (p / F) % T : -(1 << 30);
+  }
+  auto load = [&](int kt, int slot) {
+    const int k0 = kt * TK, tap = k0 / totp;
+    const int ci = k0 - tap * totp + 4 * cq;
+    const int dt = (tap / 3 - 1) * d, df = tap % 3 - 1;
+    float* bs = Bs + slot * NB_COLS * LDS + crow * LDS + 4 * cq;
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+      cp_async16(bs + i * RSTEP * LDS, wq + (size_t)i * RSTEP * kp + k0, 16);
+    float* as = As + slot * TM * LDS + crow * LDS + 4 * cq;
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const int ts = tt[i] + dt, fs = ff[i] + df;
+      const bool ok = ci < tot && ts >= 0 && ts < T && fs >= 0 && fs < F;
+      const long src = (long)r0 + crow + i * RSTEP + (long)dt * F + df;
+      cp_async16(as + i * RSTEP * LDS, ok ? y + src * tot + ci : y,
+                 ok ? 16 : 0);
+    }
+  };
+  tc_ring<TM, NB_COLS, TK, LDS, STAGES, NT, true>(acc, As, Bs, nk, wm * 32,
+                                                 wn * NT * 8, load);
+  __syncthreads();  // every warp is done with the ring before it is reused
+}
+
+// z (TM, ldz) = (wd1 * y + bd1) * sigmoid(wd2 * y + bd2) for the block's
+// rows, columns tot .. kz zero; the gate waits in z for the d1 conv.
+template <int NT>
+__device__ void gated(float* ring, const float* __restrict__ y,
+                      const Branch& p, float* z, int ldz, int kz, int M,
+                      int T, int F, int tot, int d1, int d2, int r0) {
+  float acc[2][NT][4];
+  dilated<NT>(acc, ring, y, p.wd2, M, T, F, tot, d2, r0);
+  each_frag<NT>(acc, [&](int r, int c, float v) {
+    if (c < kz) z[r * ldz + c] = c < tot ? sigmoidf(v + p.bd2[c]) : 0.f;
+  });
+  dilated<NT>(acc, ring, y, p.wd1, M, T, F, tot, d1, r0);
+  each_frag<NT>(acc, [&](int r, int c, float v) {
+    if (c < kz)
+      z[r * ldz + c] = c < tot ? (v + p.bd1[c]) * z[r * ldz + c] : 0.f;
+  });
+}
+
+// Floats of dsconv_post_tc's shared memory.
+__host__ __device__ inline int post_smem_floats(int totc, int totm) {
+  return RING + TM * (round_up(totc, 8) + 4) + TM * (round_up(totm, 8) + 4) +
+         6 * TM;
+}
+
+// The rest of both blocks and the fusion for rows r0 .. r0 + TM; xc (M,
+// 2cm) = [re | im] and xm (M, cm) the stage's inputs, yc (M, totc) and ym
+// (M, totm) the pre kernel's.
+__global__ void __launch_bounds__(THREADS, 2)
+dsconv_post_tc(const float* __restrict__ xc, const float* __restrict__ yc,
+               Branch pc, const float* __restrict__ xm,
+               const float* __restrict__ ym, Branch pm,
+               float* __restrict__ oc, float* __restrict__ om, int M, int T,
+               int F, int cm, int totc, int totm, int d1, int d2) {
+  extern __shared__ __align__(16) float sm[];
+  const int kc = round_up(totc, 8), km = round_up(totm, 8);
+  const int ldc = kc + 4, ldm = km + 4;  // odd multiples of 4: no conflicts
+  float* ring = sm;
+  float* zc = sm + RING;      // TM x ldc
+  float* zm = zc + TM * ldc;  // TM x ldm
+  float* mu = zm + TM * ldm;  // TM x 3: complex segments 0 and 1, real
+  float* rs = mu + 3 * TM;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WM, wn = warp / WM, gid = lane >> 2, tq = lane & 3;
+  const int r0 = blockIdx.x * TM;
+
+  // 1. the gated dilated convs of both branches
+  gated<NT_C>(ring, yc, pc, zc, ldc, kc, M, T, F, totc, d1, d2, r0);
+  gated<NT_M>(ring, ym, pm, zm, ldm, km, M, T, F, totm, d1, d2, r0);
+
+  // the output GEMM's packed ws, a pass (CO channels: 2 CO complex rows of
+  // kc, CO real rows of km) a ring buffer; passes 0 and 1 load during LN2
+  const int npass = (cm + CO - 1) / CO;
+  const int bufsz = 2 * CO * ldc + CO * ldm;
+  auto load_ws = [&](int ps, int buf) {
+    float* bc = ring + buf * bufsz;
+    float* bm = bc + 2 * CO * ldc;
+    const int qc = kc / 4, qm = km / 4;
+    for (int e = tid; e < 2 * CO * qc; e += THREADS)
+      cp_async16(bc + (e / qc) * ldc + 4 * (e % qc),
+                 pc.ws + ((size_t)ps * 2 * CO + e / qc) * kc + 4 * (e % qc),
+                 16);
+    for (int e = tid; e < CO * qm; e += THREADS)
+      cp_async16(bm + (e / qm) * ldm + 4 * (e % qm),
+                 pm.ws + ((size_t)ps * CO + e / qm) * km + 4 * (e % qm), 16);
+  };
+  load_ws(0, 0);
+  cp_async_commit();
+  if (npass > 1) load_ws(1, 1);
+  cp_async_commit();
+  __syncthreads();  // both z tiles are complete
+
+  // 2. LN2 per component segment: a thread a (row, segment)
+  const int csc = totc / 2;
+  for (int q = tid; q < 3 * TM; q += THREADS) {
+    const int r = q / 3, s = q % 3;
+    const float* v = s < 2 ? zc + r * ldc + s * csc : zm + r * ldm;
+    const int n = s < 2 ? csc : totm;
+    float sum = 0.f;
+    for (int i = 0; i < n; ++i) sum += v[i];
+    const float mean = sum / n;
+    float sq = 0.f;
+    for (int i = 0; i < n; ++i) {
+      const float dv = v[i] - mean;
+      sq += dv * dv;
+    }
+    mu[q] = mean;
+    rs[q] = rsqrtf(sq / n + LN_EPS);
+  }
+  __syncthreads();
+  for (int e = tid; e < TM * kc; e += THREADS) {
+    const int r = e / kc, c = e % kc;
+    if (c >= totc) continue;
+    const int q = r * 3 + (c >= csc);
+    float* v = zc + r * ldc + c;
+    const float zn = (*v - mu[q]) * rs[q] * pc.g2[c] + pc.b2[c];
+    *v = zn * sigmoidf(zn);
+  }
+  for (int e = tid; e < TM * km; e += THREADS) {
+    const int r = e / km, c = e % km;
+    if (c >= totm) continue;
+    const int q = r * 3 + 2;
+    float* v = zm + r * ldm + c;
+    const float zn = (*v - mu[q]) * rs[q] * pm.g2[c] + pm.b2[c];
+    *v = zn * sigmoidf(zn);
+  }
+
+  // 3. the output 1x1 convs, + bias + x, and the fusion, CO channels a pass
+  const float* za = zc + wm * 32 * ldc + lane_a_offset(lane, ldc);
+  const float* zb = zm + wm * 32 * ldm + lane_a_offset(lane, ldm);
+  NoPrep none;
+  for (int ps = 0; ps < npass; ++ps) {
+    cp_async_wait<1>();  // pass ps has landed
+    __syncthreads();     // ... for all; (ps 0) z is normalised
+    const float* bc = ring + (ps & 1) * bufsz;
+    const float* bm = bc + 2 * CO * ldc;
+    float sc[2][NT_C][4], sg[2][NT_M][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int g = 0; g < NT_C; ++g) sc[mi][g][j] = 0.f;
+#pragma unroll
+        for (int g = 0; g < NT_M; ++g) sg[mi][g][j] = 0.f;
+      }
+    const float* wb = bc + wn * NT_C * 8 * ldc + lane_b_offset(lane, ldc);
+    for (int k = 0; k < kc; k += 8)
+      mma_step<NT_C>(sc, za + k, ldc, wb + k, ldc, k, none);
+    const float* wr = bm + wn * NT_M * 8 * ldm + lane_b_offset(lane, ldm);
+    for (int k = 0; k < km; k += 8)
+      mma_step<NT_M>(sg, zb + k, ldm, wr + k, ldm, k, none);
+    __syncthreads();  // every warp is done with this buffer
+    if (ps + 2 < npass) load_ws(ps + 2, ps & 1);
+    cp_async_commit();
+    // sc[mi][2 g + part][hh * 2 + j]: row gid + 8 hh of m tile mi, channel
+    // ps CO + wn 16 + 8 g + 2 tq + j, part re (0) or im (1); sg[mi][g] m
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const long row = (long)r0 + wm * 32 + mi * 16 + hh * 8 + gid;
+        if (row >= M) continue;
+#pragma unroll
+        for (int g = 0; g < 2; ++g) {
+          const int c = ps * CO + wn * 16 + g * 8 + 2 * tq;
+          if (c >= cm) continue;  // cm % 4 == 0: c + 1 < cm too
+          const float* xr = xc + row * 2 * cm + c;
+          const float* xq = xm + row * cm + c;
+          float o_re[2], o_im[2], o_m[2];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const float re = sc[mi][2 * g][hh * 2 + j] + pc.bs[c + j] + xr[j];
+            const float im =
+                sc[mi][2 * g + 1][hh * 2 + j] + pc.bs[cm + c + j] + xr[cm + j];
+            const float m = sg[mi][g][hh * 2 + j] + pm.bs[c + j] + xq[j];
+            const float s = sigmoidf(m);
+            o_re[j] = re + s;
+            o_im[j] = im + s;
+            o_m[j] = m + sigmoidf(sqrtf(fmaxf(re * re + im * im, FUSION_EPS)));
+          }
+          float* orow = oc + row * 2 * cm + c;
+          *reinterpret_cast<float2*>(orow) = make_float2(o_re[0], o_re[1]);
+          *reinterpret_cast<float2*>(orow + cm) = make_float2(o_im[0], o_im[1]);
+          *reinterpret_cast<float2*>(om + row * cm + c) =
+              make_float2(o_m[0], o_m[1]);
+        }
+      }
+  }
+  cp_async_wait<0>();
+}
+
+}  // namespace tcp
 }  // namespace
 
 // x, out: (B, T, F, cin); y: scratch (B, T, F, tot). Weights as documented
@@ -284,38 +641,54 @@ extern "C" int se_dsconv_fwd(const float* x, const float* g1, const float* b1,
   return (int)cudaGetLastError();
 }
 
-// One conformer stage (se_tpu's `dsconv_pair_block`): xc (B, T, F, 2cm)
-// and xm (B, T, F, cm) -> oc, om of the same shapes. yc (B, T, F, totc)
-// and ym (B, T, F, totm) are scratch for the pre stages.
-extern "C" int se_dsconv_pair_fwd(
-    const float* xc, const float* gc1, const float* bc1, const float* wc1,
-    const float* bbc1, const float* ac, const float* wdc1, const float* bdc1,
-    const float* wdc2, const float* bdc2, const float* gc2, const float* bc2,
-    const float* wsc, const float* bsc, const float* xm, const float* gm1,
-    const float* bm1, const float* wm1, const float* bbm1, const float* am,
-    const float* wdm1, const float* bdm1, const float* wdm2,
-    const float* bdm2, const float* gm2, const float* bm2, const float* wsm,
+// One conformer stage (se_tpu's `dsconv_pair_block`) on the tensor cores:
+// xc (B, T, F, 2cm) and xm (B, T, F, cm) -> oc, om of the same shapes. Each
+// branch's 13 pointers in the tuple's order, w1, g1, b1, wd1, wd2 and ws
+// packed by ops/dsconv.py `pack_pair_weights`. yc (B, T, F, totc) and ym
+// (B, T, F, totm) are scratch for the pre stage. Needs cm, totc and totm
+// multiples of 4, totc <= 64, totm <= 32, and xc, xm, yc, ym 16-byte
+// aligned.
+extern "C" int se_dsconv_pair_tc(
+    const float* xc, const float* xm, const float* w1c, const float* g1c,
+    const float* b1c, const float* bb1c, const float* ac, const float* wd1c,
+    const float* bd1c, const float* wd2c, const float* bd2c,
+    const float* g2c, const float* b2c, const float* wsc, const float* bsc,
+    const float* w1m, const float* g1m, const float* b1m, const float* bb1m,
+    const float* am, const float* wd1m, const float* bd1m, const float* wd2m,
+    const float* bd2m, const float* g2m, const float* b2m, const float* wsm,
     const float* bsm, float* yc, float* ym, float* oc, float* om, int B,
     int T, int F, int cm, int totc, int totm, int d1, int d2, void* stream) {
+  auto misaligned = [](const void* ptr) {
+    return reinterpret_cast<uintptr_t>(ptr) % 16 != 0;
+  };
+  if (cm % 4 != 0 || totc % 4 != 0 || totm % 4 != 0 || cm <= 0 ||
+      totc <= 0 || totm <= 0 || totc > tcp::N_C || totm > tcp::N_M ||
+      misaligned(xc) || misaligned(xm) || misaligned(yc) || misaligned(ym))
+    return (int)cudaErrorInvalidValue;
+  const long M = (long)B * T * F;
+  if (M == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  const int rows = B * T * F, cc = 2 * cm;
-  const int blocks = (rows + R - 1) / R;
-  dsconv_pre<<<blocks, THREADS, R * cc * sizeof(float), st>>>(
-      xc, gc1, bc1, wc1, bbc1, ac, yc, rows, cc, totc, 2);
-  cudaError_t err = cudaGetLastError();
+  const tcp::Branch pc{w1c, g1c, b1c, bb1c, ac, wd1c, bd1c,
+                       wd2c, bd2c, g2c, b2c, wsc, bsc};
+  const tcp::Branch pm{w1m, g1m, b1m, bb1m, am, wd1m, bd1m,
+                       wd2m, bd2m, g2m, b2m, wsm, bsm};
+  const unsigned blocks = (unsigned)((M + tcp::TM - 1) / tcp::TM);
+  const int pre_smem = (tcp::RING + 4 * tcp::TM) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      tcp::dsconv_pre_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      pre_smem);
   if (err != cudaSuccess) return (int)err;
-  dsconv_pre<<<blocks, THREADS, R * cm * sizeof(float), st>>>(
-      xm, gm1, bm1, wm1, bbm1, am, ym, rows, cm, totm, 1);
+  tcp::dsconv_pre_tc<<<blocks, tcp::THREADS, pre_smem, st>>>(
+      xc, pc, yc, xm, pm, ym, (int)M, cm, totc, totm);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const PostParams pc{wdc1, bdc1, wdc2, bdc2, gc2, bc2, wsc, bsc};
-  const PostParams pm{wdm1, bdm1, wdm2, bdm2, gm2, bm2, wsm, bsm};
-  const size_t smem = PairLayout(cm, totc, totm).total * sizeof(float);
-  err = cudaFuncSetAttribute(dsconv_pair_post,
+  const int post_smem =
+      tcp::post_smem_floats(totc, totm) * (int)sizeof(float);
+  err = cudaFuncSetAttribute(tcp::dsconv_post_tc,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+                             post_smem);
   if (err != cudaSuccess) return (int)err;
-  dsconv_pair_post<<<blocks, THREADS, smem, st>>>(
-      xc, yc, pc, xm, ym, pm, oc, om, rows, T, F, cm, totc, totm, d1, d2);
+  tcp::dsconv_post_tc<<<blocks, tcp::THREADS, post_smem, st>>>(
+      xc, yc, pc, xm, ym, pm, oc, om, (int)M, T, F, cm, totc, totm, d1, d2);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,10 @@
-// The tensor-core building blocks shared by csrc/lstm.cu and
-// csrc/decoder.cu: cp.async copies into shared memory (zero-filled past a
-// short source), the 3xTF32 operand split, ldmatrix of fp32 fragments, the
-// mma.sync.m16n8k8 TF32 product with fp32 accumulation, and the main loop
-// that runs them over a cp.async ring (`tc_ring`). sm_80 and up.
+// The tensor-core building blocks shared by csrc/lstm.cu, csrc/decoder.cu,
+// csrc/encoder.cu and csrc/dsconv.cu: cp.async copies into shared memory
+// (zero-filled past a short source), the 3xTF32 operand split, ldmatrix of
+// fp32 fragments, the mma.sync.m16n8k8 TF32 product with fp32
+// accumulation, one K step of 8 of a warp's 3xTF32 tile product
+// (`mma_step`), and the main loop that runs it over a cp.async ring
+// (`tc_ring`). sm_80 and up.
 
 #pragma once
 
@@ -69,22 +71,80 @@ __device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// A lane's ldmatrix row address in a tile of row stride ld, in floats from
+// the tile's origin: A's four 8 x 4 matrices are rows +0 / +8, k +0 / +4 of
+// an m16 tile (a0..a3); B's are k +0 / +4 of n8 tile g, then of tile g + 1
+// (b0, b1 of two n8 tiles).
+__device__ __forceinline__ int lane_a_offset(int lane, int ld) {
+  return ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 4;
+}
+
+__device__ __forceinline__ int lane_b_offset(int lane, int ld) {
+  return ((lane >> 4) * 8 + (lane & 7)) * ld + ((lane >> 3) & 1) * 4;
+}
+
+// The A fragments as they are: the default of mma_step's and tc_ring's
+// `prep`.
+struct NoPrep {
+  __device__ __forceinline__ void operator()(int, uint32_t (&)[2][4]) const {
+  }
+};
+
+// One K step of 8: sum[mi][g] += A . B^T for the warp's two m16 tiles of A
+// (as: the lane's address, lane_a_offset applied, at the step's k; row
+// stride lda) and its NT n8 tiles of B (bs likewise, lane_b_offset; ldb),
+// in three TF32 products a pair (small.big + big.small + big.big). prep(k,
+// a) may rewrite the A fragments (fp32 bits) before the split; k is the
+// step's K index, and register j of a[mi] holds row (lane / 4) + 8 (j & 1)
+// of m tile mi at k + lane % 4 + 4 (j >> 1).
+template <int NT, class Prep>
+__device__ __forceinline__ void mma_step(float (&sum)[2][NT][4],
+                                         const float* as, int lda,
+                                         const float* bs, int ldb, int k,
+                                         Prep& prep) {
+  uint32_t a[2][4], b[NT][2];
+  uint32_t a_big[2][4], a_small[2][4], b_big[NT][2], b_small[NT][2];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) ldsm_x4(a[mi], as + mi * 16 * lda);
+  prep(k, a);
+#pragma unroll
+  for (int g = 0; g < NT; g += 2) ldsm_x4(b[g], bs + g * 8 * ldb);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      split_tf32(__uint_as_float(a[mi][j]), a_big[mi][j], a_small[mi][j]);
+#pragma unroll
+  for (int g = 0; g < NT; ++g)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      split_tf32(__uint_as_float(b[g][j]), b_big[g][j], b_small[g][j]);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int g = 0; g < NT; ++g) {
+      mma_tf32(sum[mi][g], a_small[mi], b_big[g]);
+      mma_tf32(sum[mi][g], a_big[mi], b_small[g]);
+      mma_tf32(sum[mi][g], a_big[mi], b_big[g]);
+    }
+}
+
 // The 3xTF32 main loop: acc[m16 tile][n8 tile][fragment] = A . B^T over nk
 // K stages of TK, for the warp's 32 A rows from a_row0 and its NT n8 tiles
 // of B rows from b_row0. The stages pass through a STAGES-deep cp.async
 // ring in shared memory, As (STAGES, TM, LDS) and Bs (STAGES, BROWS, LDS);
 // load(kt, slot) issues stage kt's copies (every thread of the block) into
-// ring slot `slot`. FRESH: each stage sums into a fresh fragment that
-// joins acc by fp32 adds (the mma's own accumulation rounds toward zero,
-// which drifts over a long K); otherwise the mma accumulates into acc.
-// Returns with every copy landed; a caller that reuses the ring must
-// __syncthreads() first.
+// ring slot `slot`; prep as mma_step's. FRESH: each stage sums into a fresh
+// fragment that joins acc by fp32 adds (the mma's own accumulation rounds
+// toward zero, which drifts over a long K); otherwise the mma accumulates
+// into acc. Returns with every copy landed; a caller that reuses the ring
+// must __syncthreads() first.
 template <int TM, int BROWS, int TK, int LDS, int STAGES, int NT, bool FRESH,
-          class Load>
+          class Load, class Prep = NoPrep>
 __device__ __forceinline__ void tc_ring(float (&acc)[2][NT][4],
                                         const float* As, const float* Bs,
                                         int nk, int a_row0, int b_row0,
-                                        Load&& load) {
+                                        Load&& load, Prep prep = Prep()) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
@@ -104,15 +164,10 @@ __device__ __forceinline__ void tc_ring(float (&acc)[2][NT][4],
     const int next = kt + STAGES - 1;  // into the slot stage kt - 1 held
     if (next < nk) load(next, next % STAGES);
     cp_async_commit();
-    // ldmatrix row addresses: A's four 8 x 4 matrices are rows +0 / +8,
-    // k +0 / +4 of an m16 tile (a0..a3); B's are k +0 / +4 of n8 tile g,
-    // then of tile g + 1 (b0, b1 of two n8 tiles)
-    const float* as = As + (kt % STAGES) * TM * LDS +
-                      (a_row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
-                      (lane >> 4) * 4;
-    const float* bs = Bs + (kt % STAGES) * BROWS * LDS +
-                      (b_row0 + (lane >> 4) * 8 + (lane & 7)) * LDS +
-                      ((lane >> 3) & 1) * 4;
+    const float* as = As + (kt % STAGES) * TM * LDS + a_row0 * LDS +
+                      lane_a_offset(lane, LDS);
+    const float* bs = Bs + (kt % STAGES) * BROWS * LDS + b_row0 * LDS +
+                      lane_b_offset(lane, LDS);
     float part[2][NT][4];
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
@@ -122,32 +177,8 @@ __device__ __forceinline__ void tc_ring(float (&acc)[2][NT][4],
         for (int j = 0; j < 4; ++j) part[mi][g][j] = 0.f;
     float (&sum)[2][NT][4] = FRESH ? part : acc;
 #pragma unroll
-    for (int kk = 0; kk < TK; kk += 8) {
-      uint32_t a[2][4], b[NT][2];
-      uint32_t a_big[2][4], a_small[2][4], b_big[NT][2], b_small[NT][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) ldsm_x4(a[mi], as + mi * 16 * LDS + kk);
-#pragma unroll
-      for (int g = 0; g < NT; g += 2) ldsm_x4(b[g], bs + g * 8 * LDS + kk);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          split_tf32(__uint_as_float(a[mi][j]), a_big[mi][j], a_small[mi][j]);
-#pragma unroll
-      for (int g = 0; g < NT; ++g)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          split_tf32(__uint_as_float(b[g][j]), b_big[g][j], b_small[g][j]);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int g = 0; g < NT; ++g) {
-          mma_tf32(sum[mi][g], a_small[mi], b_big[g]);
-          mma_tf32(sum[mi][g], a_big[mi], b_small[g]);
-          mma_tf32(sum[mi][g], a_big[mi], b_big[g]);
-        }
-    }
+    for (int kk = 0; kk < TK; kk += 8)
+      mma_step<NT>(sum, as + kk, LDS, bs + kk, LDS, kt * TK + kk, prep);
     if (FRESH) {
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)

@@ -48,8 +48,13 @@ from se_tpu_torch.ops.attention import sdp_attention
 from se_tpu_torch.ops.decoder import (
     decoder_level, level_design, pack_decoder_weights, split_phase_weights,
 )
-from se_tpu_torch.ops.dsconv import dsconv_block, dsconv_pair_block
-from se_tpu_torch.ops.encoder import encoder_level, fusion
+from se_tpu_torch.ops.dsconv import (
+    dsconv_block, dsconv_pair_block, pack_pair_weights,
+)
+from se_tpu_torch.ops.encoder import (
+    encoder_level, fusion, pack_encoder_weights,
+)
+from se_tpu_torch.ops.encoder import level_design as enc_level_design
 from se_tpu_torch.ops.stft import PRESET_UFORMER, istft, stft
 
 EPS = float(np.finfo(np.float32).eps)
@@ -335,6 +340,20 @@ class DilatedDualpathConformer(nn.Module):
         self.ln_conformer_cplx = LayerNorm(c)
         self.ln_conformer_mag = LayerNorm(c)
 
+    def _stage_weights(self, k: int):
+        """DSConv stage k's two 13-tuples and, on the card, their packs for
+        the tensor-core stage; kept as `_cached` says."""
+        blk_c, blk_m = self.dsconv_cplx[k], self.dsconv_real[k]
+
+        def make():
+            params_c, params_m = blk_c.params(), blk_m.params()
+            packed = None
+            if params_c[0].device.type == "cuda":
+                packed = pack_pair_weights(params_c, params_m)
+            return params_c, params_m, packed
+
+        return _cached(self, "dsconv_pair", k, (blk_c, blk_m), make)
+
     def forward(self, re, im, mag):
         re, im = self.ff1_cplx(re, im)
         re, im, mag = fusion(re, im, self.ff1_mag(mag))
@@ -344,11 +363,12 @@ class DilatedDualpathConformer(nn.Module):
         re, im, mag = fusion(re, im, self.mag_fatt(mag))
         c = re.shape[-1]
         xc, mag = torch.cat([re, im], dim=-1), mag.contiguous()
-        for blk_c, blk_m in zip(self.dsconv_cplx, self.dsconv_real):
+        for k, blk in enumerate(self.dsconv_cplx):
             # one stage: both blocks and the fusion in one kernel entry
-            xc, mag = dsconv_pair_block(xc, mag, blk_c.params(),
-                                        blk_m.params(), blk_c.dilation1,
-                                        blk_c.dilation2)
+            params_c, params_m, packed = self._stage_weights(k)
+            xc, mag = dsconv_pair_block(xc, mag, params_c, params_m,
+                                        blk.dilation1, blk.dilation2,
+                                        packed=packed)
         re, im = xc[..., :c], xc[..., c:]
         re, im = self.ff2_cplx(re, im)
         re, im, mag = fusion(re, im, self.ff2_mag(mag))
@@ -361,6 +381,24 @@ def unit_phase(a, b):
     bb = b + EPS
     inv = torch.rsqrt(a * a + bb * bb)
     return a * inv, bb * inv
+
+
+def _cached(owner: nn.Module, kind: str, i: int, modules, make):
+    """make()'s result for `owner`'s (kind, i), made once and kept until a
+    parameter or buffer of `modules` moves or changes in place (keyed by
+    each tensor's device, storage and version counter). Under autograd it
+    is made anew and not kept, so gradients reach the weights."""
+    tensors = [t for mod in modules
+               for t in (*mod.parameters(), *mod.buffers())]
+    key = tuple((str(t.device), t.data_ptr(), t._version) for t in tensors)
+    cache = owner.__dict__.setdefault("_weight_cache", {})
+    hit = cache.get((kind, i))
+    if not torch.is_grad_enabled() and hit is not None and hit[0] == key:
+        return hit[1]
+    out = make()
+    if not torch.is_grad_enabled():
+        cache[(kind, i)] = (key, out)
+    return out
 
 
 def _level_params(cconv, bn, act, rconv, bn_r, act_r, split: bool):
@@ -417,34 +455,40 @@ class Uformer(nn.Module):
                 mod.reset_parameters(generator)
         self.to(resolve_device(device))
 
+    def _encoder_weights(self, i: int):
+        """Encoder level i's 10-tuple and, for a tensor-core level on the
+        card, its packed weights; kept as `_cached` says."""
+        enc, enc_r = self.encoder[i], self.encoder_real[i]
+
+        def make():
+            params = _level_params(*enc, *enc_r, split=False)
+            packed = None
+            if params[0].device.type == "cuda" and \
+                    enc_level_design(params[5].shape[2]) == "tc":
+                packed = pack_encoder_weights(params)
+            return params, packed
+
+        return _cached(self, "encoder", i, (enc, enc_r), make)
+
     def _decoder_weights(self, i: int):
         """Decoder level i's 12-tuple and, for a tensor-core level on the
-        card, its packed weights. Without autograd they are made once and
-        kept until a weight or BN buffer of the level moves or changes in
-        place (keyed by each tensor's device, storage and version counter); with autograd they are made anew, so gradients
-        reach the weights."""
+        card, its packed weights; kept as `_cached` says."""
         dec, dec_r = self.decoder[i], self.decoder_real[i]
-        tensors = [*dec.parameters(), *dec.buffers(), *dec_r.parameters(),
-                   *dec_r.buffers()]
-        key = tuple((str(t.device), t.data_ptr(), t._version)
-                    for t in tensors)
-        cache = self.__dict__.setdefault("_decoder_cache", {})
-        hit = cache.get(i)
-        if not torch.is_grad_enabled() and hit is not None and hit[0] == key:
-            return hit[1], hit[2]
-        has_bn = len(dec) > 1
-        tail_c = tuple(dec[1:]) if has_bn else (None, None)
-        tail_m = tuple(dec_r[1:]) if has_bn else (None, None)
-        params = _level_params(dec[0], *tail_c, dec_r[0], *tail_m,
-                               split=True)
-        cc, cout = params[6].shape[1], params[6].shape[2]
-        packed = None
-        if params[0].device.type == "cuda" and \
-                level_design(cc, cout) == "tc":
-            packed = pack_decoder_weights(params)
-        if not torch.is_grad_enabled():
-            cache[i] = (key, params, packed)
-        return params, packed
+
+        def make():
+            has_bn = len(dec) > 1
+            tail_c = tuple(dec[1:]) if has_bn else (None, None)
+            tail_m = tuple(dec_r[1:]) if has_bn else (None, None)
+            params = _level_params(dec[0], *tail_c, dec_r[0], *tail_m,
+                                   split=True)
+            cc, cout = params[6].shape[1], params[6].shape[2]
+            packed = None
+            if params[0].device.type == "cuda" and \
+                    level_design(cc, cout) == "tc":
+                packed = pack_decoder_weights(params)
+            return params, packed
+
+        return _cached(self, "decoder", i, (dec, dec_r), make)
 
     def forward(self, noisy: torch.Tensor, src: torch.Tensor):
         cfg = PRESET_UFORMER
@@ -470,9 +514,9 @@ class Uformer(nn.Module):
         mag = mag_full[..., 1:, None].contiguous()
 
         skips = []
-        for enc, enc_r in zip(self.encoder, self.encoder_real):
-            xc, mag = encoder_level(xc, mag,
-                                    _level_params(*enc, *enc_r, split=False))
+        for i in range(len(self.encoder)):
+            params, packed = self._encoder_weights(i)
+            xc, mag = encoder_level(xc, mag, params, packed=packed)
             skips.append((xc, mag))
 
         c = xc.shape[-1] // 2

@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from se_tpu_torch.ops import _build
-from se_tpu_torch.ops.encoder import _prelu, fuse
+from se_tpu_torch.ops.encoder import _aligned, _prelu, _round_up, fuse
 
 
 def split_phase_weights(kernel: torch.Tensor):
@@ -73,10 +73,6 @@ def _reference(xc, xm, params, has_bn: bool):
 TC_CHANNELS = 16  # output channels a tensor-core block: Cout padded to it
 TC_K = 32         # K a stage: each tap's Cin padded to it
 TC_MIN_COUT = 8   # narrower levels take the CUDA cores
-
-
-def _round_up(n: int, m: int) -> int:
-    return -(-n // m) * m
 
 
 def level_design(cc: int, cout: int) -> str:
@@ -132,11 +128,6 @@ def decoder_level(xc: torch.Tensor, xm: torch.Tensor, params,
     cout = params[6].shape[-1]
     return _launch(xc, xm, params, has_bn,
                    level_design(xc.shape[-1] // 2, cout), packed)
-
-
-def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """x, or a fresh copy where its data does not start on 16 bytes."""
-    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _launch(xc, xm, params, has_bn: bool, design: str, packed=None):

@@ -17,18 +17,23 @@ kernels); on a CPU tensor it runs `_reference`, the plain twin.
 
 `dsconv_pair_block` is one conformer stage: the complex block on xc =
 [re | im], the real block on xm and Uformer's cross-branch fusion. On a
-CUDA tensor it launches csrc/dsconv.cu's pair entry (a pre kernel per
-branch, then one post kernel for both branches that applies the fusion
-before it writes); on a CPU tensor it runs `_pair_reference`.
+CUDA tensor it launches csrc/dsconv.cu's pair entry `se_dsconv_pair_tc`
+(both branches' LN1 -> 1x1 conv -> PReLU in one tensor-core launch, then
+one launch for the rest of both blocks and the fusion, its convs implicit
+GEMMs on the tensor cores), with the weights `pack_pair_weights` lays out
+(once a model: Uformer keeps them); on a CPU tensor it runs
+`_pair_reference`.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from se_tpu_torch.nn.conv import conv2d_nhwc
 from se_tpu_torch.ops import _build
+from se_tpu_torch.ops.encoder import _aligned, _round_up
 
 _LN_EPS = 1e-5
 _FUSION_EPS = float(np.finfo(np.float32).eps)
@@ -112,13 +117,64 @@ def _pair_reference(xc, xm, params_c, params_m, d1: int, d2: int):
     return torch.cat([re + s, im + s], dim=-1), ym + torch.sigmoid(cplx_mag)
 
 
-def dsconv_pair_block(xc: torch.Tensor, xm: torch.Tensor, params_c,
-                      params_m, d1: int, d2: int):
-    """One conformer stage: xc (B, T, F, 2C) = [re | im] and xm (B, T, F,
-    C) -> (oc, om) of the same shapes, residuals and fusion included."""
-    params_c, params_m = tuple(params_c), tuple(params_m)
-    if xc.device.type == "cpu":
-        return _pair_reference(xc, xm, params_c, params_m, d1, d2)
+PAIR_K = 32           # K a stage: Cin and each dilated tap's Cm padded to it
+PAIR_N = (64, 32)     # the block's N, complex and real: Cm padded to it
+PAIR_CO = 32          # fusion channels an output pass: C padded to it
+
+
+def _pack_branch(params, n_cols: int):
+    """One block's 13-tuple with w1, g1, b1, wd1, wd2 packed for the
+    tensor-core stage (ws and bs as they are; `pack_pair_weights` packs the
+    two blocks' ws together). w1 (n_cols, K1p): column c of w1 as row c, Cin
+    zero-padded to K1p (a multiple of 32), Cm to n_cols; g1, b1 (K1p,) zero
+    past Cin; wd (n_cols, 9 Cmp): K index tap * Cmp + ci with tap = 3 i + j
+    (t-tap i, f-tap j), each tap's Cm zero-padded to Cmp (a multiple of
+    32)."""
+    (g1, b1, w1, bb1, alpha, wd1, bd1, wd2, bd2, g2, b2, ws, bs) = params
+    cin, tot = w1.shape
+    k1p, totp = _round_up(cin, PAIR_K), _round_up(tot, PAIR_K)
+    w1p = F.pad(w1.t(), (0, k1p - cin, 0, n_cols - tot)).contiguous()
+
+    def vec(v):
+        return F.pad(v[0], (0, k1p - cin)).contiguous()
+
+    def dil(wd):
+        w = wd.reshape(9, tot, tot)  # (tap, ci, co)
+        w = F.pad(w, (0, n_cols - tot, 0, totp - tot))
+        return w.permute(2, 0, 1).reshape(n_cols, 9 * totp).contiguous()
+
+    return [w1p, vec(g1), vec(b1), bb1, alpha, dil(wd1), bd1, dil(wd2), bd2,
+            g2, b2, ws, bs]
+
+
+def _pack_out(wsc, wsm):
+    """The output 1x1 convs' ws of both blocks as the stage's GEMM reads
+    them, K-major: complex (Cp / 8 * 2 * 8, round_up(Cm_c, 8)), row (g8,
+    part, c8) = column part * C + 8 g8 + c8 of wsc (per 8 fusion channels
+    the n8 tiles re, im); real (Cp, round_up(Cm_m, 8)), row c = column c of
+    wsm. C zero-padded to Cp (a multiple of 32), K with zeros."""
+    totc, c2 = wsc.shape
+    totm, c = wsm.shape
+    cp, kc, km = _round_up(c, PAIR_CO), _round_up(totc, 8), _round_up(totm, 8)
+    wc = F.pad(wsc.reshape(totc, 2, c), (0, cp - c, 0, 0, 0, kc - totc))
+    wc = wc.reshape(kc, 2, cp // 8, 8).permute(2, 1, 3, 0)
+    wm = F.pad(wsm, (0, cp - c, 0, km - totm)).t()
+    return wc.reshape(-1, kc).contiguous(), wm.contiguous()
+
+
+def pack_pair_weights(params_c, params_m):
+    """Both blocks' 13-tuples as csrc/dsconv.cu's `se_dsconv_pair_tc` takes
+    them, on their device: (complex, real), each (w1p, g1p, b1p, bb1, alpha,
+    wd1p, bd1, wd2p, bd2, g2, b2, ws packed, bs). Done once a model
+    (Uformer keeps them), not once a call."""
+    pc = _pack_branch(tuple(params_c), PAIR_N[0])
+    pm = _pack_branch(tuple(params_m), PAIR_N[1])
+    pc[11], pm[11] = _pack_out(params_c[11], params_m[11])
+    return tuple(pc), tuple(pm)
+
+
+def _check_pair(xc, xm, params_c, params_m):
+    """Raise unless the stage suits the tensor-core kernels."""
     b, t, f, cc = xc.shape
     cm = xm.shape[-1]
     if xm.shape != (b, t, f, cc // 2) or cc != 2 * cm:
@@ -126,10 +182,41 @@ def dsconv_pair_block(xc: torch.Tensor, xm: torch.Tensor, params_c,
                          f"xm {tuple(xm.shape)} with twice the channels")
     totc = _check_block(xc, params_c, 2, "dsconv_pair")
     totm = _check_block(xm, params_m, 1, "dsconv_pair")
+    if (cm % 4 or totc % 4 or totm % 4 or totc > PAIR_N[0]
+            or totm > PAIR_N[1]):
+        raise ValueError(f"dsconv_pair kernel: needs C, Cm multiples of 4 "
+                         f"and Cm <= {PAIR_N}, got C={cm}, Cm=({totc}, "
+                         f"{totm})")
+    return totc, totm
+
+
+def dsconv_pair_block(xc: torch.Tensor, xm: torch.Tensor, params_c,
+                      params_m, d1: int, d2: int, packed=None):
+    """One conformer stage: xc (B, T, F, 2C) = [re | im] and xm (B, T, F,
+    C) -> (oc, om) of the same shapes, residuals and fusion included.
+    `packed`: `pack_pair_weights(params_c, params_m)`, where the caller
+    keeps it; packed here without it."""
+    params_c, params_m = tuple(params_c), tuple(params_m)
+    if xc.device.type == "cpu":
+        return _pair_reference(xc, xm, params_c, params_m, d1, d2)
+    b, t, f, cc = xc.shape
+    cm = xm.shape[-1]
+    totc, totm = _check_pair(xc, xm, params_c, params_m)
+    pc, pm = pack_pair_weights(params_c, params_m) if packed is None \
+        else packed
+    cp = _round_up(cm, PAIR_CO)
+    for (name, pk, cin, tot, n, rows) in (("complex", pc, cc, totc, 0, 2 * cp),
+                                          ("real", pm, cm, totm, 1, cp)):
+        k1p, totp = _round_up(cin, PAIR_K), _round_up(tot, PAIR_K)
+        for i, shape in ((0, (PAIR_N[n], k1p)), (1, (k1p,)), (2, (k1p,)),
+                         (5, (PAIR_N[n], 9 * totp)),
+                         (7, (PAIR_N[n], 9 * totp)),
+                         (11, (rows, _round_up(tot, 8)))):
+            _build.check(pk[i], shape, f"packed {name} [{i}]")
     yc = torch.empty((b, t, f, totc), device=xc.device, dtype=xc.dtype)
     ym = torch.empty((b, t, f, totm), device=xc.device, dtype=xc.dtype)
     oc, om = torch.empty_like(xc), torch.empty_like(xm)
-    _build.launch("se_dsconv_pair_fwd", xc, *params_c, xm, *params_m, yc, ym,
-                  oc, om, b, t, f, cm, totc, totm, d1, d2)
+    _build.launch("se_dsconv_pair_tc", _aligned(xc), _aligned(xm), *pc, *pm,
+                  yc, ym, oc, om, b, t, f, cm, totc, totm, d1, d2)
     _build.LAUNCHES["dsconv_pair"] += 1
     return oc, om

@@ -10,12 +10,20 @@ bn_shift (1, Cout_b), alpha (1, 1)); the complex weight is the interleaved
 [[Wr, Wi], [-Wi, Wr]] kernel on channel-concat [re | im]. On a CUDA
 tensor `encoder_level` launches csrc/encoder.cu; on a CPU tensor it runs
 `_reference`, the plain twin.
+
+csrc/encoder.cu has two designs, picked a level by `level_design` from the
+shape: an implicit GEMM on the tensor cores (`se_encoder_level_tc`: Cin %
+4 == 0, Uformer's levels 1-5), whose weights `pack_encoder_weights` lays
+out once (Uformer caches them a model), and a CUDA-core kernel for the
+narrowest level (`se_encoder_level_cc`: level 0, Cin 1), which reads the
+10-tuple as it is.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from se_tpu_torch.nn.conv import conv2d_nhwc
 from se_tpu_torch.ops import _build
@@ -51,12 +59,66 @@ def _reference(xc, xm, params):
     return fuse(branch(xc, *params[:5]), branch(xm, *params[5:10]))
 
 
-def encoder_level(xc: torch.Tensor, xm: torch.Tensor, params):
+TC_CHANNELS = 32  # output channels a tensor-core block: Cout padded to it
+TC_K = 32         # K a stage: each tap's Cin padded to it
+TAPS = 10         # (2, 5) taps, t-tap major
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def level_design(cin: int) -> str:
+    """The design csrc/encoder.cu runs a level with: "tc" (the implicit GEMM
+    on the tensor cores) where Cin % 4 == 0 (16-byte copies of both
+    branches' channels): Uformer's levels 1-5; "cuda_core" otherwise
+    (level 0, Cin 1, bounded by bytes). Either design runs a level whose
+    CUDA-core shared memory fits a block (levels 0-2); chip_smoke.py times
+    those on both."""
+    return "tc" if cin % 4 == 0 else "cuda_core"
+
+
+def _pack_branch(w, parts: int):
+    """(2, 5, Cin, parts * Cout) HWIO kernel -> (Coutp / 8 * parts * 8,
+    10 * Cinp), K-major: K index tap * Cinp + ci with tap = it * 5 + jf over
+    input row (t - 1 + it, 2 fo + jf - 2); column (g8, part, c8) for
+    channel 8 g8 + c8: per 8 channels the n8 tiles [re, im] (complex) or
+    [m] (real). Cin zero-padded to Cinp (a multiple of 32), Cout to Coutp
+    (a multiple of 32)."""
+    cin, n = w.shape[2], w.shape[3]
+    cout = n // parts
+    cinp, coutp = _round_up(cin, TC_K), _round_up(cout, TC_CHANNELS)
+    full = w.reshape(TAPS, cin, parts, cout)
+    full = F.pad(full, (0, coutp - cout, 0, 0, 0, cinp - cin))
+    full = full.reshape(TAPS, cinp, parts, coutp // 8, 8)
+    packed = full.permute(3, 2, 4, 0, 1)  # (g8, part, c8, tap, ci)
+    return packed.reshape(-1, TAPS * cinp).contiguous()
+
+
+def pack_encoder_weights(params):
+    """The 10-tuple's kernels packed for the tensor-core design, on their
+    device: complex (2 Coutp, 10 Cinp_c) and real (Coutp, 10 Cinp_m),
+    K-major. Done once a model (Uformer keeps them), not once a call."""
+    return _pack_branch(params[0], 2), _pack_branch(params[5], 1)
+
+
+def encoder_level(xc: torch.Tensor, xm: torch.Tensor, params, packed=None):
     """xc (B, T, F, 2*Cin), xm (B, T, F, Cin) -> ((B, T, F//2, 2*Cout),
-    (B, T, F//2, Cout))."""
+    (B, T, F//2, Cout)). `packed`: `pack_encoder_weights(params)`, where
+    the caller keeps it; packed here for a tensor-core level without it."""
     params = tuple(params)
     if xc.device.type == "cpu":
         return _reference(xc, xm, params)
+    return _launch(xc, xm, params, level_design(xc.shape[-1] // 2), packed)
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x, or a fresh copy where its data does not start on 16 bytes."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _launch(xc, xm, params, design: str, packed=None):
+    """Launch `design` ("tc" or "cuda_core") on CUDA tensors."""
     b, t, f, c2 = xc.shape
     cin, cout = c2 // 2, params[5].shape[-1]
     if f % 2:
@@ -72,7 +134,19 @@ def encoder_level(xc: torch.Tensor, xm: torch.Tensor, params):
     yc = torch.empty((b, t, f // 2, 2 * cout), device=xc.device,
                      dtype=xc.dtype)
     ym = torch.empty((b, t, f // 2, cout), device=xc.device, dtype=xc.dtype)
-    _build.launch("se_encoder_level", xc, xm, *params, yc, ym, b, t, f, cin,
-                  cout)
+    if design == "tc":
+        wc, wm = pack_encoder_weights(params) if packed is None else packed
+        coutp = _round_up(cout, TC_CHANNELS)
+        cinp_c, cinp_m = _round_up(2 * cin, TC_K), _round_up(cin, TC_K)
+        _build.check(wc, (2 * coutp, TAPS * cinp_c), "packed wc")
+        _build.check(wm, (coutp, TAPS * cinp_m), "packed wm")
+        _build.launch("se_encoder_level_tc", _aligned(xc), _aligned(xm), wc,
+                      wm, *params[1:5], *params[6:10], yc, ym, b, t, f, cin,
+                      cout, cinp_c, cinp_m)
+    elif design == "cuda_core":
+        _build.launch("se_encoder_level_cc", xc, xm, *params, yc, ym, b, t, f,
+                      cin, cout)
+    else:
+        raise ValueError(f"unknown encoder design {design!r}")
     _build.LAUNCHES["encoder"] += 1
     return yc, ym

@@ -78,6 +78,54 @@ def test_encoder_kernel_matches_twin(gen, dev, cin, cout, f):
     _kernel_vs_twin(encoder.encoder_level, (xc, xm, params), dev)
 
 
+# (B, T, F, Cin, Cout): Uformer's six encoder levels (level 0 takes the
+# CUDA cores, 1-5 the tensor cores), then a ragged M at level 3's widths
+# (3 x 5 x 8 = 120 positions: two 64-row tiles, the second part empty),
+# T = 1 at level 5's widths (4 positions), Cout 40 (padded to 64) and Cin
+# 12 / 3 (padded to 32; 3: the 4-byte copies) on the tensor cores.
+UFORMER_KERNELS = (1, 8, 16, 32, 64, 128, 128)
+ENC_SHAPES = [(2, 7, 256 >> i, UFORMER_KERNELS[i], UFORMER_KERNELS[i + 1])
+              for i in range(6)] + [
+    (3, 5, 16, 32, 64), (1, 1, 8, 128, 128), (2, 3, 8, 12, 40),
+    (2, 3, 6, 3, 5)]
+
+
+def _enc_scale(want):
+    return 1e-4 * max(1.0, max(float(w.abs().max()) for w in want))
+
+
+@pytest.mark.parametrize("b,t,f,cin,cout", ENC_SHAPES)
+def test_encoder_levels_match_twin(gen, dev, b, t, f, cin, cout):
+    """Tolerance 1e-4 * max(1, max|twin|): 3xTF32 or fp32 sums over up to
+    K = 2560 in another order; the packed weights passed as Uformer passes
+    them."""
+    params = to_torch(enc_params(gen, cin, cout))
+    xc, xm = to_torch((rand(gen, b, t, f, 2 * cin), rand(gen, b, t, f, cin)))
+    want = encoder._reference(xc, xm, params)
+    pd = tuple(p.to(dev) for p in params)
+    packed = None
+    if encoder.level_design(cin) == "tc":
+        packed = encoder.pack_encoder_weights(pd)
+    got = encoder.encoder_level(xc.to(dev), xm.to(dev), pd, packed=packed)
+    torch.cuda.synchronize()
+    close(got, want, _enc_scale(want))
+
+
+@pytest.mark.parametrize("design", ["tc", "cuda_core"])
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_encoder_levels_0_2_on_either_design(gen, dev, level, design):
+    """Levels 0-2 run on either design; chip_smoke.py times both."""
+    f, cin, cout = 256 >> level, UFORMER_KERNELS[level], \
+        UFORMER_KERNELS[level + 1]
+    params = to_torch(enc_params(gen, cin, cout))
+    xc, xm = to_torch((rand(gen, 2, 5, f, 2 * cin), rand(gen, 2, 5, f, cin)))
+    want = encoder._reference(xc, xm, params)
+    got = encoder._launch(xc.to(dev), xm.to(dev),
+                          tuple(p.to(dev) for p in params), design)
+    torch.cuda.synchronize()
+    close(got, want, _enc_scale(want))
+
+
 @pytest.mark.parametrize("has_bn", [True, False])
 def test_decoder_kernel_matches_twin(gen, dev, has_bn):
     params = to_torch(dec_params(gen, 32, 8))
@@ -92,7 +140,6 @@ def test_decoder_kernel_matches_twin(gen, dev, has_bn):
 # at level 0's widths (4 positions), Cout 20 (padded to 32) and Cin 24 and
 # 12 (padded to 32) on the tensor cores, and a narrow level on the CUDA
 # cores.
-UFORMER_KERNELS = (1, 8, 16, 32, 64, 128, 128)
 DEC_SHAPES = [(2, 7, 4 << i, 2 * UFORMER_KERNELS[6 - i],
                UFORMER_KERNELS[5 - i]) for i in range(6)] + [
     (3, 5, 8, 64, 16), (1, 1, 4, 256, 128), (2, 3, 4, 12, 20),
@@ -145,6 +192,34 @@ def test_dsconv_pair_kernel_matches_twin(gen, dev, c, cm, d1, d2):
     _kernel_vs_twin(lambda a, b, p, q: dsconv.dsconv_pair_block(a, b, p, q,
                                                                 d1, d2),
                     (*to_torch((xc, xm)), pc, pm), dev)
+
+
+# (B, T, C, Cm, d1, d2): the conformer's widths (complex 2 x 128 channels,
+# Cm 2 x 32; real 128, Cm 32) at every dilation pair of its eight stages
+# (d = 128 at T = 50: taps past both ends), at a ragged row count (3 x 7 x
+# 4 = 84 rows: two 64-row tiles, the second part empty) and T = 1; then
+# narrow C and Cm (C 40: a part-empty 32-channel output pass; Cm 4 and 12:
+# padded to 32 a tap).
+PAIR_SHAPES = [(2, 50, 128, 32, 2 ** i, 2 ** (7 - i)) for i in range(8)] + [
+    (3, 7, 128, 32, 4, 32), (2, 1, 128, 32, 1, 128), (2, 9, 40, 4, 2, 1),
+    (1, 11, 64, 12, 8, 2)]
+
+
+@pytest.mark.parametrize("b,t,c,cm,d1,d2", PAIR_SHAPES)
+def test_dsconv_pair_stages_match_twin(gen, dev, b, t, c, cm, d1, d2):
+    """Tolerance 1e-4 * max(1, max|twin|): 3xTF32 sums over up to K = 576
+    in another order; the packed weights passed as Uformer passes them."""
+    xc, xm, pc, pm = pair_inputs(gen, b, t, 4, c, cm)
+    xc, xm = to_torch((xc, xm))
+    pc, pm = to_torch(pc), to_torch(pm)
+    want = dsconv._pair_reference(xc, xm, pc, pm, d1, d2)
+    pcd, pmd = (tuple(p.to(dev) for p in q) for q in (pc, pm))
+    packed = dsconv.pack_pair_weights(pcd, pmd)
+    got = dsconv.dsconv_pair_block(xc.to(dev), xm.to(dev), pcd, pmd, d1, d2,
+                                   packed=packed)
+    torch.cuda.synchronize()
+    close(got, want, 1e-4 * max(1.0, max(float(w.abs().max())
+                                          for w in want)))
 
 
 # (Bf, In, H) on 132 SMs. The small fold (the projection kernel, then the
