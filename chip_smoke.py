@@ -33,12 +33,16 @@ Phases, one JSON line per result:
              T = 506 and 1012; the small fold's two kernels (lstm_project,
              lstm_recur) also alone, and the recurrence's planned grid
              against the kernel's shared memory and occupancy; each
-             decoder level on the design it takes (named in its line), and
-             levels 4 and 5 also on the other; the STFT also with pad_end
-             and valid framing, at n_fft 384 and 2048 (a generic radix-3
-             stage; past the default shared memory), and its center
-             presets at B = 32 and 256, each case also as device time by
-             kernel (torch.profiler) beside torch.stft's.
+             encoder and decoder level on the design it takes (named in
+             its line), encoder levels 0-2 and decoder levels 4 and 5 also
+             on the other; the DSConv pair stage at its eight dilation
+             pairs and at B = 32; the STFT also with pad_end and valid
+             framing, at n_fft 384 and 2048 (a generic radix-3 stage; past
+             the default shared memory), and its center presets at B = 32
+             and 256, each case also as device time by kernel
+             (torch.profiler) beside torch.stft's. The encoder's, the
+             pair stage's and the STFT's lines carry that device time by
+             kernel (`device_ms`) beside the CUDA-event time.
              A kernel's row of the table sums the cases of one forward,
              named in its "note": the shapes of the other paths are the
              per-case lines.
@@ -57,7 +61,8 @@ Phases, one JSON line per result:
              on that utterance alone, within 1e-3 * max|cpu|.
   6. profile: torch.profiler over one enhance call of each family at
              B = 32: device time by kernel name and the device's busy share
-             of the wall time.
+             of the wall time; Uformer's must show each of its kernels by
+             name (PROFILE_KERNELS).
 Then the kernel table as one JSON line (a row's "launches" are those of the
 phase-4 forward its note names, "launches_all_paths" those of all seven)
 and, last, the device line. Any

@@ -28,8 +28,10 @@
 // into the scratch tensors y. A GEMM a branch on the tensor cores (3xTF32
 // mma.sync, tc_common.cuh `tc_ring`): M = rows, K = Cin (256 / 128), N =
 // Cm (64 / 32). A block of 64 rows first takes each (row, component
-// segment)'s mean and rstd, a warp a segment, two passes as the twin (mean,
-// then mean square deviation); the main loop's A tiles are x as it is,
+// segment)'s mean and rstd, a warp a segment, four segments' loads in
+// flight at once (a serial chain of 48 warp reductions cost a third more
+// time), two passes as the twin (mean, then mean square deviation); the
+// main loop's A tiles are x as it is,
 // normalised in the fragments before the 3xTF32 split ((v - mean) * rstd
 // * gamma + beta: tc_ring's `prep`). LN is not folded into the weights
 // (x . (gamma W) - mean . colsum(gamma W)): that cancels badly where
@@ -47,15 +49,17 @@
 //   2. LN2 per component segment in shared memory (a thread a (row,
 //      segment), two passes in fp32), then z * sigmoid(z) in place.
 //   3. the output 1x1 conv: K = Cm, N = the fusion's channels, 32 a pass
-//      (a ring of two passes of `ws` in shared memory, the next loading
-//      while this one computes); A is z from shared memory. `ws` is packed
+//      (a pass's `ws` in the ring's space, the next loading during this
+//      one's epilogue); A is z from shared memory. `ws` is packed
 //      so that the thread holding complex re c also holds im c and the real
 //      branch's m c (per 8 channels the n8 tiles re, im; then m), so bias,
 //      the residual x and the fusion run in registers and oc, om are
 //      written once.
 // A block: 128 threads in 2 x 2 warps of 32 rows (4 complex, 2 real n8
-// tiles a warp); shared memory 83.5 KB at the conformer's widths (the
-// cp.async ring, both z tiles, LN2's statistics): two blocks an SM.
+// tiles a warp); shared memory 64.5 KB at the conformer's widths (a
+// two-stage cp.async ring, both z tiles, LN2's statistics): three blocks
+// an SM, which at B = 32 ran 30% faster than two with a three-stage ring
+// (chip_smoke.py phase 3, NVIDIA H100 80GB HBM3, 700 W; PERF.md).
 //
 // The single block (`se_dsconv_fwd`, on no eval path since the stage runs
 // the pair entry) keeps its CUDA-core kernels: dsconv_pre and dsconv_post,
@@ -222,7 +226,8 @@ namespace tcp {
 
 constexpr int TM = 64;        // rows a block
 constexpr int TK = 32;        // K a stage
-constexpr int STAGES = 3;     // cp.async ring depth
+constexpr int PRE_STAGES = 3;   // cp.async ring depth, pre kernel
+constexpr int POST_STAGES = 2;  // post: 64.5 KB a block, three an SM
 constexpr int LDS = TK + 4;   // ring row stride in floats
 constexpr int WM = 2;         // warps down the rows
 constexpr int WN = 2;         // warps across the columns
@@ -232,7 +237,11 @@ constexpr int NT_M = 2;       // real N <= 32
 constexpr int N_C = WN * NT_C * 8;
 constexpr int N_M = WN * NT_M * 8;
 constexpr int CO = 32;        // fusion channels an output pass
-constexpr int RING = STAGES * (TM + N_C) * LDS;  // floats
+
+// Floats of a cp.async ring of `stages` A and B stages.
+__host__ __device__ constexpr int ring_floats(int stages) {
+  return stages * (TM + N_C) * LDS;
+}
 
 // One block's weights: the 13-tuple, w1 (N, K1p), g1 and b1 (K1p), wd1 and
 // wd2 (N, 9 Cmp) and ws packed (ops/dsconv.py `pack_pair_weights`), the
@@ -271,31 +280,47 @@ __device__ __forceinline__ void each_frag(float (&acc)[2][NT][4], Fn&& fn) {
 }
 
 // LN1's statistics of rows r0 .. r0 + TM of x (M, cin), nseg component
-// segments a row: a warp a (row, segment), the mean, then the mean square
-// deviation, as the twin. mu[row * 2 + s], rs likewise; 0 past M.
+// segments a row: a warp a (row, segment), STAT_U of them at once (their
+// loads in flight together), the mean, then the mean square deviation, as
+// the twin. mu[row * 2 + s], rs likewise; 0 past M.
+constexpr int STAT_U = 4;
+
 __device__ void row_stats(const float* __restrict__ x, int M, int cin,
                           int nseg, int r0, float* mu, float* rs) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int cs = cin / nseg;
-  for (int q = warp; q < TM * nseg; q += THREADS / 32) {
-    const int r = q / nseg, s = q % nseg;
-    const long p = (long)r0 + r;
-    float mean = 0.f, rstd = 0.f;
-    if (p < M) {
-      const float* v = x + p * cin + s * cs;
-      float sum = 0.f;
-      for (int i = lane; i < cs; i += 32) sum += v[i];
-      mean = warp_sum(sum) / cs;
-      float sq = 0.f;
-      for (int i = lane; i < cs; i += 32) {
-        const float d = v[i] - mean;
-        sq += d * d;
-      }
-      rstd = rsqrtf(warp_sum(sq) / cs + LN_EPS);
+  // TM nseg is a multiple of the warps' STAT_U (TM = 64)
+  for (int q0 = warp * STAT_U; q0 < TM * nseg;
+       q0 += THREADS / 32 * STAT_U) {
+    const float* v[STAT_U];
+    float sum[STAT_U], mean[STAT_U], sq[STAT_U];
+#pragma unroll
+    for (int u = 0; u < STAT_U; ++u) {
+      const int q = q0 + u;
+      const long p = (long)r0 + q / nseg;
+      v[u] = x + (p < M ? p : 0) * cin + (q % nseg) * cs;  // row 0: unused
+      sum[u] = sq[u] = 0.f;
     }
-    if (lane == 0) {
-      mu[r * 2 + s] = mean;
-      rs[r * 2 + s] = rstd;
+    for (int i = lane; i < cs; i += 32)
+#pragma unroll
+      for (int u = 0; u < STAT_U; ++u) sum[u] += v[u][i];
+#pragma unroll
+    for (int u = 0; u < STAT_U; ++u) mean[u] = warp_sum(sum[u]) / cs;
+    for (int i = lane; i < cs; i += 32)
+#pragma unroll
+      for (int u = 0; u < STAT_U; ++u) {
+        const float d = v[u][i] - mean[u];
+        sq[u] += d * d;
+      }
+#pragma unroll
+    for (int u = 0; u < STAT_U; ++u) {
+      const float rstd = rsqrtf(warp_sum(sq[u]) / cs + LN_EPS);
+      const int q = q0 + u;
+      const bool live = (long)r0 + q / nseg < M;
+      if (lane == 0) {
+        mu[(q / nseg) * 2 + q % nseg] = live ? mean[u] : 0.f;
+        rs[(q / nseg) * 2 + q % nseg] = live ? rstd : 0.f;
+      }
     }
   }
 }
@@ -308,8 +333,8 @@ __device__ void pre_branch(float* sm, const float* __restrict__ x,
                            int cin, int tot, int nseg, int r0) {
   constexpr int NB_COLS = WN * NT * 8;
   float* As = sm;
-  float* Bs = sm + STAGES * TM * LDS;
-  float* mu = sm + RING;  // TM x 2
+  float* Bs = sm + PRE_STAGES * TM * LDS;
+  float* mu = sm + ring_floats(PRE_STAGES);  // TM x 2
   float* rs = mu + 2 * TM;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp % WM, wn = warp / WM, gid = lane >> 2, tq = lane & 3;
@@ -372,8 +397,8 @@ __device__ void pre_branch(float* sm, const float* __restrict__ x,
     }
   };
   float acc[2][NT][4];
-  tc_ring<TM, NB_COLS, TK, LDS, STAGES, NT, true>(acc, As, Bs, nk, wm * 32,
-                                                 wn * NT * 8, load, prep);
+  tc_ring<TM, NB_COLS, TK, LDS, PRE_STAGES, NT, true>(
+      acc, As, Bs, nk, wm * 32, wn * NT * 8, load, prep);
   const float alpha = *p.alpha;
   each_frag<NT>(acc, [&](int r, int c, float v) {
     const long row = (long)r0 + r;
@@ -405,7 +430,7 @@ __device__ void dilated(float (&acc)[2][NT][4], float* ring,
                         int tot, int d, int r0) {
   constexpr int NB_COLS = WN * NT * 8;
   float* As = ring;
-  float* Bs = ring + STAGES * TM * LDS;
+  float* Bs = ring + POST_STAGES * TM * LDS;
   const int tid = threadIdx.x, warp = tid >> 5;
   const int wm = warp % WM, wn = warp / WM;
   const int totp = round_up(tot, TK), kp = 9 * totp, nk = kp / TK;
@@ -438,8 +463,8 @@ __device__ void dilated(float (&acc)[2][NT][4], float* ring,
                  ok ? 16 : 0);
     }
   };
-  tc_ring<TM, NB_COLS, TK, LDS, STAGES, NT, true>(acc, As, Bs, nk, wm * 32,
-                                                 wn * NT * 8, load);
+  tc_ring<TM, NB_COLS, TK, LDS, POST_STAGES, NT, true>(
+      acc, As, Bs, nk, wm * 32, wn * NT * 8, load);
   __syncthreads();  // every warp is done with the ring before it is reused
 }
 
@@ -463,14 +488,14 @@ __device__ void gated(float* ring, const float* __restrict__ y,
 
 // Floats of dsconv_post_tc's shared memory.
 __host__ __device__ inline int post_smem_floats(int totc, int totm) {
-  return RING + TM * (round_up(totc, 8) + 4) + TM * (round_up(totm, 8) + 4) +
-         6 * TM;
+  return ring_floats(POST_STAGES) + TM * (round_up(totc, 8) + 4) +
+         TM * (round_up(totm, 8) + 4) + 6 * TM;
 }
 
 // The rest of both blocks and the fusion for rows r0 .. r0 + TM; xc (M,
 // 2cm) = [re | im] and xm (M, cm) the stage's inputs, yc (M, totc) and ym
 // (M, totm) the pre kernel's.
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, 3)
 dsconv_post_tc(const float* __restrict__ xc, const float* __restrict__ yc,
                Branch pc, const float* __restrict__ xm,
                const float* __restrict__ ym, Branch pm,
@@ -480,7 +505,7 @@ dsconv_post_tc(const float* __restrict__ xc, const float* __restrict__ yc,
   const int kc = round_up(totc, 8), km = round_up(totm, 8);
   const int ldc = kc + 4, ldm = km + 4;  // odd multiples of 4: no conflicts
   float* ring = sm;
-  float* zc = sm + RING;      // TM x ldc
+  float* zc = sm + ring_floats(POST_STAGES);  // TM x ldc
   float* zm = zc + TM * ldc;  // TM x ldm
   float* mu = zm + TM * ldm;  // TM x 3: complex segments 0 and 1, real
   float* rs = mu + 3 * TM;
@@ -493,12 +518,11 @@ dsconv_post_tc(const float* __restrict__ xc, const float* __restrict__ yc,
   gated<NT_M>(ring, ym, pm, zm, ldm, km, M, T, F, totm, d1, d2, r0);
 
   // the output GEMM's packed ws, a pass (CO channels: 2 CO complex rows of
-  // kc, CO real rows of km) a ring buffer; passes 0 and 1 load during LN2
+  // kc, CO real rows of km) in the ring; pass 0 loads during LN2
   const int npass = (cm + CO - 1) / CO;
-  const int bufsz = 2 * CO * ldc + CO * ldm;
-  auto load_ws = [&](int ps, int buf) {
-    float* bc = ring + buf * bufsz;
-    float* bm = bc + 2 * CO * ldc;
+  float* bc = ring;
+  float* bm = bc + 2 * CO * ldc;
+  auto load_ws = [&](int ps) {
     const int qc = kc / 4, qm = km / 4;
     for (int e = tid; e < 2 * CO * qc; e += THREADS)
       cp_async16(bc + (e / qc) * ldc + 4 * (e % qc),
@@ -508,9 +532,7 @@ dsconv_post_tc(const float* __restrict__ xc, const float* __restrict__ yc,
       cp_async16(bm + (e / qm) * ldm + 4 * (e % qm),
                  pm.ws + ((size_t)ps * CO + e / qm) * km + 4 * (e % qm), 16);
   };
-  load_ws(0, 0);
-  cp_async_commit();
-  if (npass > 1) load_ws(1, 1);
+  load_ws(0);
   cp_async_commit();
   __syncthreads();  // both z tiles are complete
 
@@ -554,10 +576,8 @@ dsconv_post_tc(const float* __restrict__ xc, const float* __restrict__ yc,
   const float* zb = zm + wm * 32 * ldm + lane_a_offset(lane, ldm);
   NoPrep none;
   for (int ps = 0; ps < npass; ++ps) {
-    cp_async_wait<1>();  // pass ps has landed
+    cp_async_wait<0>();  // pass ps has landed
     __syncthreads();     // ... for all; (ps 0) z is normalised
-    const float* bc = ring + (ps & 1) * bufsz;
-    const float* bm = bc + 2 * CO * ldc;
     float sc[2][NT_C][4], sg[2][NT_M][4];
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
@@ -574,8 +594,8 @@ dsconv_post_tc(const float* __restrict__ xc, const float* __restrict__ yc,
     const float* wr = bm + wn * NT_M * 8 * ldm + lane_b_offset(lane, ldm);
     for (int k = 0; k < km; k += 8)
       mma_step<NT_M>(sg, zb + k, ldm, wr + k, ldm, k, none);
-    __syncthreads();  // every warp is done with this buffer
-    if (ps + 2 < npass) load_ws(ps + 2, ps & 1);
+    __syncthreads();  // every warp is done with this pass's ws
+    if (ps + 1 < npass) load_ws(ps + 1);  // lands during the epilogue
     cp_async_commit();
     // sc[mi][2 g + part][hh * 2 + j]: row gid + 8 hh of m tile mi, channel
     // ps CO + wn 16 + 8 g + 2 tq + j, part re (0) or im (1); sg[mi][g] m
@@ -673,7 +693,8 @@ extern "C" int se_dsconv_pair_tc(
   const tcp::Branch pm{w1m, g1m, b1m, bb1m, am, wd1m, bd1m,
                        wd2m, bd2m, g2m, b2m, wsm, bsm};
   const unsigned blocks = (unsigned)((M + tcp::TM - 1) / tcp::TM);
-  const int pre_smem = (tcp::RING + 4 * tcp::TM) * (int)sizeof(float);
+  const int pre_smem =
+      (tcp::ring_floats(tcp::PRE_STAGES) + 4 * tcp::TM) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       tcp::dsconv_pre_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
       pre_smem);
