@@ -155,14 +155,14 @@ struct PostParams {
 
 // The post stage of one block for rows [row0, row0 + nrows): the two
 // dilated convs on y, a * sigmoid(g), LN2, z * sigmoid(z), the 1x1 conv and
-// the residual. Hands each output (row r, channel ch, value) to `emit`.
+// the residual, into out.
 // P (R * 9 * tot) and A (R * tot) are shared-memory scratch.
-template <class Emit>
 __device__ void post_rows(const float* __restrict__ x,
                           const float* __restrict__ y, const PostParams& p,
                           int row0, int nrows, int T, int F, int cin,
                           int tot, int ncomp, int d1, int d2, float* P,
-                          float* A, float* mu, float* rs, Emit emit) {
+                          float* A, float* mu, float* rs,
+                          float* __restrict__ out) {
   const float *__restrict__ wd1 = p.wd1, *__restrict__ bd1 = p.bd1,
               *__restrict__ wd2 = p.wd2, *__restrict__ bd2 = p.bd2,
               *__restrict__ ws = p.ws, *__restrict__ bs = p.bs;
@@ -196,7 +196,8 @@ __device__ void post_rows(const float* __restrict__ x,
     const float* ar = A + r * tot;
     float acc = 0.f;
     for (int o = 0; o < tot; ++o) acc = fmaf(ar[o], ws[o * cin + ch], acc);
-    emit(r, ch, x[(size_t)(row0 + r) * cin + ch] + (acc + bs[ch]));
+    const size_t o = (size_t)(row0 + r) * cin + ch;
+    out[o] = x[o] + (acc + bs[ch]);
   }
 }
 
@@ -214,10 +215,7 @@ dsconv_post(const float* __restrict__ x, const float* __restrict__ y,
   const int nrows = min(R, rows - row0);
   const PostParams p{wd1, bd1, wd2, bd2, g2, b2, ws, bs};
   post_rows(x, y, p, row0, nrows, T, F, cin, tot, ncomp, d1, d2, smem,
-            smem + R * 9 * tot, mu, rs,
-            [&](int r, int ch, float v) {
-              out[(size_t)(row0 + r) * cin + ch] = v;
-            });
+            smem + R * 9 * tot, mu, rs, out);
 }
 
 // ------------------------------------- the pair stage, tensor cores

@@ -50,8 +50,8 @@
 //     taps from L2.
 //
 // encoder_level_cc (level 0: Cin 1, Cout 8, bounded by bytes at ~7 flops a
-// byte): one thread an output position computes all three outputs of CO
-// channels a pass. A block stages the level's weights once (50 Cin Coutp
+// byte): one thread an output position computes all three outputs of 8
+// channels a pass (Cout padded to 8 with zero weights). A block stages the level's weights once (50 Cin Coutp
 // floats: 1.6 KB at level 0), then walks chunks of 128 positions: the
 // chunk's input rows 2 p0 - F - 2 .. 2 p0 + 256 of [xc | xm] (both
 // row-contiguous, so one coalesced run each) go to shared memory at an odd
@@ -202,6 +202,7 @@ encoder_level_tc(const float* __restrict__ xc, const float* __restrict__ xm,
 // -------------------------------------------------- CUDA cores, narrow
 
 constexpr int CC_THREADS = 128;  // positions a block pass, one a thread
+constexpr int CO = 8;            // output channels a pass
 
 // Rows of the input tile of a chunk of CC_THREADS positions: input rows
 // 2 p0 - F - 2 .. 2 (p0 + CC_THREADS - 1) + 2.
@@ -218,7 +219,6 @@ inline size_t cc_smem_floats(int cin, int coutp, int F) {
   return (size_t)50 * cin * coutp + (size_t)cc_rows(F) * cc_ld(cin);
 }
 
-template <int CO>
 __global__ void __launch_bounds__(CC_THREADS)
 encoder_level_cc(const float* __restrict__ xc, const float* __restrict__ xm,
                  const float* __restrict__ wc, const float* __restrict__ wm,
@@ -298,13 +298,25 @@ encoder_level_cc(const float* __restrict__ xc, const float* __restrict__ xm,
   }
 }
 
-template <int CO>
-int run_cc(const float* xc, const float* xm, const float* wc,
-           const float* wm, const Tail& P, float* yc, float* ym, int M,
-           int T, int F, int cin, int cout, cudaStream_t st) {
+}  // namespace
+
+// The CUDA-core design, the 10-tuple's weights as they are: wc (2, 5, 2cin,
+// 2cout), wm (2, 5, cin, cout). Needs F even and its shared memory
+// (cc_smem_floats: the staged weights, coutp = cout rounded up to 8, and
+// the input tile) to fit a block.
+extern "C" int se_encoder_level_cc(
+    const float* xc, const float* xm, const float* wc, const float* bc,
+    const float* sc, const float* tc, const float* ac, const float* wm,
+    const float* bm, const float* sm, const float* tm, const float* am,
+    float* yc, float* ym, int B, int T, int F, int cin, int cout,
+    void* stream) {
+  if (F % 2 != 0) return (int)cudaErrorInvalidValue;
+  const long M = (long)B * T * (F / 2);
+  if (M == 0) return 0;
+  const Tail P{bc, sc, tc, ac, bm, sm, tm, am};
   const int coutp = (cout + CO - 1) / CO * CO;
   const size_t smem = cc_smem_floats(cin, coutp, F) * sizeof(float);
-  auto kernel = encoder_level_cc<CO>;
+  auto kernel = encoder_level_cc;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int dev = 0, sms = 0, per_sm = 0;
@@ -319,12 +331,10 @@ int run_cc(const float* xc, const float* xm, const float* wc,
   const long need = ((long)M + CC_THREADS - 1) / CC_THREADS;
   const long wave = (long)sms * per_sm;
   const unsigned blocks = (unsigned)(need < wave ? need : wave);
-  kernel<<<blocks, CC_THREADS, smem, st>>>(xc, xm, wc, wm, P, yc, ym, M, T,
-                                          F, cin, cout);
+  kernel<<<blocks, CC_THREADS, smem, (cudaStream_t)stream>>>(
+      xc, xm, wc, wm, P, yc, ym, (int)M, T, F, cin, cout);
   return (int)cudaGetLastError();
 }
-
-}  // namespace
 
 // The tensor-core design. xc (B, T, F, 2cin), xm (B, T, F, cin) -> yc (B,
 // T, F/2, 2cout), ym (B, T, F/2, cout). wcp / wmp: pack_encoder_weights'
@@ -355,28 +365,4 @@ extern "C" int se_encoder_level_tc(
   kernel<<<(unsigned)blocks, TC_THREADS, TC_SMEM, (cudaStream_t)stream>>>(
       xc, xm, wcp, wmp, P, yc, ym, (int)M, T, F, cin, cout, cinp_c, cinp_m);
   return (int)cudaGetLastError();
-}
-
-// The CUDA-core design, the 10-tuple's weights as they are: wc (2, 5, 2cin,
-// 2cout), wm (2, 5, cin, cout). Needs F even and its shared memory
-// (cc_smem_floats: the staged weights, coutp = cout rounded up to the
-// channels a pass, 1, 2, 4 or 8, and the input tile) to fit a block.
-extern "C" int se_encoder_level_cc(
-    const float* xc, const float* xm, const float* wc, const float* bc,
-    const float* sc, const float* tc, const float* ac, const float* wm,
-    const float* bm, const float* sm, const float* tm, const float* am,
-    float* yc, float* ym, int B, int T, int F, int cin, int cout,
-    void* stream) {
-  if (F % 2 != 0) return (int)cudaErrorInvalidValue;
-  const long M = (long)B * T * (F / 2);
-  if (M == 0) return 0;
-  const Tail P{bc, sc, tc, ac, bm, sm, tm, am};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (cout >= 8)
-    return run_cc<8>(xc, xm, wc, wm, P, yc, ym, (int)M, T, F, cin, cout, st);
-  if (cout >= 4)
-    return run_cc<4>(xc, xm, wc, wm, P, yc, ym, (int)M, T, F, cin, cout, st);
-  if (cout >= 2)
-    return run_cc<2>(xc, xm, wc, wm, P, yc, ym, (int)M, T, F, cin, cout, st);
-  return run_cc<1>(xc, xm, wc, wm, P, yc, ym, (int)M, T, F, cin, cout, st);
 }
