@@ -26,8 +26,11 @@ Phases, one JSON line per result:
              port never calls F.scaled_dot_product_attention (attention),
              cuDNN's LSTM (lstm), torch.addmm (lstm_project) and
              torch.stft, cuFFT (stft, center cases). The single DSConv
-             block, which left the eval path for the pair entry, is checked
-             at the shapes the stage gives it; the LSTM layer also in
+             block (the module forward of DSConvCplx / DSConvReal; the
+             stage runs the pair entry) is checked at the shapes the stage
+             gives it; attention on the design `att_design` gives each call
+             (named in its line), the F-attention also on the other, at B =
+             4 and 32 and at L = 8-32; the LSTM layer also in
              reverse and with a ragged batch and a non-zero carry, at phase
              5's B = 32 and 256 on both designs, and on the sub band at
              T = 506 and 1012; the small fold's two kernels (lstm_project,
@@ -40,8 +43,8 @@ Phases, one JSON line per result:
              framing, at n_fft 384 and 2048 (a generic radix-3 stage; past
              the default shared memory), and its center presets at B = 32
              and 256, each case also as device time by kernel
-             (torch.profiler) beside torch.stft's. The encoder's, the
-             pair stage's and the STFT's lines carry that device time by
+             (torch.profiler) beside torch.stft's. The attention, block,
+             encoder, pair stage and STFT lines carry that device time by
              kernel (`device_ms`) beside the CUDA-event time.
              A kernel's row of the table sums the cases of one forward,
              named in its "note": the shapes of the other paths are the
@@ -169,19 +172,54 @@ def valid_taps(n: int, positions) -> int:
 # --------------------------------------------------------- the kernel cases
 
 def attention_cases(gen, dev):
+    """The four calls of Uformer's B = 4 forward, each on the design
+    `att_design` gives it (named in the label), the F-attention's L = 4
+    also on the flash design it does not take; then L = 8, 16 and 32 at
+    the F-attention's N H on both designs (what att_design rests on), and
+    the four calls at phase 5's B = 32. Yardstick:
+    F.scaled_dot_product_attention."""
     import torch
     import torch.nn.functional as F
 
-    b, t, f = B_MAIN, T_FRAMES, 4
-    for n, h, l in ((b * f, 8, t), (b * f, 1, t), (b * t, 8, f),
-                    (b * t, 1, f)):
+    from se_tpu_torch.ops import attention
+
+    def shapes(b, t, f):
+        return ((b * f, 8, t), (b * f, 1, t), (b * t, 8, f), (b * t, 1, f))
+
+    cases = [(n, h, l, B_MAIN, True) for n, h, l in shapes(B_MAIN,
+                                                           T_FRAMES, 4)]
+    cases += [(B_MAIN * T_FRAMES, 8, l, B_MAIN, False) for l in (8, 16, 32)]
+    cases += [(n, h, l, 32, False) for n, h, l in shapes(32, T_FRAMES, 4)]
+    for n, h, l, b, in_row in cases:
         q, k, v = (torch.randn(n, h, l, 16, generator=gen).to(dev) * 0.5
                    for _ in range(3))
         flops = 4.0 * n * h * l * l * 16
-        yield (f"attention {n}x{h}x{l}x16", (q, k, v, 0.25), flops,
-               nbytes(q, k, v, q),
-               lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
-                   q, k, v, scale=0.25), True)
+        label = f"attention B={b} {n}x{h}x{l}x16"
+        design = attention.att_design(n * h, l)
+        library = (lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+            q, k, v, scale=0.25))
+        yield (f"{label} design={design}", (q, k, v, 0.25, None), flops,
+               nbytes(q, k, v, q), library, in_row)
+        if l <= attention.SMALL_L_MAX:  # either design takes it
+            other = "flash_tc" if design == "small_l" else "small_l"
+            yield (f"{label} design={other} (not taken)",
+                   (q, k, v, 0.25, other), flops, nbytes(q, k, v, q), None,
+                   False)
+
+
+def _att_kernel(q, k, v, scale, design):
+    """sdp_attention as Uformer calls it, or one design forced."""
+    from se_tpu_torch.ops import attention
+
+    if design is None:
+        return attention.sdp_attention(q, k, v, scale)
+    return attention._launch(q, k, v, scale, design)
+
+
+def _att_twin(q, k, v, scale, design):
+    from se_tpu_torch.ops import attention
+
+    return attention._reference(q, k, v, scale)
 
 
 def dsconv_params(gen, cin, tot, dev):
@@ -200,19 +238,37 @@ def dsconv_params(gen, cin, tot, dev):
 
 
 def dsconv_cases(gen, dev):
+    """The 16 block shapes of Uformer's B = 4 forward (its eight dilation
+    pairs, complex and real), each block's weights packed once, as
+    DSConvCplx and DSConvReal keep them."""
     import torch
+
+    from se_tpu_torch.ops import dsconv
 
     b, t, f = B_MAIN, T_FRAMES, 4
     n = len(DILATIONS)
     for ncomp, cin, tot in ((2, 256, 64), (1, 128, 32)):
         params = dsconv_params(gen, cin, tot, dev)
+        packed = dsconv.pack_block_weights(params, ncomp)
         x = torch.randn(b, t, f, cin, generator=gen).to(dev)
         for i, d1 in enumerate(DILATIONS):
             d2 = DILATIONS[n - i - 1]
             yield (f"dsconv ncomp={ncomp} {b}x{t}x{f}x{cin} d=({d1},{d2})",
-                   (x, params, d1, d2, ncomp),
+                   (x, params, d1, d2, ncomp, packed),
                    dsconv_flops(b, t, f, cin, tot, d1, d2),
                    nbytes(x, params, x), None, True)
+
+
+def _block_kernel(x, params, d1, d2, ncomp, packed):
+    from se_tpu_torch.ops import dsconv
+
+    return dsconv.dsconv_block(x, params, d1, d2, ncomp, packed=packed)
+
+
+def _block_twin(x, params, d1, d2, ncomp, packed):
+    from se_tpu_torch.ops import dsconv
+
+    return dsconv._reference(x, params, d1, d2, ncomp)
 
 
 def level_params(gen, shapes, dev):
@@ -650,7 +706,7 @@ def check_kernels(dev, only) -> dict:
     every case counts in its error."""
     import torch
 
-    from se_tpu_torch.ops import attention, dsconv, lstm, stft_fused
+    from se_tpu_torch.ops import lstm, stft_fused
 
     gen = torch.Generator().manual_seed(1)
     # name: () -> (kernel, twin, cases, source, replaces, launches per
@@ -659,15 +715,20 @@ def check_kernels(dev, only) -> dict:
     b4 = f"one B = {B_MAIN} x {SECONDS} s forward"
     kinds = {
         "attention": lambda: (
-            attention.sdp_attention, attention._reference, attention_cases,
+            _att_kernel, _att_twin, attention_cases,
             "se_tpu_torch/csrc/attention.cu",
             "se_tpu/ops/pallas_attention.py:53", 10,
-            f"the 4 calls of Uformer's {b4}"),
+            f"the 4 calls of Uformer's {b4}: the T-attention (L = 401) on "
+            "the tensor cores (att_flash_tc), the F-attention (L = 4) on "
+            "the CUDA cores (att_small_l); B = 32 and the other design are "
+            "per-case lines"),
         "dsconv": lambda: (
-            dsconv.dsconv_block, dsconv._reference, dsconv_cases,
+            _block_kernel, _block_twin, dsconv_cases,
             "se_tpu_torch/csrc/dsconv.cu", "se_tpu/ops/pallas_dsconv.py:113",
-            10, f"the 16 block shapes of Uformer's {b4} (its stage runs "
-            "dsconv_pair)"),
+            10, f"the 16 block shapes of Uformer's {b4}: "
+            "dsconv_block_pre_tc + dsconv_block_post_tc a call, on the "
+            "tensor cores (the module forward of DSConvCplx / DSConvReal; "
+            "the stage runs dsconv_pair)"),
         "dsconv_pair": lambda: (
             _pair_kernel, _pair_twin, pair_cases,
             "se_tpu_torch/csrc/dsconv.cu", "se_tpu/ops/pallas_dsconv.py:325",
@@ -800,7 +861,7 @@ def seeded(name: str, seed: int):
 # applied twice: intra 2 layers x 2 directions over T = 4 bins (the
 # tensor-core step) + inter 2 layers (small fold).
 MAIN_PATHS = {
-    "uformer": {"attention": None, "dsconv_pair": 8, "encoder": 6,
+    "uformer": {"attention": 4, "dsconv_pair": 8, "encoder": 6,
                 "decoder": 6},
     "fullsubnet": {"lstm": 2, "lstm_project": 2, "lstm_recur": 2,
                    "stft": 1},
@@ -812,11 +873,12 @@ MAIN_PATHS = {
 }
 # kernels whose phase-3 lines carry the device time by kernel name
 # (torch.profiler) beside the CUDA-event time
-DEVICE_SPLIT = ("stft", "encoder", "dsconv_pair")
+DEVICE_SPLIT = ("stft", "encoder", "dsconv_pair", "attention", "dsconv")
 # family: the kernel names its phase-6 profile must show
 PROFILE_KERNELS = {
     "uformer": ("encoder_level_cc", "encoder_level_tc", "dsconv_pre_tc",
-                "dsconv_post_tc", "decoder_level_tc", "decoder_level_cc"),
+                "dsconv_post_tc", "decoder_level_tc", "decoder_level_cc",
+                "att_flash_tc", "att_small_l"),
 }
 # kernel: the main path whose B = 4 forward its row of the table sums
 ROW_PATH = {"attention": "uformer", "dsconv": "uformer",

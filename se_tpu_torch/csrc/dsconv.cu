@@ -2,7 +2,7 @@
 //
 // Replaces: se_tpu/ops/pallas_dsconv.py
 //   - `_pallas_dsconv` and its body `_kernel` / `_block_math` (entry
-//     `dsconv_block`): one block, C entry `se_dsconv_fwd`;
+//     `dsconv_block`): one block, C entry `se_dsconv_block_tc`;
 //   - `_pallas_pair` and its body `_pair_kernel` / `_pair_math` (entry
 //     `dsconv_pair_block`): one conformer stage, the complex block, the
 //     real block and the cross-branch fusion, C entry `se_dsconv_pair_tc`.
@@ -61,9 +61,19 @@
 // an SM, which at B = 32 ran 30% faster than two with a three-stage ring
 // (chip_smoke.py phase 3, NVIDIA H100 80GB HBM3, 700 W; PERF.md).
 //
-// The single block (`se_dsconv_fwd`, on no eval path since the stage runs
-// the pair entry) keeps its CUDA-core kernels: dsconv_pre and dsconv_post,
-// 16 rows a block, a thread one (row, out channel) sum at a time.
+// The single block (`se_dsconv_block_tc`: DSConvCplx / DSConvReal's module
+// forward; the stage runs the pair entry) is the same design for its one
+// branch, two launches: dsconv_block_pre_tc is `pre_branch` as the pair's
+// pre kernel runs it; dsconv_block_post_tc runs `gated`, then LN2 and z *
+// sigmoid(z) in shared memory, then the output 1x1 conv: K = Cm, N = Cin
+// (256 complex, 128 real), CO = 32 channels a pass through the ring (the
+// next pass loading during this one's epilogue), `ws` packed K-major (Cin
+// rows of round_up(Cm, 8)), and an epilogue that adds bs and the residual
+// x in registers and writes out once. 55 KB of shared memory a post block
+// at Cm = 64: three an SM. The pair's post kernel keeps its own LN2 loop
+// and pass loop: with them shared with the block (LN2 a branch at a time,
+// a thread a (row, segment), every walk from channel 0) it ran 4% slower at
+// B = 32 (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W; PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -74,149 +84,7 @@
 
 namespace {
 
-constexpr int R = 16;         // rows of (b, t, f) per block
-constexpr int THREADS = 128;
 constexpr float LN_EPS = 1e-5f;
-
-// LN over each of `ncomp` equal segments of rows z (nrows, width) held in
-// shared memory, with shared gamma/beta pre-tiled to the full width.
-__device__ void ln_rows(float* z, int nrows, int width, int ncomp,
-                        const float* __restrict__ g,
-                        const float* __restrict__ b, float* mu,
-                        float* rs) {
-  const int c = width / ncomp;
-  if (threadIdx.x < nrows * ncomp) {
-    const float* seg = z + (threadIdx.x / ncomp) * width +
-                       (threadIdx.x % ncomp) * c;
-    float sum = 0.f;
-    for (int i = 0; i < c; ++i) sum += seg[i];
-    const float mean = sum / c;
-    float sq = 0.f;
-    for (int i = 0; i < c; ++i) {
-      const float d = seg[i] - mean;
-      sq += d * d;
-    }
-    mu[threadIdx.x] = mean;
-    rs[threadIdx.x] = rsqrtf(sq / c + LN_EPS);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < nrows * width; i += blockDim.x) {
-    const int r = i / width, ch = i % width, s = r * ncomp + ch / c;
-    z[i] = (z[i] - mu[s]) * rs[s] * g[ch] + b[ch];
-  }
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(THREADS)
-dsconv_pre(const float* __restrict__ x, const float* __restrict__ g1,
-           const float* __restrict__ b1, const float* __restrict__ w1,
-           const float* __restrict__ bb1, const float* __restrict__ alpha,
-           float* __restrict__ y, int rows, int cin, int tot, int ncomp) {
-  extern __shared__ float xs[];  // R * cin
-  __shared__ float mu[2 * R], rs[2 * R];
-  const int row0 = blockIdx.x * R;
-  const int nrows = min(R, rows - row0);
-  for (int i = threadIdx.x; i < nrows * cin; i += blockDim.x)
-    xs[i] = x[(size_t)row0 * cin + i];
-  __syncthreads();
-  ln_rows(xs, nrows, cin, ncomp, g1, b1, mu, rs);
-  const float a = *alpha;
-  for (int i = threadIdx.x; i < nrows * tot; i += blockDim.x) {
-    const int r = i / tot, o = i % tot;
-    const float* xr = xs + r * cin;
-    float acc = 0.f;
-    for (int ch = 0; ch < cin; ++ch) acc = fmaf(xr[ch], w1[ch * tot + o], acc);
-    acc += bb1[o];
-    y[(size_t)row0 * tot + i] = acc >= 0.f ? acc : a * acc;
-  }
-}
-
-// P[r][tap * tot + ch] = y at (t + (tap/3 - 1) * d, f + tap%3 - 1), or 0.
-__device__ void gather_taps(const float* __restrict__ y, float* P, int row0,
-                            int nrows, int T, int F, int tot, int d) {
-  const int width = 9 * tot;
-  for (int i = threadIdx.x; i < nrows * width; i += blockDim.x) {
-    const int r = i / width, rem = i % width, tap = rem / tot,
-              ch = rem % tot;
-    const int row = row0 + r;
-    const int f = row % F, bt = row / F, t = bt % T, b = bt / T;
-    const int tt = t + (tap / 3 - 1) * d, ff = f + tap % 3 - 1;
-    P[i] = (tt >= 0 && tt < T && ff >= 0 && ff < F)
-               ? y[(((size_t)b * T + tt) * F + ff) * tot + ch]
-               : 0.f;
-  }
-}
-
-// The post-stage weights of one branch (se_tpu's `_dsconv_params` from
-// wd1 on).
-struct PostParams {
-  const float *wd1, *bd1, *wd2, *bd2, *g2, *b2, *ws, *bs;
-};
-
-// The post stage of one block for rows [row0, row0 + nrows): the two
-// dilated convs on y, a * sigmoid(g), LN2, z * sigmoid(z), the 1x1 conv and
-// the residual, into out.
-// P (R * 9 * tot) and A (R * tot) are shared-memory scratch.
-__device__ void post_rows(const float* __restrict__ x,
-                          const float* __restrict__ y, const PostParams& p,
-                          int row0, int nrows, int T, int F, int cin,
-                          int tot, int ncomp, int d1, int d2, float* P,
-                          float* A, float* mu, float* rs,
-                          float* __restrict__ out) {
-  const float *__restrict__ wd1 = p.wd1, *__restrict__ bd1 = p.bd1,
-              *__restrict__ wd2 = p.wd2, *__restrict__ bd2 = p.bd2,
-              *__restrict__ ws = p.ws, *__restrict__ bs = p.bs;
-  const int width = 9 * tot;
-  gather_taps(y, P, row0, nrows, T, F, tot, d1);
-  __syncthreads();
-  for (int i = threadIdx.x; i < nrows * tot; i += blockDim.x) {
-    const int r = i / tot, o = i % tot;
-    const float* pr = P + r * width;
-    float acc = 0.f;
-    for (int kk = 0; kk < width; ++kk) acc = fmaf(pr[kk], wd1[kk * tot + o], acc);
-    A[i] = acc + bd1[o];
-  }
-  __syncthreads();
-  gather_taps(y, P, row0, nrows, T, F, tot, d2);
-  __syncthreads();
-  for (int i = threadIdx.x; i < nrows * tot; i += blockDim.x) {
-    const int r = i / tot, o = i % tot;
-    const float* pr = P + r * width;
-    float acc = 0.f;
-    for (int kk = 0; kk < width; ++kk) acc = fmaf(pr[kk], wd2[kk * tot + o], acc);
-    A[i] *= sigmoidf(acc + bd2[o]);
-  }
-  __syncthreads();
-  ln_rows(A, nrows, tot, ncomp, p.g2, p.b2, mu, rs);
-  for (int i = threadIdx.x; i < nrows * tot; i += blockDim.x)
-    A[i] = A[i] * sigmoidf(A[i]);
-  __syncthreads();
-  for (int i = threadIdx.x; i < nrows * cin; i += blockDim.x) {
-    const int r = i / cin, ch = i % cin;
-    const float* ar = A + r * tot;
-    float acc = 0.f;
-    for (int o = 0; o < tot; ++o) acc = fmaf(ar[o], ws[o * cin + ch], acc);
-    const size_t o = (size_t)(row0 + r) * cin + ch;
-    out[o] = x[o] + (acc + bs[ch]);
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-dsconv_post(const float* __restrict__ x, const float* __restrict__ y,
-            const float* __restrict__ wd1, const float* __restrict__ bd1,
-            const float* __restrict__ wd2, const float* __restrict__ bd2,
-            const float* __restrict__ g2, const float* __restrict__ b2,
-            const float* __restrict__ ws, const float* __restrict__ bs,
-            float* __restrict__ out, int rows, int T, int F, int cin,
-            int tot, int ncomp, int d1, int d2) {
-  extern __shared__ float smem[];
-  __shared__ float mu[2 * R], rs[2 * R];
-  const int row0 = blockIdx.x * R;
-  const int nrows = min(R, rows - row0);
-  const PostParams p{wd1, bd1, wd2, bd2, g2, b2, ws, bs};
-  post_rows(x, y, p, row0, nrows, T, F, cin, tot, ncomp, d1, d2, smem,
-            smem + R * 9 * tot, mu, rs, out);
-}
 
 // ------------------------------------- the pair stage, tensor cores
 
@@ -632,31 +500,202 @@ dsconv_post_tc(const float* __restrict__ xc, const float* __restrict__ yc,
   cp_async_wait<0>();
 }
 
+// ------------------------------------- the single block, tensor cores
+
+// One block's pre stage: y (M, tot) = PReLU(LN1(x) . w1 + bb1), x (M, cin)
+// in nseg component segments; NT n8 tiles a warp (N = 64 complex, 32 real).
+template <int NT>
+__global__ void __launch_bounds__(THREADS, 4)
+dsconv_block_pre_tc(const float* __restrict__ x, Branch p,
+                    float* __restrict__ y, int M, int cin, int tot,
+                    int nseg) {
+  extern __shared__ __align__(16) float sm[];
+  pre_branch<NT>(sm, x, p, y, M, cin, tot, nseg, blockIdx.x * TM);
+}
+
+// Floats of dsconv_block_post_tc's shared memory.
+__host__ __device__ inline int block_post_smem_floats(int tot) {
+  return ring_floats(POST_STAGES) + TM * (round_up(tot, 8) + 4) + 4 * TM;
+}
+
+// The rest of one block for rows r0 .. r0 + TM: the gated dilated convs,
+// LN2 and swish in shared memory, the output 1x1 conv (K = tot, N = cin,
+// CO channels a pass: 2 x 2 warps of 32 rows x 16 channels), + bs + x.
+template <int NT>
+__global__ void __launch_bounds__(THREADS, 3)
+dsconv_block_post_tc(const float* __restrict__ x,
+                     const float* __restrict__ y, Branch p,
+                     float* __restrict__ out, int M, int T, int F, int cin,
+                     int tot, int nseg, int d1, int d2) {
+  extern __shared__ __align__(16) float sm[];
+  const int kz = round_up(tot, 8), ldz = kz + 4;
+  float* ring = sm;
+  float* z = sm + ring_floats(POST_STAGES);  // TM x ldz
+  float* mu = z + TM * ldz;                  // TM x 2 segments
+  float* rs = mu + 2 * TM;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WM, wn = warp / WM, gid = lane >> 2, tq = lane & 3;
+  const int r0 = blockIdx.x * TM;
+
+  gated<NT>(ring, y, p, z, ldz, kz, M, T, F, tot, d1, d2, r0);
+
+  // ws packed K-major (cin rows of kz), a pass's CO rows in the ring, zero
+  // past cin
+  const int npass = (cin + CO - 1) / CO;
+  float* bw = ring;
+  auto load_ws = [&](int ps) {
+    const int qz = kz / 4;
+    for (int e = tid; e < CO * qz; e += THREADS) {
+      const int row = ps * CO + e / qz;
+      const bool ok = row < cin;
+      cp_async16(bw + (e / qz) * ldz + 4 * (e % qz),
+                 p.ws + (size_t)(ok ? row : 0) * kz + 4 * (e % qz),
+                 ok ? 16 : 0);
+    }
+  };
+  load_ws(0);
+  cp_async_commit();
+  __syncthreads();  // z is complete
+
+  // LN2 per component segment, two passes as the twin: a thread a (row,
+  // segment), consecutive threads on consecutive rows, each starting its
+  // walk at channel r % cs (ldz = 4 mod 8: at cs = 32 a warp's 32 rows
+  // read 32 distinct banks, where all starting at channel 0 read 8)
+  const int cs = tot / nseg;
+  for (int q = tid; q < TM * nseg; q += THREADS) {
+    const int r = q % TM, s = q / TM, j0 = r % cs;
+    const float* v = z + r * ldz + s * cs;
+    float sum = 0.f;
+    for (int i = 0, j = j0; i < cs; ++i, j = j + 1 == cs ? 0 : j + 1)
+      sum += v[j];
+    const float mean = sum / cs;
+    float sq = 0.f;
+    for (int i = 0, j = j0; i < cs; ++i, j = j + 1 == cs ? 0 : j + 1) {
+      const float dv = v[j] - mean;
+      sq += dv * dv;
+    }
+    mu[r * 2 + s] = mean;
+    rs[r * 2 + s] = rsqrtf(sq / cs + LN_EPS);
+  }
+  __syncthreads();
+  for (int e = tid; e < TM * kz; e += THREADS) {
+    const int r = e / kz, c = e % kz;
+    if (c >= tot) continue;
+    const int q = r * 2 + (c >= cs);
+    float* v = z + r * ldz + c;
+    const float zn = (*v - mu[q]) * rs[q] * p.g2[c] + p.b2[c];
+    *v = zn * sigmoidf(zn);
+  }
+
+  // the output 1x1 conv, CO channels a pass (2 x 2 warps of 32 rows x 16
+  // channels), + bs + x; pass 0's ws landed during LN2, pass ps + 1 loads
+  // during pass ps's epilogue
+  const float* za = z + wm * 32 * ldz + lane_a_offset(lane, ldz);
+  const float* wb = bw + wn * 16 * ldz + lane_b_offset(lane, ldz);
+  NoPrep none;
+  for (int ps = 0; ps < npass; ++ps) {
+    cp_async_wait<0>();  // pass ps has landed
+    __syncthreads();     // ... for all; (ps 0) z is normalised
+    float acc[2][2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int g = 0; g < 2; ++g)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[mi][g][j] = 0.f;
+    for (int k = 0; k < kz; k += 8)
+      mma_step<2>(acc, za + k, ldz, wb + k, ldz, k, none);
+    __syncthreads();  // every warp is done with this pass's ws
+    if (ps + 1 < npass) load_ws(ps + 1);
+    cp_async_commit();
+    // acc[mi][g][hh * 2 + j]: row gid + 8 hh of m tile mi, channel ps CO +
+    // wn 16 + 8 g + 2 tq + j
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const long row = (long)r0 + wm * 32 + mi * 16 + hh * 8 + gid;
+        if (row >= M) continue;
+#pragma unroll
+        for (int g = 0; g < 2; ++g) {
+          const int c = ps * CO + wn * 16 + g * 8 + 2 * tq;
+          if (c >= cin) continue;  // cin % 4 == 0: c + 1 < cin too
+          const float2 xv =
+              *reinterpret_cast<const float2*>(x + row * cin + c);
+          *reinterpret_cast<float2*>(out + row * cin + c) = make_float2(
+              acc[mi][g][hh * 2] + p.bs[c] + xv.x,
+              acc[mi][g][hh * 2 + 1] + p.bs[c + 1] + xv.y);
+        }
+      }
+  }
+  cp_async_wait<0>();
+}
+
 }  // namespace tcp
 }  // namespace
 
-// x, out: (B, T, F, cin); y: scratch (B, T, F, tot). Weights as documented
-// in se_tpu_torch/ops/dsconv.py. ncomp is 1 or 2, tot <= 64.
-extern "C" int se_dsconv_fwd(const float* x, const float* g1, const float* b1,
-                             const float* w1, const float* bb1,
-                             const float* alpha, const float* wd1,
-                             const float* bd1, const float* wd2,
-                             const float* bd2, const float* g2,
-                             const float* b2, const float* ws,
-                             const float* bs, float* y, float* out, int B,
-                             int T, int F, int cin, int tot, int ncomp,
-                             int d1, int d2, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int rows = B * T * F;
-  const int blocks = (rows + R - 1) / R;
-  dsconv_pre<<<blocks, THREADS, R * cin * sizeof(float), st>>>(
-      x, g1, b1, w1, bb1, alpha, y, rows, cin, tot, ncomp);
-  cudaError_t err = cudaGetLastError();
+namespace {
+
+bool misaligned(const void* ptr) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 != 0;
+}
+
+// Opt kernel `fn` into `smem` bytes of shared memory, then launch it.
+template <class... P, class... A>
+int launch_smem(void (*fn)(P...), unsigned blocks, int smem, cudaStream_t st,
+                A... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dsconv_post<<<blocks, THREADS, R * 10 * tot * sizeof(float), st>>>(
-      x, y, wd1, bd1, wd2, bd2, g2, b2, ws, bs, out, rows, T, F, cin, tot,
-      ncomp, d1, d2);
+  fn<<<blocks, tcp::THREADS, smem, st>>>(args...);
   return (int)cudaGetLastError();
+}
+
+template <int NT>
+int block_tc(const float* x, const tcp::Branch& p, float* y, float* out,
+             long M, int T, int F, int cin, int tot, int ncomp, int d1,
+             int d2, cudaStream_t st) {
+  const unsigned blocks = (unsigned)((M + tcp::TM - 1) / tcp::TM);
+  const int pre_smem =
+      (tcp::ring_floats(tcp::PRE_STAGES) + 4 * tcp::TM) * (int)sizeof(float);
+  int err = launch_smem(tcp::dsconv_block_pre_tc<NT>, blocks, pre_smem, st,
+                        x, p, y, (int)M, cin, tot, ncomp);
+  if (err != 0) return err;
+  const int post_smem = tcp::block_post_smem_floats(tot) * (int)sizeof(float);
+  return launch_smem(tcp::dsconv_block_post_tc<NT>, blocks, post_smem, st, x,
+                     (const float*)y, p, out, (int)M, T, F, cin, tot, ncomp,
+                     d1, d2);
+}
+
+}  // namespace
+
+// One gated dilated DSConv block (se_tpu's `dsconv_block`) on the tensor
+// cores: x (B, T, F, cin) -> out of the same shape, residual included. The
+// 13 pointers in the tuple's order, w1, g1, b1, wd1, wd2 packed by
+// ops/dsconv.py `_pack_branch` (N = 64 for ncomp 2, 32 for ncomp 1) and ws
+// K-major (cin rows of round_up(tot, 8)); y (B, T, F, tot) is scratch for
+// the pre stage. Needs cin and tot multiples of 4, tot <= 64 (ncomp 2) or
+// 32 (ncomp 1), and x, y 16-byte aligned.
+extern "C" int se_dsconv_block_tc(
+    const float* x, const float* w1, const float* g1, const float* b1,
+    const float* bb1, const float* alpha, const float* wd1, const float* bd1,
+    const float* wd2, const float* bd2, const float* g2, const float* b2,
+    const float* ws, const float* bs, float* y, float* out, int B, int T,
+    int F, int cin, int tot, int ncomp, int d1, int d2, void* stream) {
+  const int n_max = ncomp == 2 ? tcp::N_C : tcp::N_M;
+  if ((ncomp != 1 && ncomp != 2) || cin % 4 != 0 || tot % 4 != 0 ||
+      cin <= 0 || tot <= 0 || tot > n_max || misaligned(x) || misaligned(y))
+    return (int)cudaErrorInvalidValue;
+  const long M = (long)B * T * F;
+  if (M == 0) return 0;
+  const tcp::Branch p{w1, g1, b1, bb1, alpha, wd1, bd1,
+                      wd2, bd2, g2, b2, ws, bs};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (ncomp == 2)
+    return block_tc<tcp::NT_C>(x, p, y, out, M, T, F, cin, tot, ncomp, d1,
+                               d2, st);
+  return block_tc<tcp::NT_M>(x, p, y, out, M, T, F, cin, tot, ncomp, d1, d2,
+                             st);
 }
 
 // One conformer stage (se_tpu's `dsconv_pair_block`) on the tensor cores:
@@ -676,9 +715,6 @@ extern "C" int se_dsconv_pair_tc(
     const float* bd2m, const float* g2m, const float* b2m, const float* wsm,
     const float* bsm, float* yc, float* ym, float* oc, float* om, int B,
     int T, int F, int cm, int totc, int totm, int d1, int d2, void* stream) {
-  auto misaligned = [](const void* ptr) {
-    return reinterpret_cast<uintptr_t>(ptr) % 16 != 0;
-  };
   if (cm % 4 != 0 || totc % 4 != 0 || totm % 4 != 0 || cm <= 0 ||
       totc <= 0 || totm <= 0 || totc > tcp::N_C || totm > tcp::N_M ||
       misaligned(xc) || misaligned(xm) || misaligned(yc) || misaligned(ym))
@@ -693,21 +729,12 @@ extern "C" int se_dsconv_pair_tc(
   const unsigned blocks = (unsigned)((M + tcp::TM - 1) / tcp::TM);
   const int pre_smem =
       (tcp::ring_floats(tcp::PRE_STAGES) + 4 * tcp::TM) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      tcp::dsconv_pre_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      pre_smem);
-  if (err != cudaSuccess) return (int)err;
-  tcp::dsconv_pre_tc<<<blocks, tcp::THREADS, pre_smem, st>>>(
-      xc, pc, yc, xm, pm, ym, (int)M, cm, totc, totm);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int err = launch_smem(tcp::dsconv_pre_tc, blocks, pre_smem, st, xc,
+                              pc, yc, xm, pm, ym, (int)M, cm, totc, totm);
+  if (err != 0) return err;
   const int post_smem =
       tcp::post_smem_floats(totc, totm) * (int)sizeof(float);
-  err = cudaFuncSetAttribute(tcp::dsconv_post_tc,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             post_smem);
-  if (err != cudaSuccess) return (int)err;
-  tcp::dsconv_post_tc<<<blocks, tcp::THREADS, post_smem, st>>>(
-      xc, yc, pc, xm, ym, pm, oc, om, (int)M, T, F, cm, totc, totm, d1, d2);
-  return (int)cudaGetLastError();
+  return launch_smem(tcp::dsconv_post_tc, blocks, post_smem, st, xc,
+                     (const float*)yc, pc, xm, (const float*)ym, pm, oc, om,
+                     (int)M, T, F, cm, totc, totm, d1, d2);
 }

@@ -49,7 +49,7 @@ from se_tpu_torch.ops.decoder import (
     decoder_level, level_design, pack_decoder_weights, split_phase_weights,
 )
 from se_tpu_torch.ops.dsconv import (
-    dsconv_block, dsconv_pair_block, pack_pair_weights,
+    dsconv_block, dsconv_pair_block, pack_block_weights, pack_pair_weights,
 )
 from se_tpu_torch.ops.encoder import (
     encoder_level, fusion, pack_encoder_weights,
@@ -306,9 +306,23 @@ class _DSConv(nn.Module):
                 _row(ln2.weight.repeat(n)), _row(ln2.bias.repeat(n)),
                 ws.reshape(tot, -1).contiguous(), _row(bs))
 
+    def weights(self):
+        """The 13-tuple and, on the card, its pack for the tensor-core
+        block; kept as `_cached` says."""
+
+        def make():
+            params = self.params()
+            packed = None
+            if params[0].device.type == "cuda":
+                packed = pack_block_weights(params, self.ncomp)
+            return params, packed
+
+        return _cached(self, "dsconv_block", 0, (self,), make)
+
     def forward(self, x):
-        return dsconv_block(x.contiguous(), self.params(), self.dilation1,
-                            self.dilation2, self.ncomp)
+        params, packed = self.weights()
+        return dsconv_block(x.contiguous(), params, self.dilation1,
+                            self.dilation2, self.ncomp, packed=packed)
 
 
 class DSConvCplx(_DSConv):

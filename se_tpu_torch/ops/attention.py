@@ -4,15 +4,32 @@ of se_tpu/ops/pallas_attention.py (`sdp_attention`, kernel `_att_kernel`).
 On a CUDA tensor `sdp_attention` launches csrc/attention.cu for every L
 (the JAX package sends L < 64 to einsum; the port does not); on a CPU
 tensor it runs `_reference`, the plain twin.
+
+csrc/attention.cu has two designs, picked a call by `att_design` from the
+shape: a flash-attention forward on the tensor cores (`se_att_flash_tc`:
+3xTF32 mma.sync, 16 query rows a warp, K/V tiles of 64 keys through a
+cp.async ring; any L, the T-attention's 401) and a packed CUDA-core
+kernel for short L (`se_att_small_l`: 128 / L (n, h) pairs a block, one
+thread a query row; L <= SMALL_L_MAX, the F-attention's 4). Each launch
+counts in `_build.LAUNCHES["attention"]` and in the design's own
+`attention_flash_tc` / `attention_small_l`.
 """
 
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 
 from se_tpu_torch.ops import _build
+from se_tpu_torch.ops.encoder import _aligned
 
-HEAD_DIM = 16  # the kernel's compile-time head width (Uformer's hidden 16)
+HEAD_DIM = 16  # the kernels' compile-time head width (Uformer's hidden 16)
+SMALL_L_MAX = 32  # the largest L att_small_l takes (csrc SMALL_L_MAX)
+FLASH_ROWS = 16   # query rows a warp of att_flash_tc
+FLASH_KEYS = 64   # keys a tile of att_flash_tc
+DESIGNS = ("flash_tc", "small_l")
 
 
 def _reference(q, k, v, scale: float):
@@ -21,17 +38,68 @@ def _reference(q, k, v, scale: float):
     return torch.einsum("nhlm,nhmd->nhld", p, v)
 
 
+def att_design(n_heads_total: int, l: int) -> str:
+    """The design csrc/attention.cu runs softmax(q k^T s) v with over
+    (n_heads_total, l, 16): "small_l" (the packed CUDA-core kernel, bound
+    by bytes) for every L it takes (<= SMALL_L_MAX), "flash_tc" (the
+    tensor-core flash kernel) past it. Measured on an NVIDIA H100 80GB
+    HBM3 at 700 W (chip_smoke.py phase 3, device time by kernel), small_l
+    against flash_tc: at N H = 12,832 (the complex F-attention at B = 4)
+    5.6 / 10.2 / 24.0 / 50.2 us against 28.2 / 28.4 / 34.9 / 51.7 at L = 4
+    / 8 / 16 / 32; at L = 4 also 2.9 against 6.0 at N H = 1,604 and 40.7
+    against 216.7 at 102,656 (B = 32). The choice rests on L alone."""
+    del n_heads_total  # no N H measured moves it
+    return "small_l" if l <= SMALL_L_MAX else "flash_tc"
+
+
+def flash_warps(n_heads_total: int, l: int, sms: int) -> int:
+    """att_flash_tc's warps a block (16 query rows each): 4, unless the
+    grid (n_heads_total x row tiles) would then fill fewer than two waves
+    of one block an SM, or a warp would own no row; then 2, then 1 (the
+    real T-attention at B = 4: 16 (n, h) x 401 rows)."""
+    for warps in (4, 2):
+        tiles = -(-l // (FLASH_ROWS * warps))
+        if (FLASH_ROWS * (warps - 1) < l
+                and n_heads_total * tiles >= 2 * sms):
+            return warps
+    return 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def sdp_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float) -> torch.Tensor:
     """softmax(q k^T * scale) v over (N, H, L, D) for each (n, h)."""
     if q.device.type == "cpu":
         return _reference(q, k, v, scale)
+    n, h, l, _ = q.shape
+    return _launch(q, k, v, scale, att_design(n * h, l))
+
+
+def _launch(q, k, v, scale: float, design: str) -> torch.Tensor:
+    """Launch `design` ("flash_tc" or "small_l") on CUDA tensors."""
     n, h, l, d = q.shape
     if d != HEAD_DIM:
         raise ValueError(f"attention kernel takes D = {HEAD_DIM}, got {d}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.check(t, (n, h, l, d), name)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
-    _build.launch("se_attention_fwd", q, k, v, out, n * h, l, float(scale))
+    scale_log2 = float(scale) * math.log2(math.e)
+    if design == "flash_tc":
+        warps = flash_warps(n * h, l, _sm_count(q.device.index))
+        _build.launch("se_att_flash_tc", q, k, v, out, n * h, l, scale_log2,
+                      warps)
+    elif design == "small_l":
+        if l > SMALL_L_MAX:
+            raise ValueError(f"attention small_l design takes L <= "
+                             f"{SMALL_L_MAX}, got {l}")
+        _build.launch("se_att_small_l", q, k, v, out, n * h, l, scale_log2)
+    else:
+        raise ValueError(f"unknown attention design {design!r}")
     _build.LAUNCHES["attention"] += 1
+    _build.LAUNCHES[f"attention_{design}"] += 1
     return out

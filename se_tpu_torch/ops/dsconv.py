@@ -12,8 +12,12 @@ z * sigmoid(z) -> 1x1 conv -> + x.
 `params` is se_tpu's 13-tuple (`_dsconv_params`): (g1, b1, w1, bb1, alpha,
 wd1, bd1, wd2, bd2, g2, b2, ws, bs), vectors shaped (1, C), alpha (1, 1),
 the dilated kernels flattened to (9*Cm, Cm) in (t-tap, f-tap, cin) row
-order. On a CUDA tensor `dsconv_block` launches csrc/dsconv.cu (two
-kernels); on a CPU tensor it runs `_reference`, the plain twin.
+order. On a CUDA tensor `dsconv_block` launches csrc/dsconv.cu's
+`se_dsconv_block_tc` (the pair stage's tensor-core design for one branch:
+LN1 -> 1x1 conv -> PReLU in one launch, the rest in another), with the
+weights `pack_block_weights` lays out (once a module: DSConvCplx and
+DSConvReal keep them); on a CPU tensor it runs `_reference`, the plain
+twin.
 
 `dsconv_pair_block` is one conformer stage: the complex block on xc =
 [re | im], the real block on xm and Uformer's cross-branch fusion. On a
@@ -69,54 +73,6 @@ def _reference(x, params, d1: int, d2: int, ncomp: int):
     return x + (torch.matmul(z, ws) + bs[0])
 
 
-def _check_block(x, params, ncomp: int, what: str) -> int:
-    """Raise unless x and the 13-tuple suit the kernel; return Cm."""
-    (g1, b1, w1, bb1, alpha, wd1, bd1, wd2, bd2, g2, b2, ws, bs) = params
-    cin, tot = x.shape[-1], w1.shape[-1]
-    # shared memory: 16 rows of Cin (pre) and of 10*Cm (post) under 48 KB
-    if (ncomp not in (1, 2) or cin % ncomp or tot % ncomp or tot > 64
-            or cin > 768):
-        raise ValueError(f"{what} kernel: unsupported ncomp={ncomp}, "
-                         f"Cin={cin}, Cm={tot}")
-    shapes = {"x": (x, x.shape), "g1": (g1, (1, cin)),
-              "b1": (b1, (1, cin)), "w1": (w1, (cin, tot)),
-              "bb1": (bb1, (1, tot)), "alpha": (alpha, (1, 1)),
-              "wd1": (wd1, (9 * tot, tot)), "bd1": (bd1, (1, tot)),
-              "wd2": (wd2, (9 * tot, tot)), "bd2": (bd2, (1, tot)),
-              "g2": (g2, (1, tot)), "b2": (b2, (1, tot)),
-              "ws": (ws, (tot, cin)), "bs": (bs, (1, cin))}
-    for name, (arr, shape) in shapes.items():
-        _build.check(arr, shape, name)
-    return tot
-
-
-def dsconv_block(x: torch.Tensor, params, d1: int, d2: int,
-                 ncomp: int) -> torch.Tensor:
-    """x (B, T, F, Cin) -> same shape, residual included."""
-    if x.device.type == "cpu":
-        return _reference(x, tuple(params), d1, d2, ncomp)
-    b, t, f, cin = x.shape
-    tot = _check_block(x, params, ncomp, "dsconv")
-    y = torch.empty((b, t, f, tot), device=x.device, dtype=x.dtype)
-    out = torch.empty_like(x)
-    _build.launch("se_dsconv_fwd", x, *params, y, out, b, t, f, cin, tot,
-                  ncomp, d1, d2)
-    _build.LAUNCHES["dsconv"] += 1
-    return out
-
-
-def _pair_reference(xc, xm, params_c, params_m, d1: int, d2: int):
-    """Both blocks, then the fusion: |z| = sqrt(max(re^2 + im^2, eps)),
-    re/im += sigmoid(m), m += sigmoid(|z|)."""
-    yc = _reference(xc, tuple(params_c), d1, d2, ncomp=2)
-    ym = _reference(xm, tuple(params_m), d1, d2, ncomp=1)
-    c = yc.shape[-1] // 2
-    re, im = yc[..., :c], yc[..., c:]
-    cplx_mag = torch.sqrt(torch.clamp(re * re + im * im, min=_FUSION_EPS))
-    s = torch.sigmoid(ym)
-    return torch.cat([re + s, im + s], dim=-1), ym + torch.sigmoid(cplx_mag)
-
-
 PAIR_K = 32           # K a stage: Cin and each dilated tap's Cm padded to it
 PAIR_N = (64, 32)     # the block's N, complex and real: Cm padded to it
 PAIR_CO = 32          # fusion channels an output pass: C padded to it
@@ -145,6 +101,89 @@ def _pack_branch(params, n_cols: int):
 
     return [w1p, vec(g1), vec(b1), bb1, alpha, dil(wd1), bd1, dil(wd2), bd2,
             g2, b2, ws, bs]
+
+
+def _check_block(x, params, ncomp: int, what: str) -> int:
+    """Raise unless x and the 13-tuple suit the tensor-core kernels: ncomp
+    1 or 2, Cin and Cm multiples of 4 (16-byte copies), Cm <= 64 for ncomp
+    2 and <= 32 for ncomp 1 (a block's N, `PAIR_N`), every tensor a
+    contiguous fp32 CUDA tensor of the tuple's shape. Return Cm."""
+    (g1, b1, w1, bb1, alpha, wd1, bd1, wd2, bd2, g2, b2, ws, bs) = params
+    cin, tot = x.shape[-1], w1.shape[-1]
+    if (ncomp not in (1, 2) or cin % 4 or tot % 4 or tot % ncomp
+            or tot > PAIR_N[ncomp == 1]):
+        raise ValueError(f"{what} kernel: needs ncomp 1 or 2, Cin and Cm "
+                         f"multiples of 4 and Cm <= {PAIR_N[ncomp == 1]}, "
+                         f"got ncomp={ncomp}, Cin={cin}, Cm={tot}")
+    shapes = {"x": (x, x.shape), "g1": (g1, (1, cin)),
+              "b1": (b1, (1, cin)), "w1": (w1, (cin, tot)),
+              "bb1": (bb1, (1, tot)), "alpha": (alpha, (1, 1)),
+              "wd1": (wd1, (9 * tot, tot)), "bd1": (bd1, (1, tot)),
+              "wd2": (wd2, (9 * tot, tot)), "bd2": (bd2, (1, tot)),
+              "g2": (g2, (1, tot)), "b2": (b2, (1, tot)),
+              "ws": (ws, (tot, cin)), "bs": (bs, (1, cin))}
+    for name, (arr, shape) in shapes.items():
+        _build.check(arr, shape, name)
+    return tot
+
+
+def _check_packed(pk, cin: int, tot: int, ncomp: int, ws_rows: int,
+                  name: str) -> None:
+    """Raise unless a packed 13-tuple has `_pack_branch`'s shapes for (Cin,
+    Cm, ncomp) and a packed ws of ws_rows rows of round_up(Cm, 8)."""
+    k1p, totp = _round_up(cin, PAIR_K), _round_up(tot, PAIR_K)
+    n = PAIR_N[ncomp == 1]
+    for i, shape in ((0, (n, k1p)), (1, (k1p,)), (2, (k1p,)),
+                     (5, (n, 9 * totp)), (7, (n, 9 * totp)),
+                     (11, (ws_rows, _round_up(tot, 8)))):
+        _build.check(pk[i], shape, f"packed {name} [{i}]")
+
+
+def pack_block_weights(params, ncomp: int):
+    """One block's 13-tuple as csrc/dsconv.cu's `se_dsconv_block_tc` takes
+    it, on its device: `_pack_branch`'s (N = 64 for ncomp 2, 32 for ncomp
+    1), and ws (Cm, Cin) K-major: (Cin, round_up(Cm, 8)), row c = column c
+    of ws, zero past Cm. Done once a module (DSConvCplx and DSConvReal keep
+    it), not once a call."""
+    params = tuple(params)
+    packed = _pack_branch(params, PAIR_N[ncomp == 1])
+    ws = params[11]
+    tot = ws.shape[0]
+    packed[11] = F.pad(ws, (0, 0, 0, _round_up(tot, 8) - tot)).t() \
+        .contiguous()
+    return tuple(packed)
+
+
+def dsconv_block(x: torch.Tensor, params, d1: int, d2: int, ncomp: int,
+                 packed=None) -> torch.Tensor:
+    """x (B, T, F, Cin) -> same shape, residual included. `packed`:
+    `pack_block_weights(params, ncomp)`, where the caller keeps it; packed
+    here without it."""
+    params = tuple(params)
+    if x.device.type == "cpu":
+        return _reference(x, params, d1, d2, ncomp)
+    b, t, f, cin = x.shape
+    tot = _check_block(x, params, ncomp, "dsconv")
+    pk = pack_block_weights(params, ncomp) if packed is None else packed
+    _check_packed(pk, cin, tot, ncomp, cin, "block")
+    y = torch.empty((b, t, f, tot), device=x.device, dtype=x.dtype)
+    out = torch.empty_like(x)
+    _build.launch("se_dsconv_block_tc", _aligned(x), *pk, y, out, b, t, f,
+                  cin, tot, ncomp, d1, d2)
+    _build.LAUNCHES["dsconv"] += 1
+    return out
+
+
+def _pair_reference(xc, xm, params_c, params_m, d1: int, d2: int):
+    """Both blocks, then the fusion: |z| = sqrt(max(re^2 + im^2, eps)),
+    re/im += sigmoid(m), m += sigmoid(|z|)."""
+    yc = _reference(xc, tuple(params_c), d1, d2, ncomp=2)
+    ym = _reference(xm, tuple(params_m), d1, d2, ncomp=1)
+    c = yc.shape[-1] // 2
+    re, im = yc[..., :c], yc[..., c:]
+    cplx_mag = torch.sqrt(torch.clamp(re * re + im * im, min=_FUSION_EPS))
+    s = torch.sigmoid(ym)
+    return torch.cat([re + s, im + s], dim=-1), ym + torch.sigmoid(cplx_mag)
 
 
 def _pack_out(wsc, wsm):
@@ -180,14 +219,8 @@ def _check_pair(xc, xm, params_c, params_m):
     if xm.shape != (b, t, f, cc // 2) or cc != 2 * cm:
         raise ValueError(f"dsconv_pair kernel: xc {tuple(xc.shape)} must be "
                          f"xm {tuple(xm.shape)} with twice the channels")
-    totc = _check_block(xc, params_c, 2, "dsconv_pair")
-    totm = _check_block(xm, params_m, 1, "dsconv_pair")
-    if (cm % 4 or totc % 4 or totm % 4 or totc > PAIR_N[0]
-            or totm > PAIR_N[1]):
-        raise ValueError(f"dsconv_pair kernel: needs C, Cm multiples of 4 "
-                         f"and Cm <= {PAIR_N}, got C={cm}, Cm=({totc}, "
-                         f"{totm})")
-    return totc, totm
+    return (_check_block(xc, params_c, 2, "dsconv_pair"),
+            _check_block(xm, params_m, 1, "dsconv_pair"))
 
 
 def dsconv_pair_block(xc: torch.Tensor, xm: torch.Tensor, params_c,
@@ -205,14 +238,8 @@ def dsconv_pair_block(xc: torch.Tensor, xm: torch.Tensor, params_c,
     pc, pm = pack_pair_weights(params_c, params_m) if packed is None \
         else packed
     cp = _round_up(cm, PAIR_CO)
-    for (name, pk, cin, tot, n, rows) in (("complex", pc, cc, totc, 0, 2 * cp),
-                                          ("real", pm, cm, totm, 1, cp)):
-        k1p, totp = _round_up(cin, PAIR_K), _round_up(tot, PAIR_K)
-        for i, shape in ((0, (PAIR_N[n], k1p)), (1, (k1p,)), (2, (k1p,)),
-                         (5, (PAIR_N[n], 9 * totp)),
-                         (7, (PAIR_N[n], 9 * totp)),
-                         (11, (rows, _round_up(tot, 8)))):
-            _build.check(pk[i], shape, f"packed {name} [{i}]")
+    _check_packed(pc, cc, totc, 2, 2 * cp, "complex")
+    _check_packed(pm, cm, totm, 1, cp, "real")
     yc = torch.empty((b, t, f, totc), device=xc.device, dtype=xc.dtype)
     ym = torch.empty((b, t, f, totm), device=xc.device, dtype=xc.dtype)
     oc, om = torch.empty_like(xc), torch.empty_like(xm)

@@ -71,6 +71,110 @@ def test_dsconv_kernel_matches_twin(gen, dev, ncomp, d1, d2):
                     (x, params), dev)
 
 
+# (N, H, L): a small N H (16: the real T-attention at B = 4) and a large
+# one (1604 x 8: the complex F-attention at B = 4) at L = 1 to 1500 (one
+# key; within one 64-key tile; one past it; Uformer's 401), and the
+# T-attention at B = 32. Each on every design that takes its L.
+ATT_LENGTHS = (1, 4, 16, 63, 64, 65, 401, 1500)
+ATT_CASES = [(n, h, length, design)
+             for n, h in ((16, 1), (1604, 8)) for length in ATT_LENGTHS
+             for design in attention.DESIGNS
+             if design == "flash_tc" or length <= attention.SMALL_L_MAX]
+ATT_CASES += [(128, 8, 401, "flash_tc"), (128, 1, 401, "flash_tc")]
+
+
+def _att_twin(q, k, v, scale):
+    """The twin on the card, N in chunks of at most 2**26 energies."""
+    n, h, length, _ = q.shape
+    step = max(1, 2 ** 26 // (h * length * length))
+    return torch.cat([attention._reference(q[i:i + step], k[i:i + step],
+                                           v[i:i + step], scale)
+                      for i in range(0, n, step)])
+
+
+@pytest.mark.parametrize("n,h,length,design", ATT_CASES)
+def test_attention_designs_match_twin(dev, n, h, length, design):
+    """Tolerance 1e-4 * max(1, max|twin|): 3xTF32 (flash) or fp32 (small
+    L) sums in another order; the twin on the card, TF32 off."""
+    g = torch.Generator(device=dev).manual_seed(length)
+    q, k, v = (torch.randn(n, h, length, 16, generator=g, device=dev) * 0.5
+               for _ in range(3))
+    want = _att_twin(q, k, v, 0.25)
+    before = _build.LAUNCHES[f"attention_{design}"]
+    got = attention._launch(q, k, v, 0.25, design)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[f"attention_{design}"] == before + 1
+    close([got], [want], 1e-4 * max(1.0, float(want.abs().max())))
+
+
+def test_attention_takes_its_design_and_refuses_long_small_l(gen, dev):
+    """sdp_attention launches the design att_design names (one count in
+    `attention` and one in the design's own); small_l refuses L past
+    SMALL_L_MAX."""
+    for length in (4, 401):
+        q, k, v = to_torch(att_inputs(gen, 2, 8, length), device=dev)
+        design = attention.att_design(16, length)
+        before = dict(_build.LAUNCHES)
+        attention.sdp_attention(q, k, v, 0.25)
+        got = {key: _build.LAUNCHES[key] - before.get(key, 0)
+               for key in ("attention", "attention_flash_tc",
+                           "attention_small_l")}
+        assert got["attention"] == got[f"attention_{design}"] == 1
+        assert sum(got.values()) == 2
+    q, k, v = to_torch(att_inputs(gen, 1, 1, attention.SMALL_L_MAX + 1),
+                       device=dev)
+    with pytest.raises(ValueError, match="small_l"):
+        attention._launch(q, k, v, 0.25, "small_l")
+
+
+# (B, T, Cin, Cm per component, ncomp): the conformer's widths (complex
+# Cin 256, Cm 2 x 32; real Cin 128, Cm 32) at each of its eight dilation
+# pairs, at 2 x 50 x 4 = 400 rows (six 64-row tiles and a part of one; d =
+# 128 > T); then narrow widths (Cin 8: a part-empty output pass; Cm 2 a
+# component and 12: padded a tap) and a T = 1 block
+BLOCK_SHAPES = [(2, 50, 128 * ncomp, 32, ncomp, 2 ** i, 2 ** (7 - i))
+                for ncomp in (2, 1) for i in range(8)] + [
+    (2, 9, 8, 2, 2, 1, 8), (3, 7, 40, 12, 1, 4, 2), (2, 1, 256, 32, 2, 1, 128)]
+
+
+@pytest.mark.parametrize("b,t,cin,cm,ncomp,d1,d2", BLOCK_SHAPES)
+def test_dsconv_block_shapes_match_twin(gen, dev, b, t, cin, cm, ncomp, d1,
+                                        d2):
+    """Tolerance 1e-4 * max(1, max|twin|): 3xTF32 sums over up to K = 576
+    in another order; the packed weights passed as DSConvCplx/Real pass
+    them."""
+    params = to_torch(dsconv_params(gen, cin, cm, ncomp))
+    (x,) = to_torch((rand(gen, b, t, 4, cin, scale=0.5),))
+    want = dsconv._reference(x, params, d1, d2, ncomp)
+    pd = tuple(p.to(dev) for p in params)
+    packed = dsconv.pack_block_weights(pd, ncomp)
+    got = dsconv.dsconv_block(x.to(dev), pd, d1, d2, ncomp, packed=packed)
+    torch.cuda.synchronize()
+    close([got], [want], 1e-4 * max(1.0, float(want.abs().max())))
+
+
+def test_dsconv_modules_run_the_kernel_with_their_pack(gen, dev):
+    """DSConvCplx / DSConvReal on the card: one block launch a forward,
+    the pack made once, the output the CPU module's."""
+    from se_tpu_torch.models.uformer import DSConvCplx, DSConvReal
+
+    torch.manual_seed(0)
+    for cls, cin in ((DSConvCplx, 256), (DSConvReal, 128)):
+        blk = cls(cin // cls.ncomp, 32, 4, 32).eval()
+        (x,) = to_torch((rand(gen, 2, 40, 4, cin, scale=0.5),))
+        with torch.no_grad():
+            for prm in blk.parameters():
+                prm.normal_(0.0, 0.1)
+            want = blk(x)
+            card = blk.to(dev)
+            before = _build.LAUNCHES["dsconv"]
+            got = card(x.to(dev))
+            assert card.weights() is card.weights()
+            torch.cuda.synchronize()
+        assert _build.LAUNCHES["dsconv"] == before + 1
+        close([got], [want], 1e-4 * max(1.0, float(want.abs().max())))
+
+
 @pytest.mark.parametrize("cin,cout,f", [(1, 8, 256), (64, 128, 8)])
 def test_encoder_kernel_matches_twin(gen, dev, cin, cout, f):
     params = to_torch(enc_params(gen, cin, cout))
