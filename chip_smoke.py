@@ -3,13 +3,14 @@
 kernel of those paths against its plain PyTorch twin. The paths are the
 enhancement of seven model families: Uformer (waveform), FullSubNet
 (cirm), DCCRN and GCRN (complex_map), LSTMNet and CRN (mag_mask) and DPCRN
-(complex_mask).
+(complex_mask); and training Uformer and DPCRN.
 
     python3 chip_smoke.py [--kernels lstm,...] [--families fullsubnet,...]
 
 With no options, every kernel and every family; the options narrow
-phase 3 to some kernels and phases 4-6 to some families, for comparing
-two versions of the package (run the script in each tree).
+phases 3 and 7a to some kernels and phases 4-6 and 7b-7d to some
+families, for comparing two versions of the package (run the script in
+each tree).
 
 Phases, one JSON line per result:
   1. env:    the card (nvidia-smi name and power limit), torch and CUDA;
@@ -66,9 +67,32 @@ Phases, one JSON line per result:
              B = 32: device time by kernel name and the device's busy share
              of the wall time; Uformer's must show each of its kernels by
              name (PROFILE_KERNELS).
+  7. train:  (a) each kernel wrapper's autograd Function at a B = 4
+             phase-3 case of each design (attention on both designs, the
+             LSTM layer on both designs forward and reverse, its
+             projection and recurrence alone, encoder and decoder levels
+             on both designs, the single block complex and real, the pair
+             stage) against its twin's own autograd on the same CUDA
+             inputs and upstream gradients: every input gradient within
+             1e-4 * max(1, max|twin grad|), one launch a forward; the STFT
+             kernel raises on an input that requires grad.
+             (b, c) Uformer and DPCRN at their published widths, B = 2 x
+             4 s: one train step on the card and one on the CPU from the
+             same weights, dropout rates 0, BN batch statistics on: the
+             loss within 1e-4 relative, every gradient within 1e-3 *
+             max|cpu grad| of its tensor, the BN statistics after the step
+             within 1e-3 * max|cpu|, the step's launches (TRAIN_PATHS);
+             then three steps with dropout on and `enhance_waveform` of the
+             trained weights against the CPU (1e-3 * max|cpu|).
+             (d) train throughput at B = 32 x 4 s, dropout on: 2 warm-up
+             steps, the median of 5 in audio-s/s, peak device memory, every
+             step's loss (finite); for Uformer the device time by kernel of
+             one step (top 10) and the busy share.
 Then the kernel table as one JSON line (a row's "launches" are those of the
-phase-4 forward its note names, "launches_all_paths" those of all seven)
-and, last, the device line. Any
+phase-4 forward its note names, "launches_all_paths" those of all seven,
+"launches_train_step" those of one train step of each trained family; its
+"backward" names the twin whose VJP it recomputes, "grad_max_abs_err"
+phase 7a's error) and, last, the device line. Any
 failure exits non-zero; without a CUDA device, or without the se_tpu_torch
 package beside this file, it exits 1 before printing any result.
 """
@@ -1022,6 +1046,435 @@ def profile(name: str, model, card: str) -> None:
         fail(f"{name}: the profile shows no {', '.join(missing)}")
 
 
+# ------------------------------------------------------------ phase 7: train
+
+# kernel: its backward (ops/_autograd.py kernel_call), as its row names it
+BACKWARD = {
+    "attention": "VJP of ops/attention.py _reference, recomputed",
+    "dsconv": "VJP of ops/dsconv.py _reference, recomputed",
+    "dsconv_pair": "VJP of ops/dsconv.py _pair_reference, recomputed",
+    "encoder": "VJP of ops/encoder.py _reference, recomputed",
+    "decoder": "VJP of ops/decoder.py _reference, recomputed",
+    "lstm": "VJP of ops/lstm.py _chunked_reference (chunks of 32 frames, "
+            "each checkpointed), recomputed",
+    "lstm_project": "VJP of ops/lstm.py _project_reference, recomputed",
+    "lstm_recur": "VJP of ops/lstm.py _recur_reference, recomputed",
+    "stft": "none: stft_fused raises on an input that requires grad "
+            "(se_tpu's stft_pallas has no VJP)",
+}
+# family: the launches of one train step (one forward; the backward runs
+# the twins). Uformer's train mode runs its U-net levels and DSConv blocks
+# on the plain path, as se_tpu does; DPCRN's features come through the
+# STFT kernel (mix and clean) under no_grad.
+TRAIN_PATHS = {
+    "uformer": {"attention": 4, "encoder": 0, "decoder": 0,
+                "dsconv_pair": 0, "dsconv": 0},
+    "dpcrn": {"lstm": 8, "lstm_project": 4, "lstm_recur": 4, "stft": 2},
+}
+TRAIN_BATCH = 32  # bench.py's train default, 4 s utterances
+# fp32 round-off at a step's gradient scale: the share of its largest
+# |gradient| entry that phase 7b/7c adds to every tensor's tolerance
+GRAD_FLOOR = 1e-6
+
+
+def _leaves(nest, dev):
+    """`nest` (tuples of tensors and other values) with each tensor a fresh
+    leaf on `dev` that requires grad."""
+    import torch
+
+    if isinstance(nest, tuple):
+        return tuple(_leaves(a, dev) for a in nest)
+    if isinstance(nest, torch.Tensor):
+        return nest.detach().to(dev).requires_grad_()
+    return nest
+
+
+def _tensors(nest):
+    import torch
+
+    if isinstance(nest, tuple):
+        return [t for a in nest for t in _tensors(a)]
+    return [nest] if isinstance(nest, torch.Tensor) else []
+
+
+def grad_case(kernel_name, label, wrapper, twin, args, dev, launches,
+              counter):
+    """The wrapper's Function on CUDA leaves of `args` against the twin's
+    own autograd on the same values and upstream gradients: each input's
+    gradient within 1e-4 * max(1, max|twin grad|); the forward adds one to
+    the launch count `counter` and its outputs carry a grad_fn. Returns
+    the error."""
+    import torch
+
+    runs = []
+    for fn in (wrapper, twin):
+        ins = _leaves(args, dev)
+        before = launches[counter]
+        outs = _tensors(fn(*ins))
+        runs.append((_tensors(ins), outs, launches[counter] - before))
+    (ins_k, outs_k, launched), (ins_t, outs_t, _) = runs
+    diff = [i for i, o in enumerate(outs_k) if o.requires_grad]
+    if not diff or any(outs_k[i].grad_fn is None for i in diff):
+        fail(f"{label}: the wrapper's output has no grad_fn")
+    if launched != 1:
+        fail(f"{label}: the forward launched {counter} {launched} times")
+    gen = torch.Generator().manual_seed(7)
+    gs = [torch.randn(outs_k[i].shape, generator=gen).to(dev) for i in diff]
+    got = torch.autograd.grad([outs_k[i] for i in diff], ins_k, gs,
+                              allow_unused=True)
+    want = torch.autograd.grad([outs_t[i] for i in diff], ins_t, gs,
+                               allow_unused=True)
+    torch.cuda.synchronize()
+    worst, worst_ratio = 0.0, 0.0
+    for a, w in zip(got, want):
+        if (a is None) != (w is None):
+            fail(f"{label}: the Function and the twin differ in which "
+                 "inputs get a gradient")
+        if w is None:
+            continue
+        err = float((a - w).abs().max())
+        tol = 1e-4 * max(1.0, float(w.abs().max()))
+        worst, worst_ratio = max(worst, err), max(worst_ratio, err / tol)
+    emit({"phase": "train", "check": "gradient", "kernel": kernel_name,
+          "case": label, "max_abs_err": worst,
+          "err_over_tol": worst_ratio, "inputs": len(ins_k)})
+    if not worst_ratio <= 1.0:
+        fail(f"{label}: Function and twin gradients differ, "
+             f"{worst_ratio:.2f} x the tolerance")
+    return worst
+
+
+def check_gradients(dev, only, launches) -> dict:
+    """Phase 7a: each kernel's Function against its twin's autograd at a
+    B = 4 phase-3 case of each design; the STFT's refusal. A case is
+    (label, wrapper, twin, args, the launch count its forward adds to)."""
+    import torch
+
+    from se_tpu_torch.ops import (
+        attention, decoder, dsconv, encoder, lstm, stft_fused,
+    )
+    from se_tpu_torch.ops.stft import PRESET_320
+
+    gen = torch.Generator().manual_seed(3)
+    b, t = B_MAIN, T_FRAMES
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen) * scale
+
+    cases = {"attention": [], "lstm": [], "lstm_project": [],
+             "lstm_recur": [], "encoder": [], "decoder": [], "dsconv": [],
+             "dsconv_pair": []}
+    for n, h, l, design in ((b * 4, 8, t, "flash_tc"),
+                            (b * t, 8, 4, "small_l")):
+        cases["attention"].append((
+            f"attention {n}x{h}x{l}x16 design={design}",
+            lambda q, k, v: attention.sdp_attention(q, k, v, 0.25),
+            lambda q, k, v: attention._reference(q, k, v, 0.25),
+            tuple(r(n, h, l, 16, scale=0.5) for _ in range(3)),
+            "attention"))
+    for label, bf, t_len, in_dim, h, counter in (
+            ("DPCRN inter (lstm_proj_tc + lstm_recur_persistent)", b * 4,
+             t, 128, 128, "lstm_recur"),
+            ("DPCRN intra (lstm_step_tc)", b * t, 4, 128, 64, "lstm")):
+        for reverse in (False, True):
+            weights = tuple(w.cpu() for w in lstm_weights(gen, "cpu",
+                                                          in_dim, h))
+            cases["lstm"].append((
+                f"lstm {label} {bf}x{t_len}x{in_dim}->{h}"
+                + (" reverse" if reverse else ""),
+                lambda *a, rv=reverse: lstm.lstm_layer_kernel(*a, rv),
+                lambda *a, rv=reverse: lstm._reference(*a, rv),
+                (r(bf, t_len, in_dim), *weights), counter))
+    wx, wh, bias = lstm_weights(gen, "cpu", 161, 1024)
+    cases["lstm_project"].append((
+        f"lstm_project LSTMNet lstm1 {b}x{t}x161->4096", lstm.lstm_project,
+        lstm._project_reference, (r(b, t, 161), wx, bias), "lstm_project"))
+    _, wh, _ = lstm_weights(gen, "cpu", 128, 128)
+    cases["lstm_recur"].append((
+        f"lstm_recur DPCRN inter {b * 4}x{t}x128",
+        lambda xp, wh: lstm.lstm_recur(xp, wh),
+        lambda xp, wh: lstm._recur_reference(xp, wh),
+        (r(b * 4, t, 512), wh), "lstm_recur"))
+    for level in (0, 1):  # the CUDA-core design, a tensor-core level
+        f, cin, cout = 256 >> level, KERNELS[level], KERNELS[level + 1]
+        shapes = ((2, 5, 2 * cin, 2 * cout), (1, 2 * cout), (1, 2 * cout),
+                  (1, 2 * cout), (1, 1), (2, 5, cin, cout), (1, cout),
+                  (1, cout), (1, cout), (1, 1))
+        cases["encoder"].append((
+            f"encoder level {level} {b}x{t}x{f}x{cin}->{cout} design="
+            f"{encoder.level_design(cin)}", encoder.encoder_level,
+            encoder._reference,
+            (r(b, t, f, 2 * cin), r(b, t, f, cin),
+             level_params(gen, shapes, "cpu")), "encoder"))
+    for level in (4, 5):  # a tensor-core level, the CUDA-core design
+        f, cc, cout = 4 << level, 2 * KERNELS[6 - level], KERNELS[5 - level]
+        has_bn = level < 5
+        shapes = ((6, 2 * cc, 2 * cout), (4, 2 * cc, 2 * cout),
+                  (1, 2 * cout), (1, 2 * cout), (1, 2 * cout), (1, 1),
+                  (6, cc, cout), (4, cc, cout), (1, cout), (1, cout),
+                  (1, cout), (1, 1))
+        cases["decoder"].append((
+            f"decoder level {level} {b}x{t}x{f}x{cc}->{cout} design="
+            f"{decoder.level_design(cc, cout)}",
+            lambda a, m, p, hb=has_bn: decoder.decoder_level(a, m, p, hb),
+            lambda a, m, p, hb=has_bn: decoder._reference(a, m, p, hb),
+            (r(b, t, f, 2 * cc), r(b, t, f, cc),
+             level_params(gen, shapes, "cpu")), "decoder"))
+    for ncomp, cin, tot in ((2, 256, 64), (1, 128, 32)):
+        cases["dsconv"].append((
+            f"dsconv ncomp={ncomp} {b}x{t}x4x{cin} d=(1,128)",
+            lambda x, p, nc=ncomp: dsconv.dsconv_block(x, p, 1, 128, nc),
+            lambda x, p, nc=ncomp: dsconv._reference(x, p, 1, 128, nc),
+            (r(b, t, 4, cin, scale=0.5),
+             dsconv_params(gen, cin, tot, "cpu")), "dsconv"))
+    cases["dsconv_pair"].append((
+        f"dsconv_pair {b}x{t}x4x(256+128) d=(1,128)",
+        lambda *a: dsconv.dsconv_pair_block(*a, 1, 128),
+        lambda *a: dsconv._pair_reference(*a, 1, 128),
+        (r(b, t, 4, 256, scale=0.5), r(b, t, 4, 128, scale=0.5),
+         dsconv_params(gen, 256, 64, "cpu"),
+         dsconv_params(gen, 128, 32, "cpu")), "dsconv_pair"))
+
+    errors = {}
+    for name, kernel_cases in cases.items():
+        if name not in only:
+            continue
+        errors[name] = max(grad_case(name, label, wrapper, twin, args, dev,
+                                     launches, counter)
+                           for label, wrapper, twin, args, counter
+                           in kernel_cases)
+        torch.cuda.empty_cache()
+    if "stft" in only:
+        x = r(2, SECONDS * SR).to(dev).requires_grad_()
+        try:
+            stft_fused.stft_fused(x, PRESET_320)
+        except ValueError as exc:
+            emit({"phase": "train", "check": "stft refuses grad",
+                  "message": str(exc)})
+        else:
+            fail("stft_fused returned an output for an input that requires "
+                 "grad")
+    return errors
+
+
+def _train_batch(batch: int, dev, seed: int) -> dict:
+    """B utterances of 4 s: noise-like `clean` plus 0.5 x another draw as
+    the mix; every frame valid."""
+    import numpy as np
+    import torch
+
+    clean = waveforms(batch, seed)
+    noise = waveforms(batch, seed + 1) * 0.5
+    n = clean.shape[1]
+    return {"mix": torch.from_numpy(clean + noise).to(dev),
+            "clean": torch.from_numpy(clean).to(dev),
+            "frames": torch.full((batch,), n // HOP + 1, dtype=torch.int64,
+                                 device=dev)}
+
+
+def _dropout(model, rate: float) -> None:
+    from se_tpu_torch.nn import Dropout
+
+    for mod in model.modules():
+        if isinstance(mod, Dropout):
+            mod.rate = rate
+
+
+def train_vs_cpu(name: str, dev, launches) -> dict:
+    """Phase 7b/7c: one train step of `name` at its published widths, B = 2
+    x 4 s, from the same weights (init_fn(0)), dropout rates 0, BN batch
+    statistics on, on the card and on the CPU in fp32, and on the CPU in
+    fp64 as the exact step: the card's loss within 1e-4 relative of the
+    CPU's, the BN statistics after the step within 1e-3 * max|cpu|, the
+    step's launch counts (TRAIN_PATHS), and every gradient tensor within
+    tol = 1e-3 * max|grad| + GRAD_FLOOR * the step's largest |grad| entry
+    of the CPU's fp32 gradient, or within max(tol, twice the CPU's fp32
+    distance) of the fp64 gradient. The floor is fp32 round-off at the
+    step's gradient scale, which sets the error of sums that cancel to
+    near zero (the conv biases before batch-statistics BN, the attention
+    key biases: zero in exact arithmetic; the PReLU slopes, sums of ~1e5
+    signed terms). The second clause holds the card to the exact step
+    where fp32 itself strays: behind BN with batch statistics some weight
+    gradients of the CPU's fp32 step are percents off the fp64 step (the
+    line's `cpu_fp32_vs_fp64_worst`), and two fp32 runs that sum in other
+    orders stray about as far, not equally far. Then three steps on the
+    card with dropout on and `enhance_waveform` of the trained weights on
+    the card against the CPU (1e-3 * max|cpu|): the card model enhanced
+    before training too, so its cached packs must have been dropped.
+    Between the two, the card's step under remat "full" and "dots"
+    against its step without (loss 1e-5 relative, gradients to the same
+    tolerance). Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from se_tpu_torch.eval.enhance import enhance_waveform
+    from se_tpu_torch.train.trainer import TrainConfig, make_train_step
+
+    cfg = TrainConfig(model=name)
+    sides = []  # the CPU's fp64 step, the CPU's fp32 step, the card's
+    wav = waveforms(2, 5)
+    for where, dtype in (("cpu", torch.float64), ("cpu", torch.float32),
+                         (dev, torch.float32)):
+        model, init_fn, step_fn, _ = make_train_step(cfg, device=where)
+        model.to(dtype)
+        state = init_fn(0)
+        if len(sides) == 2:  # the card: packs cached by an eval forward
+            enhance_waveform(name, model, wav, device=where)
+        _dropout(model, 0.0)
+        batch = {k: v.to(dtype) if v.is_floating_point() else v
+                 for k, v in _train_batch(2, where, 11).items()}
+        launches.clear()
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, batch)
+        loss = loss.item()
+        step_s = time.perf_counter() - t0
+        counts = dict(launches)
+        grads = {k: p.grad.detach().cpu().double()
+                 for k, p in model.named_parameters()}
+        stats = {k: b.detach().cpu().double()
+                 for k, b in model.named_buffers()}
+        sides.append((model, state, step_fn, batch, loss, grads, stats,
+                      counts, step_s))
+    exact, cpu, card = sides
+    loss_err = abs(card[4] - cpu[4]) / abs(cpu[4])
+    floor = GRAD_FLOOR * max(float(g.abs().max()) for g in exact[5].values())
+    rows, by_exact, cpu_rel = [], [], []
+    for k, g64 in exact[5].items():
+        tol = 1e-3 * float(cpu[5][k].abs().max()) + floor
+        vs_cpu = float((card[5][k] - cpu[5][k]).abs().max())
+        cpu_off = float((cpu[5][k] - g64).abs().max())
+        card_off = float((card[5][k] - g64).abs().max())
+        if float(g64.abs().max()) > floor:  # how far fp32 strays, relative
+            cpu_rel.append((cpu_off / float(g64.abs().max()), k))
+        if vs_cpu > tol:  # the CPU's fp32 gradient strays
+            by_exact.append((k, card_off / cpu_off))
+        rows.append((min(vs_cpu / tol, card_off / max(tol, 2 * cpu_off)),
+                     k, vs_cpu / tol))
+    rows.sort(reverse=True)
+    worst = rows[0][0]
+    stat_worst = max([float((card[6][k] - v).abs().max())
+                      / float(v.abs().max()) for k, v in cpu[6].items()]
+                     or [0.0])
+    counts = card[7]
+    emit({"phase": "train", "check": "card vs cpu step", "model": name,
+          "batch": 2, "loss_card": card[4], "loss_cpu": cpu[4],
+          "loss_cpu_fp64": exact[4], "loss_rel_err": loss_err,
+          "grad_err_over_tol": worst, "grad_worst": rows[:4],
+          "grad_floor": floor, "tensors": len(rows),
+          "held_to_fp64": by_exact,
+          "cpu_fp32_vs_fp64_worst": sorted(cpu_rel, reverse=True)[:3],
+          "bn_stat_err_over_max": stat_worst,
+          "launches": counts, "step_s_card": card[8],
+          "step_s_cpu": cpu[8], "step_s_cpu_fp64": exact[8]})
+    if not np.isfinite(card[4]) or not loss_err <= 1e-4:
+        fail(f"{name}: card loss {card[4]} against the CPU's {cpu[4]}")
+    if not worst <= 1.0:
+        fail(f"{name}: a gradient differs by {worst} x the tolerance "
+             f"({rows[0][1]}, {rows[0][2]})")
+    if not stat_worst <= 1e-3:
+        fail(f"{name}: BN statistics differ from the CPU's by {stat_worst}")
+    for kernel, want in TRAIN_PATHS[name].items():
+        if counts.get(kernel, 0) != want:
+            fail(f"{name}: a train step launched {kernel} "
+                 f"{counts.get(kernel, 0)} times, expected {want}")
+
+    for remat in ("full", "dots"):  # the same step, the forward recomputed
+        model, init_fn, step_fn, _ = make_train_step(
+            TrainConfig(model=name, remat=remat), device=dev)
+        state = init_fn(0)
+        _dropout(model, 0.0)
+        state, loss = step_fn(state, card[3])
+        worst = max(float((p.grad.detach().cpu().double() - card[5][k])
+                          .abs().max())
+                    / (1e-3 * float(card[5][k].abs().max()) + floor)
+                    for k, p in model.named_parameters())
+        emit({"phase": "train", "check": f"remat {remat} vs none, card",
+              "model": name, "loss": loss.item(), "loss_none": card[4],
+              "grad_err_over_tol": worst})
+        if not (abs(loss.item() - card[4]) <= 1e-5 * abs(card[4])
+                and worst <= 1.0):
+            fail(f"{name}: remat={remat} changed the step on the card")
+        del model, init_fn, step_fn, state
+
+    model, state, step_fn, batch = card[:4]
+    _dropout(model, 0.1)
+    for _ in range(3):
+        state, loss = step_fn(state, batch)
+    if not np.isfinite(loss.item()):
+        fail(f"{name}: a train step with dropout gave loss {loss.item()}")
+    est = enhance_waveform(name, model, wav, device=dev)
+    cpu_model = cpu[0]
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    ref = enhance_waveform(name, cpu_model, wav, device="cpu")
+    err = float(np.abs(est - ref).max())
+    tol = 1e-3 * float(np.abs(ref).max())
+    emit({"phase": "train", "check": "enhance after 3 steps with dropout, "
+          "card vs cpu", "model": name, "max_abs_err": err, "tol": tol})
+    if not err <= tol:
+        fail(f"{name}: enhance after training differs from the CPU's by "
+             f"{err} > {tol}")
+    return counts
+
+
+def train_throughput(name: str, dev, card: str, do_profile: bool) -> None:
+    """Phase 7d: train steps at B = 32 x 4 s, dropout on: 2 warm-up steps,
+    then the median of 5 in audio-s/s, peak device memory, every step's
+    loss (all finite); with `do_profile`, device time by kernel of one
+    step (torch.profiler, top 10) and the device's busy share."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from se_tpu_torch.train.trainer import TrainConfig, make_train_step
+
+    torch.cuda.empty_cache()
+    model, init_fn, step_fn, _ = make_train_step(TrainConfig(model=name),
+                                                 device=dev)
+    state = init_fn(0)
+    batch = _train_batch(TRAIN_BATCH, dev, 21)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(7):
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, batch)
+        losses.append(loss.item())
+        if i >= 2:
+            times.append(time.perf_counter() - t0)
+    rates = [TRAIN_BATCH * SECONDS / t for t in times]
+    emit({"phase": "train", "metric": f"{name}_train_fp32",
+          "batch": TRAIN_BATCH, "seconds_audio": SECONDS,
+          "audio_s_per_s": statistics.median(rates), "min": min(rates),
+          "max": max(rates), "step_ms": [t * 1e3 for t in times],
+          "losses": losses,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "card": card})
+    if not all(np.isfinite(losses)):
+        fail(f"{name}: a train step's loss is not finite: {losses}")
+    if not do_profile:
+        return
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, batch)
+        loss.item()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((evt.device_time_total / 1e3, evt.count, evt.key)
+                   for evt in prof.key_averages()
+                   if evt.device_type == DeviceType.CUDA), reverse=True)
+    device_total = sum(ms for ms, _, _ in rows)
+    emit({"phase": "train", "profile": name, "batch": TRAIN_BATCH,
+          "wall_ms": wall_ms, "device_ms": device_total,
+          "device_busy_share": device_total / wall_ms,
+          "top": [{"ms": ms, "calls": n, "name": key[:90]}
+                  for ms, n, key in rows[:10]],
+          "kernels_ms": {k: sum(ms for ms, _, key in rows if k in key)
+                         for k in PROFILE_KERNELS.get(name, ())},
+          "card": card})
+
+
 def parse_args():
     import argparse
 
@@ -1089,6 +1542,22 @@ def main() -> None:
         throughput(name, model, cpu_model, card)
     for name, (model, _) in models.items():
         profile(name, model, card)
+    del models
+    torch.cuda.empty_cache()
+
+    grad_errors = check_gradients(dev, args.kernels, _build.LAUNCHES)
+    train_counts = {}
+    train_families = [f for f in TRAIN_PATHS if f in args.families]
+    for name in train_families:
+        train_counts[name] = train_vs_cpu(name, dev, _build.LAUNCHES)
+        torch.cuda.empty_cache()
+    for name in train_families:
+        train_throughput(name, dev, card, do_profile=name == "uformer")
+    for name, row in table.items():
+        row["backward"] = BACKWARD[name]
+        row["grad_max_abs_err"] = grad_errors.get(name)
+        row["launches_train_step"] = {
+            fam: c.get(name, 0) for fam, c in train_counts.items()}
 
     print(card, flush=True)
     emit({"kernels": list(table.values())})

@@ -64,7 +64,7 @@ class CRN(nn.Module):
         for mod in self.modules():
             if isinstance(mod, (ConvParams, LSTM)):
                 mod.reset_parameters(generator)
-        self.to(resolve_device(device))
+        self.to(resolve_device(device)).eval()  # eval until train()
 
     def forward(self, mag: torch.Tensor) -> torch.Tensor:
         x = mag[..., None]  # (B, T, F, 1)

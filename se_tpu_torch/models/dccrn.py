@@ -94,7 +94,7 @@ class DCCRN(nn.Module):
         for mod in self.modules():
             if isinstance(mod, (ConvParams, LSTM, Linear)):
                 mod.reset_parameters(generator)
-        self.to(resolve_device(device))
+        self.to(resolve_device(device)).eval()  # eval until train()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         in_re, in_im = x[..., 0], x[..., 1]

@@ -95,7 +95,7 @@ class DPCRN(nn.Module):
         for mod in self.modules():
             if isinstance(mod, (ConvParams, LSTM, Linear)):
                 mod.reset_parameters(generator)
-        self.to(resolve_device(device))
+        self.to(resolve_device(device)).eval()  # eval until train()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         inpt = x

@@ -6,9 +6,11 @@ into 31-wide sub-band units (reflect pad and shifted slices), concat with
 the full-band output, a sub-band 2-layer LSTM(384) on the (B*F, T, 32)
 fold, and a 2-channel cIRM. Look-ahead of 2 frames by pad and slice. All
 four LSTM layers run `nn.recurrent.lstm_layer`: the CUDA kernel on the
-card, its plain twin on the CPU. Eval only: `drop_band`, the training-time
-frequency subsampling, is here with its test but the forward never calls
-it.
+card, its plain twin on the CPU. In train mode (`model.train()`) at B > 1
+the sub-band input goes through `drop_band`, the training-time frequency
+subsampling, as se_tpu's `train=True` (se_tpu/models/fullsubnet.py:116-117):
+the mask then covers F // 2 bins of a regrouped batch, and the trainer
+regroups its features and labels the same way.
 
 Module names follow the reference state_dict (`fb_model.sequence_model.*`,
 `fb_model.fc_output_layer.*`, the same under `sb_model`), so
@@ -92,6 +94,8 @@ class FullSubNet(nn.Module):
     from `generator` (seed 0 when None) with torch's LSTM and Linear init;
     `device=None` means the card."""
 
+    num_groups_in_drop_band = 2
+
     def __init__(self, num_freqs: int = 257, look_ahead: int = 2,
                  fb_num_neighbors: int = 0, sb_num_neighbors: int = 15,
                  fb_hidden: int = 512, sb_hidden: int = 384, *,
@@ -109,7 +113,7 @@ class FullSubNet(nn.Module):
         for mod in self.modules():
             if isinstance(mod, (LSTM, Linear)):
                 mod.reset_parameters(generator)
-        self.to(resolve_device(device))
+        self.to(resolve_device(device)).eval()  # eval until train()
 
     def forward(self, noisy_mag: torch.Tensor) -> torch.Tensor:
         b, _, f = noisy_mag.shape
@@ -119,6 +123,9 @@ class FullSubNet(nn.Module):
         sb_in = offline_laplace_norm(torch.cat(
             [unfold_subband(mag, self.sb_num_neighbors),
              unfold_subband(fb_out, self.fb_num_neighbors)], dim=-1))
+        if self.training and b > 1:
+            sb_in = drop_band(sb_in, self.num_groups_in_drop_band)
+            b, f = sb_in.shape[0], sb_in.shape[2]
         folded = sb_in.transpose(1, 2).reshape(b * f, t_len, sb_in.shape[-1])
         del sb_in, fb_out  # the fold is the large tensor from here on
         mask = self.sb_model(folded).reshape(b, f, t_len, 2).transpose(1, 2)

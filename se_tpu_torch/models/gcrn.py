@@ -86,7 +86,7 @@ class GCRN(nn.Module):
         for mod in self.modules():
             if isinstance(mod, (ConvParams, LSTM, Linear)):
                 mod.reset_parameters(generator)
-        self.to(resolve_device(device))
+        self.to(resolve_device(device)).eval()  # eval until train()
 
     def _decoder(self, out: torch.Tensor, skips, tag: str) -> torch.Tensor:
         d = out

@@ -40,7 +40,7 @@ class LSTMNet(nn.Module):
         for mod in self.modules():
             if isinstance(mod, (LSTM, Linear)):
                 mod.reset_parameters(generator)
-        self.to(resolve_device(device))
+        self.to(resolve_device(device)).eval()  # eval until train()
 
     def forward(self, mag: torch.Tensor) -> torch.Tensor:
         x = self.lstm2(self.lstm1(self.bn(mag)))

@@ -17,8 +17,17 @@ way. The U-net levels run `ops.encoder.encoder_level` and
 `ops.decoder.decoder_level`, the conformer `ops.dsconv.dsconv_pair_block`
 (one entry a DSConv stage) and `ops.attention.sdp_attention`: CUDA kernels
 on the card, their plain twins on the CPU. `DSConvCplx`/`DSConvReal` keep
-the single-block `ops.dsconv.dsconv_block` as their own forward, the path
-se_tpu takes outside eval. Eval mode only (BN reads running statistics, no dropout).
+the single-block `ops.dsconv.dsconv_block` as their own eval forward.
+
+Train mode (`model.train()`) follows se_tpu's `train=True`: dropout 0.1
+(`nn.Dropout`, drawn from the `generator` that `forward` receives) after
+FFCplx's and FFReal's activation and second linear, after the axial
+attentions' PReLU, and on each DSConv block's delta; BN batch statistics
+in every U-net level, whose levels then run their plain path (conv -> BN
+-> PReLU -> fusion), never the level kernels; each DSConv block on its
+plain path under a block-granular checkpoint, then the fusion, never the
+pair stage. The attentions keep their kernel. The dropout masks are drawn
+outside every checkpointed region, so a recompute sees the same ones.
 
 Quirks kept from se_tpu: EPS inside sqrt(max(., EPS)), `b + EPS` in
 `unit_phase`, tanh(mask_mags + EPS), the DC bin stripped before the U-net
@@ -39,20 +48,22 @@ from se_tpu_torch.device import resolve_device
 from se_tpu_torch.models import jax_tree as jt
 from se_tpu_torch.models.registry import ModelEntry, register
 from se_tpu_torch.nn import (
-    BatchNorm, ComplexDense, ConvParams, LayerNorm, Linear, PReLU,
+    BatchNorm, ComplexDense, ConvParams, Dropout, LayerNorm, Linear, PReLU,
 )
 from se_tpu_torch.nn.conv import (
-    interleave_complex_bias, interleave_complex_kernel,
+    conv2d_nhwc, interleave_complex_bias, interleave_complex_kernel,
 )
+from se_tpu_torch.ops import dsconv
 from se_tpu_torch.ops.attention import sdp_attention
 from se_tpu_torch.ops.decoder import (
-    decoder_level, level_design, pack_decoder_weights, split_phase_weights,
+    _tconv_phase_split, decoder_level, level_design, pack_decoder_weights,
+    split_phase_weights,
 )
 from se_tpu_torch.ops.dsconv import (
     dsconv_block, dsconv_pair_block, pack_block_weights, pack_pair_weights,
 )
 from se_tpu_torch.ops.encoder import (
-    encoder_level, fusion, pack_encoder_weights,
+    encoder_level, fuse, fusion, pack_encoder_weights,
 )
 from se_tpu_torch.ops.encoder import level_design as enc_level_design
 from se_tpu_torch.ops.stft import PRESET_UFORMER, istft, stft
@@ -112,7 +123,14 @@ class RConvDec(RConvEnc):
 
 class ComplexBN(BatchNorm):
     """torch BatchNorm3d on (N, C, F, T, 2): per-channel statistics shared
-    by re and im, so in eval mode one affine serves both."""
+    by re and im, so in eval mode one affine serves both. `forward` takes
+    channel-concat [re | im] and pools both halves into one set of batch
+    statistics in train mode (se_tpu stacks them on a new axis)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = x.shape[-1] // 2
+        return super().forward(x.reshape(*x.shape[:-1], 2, c)) \
+            .reshape(x.shape)
 
 
 class _Dense(nn.Module):
@@ -136,12 +154,16 @@ class FFCplx(nn.Module):
         self.linear1 = ComplexDense(dim, hidden)
         self.linear2 = ComplexDense(hidden, dim)
         self.prelu = PReLU()
+        self.dropout = Dropout(0.1)
 
-    def forward(self, re, im):
+    def forward(self, re, im, generator=None):
+        drop = self.dropout
         yr, yi = self.layernorm_linear(re), self.layernorm_linear(im)
         yr, yi = self.linear1(yr, yi)
-        yr, yi = self.prelu(yr), self.prelu(yi)
+        yr, yi = drop(self.prelu(yr), generator), drop(self.prelu(yi),
+                                                       generator)
         yr, yi = self.linear2(yr, yi)
+        yr, yi = drop(yr, generator), drop(yi, generator)
         return yr * 0.5 + re, yi * 0.5 + im
 
 
@@ -152,10 +174,12 @@ class FFReal(nn.Module):
         self.linear1 = _Dense(dim, hidden)
         self.linear2 = _Dense(hidden, dim)
         self.prelu = PReLU()
+        self.dropout = Dropout(0.1)
 
-    def forward(self, x):
-        y = self.linear2(self.prelu(self.linear1(self.layernorm_linear(x))))
-        return y * 0.5 + x
+    def forward(self, x, generator=None):
+        y = self.prelu(self.linear1(self.layernorm_linear(x)))
+        y = self.linear2(self.dropout(y, generator))
+        return self.dropout(y, generator) * 0.5 + x
 
 
 class _AttProj(nn.Module):
@@ -244,13 +268,14 @@ class ComplexAxialAtt(nn.Module):
         self.transform_linear = ComplexDense(hidden, c)
         self.layernorm3 = LayerNorm(c)
         self.prelu = PReLU()
+        self.dropout = Dropout(0.1)
 
-    def forward(self, re, im):
+    def forward(self, re, im, generator=None):
         r, i = self.attn_heads[0](_fold(re, self.axis), _fold(im, self.axis))
         r, i = self.transform_linear(r, i)
         r, i = _unfold(r, self.axis, re.shape), _unfold(i, self.axis, re.shape)
-        r = self.prelu(self.layernorm3(r))
-        i = self.prelu(self.layernorm3(i))
+        r = self.dropout(self.prelu(self.layernorm3(r)), generator)
+        i = self.dropout(self.prelu(self.layernorm3(i)), generator)
         return r + re, i + im
 
 
@@ -262,11 +287,12 @@ class RealAxialAtt(nn.Module):
         self.transform_linear = _Dense(hidden, c)
         self.layernorm3 = LayerNorm(c)
         self.prelu = PReLU()
+        self.dropout = Dropout(0.1)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         h = self.transform_linear(self.attn_heads[0](_fold(x, self.axis)))
         h = _unfold(h, self.axis, x.shape)
-        return self.prelu(self.layernorm3(h)) + x
+        return self.dropout(self.prelu(self.layernorm3(h)), generator) + x
 
 
 class _DSConv(nn.Module):
@@ -288,6 +314,7 @@ class _DSConv(nn.Module):
         self.dconv2 = self.conv(cc, cc, (3, 3))
         self.layernorm_conv2 = LayerNorm(cc)
         self.sconv = self.conv(cc, c_in, (1, 1))
+        self.dropout = Dropout(0.1)
 
     def params(self):
         """The 13-tuple of `dsconv_block` (se_tpu's `_dsconv_params`)."""
@@ -314,15 +341,25 @@ class _DSConv(nn.Module):
             params = self.params()
             packed = None
             if params[0].device.type == "cuda":
-                packed = pack_block_weights(params, self.ncomp)
+                with torch.no_grad():
+                    packed = pack_block_weights(params, self.ncomp)
             return params, packed
 
         return _cached(self, "dsconv_block", 0, (self,), make)
 
-    def forward(self, x):
-        params, packed = self.weights()
-        return dsconv_block(x.contiguous(), params, self.dilation1,
-                            self.dilation2, self.ncomp, packed=packed)
+    def forward(self, x, generator=None):
+        """Eval: the block kernel. Train: se_tpu's train path, the plain
+        block under a checkpoint and dropout on its delta, x + drop(block(x)
+        - x) (se_tpu/models/uformer.py:481-497)."""
+        if not self.training:
+            params, packed = self.weights()
+            return dsconv_block(x.contiguous(), params, self.dilation1,
+                                self.dilation2, self.ncomp, packed=packed)
+        from torch.utils.checkpoint import checkpoint
+
+        out = checkpoint(dsconv._reference, x, self.params(), self.dilation1,
+                         self.dilation2, self.ncomp, use_reentrant=False)
+        return x + self.dropout(out - x, generator)
 
 
 class DSConvCplx(_DSConv):
@@ -363,29 +400,34 @@ class DilatedDualpathConformer(nn.Module):
             params_c, params_m = blk_c.params(), blk_m.params()
             packed = None
             if params_c[0].device.type == "cuda":
-                packed = pack_pair_weights(params_c, params_m)
+                with torch.no_grad():
+                    packed = pack_pair_weights(params_c, params_m)
             return params_c, params_m, packed
 
         return _cached(self, "dsconv_pair", k, (blk_c, blk_m), make)
 
-    def forward(self, re, im, mag):
-        re, im = self.ff1_cplx(re, im)
-        re, im, mag = fusion(re, im, self.ff1_mag(mag))
-        re, im = self.cplx_tatt(re, im)
-        re, im, mag = fusion(re, im, self.mag_tatt(mag))
-        re, im = self.cplx_fatt(re, im)
-        re, im, mag = fusion(re, im, self.mag_fatt(mag))
+    def forward(self, re, im, mag, generator=None):
+        g = generator
+        re, im = self.ff1_cplx(re, im, g)
+        re, im, mag = fusion(re, im, self.ff1_mag(mag, g))
+        re, im = self.cplx_tatt(re, im, g)
+        re, im, mag = fusion(re, im, self.mag_tatt(mag, g))
+        re, im = self.cplx_fatt(re, im, g)
+        re, im, mag = fusion(re, im, self.mag_fatt(mag, g))
         c = re.shape[-1]
         xc, mag = torch.cat([re, im], dim=-1), mag.contiguous()
         for k, blk in enumerate(self.dsconv_cplx):
+            if self.training:  # each block on its own, then the fusion
+                xc, mag = fuse(blk(xc, g), self.dsconv_real[k](mag, g))
+                continue
             # one stage: both blocks and the fusion in one kernel entry
             params_c, params_m, packed = self._stage_weights(k)
             xc, mag = dsconv_pair_block(xc, mag, params_c, params_m,
                                         blk.dilation1, blk.dilation2,
                                         packed=packed)
         re, im = xc[..., :c], xc[..., c:]
-        re, im = self.ff2_cplx(re, im)
-        re, im, mag = fusion(re, im, self.ff2_mag(mag))
+        re, im = self.ff2_cplx(re, im, g)
+        re, im, mag = fusion(re, im, self.ff2_mag(mag, g))
         ln = self.ln_conformer_cplx
         return ln(re), ln(im), self.ln_conformer_mag(mag)
 
@@ -467,7 +509,7 @@ class Uformer(nn.Module):
         for mod in self.modules():
             if isinstance(mod, (ConvParams, Linear)):
                 mod.reset_parameters(generator)
-        self.to(resolve_device(device))
+        self.to(resolve_device(device)).eval()  # eval until train()
 
     def _encoder_weights(self, i: int):
         """Encoder level i's 10-tuple and, for a tensor-core level on the
@@ -479,7 +521,8 @@ class Uformer(nn.Module):
             packed = None
             if params[0].device.type == "cuda" and \
                     enc_level_design(params[5].shape[2]) == "tc":
-                packed = pack_encoder_weights(params)
+                with torch.no_grad():
+                    packed = pack_encoder_weights(params)
             return params, packed
 
         return _cached(self, "encoder", i, (enc, enc_r), make)
@@ -499,12 +542,43 @@ class Uformer(nn.Module):
             packed = None
             if params[0].device.type == "cuda" and \
                     level_design(cc, cout) == "tc":
-                packed = pack_decoder_weights(params)
+                with torch.no_grad():
+                    packed = pack_decoder_weights(params)
             return params, packed
 
         return _cached(self, "decoder", i, (dec, dec_r), make)
 
-    def forward(self, noisy: torch.Tensor, src: torch.Tensor):
+    def _encoder_train(self, i: int, xc, xm):
+        """Encoder level i on its plain path: conv -> BN (batch statistics
+        in train mode) -> PReLU per branch, then the fusion."""
+        out = []
+        for x, (conv, bn, act) in ((xc, self.encoder[i]),
+                                   (xm, self.encoder_real[i])):
+            w, b = conv.weights()
+            y = conv2d_nhwc(x, w, strides=(1, 2), padding=((1, 0), (2, 2)))
+            out.append(act(bn(y + b)))
+        return fuse(*out)
+
+    def _decoder_train(self, i: int, xc, xm):
+        """Decoder level i on its plain path: the phase-split transposed
+        conv -> BN -> PReLU per branch (no BN and PReLU at the last level),
+        then the fusion."""
+        out = []
+        for x, level in ((xc, self.decoder[i]), (xm, self.decoder_real[i])):
+            w, b = level[0].weights()
+            y = _tconv_phase_split(x, *split_phase_weights(w), b)
+            if len(level) > 1:
+                y = level[2](level[1](y))
+            out.append(y)
+        return fuse(*out)
+
+    def forward(self, noisy: torch.Tensor, src: torch.Tensor,
+                generator: torch.Generator | None = None):
+        """In train mode `generator` (on the model's device) draws the
+        dropout masks; it is required there and unused in eval mode."""
+        if self.training and generator is None:
+            raise ValueError("Uformer in train mode draws its dropout from a "
+                             "torch.Generator: pass `generator`")
         cfg = PRESET_UFORMER
         n_re, n_im = stft(noisy, cfg)  # (B, T, F)
         s_re, s_im = stft(src, cfg)
@@ -529,12 +603,16 @@ class Uformer(nn.Module):
 
         skips = []
         for i in range(len(self.encoder)):
-            params, packed = self._encoder_weights(i)
-            xc, mag = encoder_level(xc, mag, params, packed=packed)
+            if self.training:
+                xc, mag = self._encoder_train(i, xc, mag)
+            else:
+                params, packed = self._encoder_weights(i)
+                xc, mag = encoder_level(xc, mag, params, packed=packed)
             skips.append((xc, mag))
 
         c = xc.shape[-1] // 2
-        re, im, mag = self.conformer(xc[..., :c], xc[..., c:], mag)
+        re, im, mag = self.conformer(xc[..., :c], xc[..., c:], mag,
+                                     generator)
         xc = torch.cat([re, im], dim=-1)
 
         for i, (dec, dec_r) in enumerate(zip(self.decoder,
@@ -545,9 +623,11 @@ class Uformer(nn.Module):
             xin = torch.cat([skip_c[..., :cs], xc[..., :cx],
                              skip_c[..., cs:], xc[..., cx:]], dim=-1)
             min_ = torch.cat([skip_m, mag], dim=-1)
-            has_bn = len(dec) > 1
+            if self.training:
+                xc, mag = self._decoder_train(i, xin, min_)
+                continue
             params, packed = self._decoder_weights(i)
-            xc, mag = decoder_level(xin, min_, params, has_bn=has_bn,
+            xc, mag = decoder_level(xin, min_, params, has_bn=len(dec) > 1,
                                     packed=packed)
 
         # heads; the channel axis is 1 per component

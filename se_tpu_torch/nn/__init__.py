@@ -1,6 +1,6 @@
 """NN primitives with the reference PyTorch parameter names."""
 
-from se_tpu_torch.nn.activations import PReLU
+from se_tpu_torch.nn.activations import Dropout, PReLU
 from se_tpu_torch.nn.complex_ops import (
     ComplexConv2d, ComplexConvTranspose2d, ComplexDense, NaiveComplexLSTM,
 )
@@ -13,5 +13,5 @@ from se_tpu_torch.nn.recurrent import LSTM, lstm_layer
 
 __all__ = ["BatchNorm", "ComplexConv2d", "ComplexConvTranspose2d",
            "ComplexDense", "Conv2d", "ConvParams", "ConvTranspose2d",
-           "GluConv2d", "GluConvTranspose2d", "LSTM", "LayerNorm", "Linear",
-           "NaiveComplexLSTM", "PReLU", "lstm_layer"]
+           "Dropout", "GluConv2d", "GluConvTranspose2d", "LSTM", "LayerNorm",
+           "Linear", "NaiveComplexLSTM", "PReLU", "lstm_layer"]

@@ -1,4 +1,5 @@
-"""Activations with torch-parity parameterization (se_tpu/nn/activations.py)."""
+"""Activations with torch-parity parameterization (se_tpu/nn/activations.py),
+and flax's dropout."""
 
 from __future__ import annotations
 
@@ -16,3 +17,27 @@ class PReLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.where(x >= 0, x, self.weight * x)
+
+
+class Dropout(nn.Module):
+    """flax's nn.Dropout: in train mode keep ~ Bernoulli(1 - rate), then
+    where(keep, x / (1 - rate), 0), drawn from `generator` (a
+    torch.Generator on x's device; train mode without one raises); the
+    identity in eval mode, where it starts, or at rate 0."""
+
+    def __init__(self, rate: float = 0.1):
+        super().__init__()
+        self.rate = rate
+        self.eval()
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("dropout in train mode draws from a "
+                             "torch.Generator: pass `generator`")
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=generator, device=x.device,
+                          dtype=x.dtype) < keep_prob
+        return torch.where(keep, x / keep_prob, 0.0)

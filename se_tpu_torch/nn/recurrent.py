@@ -34,8 +34,10 @@ def lstm_layer(x: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
 
 
 class LSTM(nn.Module):
-    """torch.nn.LSTM(batch_first=True) in eval: input (B, T, In), output
-    (B, T, H * directions), zero initial state unless `carry` is given."""
+    """torch.nn.LSTM(batch_first=True) without dropout: input (B, T, In),
+    output (B, T, H * directions), zero initial state unless `carry` is
+    given. Differentiable through the output (the carry returned with
+    `carry` carries no gradient on the card: `lstm_layer_kernel`)."""
 
     def __init__(self, input_size: int, hidden_size: int,
                  num_layers: int = 1, bidirectional: bool = False):

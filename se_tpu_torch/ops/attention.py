@@ -3,7 +3,10 @@ of se_tpu/ops/pallas_attention.py (`sdp_attention`, kernel `_att_kernel`).
 
 On a CUDA tensor `sdp_attention` launches csrc/attention.cu for every L
 (the JAX package sends L < 64 to einsum; the port does not); on a CPU
-tensor it runs `_reference`, the plain twin.
+tensor it runs `_reference`, the plain twin. Under autograd the launch
+is a Function (`_autograd.kernel_call`) whose backward is the VJP of
+`_reference`, recomputed, for either design (se_tpu's
+`pallas_attention.py:77-79`).
 
 csrc/attention.cu has two designs, picked a call by `att_design` from the
 shape: a flash-attention forward on the tensor cores (`se_att_flash_tc`:
@@ -22,7 +25,7 @@ import math
 
 import torch
 
-from se_tpu_torch.ops import _build
+from se_tpu_torch.ops import _autograd, _build
 from se_tpu_torch.ops.encoder import _aligned
 
 HEAD_DIM = 16  # the kernels' compile-time head width (Uformer's hidden 16)
@@ -76,7 +79,10 @@ def sdp_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return _reference(q, k, v, scale)
     n, h, l, _ = q.shape
-    return _launch(q, k, v, scale, att_design(n * h, l))
+    design = att_design(n * h, l)
+    return _autograd.kernel_call(
+        lambda q, k, v: _launch(q, k, v, scale, design),
+        lambda q, k, v: _reference(q, k, v, scale), q, k, v)
 
 
 def _launch(q, k, v, scale: float, design: str) -> torch.Tensor:

@@ -19,6 +19,10 @@ shape: an implicit GEMM on the tensor cores (`se_decoder_level_tc`, Cout
 out once (Uformer caches them a model), and a CUDA-core kernel for the
 narrowest (`se_decoder_level_cc`, Cout < 8: level 5), which reads the
 12-tuple as it is.
+
+Under autograd the launch is a Function (`_autograd.kernel_call`) whose
+backward is the VJP of `_reference`, recomputed (se_tpu's
+`pallas_decoder.py:169-175`); `packed` is a constant to it.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from se_tpu_torch.ops import _build
+from se_tpu_torch.ops import _autograd, _build
 from se_tpu_torch.ops.encoder import _aligned, _prelu, _round_up, fuse
 
 
@@ -125,9 +129,12 @@ def decoder_level(xc: torch.Tensor, xm: torch.Tensor, params,
     params = tuple(params)
     if xc.device.type == "cpu":
         return _reference(xc, xm, params, has_bn)
-    cout = params[6].shape[-1]
-    return _launch(xc, xm, params, has_bn,
-                   level_design(xc.shape[-1] // 2, cout), packed)
+    design = level_design(xc.shape[-1] // 2, params[6].shape[-1])
+    return _autograd.kernel_call(
+        lambda xc, xm, params: _launch(xc, xm, params, has_bn, design,
+                                       packed),
+        lambda xc, xm, params: _reference(xc, xm, params, has_bn),
+        xc, xm, params)
 
 
 def _launch(xc, xm, params, has_bn: bool, design: str, packed=None):

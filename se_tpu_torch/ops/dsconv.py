@@ -27,6 +27,11 @@ one launch for the rest of both blocks and the fusion, its convs implicit
 GEMMs on the tensor cores), with the weights `pack_pair_weights` lays out
 (once a model: Uformer keeps them); on a CPU tensor it runs
 `_pair_reference`.
+
+Under autograd both launches are Functions (`_autograd.kernel_call`) whose
+backwards are the VJPs of `_reference` and `_pair_reference`, recomputed
+(se_tpu's `pallas_dsconv.py:245-249` and `:370-375`); the packs are
+constants to them.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from se_tpu_torch.nn.conv import conv2d_nhwc
-from se_tpu_torch.ops import _build
+from se_tpu_torch.ops import _autograd, _build
 from se_tpu_torch.ops.encoder import _aligned, _round_up
 
 _LN_EPS = 1e-5
@@ -162,6 +167,12 @@ def dsconv_block(x: torch.Tensor, params, d1: int, d2: int, ncomp: int,
     params = tuple(params)
     if x.device.type == "cpu":
         return _reference(x, params, d1, d2, ncomp)
+    return _autograd.kernel_call(
+        lambda x, params: _block_launch(x, params, d1, d2, ncomp, packed),
+        lambda x, params: _reference(x, params, d1, d2, ncomp), x, params)
+
+
+def _block_launch(x, params, d1: int, d2: int, ncomp: int, packed):
     b, t, f, cin = x.shape
     tot = _check_block(x, params, ncomp, "dsconv")
     pk = pack_block_weights(params, ncomp) if packed is None else packed
@@ -232,6 +243,13 @@ def dsconv_pair_block(xc: torch.Tensor, xm: torch.Tensor, params_c,
     params_c, params_m = tuple(params_c), tuple(params_m)
     if xc.device.type == "cpu":
         return _pair_reference(xc, xm, params_c, params_m, d1, d2)
+    return _autograd.kernel_call(
+        lambda xc, xm, pc, pm: _pair_launch(xc, xm, pc, pm, d1, d2, packed),
+        lambda xc, xm, pc, pm: _pair_reference(xc, xm, pc, pm, d1, d2),
+        xc, xm, params_c, params_m)
+
+
+def _pair_launch(xc, xm, params_c, params_m, d1: int, d2: int, packed):
     b, t, f, cc = xc.shape
     cm = xm.shape[-1]
     totc, totm = _check_pair(xc, xm, params_c, params_m)

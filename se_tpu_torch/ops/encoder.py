@@ -17,6 +17,10 @@ shape: an implicit GEMM on the tensor cores (`se_encoder_level_tc`: Cin %
 out once (Uformer caches them a model), and a CUDA-core kernel for the
 narrowest level (`se_encoder_level_cc`: level 0, Cin 1), which reads the
 10-tuple as it is.
+
+Under autograd the launch is a Function (`_autograd.kernel_call`) whose
+backward is the VJP of `_reference`, recomputed (se_tpu's
+`pallas_encoder.py:146-150`); `packed` is a constant to it.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from se_tpu_torch.nn.conv import conv2d_nhwc
-from se_tpu_torch.ops import _build
+from se_tpu_torch.ops import _autograd, _build
 
 EPS = float(np.finfo(np.float32).eps)
 
@@ -109,7 +113,10 @@ def encoder_level(xc: torch.Tensor, xm: torch.Tensor, params, packed=None):
     params = tuple(params)
     if xc.device.type == "cpu":
         return _reference(xc, xm, params)
-    return _launch(xc, xm, params, level_design(xc.shape[-1] // 2), packed)
+    design = level_design(xc.shape[-1] // 2)
+    return _autograd.kernel_call(
+        lambda xc, xm, params: _launch(xc, xm, params, design, packed),
+        _reference, xc, xm, params)
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,15 @@ Two designs, chosen per layer call by `step_variant`:
   shared memory, grid from `persistent_plan`; twin `_recur_reference`).
 Each of the three wrappers counts its own launches in `_build.LAUNCHES`
 (`lstm`, `lstm_project`, `lstm_recur`).
+
+Under autograd each wrapper's launch is a Function (`_autograd.
+kernel_call`): the kernel forward, and the VJP of a plain twin recomputed
+in the backward, as se_tpu's custom VJP (`pallas_lstm.py:169-195`). The
+layer's twin is `_chunked_reference`, a copy of se_tpu's
+`_scan_forward_chunked` (`pallas_lstm.py:115-150`) that also takes
+`reverse` and the carry: the projection a chunk of BWD_CHUNK frames inside
+`torch.utils.checkpoint`, so the backward never holds the (Bf, T, 4H)
+gates (12.8 GB at FullSubNet's sub band at B = 32), only each chunk's.
 """
 
 from __future__ import annotations
@@ -28,7 +37,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from se_tpu_torch.ops import _build
+from se_tpu_torch.ops import _autograd, _build
 
 # the tensor-core step's block: ROW_TILE rows x UNIT_TILE units, K in stages
 # of K_TILE (csrc/lstm.cu TM, TU, TK); the projection's column tile
@@ -49,6 +58,8 @@ SMEM_OPTIN, SMEM_SM, SMEM_RESERVED = 232448, 233472, 1024
 # (two launches, packing Wx and Wh, the occupancy query); measured by
 # lstm_dispatch_sweep.py
 SHORT_T = 16
+# frames a chunk of the layer's backward twin (se_tpu's chunk)
+BWD_CHUNK = 32
 
 
 def _ceil_to(n: int, m: int) -> int:
@@ -192,6 +203,32 @@ def _reference(x, wx, wh, b, reverse: bool = False, h0=None, c0=None):
                             c0)
 
 
+def _chunk_reference(x, wx, wh, b, h, c, reverse: bool):
+    ys, (h, c) = _recur_reference(_project_reference(x, wx, b), wh, reverse,
+                                  h, c)
+    return ys, h, c
+
+
+def _chunked_reference(x, wx, wh, b, reverse: bool = False, h0=None,
+                       c0=None, chunk: int = BWD_CHUNK):
+    """`_reference` with bounded memory under autograd: the frames in
+    chunks of `chunk`, each chunk's projection and steps checkpointed, so
+    the graph keeps the chunks' boundary carries (h, c) and recomputes a
+    chunk's (Bf, chunk, 4H) gates in the backward."""
+    from torch.utils.checkpoint import checkpoint
+
+    bf, t_len, _ = x.shape
+    h_dim = wh.shape[0]
+    h = x.new_zeros(bf, h_dim) if h0 is None else h0
+    c = x.new_zeros(bf, h_dim) if c0 is None else c0
+    starts = list(range(0, t_len, chunk))
+    ys = {}
+    for s in reversed(starts) if reverse else starts:
+        ys[s], h, c = checkpoint(_chunk_reference, x[:, s:s + chunk], wx,
+                                 wh, b, h, c, reverse, use_reentrant=False)
+    return torch.cat([ys[s] for s in starts], dim=1), (h, c)
+
+
 def _state(ref: torch.Tensor, bf: int, h_dim: int, h0, c0):
     """The C entries' carry buffers: hbuf (2, Bf, H) with h0 in its first
     half, c (Bf, H) holding c0 (zeros by default)."""
@@ -213,6 +250,11 @@ def lstm_project(x: torch.Tensor, wx: torch.Tensor,
     `lstm_proj_tc` on a CUDA tensor."""
     if x.device.type == "cpu":
         return _project_reference(x, wx, b)
+    return _autograd.kernel_call(_project_launch, _project_reference, x,
+                                 wx, b)
+
+
+def _project_launch(x, wx, b):
     bf, t_len, in_dim = x.shape
     n = wx.shape[1]
     _build.check(x, (bf, t_len, in_dim), "x")
@@ -232,6 +274,13 @@ def lstm_recur(xp: torch.Tensor, wh: torch.Tensor, reverse: bool = False,
     launch; raises when the Wh slices do not fit the resident blocks."""
     if xp.device.type == "cpu":
         return _recur_reference(xp, wh, reverse, h0, c0)
+    return _autograd.kernel_call(
+        lambda xp, wh, h0, c0: _recur_launch(xp, wh, reverse, h0, c0),
+        lambda xp, wh, h0, c0: _recur_reference(xp, wh, reverse, h0, c0),
+        xp, wh, h0, c0, no_grad_outputs=(1, 2))
+
+
+def _recur_launch(xp, wh, reverse: bool, h0, c0):
     bf, t_len, _ = xp.shape
     h_dim = wh.shape[0]
     if bf == 0:
@@ -269,6 +318,20 @@ def lstm_step(x: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
     frame, enqueued by one C call, on a CUDA tensor."""
     if x.device.type == "cpu":
         return _reference(x, wx, wh, b, reverse, h0, c0)
+    return _layer_call(_step_launch, x, wx, wh, b, reverse, h0, c0)
+
+
+def _layer_call(launch, x, wx, wh, b, reverse: bool, h0, c0):
+    """`launch(x, wx, wh, b, reverse, h0, c0)` under autograd with the
+    chunked twin's VJP; (h_T, c_T) carry no gradient."""
+    return _autograd.kernel_call(
+        lambda x, wx, wh, b, h0, c0: launch(x, wx, wh, b, reverse, h0, c0),
+        lambda x, wx, wh, b, h0, c0: _chunked_reference(x, wx, wh, b,
+                                                        reverse, h0, c0),
+        x, wx, wh, b, h0, c0, no_grad_outputs=(1, 2))
+
+
+def _step_launch(x, wx, wh, b, reverse: bool, h0, c0):
     _check_layer(x, wx, wh, b)
     bf, t_len, in_dim = x.shape
     h_dim = wh.shape[0]
@@ -286,12 +349,18 @@ def lstm_layer_kernel(x: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
                       c0=None):
     """-> (ys (Bf, T, H), (h_T, c_T)), h_T/c_T after the last frame walked
     (frame 0 when `reverse`). h0/c0 (Bf, H) default to zeros. On a CUDA
-    tensor, the design `step_variant` names for the shape."""
+    tensor, the design `step_variant` names for the shape. Under autograd
+    gradients reach x, the weights and h0/c0 through ys alone: the
+    returned (h_T, c_T) carry no gradient."""
     if x.device.type == "cpu":
         return _reference(x, wx, wh, b, reverse, h0, c0)
+    return _layer_call(_layer_launch, x, wx, wh, b, reverse, h0, c0)
+
+
+def _layer_launch(x, wx, wh, b, reverse: bool, h0, c0):
     _check_layer(x, wx, wh, b)
     bf, t_len, _ = x.shape
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     if step_variant(bf, t_len, wh.shape[0], sms) == "persistent":
-        return lstm_recur(lstm_project(x, wx, b), wh, reverse, h0, c0)
-    return lstm_step(x, wx, wh, b, reverse, h0, c0)
+        return _recur_launch(_project_launch(x, wx, b), wh, reverse, h0, c0)
+    return _step_launch(x, wx, wh, b, reverse, h0, c0)

@@ -113,7 +113,14 @@ def takes_kernel(x: torch.Tensor, cfg: StftConfig) -> bool:
 
 
 def stft_fused(x: torch.Tensor, cfg: StftConfig):
-    """(B, n) fp32 waveform -> ((B, T, F) real, (B, T, F) imag)."""
+    """(B, n) fp32 waveform -> ((B, T, F) real, (B, T, F) imag). Raises on
+    an input that requires grad under grad mode: as se_tpu's `stft_pallas`
+    the kernel has no gradient (the trainer makes its features under
+    `torch.no_grad()`), and an output without one would drop it."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise ValueError("stft_fused has no gradient: call it under "
+                         "torch.no_grad() or on a tensor that does not "
+                         "require grad (the plain ops.stft.stft has one)")
     if cfg.frame_len % cfg.hop != 0:  # the TPU entry's contract
         raise ValueError(f"fused stft needs frame_len % hop == 0, got "
                          f"{cfg.frame_len} and {cfg.hop}")

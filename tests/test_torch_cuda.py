@@ -510,3 +510,124 @@ def test_stft_auto_takes_the_kernel_on_the_card(gen, dev):
     stft_fused.stft_auto(x, STFT_CFGS["384_128"])  # a generic radix-3 stage
     launched = _build.LAUNCHES["stft"] - before.get("stft", 0)
     assert launched == 2
+
+
+# ------------------------------------------------ gradients (the Functions)
+
+def _grads_vs_twin(wrapper, twin, args, dev, kernel):
+    """`wrapper` on CUDA leaves of `args` (a nest of tuples of CPU tensors)
+    that require grad, against `twin`'s own autograd on the same CUDA
+    values, with the same upstream gradients on the wrapper's
+    differentiable outputs: every input gradient within 1e-4 * max(1,
+    max|twin grad|) (the kernel's forward is the twin's to that, and both
+    backwards are the twin's VJP); those outputs have a grad_fn, and the
+    forward launches `kernel` once."""
+    def leaves(nest):
+        if isinstance(nest, tuple):
+            return tuple(leaves(a) for a in nest)
+        if isinstance(nest, torch.Tensor):
+            return nest.to(dev).requires_grad_()
+        return nest
+
+    def flat(nest):
+        if isinstance(nest, tuple):
+            return [t for a in nest for t in flat(a)]
+        return [nest] if isinstance(nest, torch.Tensor) else []
+
+    runs = []
+    for fn in (wrapper, twin):
+        ins = leaves(args)
+        before = _build.LAUNCHES[kernel]
+        outs = flat(fn(*ins))
+        runs.append((flat(ins), outs, _build.LAUNCHES[kernel] - before))
+    (ins_k, outs_k, launched), (ins_t, outs_t, _) = runs
+    diff = [i for i, o in enumerate(outs_k) if o.requires_grad]
+    assert diff and launched == 1
+    assert all(outs_k[i].grad_fn is not None for i in diff)
+    cpu = torch.Generator().manual_seed(0)
+    gs = [torch.randn(outs_k[i].shape, generator=cpu).to(dev) for i in diff]
+    got = torch.autograd.grad([outs_k[i] for i in diff], ins_k, gs,
+                              allow_unused=True)
+    want = torch.autograd.grad([outs_t[i] for i in diff], ins_t, gs,
+                               allow_unused=True)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):  # None: an input the level leaves unused
+        assert (a is None) == (w is None)
+        if w is not None:
+            close([a], [w], 1e-4 * max(1.0, float(w.abs().max())))
+
+
+@pytest.mark.parametrize("n,h,length", [(3, 8, 4), (3, 8, 65), (16, 1, 401)])
+def test_attention_function_grads_match_twin(gen, dev, n, h, length):
+    """Both designs (L <= 32: att_small_l; past it: att_flash_tc)."""
+    _grads_vs_twin(lambda q, k, v: attention.sdp_attention(q, k, v, 0.25),
+                   lambda q, k, v: attention._reference(q, k, v, 0.25),
+                   to_torch(att_inputs(gen, n, h, length)), dev, "attention")
+
+
+# (Bf, T, In, H): the small fold (T_LONG frames, a ragged Bf) and the
+# tensor-core step (T = 4, DPCRN's intra LSTM, a ragged Bf)
+LSTM_GRAD_SHAPES = [(5, T_LONG, 12, 20), (37, 4, 33, 16)]
+
+
+@pytest.mark.parametrize("reverse,carry", [(False, False), (True, False),
+                                           (False, True)])
+@pytest.mark.parametrize("bf,t,in_dim,h", LSTM_GRAD_SHAPES)
+def test_lstm_function_grads_match_twin(gen, dev, bf, t, in_dim, h, reverse,
+                                        carry):
+    """The layer's backward (the chunked twin's VJP) against the plain
+    twin's autograd; gradients reach the carry through ys."""
+    x, wx, wh, b = lstm_inputs(gen, bf, t, in_dim, h)
+    h0 = c0 = None
+    if carry:
+        h0, c0 = to_torch((rand(gen, bf, h, scale=0.5),
+                           rand(gen, bf, h, scale=0.5)))
+    kernel = "lstm_recur" if t >= lstm.SHORT_T else "lstm"
+    _grads_vs_twin(
+        lambda *a: lstm.lstm_layer_kernel(*a[:4], reverse, *a[4:]),
+        lambda *a: lstm._reference(*a[:4], reverse, *a[4:]),
+        (*to_torch((x, wx, wh, b)), h0, c0), dev, kernel)
+
+
+@pytest.mark.parametrize("cin,cout,f", [(1, 8, 32), (16, 32, 8)])
+def test_encoder_function_grads_match_twin(gen, dev, cin, cout, f):
+    """Level 0's CUDA-core design and a tensor-core level."""
+    params = to_torch(enc_params(gen, cin, cout))
+    xc, xm = to_torch((rand(gen, 2, 5, f, 2 * cin), rand(gen, 2, 5, f, cin)))
+    _grads_vs_twin(encoder.encoder_level, encoder._reference,
+                   (xc, xm, params), dev, "encoder")
+
+
+@pytest.mark.parametrize("cc,cout,has_bn", [(32, 8, True), (16, 1, False)])
+def test_decoder_function_grads_match_twin(gen, dev, cc, cout, has_bn):
+    """A tensor-core level and the last level's CUDA-core design."""
+    params = to_torch(dec_params(gen, cc, cout))
+    xc, xm = to_torch((rand(gen, 2, 5, 8, 2 * cc), rand(gen, 2, 5, 8, cc)))
+    _grads_vs_twin(lambda a, b, p: decoder.decoder_level(a, b, p, has_bn),
+                   lambda a, b, p: decoder._reference(a, b, p, has_bn),
+                   (xc, xm, params), dev, "decoder")
+
+
+@pytest.mark.parametrize("ncomp", [1, 2])
+def test_dsconv_block_function_grads_match_twin(gen, dev, ncomp):
+    cin = 32 * ncomp
+    params = to_torch(dsconv_params(gen, cin, 16, ncomp))
+    (x,) = to_torch((rand(gen, 2, 12, 4, cin, scale=0.5),))
+    _grads_vs_twin(lambda x, p: dsconv.dsconv_block(x, p, 2, 4, ncomp),
+                   lambda x, p: dsconv._reference(x, p, 2, 4, ncomp),
+                   (x, params), dev, "dsconv")
+
+
+def test_dsconv_pair_function_grads_match_twin(gen, dev):
+    xc, xm, pc, pm = pair_inputs(gen, 2, 12, 4, 32, 16)
+    _grads_vs_twin(
+        lambda *a: dsconv.dsconv_pair_block(*a, 4, 2),
+        lambda *a: dsconv._pair_reference(*a, 4, 2),
+        (*to_torch((xc, xm)), to_torch(pc), to_torch(pm)), dev,
+        "dsconv_pair")
+
+
+def test_stft_kernel_refuses_an_input_that_requires_grad(gen, dev):
+    (x,) = to_torch((rand(gen, 2, 8000),), device=dev)
+    with pytest.raises(ValueError, match="no gradient"):
+        stft_fused.stft_fused(x.requires_grad_(), plain_stft.PRESET_320)

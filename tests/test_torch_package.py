@@ -36,6 +36,10 @@ def test_port_imports_no_jax_flax_or_se_tpu():
     files = sorted((ROOT / "se_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "lstm_dispatch_sweep.py"]
     assert len(files) > 10
+    pkg = ROOT / "se_tpu_torch"
+    for new in ("train/losses.py", "train/trainer.py", "train/checkpoint.py",
+                "data/wav.py", "data/dataset.py", "ops/_autograd.py"):
+        assert pkg / new in files, new
     for path in files:
         bad = _imported_roots(path) & FORBIDDEN
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
@@ -101,3 +105,12 @@ def test_recurrent_zoo_constructors_raise_without_cuda(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         get_model(name).make()
+
+
+def test_trainer_runs_on_the_card_by_default(monkeypatch):
+    from se_tpu_torch.train.trainer import TrainConfig, make_train_step
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_train_step(TrainConfig(model="lstm",
+                                    model_kwargs=dict(hidden=4)))

@@ -87,7 +87,8 @@ def fill_tree(shapes, seed: int) -> dict:
     """Numpy values for a nest of dicts of shaped leaves (se_tpu's
     `jax.eval_shape(model.init, ...)`), drawn from `seed` by leaf name:
     LSTM weights and biases U(+-1/sqrt(H)), kernels U(+-1/sqrt(fan_in)),
-    biases U(+-0.1), BN/LN scales 1 + 0.1 N, PReLU slopes 0.25 + 0.05 N, BN
+    biases U(+-0.1), BN/LN scales 1 + 0.1 N, PReLU slopes (flax's
+    `negative_slope`, se_tpu's own PReLU's `weight`) 0.25 + 0.05 N, BN
     running means 0.1 N and variances 0.5 + U(0, 1): every statistic and
     affine off its default."""
     rng = np.random.default_rng(seed)
@@ -103,7 +104,7 @@ def fill_tree(shapes, seed: int) -> dict:
             arr = rng.uniform(-0.1, 0.1, shape)
         elif name == "scale":
             arr = 1 + 0.1 * rng.standard_normal(shape)
-        elif name == "negative_slope":
+        elif name in ("negative_slope", "weight"):  # PReLU slopes
             arr = 0.25 + 0.05 * rng.standard_normal(shape)
         elif name == "mean":
             arr = 0.1 * rng.standard_normal(shape)
