@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Drive se_tpu_torch's main paths on one NVIDIA GPU, and hold every CUDA
 kernel of those paths against its plain PyTorch twin. The paths are the
-enhancement of seven model families: Uformer (waveform), FullSubNet
-(cirm), DCCRN and GCRN (complex_map), LSTMNet and CRN (mag_mask) and DPCRN
-(complex_mask); and training Uformer and DPCRN.
+enhancement of ten model families: Uformer (waveform), FullSubNet (cirm),
+DCCRN and GCRN (complex_map), LSTMNet and CRN (mag_mask), DPCRN
+(complex_mask), and the TCM families CTSNet, TaylorSENet and G2Net
+(complex_map: cuDNN's convs and torch ops around the STFT kernel); and
+training Uformer, DPCRN and the three TCM families.
 
     python3 chip_smoke.py [--kernels lstm,...] [--families fullsubnet,...]
 
@@ -54,9 +56,13 @@ Phases, one JSON line per result:
              statistics and affines moved off their defaults,
              `enhance_waveform` on B = 4 x 4 s on the card with the launch
              counts set to 0 just before and read just after: every kernel
-             of the path must have launched (counts in MAIN_PATHS), the
+             of the path must have launched (counts in MAIN_PATHS; the
+             TCM families the STFT kernel once and no other), the
              output must be finite and within 1e-3 * max|cpu| of the same
-             weights run on the CPU (utterance 0).
+             weights run on the CPU (utterance 0); the TCM families run in
+             their decode variant (norm "cln", the cumulative norms, every
+             norm affine and PReLU slope moved off its default) and also in
+             their InstanceNorm variant (norm "in"), each against the CPU.
   5. speed:  fp32 enhance throughput of every family at B = 32 and B = 256
              x 4 s, median audio-seconds/s of 5 timed calls (2 where one
              call takes over 20 s, said so in the line), with peak device
@@ -76,8 +82,9 @@ Phases, one JSON line per result:
              inputs and upstream gradients: every input gradient within
              1e-4 * max(1, max|twin grad|), one launch a forward; the STFT
              kernel raises on an input that requires grad.
-             (b, c) Uformer and DPCRN at their published widths, B = 2 x
-             4 s: one train step on the card and one on the CPU from the
+             (b, c) Uformer, DPCRN, CTSNet, TaylorSENet and G2Net at their
+             published widths, B = 2 x 4 s: one train step on the card and
+             one on the CPU from the
              same weights, dropout rates 0, BN batch statistics on: the
              loss within 1e-4 relative, every gradient within 1e-3 *
              max|cpu grad| of its tensor, the BN statistics after the step
@@ -86,10 +93,11 @@ Phases, one JSON line per result:
              trained weights against the CPU (1e-3 * max|cpu|).
              (d) train throughput at B = 32 x 4 s, dropout on: 2 warm-up
              steps, the median of 5 in audio-s/s, peak device memory, every
-             step's loss (finite); for Uformer the device time by kernel of
-             one step (top 10) and the busy share.
+             step's loss (finite); for Uformer and the TCM families the
+             device time by kernel of one step (top 10) and the busy
+             share.
 Then the kernel table as one JSON line (a row's "launches" are those of the
-phase-4 forward its note names, "launches_all_paths" those of all seven,
+phase-4 forward its note names, "launches_all_paths" those of all ten,
 "launches_train_step" those of one train step of each trained family; its
 "backward" names the twin whose VJP it recomputes, "grad_max_abs_err"
 phase 7a's error) and, last, the device line. Any
@@ -99,6 +107,7 @@ package beside this file, it exits 1 before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import statistics
@@ -621,7 +630,7 @@ def lstm_recur_cases(gen, dev):
     yield case("DPCRN intra", B_MAIN * T_FRAMES, 4, 64)
 
 
-# (family, In -> H, Bf at B, T) of every LSTM layer call on the seven paths
+# (family, In -> H, Bf at B, T) of every LSTM layer call on the main paths
 LSTM_CALLS = (("FullSubNet full band", 512, lambda b: b, FSN_T),
               ("FullSubNet sub band", 384, lambda b: FSN_F * b, FSN_T),
               ("DCCRN clstm", 128, lambda b: 2 * b, DCCRN_T),
@@ -632,7 +641,7 @@ LSTM_CALLS = (("FullSubNet full band", 512, lambda b: b, FSN_T),
 
 
 def check_recur_plans(dev) -> None:
-    """For every small-fold layer call of the seven paths at B = 4, 32 and
+    """For every small-fold layer call of the main paths at B = 4, 32 and
     256: the shared memory ops/lstm.py plans for the recurrence's block is
     the kernel's, and the occupancy API lets as many blocks share an SM as
     the plan assumes (else the C entry refuses the launch)."""
@@ -856,16 +865,27 @@ def check_kernels(dev, only) -> dict:
 
 # ------------------------------------------------------------- main path
 
-def seeded(name: str, seed: int):
+def seeded(name: str, seed: int, **kw):
     """Family `name` at its published widths on the CPU from a seed
-    (torch's init), BN statistics and affines moved off their defaults."""
+    (torch's init), BN statistics and every norm's affine (BN; the TCM
+    families' instance and cumulative norms), the per-channel PReLU slopes
+    and CTSNet's ShareSepConv kernels (else a pure time shift) moved off
+    their defaults."""
     import torch
 
     from se_tpu_torch.models import get_model
-    from se_tpu_torch.nn import BatchNorm
+    from se_tpu_torch.nn import (
+        BatchNorm, CumulativeLayerNorm1d, CumulativeLayerNorm2d, InstanceNorm,
+        PReLU, ShareSepConv,
+    )
 
+    tcm_norms = (CumulativeLayerNorm1d, CumulativeLayerNorm2d, InstanceNorm)
     gen = torch.Generator().manual_seed(seed)
-    model = get_model(name).make(device="cpu", generator=gen)
+    model = get_model(name).make(device="cpu", generator=gen, **kw)
+
+    def draw(t, scale, shift=0.0):
+        t.copy_(shift + scale * torch.randn(t.shape, generator=gen))
+
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, BatchNorm):
@@ -874,6 +894,14 @@ def seeded(name: str, seed: int):
                 mod.bias.copy_(0.1 * torch.randn(c, generator=gen))
                 mod.running_mean.copy_(0.1 * torch.randn(c, generator=gen))
                 mod.running_var.copy_(0.5 + torch.rand(c, generator=gen))
+            elif isinstance(mod, tcm_norms):
+                scale = mod.weight if hasattr(mod, "weight") else mod.gain
+                draw(scale, 0.1, 1.0)
+                draw(mod.bias, 0.1)
+            elif isinstance(mod, PReLU) and mod.weight.numel() > 1:
+                draw(mod.weight, 0.05, 0.25)
+            elif isinstance(mod, ShareSepConv):
+                draw(mod.weight, 0.05, 0.25)
     return model.eval()
 
 
@@ -884,6 +912,12 @@ def seeded(name: str, seed: int):
 # (a projection and a persistent recurrence each); DPCRN x the block
 # applied twice: intra 2 layers x 2 directions over T = 4 bins (the
 # tensor-core step) + inter 2 layers (small fold).
+# The TCM families (CTSNet, TaylorSENet, G2Net) run cuDNN's convs and torch
+# ops around the STFT kernel: one launch, every other kernel none.
+ONLY_STFT = {"attention": 0, "dsconv": 0, "dsconv_pair": 0, "encoder": 0,
+             "decoder": 0, "lstm": 0, "lstm_project": 0, "lstm_recur": 0,
+             "stft": 1}
+TCM_FAMILIES = ("ctsnet", "taylorsenet", "g2net")
 MAIN_PATHS = {
     "uformer": {"attention": 4, "dsconv_pair": 8, "encoder": 6,
                 "decoder": 6},
@@ -894,6 +928,7 @@ MAIN_PATHS = {
     "crn": {"lstm": 0, "lstm_project": 2, "lstm_recur": 2, "stft": 1},
     "gcrn": {"lstm": 0, "lstm_project": 4, "lstm_recur": 4, "stft": 1},
     "dpcrn": {"lstm": 8, "lstm_project": 4, "lstm_recur": 4, "stft": 1},
+    **{name: ONLY_STFT for name in TCM_FAMILIES},
 }
 # kernels whose phase-3 lines carry the device time by kernel name
 # (torch.profiler) beside the CUDA-event time
@@ -967,6 +1002,11 @@ def main_path(name: str, dev, launches):
         fail(f"{name}: enhanced output of shape {est.shape} is not "
              "finite/complete")
     card_vs_cpu(name, est, cpu_model, wav, 0, "card vs cpu, utterance 0")
+    if name in TCM_FAMILIES:  # the other norm variant, InstanceNorm
+        cpu_in = seeded(name, 1, norm="in")
+        est = enhance_waveform(name, copy.deepcopy(cpu_in).to(dev), wav)
+        card_vs_cpu(name, est, cpu_in, wav, 0,
+                    "card vs cpu, utterance 0, norm in")
     return model, cpu_model, counts
 
 
@@ -1070,6 +1110,7 @@ TRAIN_PATHS = {
     "uformer": {"attention": 4, "encoder": 0, "decoder": 0,
                 "dsconv_pair": 0, "dsconv": 0},
     "dpcrn": {"lstm": 8, "lstm_project": 4, "lstm_recur": 4, "stft": 2},
+    **{name: {**ONLY_STFT, "stft": 2} for name in TCM_FAMILIES},
 }
 TRAIN_BATCH = 32  # bench.py's train default, 4 s utterances
 # fp32 round-off at a step's gradient scale: the share of its largest
@@ -1280,13 +1321,78 @@ def _dropout(model, rate: float) -> None:
             mod.rate = rate
 
 
+# a PReLU input this close to 0, relative to the call's largest |x|, is
+# within the round-off by which two fp32 forwards differ
+PRELU_KINK = 1e-5
+
+
+@contextlib.contextmanager
+def prelu_branches(model, masks: list, record: bool):
+    """While open, every PReLU call of `model` records its branch (x >= 0)
+    into `masks` (`record`), or takes the branch recorded at the same call
+    of an earlier step where its own |x| <= PRELU_KINK * max|x| of the
+    call, and its own branch elsewhere. An input within round-off of the
+    kink has two valid subgradients, 1 and the slope: two steps that
+    should give the same gradients must take the same one. A recorded
+    branch that differs from this step's at a larger |x| fails, naming
+    the PReLU. The dict it yields counts the elements whose branch was
+    taken from the record against their own (`flips`) and their largest
+    |x| / max|x| (`flip_max_rel`)."""
+    import torch
+
+    from se_tpu_torch.nn import PReLU
+
+    names = {id(m): n for n, m in model.named_modules()}
+    real = PReLU.forward
+    calls = iter(masks)
+    seen = {"calls": 0, "flips": 0, "flip_max_rel": 0.0}
+
+    def forward(self, x):
+        if record:
+            masks.append((x >= 0).cpu())
+            return real(self, x)
+        mask = next(calls, None)
+        if mask is None or mask.shape != x.shape:
+            fail("a replayed step called its PReLUs otherwise than the "
+                 "recorded one")
+        mask, own = mask.to(x.device), x >= 0
+        seen["calls"] += 1
+        flip = mask != own
+        ax = x.detach().abs()
+        top = ax.max()
+        if bool(flip.any()):
+            rel = float(ax[flip].max()) / max(float(top), 1e-30)
+            if not rel <= PRELU_KINK:
+                fail(f"PReLU {names.get(id(self), '?')}: the card's branch "
+                     f"differs at |x| = {rel} x max|x| of the call, past "
+                     f"the round-off bound {PRELU_KINK}")
+            seen["flips"] += int(flip.sum())
+            seen["flip_max_rel"] = max(seen["flip_max_rel"], rel)
+        near = ax <= PRELU_KINK * top
+        return torch.where(torch.where(near, mask, own), x, self.weight * x)
+
+    PReLU.forward = forward
+    try:
+        yield seen
+        if not record and seen["calls"] != len(masks):
+            fail(f"a replayed step made {seen['calls']} PReLU calls, the "
+                 f"recorded one {len(masks)}")
+    finally:
+        PReLU.forward = real
+
+
 def train_vs_cpu(name: str, dev, launches) -> dict:
     """Phase 7b/7c: one train step of `name` at its published widths, B = 2
     x 4 s, from the same weights (init_fn(0)), dropout rates 0, BN batch
     statistics on, on the card and on the CPU in fp32, and on the CPU in
-    fp64 as the exact step: the card's loss within 1e-4 relative of the
-    CPU's, the BN statistics after the step within 1e-3 * max|cpu|, the
-    step's launch counts (TRAIN_PATHS), and every gradient tensor within
+    fp64 as the exact step, the CPU's steps taking the card's branch at
+    every PReLU input within round-off of 0 (`prelu_branches`: such an
+    input takes either subgradient, and each element that two steps take
+    apart changes its gradient by (1 - slope) x; a branch that differs
+    further from 0 fails; the line counts the elements and their largest
+    |x| relative to their call): the card's loss within 1e-4 relative of the CPU's, the BN
+    statistics after the step within 1e-3 * max|cpu|, the step's launch
+    counts (TRAIN_PATHS), and every gradient tensor within
     tol = 1e-3 * max|grad| + GRAD_FLOOR * the step's largest |grad| entry
     of the CPU's fp32 gradient, or within max(tol, twice the CPU's fp32
     distance) of the fp64 gradient. The floor is fp32 round-off at the
@@ -1302,8 +1408,9 @@ def train_vs_cpu(name: str, dev, launches) -> dict:
     the card against the CPU (1e-3 * max|cpu|): the card model enhanced
     before training too, so its cached packs must have been dropped.
     Between the two, the card's step under remat "full" and "dots"
-    against its step without (loss 1e-5 relative, gradients to the same
-    tolerance). Returns the launch counts."""
+    against its step without, all three with cuDNN's deterministic
+    algorithms (loss 1e-5 relative, gradients to the same tolerance).
+    Returns the launch counts."""
     import numpy as np
     import torch
 
@@ -1311,31 +1418,35 @@ def train_vs_cpu(name: str, dev, launches) -> dict:
     from se_tpu_torch.train.trainer import TrainConfig, make_train_step
 
     cfg = TrainConfig(model=name)
-    sides = []  # the CPU's fp64 step, the CPU's fp32 step, the card's
+    sides = {}
+    masks: list = []  # the card's PReLU branches, call by call
     wav = waveforms(2, 5)
-    for where, dtype in (("cpu", torch.float64), ("cpu", torch.float32),
-                         (dev, torch.float32)):
+    for side, where, dtype in (("card", dev, torch.float32),
+                               ("exact", "cpu", torch.float64),
+                               ("cpu", "cpu", torch.float32)):
         model, init_fn, step_fn, _ = make_train_step(cfg, device=where)
         model.to(dtype)
         state = init_fn(0)
-        if len(sides) == 2:  # the card: packs cached by an eval forward
+        if side == "card":  # packs cached by an eval forward
             enhance_waveform(name, model, wav, device=where)
         _dropout(model, 0.0)
         batch = {k: v.to(dtype) if v.is_floating_point() else v
                  for k, v in _train_batch(2, where, 11).items()}
         launches.clear()
         t0 = time.perf_counter()
-        state, loss = step_fn(state, batch)
-        loss = loss.item()
+        with prelu_branches(model, masks, record=side == "card") as seen:
+            state, loss = step_fn(state, batch)
+            loss = loss.item()
         step_s = time.perf_counter() - t0
         counts = dict(launches)
         grads = {k: p.grad.detach().cpu().double()
                  for k, p in model.named_parameters()}
         stats = {k: b.detach().cpu().double()
                  for k, b in model.named_buffers()}
-        sides.append((model, state, step_fn, batch, loss, grads, stats,
-                      counts, step_s))
-    exact, cpu, card = sides
+        sides[side] = (model, state, step_fn, batch, loss, grads, stats,
+                       counts, step_s, {k: seen[k] for k in
+                                        ("flips", "flip_max_rel")})
+    exact, cpu, card = sides["exact"], sides["cpu"], sides["card"]
     loss_err = abs(card[4] - cpu[4]) / abs(cpu[4])
     floor = GRAD_FLOOR * max(float(g.abs().max()) for g in exact[5].values())
     rows, by_exact, cpu_rel = [], [], []
@@ -1364,6 +1475,9 @@ def train_vs_cpu(name: str, dev, launches) -> dict:
           "held_to_fp64": by_exact,
           "cpu_fp32_vs_fp64_worst": sorted(cpu_rel, reverse=True)[:3],
           "bn_stat_err_over_max": stat_worst,
+          "prelu_calls": len(masks),
+          "prelu_branches_taken_from_the_card": {"cpu_fp32": cpu[9],
+                                                 "cpu_fp64": exact[9]},
           "launches": counts, "step_s_card": card[8],
           "step_s_cpu": cpu[8], "step_s_cpu_fp64": exact[8]})
     if not np.isfinite(card[4]) or not loss_err <= 1e-4:
@@ -1378,23 +1492,38 @@ def train_vs_cpu(name: str, dev, launches) -> dict:
             fail(f"{name}: a train step launched {kernel} "
                  f"{counts.get(kernel, 0)} times, expected {want}")
 
-    for remat in ("full", "dots"):  # the same step, the forward recomputed
-        model, init_fn, step_fn, _ = make_train_step(
-            TrainConfig(model=name, remat=remat), device=dev)
-        state = init_fn(0)
-        _dropout(model, 0.0)
-        state, loss = step_fn(state, card[3])
-        worst = max(float((p.grad.detach().cpu().double() - card[5][k])
-                          .abs().max())
-                    / (1e-3 * float(card[5][k].abs().max()) + floor)
-                    for k, p in model.named_parameters())
-        emit({"phase": "train", "check": f"remat {remat} vs none, card",
-              "model": name, "loss": loss.item(), "loss_none": card[4],
-              "grad_err_over_tol": worst})
-        if not (abs(loss.item() - card[4]) <= 1e-5 * abs(card[4])
+    # The same step with the forward recomputed. cuDNN's default
+    # algorithms sum some weight gradients in another order from run to
+    # run (atomics; up to 1% of a tensor's largest entry in CTSNet's
+    # ShareSepConv kernels, sums of ~5e4 terms that cancel): the three
+    # steps compared here run its deterministic algorithms.
+    was_deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        steps = {}
+        for remat in ("none", "full", "dots"):
+            model, init_fn, step_fn, _ = make_train_step(
+                TrainConfig(model=name, remat=remat), device=dev)
+            state = init_fn(0)
+            _dropout(model, 0.0)
+            state, loss = step_fn(state, card[3])
+            steps[remat] = loss.item(), {
+                k: p.grad.detach().cpu().double()
+                for k, p in model.named_parameters()}
+            del model, init_fn, step_fn, state
+    finally:
+        torch.backends.cudnn.deterministic = was_deterministic
+    loss_none, grads_none = steps.pop("none")
+    for remat, (loss, grads) in steps.items():
+        worst = max(float((g - grads_none[k]).abs().max())
+                    / (1e-3 * float(grads_none[k].abs().max()) + floor)
+                    for k, g in grads.items())
+        emit({"phase": "train", "check": f"remat {remat} vs none, card, "
+              "cuDNN deterministic", "model": name, "loss": loss,
+              "loss_none": loss_none, "grad_err_over_tol": worst})
+        if not (abs(loss - loss_none) <= 1e-5 * abs(loss_none)
                 and worst <= 1.0):
             fail(f"{name}: remat={remat} changed the step on the card")
-        del model, init_fn, step_fn, state
 
     model, state, step_fn, batch = card[:4]
     _dropout(model, 0.1)
@@ -1552,7 +1681,8 @@ def main() -> None:
         train_counts[name] = train_vs_cpu(name, dev, _build.LAUNCHES)
         torch.cuda.empty_cache()
     for name in train_families:
-        train_throughput(name, dev, card, do_profile=name == "uformer")
+        train_throughput(name, dev, card,
+                         do_profile=name in ("uformer",) + TCM_FAMILIES)
     for name, row in table.items():
         row["backward"] = BACKWARD[name]
         row["grad_max_abs_err"] = grad_errors.get(name)

@@ -1,13 +1,15 @@
 """Enhancement (decode) entry point: the port of se_tpu/eval/enhance.py for
 io-kinds "waveform" (Uformer: STFT, network and iSTFT in the model),
 "mag_mask" (LSTM, CRN: magnitude in, magnitude out, noisy phase reused),
-"complex_map" (GCRN, DCCRN: complex spectrum in and out), "complex_mask"
+"complex_map" (GCRN, DCCRN, CTSNet, TaylorSENet, G2Net: complex spectrum
+in and out; G2Net's stages stacked first, the last taken), "complex_mask"
 (DPCRN: its mask applied inside the model) and "cirm" (FullSubNet:
 magnitude in, complex ratio mask out).
 
 Per-utterance RMS gain c = sqrt(n / energy) is applied before the model and
-removed after it. Every spectral branch takes its STFT from
-`ops.stft_fused.stft_auto`: the fused CUDA kernel on the card. The
+removed after it (for G2Net the other way round, as its reference does).
+Every spectral branch takes its STFT from `ops.stft_fused.stft_auto`: the
+fused CUDA kernel on the card. The
 "hybrid" io-kind (DeepXi) is not ported yet (ROADMAP.md, Queue 1).
 """
 
@@ -104,11 +106,14 @@ def enhance_waveform(name: str, model: torch.nn.Module, wav: np.ndarray,
     x = np.atleast_2d(np.asarray(wav, np.float32))
     n = x.shape[-1]
 
-    # per-utterance RMS gain
+    # per-utterance RMS gain; a family may invert it (entry.inverted_gain)
     energy = np.sum(np.square(x), axis=-1, keepdims=True)
     c = np.sqrt(n / np.maximum(energy, 1e-12)).astype(np.float32)
+    inverted = entry.inverted_gain
+    x_in = x / c if inverted else x * c
     model.eval()
-    est = _enhance(entry, model, torch.from_numpy(x * c).to(dev), n,
+    est = _enhance(entry, model, torch.from_numpy(x_in).to(dev), n,
                    compressed)
-    est = est.cpu().numpy() / c
+    est = est.cpu().numpy()
+    est = est * c if inverted else est / c
     return est[0] if single else est

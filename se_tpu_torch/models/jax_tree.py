@@ -62,3 +62,37 @@ def put_layernorm(sd: dict, prefix: str, tree: dict) -> None:
 def put_prelu(sd: dict, prefix: str, tree: dict) -> None:
     """flax nn.PReLU's scalar `negative_slope` -> torch.nn.PReLU's (1,)."""
     sd[f"{prefix}.weight"] = tensor(tree["negative_slope"]).reshape(1)
+
+
+def put_channel_prelu(sd: dict, prefix: str, tree: dict) -> None:
+    """se_tpu's own PReLU(channels): `weight` (C,), as torch.nn.PReLU(C)."""
+    sd[f"{prefix}.weight"] = tensor(tree["weight"])
+
+
+def put_tcm_norm(sd: dict, prefix: str, tree: dict, trailing: int) -> None:
+    """se_tpu's CumulativeLayerNorm{1,2}d (`gain`, `bias` (C,)) -> the
+    reference's (1, C) + (1,) * trailing; its InstanceNorm{1,2}d (`scale`,
+    `bias`) -> torch's weight, bias (C,)."""
+    if "gain" in tree:
+        for key in ("gain", "bias"):
+            sd[f"{prefix}.{key}"] = tensor(tree[key]).reshape(
+                (1, -1) + (1,) * trailing)
+    else:
+        sd[f"{prefix}.weight"] = tensor(tree["scale"])
+        sd[f"{prefix}.bias"] = tensor(tree["bias"])
+
+
+def put_conv1d(sd: dict, prefix: str, tree: dict) -> None:
+    """se_tpu's nn.Dense kernel (I, O) or CausalConv1d kernel (k, I, O) ->
+    torch.nn.Conv1d's weight (O, I, k); the bias where it has one."""
+    k = np.asarray(tree["kernel"])
+    if k.ndim == 2:
+        k = k[None]
+    sd[f"{prefix}.weight"] = tensor(k.transpose(2, 1, 0))
+    if "bias" in tree:
+        sd[f"{prefix}.bias"] = tensor(tree["bias"])
+
+
+def put_share_sep(sd: dict, prefix: str, tree: dict) -> None:
+    """se_tpu's ShareSepConv `weight` (k,) -> the reference's (1, 1, k)."""
+    sd[f"{prefix}.weight"] = tensor(tree["weight"]).reshape(1, 1, -1)

@@ -19,6 +19,9 @@ class ModelEntry:
     # JAX {"params", "batch_stats"} tree (numpy) -> the port's state_dict
     from_jax_variables: Callable[[dict], dict] | None = None
     variants: tuple[str, ...] = ()
+    # the per-utterance RMS gain c divides the input and multiplies the
+    # output (G2Net's reference), instead of the other way round
+    inverted_gain: bool = False
 
 
 _REGISTRY: dict[str, ModelEntry] = {}

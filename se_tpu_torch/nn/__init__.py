@@ -5,13 +5,20 @@ from se_tpu_torch.nn.complex_ops import (
     ComplexConv2d, ComplexConvTranspose2d, ComplexDense, NaiveComplexLSTM,
 )
 from se_tpu_torch.nn.conv import (
-    Conv2d, ConvParams, ConvTranspose2d, GluConv2d, GluConvTranspose2d,
-    Linear,
+    Conv1d, Conv2d, ConvParams, ConvTranspose2d, GluConv2d,
+    GluConvTranspose2d, Linear, ShareSepConv,
 )
-from se_tpu_torch.nn.norms import BatchNorm, LayerNorm
+from se_tpu_torch.nn.norms import (
+    BatchNorm, CumulativeLayerNorm1d, CumulativeLayerNorm2d, InstanceNorm,
+    InstanceNorm1d, InstanceNorm2d, LayerNorm,
+)
 from se_tpu_torch.nn.recurrent import LSTM, lstm_layer
 
 __all__ = ["BatchNorm", "ComplexConv2d", "ComplexConvTranspose2d",
-           "ComplexDense", "Conv2d", "ConvParams", "ConvTranspose2d",
-           "Dropout", "GluConv2d", "GluConvTranspose2d", "LSTM", "LayerNorm",
-           "Linear", "NaiveComplexLSTM", "PReLU", "lstm_layer"]
+           "ComplexDense", "Conv1d", "Conv2d", "ConvParams",
+           "ConvTranspose2d", "CumulativeLayerNorm1d",
+           "CumulativeLayerNorm2d", "Dropout", "GluConv2d",
+           "GluConvTranspose2d", "InstanceNorm", "InstanceNorm1d",
+           "InstanceNorm2d", "LSTM",
+           "LayerNorm", "Linear", "NaiveComplexLSTM", "PReLU",
+           "ShareSepConv", "lstm_layer"]

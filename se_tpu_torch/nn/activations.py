@@ -8,12 +8,14 @@ from torch import nn
 
 
 class PReLU(nn.Module):
-    """Scalar-slope PReLU, `where(x >= 0, x, a * x)`, init 0.25. The weight
-    has torch.nn.PReLU's shape (1,)."""
+    """se_tpu's PReLU, `where(x >= 0, x, a * x)`, init 0.25: one slope
+    (`channels` None; torch.nn.PReLU()'s weight of shape (1,)) or one a
+    channel on the last axis (torch.nn.PReLU(channels): weight (C,))."""
 
-    def __init__(self, init: float = 0.25):
+    def __init__(self, channels: int | None = None, init: float = 0.25):
         super().__init__()
-        self.weight = nn.Parameter(torch.full((1,), float(init)))
+        shape = (1,) if channels is None else (channels,)
+        self.weight = nn.Parameter(torch.full(shape, float(init)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.where(x >= 0, x, self.weight * x)

@@ -1,5 +1,5 @@
-"""Convolution and dense primitives in NHWC = (B, T, F, C) layout
-(se_tpu/nn/conv.py).
+"""Convolution and dense primitives in NHWC = (B, T, F, C) layout, and the
+TCM families' 1-D convs on (B, T, C) (se_tpu/nn/conv.py).
 
 Parameters keep the reference PyTorch layouts: Conv2d weights (O, I, ka,
 kb), ConvTranspose2d weights (I, O, ka, kb), unflipped, where (ka, kb) is
@@ -130,6 +130,57 @@ class Linear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.matmul(x, self.weight.t()) + self.bias
+
+
+class Conv1d(nn.Module):
+    """A 1-D conv on (B, T, C) as torch.nn.Conv1d holds it: weight (O, I,
+    k), bias (O,) or none. With k = 1 it is se_tpu's bias-free (or biased)
+    nn.Dense that the reference writes as a Conv1d(k=1); otherwise
+    se_tpu's CausalConv1d: (k - 1) * dilation frames of zeros before T and
+    none after. k = 1 runs a matmul on the channel axis, k > 1 F.conv1d
+    (se_tpu computes these outside any Pallas kernel)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int = 1,
+                 dilation: int = 1, bias: bool = True):
+        super().__init__()
+        self.dilation = dilation
+        self.left_pad = (kernel - 1) * dilation
+        self.weight = nn.Parameter(torch.zeros(cout, cin, kernel))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """torch's init: U(+-1/sqrt(I * k)) for weight and bias."""
+        bound = 1.0 / math.sqrt(self.weight.shape[1] * self.weight.shape[2])
+        _uniform_(self.weight, bound, generator)
+        if self.bias is not None:
+            _uniform_(self.bias, bound, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.weight.shape[2] == 1:
+            y = torch.matmul(x, self.weight[:, :, 0].t())
+            return y if self.bias is None else y + self.bias
+        xn = F.pad(x.transpose(1, 2), (self.left_pad, 0))
+        return F.conv1d(xn, self.weight, self.bias,
+                        dilation=self.dilation).transpose(1, 2)
+
+
+class ShareSepConv(nn.Module):
+    """One kernel of length k shared by every channel of (B, T, C), k - 1
+    frames of zeros before T: a depthwise F.conv1d with the weight
+    expanded to (C, 1, k). Weight (1, 1, k) as the reference's; init a
+    one at (k - 1) // 2, the identity shifted by k // 2 frames."""
+
+    def __init__(self, kernel: int):
+        super().__init__()
+        w = torch.zeros(1, 1, kernel)
+        w[0, 0, (kernel - 1) // 2] = 1.0
+        self.weight = nn.Parameter(w)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c, k = x.shape[-1], self.weight.shape[-1]
+        xn = F.pad(x.transpose(1, 2), (k - 1, 0))
+        return F.conv1d(xn, self.weight.expand(c, 1, k),
+                        groups=c).transpose(1, 2)
 
 
 def interleave_complex_kernel(kr: torch.Tensor, ki: torch.Tensor):

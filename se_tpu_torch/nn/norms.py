@@ -1,5 +1,8 @@
-"""LayerNorm and BatchNorm over the last (channel) axis
-(se_tpu/nn/norms.py), with torch's parameter and buffer names."""
+"""Norms of se_tpu/nn/norms.py on channel-last tensors, with the reference
+PyTorch parameter and buffer names: LayerNorm and BatchNorm over the last
+axis; the instance norms and the cumulative (causal) layer norms of the
+TCM families (CTSNet, TaylorSENet, G2Net). No norm but BatchNorm keeps
+running statistics, so the others act alike in train and eval mode."""
 
 from __future__ import annotations
 
@@ -65,3 +68,89 @@ class BatchNorm(nn.Module):
             self.running_var.lerp_(var, self.momentum)
         return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
             + self.bias
+
+
+def _stat_dtype(x: torch.Tensor) -> torch.dtype:
+    """fp32 statistics at least, fp64 for an fp64 input."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+class InstanceNorm(nn.Module):
+    """Per (sample, channel) statistics over every axis between the batch
+    and the channel ((T, F) on (B, T, F, C), T on (B, T, C)), eps 1e-5:
+    (x - mean) * 1 / sqrt(var + eps) * weight + bias, the variance biased;
+    torch.nn.InstanceNorm*d(affine=True)'s weight and bias (C,)."""
+
+    def __init__(self, ch: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(ch))
+        self.bias = nn.Parameter(torch.zeros(ch))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(_stat_dtype(x))
+        axes = tuple(range(1, x.ndim - 1))
+        mean = xf.mean(axes, keepdim=True)
+        var = (xf - mean).square().mean(axes, keepdim=True)
+        y = (xf - mean) * torch.reciprocal(torch.sqrt(var + self.eps))
+        return (y * self.weight + self.bias).to(x.dtype)
+
+
+# the reference's two instance norms are one module on channel-last input
+InstanceNorm1d = InstanceNorm2d = InstanceNorm
+
+
+def cumulative_stats(x: torch.Tensor, eps: float):
+    """Mean and std over every axis after T (axis 1) and every frame up to
+    t, formula for formula as se_tpu's `_cumulative_stats`: the one-pass
+    variance (cum_pow - 2 cum_mean cum_sum) / cnt + cum_mean^2, with eps
+    inside the sqrt."""
+    axes = tuple(range(2, x.ndim))
+    n_per_step = 1
+    for a in axes:
+        n_per_step *= x.shape[a]
+    step_sum = x.sum(axes, keepdim=True)
+    step_pow = x.square().sum(axes, keepdim=True)
+    cum_sum = torch.cumsum(step_sum, dim=1)
+    cum_pow = torch.cumsum(step_pow, dim=1)
+    t_len = x.shape[1]
+    entry_cnt = torch.arange(1, t_len + 1, dtype=x.dtype, device=x.device)
+    entry_cnt = entry_cnt.reshape((1, t_len) + (1,) * len(axes)) * n_per_step
+    cum_mean = cum_sum / entry_cnt
+    cum_var = (cum_pow - 2.0 * cum_mean * cum_sum) / entry_cnt \
+        + cum_mean.square()
+    return cum_mean, torch.sqrt(cum_var + eps)
+
+
+class _CumulativeLayerNorm(nn.Module):
+    """Causal LN: statistics over every axis after T and every frame up to
+    t, eps 1e-5: (x - mean) / std * gain + bias. The reference's gain and
+    bias have shape (1, C) + (1,) * (axes after C in its (B, C, ...)
+    layout)."""
+
+    trailing = 0
+
+    def __init__(self, ch: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        shape = (1, ch) + (1,) * self.trailing
+        self.gain = nn.Parameter(torch.ones(shape))
+        self.bias = nn.Parameter(torch.zeros(shape))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(_stat_dtype(x))
+        mean, std = cumulative_stats(xf, self.eps)
+        y = (xf - mean) / std
+        return (y * self.gain.reshape(-1) + self.bias.reshape(-1)).to(x.dtype)
+
+
+class CumulativeLayerNorm2d(_CumulativeLayerNorm):
+    """On (B, T, F, C): statistics over (F, C); gain, bias (1, C, 1, 1)."""
+
+    trailing = 2
+
+
+class CumulativeLayerNorm1d(_CumulativeLayerNorm):
+    """On (B, T, C): statistics over C; gain, bias (1, C, 1)."""
+
+    trailing = 1

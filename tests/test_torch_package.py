@@ -38,7 +38,9 @@ def test_port_imports_no_jax_flax_or_se_tpu():
     assert len(files) > 10
     pkg = ROOT / "se_tpu_torch"
     for new in ("train/losses.py", "train/trainer.py", "train/checkpoint.py",
-                "data/wav.py", "data/dataset.py", "ops/_autograd.py"):
+                "data/wav.py", "data/dataset.py", "ops/_autograd.py",
+                "models/ctsnet.py", "models/taylorsenet.py",
+                "models/g2net.py", "models/tcm_parts.py"):
         assert pkg / new in files, new
     for path in files:
         bad = _imported_roots(path) & FORBIDDEN
@@ -84,10 +86,12 @@ def test_fullsubnet_entry_points_raise_without_cuda(monkeypatch):
 def test_registry_holds_uformer():
     entry = get_model("uformer")
     assert entry.io_kind == "waveform" and entry.make is Uformer
-    assert available_models() == ["crn", "dccrn", "dpcrn", "fullsubnet",
-                                  "gcrn", "lstm", "uformer"]
+    assert available_models() == ["crn", "ctsnet", "dccrn", "dpcrn",
+                                  "fullsubnet", "g2net", "gcrn", "lstm",
+                                  "taylorsenet", "uformer"]
     with pytest.raises(KeyError, match="uformer"):
         get_model("deepxi")
+    assert set(enhance._NOT_PORTED) == {"hybrid"}
 
 
 def test_dccrn_entry_points_raise_without_cuda(monkeypatch):

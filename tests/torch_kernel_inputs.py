@@ -87,8 +87,9 @@ def fill_tree(shapes, seed: int) -> dict:
     """Numpy values for a nest of dicts of shaped leaves (se_tpu's
     `jax.eval_shape(model.init, ...)`), drawn from `seed` by leaf name:
     LSTM weights and biases U(+-1/sqrt(H)), kernels U(+-1/sqrt(fan_in)),
-    biases U(+-0.1), BN/LN scales 1 + 0.1 N, PReLU slopes (flax's
-    `negative_slope`, se_tpu's own PReLU's `weight`) 0.25 + 0.05 N, BN
+    biases U(+-0.1), BN/LN/IN scales and the cumulative norms' gains 1 +
+    0.1 N, PReLU slopes (flax's `negative_slope`, se_tpu's own PReLU's
+    `weight`; ShareSepConv's kernel, also named `weight`) 0.25 + 0.05 N, BN
     running means 0.1 N and variances 0.5 + U(0, 1): every statistic and
     affine off its default."""
     rng = np.random.default_rng(seed)
@@ -102,7 +103,7 @@ def fill_tree(shapes, seed: int) -> dict:
             arr = rng.uniform(-fan ** -0.5, fan ** -0.5, shape)
         elif name == "bias":
             arr = rng.uniform(-0.1, 0.1, shape)
-        elif name == "scale":
+        elif name in ("scale", "gain"):
             arr = 1 + 0.1 * rng.standard_normal(shape)
         elif name in ("negative_slope", "weight"):  # PReLU slopes
             arr = 0.25 + 0.05 * rng.standard_normal(shape)
