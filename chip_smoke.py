@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Drive se_tpu_torch's main paths on one NVIDIA GPU, and hold every CUDA
 kernel of those paths against its plain PyTorch twin. The paths are the
-enhancement of ten model families: Uformer (waveform), FullSubNet (cirm),
-DCCRN and GCRN (complex_map), LSTMNet and CRN (mag_mask), DPCRN
-(complex_mask), and the TCM families CTSNet, TaylorSENet and G2Net
-(complex_map: cuDNN's convs and torch ops around the STFT kernel); and
-training Uformer, DPCRN and the three TCM families.
+enhancement of eleven model families: Uformer (waveform), FullSubNet
+(cirm), DCCRN and GCRN (complex_map), LSTMNet and CRN (mag_mask), DPCRN
+(complex_mask), the TCM families CTSNet, TaylorSENet and G2Net
+(complex_map: cuDNN's convs and torch ops around the STFT kernel), and
+DeepXi (hybrid: `models.deepxi.enhance`; "deepxi" the shipped ResNetV2,
+"deepxi_reslstm" the ResLSTM variant on the LSTM kernels); and training
+Uformer, DPCRN, the three TCM families and both DeepXi paths (DeepXi
+through its driver's step).
 
     python3 chip_smoke.py [--kernels lstm,...] [--families fullsubnet,...]
 
@@ -62,17 +65,26 @@ Phases, one JSON line per result:
              weights run on the CPU (utterance 0); the TCM families run in
              their decode variant (norm "cln", the cumulative norms, every
              norm affine and PReLU slope moved off its default) and also in
-             their InstanceNorm variant (norm "in"), each against the CPU.
+             their InstanceNorm variant (norm "in"), each against the CPU;
+             DeepXi with every LayerNorm scale and bias off its default and
+             its DBNormalCDF map fitted once on the CPU
+             (`deepxi_xi_map`), the same on both sides.
   5. speed:  fp32 enhance throughput of every family at B = 32 and B = 256
              x 4 s, median audio-seconds/s of 5 timed calls (2 where one
              call takes over 20 s, said so in the line), with peak device
              memory; where the B = 256 batch takes the tensor-core LSTM
              step (LSTM, CRN, DPCRN), its last utterance against the CPU
-             on that utterance alone, within 1e-3 * max|cpu|.
+             on that utterance alone, within 1e-3 * max|cpu|; DeepXi's
+             lines also carry the operations of one utterance
+             (torch.utils.flop_counter, plus the LSTM kernels' count) and
+             the rate they make.
   6. profile: torch.profiler over one enhance call of each family at
              B = 32: device time by kernel name and the device's busy share
              of the wall time; Uformer's must show each of its kernels by
-             name (PROFILE_KERNELS).
+             name (PROFILE_KERNELS, PROFILE_GATED; DeepXi's report theirs);
+             a profile that misses one, as torch.profiler's dropped events
+             do now and then, is taken again, up to PROFILE_ATTEMPTS in
+             all.
   7. train:  (a) each kernel wrapper's autograd Function at a B = 4
              phase-3 case of each design (attention on both designs, the
              LSTM layer on both designs forward and reverse, its
@@ -91,13 +103,16 @@ Phases, one JSON line per result:
              within 1e-3 * max|cpu|, the step's launches (TRAIN_PATHS);
              then three steps with dropout on and `enhance_waveform` of the
              trained weights against the CPU (1e-3 * max|cpu|).
+             DeepXi: one step of its driver (`DeepXiDriver.train_step`:
+             the MagXi example, BCE, elementwise clip, Adam) at B = 2 x 4 s
+             on the card and on the CPU (fp32, fp64), with 7b's loss and
+             gradient tolerances and the step's launches.
              (d) train throughput at B = 32 x 4 s, dropout on: 2 warm-up
              steps, the median of 5 in audio-s/s, peak device memory, every
-             step's loss (finite); for Uformer and the TCM families the
-             device time by kernel of one step (top 10) and the busy
-             share.
+             step's loss (finite); but for DPCRN the device time by kernel
+             of one step (top 10) and the busy share.
 Then the kernel table as one JSON line (a row's "launches" are those of the
-phase-4 forward its note names, "launches_all_paths" those of all ten,
+phase-4 forward its note names, "launches_all_paths" those of all twelve,
 "launches_train_step" those of one train step of each trained family; its
 "backward" names the twin whose VJP it recomputes, "grad_max_abs_err"
 phase 7a's error) and, last, the device line. Any
@@ -109,6 +124,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import json
 import statistics
 import subprocess
@@ -123,6 +139,7 @@ T_FRAMES = SECONDS * SR // HOP + 1  # 401
 FSN_T, FSN_F = SECONDS * SR // 256 + 1 + 2, 257
 FSN_LAYERS = ((FSN_F, 512), (512, 512), (32, 384), (384, 384))  # (In, H)
 DCCRN_T = SECONDS * SR // 128 + 1  # 501: 512/128 center framing
+DEEPXI_T = -(-SECONDS * SR // 256)  # 250: 512/256 pad_end framing
 SLOW_CALL_S = 20.0
 KERNELS = (1, 8, 16, 32, 64, 128, 128)
 DILATIONS = (1, 2, 4, 8, 16, 32, 64, 128)
@@ -492,7 +509,8 @@ def lstm_cases(gen, dev):
     Bf = 4, sub band Bf = 4 * 257), each also in reverse, and a ragged
     sub-band batch with a non-zero carry; then the layer shapes of the
     other families at B = 4, 32 and 256 on both designs (DPCRN's intra
-    LSTM, T = 4, on the tensor-core step also at B = 4 and 5), DCCRN's
+    LSTM, T = 4, on the tensor-core step also at B = 4 and 5; DeepXi's
+    ResLSTM, 512 -> 512 over 250 frames, the small fold), DCCRN's
     small fold in reverse and with a carry, and the sub band at T = 506 and
     1012 (the error against T). The row sums the two sub-band calls, the
     rest are per-case lines. Yardstick: cuDNN's LSTM with the same
@@ -544,18 +562,21 @@ def lstm_cases(gen, dev):
             ("DPCRN intra", b * T_FRAMES, 4, 128, 64, True, False),
             ("DPCRN intra B=5", 5 * T_FRAMES, 4, 128, 64, False, False),
             ("DPCRN inter", b * 4, T_FRAMES, 128, 128, False, False),
+            ("DeepXi ResLSTM", b, DEEPXI_T, 512, 512, False, False),
             # phase 5's B = 32: the small fold ...
             ("LSTMNet lstm2 / CRN B=32", 32, T_FRAMES, 1024, 1024, False,
              False),
             ("GCRN glstm B=32", 32, T_FRAMES, 512, 512, False, False),
             ("DCCRN clstm0 B=32", 64, DCCRN_T, 512, 128, False, False),
             ("DPCRN inter B=32", 128, T_FRAMES, 128, 128, False, False),
+            ("DeepXi ResLSTM B=32", 32, DEEPXI_T, 512, 512, False, False),
             # ... and the tensor-core step
             ("FullSubNet B=32", 32 * FSN_F, FSN_T, 384, 384, False, False),
             ("DPCRN intra B=32", 32 * T_FRAMES, 4, 128, 64, False, False),
             # phase 5's B = 256: the small fold ...
             ("GCRN glstm B=256", 256, T_FRAMES, 512, 512, False, False),
             ("DPCRN inter B=256", 1024, T_FRAMES, 128, 128, False, False),
+            ("DeepXi ResLSTM B=256", 256, DEEPXI_T, 512, 512, False, False),
             # ... and the tensor-core step at H = 1024
             ("LSTMNet lstm1 B=256", 256, T_FRAMES, 161, 1024, False, False),
             ("LSTMNet lstm2 / CRN B=256", 256, T_FRAMES, 1024, 1024, False,
@@ -637,7 +658,8 @@ LSTM_CALLS = (("FullSubNet full band", 512, lambda b: b, FSN_T),
               ("LSTMNet / CRN", 1024, lambda b: b, T_FRAMES),
               ("GCRN glstm", 512, lambda b: b, T_FRAMES),
               ("DPCRN intra", 64, lambda b: T_FRAMES * b, 4),
-              ("DPCRN inter", 128, lambda b: 4 * b, T_FRAMES))
+              ("DPCRN inter", 128, lambda b: 4 * b, T_FRAMES),
+              ("DeepXi ResLSTM", 512, lambda b: b, DEEPXI_T))
 
 
 def check_recur_plans(dev) -> None:
@@ -868,19 +890,23 @@ def check_kernels(dev, only) -> dict:
 def seeded(name: str, seed: int, **kw):
     """Family `name` at its published widths on the CPU from a seed
     (torch's init), BN statistics and every norm's affine (BN; the TCM
-    families' instance and cumulative norms), the per-channel PReLU slopes
-    and CTSNet's ShareSepConv kernels (else a pure time shift) moved off
-    their defaults."""
+    families' instance and cumulative norms; DeepXi's LayerNorms, where
+    they have a scale or a bias), the per-channel PReLU slopes and
+    CTSNet's ShareSepConv kernels (else a pure time shift) moved off
+    their defaults. The DeepXi names build DeepXi with their network
+    (DEEPXI_NETWORK) at its shipped width."""
     import torch
 
     from se_tpu_torch.models import get_model
     from se_tpu_torch.nn import (
         BatchNorm, CumulativeLayerNorm1d, CumulativeLayerNorm2d, InstanceNorm,
-        PReLU, ShareSepConv,
+        OnePassLayerNorm, PReLU, ShareSepConv,
     )
 
     tcm_norms = (CumulativeLayerNorm1d, CumulativeLayerNorm2d, InstanceNorm)
     gen = torch.Generator().manual_seed(seed)
+    if name in DEEPXI_NETWORK:
+        name, kw = "deepxi", {"network": DEEPXI_NETWORK[name], **kw}
     model = get_model(name).make(device="cpu", generator=gen, **kw)
 
     def draw(t, scale, shift=0.0):
@@ -902,6 +928,11 @@ def seeded(name: str, seed: int, **kw):
                 draw(mod.weight, 0.05, 0.25)
             elif isinstance(mod, ShareSepConv):
                 draw(mod.weight, 0.05, 0.25)
+            elif isinstance(mod, OnePassLayerNorm):
+                if mod.weight is not None:
+                    draw(mod.weight, 0.1, 1.0)
+                if mod.bias is not None:
+                    draw(mod.bias, 0.1)
     return model.eval()
 
 
@@ -913,11 +944,17 @@ def seeded(name: str, seed: int, **kw):
 # applied twice: intra 2 layers x 2 directions over T = 4 bins (the
 # tensor-core step) + inter 2 layers (small fold).
 # The TCM families (CTSNet, TaylorSENet, G2Net) run cuDNN's convs and torch
-# ops around the STFT kernel: one launch, every other kernel none.
+# ops around the STFT kernel: one launch, every other kernel none. So does
+# DeepXi's ResNetV2 (cuBLAS GEMMs, cuDNN's dilated convs, torch ops);
+# its ResLSTM adds 5 LSTM layers 512 -> 512 on Bf = B, the small fold
+# at every B of phases 4-5 (a projection and a persistent recurrence each).
 ONLY_STFT = {"attention": 0, "dsconv": 0, "dsconv_pair": 0, "encoder": 0,
              "decoder": 0, "lstm": 0, "lstm_project": 0, "lstm_recur": 0,
              "stft": 1}
 TCM_FAMILIES = ("ctsnet", "taylorsenet", "g2net")
+# the two DeepXi paths: the shipped ResNetV2 and the ResLSTM variant, each
+# at its default width (DeepXi's registry variants "resnet", "reslstm")
+DEEPXI_NETWORK = {"deepxi": "ResNetV2", "deepxi_reslstm": "ResLSTM"}
 MAIN_PATHS = {
     "uformer": {"attention": 4, "dsconv_pair": 8, "encoder": 6,
                 "decoder": 6},
@@ -929,16 +966,22 @@ MAIN_PATHS = {
     "gcrn": {"lstm": 0, "lstm_project": 4, "lstm_recur": 4, "stft": 1},
     "dpcrn": {"lstm": 8, "lstm_project": 4, "lstm_recur": 4, "stft": 1},
     **{name: ONLY_STFT for name in TCM_FAMILIES},
+    "deepxi": ONLY_STFT,
+    "deepxi_reslstm": {**ONLY_STFT, "lstm_project": 5, "lstm_recur": 5},
 }
 # kernels whose phase-3 lines carry the device time by kernel name
 # (torch.profiler) beside the CUDA-event time
 DEVICE_SPLIT = ("stft", "encoder", "dsconv_pair", "attention", "dsconv")
-# family: the kernel names its phase-6 profile must show
+# family: the kernel names its phase-6 profile reports (and must show, for
+# the families of PROFILE_GATED)
 PROFILE_KERNELS = {
     "uformer": ("encoder_level_cc", "encoder_level_tc", "dsconv_pre_tc",
                 "dsconv_post_tc", "decoder_level_tc", "decoder_level_cc",
                 "att_flash_tc", "att_small_l"),
+    "deepxi": ("stft_fft",),
+    "deepxi_reslstm": ("stft_fft", "lstm_proj_tc", "lstm_recur_persistent"),
 }
+PROFILE_GATED = ("uformer",)
 # kernel: the main path whose B = 4 forward its row of the table sums
 ROW_PATH = {"attention": "uformer", "dsconv": "uformer",
             "dsconv_pair": "uformer", "encoder": "uformer",
@@ -956,15 +999,44 @@ def waveforms(batch: int, seed: int):
         (batch, SECONDS * SR)) * 0.1).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=1)
+def deepxi_xi_map():
+    """DeepXi's DBNormalCDF map, fitted once by `compute_xi_stats` on the
+    CPU from 8 seeded 4 s pairs (clean: noise-like, a slow envelope on
+    each; noise: white at 0.3 of it), shared by the card and the CPU."""
+    import numpy as np
+
+    from se_tpu_torch.models.deepxi import XiMap, compute_xi_stats
+
+    t = np.arange(SECONDS * SR) / SR
+    envelope = 0.55 + 0.45 * np.sin(2 * np.pi * 3.0 * t)
+    clean = waveforms(8, 300) * envelope.astype(np.float32)
+    noise = waveforms(8, 301) * 0.3
+    return compute_xi_stats(list(clean), list(noise), XiMap("DBNormalCDF"),
+                            device="cpu")
+
+
+def run_enhance(name: str, model, wav, device=None):
+    """Enhance `wav` (B, n) with `model` on `device` (None: the card) as
+    the family's users do, to numpy: `enhance_waveform`, or for DeepXi
+    `models.deepxi.enhance` with the fitted map (the hybrid io-kind has
+    no branch in `enhance_waveform`)."""
+    if name in DEEPXI_NETWORK:
+        from se_tpu_torch.models.deepxi import enhance
+
+        return enhance(model, wav, deepxi_xi_map(),
+                       length=wav.shape[-1]).cpu().numpy()
+    from se_tpu_torch.eval.enhance import enhance_waveform
+
+    return enhance_waveform(name, model, wav, device=device)
+
+
 def card_vs_cpu(name: str, est, cpu_model, wav, index: int, check: str):
     """Utterance `index` of the card's batch output against the same
     weights run on the CPU on that utterance alone."""
     import numpy as np
 
-    from se_tpu_torch.eval.enhance import enhance_waveform
-
-    ref = enhance_waveform(name, cpu_model, wav[index:index + 1],
-                           device="cpu")[0]
+    ref = run_enhance(name, cpu_model, wav[index:index + 1], "cpu")[0]
     err = float(np.abs(est[index] - ref).max())
     tol = 1e-3 * float(np.abs(ref).max())
     emit({"phase": "main", "model": name, "check": check,
@@ -986,9 +1058,11 @@ def main_path(name: str, dev, launches):
     cpu_model = seeded(name, 0)
     model = copy.deepcopy(cpu_model).to(dev)
     wav = waveforms(B_MAIN, 0)
+    if name in DEEPXI_NETWORK:
+        deepxi_xi_map()  # fitted before the count starts
 
     launches.clear()
-    est = enhance_waveform(name, model, wav)
+    est = run_enhance(name, model, wav)
     counts = dict(launches)
     emit({"phase": "main", "model": name, "launches": counts,
           "shape": list(est.shape)})
@@ -1010,17 +1084,30 @@ def main_path(name: str, dev, launches):
     return model, cpu_model, counts
 
 
+def forward_gflop(name: str, model) -> dict:
+    """The operations of one 4 s utterance's enhance call: the GEMMs and
+    convolutions torch.utils.flop_counter sees (2 per multiply-add), and
+    for the LSTM kernels (ctypes calls it cannot see) 2 T (In + H) 4H a
+    layer call, In = H = 512 for DeepXi's ResLSTM."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        run_enhance(name, model, waveforms(1, 2))
+    lstm = MAIN_PATHS[name]["lstm_recur"] * 2.0 * DEEPXI_T * 1024 * 2048
+    return {"gflop_torch_ops": counter.get_total_flops() / 1e9,
+            "gflop_lstm_kernels": lstm / 1e9}
+
+
 def throughput(name: str, model, cpu_model, card: str) -> None:
     import torch
 
-    from se_tpu_torch.eval.enhance import enhance_waveform
-
+    flops = forward_gflop(name, model) if name in DEEPXI_NETWORK else {}
     for batch in (32, 256):
         wav = waveforms(batch, batch)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        est = enhance_waveform(name, model, wav)  # warm-up
+        est = run_enhance(name, model, wav)  # warm-up
         warm_s = time.perf_counter() - t0
         if batch == 256 and name in TC_BATCH_CHECK:
             card_vs_cpu(name, est, cpu_model, wav, batch - 1,
@@ -1031,7 +1118,7 @@ def throughput(name: str, model, cpu_model, card: str) -> None:
         times = []
         for _ in range(repeats):
             t0 = time.perf_counter()
-            enhance_waveform(name, model, wav)
+            run_enhance(name, model, wav)
             times.append(time.perf_counter() - t0)
         rates = [batch * SECONDS / t for t in times]
         line = {"phase": "speed", "metric": f"{name}_enhance_fp32",
@@ -1040,38 +1127,54 @@ def throughput(name: str, model, cpu_model, card: str) -> None:
                 "min": min(rates), "max": max(rates), "repeats": repeats,
                 "warmup_s": warm_s,
                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-                "card": card}
+                "card": card, **flops}
+        if flops:  # operations a second, all utterances of the median call
+            gflop = flops["gflop_torch_ops"] + flops["gflop_lstm_kernels"]
+            line["tflop_per_s"] = gflop * line["audio_s_per_s"] \
+                / SECONDS / 1e3
         if repeats < 5:
             line["note"] = (f"the warm-up call took {warm_s:.1f} s > "
                             f"{SLOW_CALL_S:.0f} s: 2 timed calls, not 5")
         emit(line)
 
 
+# torch.profiler drops some of a call's events now and then (PERF.md
+# section 7: in full runs DeepXi's profiles lost the call's first events,
+# its STFT among them, attempt after attempt): a profile that misses a
+# kernel of PROFILE_KERNELS is taken again, up to this many times in all
+PROFILE_ATTEMPTS = 5
+
+
 def profile(name: str, model, card: str) -> None:
     """Device time by kernel over one enhance call at B = 32 x 4 s, and the
     device's busy share of the call's wall time (one stream: kernels do
-    not overlap)."""
+    not overlap). The line names the attempt it reports, and the kernels
+    of PROFILE_KERNELS its last attempt still missed (`missing`): a
+    failure for the families of PROFILE_GATED."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    from se_tpu_torch.eval.enhance import enhance_waveform
-
     wav = waveforms(32, 1)
-    enhance_waveform(name, model, wav)
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        enhance_waveform(name, model, wav)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only: the host ops that launched them carry the
-    # same device time and would count it twice
-    rows = [(evt.device_time_total / 1e3, evt.count, evt.key)
-            for evt in prof.key_averages()
-            if evt.device_type == DeviceType.CUDA]
+    run_enhance(name, model, wav)
+    want = PROFILE_KERNELS.get(name, ())
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run_enhance(name, model, wav)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        # device-side events only: the host ops that launched them carry
+        # the same device time and would count it twice
+        rows = [(evt.device_time_total / 1e3, evt.count, evt.key)
+                for evt in prof.key_averages()
+                if evt.device_type == DeviceType.CUDA]
+        missing = [k for k in want
+                   if not any(k in key for _, _, key in rows)]
+        if not missing:
+            break
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
-    want = PROFILE_KERNELS.get(name, ())
     seen = {k: sum(ms for ms, _, key in rows if k in key)
             for k in want}
     emit({"phase": "profile", "model": name, "batch": 32,
@@ -1079,11 +1182,10 @@ def profile(name: str, model, card: str) -> None:
           "device_busy_share": device_ms / wall_ms if wall_ms else None,
           "top": [{"ms": ms, "calls": n, "name": key[:90]}
                   for ms, n, key in rows[:12]], "kernels_ms": seen,
-          "card": card})
-    missing = [k for k in want
-               if not any(k in key for _, _, key in rows)]
-    if missing:
-        fail(f"{name}: the profile shows no {', '.join(missing)}")
+          "attempt": attempt, "missing": missing, "card": card})
+    if missing and name in PROFILE_GATED:
+        fail(f"{name}: {PROFILE_ATTEMPTS} profiles show no "
+             f"{', '.join(missing)}")
 
 
 # ------------------------------------------------------------ phase 7: train
@@ -1111,6 +1213,10 @@ TRAIN_PATHS = {
                 "dsconv_pair": 0, "dsconv": 0},
     "dpcrn": {"lstm": 8, "lstm_project": 4, "lstm_recur": 4, "stft": 2},
     **{name: {**ONLY_STFT, "stft": 2} for name in TCM_FAMILIES},
+    # DeepXi's driver step: MagXi's example takes the STFT of s, d and x
+    "deepxi": {**ONLY_STFT, "stft": 3},
+    "deepxi_reslstm": {**ONLY_STFT, "stft": 3, "lstm_project": 5,
+                       "lstm_recur": 5},
 }
 TRAIN_BATCH = 32  # bench.py's train default, 4 s utterances
 # fp32 round-off at a step's gradient scale: the share of its largest
@@ -1321,9 +1427,37 @@ def _dropout(model, rate: float) -> None:
             mod.rate = rate
 
 
-# a PReLU input this close to 0, relative to the call's largest |x|, is
-# within the round-off by which two fp32 forwards differ
+# a PReLU or ReLU input this close to 0, relative to the call's largest
+# |x|, is within the round-off by which two fp32 forwards differ
 PRELU_KINK = 1e-5
+
+
+def replay_branch(x, own, mask, seen: dict, label: str):
+    """The branch each element of x takes in a replayed step: its `own`,
+    or the recorded `mask` where |x| <= PRELU_KINK * max|x| of the call.
+    A recorded branch that differs from `own` further from 0 fails,
+    naming `label`; `seen` counts the calls, the elements taken from the
+    record against their own (`flips`) and their largest |x| / max|x|
+    (`flip_max_rel`)."""
+    import torch
+
+    if mask is None or mask.shape != x.shape:
+        fail("a replayed step called its kinks otherwise than the recorded "
+             "one")
+    mask = mask.to(x.device)
+    seen["calls"] += 1
+    flip = mask != own
+    ax = x.detach().abs()
+    top = ax.max()
+    if bool(flip.any()):
+        rel = float(ax[flip].max()) / max(float(top), 1e-30)
+        if not rel <= PRELU_KINK:
+            fail(f"{label}: the card's branch differs at |x| = {rel} x "
+                 f"max|x| of the call, past the round-off bound "
+                 f"{PRELU_KINK}")
+        seen["flips"] += int(flip.sum())
+        seen["flip_max_rel"] = max(seen["flip_max_rel"], rel)
+    return torch.where(ax <= PRELU_KINK * top, mask, own)
 
 
 @contextlib.contextmanager
@@ -1331,13 +1465,11 @@ def prelu_branches(model, masks: list, record: bool):
     """While open, every PReLU call of `model` records its branch (x >= 0)
     into `masks` (`record`), or takes the branch recorded at the same call
     of an earlier step where its own |x| <= PRELU_KINK * max|x| of the
-    call, and its own branch elsewhere. An input within round-off of the
-    kink has two valid subgradients, 1 and the slope: two steps that
-    should give the same gradients must take the same one. A recorded
-    branch that differs from this step's at a larger |x| fails, naming
-    the PReLU. The dict it yields counts the elements whose branch was
-    taken from the record against their own (`flips`) and their largest
-    |x| / max|x| (`flip_max_rel`)."""
+    call, and its own branch elsewhere (`replay_branch`). An input within
+    round-off of the kink has two valid subgradients, 1 and the slope:
+    two steps that should give the same gradients must take the same
+    one. The dict it yields counts the calls and the elements whose
+    branch was taken from the record against their own."""
     import torch
 
     from se_tpu_torch.nn import PReLU
@@ -1351,25 +1483,9 @@ def prelu_branches(model, masks: list, record: bool):
         if record:
             masks.append((x >= 0).cpu())
             return real(self, x)
-        mask = next(calls, None)
-        if mask is None or mask.shape != x.shape:
-            fail("a replayed step called its PReLUs otherwise than the "
-                 "recorded one")
-        mask, own = mask.to(x.device), x >= 0
-        seen["calls"] += 1
-        flip = mask != own
-        ax = x.detach().abs()
-        top = ax.max()
-        if bool(flip.any()):
-            rel = float(ax[flip].max()) / max(float(top), 1e-30)
-            if not rel <= PRELU_KINK:
-                fail(f"PReLU {names.get(id(self), '?')}: the card's branch "
-                     f"differs at |x| = {rel} x max|x| of the call, past "
-                     f"the round-off bound {PRELU_KINK}")
-            seen["flips"] += int(flip.sum())
-            seen["flip_max_rel"] = max(seen["flip_max_rel"], rel)
-        near = ax <= PRELU_KINK * top
-        return torch.where(torch.where(near, mask, own), x, self.weight * x)
+        take = replay_branch(x, x >= 0, next(calls, None), seen,
+                             f"PReLU {names.get(id(self), '?')}")
+        return torch.where(take, x, self.weight * x)
 
     PReLU.forward = forward
     try:
@@ -1379,6 +1495,73 @@ def prelu_branches(model, masks: list, record: bool):
                  f"recorded one {len(masks)}")
     finally:
         PReLU.forward = real
+
+
+@contextlib.contextmanager
+def relu_branches(masks: list, record: bool):
+    """`prelu_branches` for DeepXi's ReLUs (`F.relu` in models/deepxi.py,
+    the branch x > 0, as torch's relu differentiates it): 40 ResNetV2
+    blocks hold ~8e6 ReLU inputs a step at B = 2 x 4 s (384 a frame a
+    block), some within round-off of 0, whose gradient is 1 on one side
+    and 0 on the other."""
+    import torch
+    import torch.nn.functional as F
+
+    from se_tpu_torch.models import deepxi
+
+    calls = iter(masks)
+    seen = {"calls": 0, "flips": 0, "flip_max_rel": 0.0}
+
+    class Functional:  # torch.nn.functional, its relu replayed
+        def __getattr__(self, name):
+            return getattr(F, name)
+
+        @staticmethod
+        def relu(x):
+            if record:
+                masks.append((x > 0).cpu())
+                return F.relu(x)
+            take = replay_branch(x, x > 0, next(calls, None), seen,
+                                 f"ReLU call {seen['calls']}")
+            return torch.where(take, x, torch.zeros_like(x))
+
+    deepxi.F = Functional()
+    try:
+        yield seen
+        if not record and seen["calls"] != len(masks):
+            fail(f"a replayed step made {seen['calls']} ReLU calls, the "
+                 f"recorded one {len(masks)}")
+    finally:
+        deepxi.F = F
+
+
+def grads_vs_cpu(card: dict, cpu: dict, exact: dict) -> dict:
+    """Phase 7b's gradient check: each tensor of the card's step (name ->
+    fp64 CPU tensor) within tol = 1e-3 * max|grad| + GRAD_FLOOR * the
+    step's largest |grad| entry of the CPU's fp32 gradient, or within
+    max(tol, twice the CPU's fp32 distance) of the fp64 gradient (see
+    `train_vs_cpu`). Returns the worst ratio to that tolerance
+    (`grad_err_over_tol`), every tensor's (ratio, name, ratio to the fp32 CPU's
+    tolerance) largest first (`rows`), the floor, the tensors held to the
+    fp64 step and the CPU's three largest fp32 distances from it."""
+    floor = GRAD_FLOOR * max(float(g.abs().max()) for g in exact.values())
+    rows, by_exact, cpu_rel = [], [], []
+    for k, g64 in exact.items():
+        tol = 1e-3 * float(cpu[k].abs().max()) + floor
+        vs_cpu = float((card[k] - cpu[k]).abs().max())
+        cpu_off = float((cpu[k] - g64).abs().max())
+        card_off = float((card[k] - g64).abs().max())
+        if float(g64.abs().max()) > floor:  # how far fp32 strays, relative
+            cpu_rel.append((cpu_off / float(g64.abs().max()), k))
+        if vs_cpu > tol:  # the CPU's fp32 gradient strays
+            by_exact.append((k, card_off / cpu_off))
+        rows.append((min(vs_cpu / tol, card_off / max(tol, 2 * cpu_off)),
+                     k, vs_cpu / tol))
+    rows.sort(reverse=True)
+    return {"grad_err_over_tol": rows[0][0], "rows": rows,
+            "grad_floor": floor, "tensors": len(rows),
+            "held_to_fp64": by_exact,
+            "cpu_fp32_vs_fp64_worst": sorted(cpu_rel, reverse=True)[:3]}
 
 
 def train_vs_cpu(name: str, dev, launches) -> dict:
@@ -1448,21 +1631,9 @@ def train_vs_cpu(name: str, dev, launches) -> dict:
                                         ("flips", "flip_max_rel")})
     exact, cpu, card = sides["exact"], sides["cpu"], sides["card"]
     loss_err = abs(card[4] - cpu[4]) / abs(cpu[4])
-    floor = GRAD_FLOOR * max(float(g.abs().max()) for g in exact[5].values())
-    rows, by_exact, cpu_rel = [], [], []
-    for k, g64 in exact[5].items():
-        tol = 1e-3 * float(cpu[5][k].abs().max()) + floor
-        vs_cpu = float((card[5][k] - cpu[5][k]).abs().max())
-        cpu_off = float((cpu[5][k] - g64).abs().max())
-        card_off = float((card[5][k] - g64).abs().max())
-        if float(g64.abs().max()) > floor:  # how far fp32 strays, relative
-            cpu_rel.append((cpu_off / float(g64.abs().max()), k))
-        if vs_cpu > tol:  # the CPU's fp32 gradient strays
-            by_exact.append((k, card_off / cpu_off))
-        rows.append((min(vs_cpu / tol, card_off / max(tol, 2 * cpu_off)),
-                     k, vs_cpu / tol))
-    rows.sort(reverse=True)
-    worst = rows[0][0]
+    grads = grads_vs_cpu(card[5], cpu[5], exact[5])
+    rows, worst = grads["rows"], grads["grad_err_over_tol"]
+    floor = grads["grad_floor"]
     stat_worst = max([float((card[6][k] - v).abs().max())
                       / float(v.abs().max()) for k, v in cpu[6].items()]
                      or [0.0])
@@ -1470,11 +1641,8 @@ def train_vs_cpu(name: str, dev, launches) -> dict:
     emit({"phase": "train", "check": "card vs cpu step", "model": name,
           "batch": 2, "loss_card": card[4], "loss_cpu": cpu[4],
           "loss_cpu_fp64": exact[4], "loss_rel_err": loss_err,
-          "grad_err_over_tol": worst, "grad_worst": rows[:4],
-          "grad_floor": floor, "tensors": len(rows),
-          "held_to_fp64": by_exact,
-          "cpu_fp32_vs_fp64_worst": sorted(cpu_rel, reverse=True)[:3],
-          "bn_stat_err_over_max": stat_worst,
+          **{k: v for k, v in grads.items() if k != "rows"},
+          "grad_worst": rows[:4], "bn_stat_err_over_max": stat_worst,
           "prelu_calls": len(masks),
           "prelu_branches_taken_from_the_card": {"cpu_fp32": cpu[9],
                                                  "cpu_fp64": exact[9]},
@@ -1546,30 +1714,130 @@ def train_vs_cpu(name: str, dev, launches) -> dict:
     return counts
 
 
-def train_throughput(name: str, dev, card: str, do_profile: bool) -> None:
-    """Phase 7d: train steps at B = 32 x 4 s, dropout on: 2 warm-up steps,
-    then the median of 5 in audio-s/s, peak device memory, every step's
-    loss (all finite); with `do_profile`, device time by kernel of one
-    step (torch.profiler, top 10) and the device's busy share."""
+def trainer_step(name: str, dev):
+    """One train step of `name` at B = TRAIN_BATCH x 4 s through
+    `make_train_step` (dropout on), as a call that returns its loss."""
+    from se_tpu_torch.train.trainer import TrainConfig, make_train_step
+
+    _, init_fn, step_fn, _ = make_train_step(TrainConfig(model=name),
+                                             device=dev)
+    state = init_fn(0)
+    batch = _train_batch(TRAIN_BATCH, dev, 21)
+    return lambda: step_fn(state, batch)[1]
+
+
+def deepxi_driver(name: str, where, dtype):
+    """DeepXi's driver for `name` on `where` in `dtype`: the weights of
+    `seeded(name, 0)`, the map of `deepxi_xi_map()`."""
+    from se_tpu_torch.models.deepxi_driver import DeepXiDriver
+
+    drv = DeepXiDriver(network=DEEPXI_NETWORK[name], device=where)
+    drv.model.load_state_dict(seeded(name, 0).state_dict())
+    drv.model.to(dtype)
+    fitted = deepxi_xi_map()
+    drv.xi_map.mu, drv.xi_map.sigma = fitted.mu, fitted.sigma
+    return drv
+
+
+def deepxi_batch(batch: int, where, dtype, seed: int):
+    """`_train_batch`'s waveforms as the driver takes them: (s, x, frames),
+    frames 250 (its count from the padded length, as se_tpu's)."""
+    import torch
+
+    b = _train_batch(batch, where, seed)
+    frames = torch.full((batch,), DEEPXI_T, dtype=torch.int64, device=where)
+    return b["clean"].to(dtype), b["mix"].to(dtype), frames
+
+
+def deepxi_step(name: str, dev):
+    """One DeepXi driver step at B = TRAIN_BATCH x 4 s, as a call that
+    returns its loss."""
+    import torch
+
+    from se_tpu_torch.train.trainer import adam_state
+
+    drv = deepxi_driver(name, dev, torch.float32)
+    s, x, frames = deepxi_batch(TRAIN_BATCH, dev, torch.float32, 21)
+    opt_state = adam_state(dict(drv.model.named_parameters()))
+    return lambda: drv.train_step(s, x, frames, opt_state)
+
+
+def deepxi_train_vs_cpu(name: str, dev, launches) -> dict:
+    """Phase 7b for DeepXi: one driver step (`DeepXiDriver.train_step`:
+    the MagXi example, BCE with the frame mask, elementwise clip, Adam) of
+    `name` at B = 2 x 4 s from the same weights and map on the card in
+    fp32, on the CPU in fp32 and in fp64 (the exact step), the CPU's steps
+    taking the card's branch at every ReLU input within round-off of 0
+    (`relu_branches`, as 7b's PReLUs): the card's loss within 1e-4
+    relative of the CPU's, every gradient inside `grads_vs_cpu`'s
+    tolerance (phase 7b's), the step's launches
+    (TRAIN_PATHS: the STFT kernel for s, d and x; the ResLSTM's layers
+    forward). Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from se_tpu_torch.train.trainer import adam_state
+
+    sides = {}
+    masks: list = []  # the card's ReLU branches, call by call
+    for side, where, dtype in (("card", dev, torch.float32),
+                               ("exact", "cpu", torch.float64),
+                               ("cpu", "cpu", torch.float32)):
+        drv = deepxi_driver(name, where, dtype)
+        s, x, frames = deepxi_batch(2, where, dtype, 11)
+        opt_state = adam_state(dict(drv.model.named_parameters()))
+        launches.clear()
+        t0 = time.perf_counter()
+        with relu_branches(masks, record=side == "card") as seen:
+            loss = drv.train_step(s, x, frames, opt_state).item()
+        step_s = time.perf_counter() - t0
+        grads = {k: p.grad.detach().cpu().double()
+                 for k, p in drv.model.named_parameters()}
+        sides[side] = loss, grads, dict(launches), step_s, {
+            k: seen[k] for k in ("flips", "flip_max_rel")}
+    (loss, grads, counts, step_s, _), cpu, exact = (
+        sides["card"], sides["cpu"], sides["exact"])
+    loss_err = abs(loss - cpu[0]) / abs(cpu[0])
+    check = grads_vs_cpu(grads, cpu[1], exact[1])
+    rows = check.pop("rows")
+    emit({"phase": "train", "check": "card vs cpu step (DeepXiDriver)",
+          "model": name, "network": DEEPXI_NETWORK[name], "batch": 2,
+          "loss_card": loss, "loss_cpu": cpu[0], "loss_cpu_fp64": exact[0],
+          "loss_rel_err": loss_err, **check, "grad_worst": rows[:4],
+          "relu_calls": len(masks),
+          "relu_branches_taken_from_the_card": {"cpu_fp32": cpu[4],
+                                                "cpu_fp64": exact[4]},
+          "launches": counts, "step_s_card": step_s, "step_s_cpu": cpu[3],
+          "step_s_cpu_fp64": exact[3]})
+    if not np.isfinite(loss) or not loss_err <= 1e-4:
+        fail(f"{name}: card loss {loss} against the CPU's {cpu[0]}")
+    if not check["grad_err_over_tol"] <= 1.0:
+        fail(f"{name}: a gradient differs by {check['grad_err_over_tol']} "
+             f"x the tolerance ({rows[0][1]}, {rows[0][2]})")
+    for kernel, want in TRAIN_PATHS[name].items():
+        if counts.get(kernel, 0) != want:
+            fail(f"{name}: a train step launched {kernel} "
+                 f"{counts.get(kernel, 0)} times, expected {want}")
+    return counts
+
+
+def train_throughput(name: str, step, card: str, do_profile: bool) -> None:
+    """Phase 7d: `step()` (one train step at B = TRAIN_BATCH x 4 s, its
+    loss returned) 2 warm-up times, then the median of 5 in audio-s/s,
+    peak device memory, every step's loss (all finite); with
+    `do_profile`, device time by kernel of one step (torch.profiler, top
+    10) and the device's busy share."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    from se_tpu_torch.train.trainer import TrainConfig, make_train_step
-
-    torch.cuda.empty_cache()
-    model, init_fn, step_fn, _ = make_train_step(TrainConfig(model=name),
-                                                 device=dev)
-    state = init_fn(0)
-    batch = _train_batch(TRAIN_BATCH, dev, 21)
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
     for i in range(7):
         t0 = time.perf_counter()
-        state, loss = step_fn(state, batch)
-        losses.append(loss.item())
+        losses.append(step().item())
         if i >= 2:
             times.append(time.perf_counter() - t0)
     rates = [TRAIN_BATCH * SECONDS / t for t in times]
@@ -1587,8 +1855,7 @@ def train_throughput(name: str, dev, card: str, do_profile: bool) -> None:
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, loss = step_fn(state, batch)
-        loss.item()
+        step().item()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = sorted(((evt.device_time_total / 1e3, evt.count, evt.key)
                    for evt in prof.key_averages()
@@ -1678,11 +1945,15 @@ def main() -> None:
     train_counts = {}
     train_families = [f for f in TRAIN_PATHS if f in args.families]
     for name in train_families:
-        train_counts[name] = train_vs_cpu(name, dev, _build.LAUNCHES)
+        check = deepxi_train_vs_cpu if name in DEEPXI_NETWORK else \
+            train_vs_cpu
+        train_counts[name] = check(name, dev, _build.LAUNCHES)
         torch.cuda.empty_cache()
     for name in train_families:
-        train_throughput(name, dev, card,
-                         do_profile=name in ("uformer",) + TCM_FAMILIES)
+        make_step = deepxi_step if name in DEEPXI_NETWORK else trainer_step
+        train_throughput(name, make_step(name, dev), card,
+                         do_profile=name != "dpcrn")
+        torch.cuda.empty_cache()
     for name, row in table.items():
         row["backward"] = BACKWARD[name]
         row["grad_max_abs_err"] = grad_errors.get(name)

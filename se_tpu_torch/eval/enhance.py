@@ -9,8 +9,9 @@ magnitude in, complex ratio mask out).
 Per-utterance RMS gain c = sqrt(n / energy) is applied before the model and
 removed after it (for G2Net the other way round, as its reference does).
 Every spectral branch takes its STFT from `ops.stft_fused.stft_auto`: the
-fused CUDA kernel on the card. The
-"hybrid" io-kind (DeepXi) is not ported yet (ROADMAP.md, Queue 1).
+fused CUDA kernel on the card. The "hybrid" io-kind (DeepXi) has no branch
+here, as in se_tpu: it decodes through `models.deepxi.enhance` (and
+`models.deepxi_driver.DeepXiDriver.infer_dir`), with no RMS gain.
 """
 
 from __future__ import annotations
@@ -23,11 +24,6 @@ from se_tpu_torch.device import resolve_device
 from se_tpu_torch.models.registry import ModelEntry, get_model
 from se_tpu_torch.ops.stft import istft
 from se_tpu_torch.ops.stft_fused import stft_auto
-
-# io-kind -> the ROADMAP.md item that ports its decode branch
-_NOT_PORTED = {
-    "hybrid": "Queue 1 item 10 (deepxi)",
-}
 
 
 def _magphase(re, im):
@@ -79,10 +75,9 @@ def _enhance(entry: ModelEntry, model: torch.nn.Module, wav: torch.Tensor,
     """se_tpu's `_enhance_jit` for the ported io-kinds, fp32."""
     if entry.io_kind in ("mag_mask", "complex_map", "complex_mask", "cirm"):
         return _spectral(entry, model, wav, length, compressed)
-    if entry.io_kind != "waveform":
-        where = _NOT_PORTED.get(entry.io_kind, "no ROADMAP item")
-        raise NotImplementedError(
-            f"io kind {entry.io_kind!r} is not ported yet: {where}")
+    if entry.io_kind != "waveform":  # "hybrid"; se_tpu raises alike
+        raise ValueError(f"io kind {entry.io_kind!r} needs a dedicated "
+                         "driver (DeepXi's: models.deepxi.enhance)")
     est, _, _, _ = model(wav, wav)
     pad = length - est.shape[-1]
     if pad > 0:

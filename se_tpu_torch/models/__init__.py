@@ -3,6 +3,7 @@
 from se_tpu_torch.models import crn  # noqa: F401  (registers "crn")
 from se_tpu_torch.models import ctsnet  # noqa: F401  (registers "ctsnet")
 from se_tpu_torch.models import dccrn  # noqa: F401  (registers "dccrn")
+from se_tpu_torch.models import deepxi  # noqa: F401  (registers "deepxi")
 from se_tpu_torch.models import dpcrn  # noqa: F401  (registers "dpcrn")
 from se_tpu_torch.models import fullsubnet  # noqa: F401  (registers "fullsubnet")
 from se_tpu_torch.models import g2net  # noqa: F401  (registers "g2net")

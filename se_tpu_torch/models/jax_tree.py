@@ -96,3 +96,12 @@ def put_conv1d(sd: dict, prefix: str, tree: dict) -> None:
 def put_share_sep(sd: dict, prefix: str, tree: dict) -> None:
     """se_tpu's ShareSepConv `weight` (k,) -> the reference's (1, 1, k)."""
     sd[f"{prefix}.weight"] = tensor(tree["weight"]).reshape(1, 1, -1)
+
+
+def put_flax_layernorm(sd: dict, prefix: str, tree: dict) -> None:
+    """flax nn.LayerNorm's `scale` and `bias`, each where it has one ->
+    `weight`, `bias` (C,) (OnePassLayerNorm's names)."""
+    if "scale" in tree:
+        sd[f"{prefix}.weight"] = tensor(tree["scale"])
+    if "bias" in tree:
+        sd[f"{prefix}.bias"] = tensor(tree["bias"])

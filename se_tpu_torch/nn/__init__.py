@@ -9,16 +9,18 @@ from se_tpu_torch.nn.conv import (
     GluConvTranspose2d, Linear, ShareSepConv,
 )
 from se_tpu_torch.nn.norms import (
-    BatchNorm, CumulativeLayerNorm1d, CumulativeLayerNorm2d, InstanceNorm,
-    InstanceNorm1d, InstanceNorm2d, LayerNorm,
+    BatchNorm, CumulativeLayerNorm1d, CumulativeLayerNorm2d, FrameLayerNorm,
+    InstanceNorm, InstanceNorm1d, InstanceNorm2d, LayerNorm,
+    OnePassLayerNorm, SeqCausalLayerNorm, SeqLayerNorm, deepxi_normalisation,
 )
 from se_tpu_torch.nn.recurrent import LSTM, lstm_layer
 
 __all__ = ["BatchNorm", "ComplexConv2d", "ComplexConvTranspose2d",
            "ComplexDense", "Conv1d", "Conv2d", "ConvParams",
            "ConvTranspose2d", "CumulativeLayerNorm1d",
-           "CumulativeLayerNorm2d", "Dropout", "GluConv2d",
-           "GluConvTranspose2d", "InstanceNorm", "InstanceNorm1d",
-           "InstanceNorm2d", "LSTM",
-           "LayerNorm", "Linear", "NaiveComplexLSTM", "PReLU",
-           "ShareSepConv", "lstm_layer"]
+           "CumulativeLayerNorm2d", "Dropout", "FrameLayerNorm",
+           "GluConv2d", "GluConvTranspose2d", "InstanceNorm",
+           "InstanceNorm1d", "InstanceNorm2d", "LSTM", "LayerNorm", "Linear",
+           "NaiveComplexLSTM", "OnePassLayerNorm", "PReLU",
+           "SeqCausalLayerNorm", "SeqLayerNorm", "ShareSepConv",
+           "deepxi_normalisation", "lstm_layer"]

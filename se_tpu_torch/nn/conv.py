@@ -135,16 +135,23 @@ class Linear(nn.Module):
 class Conv1d(nn.Module):
     """A 1-D conv on (B, T, C) as torch.nn.Conv1d holds it: weight (O, I,
     k), bias (O,) or none. With k = 1 it is se_tpu's bias-free (or biased)
-    nn.Dense that the reference writes as a Conv1d(k=1); otherwise
-    se_tpu's CausalConv1d: (k - 1) * dilation frames of zeros before T and
-    none after. k = 1 runs a matmul on the channel axis, k > 1 F.conv1d
-    (se_tpu computes these outside any Pallas kernel)."""
+    nn.Dense that the reference writes as a Conv1d(k=1); otherwise, with
+    `padding` "causal", se_tpu's CausalConv1d: (k - 1) * dilation frames
+    of zeros before T and none after; with "same", flax's nn.Conv
+    padding="SAME": (k - 1) * dilation // 2 frames before, the rest after.
+    k = 1 runs a matmul on the channel axis, k > 1 F.conv1d (se_tpu
+    computes these outside any Pallas kernel)."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 1,
-                 dilation: int = 1, bias: bool = True):
+                 dilation: int = 1, bias: bool = True,
+                 padding: str = "causal"):
         super().__init__()
+        if padding not in ("causal", "same"):
+            raise ValueError(f"unknown padding {padding!r}")
         self.dilation = dilation
-        self.left_pad = (kernel - 1) * dilation
+        total = (kernel - 1) * dilation
+        self.pads = (total, 0) if padding == "causal" else \
+            (total // 2, total - total // 2)
         self.weight = nn.Parameter(torch.zeros(cout, cin, kernel))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
@@ -159,7 +166,7 @@ class Conv1d(nn.Module):
         if self.weight.shape[2] == 1:
             y = torch.matmul(x, self.weight[:, :, 0].t())
             return y if self.bias is None else y + self.bias
-        xn = F.pad(x.transpose(1, 2), (self.left_pad, 0))
+        xn = F.pad(x.transpose(1, 2), self.pads)
         return F.conv1d(xn, self.weight, self.bias,
                         dilation=self.dilation).transpose(1, 2)
 

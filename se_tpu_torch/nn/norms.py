@@ -1,8 +1,10 @@
 """Norms of se_tpu/nn/norms.py on channel-last tensors, with the reference
 PyTorch parameter and buffer names: LayerNorm and BatchNorm over the last
 axis; the instance norms and the cumulative (causal) layer norms of the
-TCM families (CTSNet, TaylorSENet, G2Net). No norm but BatchNorm keeps
-running statistics, so the others act alike in train and eval mode."""
+TCM families (CTSNet, TaylorSENet, G2Net); DeepXi's: flax's LayerNorm
+with its one-pass variance, and the reference's frame, sequence and
+sequence-causal norms. No norm but BatchNorm keeps running statistics, so
+the others act alike in train and eval mode."""
 
 from __future__ import annotations
 
@@ -154,3 +156,115 @@ class CumulativeLayerNorm1d(_CumulativeLayerNorm):
     """On (B, T, C): statistics over C; gain, bias (1, C, 1)."""
 
     trailing = 1
+
+
+class OnePassLayerNorm(nn.Module):
+    """flax's nn.LayerNorm over the last axis as DeepXi uses it (eps 1e-6,
+    the scale and the bias each optional), formula for formula: the
+    one-pass variance max(0, E[x^2] - E[x]^2) (flax's default
+    use_fast_variance), then (x - mean) * (rsqrt(var + eps) * weight) +
+    bias. Statistics in fp32 at least. `weight` and `bias` (C,) where
+    present."""
+
+    eps = 1e-6
+
+    def __init__(self, ch: int, scale: bool = True, bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(ch)) if scale else None
+        self.bias = nn.Parameter(torch.zeros(ch)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(_stat_dtype(x))
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.clamp(xf.square().mean(-1, keepdim=True)
+                          - mean.square(), min=0.0)
+        mul = torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            mul = mul * self.weight
+        y = (xf - mean) * mul
+        if self.bias is not None:
+            y = y + self.bias
+        return y.to(x.dtype)
+
+
+class _DeepXiNorm(nn.Module):
+    """The affine of DeepXi's own norms (ref normalisation.py): `gamma`
+    and `beta` (F,) where `scale` and `centre` ask for them; eps 1e-12
+    inside the rsqrt."""
+
+    def __init__(self, features: int, centre: bool = True,
+                 scale: bool = True):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.ones(features)) if scale else None
+        self.beta = nn.Parameter(torch.zeros(features)) if centre else None
+
+    def _affine(self, y: torch.Tensor) -> torch.Tensor:
+        if self.gamma is not None:
+            y = y * self.gamma
+        if self.beta is not None:
+            y = y + self.beta
+        return y
+
+
+def _frame_mask(x: torch.Tensor, seq_len: torch.Tensor) -> torch.Tensor:
+    """(B, T, 1): 1 on frames t < seq_len, 0 on the padded tail."""
+    t = torch.arange(x.shape[1], device=x.device)
+    return (t[None, :] < seq_len.to(x.device)[:, None]).to(x.dtype)[..., None]
+
+
+class SeqCausalLayerNorm(_DeepXiNorm):
+    """DeepXi's sequence-causal layer norm on (B, T, F) (se_tpu's
+    SeqCausalLayerNorm, ref normalisation.py:37-66): mu_t = cumsum_t(sum_f
+    x) / (t F) and sigma_t = cumsum_t(sum_f (x_u - mu_u)^2) / (t F), each
+    frame's deviation taken against its own running mean before the sum
+    (the reference's quirk, :57-59); the output zeroed past seq_len."""
+
+    def forward(self, x: torch.Tensor, seq_len: torch.Tensor) -> torch.Tensor:
+        xf = x.to(_stat_dtype(x))
+        t, f = x.shape[1], x.shape[2]
+        den = (torch.arange(1, t + 1, dtype=xf.dtype, device=x.device)
+               * f)[None, :, None]
+        mu = torch.cumsum(xf.sum(-1), -1)[..., None] / den
+        sigma = torch.cumsum((xf - mu).square().sum(-1), -1)[..., None] / den
+        y = self._affine((xf - mu) * torch.rsqrt(sigma + 1e-12))
+        return (y * _frame_mask(xf, seq_len)).to(x.dtype)
+
+
+class SeqLayerNorm(_DeepXiNorm):
+    """DeepXi's whole-sequence masked layer norm (ref
+    normalisation.py:131-149): one mean and variance an utterance over its
+    valid (time, feature) entries; the output zeroed past seq_len."""
+
+    def forward(self, x: torch.Tensor, seq_len: torch.Tensor) -> torch.Tensor:
+        xf = x.to(_stat_dtype(x))
+        mask = _frame_mask(xf, seq_len)
+        den = mask.sum(1, keepdim=True) * x.shape[2]
+        mean = (xf * mask).sum((1, 2), keepdim=True) / den
+        var = ((xf - mean).square() * mask).sum((1, 2), keepdim=True) / den
+        y = self._affine((xf - mean) * torch.rsqrt(var + 1e-12))
+        return (y * mask).to(x.dtype)
+
+
+class FrameLayerNorm(_DeepXiNorm):
+    """DeepXi's frame-wise layer norm (ref normalisation.py:69-98):
+    statistics a frame over the features, the variance two-pass."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(_stat_dtype(x))
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).square().mean(-1, keepdim=True)
+        return self._affine((xf - mu) * torch.rsqrt(var + 1e-12)).to(x.dtype)
+
+
+def deepxi_normalisation(norm_type: str, features: int,
+                         **kwargs) -> nn.Module:
+    """The reference's `Normalisation` dispatcher (ref
+    normalisation.py:15-34)."""
+    table = {"SeqCausalLayerNorm": SeqCausalLayerNorm,
+             "SeqLayerNorm": SeqLayerNorm,
+             "FrameLayerNorm": FrameLayerNorm}
+    if norm_type == "unnormalised":
+        raise ValueError("'unnormalised' needs no module; apply identity")
+    if norm_type not in table:
+        raise ValueError(f"Normalisation type does not exist: {norm_type}.")
+    return table[norm_type](features, **kwargs)

@@ -20,8 +20,10 @@ the card that should agree with the CPU needs
 `torch.backends.cudnn.allow_tf32 = False` (torch's default is True) and
 `torch.backends.cuda.matmul.allow_tf32 = False`, as chip_smoke.py sets.
 
-Not here yet: `compute_dtype="bf16"` (ROADMAP Queue 1 item 4), the hybrid
-io-kind of DeepXi (Queue 1 item 10), a device mesh (Queue 1 item 13).
+Not here yet: `compute_dtype="bf16"` (ROADMAP Queue 1 item 4), a device
+mesh (Queue 1 item 13). The hybrid io-kind (DeepXi) trains through its own
+driver, `models.deepxi_driver.DeepXiDriver.train`, as in se_tpu (whose
+`make_train_step` has no DeepXi branch either).
 """
 
 from __future__ import annotations
@@ -35,7 +37,6 @@ import numpy as np
 import torch
 
 from se_tpu_torch.device import resolve_device
-from se_tpu_torch.eval.enhance import _NOT_PORTED
 from se_tpu_torch.models import get_model
 from se_tpu_torch.models.fullsubnet import drop_band
 from se_tpu_torch.models.registry import ModelEntry
@@ -101,6 +102,14 @@ def _prep(entry: ModelEntry, mix, clean, compressed: bool):
     return mag, lmag, spec, lspec
 
 
+def adam_state(params: dict) -> dict:
+    """Adam's state for `params` (name -> tensor): count 0, the moments
+    zero."""
+    return {"count": 0,
+            "mu": {n: torch.zeros_like(p) for n, p in params.items()},
+            "nu": {n: torch.zeros_like(p) for n, p in params.items()}}
+
+
 def adam_update(params, grads, opt_state: dict, lr: float,
                 grad_clip: float | None) -> None:
     """optax `chain(clip_by_global_norm(grad_clip), scale_by_adam())`, then
@@ -142,8 +151,8 @@ def make_train_step(cfg: TrainConfig, device=None):
     entry = get_model(cfg.model)
     if entry.io_kind == "hybrid":
         raise NotImplementedError(
-            f"training io kind 'hybrid' is not ported yet: "
-            f"{_NOT_PORTED['hybrid']}")
+            "io kind 'hybrid' trains through its own driver: "
+            "models.deepxi_driver.DeepXiDriver.train")
     model = entry.make(**cfg.model_kwargs, device=dev)
     loss_name = cfg.loss if cfg.loss != "default" else \
         DEFAULT_LOSSES[cfg.model]
@@ -205,13 +214,8 @@ def make_train_step(cfg: TrainConfig, device=None):
         fresh = entry.make(**cfg.model_kwargs, device="cpu",
                            generator=torch.Generator().manual_seed(seed))
         model.load_state_dict(fresh.state_dict())
-        params = dict(model.named_parameters())
         return {"model": model,
-                "opt_state": {
-                    "count": 0,
-                    "mu": {n: torch.zeros_like(p) for n, p in params.items()},
-                    "nu": {n: torch.zeros_like(p)
-                           for n, p in params.items()}},
+                "opt_state": adam_state(dict(model.named_parameters())),
                 "step": 0, "lr_scale": 1.0,
                 "generator": torch.Generator(dev).manual_seed(seed)}
 

@@ -631,3 +631,73 @@ def test_stft_kernel_refuses_an_input_that_requires_grad(gen, dev):
     (x,) = to_torch((rand(gen, 2, 8000),), device=dev)
     with pytest.raises(ValueError, match="no gradient"):
         stft_fused.stft_fused(x.requires_grad_(), plain_stft.PRESET_320)
+
+
+# DeepXi at narrow widths: ResNetV2 (torch ops around the STFT kernel) and
+# ResLSTM (its layers on the LSTM kernels: small folds at B = 2)
+DEEPXI_KWARGS = {"ResNetV2": (("d_model", 64), ("n_blocks", 4), ("d_f", 16)),
+                 "ResLSTM": (("d_model", 64), ("n_blocks", 2))}
+
+
+def _deepxi_pair(network, dev):
+    """(the CPU's driver, the card's) with the same weights and a map
+    fitted once on the CPU."""
+    from se_tpu_torch.models.deepxi_driver import DeepXiDriver
+
+    cpu = DeepXiDriver(network=network, network_kwargs=DEEPXI_KWARGS[network],
+                       device="cpu")
+    rng = np.random.default_rng(4)
+    clean = rand(rng, 2, 16000, scale=0.1)
+    cpu.sample_stats(list(clean), list(rand(rng, 2, 16000, scale=0.05)),
+                     save=False)
+    card = DeepXiDriver(network=network,
+                        network_kwargs=DEEPXI_KWARGS[network], device=dev)
+    card.model.load_state_dict(cpu.model.state_dict())
+    card.xi_map.mu, card.xi_map.sigma = cpu.xi_map.mu, cpu.xi_map.sigma
+    return cpu, card
+
+
+@pytest.mark.parametrize("network", ["ResNetV2", "ResLSTM"])
+def test_deepxi_enhance_on_the_card_matches_the_cpu(gen, dev, network):
+    """`models.deepxi.enhance` on the card: the STFT kernel once, each
+    ResLSTM layer on the LSTM kernels; within 1e-4 * max|cpu|."""
+    from se_tpu_torch.models.deepxi import enhance
+
+    cpu, card = _deepxi_pair(network, dev)
+    wav = rand(gen, 2, 16000, scale=0.1)
+    before = dict(_build.LAUNCHES)
+    got = enhance(card.model, wav, card.xi_map, length=16000)
+    launched = {k: _build.LAUNCHES[k] - before.get(k, 0)
+                for k in ("stft", "lstm", "lstm_project", "lstm_recur")}
+    layers = 2 if network == "ResLSTM" else 0
+    assert launched["stft"] == 1
+    assert launched["lstm"] + launched["lstm_recur"] == layers
+    want = enhance(cpu.model, wav, cpu.xi_map, length=16000)
+    assert got.device.type == "cuda" and got.shape == (2, 16000)
+    scale = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("network", ["ResNetV2", "ResLSTM"])
+def test_deepxi_train_step_on_the_card_matches_the_cpu(gen, dev, network):
+    """One `DeepXiDriver.train_step` at B = 2 x 1 s on each side: the loss
+    within 1e-4 relative, each gradient within 1e-3 of its tensor's largest
+    entry plus 1e-6 of the step's largest (chip_smoke.py phase 7b's)."""
+    from se_tpu_torch.train.trainer import adam_state
+
+    drivers = _deepxi_pair(network, dev)
+    clean = rand(gen, 2, 16000, scale=0.1)
+    noisy = clean + rand(gen, 2, 16000, scale=0.1)
+    out = []
+    for drv in drivers:
+        s, x, frames = drv._batch(clean, noisy)
+        opt = adam_state(dict(drv.model.named_parameters()))
+        loss = drv.train_step(s, x, frames, opt).item()
+        out.append((loss, {k: p.grad.cpu() for k, p in
+                           drv.model.named_parameters()}))
+    (loss_cpu, g_cpu), (loss_card, g_card) = out
+    assert abs(loss_card - loss_cpu) <= 1e-4 * abs(loss_cpu)
+    floor = 1e-6 * max(float(g.abs().max()) for g in g_cpu.values())
+    for k, g in g_cpu.items():
+        tol = 1e-3 * float(g.abs().max()) + floor
+        assert float((g_card[k] - g).abs().max()) <= tol, k

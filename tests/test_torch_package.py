@@ -40,7 +40,9 @@ def test_port_imports_no_jax_flax_or_se_tpu():
     for new in ("train/losses.py", "train/trainer.py", "train/checkpoint.py",
                 "data/wav.py", "data/dataset.py", "ops/_autograd.py",
                 "models/ctsnet.py", "models/taylorsenet.py",
-                "models/g2net.py", "models/tcm_parts.py"):
+                "models/g2net.py", "models/tcm_parts.py", "models/deepxi.py",
+                "models/deepxi_inp_tgt.py", "models/deepxi_driver.py",
+                "eval/gains.py", "eval/metrics.py", "ops/stdct.py"):
         assert pkg / new in files, new
     for path in files:
         bad = _imported_roots(path) & FORBIDDEN
@@ -65,9 +67,11 @@ def test_enhance_refuses_weights_on_another_device():
 
 
 def test_unported_io_kind_names_its_roadmap_item():
+    """The hybrid io-kind (DeepXi) has no branch in the decode driver, as
+    in se_tpu: it raises and names the function that decodes DeepXi."""
     entry = ModelEntry("deepxi", make=None, stft=PRESET_320,
                        io_kind="hybrid")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(ValueError, match="models.deepxi.enhance"):
         enhance._enhance(entry, None, torch.zeros(1, 1600), 1600)
 
 
@@ -86,12 +90,12 @@ def test_fullsubnet_entry_points_raise_without_cuda(monkeypatch):
 def test_registry_holds_uformer():
     entry = get_model("uformer")
     assert entry.io_kind == "waveform" and entry.make is Uformer
-    assert available_models() == ["crn", "ctsnet", "dccrn", "dpcrn",
-                                  "fullsubnet", "g2net", "gcrn", "lstm",
-                                  "taylorsenet", "uformer"]
+    assert available_models() == ["crn", "ctsnet", "dccrn", "deepxi",
+                                  "dpcrn", "fullsubnet", "g2net", "gcrn",
+                                  "lstm", "taylorsenet", "uformer"]
     with pytest.raises(KeyError, match="uformer"):
-        get_model("deepxi")
-    assert set(enhance._NOT_PORTED) == {"hybrid"}
+        get_model("no_such_model")
+    assert not hasattr(enhance, "_NOT_PORTED")  # every io-kind is ported
 
 
 def test_dccrn_entry_points_raise_without_cuda(monkeypatch):
