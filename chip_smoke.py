@@ -8,14 +8,17 @@ enhancement of eleven model families: Uformer (waveform), FullSubNet
 DeepXi (hybrid: `models.deepxi.enhance`; "deepxi" the shipped ResNetV2,
 "deepxi_reslstm" the ResLSTM variant on the LSTM kernels); and training
 Uformer, DPCRN, the three TCM families and both DeepXi paths (DeepXi
-through its driver's step).
+through its driver's step); streaming decode (LSTMNet, CRN, GCRN and DPCRN
+carrying their LSTM state chunk after chunk; Uformer's windowed decode);
+and the command line.
 
     python3 chip_smoke.py [--kernels lstm,...] [--families fullsubnet,...]
 
 With no options, every kernel and every family; the options narrow
-phases 3 and 7a to some kernels and phases 4-6 and 7b-7d to some
+phases 3 and 7a to some kernels and phases 4-6, 7b-7d and 8-9 to some
 families, for comparing two versions of the package (run the script in
-each tree).
+each tree). `--families lstm,crn,gcrn,dpcrn,uformer` runs every stream
+and the command line.
 
 Phases, one JSON line per result:
   1. env:    the card (nvidia-smi name and power limit), torch and CUDA;
@@ -111,9 +114,38 @@ Phases, one JSON line per result:
              steps, the median of 5 in audio-s/s, peak device memory, every
              step's loss (finite); but for DPCRN the device time by kernel
              of one step (top 10) and the busy share.
+  8. stream: (a, b) LstmStreamer (a 3 s utterance plus 77 samples in
+             0.1 s pieces) and CausalStreamer for CRN, GCRN and DPCRN (1.5
+             s in tests/test_streaming.py's pieces), chunks of 16 frames,
+             at published widths from a seed, the gain passed in: the
+             stream on the card against the card's own offline
+             `enhance_waveform` and against the same stream on the CPU,
+             each within 1e-3 * max|ref|, with the LSTM kernels launched
+             (STREAM_PATHS; counts set to 0 just before each stream); (c)
+             Uformer's `enhance_windowed` at its defaults (4 s chunks, 2 s
+             context, max_batch 16) over 8.5 s against the CPU at
+             max_batch 2, with its four kernels launched; (d) the median
+             wall time of a push that completes one chunk (0.16 s of
+             audio), its real-time factor and the launches a chunk, for
+             each streamer; in turns with it the same pushes with the
+             LSTM weights packed once (`_PackedOnce`, ROADMAP R10) and
+             their paired difference; the device busy share of a chunk;
+             and Uformer's windowed audio-s/s over 60 s
+             (15 windows, one batch), each beside the card. Phase 3 holds
+             the LSTM kernels at these streams' shapes, each call with a
+             carry (STREAM_LSTM_CALLS), and a chain of three carried calls
+             across both designs (`check_carry_chain`).
+  9. cli:    `python -m se_tpu_torch` as subprocesses in a temporary
+             directory with two seeded 1 s pairs and a manifest: train
+             DPCRN (one step), enhance from its checkpoint, stream exact
+             (LSTMNet) and windowed (GCRN), score; each must exit 0, the
+             enhanced wavs match the restored model's in-process decode
+             within 1e-3 * max + one 16-bit step, every CSV column is
+             finite; each command's wall seconds.
 Then the kernel table as one JSON line (a row's "launches" are those of the
 phase-4 forward its note names, "launches_all_paths" those of all twelve,
-"launches_train_step" those of one train step of each trained family; its
+"launches_train_step" those of one train step of each trained family,
+"launches_stream" those of each phase-8 path; its
 "backward" names the twin whose VJP it recomputes, "grad_max_abs_err"
 phase 7a's error) and, last, the device line. Any
 failure exits non-zero; without a CUDA device, or without the se_tpu_torch
@@ -585,8 +617,71 @@ def lstm_cases(gen, dev):
             ("FullSubNet T=506", b * FSN_F, 2 * FSN_T, 384, 384, False,
              False),
             ("FullSubNet T=1012", b * FSN_F, 4 * FSN_T, 384, 384, False,
-             False)):
+             False),
+            # phase 8's streams, each call with a carry: Bf = 1 (the
+            # DPCRN fold Bf = F = 4), T = 16 on the persistent design and
+            # the first chunk's splits (6, 10) on the tensor-core step
+            *STREAM_LSTM_CALLS):
         yield case(label, bf, t_len, in_dim, h, reverse, carry)
+
+
+# (label, Bf, T, In, H, reverse, carry): the layer calls of phase 8's
+# streams at chunk_frames 16 (CausalStreamer's first chunk splits at 16 -
+# R: 6 for CRN and DPCRN, R = 10; the later chunks run R + 16 = 26 frames
+# split at 16, then 10)
+STREAM_LSTM_CALLS = (
+    ("stream LSTMNet lstm1", 1, 16, 161, 1024, False, True),
+    ("stream LSTMNet lstm1", 1, 6, 161, 1024, False, True),
+    ("stream LSTMNet lstm2 / CRN", 1, 16, 1024, 1024, False, True),
+    ("stream LSTMNet lstm2", 1, 6, 1024, 1024, False, True),
+    ("stream CRN", 1, 10, 1024, 1024, False, True),
+    ("stream GCRN glstm", 1, 16, 512, 512, False, True),
+    ("stream DPCRN inter", 4, 16, 128, 128, False, True),
+    ("stream DPCRN inter", 4, 10, 128, 128, False, True))
+
+
+def check_carry_chain(dev) -> None:
+    """A stream's carries, chunk after chunk: three layer calls, each fed
+    the (h_T, c_T) the call before returned (T = 16, 6, 16 at Bf = 1, 1024
+    -> 1024: persistent, tensor-core step, persistent; T = 10, 16, 10 at
+    DPCRN's Bf = 4, 128 -> 128), against the twin's chain; and each
+    returned carry again after the later calls ran, which must not have
+    overwritten it (the kernels return h_T as a view of their state
+    buffer: `_state` copies h0 and clones c0 into fresh buffers)."""
+    import torch
+
+    from se_tpu_torch.ops import lstm
+
+    gen = torch.Generator().manual_seed(7)
+    for bf, h, lens in ((1, 1024, (16, 6, 16)), (4, 128, (10, 16, 10))):
+        wx, wh, b = lstm_weights(gen, dev, h, h)
+        xs = [torch.randn(bf, t, h, generator=gen).to(dev) for t in lens]
+        h0, c0 = (torch.randn(bf, h, generator=gen).mul(0.5).to(dev)
+                  for _ in range(2))
+        err, scale, kept = 0.0, 1.0, []
+        state, twin_state = (h0, c0), (h0, c0)
+        with torch.no_grad():
+            for x in xs:
+                ys, state = lstm.lstm_layer_kernel(x, wx, wh, b, False,
+                                                   *state)
+                want, twin_state = lstm._reference(x, wx, wh, b, False,
+                                                   *twin_state)
+                kept.append((state, tuple(t.clone() for t in state)))
+                for g, w in ((ys, want), *zip(state, twin_state)):
+                    err = max(err, float((g - w).abs().max()))
+                    scale = max(scale, float(w.abs().max()))
+            torch.cuda.synchronize()
+            moved = max(float((t - c).abs().max())
+                        for carry, copy_ in kept
+                        for t, c in zip(carry, copy_))
+        tol = 1e-4 * scale
+        emit({"phase": "kernel", "kernel": "lstm",
+              "case": f"carry chain {bf}x{lens}x{h}->{h}",
+              "max_abs_err": err, "tol": tol,
+              "returned_carry_overwritten_by": moved})
+        if not err <= tol or moved != 0.0:
+            fail(f"lstm carry chain Bf = {bf}, T = {lens}: error {err} > "
+                 f"{tol} or a returned carry changed by {moved}")
 
 
 LSTMNET_LAYERS = (("lstm1", 161), ("lstm2", 1024), ("lstm3", 1024))
@@ -831,6 +926,8 @@ def check_kernels(dev, only) -> dict:
     }
     if "lstm_recur" in only:
         check_recur_plans(dev)
+    if "lstm" in only:
+        check_carry_chain(dev)
     table = {}
     for name, kind in kinds.items():
         if name not in only:
@@ -1634,9 +1731,11 @@ def train_vs_cpu(name: str, dev, launches) -> dict:
     grads = grads_vs_cpu(card[5], cpu[5], exact[5])
     rows, worst = grads["rows"], grads["grad_err_over_tol"]
     floor = grads["grad_floor"]
+    # the buffers: BN statistics, and the LSTMs' zero `bias_hh` (one
+    # trained bias), whose error counts absolute
     stat_worst = max([float((card[6][k] - v).abs().max())
-                      / float(v.abs().max()) for k, v in cpu[6].items()]
-                     or [0.0])
+                      / (float(v.abs().max()) or 1.0)
+                      for k, v in cpu[6].items()] or [0.0])
     counts = card[7]
     emit({"phase": "train", "check": "card vs cpu step", "model": name,
           "batch": 2, "loss_card": card[4], "loss_cpu": cpu[4],
@@ -1871,6 +1970,347 @@ def train_throughput(name: str, step, card: str, do_profile: bool) -> None:
           "card": card})
 
 
+# ----------------------------------------------------------- phase 8: stream
+
+CHUNK = 16  # frames a stream's chunk (the streamers' default)
+# family: the kernels a stream must launch. LSTMNet: every full chunk is
+# T = 16 on the small fold's two kernels, its 13-frame tail the
+# tensor-core step; CRN and DPCRN: each chunk's 10 replayed frames (the
+# first chunk's 6 and 10) the tensor-core step, the 16-frame splits the
+# small fold; DPCRN's intra BiLSTM (T = 4 bins) the tensor-core step; GCRN
+# replays nothing: 16-frame chunks on the small fold, its 7-frame tail on
+# the tensor-core step
+STREAM_PATHS = {"lstm": ("lstm", "lstm_project", "lstm_recur"),
+                "crn": ("lstm", "lstm_project", "lstm_recur"),
+                "gcrn": ("lstm", "lstm_project", "lstm_recur"),
+                "dpcrn": ("lstm", "lstm_project", "lstm_recur")}
+
+
+def _stream(st, wav, cuts):
+    import numpy as np
+
+    edges = [0, *cuts, len(wav)]
+    parts = [st.push(wav[a:b]) for a, b in zip(edges, edges[1:])]
+    return np.concatenate(parts + [st.flush()])
+
+
+def _streamer(name: str, model, gain, device=None):
+    from se_tpu_torch.eval.streaming import CausalStreamer, LstmStreamer
+
+    if name == "lstm":
+        return LstmStreamer(model, chunk_frames=CHUNK, gain=gain,
+                            device=device)
+    return CausalStreamer(name, model, chunk_frames=CHUNK, gain=gain,
+                          device=device)
+
+
+def _within(label: str, got, ref) -> dict:
+    """max |got - ref| against 1e-3 * max|ref| (phase 4's rule)."""
+    import numpy as np
+
+    err = float(np.abs(got - ref).max())
+    tol = 1e-3 * float(np.abs(ref).max())
+    if got.shape != ref.shape or not np.isfinite(got).all() \
+            or not err <= tol:
+        fail(f"{label}: shape {got.shape} vs {ref.shape}, error {err} > "
+             f"{tol}")
+    return {"max_abs_err": err, "tol": tol}
+
+
+def stream_path(name: str, dev, launches, card: str) -> dict:
+    """Phase 8 (a, b) for one family: the stream on the card against the
+    card's own offline `enhance_waveform` (the gain passed in, so the two
+    agree to the sum order of the STFT kernel against the basis product)
+    and against the same stream on the CPU, each within 1e-3 * max|ref|;
+    the kernels the stream launched (counts set to 0 just before it); then
+    (d) the median wall time of a push that completes one chunk, its
+    real-time factor and the launches a chunk. LSTMNet: a 3 s utterance
+    plus 77 samples in 0.1 s pieces; the causal families: 1.5 s in
+    tests/test_streaming.py's pieces."""
+    import numpy as np
+
+    from se_tpu_torch.eval.enhance import enhance_waveform
+
+    cpu_model = seeded(name, 0)
+    model = copy.deepcopy(cpu_model).to(dev)
+    if name == "lstm":
+        wav = waveforms(1, 80)[0][:3 * SR + 77]
+        cuts = list(range(SR // 10, len(wav), SR // 10))
+    else:
+        wav = waveforms(1, 81)[0][:24000]
+        cuts = [900, 7777, 15555]
+    gain = float(np.sqrt(len(wav) / np.sum(np.square(wav))))
+
+    launches.clear()
+    got = _stream(_streamer(name, model, gain), wav, cuts)
+    counts = dict(launches)
+    offline = enhance_waveform(name, model, wav)
+    on_cpu = _stream(_streamer(name, cpu_model, gain, "cpu"), wav, cuts)
+    line = {"phase": "stream", "model": name, "samples": len(wav),
+            "launches": counts,
+            "vs_offline_card": _within(f"{name} stream vs offline", got,
+                                       offline),
+            "vs_stream_cpu": _within(f"{name} stream card vs cpu", got,
+                                     on_cpu)}
+    missing = [k for k in STREAM_PATHS[name] if counts.get(k, 0) == 0]
+    if missing:
+        fail(f"{name}: the stream launched no {', '.join(missing)}")
+
+    # (d) a push of one chunk's samples completes one chunk
+    times, packed, per_chunk = _chunk_pushes(name, model, gain, launches)
+    busy = _chunk_device_share(name, model, gain)
+    ms = statistics.median(times)
+    chunk_ms = CHUNK * HOP / SR * 1e3
+    line.update({"push_ms_median": ms, "push_ms_min": min(times),
+                 "push_ms_max": max(times), "pushes": len(times),
+                 "chunk_ms_audio": chunk_ms,
+                 "real_time_factor": ms / chunk_ms,
+                 "launches_per_chunk": statistics.median(per_chunk),
+                 "push_ms_median_weights_packed_once":
+                     statistics.median(packed),
+                 "packing_ms_per_chunk_paired": statistics.median(
+                     t - q for t, q in zip(times, packed)),
+                 **busy, "card": card})
+    emit(line)
+    return counts
+
+
+def _chunk_pushes(name, model, gain, launches):
+    """Two streams of the same samples in turns, one as it runs and one
+    with the LSTM weights packed once (`_PackedOnce`), the one going first
+    alternating: after a 0.5 s start, 20 pushes of one chunk's samples (16
+    hops) each, each completing one chunk. Returns the wall ms of each
+    stream's pushes (pair i: the same chunk) and the launches of the plain
+    stream's."""
+    long = waveforms(1, 82)[0]
+    plain, packed = (_streamer(name, model, gain) for _ in range(2))
+    once = _PackedOnce()
+    for st, ctx in ((plain, contextlib.nullcontext()), (packed, once)):
+        with ctx:
+            st.push(long[:SR // 2])
+    times, packed_times, per_chunk = [], [], []
+    for i in range(20):
+        a = SR // 2 + i * CHUNK * HOP
+        turns = [(plain, contextlib.nullcontext(), times),
+                 (packed, once, packed_times)]
+        for st, ctx, out in turns if i % 2 == 0 else turns[::-1]:
+            before, n_launch = st._frame_pos, sum(launches.values())
+            with ctx:
+                t0 = time.perf_counter()
+                st.push(long[a:a + CHUNK * HOP])
+                out.append((time.perf_counter() - t0) * 1e3)
+            if st._frame_pos - before != CHUNK:
+                fail(f"{name}: a push of {CHUNK} hops completed "
+                     f"{st._frame_pos - before} frames")
+            if st is plain:
+                per_chunk.append(sum(launches.values()) - n_launch)
+    return times, packed_times, per_chunk
+
+
+class _PackedOnce:
+    """Inside `with`, each LSTM layer's weights transposed
+    (`LSTM.layer_weights`) and packed for its kernels (`pack_input`,
+    `pack_recurrent`, `pack_weights`) once, not at every layer call: what
+    packing the weights once per model (ROADMAP R10) would save a chunk.
+    The caches live as long as the object; the weights must not change."""
+
+    def __init__(self):
+        from se_tpu_torch.nn.recurrent import LSTM
+        from se_tpu_torch.ops import lstm
+
+        self.lstm, self.cls = lstm, LSTM
+        self.saved = {n: getattr(lstm, n) for n in
+                      ("pack_input", "pack_recurrent", "pack_weights")}
+        self.layer_weights = LSTM.layer_weights
+        ptrs = lambda *ts: tuple(t.data_ptr() for t in ts)  # noqa: E731
+        self.cached = {n: self._once(fn, ptrs)
+                       for n, fn in self.saved.items()}
+        self.cached_layer_weights = self._once(
+            self.layer_weights, lambda m, sfx: (id(m), sfx))
+
+    @staticmethod
+    def _once(fn, key):
+        cache = {}
+
+        def run(*args):
+            k = key(*args)
+            if k not in cache:
+                cache[k] = fn(*args)
+            return cache[k]
+        return run
+
+    def __enter__(self):
+        for n, fn in self.cached.items():
+            setattr(self.lstm, n, fn)
+        self.cls.layer_weights = self.cached_layer_weights
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.lstm, n, fn)
+        self.cls.layer_weights = self.layer_weights
+
+
+def _chunk_device_share(name, model, gain) -> dict:
+    """torch.profiler over 5 pushes of one chunk each: the device time a
+    chunk (kernels only) and its share of the pushes' wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    st = _streamer(name, model, gain)
+    long = waveforms(1, 84)[0]
+    st.push(long[:SR // 2])
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(5):
+            a = SR // 2 + i * CHUNK * HOP
+            st.push(long[a:a + CHUNK * HOP])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = sum(evt.device_time_total for evt in prof.key_averages()
+                 if evt.device_type == DeviceType.CUDA) / 1e3
+    return {"device_ms_per_chunk": device / 5,
+            "device_busy_share": device / wall_ms}
+
+
+def windowed_uformer(dev, launches, card: str) -> dict:
+    """Phase 8 (c): `enhance_windowed` on Uformer at its defaults (4 s
+    chunks, 2 s context, max_batch 16) over 8.5 s, three windows in one
+    padded batch, against the CPU at max_batch 2 (two batches, the second
+    padded) within 1e-3 * max|cpu|, with every Uformer kernel launched;
+    then the windowed throughput over 60 s (15 windows, one batch)."""
+    import numpy as np
+
+    from se_tpu_torch.eval.streaming import enhance_windowed
+
+    cpu_model = seeded("uformer", 0)
+    model = copy.deepcopy(cpu_model).to(dev)
+    rng = np.random.default_rng(83)
+    wav = (rng.standard_normal(int(8.5 * SR)) * 0.1).astype(np.float32)
+    launches.clear()
+    got = enhance_windowed("uformer", model, wav)
+    counts = dict(launches)
+    cpu = enhance_windowed("uformer", cpu_model, wav, max_batch=2,
+                           device="cpu")
+    line = {"phase": "stream", "model": "uformer windowed",
+            "samples": len(wav), "launches": counts,
+            "vs_cpu_max_batch_2": _within("uformer windowed card vs cpu",
+                                          got, cpu)}
+    missing = [k for k in MAIN_PATHS["uformer"] if counts.get(k, 0) == 0]
+    if missing:
+        fail(f"uformer windowed: launched no {', '.join(missing)}")
+    minute = (rng.standard_normal(60 * SR) * 0.1).astype(np.float32)
+    enhance_windowed("uformer", model, minute)  # warm-up
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        enhance_windowed("uformer", model, minute)
+        times.append(time.perf_counter() - t0)
+    line.update({"seconds_audio": 60, "windows": 15, "batches": 1,
+                 "audio_s_per_s": 60 / statistics.median(times),
+                 "call_s": times, "card": card})
+    emit(line)
+    return counts
+
+
+# -------------------------------------------------------------- phase 9: cli
+
+CLI_FAMILIES = ("dpcrn", "lstm", "gcrn")
+
+
+def cli_phase(dev, card: str) -> None:
+    """Phase 9: the command line as its users run it, each command a
+    subprocess `python -m se_tpu_torch ...` (the TF32 flags its own) in a
+    temporary directory with two seeded 1 s noisy / clean pairs and a
+    manifest (the verify recipe's fixture): train DPCRN one step, enhance
+    from its checkpoint, stream exact (LSTMNet) and windowed (GCRN),
+    score. Each must exit 0; the enhanced wavs must match the restored
+    model's in-process `enhance_waveform` within 1e-3 * max + one 16-bit
+    step; every CSV column must be finite."""
+    import csv
+    import json
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from se_tpu_torch.data import read_wav, write_wav
+    from se_tpu_torch.eval.enhance import enhance_waveform
+    from se_tpu_torch.train.checkpoint import restore_checkpoint
+    from se_tpu_torch.train.trainer import TrainConfig, make_train_step
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(0)
+        for d in ("noisy", "clean"):
+            os.makedirs(os.path.join(tmp, d))
+        ids = []
+        for i in range(2):
+            c = (rng.standard_normal(SR) * 0.1).astype(np.float32)
+            n = (rng.standard_normal(SR) * 0.03).astype(np.float32)
+            write_wav(os.path.join(tmp, "clean", f"u{i}.wav"), c, SR)
+            write_wav(os.path.join(tmp, "noisy", f"u{i}.wav"), c + n, SR)
+            ids.append(f"u{i}")
+        with open(os.path.join(tmp, "files.json"), "w") as f:
+            json.dump(ids, f)
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        commands = (
+            ("train", ["train", "--model", "dpcrn", "--mix-dir", "noisy",
+                       "--clean-dir", "clean", "--manifest", "files.json",
+                       "--batch-size", "2", "--epochs", "1",
+                       "--checkpoint-dir", "CP"]),
+            ("enhance", ["enhance", "--model", "dpcrn", "--checkpoint",
+                         "CP", "--mix-dir", "noisy", "--out-dir", "est"]),
+            ("stream exact", ["stream", "--mode", "exact", "--model",
+                              "lstm", "--mix-dir", "noisy", "--out-dir",
+                              "stream_exact"]),
+            ("stream windowed", ["stream", "--mode", "windowed", "--model",
+                                 "gcrn", "--mix-dir", "noisy", "--out-dir",
+                                 "stream_windowed"]),
+            ("score", ["score", "--est-dir", "est", "--ref-dir", "clean",
+                       "--csv", "results/r.csv"]))
+        walls = {}
+        for label, argv in commands:
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "se_tpu_torch", *argv], cwd=tmp,
+                env=env, capture_output=True, text=True, timeout=600)
+            walls[label] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                fail(f"cli {label}: exit {proc.returncode}\n"
+                     f"{proc.stderr[-3000:]}")
+
+        model, init_fn, _, _ = make_train_step(TrainConfig(model="dpcrn"),
+                                               device=dev)
+        state, found = restore_checkpoint(os.path.join(tmp, "CP"),
+                                          init_fn(0))
+        if not found or state["step"] != 1:
+            fail("cli train: no checkpoint of step 1 in CP")
+        errs = []
+        for fid in ("u0.wav", "u1.wav"):
+            wav, _ = read_wav(os.path.join(tmp, "noisy", fid))
+            got, _ = read_wav(os.path.join(tmp, "est", fid))
+            want = enhance_waveform("dpcrn", model, wav)
+            err = float(np.abs(got - want).max())
+            tol = 1e-3 * float(np.abs(want).max()) + 1.0 / 32768
+            errs.append({"utt": fid, "max_abs_err": err, "tol": tol})
+            if not err <= tol:
+                fail(f"cli enhance {fid}: {err} > {tol} from the restored "
+                     "model in process")
+            for out in ("stream_exact", "stream_windowed"):
+                s_wav, _ = read_wav(os.path.join(tmp, out, fid))
+                if s_wav.shape != wav.shape or not np.isfinite(s_wav).all():
+                    fail(f"cli {out} {fid}: shape {s_wav.shape}, or not "
+                         "finite")
+        with open(os.path.join(tmp, "results", "r.csv")) as f:
+            rows = list(csv.DictReader(f))
+        values = [float(v) for row in rows for k, v in row.items()
+                  if k != "utt"]
+        if len(rows) != 2 or not np.isfinite(values).all():
+            fail(f"cli score: {len(rows)} rows, values {values}")
+        emit({"phase": "cli", "wall_s": walls, "enhance_vs_in_process": errs,
+              "score_rows": rows, "card": card})
+
+
 def parse_args():
     import argparse
 
@@ -1880,7 +2320,8 @@ def parse_args():
     p.add_argument("--kernels", default=",".join(ROW_PATH),
                    help="phase 3 for these kernels only (comma-separated)")
     p.add_argument("--families", default=",".join(MAIN_PATHS),
-                   help="phases 4-6 for these families only")
+                   help="phases 4-9 for these families only (phase 9 "
+                   "needs dpcrn, lstm and gcrn)")
     args = p.parse_args()
     args.kernels = args.kernels.split(",")
     args.families = args.families.split(",")
@@ -1959,6 +2400,20 @@ def main() -> None:
         row["grad_max_abs_err"] = grad_errors.get(name)
         row["launches_train_step"] = {
             fam: c.get(name, 0) for fam, c in train_counts.items()}
+
+    stream_counts = {}
+    for name in (f for f in STREAM_PATHS if f in args.families):
+        stream_counts[f"{name} stream"] = stream_path(name, dev,
+                                                      _build.LAUNCHES, card)
+    if "uformer" in args.families:
+        stream_counts["uformer windowed"] = windowed_uformer(
+            dev, _build.LAUNCHES, card)
+    torch.cuda.empty_cache()
+    if set(CLI_FAMILIES) <= set(args.families):
+        cli_phase(dev, card)
+    for name, row in table.items():
+        row["launches_stream"] = {path: c.get(name, 0)
+                                  for path, c in stream_counts.items()}
 
     print(card, flush=True)
     emit({"kernels": list(table.values())})

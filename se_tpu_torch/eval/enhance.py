@@ -26,6 +26,16 @@ from se_tpu_torch.ops.stft import istft
 from se_tpu_torch.ops.stft_fused import stft_auto
 
 
+def model_device(model: torch.nn.Module, device=None) -> torch.device:
+    """The device a decode of `model` runs on: `device` (None means the
+    card; raises when CUDA is absent), which must hold the weights."""
+    dev = resolve_device(device)
+    wdev = next(model.parameters()).device
+    if wdev.type != dev.type or (dev.index is not None and wdev != dev):
+        raise ValueError(f"model weights are on {wdev}, asked to run on {dev}")
+    return dev
+
+
 def _magphase(re, im):
     return torch.sqrt(re * re + im * im), torch.atan2(im, re)
 
@@ -93,10 +103,7 @@ def enhance_waveform(name: str, model: torch.nn.Module, wav: np.ndarray,
     regime of the spectral io-kinds; Uformer ignores it (its regime is a
     constructor argument). Returns float32 numpy of the input shape."""
     entry = get_model(name)
-    dev = resolve_device(device)
-    wdev = next(model.parameters()).device
-    if wdev.type != dev.type or (dev.index is not None and wdev != dev):
-        raise ValueError(f"model weights are on {wdev}, asked to run on {dev}")
+    dev = model_device(model, device)
     single = wav.ndim == 1
     x = np.atleast_2d(np.asarray(wav, np.float32))
     n = x.shape[-1]

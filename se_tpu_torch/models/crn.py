@@ -7,7 +7,9 @@ LSTM(1024) on the bottleneck flattened as torch's (C = 256 outer, F = 4
 inner) -> 5 transposed convs on concat skips, each cropped by one trailing
 frame (Chomp_T), the fourth padded by one bin on the left (79 -> 80), BN,
 ELU, softplus on the last: the estimated magnitude. The LSTM layers run
-`nn.recurrent.lstm_layer`: the CUDA kernel on the card.
+`nn.recurrent.lstm_layer`: the CUDA kernel on the card. With a carry (the
+2-layer LSTM's, `zero_carry`) and `split` the forward continues a stream
+with left-context replay: `eval.streaming.CausalStreamer`.
 
 Module names follow the reference state_dict
 (`en.en_module.{i}.{1,2}`, `de.de_module.{i}.{0,2}` and `.3` for the BN of
@@ -26,6 +28,7 @@ from se_tpu_torch.models.registry import ModelEntry, register
 from se_tpu_torch.nn import (
     LSTM, BatchNorm, Conv2d, ConvParams, ConvTranspose2d,
 )
+from se_tpu_torch.nn.recurrent import lstm_split
 from se_tpu_torch.ops.stft import PRESET_320
 
 _EN_CH = (16, 32, 64, 128, 256)
@@ -42,6 +45,10 @@ def _bn_index(i: int) -> int:
 class CRN(nn.Module):
     """Weights are drawn from `generator` (seed 0 when None) with torch's
     init; `device=None` means the card."""
+
+    # frames of exact left-context replay for streaming: 5 causal encoder
+    # convs (kt = 2) + 5 causal decoder deconvs (kt = 2 with Chomp_T)
+    replay_frames = 10
 
     def __init__(self, *, generator: torch.Generator | None = None,
                  device=None):
@@ -66,7 +73,10 @@ class CRN(nn.Module):
                 mod.reset_parameters(generator)
         self.to(resolve_device(device)).eval()  # eval until train()
 
-    def forward(self, mag: torch.Tensor) -> torch.Tensor:
+    def forward(self, mag: torch.Tensor, carry=None, split=None):
+        """`carry`: the 2-layer LSTM's state for exact streaming decode;
+        `split` checkpoints it after that many frames (left-context
+        replay). Returns (out, new_carry) when a carry is given."""
         x = mag[..., None]  # (B, T, F, 1)
         b, t = x.shape[:2]
         skips = []
@@ -75,7 +85,12 @@ class CRN(nn.Module):
             skips.append(x)
 
         h = x.transpose(2, 3).reshape(b, t, 1024)  # (C outer, F inner)
-        x = self.lstm(h).reshape(b, t, 256, 4).transpose(2, 3)
+        if carry is None:
+            h = self.lstm(h)
+        else:
+            h, carry = lstm_split(self.lstm, h, carry,
+                                  t if split is None else split)
+        x = h.reshape(b, t, 256, 4).transpose(2, 3)
 
         for i, blk in enumerate(self.de.de_module):
             x = torch.cat([x, skips[-(i + 1)]], dim=-1)
@@ -84,7 +99,12 @@ class CRN(nn.Module):
                 x = F.pad(x, (0, 0, 1, 0))
             x = blk[str(_bn_index(i))](x)
             x = F.elu(x) if i < 4 else F.softplus(x)
-        return x[..., 0]
+        return x[..., 0] if carry is None else (x[..., 0], carry)
+
+    def zero_carry(self, batch: int, device=None):
+        """Zero (h, c) of the 2-layer LSTM on `device` (None means the
+        card)."""
+        return LSTM.zero_carry(batch, 1024, 2, device)
 
 
 def from_jax_variables(variables: dict) -> dict:

@@ -402,20 +402,11 @@ class MHANet(nn.Module):
         return _outp_act(self.out_conv(h), self.outp_act)
 
 
-def _one_bias(lstm: LSTM) -> LSTM:
-    """Keras' LSTM has one bias, as se_tpu's (`l0_b`): `bias_hh_l0` becomes
-    a zero buffer, kept in the state_dict under torch's name, so that a
-    train step moves the one combined bias (`bias_ih_l0`) as se_tpu's."""
-    h4 = lstm.bias_hh_l0.shape[0]
-    del lstm.bias_hh_l0
-    lstm.register_buffer("bias_hh_l0", torch.zeros(h4))
-    return lstm
-
-
 class ResLSTM(nn.Module):
     """Residual LSTM stack (ref network/rnn.py:13-78): a bias-free dense
     layer, LN and ReLU, then a residual LSTM a block, each with one bias
-    (`_one_bias`); ResBiLSTM (`bidirectional`) adds a second LSTM over the
+    as every LSTM of the port (`bias_hh` a zero buffer, as Keras and
+    se_tpu); ResBiLSTM (`bidirectional`) adds a second LSTM over the
     reversed sequence, reversed back, and sums the two (merge_mode "sum",
     ref rnn.py:80-101): that LSTM runs as a reverse-direction layer
     (`lstm_layer(..., reverse=True)`: the kernel reads the frames from the
@@ -430,10 +421,9 @@ class ResLSTM(nn.Module):
         self.ff = Conv1d(n_feat, d_model, bias=False)
         self.ff_norm = OnePassLayerNorm(d_model)
         for i in range(n_blocks):
-            self.add_module(f"lstm{i}", _one_bias(LSTM(d_model, d_model)))
+            self.add_module(f"lstm{i}", LSTM(d_model, d_model))
             if bidirectional:
-                self.add_module(f"lstm{i}_rev_dir",
-                                _one_bias(LSTM(d_model, d_model)))
+                self.add_module(f"lstm{i}_rev_dir", LSTM(d_model, d_model))
         self.out = Conv1d(d_model, n_outp)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,10 @@ to the input by complex multiply. DPRNN: an intra-frequency bidirectional
 2-layer LSTM(64) on the (B*T, F, C) fold and an inter-time 2-layer
 LSTM(128) on the (B*F, T, C) fold, each with a Linear, a LayerNorm over
 (F, C) and a residual. Every LSTM layer runs `nn.recurrent.lstm_layer`:
-the CUDA kernel on the card.
+the CUDA kernel on the card. With a carry (a (first pass, second pass) pair
+of inter-LSTM states on the bottleneck fold B * F, `zero_carry`) and
+`split` the forward continues a stream with left-context replay:
+`eval.streaming.CausalStreamer`.
 
 Module names follow the reference state_dict (`en.en_module.{i}.{1,2,3}`,
 `dprnn.{intra_rnn,intra_fc,inter_rnn,inter_fc,ln1,ln2}`,
@@ -30,6 +33,7 @@ from se_tpu_torch.nn import (
     LSTM, BatchNorm, Conv2d, ConvParams, ConvTranspose2d, LayerNorm, Linear,
     PReLU,
 )
+from se_tpu_torch.nn.recurrent import lstm_split
 from se_tpu_torch.ops.stft import PRESET_320
 
 _EN_CH = (32, 32, 32, 64, 128)
@@ -56,20 +60,32 @@ class DPRNN(nn.Module):
         self.inter_rnn = LSTM(c, c, num_layers=2)
         self.inter_fc = Linear(c, c)
         self.ln2 = LayerNorm((bottleneck_f, c))
+        self.bottleneck_f = bottleneck_f
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, carry=None, split=None):
+        """`carry`: the 2-layer inter-LSTM's state (batch B * F) for exact
+        streaming; the intra BiLSTM recurs over frequency and needs none.
+        Returns (out, new_carry) when a carry is given."""
         b, t, f, c = x.shape
         h = self.intra_fc(self.intra_rnn(x.reshape(b * t, f, c)))
         intra = self.ln1(h.reshape(b, t, f, c)) + x
         h = intra.transpose(1, 2).reshape(b * f, t, c)
-        h = self.inter_fc(self.inter_rnn(h))
-        h = h.reshape(b, f, t, c).transpose(1, 2)
-        return self.ln2(h) + intra
+        if carry is None:
+            h = self.inter_rnn(h)
+        else:
+            h, carry = lstm_split(self.inter_rnn, h, carry,
+                                  t if split is None else split)
+        h = self.inter_fc(h).reshape(b, f, t, c).transpose(1, 2)
+        out = self.ln2(h) + intra
+        return out if carry is None else (out, carry)
 
 
 class DPCRN(nn.Module):
     """Weights are drawn from `generator` (seed 0 when None) with torch's
     init; `device=None` means the card."""
+
+    # 5 causal encoder convs (kt = 2) + 5 causal decoder deconvs (Chomp_T)
+    replay_frames = 10
 
     def __init__(self, *, generator: torch.Generator | None = None,
                  device=None):
@@ -97,13 +113,21 @@ class DPCRN(nn.Module):
                 mod.reset_parameters(generator)
         self.to(resolve_device(device)).eval()  # eval until train()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, carry=None, split=None):
+        """`carry`: a (first pass, second pass) pair of inter-LSTM states
+        (the block runs twice with shared weights, each pass with its own
+        state) for exact streaming; returns (out, new_carry) when given."""
         inpt = x
         skips = []
         for blk in self.en.en_module:
             x = blk["3"](blk["2"](blk["1"](x)))
             skips.append(x)
-        x = self.dprnn(self.dprnn(x))  # shared weights, applied twice
+        if carry is None:
+            x = self.dprnn(self.dprnn(x))  # shared weights, applied twice
+        else:
+            x, nc1 = self.dprnn(x, carry[0], split)
+            x, nc2 = self.dprnn(x, carry[1], split)
+            carry = (nc1, nc2)
         for i, blk in enumerate(self.de.de_module):
             x = torch.cat([x, skips[-(i + 1)]], dim=-1)
             x = blk["0"](x)[:, :-1]  # Chomp_T(1)
@@ -114,8 +138,17 @@ class DPCRN(nn.Module):
                 x = blk[str(k + 1)](blk[str(k)](x))
         mask_r, mask_i = x[..., 0], x[..., 1]
         in_r, in_i = inpt[..., 0], inpt[..., 1]
-        return torch.stack([in_r * mask_r - in_i * mask_i,
-                            in_r * mask_i + in_i * mask_r], dim=-1)
+        est = torch.stack([in_r * mask_r - in_i * mask_i,
+                           in_r * mask_i + in_i * mask_r], dim=-1)
+        return est if carry is None else (est, carry)
+
+    def zero_carry(self, batch: int, device=None):
+        """Two zero 2-layer inter-LSTM states (one a pass) on the
+        bottleneck fold B * F, on `device` (None means the card)."""
+        d = self.dprnn
+        return tuple(LSTM.zero_carry(batch * d.bottleneck_f,
+                                     d.inter_rnn.hidden_size, 2, device)
+                     for _ in range(2))
 
 
 def from_jax_variables(variables: dict) -> dict:

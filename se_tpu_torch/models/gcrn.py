@@ -7,7 +7,10 @@ grouped GLSTM (2 groups x 2 stages of single-layer LSTMs, an interleaving
 shuffle after stage 1, LayerNorms) -> two GLU deconv decoders, one for the
 real and one for the imaginary part, each ending in Linear(161 -> 161) over
 frequency. Every LSTM layer runs `nn.recurrent.lstm_layer`: the CUDA kernel
-on the card.
+on the card. With a carry (the GLSTM's four single-layer LSTM carries,
+`zero_carry`) and `split` the forward continues a stream:
+`eval.streaming.CausalStreamer` (every conv has time kernel 1, so a chunk
+replays nothing).
 
 Module names follow the reference state_dict (`conv{1..5}.conv{1,2}`,
 `bn{1..5}`, `glstm.{ln1,ln2,lstm_list1.{i},lstm_list2.{i}}`,
@@ -28,6 +31,7 @@ from se_tpu_torch.nn import (
     LSTM, BatchNorm, ConvParams, GluConv2d, GluConvTranspose2d, LayerNorm,
     Linear,
 )
+from se_tpu_torch.nn.recurrent import lstm_split
 from se_tpu_torch.ops.stft import PRESET_320
 
 _EN_CH = (16, 32, 64, 128, 256)
@@ -47,22 +51,40 @@ class GLSTM(nn.Module):
         self.ln1 = LayerNorm(hidden)
         self.ln2 = LayerNorm(hidden)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, carry=None, split=None):
+        """`carry`: [stage 1 x groups, stage 2 x groups] single-layer LSTM
+        carries for exact streaming; `split` checkpoints them after that
+        many frames. Returns (out, new_carry) when a carry is given."""
         b, t, f, c = x.shape
         out = x.transpose(2, 3).reshape(b, t, c * f)
-        chunks = out.chunk(self.groups, dim=-1)
-        ys = [lstm(z) for lstm, z in zip(self.lstm_list1, chunks)]
+        new_carry = []
+
+        def run(lstms, h, stage):
+            zs = h.chunk(self.groups, dim=-1)
+            if carry is None:
+                return [lstm(z) for lstm, z in zip(lstms, zs)]
+            ys = []
+            for g, (lstm, z) in enumerate(zip(lstms, zs)):
+                y, nc = lstm_split(lstm, z, carry[stage * self.groups + g],
+                                   t if split is None else split)
+                ys.append(y)
+                new_carry.append(nc)
+            return ys
+
+        ys = run(self.lstm_list1, out, 0)
         # torch's stack(dim=-1) then flatten: the groups' outputs interleave
         out = self.ln1(torch.stack(ys, dim=-1).reshape(b, t, self.hidden))
-        chunks = out.chunk(self.groups, dim=-1)
-        ys = [lstm(z) for lstm, z in zip(self.lstm_list2, chunks)]
-        out = self.ln2(torch.cat(ys, dim=-1))
-        return out.reshape(b, t, c, f).transpose(2, 3)
+        out = self.ln2(torch.cat(run(self.lstm_list2, out, 1), dim=-1))
+        out = out.reshape(b, t, c, f).transpose(2, 3)
+        return out if carry is None else (out, new_carry)
 
 
 class GCRN(nn.Module):
     """Weights are drawn from `generator` (seed 0 when None) with torch's
     init; `device=None` means the card."""
+
+    # every conv has time kernel 1: streaming needs no conv replay at all
+    replay_frames = 0
 
     def __init__(self, *, generator: torch.Generator | None = None,
                  device=None):
@@ -98,14 +120,29 @@ class GCRN(nn.Module):
             d = F.elu(d)
         return getattr(self, f"fc{tag}")(d[..., 0])  # Linear over frequency
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, carry=None, split=None):
+        """`carry`: the GLSTM's four single-layer LSTM carries for exact
+        streaming decode; returns (out, new_carry) when given."""
         skips = []
         for i in range(1, 6):
             x = F.elu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x)))
             skips.append(x)
-        out = torch.cat([self.glstm(x), skips[4]], dim=-1)
-        return torch.stack([self._decoder(out, skips, "1"),
-                            self._decoder(out, skips, "2")], dim=-1)
+        if carry is None:
+            out = self.glstm(x)
+        else:
+            out, carry = self.glstm(x, carry, split)
+        out = torch.cat([out, skips[4]], dim=-1)
+        est = torch.stack([self._decoder(out, skips, "1"),
+                           self._decoder(out, skips, "2")], dim=-1)
+        return est if carry is None else (est, carry)
+
+    def zero_carry(self, batch: int, device=None):
+        """One zero single-layer LSTM carry (a list of one (h, c)) per
+        group and stage, [stage 1 g0, stage 1 g1, stage 2 g0, stage 2 g1],
+        on `device` (None means the card)."""
+        g = self.glstm
+        return [LSTM.zero_carry(batch, g.hidden // g.groups, 1, device)
+                for _ in range(2 * g.groups)]
 
 
 def from_jax_variables(variables: dict) -> dict:

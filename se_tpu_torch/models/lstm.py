@@ -21,12 +21,17 @@ from se_tpu_torch.device import resolve_device
 from se_tpu_torch.models import jax_tree as jt
 from se_tpu_torch.models.registry import ModelEntry, register
 from se_tpu_torch.nn import LSTM, BatchNorm, Linear
+from se_tpu_torch.nn.recurrent import lstm_split
 from se_tpu_torch.ops.stft import PRESET_320
 
 
 class LSTMNet(nn.Module):
     """Weights are drawn from `generator` (seed 0 when None) with torch's
     init; `device=None` means the card."""
+
+    # frames of left context a streamed chunk replays: none, the LSTMs'
+    # carry is the whole memory
+    replay_frames = 0
 
     def __init__(self, bins: int = 161, hidden: int = 1024, *,
                  generator: torch.Generator | None = None, device=None):
@@ -42,9 +47,23 @@ class LSTMNet(nn.Module):
                 mod.reset_parameters(generator)
         self.to(resolve_device(device)).eval()  # eval until train()
 
-    def forward(self, mag: torch.Tensor) -> torch.Tensor:
-        x = self.lstm2(self.lstm1(self.bn(mag)))
-        return F.softplus(self.fc(x))
+    def forward(self, mag: torch.Tensor, carry=None, split=None):
+        """`carry`: three per-layer (h, c) for exact streaming decode;
+        `split` checkpoints the carried state after that many frames
+        (`nn.recurrent.lstm_split`). Returns (out, new_carry) when a carry
+        is given."""
+        x = self.bn(mag)
+        if carry is None:
+            return F.softplus(self.fc(self.lstm2(self.lstm1(x))))
+        split = x.shape[1] if split is None else split
+        x, c1 = lstm_split(self.lstm1, x, carry[:1], split)
+        x, c2 = lstm_split(self.lstm2, x, carry[1:], split)
+        return F.softplus(self.fc(x)), c1 + c2
+
+    def zero_carry(self, batch: int, device=None):
+        """Zero (h, c) of the three layers on `device` (None means the
+        card)."""
+        return LSTM.zero_carry(batch, self.lstm1.hidden_size, 3, device)
 
 
 def from_jax_variables(variables: dict) -> dict:

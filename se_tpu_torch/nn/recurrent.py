@@ -7,7 +7,12 @@ multi-layer, optionally bidirectional stack with torch.nn.LSTM's names and
 shapes (`weight_ih_l{k}` (4H, In), `weight_hh_l{k}` (4H, H), `bias_ih_l{k}`,
 `bias_hh_l{k}`, `_reverse` for the backward direction), so a reference
 state_dict loads as it is and `se_tpu.utils.torch_compat.lstm` maps it to
-se_tpu's tree.
+se_tpu's tree. Like se_tpu's LSTM (one bias `l{k}_b`), it trains one
+combined bias: `bias_ih` is the parameter and `bias_hh` a buffer, zero
+unless a reference state_dict brings one, so an optimiser step moves the
+sum `bias_ih + bias_hh` as far as se_tpu's step moves `l{k}_b`.
+`lstm_split` runs a carried LSTM and checkpoints its state mid-sequence
+(the streaming decode's left-context replay).
 """
 
 from __future__ import annotations
@@ -54,8 +59,7 @@ class LSTM(nn.Module):
                                         nn.Parameter(torch.zeros(4 * h, h)))
                 self.register_parameter(f"bias_ih_{sfx}",
                                         nn.Parameter(torch.zeros(4 * h)))
-                self.register_parameter(f"bias_hh_{sfx}",
-                                        nn.Parameter(torch.zeros(4 * h)))
+                self.register_buffer(f"bias_hh_{sfx}", torch.zeros(4 * h))
 
     @property
     def directions(self) -> int:
@@ -66,7 +70,8 @@ class LSTM(nn.Module):
                                 else [])
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """torch's init: every tensor U(+-1/sqrt(H))."""
+        """torch's init: every parameter U(+-1/sqrt(H)); `bias_hh` stays
+        zero (one bias, as se_tpu's)."""
         bound = 1.0 / math.sqrt(self.hidden_size)
         with torch.no_grad():
             for p in self.parameters():
@@ -106,3 +111,24 @@ class LSTM(nn.Module):
         return [(torch.zeros(batch, features, device=dev),
                  torch.zeros(batch, features, device=dev))
                 for _ in range(num_layers)]
+
+
+def lstm_split(lstm: LSTM, h: torch.Tensor, carry, split: int):
+    """Run `lstm` over h (B, T, D) from `carry`, checkpointing the state
+    after `split` frames while still emitting every frame: -> (out,
+    carry after `split` frames). `split <= 0` returns the input carry,
+    `split >= T` the state after the last frame.
+
+    Streaming decode with left-context replay (`eval.streaming`): a
+    chunk's window replays R history frames whose outputs are recomputed
+    from the checkpointed state; the state carried forward is the one at
+    (window end - R), after the first `split` frames."""
+    t = h.shape[1]
+    if split >= t:
+        return lstm(h, carry=carry)
+    if split <= 0:
+        out, _ = lstm(h, carry=carry)
+        return out, carry
+    o1, c_mid = lstm(h[:, :split], carry=carry)
+    o2, _ = lstm(h[:, split:], carry=c_mid)
+    return torch.cat([o1, o2], dim=1), c_mid

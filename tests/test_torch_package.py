@@ -42,7 +42,10 @@ def test_port_imports_no_jax_flax_or_se_tpu():
                 "models/ctsnet.py", "models/taylorsenet.py",
                 "models/g2net.py", "models/tcm_parts.py", "models/deepxi.py",
                 "models/deepxi_inp_tgt.py", "models/deepxi_driver.py",
-                "eval/gains.py", "eval/metrics.py", "ops/stdct.py"):
+                "eval/gains.py", "eval/metrics.py", "ops/stdct.py",
+                "eval/streaming.py", "eval/pesq.py", "eval/composite.py",
+                "eval/hasqi.py", "utils/config.py", "utils/profiling.py",
+                "cli.py", "__main__.py"):
         assert pkg / new in files, new
     for path in files:
         bad = _imported_roots(path) & FORBIDDEN

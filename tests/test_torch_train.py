@@ -8,7 +8,8 @@
   trainer module only, by a chain that returns zero updates and keeps the
   gradients as its state; the port's step leaves them in the parameters'
   `.grad`. JAX's gradient tree maps through `from_jax_variables` (a
-  combined LSTM bias becomes `bias_ih`, which the port's `bias_hh` shares).
+  combined LSTM bias becomes `bias_ih`; the port's `bias_hh` is a zero
+  buffer, as se_tpu keeps one bias).
   DPCRN, CRN and GCRN at their published widths, LSTMNet at hidden 48,
   DCCRN at kernel_num 8-16 / rnn_units 16, FullSubNet at hidden 32 / 24
   with drop_band (B = 2), Uformer at its published widths with dropout
@@ -20,6 +21,10 @@
   batch statistics, the attention key biases, which the softmax ignores)
   and hold round-off on both sides, so a per-tensor scale would compare
   noise; the statistics within 1e-5 * max|statistic|.
+- One whole step with the real optimiser (Adam after the global-norm clip)
+  of the six families above against se_tpu's: every weight and buffer
+  after the step within 1e-5 * max|w| of its tensor. A model that trained
+  torch's two LSTM biases as two parameters moved their sum twice as far.
 - BatchNorm and ComplexBN in train mode against flax's nn.BatchNorm
   through se_tpu's modules (mutable batch_stats): outputs and running
   statistics within 1e-5.
@@ -31,6 +36,8 @@
   enhances exactly as the trained one.
 """
 
+import functools
+import importlib
 import os
 
 import jax
@@ -44,6 +51,8 @@ from flax import linen as fnn
 import se_tpu.models as jmodels
 from se_tpu.data.dataset import ManifestDataset as JManifestDataset
 from se_tpu.models.uformer import ComplexBN as JComplexBN
+from se_tpu.nn import norms as j_norms
+from se_tpu.nn import recurrent as j_recurrent
 from se_tpu.nn.norms import BatchNorm as JBatchNorm
 from se_tpu.train import trainer as jtrainer
 from se_tpu_torch.data import ManifestDataset, write_wav
@@ -57,6 +66,9 @@ from se_tpu_torch.train.checkpoint import (
 )
 from se_tpu_torch.train.trainer import TrainConfig, make_train_step
 from torch_kernel_inputs import fill_tree
+
+j_stft = importlib.import_module("se_tpu.ops.stft")  # the package exports
+# a function of that name
 
 N_SAMPLES = 2400  # 16 frames at hop 160 (Uformer and the PRESET_320 models)
 FAMILIES = {
@@ -168,7 +180,7 @@ def _compare(name, model, loss, grads, jloss, jgrads, jstats):
     params = dict(model.named_parameters())
     assert grads.keys() == params.keys()
     for key, g in grads.items():
-        w = want[key.replace("bias_hh", "bias_ih")]
+        w = want[key]
         np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-5 * gmax,
                                    err_msg=key)
     for key, buf in model.named_buffers():
@@ -186,6 +198,76 @@ def test_train_step_matches_se_tpu(monkeypatch, name):
                                       batch)
     model, loss, grads = _port_step(name, kw, variables, batch)
     _compare(name, model, loss, grads, jloss, jgrads, jstats)
+
+
+class _Fp64Numpy:
+    """jax.numpy, but `float32` is float64."""
+
+    float32 = jnp.float64
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+
+def _jax_adam_step_fp64(monkeypatch, name, kw, variables, batch) -> dict:
+    """se_tpu's whole train step with its optimiser, in fp64 throughout
+    (jax's x64 mode; `jnp.float32` read as float64 by the modules that ask
+    for fp32 whatever their input: the norms, the STFT, the LSTM): the
+    variables after it ({"params", "batch_stats"} as numpy)."""
+    to64 = functools.partial(jax.tree.map,
+                             lambda a: jnp.asarray(a, jnp.float64))
+    with monkeypatch.context() as mp, jax.enable_x64(True):
+        for module in (j_norms, j_stft, j_recurrent):
+            mp.setattr(module, "jnp", _Fp64Numpy())
+        _, _, step_fn, _ = jtrainer.make_train_step(
+            jtrainer.TrainConfig(model=name, model_kwargs=kw))
+        params = to64(variables["params"])
+        extra = {k: to64(v) for k, v in variables.items() if k != "params"}
+        tx = optax.chain(optax.clip_by_global_norm(5.0),
+                         optax.scale_by_adam())
+        state = {"params": params, "extra_vars": extra,
+                 "opt_state": tx.init(params),
+                 "step": jnp.zeros((), jnp.int32),
+                 "lr_scale": jnp.ones((), jnp.float64),
+                 "rng": jax.random.PRNGKey(0)}
+        mix, clean, frames = batch
+        new, _ = step_fn(state, {"mix": to64(mix), "clean": to64(clean),
+                                 "frames": jnp.asarray(frames)})
+        return jax.tree.map(np.asarray, {"params": new["params"],
+                                         **new["extra_vars"]})
+
+
+@pytest.mark.parametrize("name", sorted(FAMILIES))
+def test_adam_step_weights_match_se_tpu(monkeypatch, name):
+    """One step with the real optimiser on both sides from the same
+    weights and batch: every weight and buffer after it within 1e-5 *
+    max|w| of its tensor. A model that trains torch's two LSTM biases as
+    two parameters moves their sum by 2 lr a step where se_tpu's one bias
+    moves lr (Adam's first step moves each weight by lr * g / (|g| +
+    eps)). Both steps run in fp64: in fp32 that first step's update
+    amplifies round-off where a gradient is zero in exact arithmetic (a
+    conv bias before batch-statistics BN: |g| ~ 1e-9 next to eps = 1e-8)
+    or within round-off of it."""
+    kw = FAMILIES[name]
+    variables = _jax_variables(name, kw, seed=5)
+    batch = _batch()
+    want = get_model(name).from_jax_variables(
+        _jax_adam_step_fp64(monkeypatch, name, kw, variables, batch))
+    model, init_fn, step_fn, _ = make_train_step(
+        TrainConfig(model=name, model_kwargs=kw), device="cpu")
+    model.double()
+    state = init_fn(0)
+    model.load_state_dict(get_model(name).from_jax_variables(variables))
+    mix, clean, frames = batch
+    step_fn(state, {"mix": torch.from_numpy(mix).double(),
+                    "clean": torch.from_numpy(clean).double(),
+                    "frames": torch.from_numpy(frames.astype(np.int64))})
+    got = model.state_dict()
+    assert got.keys() == want.keys()
+    for key, w in want.items():
+        w = w.double().numpy()
+        np.testing.assert_allclose(got[key].numpy(), w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max(), err_msg=key)
 
 
 def test_uformer_train_step_matches_se_tpu(monkeypatch):
