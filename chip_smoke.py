@@ -22,7 +22,7 @@ and the command line.
 
 Phases, one JSON line per result:
   1. env:    the card (nvidia-smi name and power limit), torch and CUDA;
-             TF32 off for matmuls and cuDNN.
+             TF32 off for matmuls and cuDNN; bf16 GEMMs reduce in fp32.
   2. build:  nvcc builds se_tpu_torch/csrc/*.cu (timed).
   3. kernel: each kernel at every shape one forward at B = 4 x 4 s gives
              it (Uformer: T = 401; FullSubNet: T = 253; DCCRN: T = 501;
@@ -57,7 +57,18 @@ Phases, one JSON line per result:
              kernel (`device_ms`) beside the CUDA-event time.
              A kernel's row of the table sums the cases of one forward,
              named in its "note": the shapes of the other paths are the
-             per-case lines.
+             per-case lines. The bf16 variants of Uformer's four kernels
+             (rows attention_bf16, dsconv_pair_bf16, encoder_bf16,
+             decoder_bf16: the seven bf16 entries) at the same shapes,
+             B = 4 and 32, in bf16 with bf16-rounded weights, against
+             the bf16 twin: |err| <= 2^-7 |twin| + 1e-6 max|twin|
+             elementwise (attention: at most 1e-3 of the elements past
+             it, each by no more than one P element's rounding flip,
+             `att_flip_slack`), and, reported, against the fp32 twin on
+             the same bf16 values; their bound at bf16 bytes and 989
+             TFLOP/s (the pair's fp32-operand products at 247.5), their
+             device time by kernel; yardstick F.scaled_dot_product_
+             attention in bf16.
   4. main:   each family from a seed at its published widths, BN
              statistics and affines moved off their defaults,
              `enhance_waveform` on B = 4 x 4 s on the card with the launch
@@ -72,6 +83,15 @@ Phases, one JSON line per result:
              DeepXi with every LayerNorm scale and bias off its default and
              its DBNormalCDF map fitted once on the CPU
              (`deepxi_xi_map`), the same on both sides.
+ 4b. main bf16: Uformer and the TCM families through
+             `enhance_waveform(dtype=torch.bfloat16)` on the same B = 4
+             batch, counts set to 0 just before: Uformer launches the
+             bf16 variants 4 / 8 / 6 / 6 times and no fp32 kernel, the
+             TCM families the fp32 STFT once and nothing else
+             (BF16_PATHS); utterance 0 against the same weights on the
+             CPU in bf16 and fp32: the card within twice the CPU bf16's
+             own distance from the CPU fp32 of both. bf16 GEMMs sum in
+             fp32 (allow_bf16_reduced_precision_reduction off, phase 1).
   5. speed:  fp32 enhance throughput of every family at B = 32 and B = 256
              x 4 s, median audio-seconds/s of 5 timed calls (2 where one
              call takes over 20 s, said so in the line), with peak device
@@ -80,14 +100,16 @@ Phases, one JSON line per result:
              on that utterance alone, within 1e-3 * max|cpu|; DeepXi's
              lines also carry the operations of one utterance
              (torch.utils.flop_counter, plus the LSTM kernels' count) and
-             the rate they make.
+             the rate they make. The bf16 families of phase 4b also in
+             bf16, in turn with their fp32 lines.
   6. profile: torch.profiler over one enhance call of each family at
              B = 32: device time by kernel name and the device's busy share
              of the wall time; Uformer's must show each of its kernels by
              name (PROFILE_KERNELS, PROFILE_GATED; DeepXi's report theirs);
              a profile that misses one, as torch.profiler's dropped events
              do now and then, is taken again, up to PROFILE_ATTEMPTS in
-             all.
+             all. Uformer also in bf16, its bf16 kernels by name
+             (PROFILE_KERNELS_BF16).
   7. train:  (a) each kernel wrapper's autograd Function at a B = 4
              phase-3 case of each design (attention on both designs, the
              LSTM layer on both designs forward and reverse, its
@@ -181,6 +203,14 @@ DILATIONS = (1, 2, 4, 8, 16, 32, 64, 128)
 # CUDA cores' fp32 peak is 67 TFLOP/s). Bytes: HBM3.
 PEAK_FP32_ACCURATE_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12
+# dense bf16 on the tensor cores (NVIDIA data sheet): the bound of a
+# product of two bf16 operands, which the bf16 kernels run in one TF32
+# pass
+PEAK_BF16_FLOPS = 989e12
+# an fp32 operand against a bf16-valued one, fp32-accurate: the bf16 one
+# is exact in TF32, so the fp32 one split hi + lo takes two TF32 passes
+# (the bf16 DSConv pair's products, dsconv.cu PASSES = 2)
+PEAK_FP32_BF16_FLOPS = 495e12 / 2
 
 
 def fail(msg: str) -> None:
@@ -231,17 +261,19 @@ def device_ms(fn, reps: int = 20) -> dict:
     return {key: ms for ms, key in rows}
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FP32_ACCURATE_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float,
+          peak: float = PEAK_FP32_ACCURATE_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
 def nbytes(*tensors) -> int:
+    """Bytes of tensors (and tuples of them), each at its element size."""
     total = 0
     for t in tensors:
-        total += sum(x.numel() * 4 for x in t) if isinstance(t, tuple) \
-            else t.numel() * 4
+        total += sum(x.numel() * x.element_size() for x in t) \
+            if isinstance(t, tuple) else t.numel() * t.element_size()
     return total
 
 
@@ -525,6 +557,131 @@ def _pair_twin(xc, xm, pc, pm, d1, d2, packed):
     from se_tpu_torch.ops import dsconv
 
     return dsconv._pair_reference(xc, xm, pc, pm, d1, d2)
+
+
+# ------------------------------------------------ the bf16 kernel cases
+
+def _bf16_params(params):
+    """A level's tuple as Uformer's bf16 copy gives it: conv weights bf16,
+    the tail vectors fp32 holding bf16 values."""
+    import torch
+
+    return tuple(p.to(torch.bfloat16) if p.dim() > 2
+                 else p.to(torch.bfloat16).float() for p in params)
+
+
+def bf16_attention_cases(gen, dev):
+    """The four calls of Uformer's B = 4 forward in bf16, each on the
+    design `att_design` gives it, then the four at phase 5's B = 32.
+    Yardstick: F.scaled_dot_product_attention in bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    from se_tpu_torch.ops import attention
+
+    for b in (B_MAIN, 32):
+        for n, h, l in ((b * 4, 8, T_FRAMES), (b * 4, 1, T_FRAMES),
+                        (b * T_FRAMES, 8, 4), (b * T_FRAMES, 1, 4)):
+            q, k, v = ((torch.randn(n, h, l, 16, generator=gen) * 0.5)
+                       .to(dev).to(torch.bfloat16) for _ in range(3))
+            design = attention.att_design(n * h, l)
+            library = (lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q, k, v, scale=0.25))
+            yield (f"attention bf16 B={b} {n}x{h}x{l}x16 design={design}",
+                   (q, k, v, 0.25, None), 4.0 * n * h * l * l * 16,
+                   nbytes(q, k, v, q), library, b == B_MAIN)
+
+
+def bf16_encoder_cases(gen, dev):
+    """The six levels of Uformer's B = 4 forward in bf16, each on the
+    design `level_design` gives it (packed once from the bf16 weights, as
+    Uformer's bf16 copy keeps them), then at B = 32."""
+    import torch
+
+    from se_tpu_torch.ops import encoder
+
+    for b in (B_MAIN, 32):
+        t = T_FRAMES
+        for i in range(6):
+            f, cin, cout = 256 >> i, KERNELS[i], KERNELS[i + 1]
+            shapes = ((2, 5, 2 * cin, 2 * cout), (1, 2 * cout),
+                      (1, 2 * cout), (1, 2 * cout), (1, 1),
+                      (2, 5, cin, cout), (1, cout), (1, cout), (1, cout),
+                      (1, 1))
+            params = _bf16_params(level_params(gen, shapes, dev))
+            xc = torch.randn(b, t, f, 2 * cin, generator=gen).to(dev)
+            xm = torch.randn(b, t, f, cin, generator=gen).to(dev)
+            xc, xm = xc.to(torch.bfloat16), xm.to(torch.bfloat16)
+            f_taps = valid_taps(f, ((fo, [2 * fo + j - 2 for j in range(5)])
+                                    for fo in range(f // 2)))
+            flops = 2.0 * b * (2 * t - 1) * f_taps * 5 * cin * cout
+            design = encoder.level_design(cin)
+            packed = encoder.pack_encoder_weights(params) \
+                if design == "tc" else None
+            moved = nbytes(xc, xm, params) + b * t * (f // 2) * 3 * cout * 2
+            yield (f"encoder bf16 level {i} B={b} {b}x{t}x{f}x{cin}->{cout} "
+                   f"design={design}", (xc, xm, params, packed, None), flops,
+                   moved, None, b == B_MAIN)
+
+
+def bf16_decoder_cases(gen, dev):
+    """The six levels of Uformer's B = 4 forward in bf16, each on its
+    design, then at B = 32."""
+    import torch
+
+    from se_tpu_torch.ops import decoder
+
+    for b in (B_MAIN, 32):
+        t = T_FRAMES
+        for i in range(6):
+            f, cc, cout = 4 << i, 2 * KERNELS[6 - i], KERNELS[5 - i]
+            shapes = ((6, 2 * cc, 2 * cout), (4, 2 * cc, 2 * cout),
+                      (1, 2 * cout), (1, 2 * cout), (1, 2 * cout), (1, 1),
+                      (6, cc, cout), (4, cc, cout), (1, cout), (1, cout),
+                      (1, cout), (1, 1))
+            params = _bf16_params(level_params(gen, shapes, dev))
+            xc = torch.randn(b, t, f, 2 * cc, generator=gen).to(dev)
+            xm = torch.randn(b, t, f, cc, generator=gen).to(dev)
+            xc, xm = xc.to(torch.bfloat16), xm.to(torch.bfloat16)
+            f_taps = valid_taps(f, ((q, [q + j - 1 for j in range(3)])
+                                    for q in range(f)))
+            f_taps += valid_taps(f, ((q, [q + j for j in range(2)])
+                                     for q in range(f)))
+            flops = 2.0 * b * (2 * t - 1) * f_taps * 5 * cc * cout
+            design = decoder.level_design(cc, cout)
+            packed = decoder.pack_decoder_weights(params) \
+                if design == "tc" else None
+            moved = nbytes(xc, xm, params) + b * t * 2 * f * 3 * cout * 2
+            yield (f"decoder bf16 level {i} B={b} {b}x{t}x{f}x{cc}->{cout} "
+                   f"design={design}", (xc, xm, params, i < 5, packed, None),
+                   flops, moved, None, b == B_MAIN)
+
+
+def bf16_pair_cases(gen, dev):
+    """The eight stages of Uformer's B = 4 forward in bf16 (weights
+    rounded to bf16, packed once), then one stage at B = 32."""
+    import torch
+
+    from se_tpu_torch.ops import dsconv
+
+    t, f = T_FRAMES, 4
+    n = len(DILATIONS)
+    pc = tuple(p.to(torch.bfloat16) for p in dsconv_params(gen, 256, 64,
+                                                            dev))
+    pm = tuple(p.to(torch.bfloat16) for p in dsconv_params(gen, 128, 32,
+                                                           dev))
+    packed = dsconv.pack_pair_weights(pc, pm)
+    stages = [(B_MAIN, d1, DILATIONS[n - i - 1], True)
+              for i, d1 in enumerate(DILATIONS)] + [(32, 1, 128, False)]
+    for b, d1, d2, in_row in stages:
+        xc = torch.randn(b, t, f, 256, generator=gen).to(dev)
+        xm = torch.randn(b, t, f, 128, generator=gen).to(dev)
+        xc, xm = xc.to(torch.bfloat16), xm.to(torch.bfloat16)
+        flops = (dsconv_flops(b, t, f, 256, 64, d1, d2)
+                 + dsconv_flops(b, t, f, 128, 32, d1, d2))
+        yield (f"dsconv_pair bf16 {b}x{t}x{f}x(256+128) d=({d1},{d2})",
+               (xc, xm, pc, pm, d1, d2, packed), flops,
+               nbytes(xc, xm, pc, pm, xc, xm), None, in_row)
 
 
 def lstm_weights(gen, dev, in_dim, h):
@@ -923,6 +1080,40 @@ def check_kernels(dev, only) -> dict:
             "se_tpu_torch/csrc/stft.cu", "se_tpu/ops/pallas_stft.py:67", 10,
             f"the 1 call of DCCRN's {b4}; the other presets and B = 32 "
             "and 256 are per-case lines"),
+        # the bf16 variants: against the bf16 twin (`_dtype.bf16_compare`)
+        # and, reported, the fp32 twin on the same bf16 values; the bound at
+        # bf16 bytes and PEAK_BF16_FLOPS (the pair: its products have an
+        # fp32 operand, PEAK_FP32_BF16_FLOPS)
+        "attention_bf16": lambda: (
+            _att_kernel, _att_twin, bf16_attention_cases,
+            "se_tpu_torch/csrc/attention.cu",
+            "se_tpu/ops/pallas_attention.py:53", 10,
+            f"the 4 calls of Uformer's {b4} in bf16: att_flash_tc<.., bf16> "
+            "(T, L = 401), att_small_l<.., bf16> (F, L = 4); B = 32 "
+            "per-case lines",
+            {"peak": PEAK_BF16_FLOPS, "slack": True}),
+        "dsconv_pair_bf16": lambda: (
+            _pair_kernel, _pair_twin, bf16_pair_cases,
+            "se_tpu_torch/csrc/dsconv.cu", "se_tpu/ops/pallas_dsconv.py:325",
+            10, f"the 8 stages of Uformer's {b4} in bf16: dsconv_pre_tc + "
+            "dsconv_post_tc <bf16> a stage (2 TF32 passes: fp32 operands, "
+            "bf16 weights); B = 32 a per-case line",
+            {"peak": PEAK_FP32_BF16_FLOPS}),
+        "encoder_bf16": lambda: (
+            _encoder_kernel, _encoder_twin, bf16_encoder_cases,
+            "se_tpu_torch/csrc/encoder.cu", "se_tpu/ops/pallas_encoder.py:98",
+            10, f"the 6 levels of Uformer's {b4} in bf16: "
+            "encoder_level_cc<bf16> (0), encoder_level_tc<.., bf16> (1-5, "
+            "one TF32 pass); B = 32 per-case lines",
+            {"peak": PEAK_BF16_FLOPS}),
+        "decoder_bf16": lambda: (
+            _decoder_kernel, _decoder_twin, bf16_decoder_cases,
+            "se_tpu_torch/csrc/decoder.cu",
+            "se_tpu/ops/pallas_decoder.py:117", 10,
+            f"the 6 levels of Uformer's {b4} in bf16: "
+            "decoder_level_tc<bf16> (0-4, one TF32 pass), "
+            "decoder_level_cc<.., bf16> (5); B = 32 per-case lines",
+            {"peak": PEAK_BF16_FLOPS}),
     }
     if "lstm_recur" in only:
         check_recur_plans(dev)
@@ -932,7 +1123,9 @@ def check_kernels(dev, only) -> dict:
     for name, kind in kinds.items():
         if name not in only:
             continue
-        kernel, twin, cases, source, replaces, reps, note = kind()
+        kernel, twin, cases, source, replaces, reps, note, *extra = kind()
+        extra = extra[0] if extra else None
+        peak = extra["peak"] if extra else PEAK_FP32_ACCURATE_FLOPS
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
                "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
@@ -945,29 +1138,55 @@ def check_kernels(dev, only) -> dict:
                 torch.cuda.synchronize()
                 got = got if isinstance(got, tuple) else (got,)
                 want = want if isinstance(want, tuple) else (want,)
-                err = max(float((g - w).abs().max())
-                          for g, w in zip(got, want))
-                scale = max(1.0, max(float(w.abs().max()) for w in want))
-                tol = 1e-4 * scale
+                if extra is None:
+                    err = max(float((g - w).abs().max())
+                              for g, w in zip(got, want))
+                    scale = max(1.0, max(float(w.abs().max())
+                                         for w in want))
+                    tol, ok, checks = 1e-4 * scale, None, {}
+                else:
+                    from se_tpu_torch.ops._dtype import (
+                        FLIP_SHARE, att_flip_slack, bf16_compare, to_float,
+                    )
+                    slack = ([att_flip_slack(*args[:4])]
+                             if "slack" in extra else None)
+                    err, _, past, differ, ok = bf16_compare(got, want,
+                                                            slack)
+                    want32 = twin(*to_float(args))
+                    want32 = want32 if isinstance(want32, tuple) \
+                        else (want32,)
+                    err32 = max(float((g.float() - w).abs().max())
+                                for g, w in zip(got, want32))
+                    tol = "2^-7 |twin| + 1e-6 max|twin|" + (
+                        f"; P's flip slack on <= {FLIP_SHARE}"
+                        if slack else "")
+                    checks = {"share_past_strict": past,
+                              "share_differing": differ,
+                              "max_abs_err_vs_fp32_twin": err32}
+                    del slack, want32
                 del got, want
                 ms = cuda_ms(lambda: kernel(*args), reps=reps)
                 plain = cuda_ms(lambda: twin(*args), reps=reps)
                 lib = cuda_ms(library, reps=reps) if library else None
-            b_ms, b_by = bound(flops, moved)
+            b_ms, b_by = bound(flops, moved, peak)
             line = {"phase": "kernel", "kernel": name, "case": label,
-                    "max_abs_err": err, "tol": tol, "ms": ms,
+                    "max_abs_err": err, "tol": tol, **checks, "ms": ms,
                     "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
                     "bound_by": b_by, "gflop": flops / 1e9,
                     "mbytes": moved / 1e6, "in_row": in_row}
-            if name in DEVICE_SPLIT:  # where a call's event time goes
+            if name in DEVICE_SPLIT or extra:  # where the event time goes
                 with torch.no_grad():
                     line["device_ms"] = device_ms(lambda: kernel(*args))
                     if library:
                         line["library_device_ms"] = device_ms(library)
             emit(line)
-            if not err <= tol:
+            if ok is False or (ok is None and not err <= tol):
                 fail(f"{label}: kernel and twin differ by {err} > {tol}")
             row["max_abs_err"] = max(row["max_abs_err"], err)
+            if extra is not None:
+                row["max_abs_err_vs_fp32_twin"] = max(
+                    row.get("max_abs_err_vs_fp32_twin", 0.0),
+                    checks["max_abs_err_vs_fp32_twin"])
             if not in_row:
                 continue
             row["ms"] += ms
@@ -975,7 +1194,7 @@ def check_kernels(dev, only) -> dict:
             row["bound_ms"] += b_ms
             if lib is not None:
                 row["library_ms"] = (row["library_ms"] or 0.0) + lib
-            t_ops += flops / PEAK_FP32_ACCURATE_FLOPS
+            t_ops += flops / peak
             t_bytes += moved / PEAK_BYTES
         row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
         table[name] = row
@@ -1079,11 +1298,29 @@ PROFILE_KERNELS = {
     "deepxi_reslstm": ("stft_fft", "lstm_proj_tc", "lstm_recur_persistent"),
 }
 PROFILE_GATED = ("uformer",)
+# family: the launches of a bf16 B = 4 forward (phase 4b): Uformer's four
+# kernels in their bf16 variants and no fp32 kernel; the TCM families the
+# fp32 STFT kernel (the spectral branch takes its STFT in fp32, as se_tpu)
+# and nothing else
+BF16_KERNELS = {"attention_bf16": 4, "dsconv_pair_bf16": 8,
+                "encoder_bf16": 6, "decoder_bf16": 6}
+BF16_PATHS = {
+    "uformer": {**{k: 0 for k in ONLY_STFT}, **BF16_KERNELS},
+    **{name: {**ONLY_STFT, **{k: 0 for k in BF16_KERNELS}}
+       for name in TCM_FAMILIES},
+}
+# the bf16 variants' kernel names in a profile (each also with "bfloat16"
+# in its signature)
+PROFILE_KERNELS_BF16 = ("att_flash_tc", "att_small_l",
+                        "encoder_level_cc", "encoder_level_tc",
+                        "decoder_level_tc", "decoder_level_cc",
+                        "dsconv_pre_tc", "dsconv_post_tc")
 # kernel: the main path whose B = 4 forward its row of the table sums
 ROW_PATH = {"attention": "uformer", "dsconv": "uformer",
             "dsconv_pair": "uformer", "encoder": "uformer",
             "decoder": "uformer", "lstm": "fullsubnet",
-            "lstm_project": "lstm", "lstm_recur": "lstm", "stft": "dccrn"}
+            "lstm_project": "lstm", "lstm_recur": "lstm", "stft": "dccrn",
+            **{k: "uformer bf16" for k in BF16_KERNELS}}
 # families whose B = 256 batch takes lstm_step_tc in some layer call:
 # phase 5 checks one of its utterances against the CPU
 TC_BATCH_CHECK = ("lstm", "crn", "dpcrn")
@@ -1113,11 +1350,11 @@ def deepxi_xi_map():
                             device="cpu")
 
 
-def run_enhance(name: str, model, wav, device=None):
+def run_enhance(name: str, model, wav, device=None, dtype=None):
     """Enhance `wav` (B, n) with `model` on `device` (None: the card) as
-    the family's users do, to numpy: `enhance_waveform`, or for DeepXi
-    `models.deepxi.enhance` with the fitted map (the hybrid io-kind has
-    no branch in `enhance_waveform`)."""
+    the family's users do, to numpy: `enhance_waveform` (in `dtype`), or
+    for DeepXi `models.deepxi.enhance` with the fitted map (the hybrid
+    io-kind has no branch in `enhance_waveform`)."""
     if name in DEEPXI_NETWORK:
         from se_tpu_torch.models.deepxi import enhance
 
@@ -1125,7 +1362,7 @@ def run_enhance(name: str, model, wav, device=None):
                        length=wav.shape[-1]).cpu().numpy()
     from se_tpu_torch.eval.enhance import enhance_waveform
 
-    return enhance_waveform(name, model, wav, device=device)
+    return enhance_waveform(name, model, wav, device=device, dtype=dtype)
 
 
 def card_vs_cpu(name: str, est, cpu_model, wav, index: int, check: str):
@@ -1181,6 +1418,53 @@ def main_path(name: str, dev, launches):
     return model, cpu_model, counts
 
 
+def bf16_path(name: str, model, cpu_model, launches) -> dict:
+    """Phase 4b for one family: `enhance_waveform(dtype=torch.bfloat16)`
+    on B = 4 x 4 s on the card with the counts set to 0 just before and
+    read just after (BF16_PATHS: Uformer's bf16 variants 4 / 8 / 6 / 6 and
+    no fp32 kernel; the TCM families the fp32 STFT once), the output
+    finite and complete; then utterance 0 against the same weights on the
+    CPU in bf16 and in fp32: the card's distance from each (max |err| /
+    max |cpu fp32|) within twice the CPU bf16's own distance from fp32.
+    Returns the counts."""
+    import numpy as np
+    import torch
+
+    wav = waveforms(B_MAIN, 0)
+    launches.clear()
+    est = run_enhance(name, model, wav, dtype=torch.bfloat16)
+    counts = dict(launches)
+    emit({"phase": "main bf16", "model": name, "launches": counts,
+          "shape": list(est.shape)})
+    for kernel, want in BF16_PATHS[name].items():
+        got = counts.get(kernel, 0)
+        if got != want:
+            fail(f"{name} bf16: a B = {B_MAIN} forward launched {kernel} "
+                 f"{got} times, expected {want}")
+    if est.shape != wav.shape or not np.isfinite(est).all():
+        fail(f"{name} bf16: enhanced output of shape {est.shape} is not "
+             "finite/complete")
+    one = wav[:1]
+    cpu32 = run_enhance(name, cpu_model, one, "cpu")[0]
+    cpu16 = run_enhance(name, cpu_model, one, "cpu", torch.bfloat16)[0]
+    scale = float(np.abs(cpu32).max())
+
+    def dist(a, b):
+        return float(np.abs(a - b).max()) / scale
+
+    e_cpu = dist(cpu16, cpu32)
+    e32, e16 = dist(est[0], cpu32), dist(est[0], cpu16)
+    emit({"phase": "main bf16", "model": name,
+          "check": "card bf16 vs cpu, utterance 0",
+          "cpu_bf16_vs_cpu_fp32": e_cpu, "card_bf16_vs_cpu_fp32": e32,
+          "card_bf16_vs_cpu_bf16": e16, "limit": 2 * e_cpu})
+    if not (e32 <= 2 * e_cpu and e16 <= 2 * e_cpu):
+        fail(f"{name} bf16: the card's output is {e32} from the CPU fp32 "
+             f"and {e16} from the CPU bf16, past twice the CPU bf16's own "
+             f"distance {e_cpu}")
+    return counts
+
+
 def forward_gflop(name: str, model) -> dict:
     """The operations of one 4 s utterance's enhance call: the GEMMs and
     convolutions torch.utils.flop_counter sees (2 per multiply-add), and
@@ -1195,7 +1479,7 @@ def forward_gflop(name: str, model) -> dict:
             "gflop_lstm_kernels": lstm / 1e9}
 
 
-def throughput(name: str, model, cpu_model, card: str) -> None:
+def throughput(name: str, model, cpu_model, card: str, dtype=None) -> None:
     import torch
 
     flops = forward_gflop(name, model) if name in DEEPXI_NETWORK else {}
@@ -1204,7 +1488,7 @@ def throughput(name: str, model, cpu_model, card: str) -> None:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        est = run_enhance(name, model, wav)  # warm-up
+        est = run_enhance(name, model, wav, dtype=dtype)  # warm-up
         warm_s = time.perf_counter() - t0
         if batch == 256 and name in TC_BATCH_CHECK:
             card_vs_cpu(name, est, cpu_model, wav, batch - 1,
@@ -1215,10 +1499,11 @@ def throughput(name: str, model, cpu_model, card: str) -> None:
         times = []
         for _ in range(repeats):
             t0 = time.perf_counter()
-            run_enhance(name, model, wav)
+            run_enhance(name, model, wav, dtype=dtype)
             times.append(time.perf_counter() - t0)
         rates = [batch * SECONDS / t for t in times]
-        line = {"phase": "speed", "metric": f"{name}_enhance_fp32",
+        line = {"phase": "speed",
+                "metric": f"{name}_enhance_{'bf16' if dtype else 'fp32'}",
                 "batch": batch, "seconds_audio": SECONDS,
                 "audio_s_per_s": statistics.median(rates),
                 "min": min(rates), "max": max(rates), "repeats": repeats,
@@ -1242,24 +1527,35 @@ def throughput(name: str, model, cpu_model, card: str) -> None:
 PROFILE_ATTEMPTS = 5
 
 
-def profile(name: str, model, card: str) -> None:
-    """Device time by kernel over one enhance call at B = 32 x 4 s, and the
-    device's busy share of the call's wall time (one stream: kernels do
-    not overlap). The line names the attempt it reports, and the kernels
-    of PROFILE_KERNELS its last attempt still missed (`missing`): a
-    failure for the families of PROFILE_GATED."""
+def profile(name: str, model, card: str, dtype=None) -> None:
+    """Device time by kernel over one enhance call at B = 32 x 4 s (in
+    `dtype`), and the device's busy share of the call's wall time (one
+    stream: kernels do not overlap). The line names the attempt it
+    reports, and the kernels of PROFILE_KERNELS (bf16: each of
+    PROFILE_KERNELS_BF16 with "bfloat16" in its signature) its last
+    attempt still missed (`missing`): a failure for the families of
+    PROFILE_GATED."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     wav = waveforms(32, 1)
-    run_enhance(name, model, wav)
-    want = PROFILE_KERNELS.get(name, ())
+    run_enhance(name, model, wav, dtype=dtype)
+    if dtype is None:
+        want = PROFILE_KERNELS.get(name, ())
+
+        def match(k, key):
+            return k in key
+    else:
+        want = PROFILE_KERNELS_BF16 if name == "uformer" else ()
+
+        def match(k, key):
+            return k in key and "bfloat16" in key
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         with torch_profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            run_enhance(name, model, wav)
+            run_enhance(name, model, wav, dtype=dtype)
             wall_ms = (time.perf_counter() - t0) * 1e3
         # device-side events only: the host ops that launched them carry
         # the same device time and would count it twice
@@ -1267,14 +1563,15 @@ def profile(name: str, model, card: str) -> None:
                 for evt in prof.key_averages()
                 if evt.device_type == DeviceType.CUDA]
         missing = [k for k in want
-                   if not any(k in key for _, _, key in rows)]
+                   if not any(match(k, key) for _, _, key in rows)]
         if not missing:
             break
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
-    seen = {k: sum(ms for ms, _, key in rows if k in key)
+    seen = {k: sum(ms for ms, _, key in rows if match(k, key))
             for k in want}
-    emit({"phase": "profile", "model": name, "batch": 32,
+    emit({"phase": "profile",
+          "model": name + (" bf16" if dtype else ""), "batch": 32,
           "wall_ms": wall_ms, "device_ms": device_ms,
           "device_busy_share": device_ms / wall_ms if wall_ms else None,
           "top": [{"ms": ms, "calls": n, "name": key[:90]}
@@ -1300,6 +1597,8 @@ BACKWARD = {
     "lstm_recur": "VJP of ops/lstm.py _recur_reference, recomputed",
     "stft": "none: stft_fused raises on an input that requires grad "
             "(se_tpu's stft_pallas has no VJP)",
+    **{k: "not exercised: bf16 training is ROADMAP Queue 1 item 4e"
+       for k in BF16_KERNELS},
 }
 # family: the launches of one train step (one forward; the backward runs
 # the twins). Uformer's train mode runs its U-net levels and DSConv blocks
@@ -2351,10 +2650,16 @@ def main() -> None:
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 GEMMs (the bf16 Uformer's dense layers through cuBLAS) sum in
+    # fp32, as se_tpu's bf16 products do: no bf16 partial sums in split-K
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
     dev = torch.device("cuda")
     emit({"phase": "env", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
-          "device_name": torch.cuda.get_device_name(0)})
+          "device_name": torch.cuda.get_device_name(0),
+          "allow_tf32": False, "cudnn_allow_tf32": False,
+          "allow_bf16_reduced_precision_reduction": False})
 
     t0 = time.perf_counter()
     _build.library()
@@ -2369,7 +2674,12 @@ def main() -> None:
         model, cpu_model, counts[name] = main_path(name, dev,
                                                    _build.LAUNCHES)
         models[name] = model, cpu_model
-        for kernel, n in counts[name].items():
+    bf16_families = [f for f in BF16_PATHS if f in args.families]
+    for name in bf16_families:  # phase 4b
+        counts[f"{name} bf16"] = bf16_path(name, *models[name],
+                                           _build.LAUNCHES)
+    for path in counts.values():
+        for kernel, n in path.items():
             totals[kernel] = totals.get(kernel, 0) + n
     for name, row in table.items():
         # the launches of the forward whose times the row sums
@@ -2377,8 +2687,12 @@ def main() -> None:
         row["launches_all_paths"] = totals.get(name, 0)
     for name, (model, cpu_model) in models.items():
         throughput(name, model, cpu_model, card)
+        if name in bf16_families:  # beside fp32, in the same call
+            throughput(name, model, cpu_model, card, torch.bfloat16)
     for name, (model, _) in models.items():
         profile(name, model, card)
+        if name == "uformer":
+            profile(name, model, card, torch.bfloat16)
     del models
     torch.cuda.empty_cache()
 

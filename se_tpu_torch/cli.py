@@ -289,7 +289,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="activation rematerialization policy")
     pt.add_argument("--compute-dtype", dest="compute_dtype",
                     choices=["fp32", "bf16"], default="fp32",
-                    help="bf16 is not ported yet (ROADMAP Queue 1 item 4)")
+                    help="bf16 training is not ported yet (ROADMAP Queue 1 "
+                    "item 4e); bf16 enhance is enhance_waveform(dtype="
+                    "torch.bfloat16) for Uformer and the TCM families, the "
+                    "LSTM families' is item 4b")
     pt.add_argument("--device", default=None, help=device_help)
     pt.set_defaults(func=cmd_train)
     return p

@@ -1,4 +1,4 @@
-// One Uformer decoder level, both branches, fp32: stride-(1, 2) (2, 5)
+// One Uformer decoder level, both branches, fp32 or bf16: stride-(1, 2) (2, 5)
 // transposed conv of the [skip, x] concat in phase-split form -> (BN
 // affine -> PReLU when has_bn) for the complex (interleaved [re | im]) and
 // the real branch, then `fusion`:
@@ -71,6 +71,17 @@
 // at a stride of 3 Cc + 1 floats (lanes on consecutive rows hit distinct
 // banks), and every tap reads them there; weights are warp-wide
 // broadcasts. The grid is one wave of resident blocks.
+//
+// bf16 (`se_decoder_level_tc_bf16`, `se_decoder_level_cc_bf16`): xc, xm
+// (the skip concat of bf16 tensors), yc and ym in bf16, the TPU kernel's
+// rounding points (pallas_decoder.py:110-113): every sum, the bias, the BN
+// affine, PReLU and the fusion fp32, the two outputs rounded once. The
+// weights come packed (tc) or as they are (cc) in fp32 holding bf16
+// values (ops/decoder.py), the tail vectors in fp32. Both designs are the
+// fp32 ones templated on the storage: the A tiles are widened to fp32 as
+// they are staged (tc_common.cuh `copy4`: 8-byte loads of 4 channels, not
+// cp.async), and the tensor-core GEMM runs one TF32 pass, exact on two
+// bf16 operands (tc_common.cuh), where fp32 takes three.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -98,13 +109,13 @@ constexpr int TC_SMEM =
 // acc[m tile][n8 tile][fragment] += A . w^T over one branch: A's row r is
 // the 6 taps of position r0 + r of x (M, Cin) = (B, T, F, Cin), each
 // zero-padded to Cinp; w (ncols, 6 Cinp) packed, the block's columns from
-// col0 on, NT n8 tiles a warp.
-template <int NT>
+// col0 on, NT n8 tiles a warp. T: x's storage.
+template <int NT, class T>
 __device__ __forceinline__ void branch_loop(float (&acc)[2][NT][4],
                                             float* sm,
-                                            const float* __restrict__ x,
+                                            const T* __restrict__ x,
                                             const float* __restrict__ w,
-                                            int M, int T, int F, int cin,
+                                            int M, int Tn, int F, int cin,
                                             int cinp, int r0, int col0) {
   constexpr int NB_COLS = WN * NT * 8;  // packed columns a block
   float* As = sm;                       // STAGES x TM x LDS
@@ -125,7 +136,7 @@ __device__ __forceinline__ void branch_loop(float (&acc)[2][NT][4],
     const int q = p % F;
     live[i] = p < M;
     pos[i] = p;
-    t0[i] = (p / F) % T == 0;
+    t0[i] = (p / F) % Tn == 0;
     qlo[i] = q == 0;
     qhi[i] = q == F - 1;
   }
@@ -144,23 +155,23 @@ __device__ __forceinline__ void branch_loop(float (&acc)[2][NT][4],
     for (int i = 0; i < NA; ++i) {
       const bool in = live[i] && ci < cin && !(it == 0 && t0[i]) &&
                       !(jf == 0 && qlo[i]) && !(jf == 2 && qhi[i]);
-      // outside: 0 bytes from a valid address, the 16 filled with zeros
-      cp_async16(as + i * RSTEP * LDS,
-                 in ? x + (size_t)(pos[i] + shift) * cin + ci : x,
-                 in ? 16 : 0);
+      // outside: nothing read from a valid address, zeros stored
+      copy4(as + i * RSTEP * LDS,
+            in ? x + (size_t)(pos[i] + shift) * cin + ci : x, in);
     }
   };
 
-  tc_ring<TM, NB_COLS, TK, LDS, STAGES, NT, true>(acc, As, Bs, nk, wm * 32,
-                                                 wn * NT * 8, load_stage);
+  tc_ring<TM, NB_COLS, TK, LDS, STAGES, NT, true, passes_for<T>()>(
+      acc, As, Bs, nk, wm * 32, wn * NT * 8, load_stage);
   __syncthreads();  // every warp is done with the ring before it is reused
 }
 
+template <class T>
 __global__ void __launch_bounds__(TC_THREADS, 4)
-decoder_level_tc(const float* __restrict__ xc, const float* __restrict__ xm,
+decoder_level_tc(const T* __restrict__ xc, const T* __restrict__ xm,
                  const float* __restrict__ wcp, const float* __restrict__ wmp,
-                 Tail P, float* __restrict__ yc, float* __restrict__ ym,
-                 int M, int T, int F, int cc, int cout, int cinp_c,
+                 Tail P, T* __restrict__ yc, T* __restrict__ ym,
+                 int M, int Tn, int F, int cc, int cout, int cinp_c,
                  int cinp_m, int has_bn) {
   extern __shared__ __align__(16) float sm[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -169,9 +180,9 @@ decoder_level_tc(const float* __restrict__ xc, const float* __restrict__ xm,
   const int nct = (cout + CT - 1) / CT;
   const int ct = blockIdx.x % nct, r0 = (blockIdx.x / nct) * TM;
   float acc_c[2][NT_C][4], acc_m[2][NT_M][4];
-  branch_loop<NT_C>(acc_c, sm, xc, wcp, M, T, F, 2 * cc, cinp_c, r0,
+  branch_loop<NT_C>(acc_c, sm, xc, wcp, M, Tn, F, 2 * cc, cinp_c, r0,
                     ct * WN * NT_C * 8);
-  branch_loop<NT_M>(acc_m, sm, xm, wmp, M, T, F, cc, cinp_m, r0,
+  branch_loop<NT_M>(acc_m, sm, xm, wmp, M, Tn, F, cc, cinp_m, r0,
                     ct * WN * NT_M * 8);
 
   // acc[mi][tile][hh * 2 + cc]: position row gid + 8 hh of m tile mi,
@@ -245,13 +256,13 @@ __device__ __forceinline__ void row_accum(const float* xr, const float* w,
   }
 }
 
-template <int CO>
+template <int CO, class T>
 __global__ void __launch_bounds__(CC_THREADS)
-decoder_level_cc(const float* __restrict__ xc, const float* __restrict__ xm,
+decoder_level_cc(const T* __restrict__ xc, const T* __restrict__ xm,
                  const float* __restrict__ wce, const float* __restrict__ wco,
                  const float* __restrict__ wme, const float* __restrict__ wmo,
-                 Tail P, float* __restrict__ yc, float* __restrict__ ym,
-                 int M, int T, int F, int cc, int cout, int has_bn) {
+                 Tail P, T* __restrict__ yc, T* __restrict__ ym,
+                 int M, int Tn, int F, int cc, int cout, int has_bn) {
   extern __shared__ __align__(16) float ws[];
   const int coutp = (cout + CO - 1) / CO * CO, c2 = 2 * cc, ld = 3 * cc + 1;
   float* wc = ws;                                  // (10, 2 Cc, 2, coutp)
@@ -289,18 +300,18 @@ decoder_level_cc(const float* __restrict__ xc, const float* __restrict__ xm,
     for (int e = tid; e < rows * c2; e += CC_THREADS) {
       const long gp = g0 + e / c2;
       tile[(e / c2) * ld + e % c2] =
-          gp >= 0 && gp < M ? __ldg(xc + g0 * c2 + e) : 0.f;
+          gp >= 0 && gp < M ? ldg_f(xc + g0 * c2 + e) : 0.f;
     }
     for (int e = tid; e < rows * cc; e += CC_THREADS) {
       const long gp = g0 + e / cc;
       tile[(e / cc) * ld + c2 + e % cc] =
-          gp >= 0 && gp < M ? __ldg(xm + g0 * cc + e) : 0.f;
+          gp >= 0 && gp < M ? ldg_f(xm + g0 * cc + e) : 0.f;
     }
     __syncthreads();
     const long p = p0 + tid;
     if (p >= M) continue;
     const int q = (int)(p % F);
-    const bool first_row = (p / F) % T == 0;
+    const bool first_row = (p / F) % Tn == 0;
     for (int c0 = 0; c0 < coutp; c0 += CO) {
       float accc[2][2][CO], accm[2][1][CO];
 #pragma unroll
@@ -333,14 +344,14 @@ decoder_level_cc(const float* __restrict__ xc, const float* __restrict__ xm,
   }
 }
 
-template <int CO>
-int run_cc(const float* xc, const float* xm, const float* wce,
-           const float* wco, const float* wme, const float* wmo,
-           const Tail& P, float* yc, float* ym, int M, int T, int F, int cc,
-           int cout, int has_bn, cudaStream_t st) {
+template <int CO, class T>
+int run_cc(const T* xc, const T* xm, const float* wce, const float* wco,
+           const float* wme, const float* wmo, const Tail& P, T* yc, T* ym,
+           int M, int Tn, int F, int cc, int cout, int has_bn,
+           cudaStream_t st) {
   const int coutp = (cout + CO - 1) / CO * CO;
   const size_t smem = cc_smem_floats(cc, coutp, F) * sizeof(float);
-  auto kernel = decoder_level_cc<CO>;
+  auto kernel = decoder_level_cc<CO, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int dev = 0, sms = 0, per_sm = 0;
@@ -356,8 +367,57 @@ int run_cc(const float* xc, const float* xm, const float* wce,
   const long wave = (long)sms * per_sm;
   const unsigned blocks = (unsigned)(need < wave ? need : wave);
   kernel<<<blocks, CC_THREADS, smem, st>>>(xc, xm, wce, wco, wme, wmo, P, yc,
-                                          ym, M, T, F, cc, cout, has_bn);
+                                          ym, M, Tn, F, cc, cout, has_bn);
   return (int)cudaGetLastError();
+}
+
+template <class T>
+int level_tc(const T* xc, const T* xm, const float* wcp, const float* wmp,
+             const float* bc, const float* sc, const float* tc,
+             const float* ac, const float* bm, const float* sm,
+             const float* tm, const float* am, T* yc, T* ym, int B, int Tn,
+             int F, int cc, int cout, int cinp_c, int cinp_m, int has_bn,
+             cudaStream_t st) {
+  if (cc % 4 != 0 || cinp_c % TK != 0 || cinp_c < 2 * cc ||
+      cinp_m % TK != 0 || cinp_m < cc ||
+      reinterpret_cast<uintptr_t>(xc) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(xm) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const long M = (long)B * Tn * F;
+  if (M == 0) return 0;
+  auto kernel = decoder_level_tc<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const long blocks = (long)((cout + CT - 1) / CT) * ((M + TM - 1) / TM);
+  const Tail P{bc, sc, tc, ac, bm, sm, tm, am};
+  kernel<<<(unsigned)blocks, TC_THREADS, TC_SMEM, st>>>(
+      xc, xm, wcp, wmp, P, yc, ym, (int)M, Tn, F, cc, cout, cinp_c, cinp_m,
+      has_bn);
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int level_cc(const T* xc, const T* xm, const float* wce, const float* wco,
+             const float* bc, const float* sc, const float* tc,
+             const float* ac, const float* wme, const float* wmo,
+             const float* bm, const float* sm, const float* tm,
+             const float* am, T* yc, T* ym, int B, int Tn, int F, int cc,
+             int cout, int has_bn, cudaStream_t st) {
+  const long M = (long)B * Tn * F;
+  if (M == 0) return 0;
+  const Tail P{bc, sc, tc, ac, bm, sm, tm, am};
+  if (cout >= 8)
+    return run_cc<8>(xc, xm, wce, wco, wme, wmo, P, yc, ym, (int)M, Tn, F, cc,
+                     cout, has_bn, st);
+  if (cout >= 4)
+    return run_cc<4>(xc, xm, wce, wco, wme, wmo, P, yc, ym, (int)M, Tn, F, cc,
+                     cout, has_bn, st);
+  if (cout >= 2)
+    return run_cc<2>(xc, xm, wce, wco, wme, wmo, P, yc, ym, (int)M, Tn, F, cc,
+                     cout, has_bn, st);
+  return run_cc<1>(xc, xm, wce, wco, wme, wmo, P, yc, ym, (int)M, Tn, F, cc,
+                   cout, has_bn, st);
 }
 
 }  // namespace
@@ -374,24 +434,9 @@ extern "C" int se_decoder_level_tc(
     const float* bm, const float* sm, const float* tm, const float* am,
     float* yc, float* ym, int B, int T, int F, int cc, int cout, int cinp_c,
     int cinp_m, int has_bn, void* stream) {
-  if (cc % 4 != 0 || cinp_c % TK != 0 || cinp_c < 2 * cc ||
-      cinp_m % TK != 0 || cinp_m < cc ||
-      reinterpret_cast<uintptr_t>(xc) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(xm) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  const long M = (long)B * T * F;
-  if (M == 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      decoder_level_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      TC_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const long blocks = (long)((cout + CT - 1) / CT) * ((M + TM - 1) / TM);
-  const Tail P{bc, sc, tc, ac, bm, sm, tm, am};
-  decoder_level_tc<<<(unsigned)blocks, TC_THREADS, TC_SMEM,
-                     (cudaStream_t)stream>>>(xc, xm, wcp, wmp, P, yc, ym,
-                                             (int)M, T, F, cc, cout, cinp_c,
-                                             cinp_m, has_bn);
-  return (int)cudaGetLastError();
+  return level_tc(xc, xm, wcp, wmp, bc, sc, tc, ac, bm, sm, tm, am, yc, ym,
+                  B, T, F, cc, cout, cinp_c, cinp_m, has_bn,
+                  (cudaStream_t)stream);
 }
 
 // The CUDA-core design, the 12-tuple's weights as they are: wce (6, 2cc,
@@ -405,19 +450,31 @@ extern "C" int se_decoder_level_cc(
     const float* wme, const float* wmo, const float* bm, const float* sm,
     const float* tm, const float* am, float* yc, float* ym, int B, int T,
     int F, int cc, int cout, int has_bn, void* stream) {
-  const long M = (long)B * T * F;
-  if (M == 0) return 0;
-  const Tail P{bc, sc, tc, ac, bm, sm, tm, am};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (cout >= 8)
-    return run_cc<8>(xc, xm, wce, wco, wme, wmo, P, yc, ym, (int)M, T, F, cc,
-                     cout, has_bn, st);
-  if (cout >= 4)
-    return run_cc<4>(xc, xm, wce, wco, wme, wmo, P, yc, ym, (int)M, T, F, cc,
-                     cout, has_bn, st);
-  if (cout >= 2)
-    return run_cc<2>(xc, xm, wce, wco, wme, wmo, P, yc, ym, (int)M, T, F, cc,
-                     cout, has_bn, st);
-  return run_cc<1>(xc, xm, wce, wco, wme, wmo, P, yc, ym, (int)M, T, F, cc,
-                   cout, has_bn, st);
+  return level_cc(xc, xm, wce, wco, bc, sc, tc, ac, wme, wmo, bm, sm, tm, am,
+                  yc, ym, B, T, F, cc, cout, has_bn, (cudaStream_t)stream);
+}
+
+// The bf16 variants: xc, xm, yc, ym bf16; the weights (fp32 holding bf16
+// values) and the tail vectors fp32; otherwise as above.
+extern "C" int se_decoder_level_tc_bf16(
+    const __nv_bfloat16* xc, const __nv_bfloat16* xm, const float* wcp,
+    const float* wmp, const float* bc, const float* sc, const float* tc,
+    const float* ac, const float* bm, const float* sm, const float* tm,
+    const float* am, __nv_bfloat16* yc, __nv_bfloat16* ym, int B, int T,
+    int F, int cc, int cout, int cinp_c, int cinp_m, int has_bn,
+    void* stream) {
+  return level_tc(xc, xm, wcp, wmp, bc, sc, tc, ac, bm, sm, tm, am, yc, ym,
+                  B, T, F, cc, cout, cinp_c, cinp_m, has_bn,
+                  (cudaStream_t)stream);
+}
+
+extern "C" int se_decoder_level_cc_bf16(
+    const __nv_bfloat16* xc, const __nv_bfloat16* xm, const float* wce,
+    const float* wco, const float* bc, const float* sc, const float* tc,
+    const float* ac, const float* wme, const float* wmo, const float* bm,
+    const float* sm, const float* tm, const float* am, __nv_bfloat16* yc,
+    __nv_bfloat16* ym, int B, int T, int F, int cc, int cout, int has_bn,
+    void* stream) {
+  return level_cc(xc, xm, wce, wco, bc, sc, tc, ac, wme, wmo, bm, sm, tm, am,
+                  yc, ym, B, T, F, cc, cout, has_bn, (cudaStream_t)stream);
 }

@@ -1,4 +1,5 @@
-// The gated dilated DSConv blocks of the Uformer conformer, fp32.
+// The gated dilated DSConv blocks of the Uformer conformer, fp32, and the
+// pair stage also in bf16.
 //
 // Replaces: se_tpu/ops/pallas_dsconv.py
 //   - `_pallas_dsconv` and its body `_kernel` / `_block_math` (entry
@@ -74,6 +75,20 @@
 // and pass loop: with them shared with the block (LN2 a branch at a time,
 // a thread a (row, segment), every walk from channel 0) it ran 4% slower at
 // B = 32 (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+//
+// The pair stage in bf16 (`se_dsconv_pair_tc_bf16`, both launches): xc,
+// xm, oc and om in bf16, the TPU kernel's rounding points
+// (pallas_dsconv.py:108, :320-321): x widened to fp32, every intermediate
+// fp32, the two outputs rounded once. The weights come packed in fp32
+// holding bf16 values, the vectors in fp32 (ops/dsconv.py). The scratch y
+// between the launches stays fp32 in device memory (se_tpu never rounds
+// it). Which products run which way: every GEMM of the stage has an fp32
+// A operand (LN1's output in the pre GEMM, y's taps in the dilated convs,
+// z in the output conv) and a bf16-valued B (the weights), so each runs
+// two TF32 passes (small.B + big.B: tc_common.cuh PASSES = 2), as exact
+// as 3xTF32, whose third product is then zero. x is widened as it is
+// staged (tc_common.cuh `copy4`: plain 8-byte loads, not cp.async) and in
+// LN1's statistics and the residual. The single block has no bf16 variant.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -117,6 +132,13 @@ struct Branch {
       *ws, *bs;
 };
 
+// TF32 passes of the pair's GEMMs: fp32 A and B (3), or fp32 A and a
+// bf16-valued B (2) when the stage runs in bf16 (storage T).
+template <class T>
+__host__ __device__ constexpr int pair_passes() {
+  return sizeof(T) == 2 ? 2 : 3;
+}
+
 __host__ __device__ inline int round_up(int n, int m) {
   return (n + m - 1) / m * m;
 }
@@ -151,14 +173,15 @@ __device__ __forceinline__ void each_frag(float (&acc)[2][NT][4], Fn&& fn) {
 // the twin. mu[row * 2 + s], rs likewise; 0 past M.
 constexpr int STAT_U = 4;
 
-__device__ void row_stats(const float* __restrict__ x, int M, int cin,
+template <class T>
+__device__ void row_stats(const T* __restrict__ x, int M, int cin,
                           int nseg, int r0, float* mu, float* rs) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int cs = cin / nseg;
   // TM nseg is a multiple of the warps' STAT_U (TM = 64)
   for (int q0 = warp * STAT_U; q0 < TM * nseg;
        q0 += THREADS / 32 * STAT_U) {
-    const float* v[STAT_U];
+    const T* v[STAT_U];
     float sum[STAT_U], mean[STAT_U], sq[STAT_U];
 #pragma unroll
     for (int u = 0; u < STAT_U; ++u) {
@@ -169,13 +192,13 @@ __device__ void row_stats(const float* __restrict__ x, int M, int cin,
     }
     for (int i = lane; i < cs; i += 32)
 #pragma unroll
-      for (int u = 0; u < STAT_U; ++u) sum[u] += v[u][i];
+      for (int u = 0; u < STAT_U; ++u) sum[u] += to_f(v[u][i]);
 #pragma unroll
     for (int u = 0; u < STAT_U; ++u) mean[u] = warp_sum(sum[u]) / cs;
     for (int i = lane; i < cs; i += 32)
 #pragma unroll
       for (int u = 0; u < STAT_U; ++u) {
-        const float d = v[u][i] - mean[u];
+        const float d = to_f(v[u][i]) - mean[u];
         sq[u] += d * d;
       }
 #pragma unroll
@@ -192,9 +215,10 @@ __device__ void row_stats(const float* __restrict__ x, int M, int cin,
 }
 
 // One branch of dsconv_pre_tc: y (M, tot) = PReLU(LN1(x) . w1 + bb1) for
-// rows r0 .. r0 + TM, x (M, cin) in nseg component segments.
-template <int NT>
-__device__ void pre_branch(float* sm, const float* __restrict__ x,
+// rows r0 .. r0 + TM, x (M, cin) in nseg component segments, fp32 or bf16
+// storage T.
+template <int NT, class T>
+__device__ void pre_branch(float* sm, const T* __restrict__ x,
                            const Branch& p, float* __restrict__ y, int M,
                            int cin, int tot, int nseg, int r0) {
   constexpr int NB_COLS = WN * NT * 8;
@@ -237,8 +261,7 @@ __device__ void pre_branch(float* sm, const float* __restrict__ x,
     for (int i = 0; i < NA; ++i) {
       const long row = (long)r0 + crow + i * RSTEP;
       const bool ok = row < M && ci < cin;
-      cp_async16(as + i * RSTEP * LDS, ok ? x + row * cin + ci : x,
-                 ok ? 16 : 0);
+      copy4(as + i * RSTEP * LDS, ok ? x + row * cin + ci : x, ok);
     }
   };
   // LN1 on the A fragments: register j of a[mi] is row hh = j & 1 at K
@@ -263,7 +286,7 @@ __device__ void pre_branch(float* sm, const float* __restrict__ x,
     }
   };
   float acc[2][NT][4];
-  tc_ring<TM, NB_COLS, TK, LDS, PRE_STAGES, NT, true>(
+  tc_ring<TM, NB_COLS, TK, LDS, PRE_STAGES, NT, true, pair_passes<T>()>(
       acc, As, Bs, nk, wm * 32, wn * NT * 8, load, prep);
   const float alpha = *p.alpha;
   each_frag<NT>(acc, [&](int r, int c, float v) {
@@ -276,9 +299,10 @@ __device__ void pre_branch(float* sm, const float* __restrict__ x,
   __syncthreads();  // the ring and the statistics are reused
 }
 
+template <class T>
 __global__ void __launch_bounds__(THREADS, 4)
-dsconv_pre_tc(const float* __restrict__ xc, Branch pc, float* __restrict__ yc,
-              const float* __restrict__ xm, Branch pm, float* __restrict__ ym,
+dsconv_pre_tc(const T* __restrict__ xc, Branch pc, float* __restrict__ yc,
+              const T* __restrict__ xm, Branch pm, float* __restrict__ ym,
               int M, int cm, int totc, int totm) {
   extern __shared__ __align__(16) float sm[];
   const int r0 = blockIdx.x * TM;
@@ -288,8 +312,9 @@ dsconv_pre_tc(const float* __restrict__ xc, Branch pc, float* __restrict__ yc,
 
 // acc = the dilated 3x3 conv of y (M, tot) = (B, T, F, tot) with w (N, 9
 // totp) packed, for rows r0 .. r0 + TM: A's row r is the 9 taps (i, j) of
-// row r0 + r at (t + (i - 1) d, f + j - 1), each zero-padded to totp.
-template <int NT>
+// row r0 + r at (t + (i - 1) d, f + j - 1), each zero-padded to totp;
+// PASSES as tc_ring's.
+template <int NT, int PASSES = 3>
 __device__ void dilated(float (&acc)[2][NT][4], float* ring,
                         const float* __restrict__ y,
                         const float* __restrict__ w, int M, int T, int F,
@@ -329,23 +354,23 @@ __device__ void dilated(float (&acc)[2][NT][4], float* ring,
                  ok ? 16 : 0);
     }
   };
-  tc_ring<TM, NB_COLS, TK, LDS, POST_STAGES, NT, true>(
+  tc_ring<TM, NB_COLS, TK, LDS, POST_STAGES, NT, true, PASSES>(
       acc, As, Bs, nk, wm * 32, wn * NT * 8, load);
   __syncthreads();  // every warp is done with the ring before it is reused
 }
 
 // z (TM, ldz) = (wd1 * y + bd1) * sigmoid(wd2 * y + bd2) for the block's
 // rows, columns tot .. kz zero; the gate waits in z for the d1 conv.
-template <int NT>
+template <int NT, int PASSES = 3>
 __device__ void gated(float* ring, const float* __restrict__ y,
                       const Branch& p, float* z, int ldz, int kz, int M,
                       int T, int F, int tot, int d1, int d2, int r0) {
   float acc[2][NT][4];
-  dilated<NT>(acc, ring, y, p.wd2, M, T, F, tot, d2, r0);
+  dilated<NT, PASSES>(acc, ring, y, p.wd2, M, T, F, tot, d2, r0);
   each_frag<NT>(acc, [&](int r, int c, float v) {
     if (c < kz) z[r * ldz + c] = c < tot ? sigmoidf(v + p.bd2[c]) : 0.f;
   });
-  dilated<NT>(acc, ring, y, p.wd1, M, T, F, tot, d1, r0);
+  dilated<NT, PASSES>(acc, ring, y, p.wd1, M, T, F, tot, d1, r0);
   each_frag<NT>(acc, [&](int r, int c, float v) {
     if (c < kz)
       z[r * ldz + c] = c < tot ? (v + p.bd1[c]) * z[r * ldz + c] : 0.f;
@@ -359,14 +384,16 @@ __host__ __device__ inline int post_smem_floats(int totc, int totm) {
 }
 
 // The rest of both blocks and the fusion for rows r0 .. r0 + TM; xc (M,
-// 2cm) = [re | im] and xm (M, cm) the stage's inputs, yc (M, totc) and ym
-// (M, totm) the pre kernel's.
+// 2cm) = [re | im] and xm (M, cm) the stage's inputs (fp32 or bf16 storage
+// Tx, as oc and om), yc (M, totc) and ym (M, totm) the pre kernel's.
+template <class Tx>
 __global__ void __launch_bounds__(THREADS, 3)
-dsconv_post_tc(const float* __restrict__ xc, const float* __restrict__ yc,
-               Branch pc, const float* __restrict__ xm,
+dsconv_post_tc(const Tx* __restrict__ xc, const float* __restrict__ yc,
+               Branch pc, const Tx* __restrict__ xm,
                const float* __restrict__ ym, Branch pm,
-               float* __restrict__ oc, float* __restrict__ om, int M, int T,
+               Tx* __restrict__ oc, Tx* __restrict__ om, int M, int T,
                int F, int cm, int totc, int totm, int d1, int d2) {
+  constexpr int P = pair_passes<Tx>();
   extern __shared__ __align__(16) float sm[];
   const int kc = round_up(totc, 8), km = round_up(totm, 8);
   const int ldc = kc + 4, ldm = km + 4;  // odd multiples of 4: no conflicts
@@ -380,8 +407,8 @@ dsconv_post_tc(const float* __restrict__ xc, const float* __restrict__ yc,
   const int r0 = blockIdx.x * TM;
 
   // 1. the gated dilated convs of both branches
-  gated<NT_C>(ring, yc, pc, zc, ldc, kc, M, T, F, totc, d1, d2, r0);
-  gated<NT_M>(ring, ym, pm, zm, ldm, km, M, T, F, totm, d1, d2, r0);
+  gated<NT_C, P>(ring, yc, pc, zc, ldc, kc, M, T, F, totc, d1, d2, r0);
+  gated<NT_M, P>(ring, ym, pm, zm, ldm, km, M, T, F, totm, d1, d2, r0);
 
   // the output GEMM's packed ws, a pass (CO channels: 2 CO complex rows of
   // kc, CO real rows of km) in the ring; pass 0 loads during LN2
@@ -456,10 +483,10 @@ dsconv_post_tc(const float* __restrict__ xc, const float* __restrict__ yc,
       }
     const float* wb = bc + wn * NT_C * 8 * ldc + lane_b_offset(lane, ldc);
     for (int k = 0; k < kc; k += 8)
-      mma_step<NT_C>(sc, za + k, ldc, wb + k, ldc, k, none);
+      mma_step<NT_C, P>(sc, za + k, ldc, wb + k, ldc, k, none);
     const float* wr = bm + wn * NT_M * 8 * ldm + lane_b_offset(lane, ldm);
     for (int k = 0; k < km; k += 8)
-      mma_step<NT_M>(sg, zb + k, ldm, wr + k, ldm, k, none);
+      mma_step<NT_M, P>(sg, zb + k, ldm, wr + k, ldm, k, none);
     __syncthreads();  // every warp is done with this pass's ws
     if (ps + 1 < npass) load_ws(ps + 1);  // lands during the epilogue
     cp_async_commit();
@@ -475,25 +502,26 @@ dsconv_post_tc(const float* __restrict__ xc, const float* __restrict__ yc,
         for (int g = 0; g < 2; ++g) {
           const int c = ps * CO + wn * 16 + g * 8 + 2 * tq;
           if (c >= cm) continue;  // cm % 4 == 0: c + 1 < cm too
-          const float* xr = xc + row * 2 * cm + c;
-          const float* xq = xm + row * cm + c;
+          const Tx* xr = xc + row * 2 * cm + c;
+          const Tx* xq = xm + row * cm + c;
           float o_re[2], o_im[2], o_m[2];
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
-            const float re = sc[mi][2 * g][hh * 2 + j] + pc.bs[c + j] + xr[j];
-            const float im =
-                sc[mi][2 * g + 1][hh * 2 + j] + pc.bs[cm + c + j] + xr[cm + j];
-            const float m = sg[mi][g][hh * 2 + j] + pm.bs[c + j] + xq[j];
+            const float re =
+                sc[mi][2 * g][hh * 2 + j] + pc.bs[c + j] + to_f(xr[j]);
+            const float im = sc[mi][2 * g + 1][hh * 2 + j] + pc.bs[cm + c + j] +
+                             to_f(xr[cm + j]);
+            const float m =
+                sg[mi][g][hh * 2 + j] + pm.bs[c + j] + to_f(xq[j]);
             const float s = sigmoidf(m);
             o_re[j] = re + s;
             o_im[j] = im + s;
             o_m[j] = m + sigmoidf(sqrtf(fmaxf(re * re + im * im, FUSION_EPS)));
           }
-          float* orow = oc + row * 2 * cm + c;
-          *reinterpret_cast<float2*>(orow) = make_float2(o_re[0], o_re[1]);
-          *reinterpret_cast<float2*>(orow + cm) = make_float2(o_im[0], o_im[1]);
-          *reinterpret_cast<float2*>(om + row * cm + c) =
-              make_float2(o_m[0], o_m[1]);
+          Tx* orow = oc + row * 2 * cm + c;
+          put2(orow, o_re[0], o_re[1]);
+          put2(orow + cm, o_im[0], o_im[1]);
+          put2(om + row * cm + c, o_m[0], o_m[1]);
         }
       }
   }
@@ -698,6 +726,34 @@ extern "C" int se_dsconv_block_tc(
                              st);
 }
 
+namespace {
+
+template <class T>
+int pair_tc(const T* xc, const T* xm, const tcp::Branch& pc,
+            const tcp::Branch& pm, float* yc, float* ym, T* oc, T* om, int B,
+            int T_, int F, int cm, int totc, int totm, int d1, int d2,
+            cudaStream_t st) {
+  if (cm % 4 != 0 || totc % 4 != 0 || totm % 4 != 0 || cm <= 0 ||
+      totc <= 0 || totm <= 0 || totc > tcp::N_C || totm > tcp::N_M ||
+      misaligned(xc) || misaligned(xm) || misaligned(yc) || misaligned(ym))
+    return (int)cudaErrorInvalidValue;
+  const long M = (long)B * T_ * F;
+  if (M == 0) return 0;
+  const unsigned blocks = (unsigned)((M + tcp::TM - 1) / tcp::TM);
+  const int pre_smem =
+      (tcp::ring_floats(tcp::PRE_STAGES) + 4 * tcp::TM) * (int)sizeof(float);
+  const int err = launch_smem(tcp::dsconv_pre_tc<T>, blocks, pre_smem, st,
+                              xc, pc, yc, xm, pm, ym, (int)M, cm, totc, totm);
+  if (err != 0) return err;
+  const int post_smem =
+      tcp::post_smem_floats(totc, totm) * (int)sizeof(float);
+  return launch_smem(tcp::dsconv_post_tc<T>, blocks, post_smem, st, xc,
+                     (const float*)yc, pc, xm, (const float*)ym, pm, oc, om,
+                     (int)M, T_, F, cm, totc, totm, d1, d2);
+}
+
+}  // namespace
+
 // One conformer stage (se_tpu's `dsconv_pair_block`) on the tensor cores:
 // xc (B, T, F, 2cm) and xm (B, T, F, cm) -> oc, om of the same shapes. Each
 // branch's 13 pointers in the tuple's order, w1, g1, b1, wd1, wd2 and ws
@@ -715,26 +771,32 @@ extern "C" int se_dsconv_pair_tc(
     const float* bd2m, const float* g2m, const float* b2m, const float* wsm,
     const float* bsm, float* yc, float* ym, float* oc, float* om, int B,
     int T, int F, int cm, int totc, int totm, int d1, int d2, void* stream) {
-  if (cm % 4 != 0 || totc % 4 != 0 || totm % 4 != 0 || cm <= 0 ||
-      totc <= 0 || totm <= 0 || totc > tcp::N_C || totm > tcp::N_M ||
-      misaligned(xc) || misaligned(xm) || misaligned(yc) || misaligned(ym))
-    return (int)cudaErrorInvalidValue;
-  const long M = (long)B * T * F;
-  if (M == 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
   const tcp::Branch pc{w1c, g1c, b1c, bb1c, ac, wd1c, bd1c,
                        wd2c, bd2c, g2c, b2c, wsc, bsc};
   const tcp::Branch pm{w1m, g1m, b1m, bb1m, am, wd1m, bd1m,
                        wd2m, bd2m, g2m, b2m, wsm, bsm};
-  const unsigned blocks = (unsigned)((M + tcp::TM - 1) / tcp::TM);
-  const int pre_smem =
-      (tcp::ring_floats(tcp::PRE_STAGES) + 4 * tcp::TM) * (int)sizeof(float);
-  const int err = launch_smem(tcp::dsconv_pre_tc, blocks, pre_smem, st, xc,
-                              pc, yc, xm, pm, ym, (int)M, cm, totc, totm);
-  if (err != 0) return err;
-  const int post_smem =
-      tcp::post_smem_floats(totc, totm) * (int)sizeof(float);
-  return launch_smem(tcp::dsconv_post_tc, blocks, post_smem, st, xc,
-                     (const float*)yc, pc, xm, (const float*)ym, pm, oc, om,
-                     (int)M, T, F, cm, totc, totm, d1, d2);
+  return pair_tc(xc, xm, pc, pm, yc, ym, oc, om, B, T, F, cm, totc, totm, d1,
+                 d2, (cudaStream_t)stream);
+}
+
+// The stage in bf16: xc, xm, oc, om bf16; the packed weights (fp32 holding
+// bf16 values), the vectors and the scratch yc, ym fp32; otherwise as
+// se_dsconv_pair_tc.
+extern "C" int se_dsconv_pair_tc_bf16(
+    const __nv_bfloat16* xc, const __nv_bfloat16* xm, const float* w1c,
+    const float* g1c, const float* b1c, const float* bb1c, const float* ac,
+    const float* wd1c, const float* bd1c, const float* wd2c,
+    const float* bd2c, const float* g2c, const float* b2c, const float* wsc,
+    const float* bsc, const float* w1m, const float* g1m, const float* b1m,
+    const float* bb1m, const float* am, const float* wd1m, const float* bd1m,
+    const float* wd2m, const float* bd2m, const float* g2m, const float* b2m,
+    const float* wsm, const float* bsm, float* yc, float* ym,
+    __nv_bfloat16* oc, __nv_bfloat16* om, int B, int T, int F, int cm,
+    int totc, int totm, int d1, int d2, void* stream) {
+  const tcp::Branch pc{w1c, g1c, b1c, bb1c, ac, wd1c, bd1c,
+                       wd2c, bd2c, g2c, b2c, wsc, bsc};
+  const tcp::Branch pm{w1m, g1m, b1m, bb1m, am, wd1m, bd1m,
+                       wd2m, bd2m, g2m, b2m, wsm, bsm};
+  return pair_tc(xc, xm, pc, pm, yc, ym, oc, om, B, T, F, cm, totc, totm, d1,
+                 d2, (cudaStream_t)stream);
 }

@@ -1,4 +1,4 @@
-// One Uformer encoder level, both branches, fp32: stride-(1, 2) (2, 5)
+// One Uformer encoder level, both branches, fp32 or bf16: stride-(1, 2) (2, 5)
 // conv (T pad (1, 0) causal, F pad (2, 2)) -> BN affine -> PReLU for the
 // complex (interleaved [re | im]) and the real branch, then `fusion`.
 //
@@ -58,6 +58,18 @@
 // stride (two lanes a bank: lanes read rows two apart), and every tap
 // reads them there; weights are warp-wide broadcasts. The grid is one wave
 // of resident blocks.
+//
+// bf16 (`se_encoder_level_tc_bf16`, `se_encoder_level_cc_bf16`): xc, xm,
+// yc and ym in bf16, the TPU kernel's rounding points
+// (pallas_encoder.py:91-94): the input and the weights are bf16 values,
+// every sum, the bias, the BN affine, PReLU and the fusion fp32, the two
+// outputs rounded once. The weights come packed (tc) or as they are (cc)
+// in fp32 holding bf16 values (ops/encoder.py), the tail vectors in fp32.
+// Both designs are the fp32 ones templated on the storage: the A tiles
+// are widened to fp32 as they are staged (tc_common.cuh `copy4`, `copy1`:
+// plain loads, not cp.async; 8-byte loads of 4 channels, 2-byte ones
+// where Cin % 4 != 0), and the tensor-core GEMM runs one TF32 pass, exact
+// on two bf16 operands (tc_common.cuh), where fp32 takes three.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -86,14 +98,14 @@ constexpr int TC_SMEM =
 // acc[m tile][n8 tile][fragment] = A . w^T over one branch: A's row r is
 // the 10 taps of output position r0 + r over x (B T F, cin), each
 // zero-padded to cinp; w (ncols, 10 cinp) packed, the block's columns from
-// col0 on, NT n8 tiles a warp. VEC: 16-byte copies (cin % 4 == 0), else
-// 4-byte ones.
-template <int NT, bool VEC>
+// col0 on, NT n8 tiles a warp. VEC: copies of 4 channels (cin % 4 == 0),
+// else of one. T: x's storage.
+template <int NT, bool VEC, class T>
 __device__ __forceinline__ void branch_loop(float (&acc)[2][NT][4],
                                             float* sm,
-                                            const float* __restrict__ x,
+                                            const T* __restrict__ x,
                                             const float* __restrict__ w,
-                                            int M, int T, int F, int cin,
+                                            int M, int Tn, int F, int cin,
                                             int cinp, int r0, int col0) {
   constexpr int NB_COLS = WN * NT * 8;  // packed columns a block
   float* As = sm;                       // STAGES x TM x LDS
@@ -116,7 +128,7 @@ __device__ __forceinline__ void branch_loop(float (&acc)[2][NT][4],
     base[i] = 2L * p;
     unsigned bits = 0;
     if (p < M) {
-      const int fo = p % fo_n, t = (p / fo_n) % T;
+      const int fo = p % fo_n, t = (p / fo_n) % Tn;
 #pragma unroll
       for (int tap = 0; tap < TAPS; ++tap) {
         const int it = tap / 5, ff = 2 * fo + tap % 5 - 2;
@@ -138,32 +150,32 @@ __device__ __forceinline__ void branch_loop(float (&acc)[2][NT][4],
 #pragma unroll
     for (int i = 0; i < NA; ++i) {
       const bool in = (inside[i] >> tap) & 1u;
-      const float* src = x + (size_t)(base[i] + shift) * cin + ci;
+      const T* src = x + (size_t)(base[i] + shift) * cin + ci;
       if (VEC) {
-        // outside: 0 bytes from a valid address, the 16 filled with zeros
+        // outside: nothing read from a valid address, zeros stored
         const bool ok = in && ci < cin;
-        cp_async16(as + i * RSTEP * LDS, ok ? src : x, ok ? 16 : 0);
+        copy4(as + i * RSTEP * LDS, ok ? src : x, ok);
       } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const bool ok = in && ci + e < cin;
-          cp_async4(as + i * RSTEP * LDS + e, ok ? src + e : x, ok ? 4 : 0);
+          copy1(as + i * RSTEP * LDS + e, ok ? src + e : x, ok);
         }
       }
     }
   };
 
-  tc_ring<TM, NB_COLS, TK, LDS, STAGES, NT, true>(acc, As, Bs, nk, wm * 32,
-                                                 wn * NT * 8, load_stage);
+  tc_ring<TM, NB_COLS, TK, LDS, STAGES, NT, true, passes_for<T>()>(
+      acc, As, Bs, nk, wm * 32, wn * NT * 8, load_stage);
   __syncthreads();  // every warp is done with the ring before it is reused
 }
 
-template <bool VEC>
+template <bool VEC, class T>
 __global__ void __launch_bounds__(TC_THREADS, 4)
-encoder_level_tc(const float* __restrict__ xc, const float* __restrict__ xm,
+encoder_level_tc(const T* __restrict__ xc, const T* __restrict__ xm,
                  const float* __restrict__ wcp, const float* __restrict__ wmp,
-                 Tail P, float* __restrict__ yc, float* __restrict__ ym,
-                 int M, int T, int F, int cin, int cout, int cinp_c,
+                 Tail P, T* __restrict__ yc, T* __restrict__ ym,
+                 int M, int Tn, int F, int cin, int cout, int cinp_c,
                  int cinp_m) {
   extern __shared__ __align__(16) float sm[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -172,9 +184,9 @@ encoder_level_tc(const float* __restrict__ xc, const float* __restrict__ xm,
   const int nct = (cout + CT - 1) / CT;
   const int ct = blockIdx.x % nct, r0 = (blockIdx.x / nct) * TM;
   float acc_c[2][NT_C][4], acc_m[2][NT_M][4];
-  branch_loop<NT_C, VEC>(acc_c, sm, xc, wcp, M, T, F, 2 * cin, cinp_c, r0,
+  branch_loop<NT_C, VEC>(acc_c, sm, xc, wcp, M, Tn, F, 2 * cin, cinp_c, r0,
                          ct * WN * NT_C * 8);
-  branch_loop<NT_M, VEC>(acc_m, sm, xm, wmp, M, T, F, cin, cinp_m, r0,
+  branch_loop<NT_M, VEC>(acc_m, sm, xm, wmp, M, Tn, F, cin, cinp_m, r0,
                          ct * WN * NT_M * 8);
 
   // acc_c[mi][2 g + part][hh * 2 + j]: position row gid + 8 hh of m tile
@@ -219,11 +231,12 @@ inline size_t cc_smem_floats(int cin, int coutp, int F) {
   return (size_t)50 * cin * coutp + (size_t)cc_rows(F) * cc_ld(cin);
 }
 
+template <class T>
 __global__ void __launch_bounds__(CC_THREADS)
-encoder_level_cc(const float* __restrict__ xc, const float* __restrict__ xm,
+encoder_level_cc(const T* __restrict__ xc, const T* __restrict__ xm,
                  const float* __restrict__ wc, const float* __restrict__ wm,
-                 Tail P, float* __restrict__ yc, float* __restrict__ ym,
-                 int M, int T, int F, int cin, int cout) {
+                 Tail P, T* __restrict__ yc, T* __restrict__ ym,
+                 int M, int Tn, int F, int cin, int cout) {
   extern __shared__ __align__(16) float ws[];
   const int coutp = (cout + CO - 1) / CO * CO, c2 = 2 * cin, ld = cc_ld(cin);
   float* wcs = ws;                                 // (10, 2 cin, 2, coutp)
@@ -250,18 +263,18 @@ encoder_level_cc(const float* __restrict__ xc, const float* __restrict__ xm,
     for (int e = tid; e < rows * c2; e += CC_THREADS) {
       const long gr = g0 + e / c2;
       tile[(e / c2) * ld + e % c2] =
-          gr >= 0 && gr < rows_in ? __ldg(xc + g0 * c2 + e) : 0.f;
+          gr >= 0 && gr < rows_in ? ldg_f(xc + g0 * c2 + e) : 0.f;
     }
     for (int e = tid; e < rows * cin; e += CC_THREADS) {
       const long gr = g0 + e / cin;
       tile[(e / cin) * ld + c2 + e % cin] =
-          gr >= 0 && gr < rows_in ? __ldg(xm + g0 * cin + e) : 0.f;
+          gr >= 0 && gr < rows_in ? ldg_f(xm + g0 * cin + e) : 0.f;
     }
     __syncthreads();
     const long p = p0 + tid;
     if (p >= M) continue;
     const int fo = (int)(p % fo_n);
-    const bool first_row = (p / fo_n) % T == 0;
+    const bool first_row = (p / fo_n) % Tn == 0;
     for (int c0 = 0; c0 < coutp; c0 += CO) {
       float re[CO], im[CO], mg[CO];
 #pragma unroll
@@ -298,25 +311,19 @@ encoder_level_cc(const float* __restrict__ xc, const float* __restrict__ xm,
   }
 }
 
-}  // namespace
-
-// The CUDA-core design, the 10-tuple's weights as they are: wc (2, 5, 2cin,
-// 2cout), wm (2, 5, cin, cout). Needs F even and its shared memory
-// (cc_smem_floats: the staged weights, coutp = cout rounded up to 8, and
-// the input tile) to fit a block.
-extern "C" int se_encoder_level_cc(
-    const float* xc, const float* xm, const float* wc, const float* bc,
-    const float* sc, const float* tc, const float* ac, const float* wm,
-    const float* bm, const float* sm, const float* tm, const float* am,
-    float* yc, float* ym, int B, int T, int F, int cin, int cout,
-    void* stream) {
+template <class T>
+int level_cc(const T* xc, const T* xm, const float* wc, const float* bc,
+             const float* sc, const float* tc, const float* ac,
+             const float* wm, const float* bm, const float* sm,
+             const float* tm, const float* am, T* yc, T* ym, int B, int Tn,
+             int F, int cin, int cout, cudaStream_t st) {
   if (F % 2 != 0) return (int)cudaErrorInvalidValue;
-  const long M = (long)B * T * (F / 2);
+  const long M = (long)B * Tn * (F / 2);
   if (M == 0) return 0;
   const Tail P{bc, sc, tc, ac, bm, sm, tm, am};
   const int coutp = (cout + CO - 1) / CO * CO;
   const size_t smem = cc_smem_floats(cin, coutp, F) * sizeof(float);
-  auto kernel = encoder_level_cc;
+  auto kernel = encoder_level_cc<T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int dev = 0, sms = 0, per_sm = 0;
@@ -331,9 +338,51 @@ extern "C" int se_encoder_level_cc(
   const long need = ((long)M + CC_THREADS - 1) / CC_THREADS;
   const long wave = (long)sms * per_sm;
   const unsigned blocks = (unsigned)(need < wave ? need : wave);
-  kernel<<<blocks, CC_THREADS, smem, (cudaStream_t)stream>>>(
-      xc, xm, wc, wm, P, yc, ym, (int)M, T, F, cin, cout);
+  kernel<<<blocks, CC_THREADS, smem, st>>>(xc, xm, wc, wm, P, yc, ym, (int)M,
+                                           Tn, F, cin, cout);
   return (int)cudaGetLastError();
+}
+
+template <class T>
+int level_tc(const T* xc, const T* xm, const float* wcp, const float* wmp,
+             const float* bc, const float* sc, const float* tc,
+             const float* ac, const float* bm, const float* sm,
+             const float* tm, const float* am, T* yc, T* ym, int B, int Tn,
+             int F, int cin, int cout, int cinp_c, int cinp_m,
+             cudaStream_t st) {
+  if (F % 2 != 0 || cinp_c % TK != 0 || cinp_c < 2 * cin ||
+      cinp_m % TK != 0 || cinp_m < cin ||
+      reinterpret_cast<uintptr_t>(xc) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(xm) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const long M = (long)B * Tn * (F / 2);
+  if (M == 0) return 0;
+  const bool vec = cin % 4 == 0;
+  auto kernel = vec ? encoder_level_tc<true, T> : encoder_level_tc<false, T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const long blocks = (long)((cout + CT - 1) / CT) * ((M + TM - 1) / TM);
+  const Tail P{bc, sc, tc, ac, bm, sm, tm, am};
+  kernel<<<(unsigned)blocks, TC_THREADS, TC_SMEM, st>>>(
+      xc, xm, wcp, wmp, P, yc, ym, (int)M, Tn, F, cin, cout, cinp_c, cinp_m);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The CUDA-core design, the 10-tuple's weights as they are: wc (2, 5, 2cin,
+// 2cout), wm (2, 5, cin, cout). Needs F even and its shared memory
+// (cc_smem_floats: the staged weights, coutp = cout rounded up to 8, and
+// the input tile) to fit a block.
+extern "C" int se_encoder_level_cc(
+    const float* xc, const float* xm, const float* wc, const float* bc,
+    const float* sc, const float* tc, const float* ac, const float* wm,
+    const float* bm, const float* sm, const float* tm, const float* am,
+    float* yc, float* ym, int B, int T, int F, int cin, int cout,
+    void* stream) {
+  return level_cc(xc, xm, wc, bc, sc, tc, ac, wm, bm, sm, tm, am, yc, ym, B,
+                  T, F, cin, cout, (cudaStream_t)stream);
 }
 
 // The tensor-core design. xc (B, T, F, 2cin), xm (B, T, F, cin) -> yc (B,
@@ -348,21 +397,28 @@ extern "C" int se_encoder_level_tc(
     const float* bm, const float* sm, const float* tm, const float* am,
     float* yc, float* ym, int B, int T, int F, int cin, int cout, int cinp_c,
     int cinp_m, void* stream) {
-  if (F % 2 != 0 || cinp_c % TK != 0 || cinp_c < 2 * cin ||
-      cinp_m % TK != 0 || cinp_m < cin ||
-      reinterpret_cast<uintptr_t>(xc) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(xm) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  const long M = (long)B * T * (F / 2);
-  if (M == 0) return 0;
-  const bool vec = cin % 4 == 0;
-  auto kernel = vec ? encoder_level_tc<true> : encoder_level_tc<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const long blocks = (long)((cout + CT - 1) / CT) * ((M + TM - 1) / TM);
-  const Tail P{bc, sc, tc, ac, bm, sm, tm, am};
-  kernel<<<(unsigned)blocks, TC_THREADS, TC_SMEM, (cudaStream_t)stream>>>(
-      xc, xm, wcp, wmp, P, yc, ym, (int)M, T, F, cin, cout, cinp_c, cinp_m);
-  return (int)cudaGetLastError();
+  return level_tc(xc, xm, wcp, wmp, bc, sc, tc, ac, bm, sm, tm, am, yc, ym,
+                  B, T, F, cin, cout, cinp_c, cinp_m, (cudaStream_t)stream);
+}
+
+// The bf16 variants: xc, xm, yc, ym bf16; the weights (fp32 holding bf16
+// values) and the tail vectors fp32; otherwise as above.
+extern "C" int se_encoder_level_cc_bf16(
+    const __nv_bfloat16* xc, const __nv_bfloat16* xm, const float* wc,
+    const float* bc, const float* sc, const float* tc, const float* ac,
+    const float* wm, const float* bm, const float* sm, const float* tm,
+    const float* am, __nv_bfloat16* yc, __nv_bfloat16* ym, int B, int T,
+    int F, int cin, int cout, void* stream) {
+  return level_cc(xc, xm, wc, bc, sc, tc, ac, wm, bm, sm, tm, am, yc, ym, B,
+                  T, F, cin, cout, (cudaStream_t)stream);
+}
+
+extern "C" int se_encoder_level_tc_bf16(
+    const __nv_bfloat16* xc, const __nv_bfloat16* xm, const float* wcp,
+    const float* wmp, const float* bc, const float* sc, const float* tc,
+    const float* ac, const float* bm, const float* sm, const float* tm,
+    const float* am, __nv_bfloat16* yc, __nv_bfloat16* ym, int B, int T,
+    int F, int cin, int cout, int cinp_c, int cinp_m, void* stream) {
+  return level_tc(xc, xm, wcp, wmp, bc, sc, tc, ac, bm, sm, tm, am, yc, ym,
+                  B, T, F, cin, cout, cinp_c, cinp_m, (cudaStream_t)stream);
 }

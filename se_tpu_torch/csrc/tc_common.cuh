@@ -1,13 +1,23 @@
 // The tensor-core building blocks shared by csrc/lstm.cu, csrc/decoder.cu,
-// csrc/encoder.cu and csrc/dsconv.cu: cp.async copies into shared memory
-// (zero-filled past a short source), the 3xTF32 operand split, ldmatrix of
-// fp32 fragments, the mma.sync.m16n8k8 TF32 product with fp32
-// accumulation, one K step of 8 of a warp's 3xTF32 tile product
-// (`mma_step`), and the main loop that runs it over a cp.async ring
-// (`tc_ring`). sm_80 and up.
+// csrc/encoder.cu, csrc/dsconv.cu and csrc/attention.cu: cp.async copies
+// into shared memory (zero-filled past a short source), the 3xTF32 operand
+// split, ldmatrix of fp32 fragments, the mma.sync.m16n8k8 TF32 product
+// with fp32 accumulation, one K step of 8 of a warp's tile product in 3, 2
+// or 1 TF32 passes (`mma_step`), the main loop that runs it over a
+// cp.async ring (`tc_ring`), and the bf16 storage helpers. sm_80 and up.
+//
+// bf16 variants keep every tile in shared memory as fp32: a bf16 operand
+// is widened as it is loaded (`copy4`, `copy1`: a plain load, converted,
+// stored; no cp.async) and written back rounded to nearest even (`put`).
+// A bf16 value is exact in TF32 (8 significant bits of TF32's 11), so a
+// product of two bf16 operands is exact in one TF32 pass (PASSES = 1),
+// and a product of an fp32 operand A with a bf16 operand B needs only
+// A's split (PASSES = 2: small.B + big.B); both with fp32 accumulation,
+// and both equal to the 3xTF32 result, whose third product is then zero.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -36,6 +46,71 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// fp32 or bf16 storage: read as fp32, write rounded to nearest even.
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float ldg_f(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_f(const __nv_bfloat16* p) {
+  const unsigned short raw =
+      __ldg(reinterpret_cast<const unsigned short*>(p));
+  return __uint_as_float((unsigned)raw << 16);
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+// two neighbours (p 2-element aligned)
+__device__ __forceinline__ void put2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void put2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+// four neighbours (p 4-element aligned)
+__device__ __forceinline__ void put4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void put4(__nv_bfloat16* p, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 raw;
+  raw.x = *reinterpret_cast<unsigned*>(&lo);
+  raw.y = *reinterpret_cast<unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
+// Four consecutive elements of src into the fp32 shared tile at dst (16
+// bytes aligned), zeros where !ok (src must still be a valid address):
+// fp32 by a 16-byte cp.async, bf16 by an 8-byte load widened in registers.
+__device__ __forceinline__ void copy4(float* dst, const float* src, bool ok) {
+  cp_async16(dst, src, ok ? 16 : 0);
+}
+__device__ __forceinline__ void copy4(float* dst, const __nv_bfloat16* src,
+                                      bool ok) {
+  uint2 raw = make_uint2(0u, 0u);
+  if (ok) raw = __ldg(reinterpret_cast<const uint2*>(src));
+  *reinterpret_cast<float4*>(dst) = make_float4(
+      __uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
+      __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
+}
+// One element likewise.
+__device__ __forceinline__ void copy1(float* dst, const float* src, bool ok) {
+  cp_async4(dst, src, ok ? 4 : 0);
+}
+__device__ __forceinline__ void copy1(float* dst, const __nv_bfloat16* src,
+                                      bool ok) {
+  *dst = ok ? ldg_f(src) : 0.f;
+}
+
+// TF32 passes of a product whose operands are fp32 (3), an fp32 A and a
+// bf16-valued B (2), or both bf16-valued (1).
+template <class T>
+__host__ __device__ constexpr int passes_for() {
+  return sizeof(T) == 2 ? 1 : 3;
 }
 
 // v = big + small: big is v rounded to TF32 (to nearest, ties away from
@@ -93,40 +168,60 @@ struct NoPrep {
 // One K step of 8: sum[mi][g] += A . B^T for the warp's two m16 tiles of A
 // (as: the lane's address, lane_a_offset applied, at the step's k; row
 // stride lda) and its NT n8 tiles of B (bs likewise, lane_b_offset; ldb),
-// in three TF32 products a pair (small.big + big.small + big.big). prep(k,
-// a) may rewrite the A fragments (fp32 bits) before the split; k is the
-// step's K index, and register j of a[mi] holds row (lane / 4) + 8 (j & 1)
-// of m tile mi at k + lane % 4 + 4 (j >> 1).
-template <int NT, class Prep>
+// in PASSES TF32 products a pair: 3 (small.big + big.small + big.big), 2
+// for a bf16-valued B (small.B + big.B) or 1 for bf16-valued A and B
+// (A.B). prep(k, a) may rewrite the A fragments (fp32 bits) before the
+// split; k is the step's K index, and register j of a[mi] holds row (lane
+// / 4) + 8 (j & 1) of m tile mi at k + lane % 4 + 4 (j >> 1).
+template <int NT, int PASSES = 3, class Prep>
 __device__ __forceinline__ void mma_step(float (&sum)[2][NT][4],
                                          const float* as, int lda,
                                          const float* bs, int ldb, int k,
                                          Prep& prep) {
+  static_assert(PASSES >= 1 && PASSES <= 3, "1, 2 or 3 TF32 passes");
   uint32_t a[2][4], b[NT][2];
-  uint32_t a_big[2][4], a_small[2][4], b_big[NT][2], b_small[NT][2];
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi) ldsm_x4(a[mi], as + mi * 16 * lda);
   prep(k, a);
 #pragma unroll
   for (int g = 0; g < NT; g += 2) ldsm_x4(b[g], bs + g * 8 * ldb);
+  if constexpr (PASSES == 1) {
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+    for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      split_tf32(__uint_as_float(a[mi][j]), a_big[mi][j], a_small[mi][j]);
+      for (int g = 0; g < NT; ++g) mma_tf32(sum[mi][g], a[mi], b[g]);
+  } else {
+    uint32_t a_big[2][4], a_small[2][4];
 #pragma unroll
-  for (int g = 0; g < NT; ++g)
+    for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      split_tf32(__uint_as_float(b[g][j]), b_big[g][j], b_small[g][j]);
+      for (int j = 0; j < 4; ++j)
+        split_tf32(__uint_as_float(a[mi][j]), a_big[mi][j], a_small[mi][j]);
+    if constexpr (PASSES == 2) {
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+      for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int g = 0; g < NT; ++g) {
-      mma_tf32(sum[mi][g], a_small[mi], b_big[g]);
-      mma_tf32(sum[mi][g], a_big[mi], b_small[g]);
-      mma_tf32(sum[mi][g], a_big[mi], b_big[g]);
+        for (int g = 0; g < NT; ++g) {
+          mma_tf32(sum[mi][g], a_small[mi], b[g]);
+          mma_tf32(sum[mi][g], a_big[mi], b[g]);
+        }
+    } else {
+      uint32_t b_big[NT][2], b_small[NT][2];
+#pragma unroll
+      for (int g = 0; g < NT; ++g)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          split_tf32(__uint_as_float(b[g][j]), b_big[g][j], b_small[g][j]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int g = 0; g < NT; ++g) {
+          mma_tf32(sum[mi][g], a_small[mi], b_big[g]);
+          mma_tf32(sum[mi][g], a_big[mi], b_small[g]);
+          mma_tf32(sum[mi][g], a_big[mi], b_big[g]);
+        }
     }
+  }
 }
 
 // The 3xTF32 main loop: acc[m16 tile][n8 tile][fragment] = A . B^T over nk
@@ -138,9 +233,9 @@ __device__ __forceinline__ void mma_step(float (&sum)[2][NT][4],
 // fragment that joins acc by fp32 adds (the mma's own accumulation rounds
 // toward zero, which drifts over a long K); otherwise the mma accumulates
 // into acc. Returns with every copy landed; a caller that reuses the ring
-// must __syncthreads() first.
+// must __syncthreads() first. PASSES as mma_step's.
 template <int TM, int BROWS, int TK, int LDS, int STAGES, int NT, bool FRESH,
-          class Load, class Prep = NoPrep>
+          int PASSES = 3, class Load, class Prep = NoPrep>
 __device__ __forceinline__ void tc_ring(float (&acc)[2][NT][4],
                                         const float* As, const float* Bs,
                                         int nk, int a_row0, int b_row0,
@@ -178,7 +273,8 @@ __device__ __forceinline__ void tc_ring(float (&acc)[2][NT][4],
     float (&sum)[2][NT][4] = FRESH ? part : acc;
 #pragma unroll
     for (int kk = 0; kk < TK; kk += 8)
-      mma_step<NT>(sum, as + kk, LDS, bs + kk, LDS, kt * TK + kk, prep);
+      mma_step<NT, PASSES>(sum, as + kk, LDS, bs + kk, LDS, kt * TK + kk,
+                           prep);
     if (FRESH) {
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)

@@ -9,6 +9,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tc_common.cuh"
+
 namespace {
 
 constexpr float FUSION_EPS = 1.1920929e-07f;  // np.finfo(np.float32).eps
@@ -29,12 +31,14 @@ struct Tail {
 };
 
 // Output position o, channel c: the epilogue on the sums r, i (complex)
-// and g (real), written to yc (., 2 cout) and ym (., cout).
+// and g (real), in fp32, written to yc (., 2 cout) and ym (., cout) of
+// fp32 or bf16 storage T (rounded once, to nearest even).
+template <class T>
 __device__ __forceinline__ void level_out(const Tail& P, float r, float i,
                                           float g, size_t o, int c,
                                           int cout, bool has_bn,
-                                          float* __restrict__ yc,
-                                          float* __restrict__ ym) {
+                                          T* __restrict__ yc,
+                                          T* __restrict__ ym) {
   r += P.bc[c];
   i += P.bc[cout + c];
   g += P.bm[c];
@@ -46,9 +50,9 @@ __device__ __forceinline__ void level_out(const Tail& P, float r, float i,
   }
   const float cmag = sqrtf(fmaxf(r * r + i * i, FUSION_EPS));
   const float s = sigmoidf(g);
-  yc[o * 2 * cout + c] = r + s;
-  yc[o * 2 * cout + cout + c] = i + s;
-  ym[o * cout + c] = g + sigmoidf(cmag);
+  put(yc + o * 2 * cout + c, r + s);
+  put(yc + o * 2 * cout + cout + c, i + s);
+  put(ym + o * cout + c, g + sigmoidf(cmag));
 }
 
 }  // namespace

@@ -14,3 +14,13 @@ def resolve_device(device=None) -> torch.device:
             "se_tpu_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def weight_key(modules) -> tuple:
+    """What identifies the parameters and buffers of `modules` as they
+    stand: each tensor's device, dtype, storage and version counter (an
+    in-place change bumps it). Caches of what is made from weights (kernel
+    packs, a bf16 copy) are keyed by it."""
+    return tuple((str(t.device), t.dtype, t.data_ptr(), t._version)
+                 for mod in modules
+                 for t in (*mod.parameters(), *mod.buffers()))

@@ -53,7 +53,7 @@ def enhance_windowed(name: str, model: torch.nn.Module, wav: np.ndarray,
     if dtype not in (None, torch.float32):
         raise NotImplementedError(
             f"windowed decode in {dtype} is not ported yet: ROADMAP Queue 1 "
-            "item 4 (bf16)")
+            "item 4 (bf16: what is left)")
     entry = get_model(name)
     dev = model_device(model, device)
     x = np.asarray(wav, np.float32)

@@ -280,5 +280,6 @@ register(
         from_jax_variables=from_jax_variables,
         variants=("cln", "in"),
         inverted_gain=True,
+        bf16=True,
     )
 )

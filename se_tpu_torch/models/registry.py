@@ -22,6 +22,9 @@ class ModelEntry:
     # the per-utterance RMS gain c divides the input and multiplies the
     # output (G2Net's reference), instead of the other way round
     inverted_gain: bool = False
+    # the enhance driver runs the family in bf16 (`dtype=torch.bfloat16`);
+    # the others raise, naming the ROADMAP item that ports theirs
+    bf16: bool = False
 
 
 _REGISTRY: dict[str, ModelEntry] = {}

@@ -194,5 +194,6 @@ register(
         io_kind="complex_map",
         from_jax_variables=from_jax_variables,
         variants=("cln", "in"),
+        bf16=True,
     )
 )

@@ -44,7 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from se_tpu_torch.device import resolve_device
+from se_tpu_torch.device import resolve_device, weight_key
 from se_tpu_torch.models import jax_tree as jt
 from se_tpu_torch.models.registry import ModelEntry, register
 from se_tpu_torch.nn import (
@@ -440,38 +440,42 @@ def unit_phase(a, b):
 
 
 def _cached(owner: nn.Module, kind: str, i: int, modules, make):
-    """make()'s result for `owner`'s (kind, i), made once and kept until a
-    parameter or buffer of `modules` moves or changes in place (keyed by
-    each tensor's device, storage and version counter). Under autograd it
-    is made anew and not kept, so gradients reach the weights."""
-    tensors = [t for mod in modules
-               for t in (*mod.parameters(), *mod.buffers())]
-    key = tuple((str(t.device), t.data_ptr(), t._version) for t in tensors)
+    """make()'s result for `owner`'s (kind, i), one entry a dtype of the
+    weights, made once and kept until a parameter or buffer of `modules`
+    moves or changes in place (`weight_key`). Under autograd it is made
+    anew and not kept, so gradients reach the weights."""
+    key = weight_key(modules)
+    slot = (kind, i, key[0][1] if key else None)
     cache = owner.__dict__.setdefault("_weight_cache", {})
-    hit = cache.get((kind, i))
+    hit = cache.get(slot)
     if not torch.is_grad_enabled() and hit is not None and hit[0] == key:
         return hit[1]
     out = make()
     if not torch.is_grad_enabled():
-        cache[(kind, i)] = (key, out)
+        cache[slot] = (key, out)
     return out
 
 
 def _level_params(cconv, bn, act, rconv, bn_r, act_r, split: bool):
-    """se_tpu's encoder 10-tuple (split=False) or decoder 12-tuple."""
+    """se_tpu's encoder 10-tuple (split=False) or decoder 12-tuple. From
+    bf16 weights the conv kernels stay bf16 and the tail vectors are fp32:
+    the bias and slope widened, BN's affine folded in fp32 from the bf16
+    statistics (the bf16 level kernels' inputs)."""
     out = []
     for conv, norm, prelu, tile in ((cconv, bn, act, 2),
                                     (rconv, bn_r, act_r, 1)):
         w, b = conv.weights()
+        tail = torch.float32 if w.dtype == torch.bfloat16 else w.dtype
         ws = [t.contiguous() for t in split_phase_weights(w)] if split \
             else [w.contiguous()]
+        b = b.to(tail)
         if norm is None:  # last decoder level: no BN, no PReLU
             inv = shift = torch.zeros_like(b)
             alpha = b.new_zeros(1, 1)
         else:
-            inv, shift = norm.affine()
+            inv, shift = norm.affine(tail)
             inv, shift = inv.repeat(tile), shift.repeat(tile)
-            alpha = prelu.weight.reshape(1, 1)
+            alpha = prelu.weight.reshape(1, 1).to(tail)
         out += ws + [_row(b), _row(inv), _row(shift), alpha]
     return tuple(out)
 
@@ -579,6 +583,10 @@ class Uformer(nn.Module):
         if self.training and generator is None:
             raise ValueError("Uformer in train mode draws its dropout from a "
                              "torch.Generator: pass `generator`")
+        if self.training and noisy.dtype == torch.bfloat16:
+            raise NotImplementedError(
+                "Uformer trains in fp32: bf16 training is ROADMAP Queue 1 "
+                "item 4e")
         cfg = PRESET_UFORMER
         n_re, n_im = stft(noisy, cfg)  # (B, T, F)
         s_re, s_im = stft(src, cfg)
@@ -763,5 +771,6 @@ register(
         io_kind="waveform",
         from_jax_variables=from_jax_variables,
         variants=("cprs",),
+        bf16=True,
     )
 )

@@ -54,10 +54,16 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(ch))
         self.eval()  # as the port's models, until train() asks for it
 
-    def affine(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """(scale, shift) with BN(x) = x * scale + shift."""
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return inv, self.bias - self.running_mean * inv
+    def affine(self, dtype: torch.dtype | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(scale, shift) with BN(x) = x * scale + shift, folded in `dtype`
+        (None: the parameters' own) from the parameters' values: the bf16
+        U-net level kernels take it folded in fp32 from the bf16 values."""
+        w, b, mean, var = (t if dtype is None else t.to(dtype)
+                           for t in (self.weight, self.bias,
+                                     self.running_mean, self.running_var))
+        inv = torch.rsqrt(var + self.eps) * w
+        return inv, b - mean * inv
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:

@@ -12,7 +12,8 @@ on a non-zero code. `launch` runs an entry on the device its tensors lie
 on: that device's current stream, and that device made current in the
 library (which links its own CUDA runtime, so `torch.cuda.device` does not
 reach it) before the call. `LAUNCHES` counts the wrapper calls that
-launched a kernel, by kernel name.
+launched a kernel, by kernel name; a bf16 variant counts under its own
+name (`variant`: attention_bf16, ...), never under the fp32 kernel's.
 """
 
 from __future__ import annotations
@@ -115,17 +116,52 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def check(t: torch.Tensor, shape: tuple, name: str) -> None:
-    """Raise unless `t` is a contiguous fp32 CUDA tensor of `shape`."""
+# The ROADMAP item (Queue 1) that ports a kernel's bf16 variant, for the
+# kernels that have none yet; a bf16 launch of one raises and names it.
+BF16_TODO = {
+    "lstm": "ROADMAP Queue 1 item 4b (the LSTM kernels in bf16)",
+    "dsconv": "ROADMAP Queue 1 item 4c (the single DSConv block in bf16)",
+    "stft": "ROADMAP Queue 1 item 4d (the STFT kernel in bf16)",
+}
+
+
+def check(t: torch.Tensor, shape: tuple, name: str,
+          dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor of `dtype` and
+    `shape`."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the kernels take float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: this launch takes {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def launch_dtype(kernel: str, *tensors: torch.Tensor) -> torch.dtype:
+    """The one dtype of a launch's activations `tensors`: float32, or
+    bfloat16 where `kernel` has a bf16 variant. Raise TypeError on mixed
+    dtypes, on any other dtype, and on bf16 at a kernel that has no bf16
+    variant (naming the ROADMAP item that ports it): nothing is cast."""
+    found = {t.dtype for t in tensors}
+    if len(found) != 1:
+        raise TypeError(f"{kernel}: a launch's activations share one dtype, "
+                        f"got {', '.join(sorted(map(str, found)))}")
+    (dtype,) = found
+    if dtype == torch.bfloat16 and kernel in BF16_TODO:
+        raise TypeError(f"{kernel}: no bf16 variant yet: "
+                        f"{BF16_TODO[kernel]}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{kernel}: the kernels take float32 or bfloat16, "
+                        f"got {dtype}")
+    return dtype
+
+
+def variant(name: str, dtype: torch.dtype) -> str:
+    """`name` of the fp32 entry or counter, `name`_bf16 of the bf16 one."""
+    return f"{name}_bf16" if dtype == torch.bfloat16 else name
 
 
 def launch_device(devices) -> torch.device:

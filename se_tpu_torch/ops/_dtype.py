@@ -1,0 +1,100 @@
+"""bf16 helpers of the kernel wrappers' twins and of the bf16 kernels'
+checks: `widened` runs a twin with the Pallas kernels' bf16 rounding
+points, and `bf16_compare` / `att_flip_slack` are the one tolerance the
+bf16 kernels are held to, on the CPU (tests/torch_kernel_inputs.py
+`bf16_close`) and on the card (chip_smoke.py phase 3)."""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import torch
+
+# one bf16 ulp of each element (two fp32 sums in another order round to
+# neighbours), plus 1e-6 of the largest output for elements near zero
+BF16_RTOL = 2.0 ** -7
+BF16_FLOOR = 1e-6
+# attention rounds P to bf16 inside: the share of elements that may pass
+# the tolerance above by up to one P element's rounding flip
+FLIP_SHARE = 1e-3
+
+
+def to_float(nest):
+    """The tensors of a nest (tuples and lists) widened to fp32; anything
+    else as it is."""
+    if isinstance(nest, (tuple, list)):
+        return type(nest)(to_float(x) for x in nest)
+    return nest.float() if isinstance(nest, torch.Tensor) else nest
+
+
+def widened(twin):
+    """`twin` run in bf16 with the Pallas kernels' rounding points: the
+    activations and every parameter widened to fp32, the math in fp32,
+    each output rounded to bf16 once (pallas_encoder.py:91-94,
+    pallas_decoder.py:110-113, pallas_dsconv.py:320-321). fp32 and fp64
+    calls run `twin` as it is."""
+
+    @functools.wraps(twin)
+    def run(*args, **kw):
+        if args[0].dtype != torch.bfloat16:
+            return twin(*args, **kw)
+        out = twin(*to_float(args), **kw)
+        return tuple(o.to(torch.bfloat16) for o in out)
+
+    return run
+
+
+def att_flip_slack(q, k, v, scale: float) -> torch.Tensor:
+    """What one rounding flip of a bf16 P element can move attention's
+    output by, per (n, h, row, d): 2^-7 (a bf16 ulp's relative bound) x
+    the row's largest P (softmax in fp32 on the widened inputs) x the
+    column's largest |v|. Two fp32 softmaxes that sum in another order
+    round an element of P to neighbours now and then. N in chunks of at
+    most 2**26 scores."""
+    n, h, length, _ = q.shape
+    step = max(1, 2 ** 26 // (h * length * length))
+    out = []
+    for i in range(0, n, step):
+        qf, kf, vf = (t[i:i + step].detach().float() for t in (q, k, v))
+        p = torch.softmax(torch.einsum("nhld,nhmd->nhlm", qf, kf) * scale,
+                          -1)
+        out.append(BF16_RTOL * p.amax(-1, keepdim=True)
+                   * vf.abs().amax(-2, keepdim=True))
+    return torch.cat(out)
+
+
+class Bf16Check(NamedTuple):
+    max_abs_err: float
+    n_past: int            # elements past the strict bound
+    share_past: float
+    share_differing: float  # elements that differ at all
+    ok: bool
+
+
+def bf16_compare(got, want, slack=None) -> Bf16Check:
+    """|got - want| <= 2^-7 |want| + 1e-6 max|want| elementwise over the
+    pairs of tensors; with `slack` (one per pair, None for none:
+    att_flip_slack), at most FLIP_SHARE of a pair's elements may pass that
+    bound, each by no more than its slack."""
+    err_max, past_n, diff_n, total, ok = 0.0, 0, 0, 0, True
+    slack = [None] * len(got) if slack is None else slack
+    for g, w, sl in zip(got, want, slack):
+        g, w = g.detach().float(), w.detach().float()
+        if g.shape != w.shape:
+            raise ValueError(f"shapes differ: {tuple(g.shape)} and "
+                             f"{tuple(w.shape)}")
+        err = (g - w).abs()
+        tol = BF16_RTOL * w.abs() + BF16_FLOOR * float(w.abs().max())
+        past = err > tol
+        if sl is None:
+            ok = ok and not bool(past.any())
+        else:
+            ok = (ok and bool((err <= tol + sl.to(err.device)).all())
+                  and float(past.float().mean()) <= FLIP_SHARE)
+        err_max = max(err_max, float(err.max()))
+        past_n += int(past.sum())
+        diff_n += int((err > 0).sum())
+        total += err.numel()
+    total = max(total, 1)
+    return Bf16Check(err_max, past_n, past_n / total, diff_n / total, ok)

@@ -16,6 +16,12 @@ kernel for short L (`se_att_small_l`: 128 / L (n, h) pairs a block, one
 thread a query row; L <= SMALL_L_MAX, the F-attention's 4). Each launch
 counts in `_build.LAUNCHES["attention"]` and in the design's own
 `attention_flash_tc` / `attention_small_l`.
+
+bf16 q, k and v launch each design's bf16 variant (`se_att_flash_tc_bf16`,
+`se_att_small_l_bf16`; counted as `attention_bf16` and
+`attention_flash_tc_bf16` / `attention_small_l_bf16`), which keeps the
+TPU kernel's rounding points: fp32 scores and softmax, P rounded to bf16,
+a bf16 output; `_reference` mirrors them.
 """
 
 from __future__ import annotations
@@ -36,6 +42,15 @@ DESIGNS = ("flash_tc", "small_l")
 
 
 def _reference(q, k, v, scale: float):
+    """The plain twin. In bf16 it keeps the TPU kernel's rounding points
+    (pallas_attention.py:43-49), not einsum's: q, k, v widened to fp32,
+    the scores and the softmax in fp32, P rounded to bf16 after the
+    normalisation, P V in fp32, the output rounded once."""
+    if q.dtype == torch.bfloat16:
+        q, k, v = q.float(), k.float(), v.float()
+        e = torch.einsum("nhld,nhmd->nhlm", q, k) * scale
+        p = torch.softmax(e, dim=-1).to(torch.bfloat16).float()
+        return torch.einsum("nhlm,nhmd->nhld", p, v).to(torch.bfloat16)
     e = torch.einsum("nhld,nhmd->nhlm", q, k) * scale
     p = torch.softmax(e, dim=-1)
     return torch.einsum("nhlm,nhmd->nhld", p, v)
@@ -86,26 +101,29 @@ def sdp_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _launch(q, k, v, scale: float, design: str) -> torch.Tensor:
-    """Launch `design` ("flash_tc" or "small_l") on CUDA tensors."""
+    """Launch `design` ("flash_tc" or "small_l") on CUDA tensors, its fp32
+    or its bf16 variant by q, k and v's one dtype."""
     n, h, l, d = q.shape
     if d != HEAD_DIM:
         raise ValueError(f"attention kernel takes D = {HEAD_DIM}, got {d}")
+    dtype = _build.launch_dtype("attention", q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _build.check(t, (n, h, l, d), name)
+        _build.check(t, (n, h, l, d), name, dtype)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     scale_log2 = float(scale) * math.log2(math.e)
     if design == "flash_tc":
         warps = flash_warps(n * h, l, _sm_count(q.device.index))
-        _build.launch("se_att_flash_tc", q, k, v, out, n * h, l, scale_log2,
-                      warps)
+        _build.launch(_build.variant("se_att_flash_tc", dtype), q, k, v, out,
+                      n * h, l, scale_log2, warps)
     elif design == "small_l":
         if l > SMALL_L_MAX:
             raise ValueError(f"attention small_l design takes L <= "
                              f"{SMALL_L_MAX}, got {l}")
-        _build.launch("se_att_small_l", q, k, v, out, n * h, l, scale_log2)
+        _build.launch(_build.variant("se_att_small_l", dtype), q, k, v, out,
+                      n * h, l, scale_log2)
     else:
         raise ValueError(f"unknown attention design {design!r}")
-    _build.LAUNCHES["attention"] += 1
-    _build.LAUNCHES[f"attention_{design}"] += 1
+    _build.LAUNCHES[_build.variant("attention", dtype)] += 1
+    _build.LAUNCHES[_build.variant(f"attention_{design}", dtype)] += 1
     return out

@@ -23,6 +23,11 @@ narrowest (`se_decoder_level_cc`, Cout < 8: level 5), which reads the
 Under autograd the launch is a Function (`_autograd.kernel_call`) whose
 backward is the VJP of `_reference`, recomputed (se_tpu's
 `pallas_decoder.py:169-175`); `packed` is a constant to it.
+
+bf16 xc and xm launch each design's bf16 variant (`se_decoder_level_tc_bf16`,
+`se_decoder_level_cc_bf16`, counted as `decoder_bf16`), as the encoder's:
+bf16 conv weights (packed in fp32 holding their values), fp32 tail
+vectors, fp32 inside, the outputs rounded once; `_reference` mirrors it.
 """
 
 from __future__ import annotations
@@ -31,7 +36,10 @@ import torch
 import torch.nn.functional as F
 
 from se_tpu_torch.ops import _autograd, _build
-from se_tpu_torch.ops.encoder import _aligned, _prelu, _round_up, fuse
+from se_tpu_torch.ops._dtype import widened
+from se_tpu_torch.ops.encoder import (
+    _aligned, _prelu, _round_up, fuse, launch_params,
+)
 
 
 def split_phase_weights(kernel: torch.Tensor):
@@ -66,6 +74,7 @@ def _tconv_phase_split(x, w_even, w_odd, bias):
     return y + bias
 
 
+@widened
 def _reference(xc, xm, params, has_bn: bool):
     def branch(x, w_e, w_o, b, s, t, a):
         y = _tconv_phase_split(x, w_e, w_o, b[0])
@@ -109,13 +118,14 @@ def _pack_branch(w_even, w_odd, parts: int):
     full = F.pad(full, (0, coutp - cout, 0, 0, 0, cinp - cin))
     full = full.reshape(2, 6, cinp, parts, coutp // 8, 8)
     packed = full.permute(4, 0, 3, 5, 1, 2)  # (g8, phase, part, c8, tap, ci)
-    return packed.reshape(-1, 6 * cinp).contiguous()
+    return packed.reshape(-1, 6 * cinp).float().contiguous()
 
 
 def pack_decoder_weights(params):
     """The 12-tuple's phase weights packed for the tensor-core design, on
-    their device: complex (4 Coutp, 6 Cinp_c) and real (2 Coutp, 6 Cinp_m),
-    K-major. Done once a model (Uformer keeps them), not once a call."""
+    their device, in fp32 (holding bf16 values for bf16 kernels): complex
+    (4 Coutp, 6 Cinp_c) and real (2 Coutp, 6 Cinp_m), K-major. Done once a
+    model (Uformer keeps them, a pack a dtype), not once a call."""
     return (_pack_branch(params[0], params[1], 2),
             _pack_branch(params[6], params[7], 1))
 
@@ -138,35 +148,40 @@ def decoder_level(xc: torch.Tensor, xm: torch.Tensor, params,
 
 
 def _launch(xc, xm, params, has_bn: bool, design: str, packed=None):
-    """Launch `design` ("tc" or "cuda_core") on CUDA tensors."""
+    """Launch `design` ("tc" or "cuda_core") on CUDA tensors, its fp32 or
+    its bf16 variant by xc and xm's one dtype (as the encoder's
+    `_launch`)."""
     b, t, f, c2 = xc.shape
     cc, cout = c2 // 2, params[6].shape[-1]
+    dtype = _build.launch_dtype("decoder", xc, xm)
     names = ("wce", "wco", "bc", "sc", "tc", "ac",
              "wme", "wmo", "bm", "sm", "tm", "am")
     shapes = ((6, 2 * cc, 2 * cout), (4, 2 * cc, 2 * cout), (1, 2 * cout),
               (1, 2 * cout), (1, 2 * cout), (1, 1),
               (6, cc, cout), (4, cc, cout), (1, cout), (1, cout), (1, cout),
               (1, 1))
-    _build.check(xc, (b, t, f, 2 * cc), "xc")
-    _build.check(xm, (b, t, f, cc), "xm")
-    for name, arr, shape in zip(names, params, shapes):
-        _build.check(arr, shape, name)
-    yc = torch.empty((b, t, 2 * f, 2 * cout), device=xc.device,
-                     dtype=xc.dtype)
-    ym = torch.empty((b, t, 2 * f, cout), device=xc.device, dtype=xc.dtype)
+    _build.check(xc, (b, t, f, 2 * cc), "xc", dtype)
+    _build.check(xm, (b, t, f, cc), "xm", dtype)
+    if design == "tc" and packed is None:
+        packed = pack_decoder_weights(params)
+    args = launch_params(params, shapes, names, (0, 1, 6, 7), dtype,
+                         keep=(0, 1, 6, 7) if design == "tc" else ())
+    yc = torch.empty((b, t, 2 * f, 2 * cout), device=xc.device, dtype=dtype)
+    ym = torch.empty((b, t, 2 * f, cout), device=xc.device, dtype=dtype)
     if design == "tc":
-        wc, wm = pack_decoder_weights(params) if packed is None else packed
+        wc, wm = packed
         coutp = _round_up(cout, TC_CHANNELS)
         cinp_c, cinp_m = _round_up(2 * cc, TC_K), _round_up(cc, TC_K)
         _build.check(wc, (4 * coutp, 6 * cinp_c), "packed wc")
         _build.check(wm, (2 * coutp, 6 * cinp_m), "packed wm")
-        _build.launch("se_decoder_level_tc", _aligned(xc), _aligned(xm), wc,
-                      wm, *params[2:6], *params[8:12], yc, ym, b, t, f, cc,
-                      cout, cinp_c, cinp_m, bool(has_bn))
+        _build.launch(_build.variant("se_decoder_level_tc", dtype),
+                      _aligned(xc), _aligned(xm), wc, wm, *args[2:6],
+                      *args[8:12], yc, ym, b, t, f, cc, cout, cinp_c, cinp_m,
+                      bool(has_bn))
     elif design == "cuda_core":
-        _build.launch("se_decoder_level_cc", xc, xm, *params, yc, ym, b, t, f,
-                      cc, cout, bool(has_bn))
+        _build.launch(_build.variant("se_decoder_level_cc", dtype), xc, xm,
+                      *args, yc, ym, b, t, f, cc, cout, bool(has_bn))
     else:
         raise ValueError(f"unknown decoder design {design!r}")
-    _build.LAUNCHES["decoder"] += 1
+    _build.LAUNCHES[_build.variant("decoder", dtype)] += 1
     return yc, ym

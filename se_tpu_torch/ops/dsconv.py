@@ -32,6 +32,13 @@ Under autograd both launches are Functions (`_autograd.kernel_call`) whose
 backwards are the VJPs of `_reference` and `_pair_reference`, recomputed
 (se_tpu's `pallas_dsconv.py:245-249` and `:370-375`); the packs are
 constants to them.
+
+bf16 xc and xm launch the pair's bf16 variant (`se_dsconv_pair_tc_bf16`,
+counted as `dsconv_pair_bf16`): bf16 parameters (packed in fp32 holding
+their values), every intermediate fp32 (the scratch y between the two
+launches too), the outputs rounded once, as se_tpu's Pallas pair kernel;
+`_pair_reference` mirrors that. The single block has no bf16 variant: a
+bf16 launch of it raises (`_build.BF16_TODO`).
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ import torch.nn.functional as F
 
 from se_tpu_torch.nn.conv import conv2d_nhwc
 from se_tpu_torch.ops import _autograd, _build
+from se_tpu_torch.ops._dtype import widened
 from se_tpu_torch.ops.encoder import _aligned, _round_up
 
 _LN_EPS = 1e-5
@@ -104,15 +112,16 @@ def _pack_branch(params, n_cols: int):
         w = F.pad(w, (0, n_cols - tot, 0, totp - tot))
         return w.permute(2, 0, 1).reshape(n_cols, 9 * totp).contiguous()
 
-    return [w1p, vec(g1), vec(b1), bb1, alpha, dil(wd1), bd1, dil(wd2), bd2,
-            g2, b2, ws, bs]
+    return [t.float() for t in (w1p, vec(g1), vec(b1), bb1, alpha, dil(wd1),
+                                bd1, dil(wd2), bd2, g2, b2, ws, bs)]
 
 
 def _check_block(x, params, ncomp: int, what: str) -> int:
     """Raise unless x and the 13-tuple suit the tensor-core kernels: ncomp
     1 or 2, Cin and Cm multiples of 4 (16-byte copies), Cm <= 64 for ncomp
     2 and <= 32 for ncomp 1 (a block's N, `PAIR_N`), every tensor a
-    contiguous fp32 CUDA tensor of the tuple's shape. Return Cm."""
+    contiguous CUDA tensor of the tuple's shape and of x's dtype (fp32, or
+    bf16 for the pair stage's bf16 variant). Return Cm."""
     (g1, b1, w1, bb1, alpha, wd1, bd1, wd2, bd2, g2, b2, ws, bs) = params
     cin, tot = x.shape[-1], w1.shape[-1]
     if (ncomp not in (1, 2) or cin % 4 or tot % 4 or tot % ncomp
@@ -128,7 +137,7 @@ def _check_block(x, params, ncomp: int, what: str) -> int:
               "g2": (g2, (1, tot)), "b2": (b2, (1, tot)),
               "ws": (ws, (tot, cin)), "bs": (bs, (1, cin))}
     for name, (arr, shape) in shapes.items():
-        _build.check(arr, shape, name)
+        _build.check(arr, shape, name, x.dtype)
     return tot
 
 
@@ -173,6 +182,7 @@ def dsconv_block(x: torch.Tensor, params, d1: int, d2: int, ncomp: int,
 
 
 def _block_launch(x, params, d1: int, d2: int, ncomp: int, packed):
+    _build.launch_dtype("dsconv", x)
     b, t, f, cin = x.shape
     tot = _check_block(x, params, ncomp, "dsconv")
     pk = pack_block_weights(params, ncomp) if packed is None else packed
@@ -185,9 +195,13 @@ def _block_launch(x, params, d1: int, d2: int, ncomp: int, packed):
     return out
 
 
+@widened
 def _pair_reference(xc, xm, params_c, params_m, d1: int, d2: int):
     """Both blocks, then the fusion: |z| = sqrt(max(re^2 + im^2, eps)),
-    re/im += sigmoid(m), m += sigmoid(|z|)."""
+    re/im += sigmoid(m), m += sigmoid(|z|). In bf16 with the Pallas pair
+    kernel's rounding points (`_dtype.widened`: fp32 inside, the two outputs
+    rounded once), not se_tpu's `_pair_reference`'s, which rounds each
+    block's output before the fusion."""
     yc = _reference(xc, tuple(params_c), d1, d2, ncomp=2)
     ym = _reference(xm, tuple(params_m), d1, d2, ncomp=1)
     c = yc.shape[-1] // 2
@@ -209,14 +223,15 @@ def _pack_out(wsc, wsm):
     wc = F.pad(wsc.reshape(totc, 2, c), (0, cp - c, 0, 0, 0, kc - totc))
     wc = wc.reshape(kc, 2, cp // 8, 8).permute(2, 1, 3, 0)
     wm = F.pad(wsm, (0, cp - c, 0, km - totm)).t()
-    return wc.reshape(-1, kc).contiguous(), wm.contiguous()
+    return wc.reshape(-1, kc).float().contiguous(), wm.float().contiguous()
 
 
 def pack_pair_weights(params_c, params_m):
     """Both blocks' 13-tuples as csrc/dsconv.cu's `se_dsconv_pair_tc` takes
-    them, on their device: (complex, real), each (w1p, g1p, b1p, bb1, alpha,
-    wd1p, bd1, wd2p, bd2, g2, b2, ws packed, bs). Done once a model
-    (Uformer keeps them), not once a call."""
+    them, on their device, in fp32 (holding bf16 values for the bf16
+    variant): (complex, real), each (w1p, g1p, b1p, bb1, alpha, wd1p, bd1,
+    wd2p, bd2, g2, b2, ws packed, bs). Done once a model (Uformer keeps
+    them, a pack a dtype), not once a call."""
     pc = _pack_branch(tuple(params_c), PAIR_N[0])
     pm = _pack_branch(tuple(params_m), PAIR_N[1])
     pc[11], pm[11] = _pack_out(params_c[11], params_m[11])
@@ -250,18 +265,22 @@ def dsconv_pair_block(xc: torch.Tensor, xm: torch.Tensor, params_c,
 
 
 def _pair_launch(xc, xm, params_c, params_m, d1: int, d2: int, packed):
+    """The stage's two launches, fp32 or bf16 by xc and xm's one dtype;
+    the scratch y between them is fp32 either way."""
     b, t, f, cc = xc.shape
     cm = xm.shape[-1]
+    dtype = _build.launch_dtype("dsconv_pair", xc, xm)
     totc, totm = _check_pair(xc, xm, params_c, params_m)
     pc, pm = pack_pair_weights(params_c, params_m) if packed is None \
         else packed
     cp = _round_up(cm, PAIR_CO)
     _check_packed(pc, cc, totc, 2, 2 * cp, "complex")
     _check_packed(pm, cm, totm, 1, cp, "real")
-    yc = torch.empty((b, t, f, totc), device=xc.device, dtype=xc.dtype)
-    ym = torch.empty((b, t, f, totm), device=xc.device, dtype=xc.dtype)
+    yc = torch.empty((b, t, f, totc), device=xc.device, dtype=torch.float32)
+    ym = torch.empty((b, t, f, totm), device=xc.device, dtype=torch.float32)
     oc, om = torch.empty_like(xc), torch.empty_like(xm)
-    _build.launch("se_dsconv_pair_tc", _aligned(xc), _aligned(xm), *pc, *pm,
-                  yc, ym, oc, om, b, t, f, cm, totc, totm, d1, d2)
-    _build.LAUNCHES["dsconv_pair"] += 1
+    _build.launch(_build.variant("se_dsconv_pair_tc", dtype), _aligned(xc),
+                  _aligned(xm), *pc, *pm, yc, ym, oc, om, b, t, f, cm, totc,
+                  totm, d1, d2)
+    _build.LAUNCHES[_build.variant("dsconv_pair", dtype)] += 1
     return oc, om

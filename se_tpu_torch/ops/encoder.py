@@ -21,6 +21,12 @@ narrowest level (`se_encoder_level_cc`: level 0, Cin 1), which reads the
 Under autograd the launch is a Function (`_autograd.kernel_call`) whose
 backward is the VJP of `_reference`, recomputed (se_tpu's
 `pallas_encoder.py:146-150`); `packed` is a constant to it.
+
+bf16 xc and xm launch each design's bf16 variant (`se_encoder_level_tc_bf16`,
+`se_encoder_level_cc_bf16`, counted as `encoder_bf16`): bf16 conv weights
+(packed in fp32 holding their values), fp32 tail vectors, every sum and
+the epilogue in fp32, the outputs rounded once, as se_tpu's Pallas kernel
+does; `_reference` mirrors that (`_dtype.widened`).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch.nn.functional as F
 
 from se_tpu_torch.nn.conv import conv2d_nhwc
 from se_tpu_torch.ops import _autograd, _build
+from se_tpu_torch.ops._dtype import widened
 
 EPS = float(np.finfo(np.float32).eps)
 
@@ -55,6 +62,7 @@ def fuse(yc: torch.Tensor, ym: torch.Tensor):
     return torch.cat([re, im], dim=-1), mag
 
 
+@widened
 def _reference(xc, xm, params):
     def branch(x, w, b, s, t, a):
         y = conv2d_nhwc(x, w, strides=(1, 2), padding=((1, 0), (2, 2)))
@@ -96,13 +104,14 @@ def _pack_branch(w, parts: int):
     full = F.pad(full, (0, coutp - cout, 0, 0, 0, cinp - cin))
     full = full.reshape(TAPS, cinp, parts, coutp // 8, 8)
     packed = full.permute(3, 2, 4, 0, 1)  # (g8, part, c8, tap, ci)
-    return packed.reshape(-1, TAPS * cinp).contiguous()
+    return packed.reshape(-1, TAPS * cinp).float().contiguous()
 
 
 def pack_encoder_weights(params):
     """The 10-tuple's kernels packed for the tensor-core design, on their
-    device: complex (2 Coutp, 10 Cinp_c) and real (Coutp, 10 Cinp_m),
-    K-major. Done once a model (Uformer keeps them), not once a call."""
+    device, in fp32 (holding bf16 values for bf16 kernels): complex (2
+    Coutp, 10 Cinp_c) and real (Coutp, 10 Cinp_m), K-major. Done once a
+    model (Uformer keeps them, a pack a dtype), not once a call."""
     return _pack_branch(params[0], 2), _pack_branch(params[5], 1)
 
 
@@ -124,36 +133,63 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
+def launch_params(params, shapes, names, weights, dtype: torch.dtype,
+                  keep=()):
+    """A U-net level's tuple as its launch takes it: checked, in fp32.
+    For a bf16 launch the conv weights (indices `weights`) must be bf16
+    (the kernel's one-pass products are exact on bf16 values only) and
+    every tensor is widened to fp32 but those at `keep` (the weights a
+    packed launch does not read), which become None."""
+    out = []
+    for i, (name, arr, shape) in enumerate(zip(names, params, shapes)):
+        if dtype == torch.bfloat16 and i in weights:
+            _build.check(arr, shape, name, torch.bfloat16)
+            if i in keep:
+                out.append(None)
+                continue
+        arr = arr.float() if dtype == torch.bfloat16 else arr
+        _build.check(arr, shape, name)
+        out.append(arr)
+    return out
+
+
 def _launch(xc, xm, params, design: str, packed=None):
-    """Launch `design` ("tc" or "cuda_core") on CUDA tensors."""
+    """Launch `design` ("tc" or "cuda_core") on CUDA tensors, its fp32 or
+    its bf16 variant by xc and xm's one dtype. A bf16 launch takes bf16
+    conv weights (the packs fp32 holding their values) and widens the tail
+    vectors to fp32."""
     b, t, f, c2 = xc.shape
     cin, cout = c2 // 2, params[5].shape[-1]
     if f % 2:
         raise ValueError(f"encoder kernel: F must be even, got {f}")
+    dtype = _build.launch_dtype("encoder", xc, xm)
     names = ("wc", "bc", "sc", "tc", "ac", "wm", "bm", "sm", "tm", "am")
     shapes = ((2, 5, 2 * cin, 2 * cout), (1, 2 * cout), (1, 2 * cout),
               (1, 2 * cout), (1, 1), (2, 5, cin, cout), (1, cout),
               (1, cout), (1, cout), (1, 1))
-    _build.check(xc, (b, t, f, 2 * cin), "xc")
-    _build.check(xm, (b, t, f, cin), "xm")
-    for name, arr, shape in zip(names, params, shapes):
-        _build.check(arr, shape, name)
+    _build.check(xc, (b, t, f, 2 * cin), "xc", dtype)
+    _build.check(xm, (b, t, f, cin), "xm", dtype)
+    if design == "tc" and packed is None:
+        packed = pack_encoder_weights(params)
+    args = launch_params(params, shapes, names, (0, 5), dtype,
+                         keep=(0, 5) if design == "tc" else ())
     yc = torch.empty((b, t, f // 2, 2 * cout), device=xc.device,
-                     dtype=xc.dtype)
-    ym = torch.empty((b, t, f // 2, cout), device=xc.device, dtype=xc.dtype)
+                     dtype=dtype)
+    ym = torch.empty((b, t, f // 2, cout), device=xc.device, dtype=dtype)
     if design == "tc":
-        wc, wm = pack_encoder_weights(params) if packed is None else packed
+        wc, wm = packed
         coutp = _round_up(cout, TC_CHANNELS)
         cinp_c, cinp_m = _round_up(2 * cin, TC_K), _round_up(cin, TC_K)
         _build.check(wc, (2 * coutp, TAPS * cinp_c), "packed wc")
         _build.check(wm, (coutp, TAPS * cinp_m), "packed wm")
-        _build.launch("se_encoder_level_tc", _aligned(xc), _aligned(xm), wc,
-                      wm, *params[1:5], *params[6:10], yc, ym, b, t, f, cin,
-                      cout, cinp_c, cinp_m)
+        _build.launch(_build.variant("se_encoder_level_tc", dtype),
+                      _aligned(xc), _aligned(xm), wc, wm, *args[1:5],
+                      *args[6:10], yc, ym, b, t, f, cin, cout, cinp_c,
+                      cinp_m)
     elif design == "cuda_core":
-        _build.launch("se_encoder_level_cc", xc, xm, *params, yc, ym, b, t, f,
-                      cin, cout)
+        _build.launch(_build.variant("se_encoder_level_cc", dtype), xc, xm,
+                      *args, yc, ym, b, t, f, cin, cout)
     else:
         raise ValueError(f"unknown encoder design {design!r}")
-    _build.LAUNCHES["encoder"] += 1
+    _build.LAUNCHES[_build.variant("encoder", dtype)] += 1
     return yc, ym

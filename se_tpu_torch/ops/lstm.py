@@ -257,6 +257,7 @@ def lstm_project(x: torch.Tensor, wx: torch.Tensor,
 def _project_launch(x, wx, b):
     bf, t_len, in_dim = x.shape
     n = wx.shape[1]
+    _build.launch_dtype("lstm", x, wx, b)
     _build.check(x, (bf, t_len, in_dim), "x")
     _build.check(wx, (in_dim, n), "wx")
     _build.check(b, (n,), "b")
@@ -285,6 +286,7 @@ def _recur_launch(xp, wh, reverse: bool, h0, c0):
     h_dim = wh.shape[0]
     if bf == 0:
         raise ValueError("lstm kernel: empty batch")
+    _build.launch_dtype("lstm", xp, wh)
     _build.check(xp, (bf, t_len, 4 * h_dim), "xp")
     _build.check(wh, (h_dim, 4 * h_dim), "wh")
     sms = torch.cuda.get_device_properties(xp.device).multi_processor_count
@@ -306,6 +308,7 @@ def _check_layer(x, wx, wh, b):
     h_dim = wh.shape[0]
     if bf == 0:
         raise ValueError("lstm kernel: empty batch")
+    _build.launch_dtype("lstm", x, wx, wh, b)
     _build.check(x, (bf, t_len, in_dim), "x")
     _build.check(wx, (in_dim, 4 * h_dim), "wx")
     _build.check(wh, (h_dim, 4 * h_dim), "wh")

@@ -192,7 +192,11 @@ def frame_signal(x: torch.Tensor, cfg: StftConfig) -> torch.Tensor:
 def stft(x: torch.Tensor, cfg: StftConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """(..., n) waveform -> ((..., T, F) real, (..., T, F) imag)."""
     frames = frame_signal(x, cfg)
-    out = torch.matmul(frames, _const("forward", cfg, x.device).to(x.dtype))
+    # se_tpu's: the basis in x's dtype, products summed in fp32 at least,
+    # the output rounded to x's dtype (bf16 keeps Uformer's graph in bf16)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    basis = _const("forward", cfg, x.device).to(x.dtype)
+    out = torch.matmul(frames.to(acc), basis.to(acc)).to(x.dtype)
     f_bins = cfg.bins
     return out[..., :f_bins], out[..., f_bins:]
 
@@ -221,7 +225,11 @@ def istft(re: torch.Tensor, im: torch.Tensor, cfg: StftConfig,
     into the basis."""
     t_frames = re.shape[-2]
     x_ri = torch.cat([re, im], dim=-1)
-    frames = torch.matmul(x_ri, _const("inverse", cfg, re.device).to(re.dtype))
+    # se_tpu's: the basis in the input's dtype, the frames, the overlap-add
+    # and the output in fp32 at least (a bf16 spectrum gives fp32 samples)
+    acc = torch.promote_types(re.dtype, torch.float32)
+    basis = _const("inverse", cfg, re.device).to(re.dtype)
+    frames = torch.matmul(x_ri.to(acc), basis.to(acc))
     out = overlap_add(frames, cfg.hop)
 
     if cfg.convention in ("center", "valid") and cfg.synthesis_norm == "ola":

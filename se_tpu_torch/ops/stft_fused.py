@@ -137,6 +137,7 @@ def stft_fused(x: torch.Tensor, cfg: StftConfig):
         raise ValueError(f"stft kernel: reflect padding {pad} needs more "
                          f"than {pad} samples, got {n}")
     x = x.contiguous()
+    _build.launch_dtype("stft", x)
     _build.check(x, (b, n), "x")
     t_frames = num_frames(n, cfg)
     win, tw, radices = _kernel_consts(cfg, x.device)

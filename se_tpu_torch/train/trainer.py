@@ -20,7 +20,7 @@ the card that should agree with the CPU needs
 `torch.backends.cudnn.allow_tf32 = False` (torch's default is True) and
 `torch.backends.cuda.matmul.allow_tf32 = False`, as chip_smoke.py sets.
 
-Not here yet: `compute_dtype="bf16"` (ROADMAP Queue 1 item 4), a device
+Not here yet: `compute_dtype="bf16"` (ROADMAP Queue 1 item 4e), a device
 mesh (Queue 1 item 13). The hybrid io-kind (DeepXi) trains through its own
 driver, `models.deepxi_driver.DeepXiDriver.train`, as in se_tpu (whose
 `make_train_step` has no DeepXi branch either).
@@ -142,7 +142,7 @@ def make_train_step(cfg: TrainConfig, device=None):
     "generator"."""
     if cfg.compute_dtype == "bf16":
         raise NotImplementedError("bf16 training is not ported yet: ROADMAP "
-                                  "Queue 1 item 4")
+                                  "Queue 1 item 4e")
     if cfg.compute_dtype != "fp32":
         raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}")
     if cfg.remat not in ("none", "dots", "full"):

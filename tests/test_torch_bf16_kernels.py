@@ -1,0 +1,287 @@
+"""The bf16 variants of Uformer's four kernels on the CPU: their plain
+twins against se_tpu's Pallas kernels, and their arithmetic emulated.
+
+- Each twin in bf16 (`attention._reference`, `encoder._reference`,
+  `decoder._reference`, `dsconv._pair_reference`) against se_tpu's Pallas
+  kernel run with interpret=True on the same bf16 inputs and parameters
+  (as tests/test_pallas_*.py run them): attention at L = 4 and 70, the
+  encoder level, the decoder level with and without BN, the DSConv pair
+  stage. Tolerance elementwise |got - want| <= 2^-7 |want| + 1e-6
+  max|want| (`bf16_close`): one bf16 ulp where two fp32 sums in another
+  order round to neighbours. Attention also rounds P to bf16 inside, and
+  two fp32 softmaxes that sum in another order put an element of P on
+  either side of a rounding boundary now and then; where the output
+  cancels, that one P ulp passes the bound above. So for attention at
+  most 1e-3 of the elements may pass it, each by no more than one P
+  element's flip (`att_flip_slack`: 2^-7 x the row's largest P x the
+  column's largest |v|). Each test records the share of elements that
+  differ at all (`share_differing` in the junit XML).
+- The CUDA designs' arithmetic in plain torch, as
+  tests/test_torch_{attention,encoder,decoder,dsconv_pair}_tc.py emulate
+  the fp32 ones: a product of two bf16 values is exact in one TF32 pass
+  (the 3xTF32 split of a bf16 value has a zero small part), so the
+  encoder's and decoder's implicit GEMMs run one pass, also at K = 2560
+  where one pass of fp32 operands misses (test_torch_encoder_tc.py); the
+  attention kernels' two sweeps (the row max and sum, then P normalised,
+  rounded and multiplied by V); the pair stage's products of an fp32
+  operand and a bf16 weight in two passes, equal to 3xTF32 bit for bit.
+  Before the output rounding within 1e-5 * max(1, max|twin|) of the fp32
+  twin on the widened inputs (the fp32 tests' tolerance), after it within
+  the bf16 tolerance of the bf16 twin.
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from se_tpu.ops import pallas_attention as jatt
+from se_tpu.ops import pallas_decoder as jdec
+from se_tpu.ops import pallas_dsconv as jds
+from se_tpu.ops import pallas_encoder as jenc
+from se_tpu_torch.ops import attention, decoder, dsconv, encoder
+from se_tpu_torch.ops._dtype import to_float
+from test_torch_decoder_tc import implicit_gemm_level as decoder_gemm
+from test_torch_decoder_tc import split_big
+from test_torch_dsconv_pair_tc import stage_emulated
+from test_torch_encoder_tc import implicit_gemm_level as encoder_gemm
+from test_torch_lstm_tc import matmul_3xtf32, split
+from torch_kernel_inputs import (
+    att_flip_slack, att_inputs, bf16_close, dec_params, enc_params,
+    pair_inputs, rand, to_bf16,
+)
+
+RTOL = 1e-5
+LOG2E = math.log2(math.e)
+BF16 = torch.bfloat16
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: torch's intra-op threads would only contend with the
+    other test workers' processes for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def to_jax(tensors):
+    """bf16 tensors -> bf16 JAX arrays of the same values."""
+    return tuple(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                 for t in tensors)
+
+
+def one_pass(a, w):
+    """One TF32 product a pair, fp32 accumulation."""
+    return split_big(a) @ split_big(w)
+
+
+def two_pass(a, w):
+    """An fp32 A split, a B exact in TF32: small.B + big.B."""
+    big, small = split(a)
+    return small @ w + big @ w
+
+
+def _close32(got, want):
+    scale = max(1.0, max(float(w.abs().max()) for w in want))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=0, atol=RTOL * scale)
+
+
+# ------------------------------------------------ twins against Pallas
+
+@pytest.mark.parametrize("h", [8, 1])
+@pytest.mark.parametrize("length", [4, 70])
+def test_attention_twin_matches_pallas(rng, record_property, length, h):
+    """L = 4 (the F-attention; se_tpu's einsum below _MIN_L, its kernel
+    here) and 70 (past _MIN_L)."""
+    q, k, v = to_bf16(att_inputs(rng, 3, h, length))
+    got = attention._reference(q, k, v, 0.25)
+    want = jatt._pallas_attention(*to_jax((q, k, v)), 0.25, True)
+    assert got.dtype == BF16 and want.dtype == jnp.bfloat16
+    slack = att_flip_slack(q, k, v, 0.25)
+    record_property("share_differing",
+                    bf16_close([got], [want], [slack]))
+
+
+@pytest.mark.parametrize("b,t,f,cin,cout", [(2, 5, 16, 1, 8),
+                                            (1, 4, 8, 8, 16)])
+def test_encoder_twin_matches_pallas(rng, record_property, b, t, f, cin,
+                                     cout):
+    """Uformer's level 0 (Cin 1) and a tensor-core level's widths."""
+    params = to_bf16(enc_params(rng, cin, cout))
+    xc, xm = to_bf16((rand(rng, b, t, f, 2 * cin), rand(rng, b, t, f, cin)))
+    got = encoder._reference(xc, xm, params)
+    want = jenc._pallas_level(*to_jax((xc, xm)), to_jax(params), True)
+    assert all(g.dtype == BF16 for g in got)
+    record_property("share_differing", bf16_close(got, want))
+
+
+@pytest.mark.parametrize("has_bn", [True, False])
+@pytest.mark.parametrize("b,t,f,cc,cout", [(2, 5, 4, 8, 4),
+                                           (1, 3, 8, 32, 16)])
+def test_decoder_twin_matches_pallas(rng, record_property, b, t, f, cc,
+                                     cout, has_bn):
+    params = to_bf16(dec_params(rng, cc, cout))
+    xc, xm = to_bf16((rand(rng, b, t, f, 2 * cc), rand(rng, b, t, f, cc)))
+    got = decoder._reference(xc, xm, params, has_bn)
+    want = jdec._pallas_level(*to_jax((xc, xm)), to_jax(params), has_bn,
+                              True)
+    assert all(g.dtype == BF16 for g in got)
+    record_property("share_differing", bf16_close(got, want))
+
+
+@pytest.mark.parametrize("d1,d2", [(1, 4), (2, 1)])
+def test_pair_twin_matches_pallas(rng, record_property, d1, d2):
+    """The stage at C 8, Cm 4 a component: se_tpu's `_pair_reference`
+    rounds each block's output to bf16 before the fusion; its kernel and
+    the twin do not."""
+    xc, xm, pc, pm = pair_inputs(rng, 2, 9, 4, 8, 4)
+    xc, xm = to_bf16((xc, xm))
+    pc, pm = to_bf16(pc), to_bf16(pm)
+    got = dsconv._pair_reference(xc, xm, pc, pm, d1, d2)
+    want = jds._pallas_pair(*to_jax((xc, xm)), to_jax(pc + pm), d1, d2, True)
+    assert all(g.dtype == BF16 for g in got)
+    record_property("share_differing", bf16_close(got, want))
+
+
+# ------------------------------------------ the designs' arithmetic
+
+def test_one_tf32_pass_is_exact_on_bf16_operands(rng):
+    """A bf16 value is its own TF32 rounding (its 3xTF32 small part is 0),
+    so each product is exact in fp32 and three passes sum to one pass's
+    result bit for bit."""
+    a, w = (t.float() for t in to_bf16((rand(rng, 64, 96),
+                                        rand(rng, 96, 40))))
+    assert torch.equal(split_big(a), a) and torch.equal(split_big(w), w)
+    assert torch.equal(split(a)[1], torch.zeros_like(a))
+    prod = (a[:, :, None] * w[None]).double()
+    assert torch.equal(prod, a.double()[:, :, None] * w.double()[None])
+    assert torch.equal(matmul_3xtf32(a, w), one_pass(a, w))
+
+
+def test_two_passes_are_3xtf32_on_a_bf16_weight(rng):
+    """The pair stage's products: an fp32 operand and a bf16 weight."""
+    a = torch.from_numpy(rand(rng, 64, 96))
+    w = to_bf16((rand(rng, 96, 40),))[0].float()
+    assert torch.equal(matmul_3xtf32(a, w), two_pass(a, w))
+
+
+# (B, T, F, Cin, Cout) as test_torch_encoder_tc.py's, level 5's K = 2560
+@pytest.mark.parametrize("b,t,f,cin,cout", [(2, 5, 6, 3, 5), (1, 3, 16, 1, 8),
+                                            (2, 3, 8, 128, 128)])
+def test_encoder_gemm_one_pass(rng, b, t, f, cin, cout):
+    params = to_bf16(enc_params(rng, cin, cout))
+    xc, xm = to_bf16((rand(rng, b, t, f, 2 * cin), rand(rng, b, t, f, cin)))
+    packed = encoder.pack_encoder_weights(params)
+    assert all(p.dtype == torch.float32 for p in packed)
+    got = encoder_gemm(xc.float(), xm.float(), to_float(params), packed,
+                       one_pass)
+    _close32(got, encoder._reference.__wrapped__(
+        xc.float(), xm.float(), to_float(params)))
+    bf16_close([g.to(BF16) for g in got], encoder._reference(xc, xm, params))
+
+
+@pytest.mark.parametrize("has_bn", [True, False])
+@pytest.mark.parametrize("b,t,f,cc,cout", [(2, 5, 4, 6, 3),
+                                           (1, 3, 4, 256, 128)])
+def test_decoder_gemm_one_pass(rng, b, t, f, cc, cout, has_bn):
+    params = to_bf16(dec_params(rng, cc, cout))
+    xc, xm = to_bf16((rand(rng, b, t, f, 2 * cc), rand(rng, b, t, f, cc)))
+    packed = decoder.pack_decoder_weights(params)
+    got = decoder_gemm(xc.float(), xm.float(), to_float(params), has_bn,
+                       packed, one_pass)
+    _close32(got, decoder._reference.__wrapped__(
+        xc.float(), xm.float(), to_float(params), has_bn))
+    bf16_close([g.to(BF16) for g in got],
+               decoder._reference(xc, xm, params, has_bn))
+
+
+def flash_bf16_emulated(q, k, v, scale):
+    """att_flash_tc<.., bf16> on (NH, L, 16) widened: sweep 1 takes the row
+    max and sum over 64-key tiles (online, log2 units), sweep 2 forms P =
+    round_bf16(exp2(s - m) / l) a tile and sums P . V (one pass: both
+    bf16) into fresh tile sums."""
+    nh, length, d = q.shape
+    c = torch.tensor(scale * LOG2E, dtype=torch.float32)
+    keys = attention.FLASH_KEYS
+
+    def tiles():
+        for k0 in range(0, length, keys):
+            pad = max(0, k0 + keys - length)
+            kt = F.pad(k[:, k0:k0 + keys], (0, 0, 0, pad))
+            vt = F.pad(v[:, k0:k0 + keys], (0, 0, 0, pad))
+            s = one_pass(q, kt.transpose(1, 2)) * c
+            s = torch.where(k0 + torch.arange(keys) < length, s, -math.inf)
+            yield s, vt
+
+    m = torch.full((nh, length), -math.inf)
+    lsum = torch.zeros(nh, length)
+    for s, _ in tiles():
+        mnew = torch.maximum(m, s.amax(-1))
+        lsum = lsum * torch.exp2(m - mnew) + torch.exp2(
+            s - mnew[..., None]).sum(-1)
+        m = mnew
+    acc = torch.zeros(nh, length, d)
+    for s, vt in tiles():
+        p = (torch.exp2(s - m[..., None]) / lsum[..., None]).to(BF16).float()
+        acc = acc + one_pass(p, vt)
+    return acc
+
+
+def small_l_bf16_emulated(q, k, v, scale):
+    """att_small_l's bf16 thread: fp32 dot products, exp2 against the row
+    max, the row sum, then round_bf16(p / l) times each v row."""
+    c = torch.tensor(scale * LOG2E, dtype=torch.float32)
+    s = torch.zeros(q.shape[:-1] + (k.shape[1],))
+    for ch in range(q.shape[-1]):
+        s = s + q[..., ch:ch + 1] * k[:, None, :, ch]
+    p = torch.exp2(s * c - (s * c).amax(-1, keepdim=True))
+    p = (p / p.sum(-1, keepdim=True)).to(BF16).float()
+    acc = torch.zeros_like(q)
+    for j in range(k.shape[1]):
+        acc = acc + p[..., j:j + 1] * v[:, j:j + 1]
+    return acc
+
+
+@pytest.mark.parametrize("length", [1, 4, 65, 401])
+def test_attention_bf16_designs_match_twin(rng, length):
+    q, k, v = to_bf16(att_inputs(rng, 6, 1, length))
+    want = attention._reference(q, k, v, 0.25)[:, 0]
+    slack = [att_flip_slack(q, k, v, 0.25)[:, 0]]
+    qf, kf, vf = (t.float()[:, 0] for t in (q, k, v))
+    bf16_close([flash_bf16_emulated(qf, kf, vf, 0.25).to(BF16)], [want],
+               slack)
+    if length <= attention.SMALL_L_MAX:
+        bf16_close([small_l_bf16_emulated(qf, kf, vf, 0.25).to(BF16)],
+                   [want], slack)
+
+
+@pytest.mark.parametrize("d1,d2", [(1, 128), (4, 2)])
+def test_pair_stage_two_passes_match_twin(rng, d1, d2):
+    """At the conformer's widths (C 128, Cm 32 a component), T = 9."""
+    xc, xm, pc, pm = pair_inputs(rng, 1, 9, 4, 128, 32)
+    xc, xm = to_bf16((xc, xm))
+    pc, pm = to_bf16(pc), to_bf16(pm)
+    packed = dsconv.pack_pair_weights(pc, pm)
+    assert all(t.dtype == torch.float32 for pk in packed for t in pk)
+    got = stage_emulated(xc.float(), xm.float(), packed, d1, d2, two_pass)
+    _close32(got, dsconv._pair_reference.__wrapped__(
+        xc.float(), xm.float(), to_float(pc), to_float(pm), d1, d2))
+    bf16_close([g.to(BF16) for g in got],
+               dsconv._pair_reference(xc, xm, pc, pm, d1, d2))
+
+
+def test_twins_widen_and_round_once(rng):
+    """A bf16 twin is the fp32 twin on the widened inputs, rounded once."""
+    params = to_bf16(enc_params(rng, 4, 8))
+    xc, xm = to_bf16((rand(rng, 1, 3, 8, 8), rand(rng, 1, 3, 8, 4)))
+    got = encoder._reference(xc, xm, params)
+    want = encoder._reference(xc.float(), xm.float(), to_float(params))
+    for g, w in zip(got, want):
+        assert g.dtype == BF16 and torch.equal(g, w.to(BF16))

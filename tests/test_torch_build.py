@@ -1,12 +1,18 @@
 """se_tpu_torch/ops/_build.py `launch` runs an entry on its tensors' one
 CUDA device: `launch_device` finds it and refuses tensors that span
 devices or lie on none, before anything is built or loaded (so the CPU
-reaches it)."""
+reaches it). `launch_dtype` gives a launch's one activation dtype: fp32,
+or bf16 where the kernel has a bf16 variant; mixed dtypes and bf16 at an
+fp32-only kernel raise (naming the ROADMAP item), before anything is
+built, on meta tensors here."""
 
 import pytest
 import torch
 
-from se_tpu_torch.ops import _build
+from se_tpu_torch.ops import (
+    _build, attention, decoder, dsconv, encoder, lstm, stft_fused,
+)
+from se_tpu_torch.ops.stft import PRESET_320
 
 CUDA0, CUDA1 = torch.device("cuda", 0), torch.device("cuda", 1)
 
@@ -37,3 +43,88 @@ def test_launch_refuses_tensors_on_two_devices_before_building(monkeypatch):
     with pytest.raises(ValueError, match="one CUDA device"):
         _build.launch("se_lstm_layer", torch.zeros(2),
                       torch.zeros(2, device="meta"), 3)
+
+
+BF16 = torch.bfloat16
+
+
+@pytest.mark.parametrize("kernel", ["attention", "encoder", "decoder",
+                                    "dsconv_pair"])
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_launch_dtype_of_a_launch(kernel, dtype):
+    """Uformer's four kernels take fp32 or their bf16 variant."""
+    x = torch.zeros(2, dtype=dtype)
+    assert _build.launch_dtype(kernel, x, x.clone()) == dtype
+    assert _build.variant("se_x", dtype) == (
+        "se_x_bf16" if dtype == BF16 else "se_x")
+
+
+@pytest.mark.parametrize("kernel", sorted(_build.BF16_TODO))
+def test_launch_dtype_refuses_bf16_without_a_variant(kernel):
+    """The LSTM, single-block and STFT kernels name the item that ports
+    their bf16 variant; nothing is upcast."""
+    with pytest.raises(TypeError, match="ROADMAP Queue 1 item 4"):
+        _build.launch_dtype(kernel, torch.zeros(2, dtype=BF16))
+    assert _build.launch_dtype(kernel, torch.zeros(2)) == torch.float32
+
+
+@pytest.mark.parametrize("kernel", ["attention", "encoder", "lstm"])
+def test_launch_dtype_refuses_mixed_and_other_dtypes(kernel):
+    with pytest.raises(TypeError, match="share one dtype"):
+        _build.launch_dtype(kernel, torch.zeros(2),
+                            torch.zeros(2, dtype=BF16))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        _build.launch_dtype(kernel, torch.zeros(2, dtype=torch.float16))
+
+
+def _meta(*shape, dtype=BF16):
+    return torch.zeros(shape, dtype=dtype, device="meta")
+
+
+def _no_build(monkeypatch):
+    def no_build():
+        raise AssertionError("launch built the library")
+
+    monkeypatch.setattr(_build, "library", no_build)
+
+
+@pytest.mark.parametrize("call,item", [
+    (lambda: lstm._project_launch(_meta(2, 3, 4), _meta(4, 8), _meta(8)),
+     "item 4b"),
+    (lambda: lstm._recur_launch(_meta(2, 3, 8), _meta(2, 8), False, None,
+                                None), "item 4b"),
+    (lambda: lstm._check_layer(_meta(2, 3, 4), _meta(4, 8), _meta(2, 8),
+                               _meta(8)), "item 4b"),
+    (lambda: dsconv._block_launch(_meta(1, 2, 4, 8), (), 1, 1, 1, None),
+     "item 4c"),
+    (lambda: stft_fused.stft_fused(_meta(1, 3200), PRESET_320), "item 4d"),
+])
+def test_fp32_only_wrappers_refuse_bf16_before_building(monkeypatch, call,
+                                                        item):
+    """A bf16 tensor at an fp32-only kernel raises TypeError naming its
+    ROADMAP item, before anything is built, checked or cast."""
+    _no_build(monkeypatch)
+    with pytest.raises(TypeError, match=item):
+        call()
+
+
+@pytest.mark.parametrize("call", [
+    lambda: attention._launch(_meta(1, 1, 4, 16),
+                              _meta(1, 1, 4, 16, dtype=torch.float32),
+                              _meta(1, 1, 4, 16), 0.25, "small_l"),
+    lambda: encoder._launch(_meta(1, 2, 8, 16),
+                            _meta(1, 2, 8, 8, dtype=torch.float32),
+                            (None,) * 5 + (_meta(2, 5, 8, 8),) + (None,) * 4,
+                            "tc"),
+    lambda: decoder._launch(_meta(1, 2, 4, 16),
+                            _meta(1, 2, 4, 8, dtype=torch.float32),
+                            (None,) * 6 + (_meta(6, 8, 4),) + (None,) * 5,
+                            True, "tc"),
+    lambda: dsconv._pair_launch(_meta(1, 2, 4, 16),
+                                _meta(1, 2, 4, 8, dtype=torch.float32),
+                                (), (), 1, 1, None),
+])
+def test_bf16_wrappers_refuse_mixed_dtypes(monkeypatch, call):
+    _no_build(monkeypatch)
+    with pytest.raises(TypeError, match="share one dtype"):
+        call()

@@ -6,7 +6,10 @@ installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Tolerance 1e-4 absolute on O(1) outputs: fp32 on both sides, sums in
-another order (kernel loops against cuBLAS/cuDNN with TF32 off).
+another order (kernel loops against cuBLAS/cuDNN with TF32 off). The bf16
+variants against the bf16 twins: `bf16_close` (one bf16 ulp plus 1e-6 of
+the largest output; attention also one P element's rounding flip on at
+most 1e-3 of the elements).
 """
 
 import numpy as np
@@ -17,8 +20,8 @@ from se_tpu_torch.ops import _build, attention, decoder, dsconv, encoder, lstm
 from se_tpu_torch.ops import stft as plain_stft
 from se_tpu_torch.ops import stft_fused
 from torch_kernel_inputs import (
-    att_inputs, close, dec_params, dsconv_params, enc_params, lstm_inputs,
-    pair_inputs, rand, to_torch,
+    att_flip_slack, att_inputs, bf16_close, close, dec_params, dsconv_params,
+    enc_params, lstm_inputs, pair_inputs, rand, to_bf16, to_torch,
 )
 
 ATOL = 1e-4
@@ -701,3 +704,95 @@ def test_deepxi_train_step_on_the_card_matches_the_cpu(gen, dev, network):
     for k, g in g_cpu.items():
         tol = 1e-3 * float(g.abs().max()) + floor
         assert float((g_card[k] - g).abs().max()) <= tol, k
+
+
+# ------------------------------------------------ bf16 variants
+
+BF16 = torch.bfloat16
+
+
+def _bf16_counts(before, names):
+    return {n: _build.LAUNCHES[n] - before.get(n, 0) for n in names}
+
+
+@pytest.mark.parametrize("n,h,length,design", [
+    (16, 1, 401, "flash_tc"), (16, 8, 401, "flash_tc"),
+    (16, 1, 65, "flash_tc"), (16, 1, 1, "flash_tc"),
+    (1604, 8, 4, "small_l"), (1604, 8, 4, "flash_tc"),
+    (200, 1, 32, "small_l")])
+def test_attention_bf16_designs_match_twin(dev, n, h, length, design):
+    """bf16 q, k, v: each design's bf16 variant against the bf16 twin on
+    the card (`bf16_close` with P's flip slack, tests/
+    test_torch_bf16_kernels.py); counted as attention_bf16, not as the
+    fp32 kernel."""
+    g = torch.Generator(device=dev).manual_seed(length)
+    q, k, v = ((torch.randn(n, h, length, 16, generator=g, device=dev) * 0.5)
+               .to(BF16) for _ in range(3))
+    want = _att_twin(q, k, v, 0.25)
+    before = dict(_build.LAUNCHES)
+    got = attention._launch(q, k, v, 0.25, design)
+    torch.cuda.synchronize()
+    assert got.dtype == BF16
+    assert _bf16_counts(before, ("attention", "attention_bf16",
+                                 f"attention_{design}_bf16")) == {
+        "attention": 0, "attention_bf16": 1, f"attention_{design}_bf16": 1}
+    bf16_close([got], [want], [att_flip_slack(q, k, v, 0.25)])
+
+
+@pytest.mark.parametrize("b,t,f,cin,cout", ENC_SHAPES)
+def test_encoder_bf16_levels_match_twin(gen, dev, b, t, f, cin, cout):
+    params = to_bf16(enc_params(gen, cin, cout), device=dev)
+    xc, xm = to_bf16((rand(gen, b, t, f, 2 * cin), rand(gen, b, t, f, cin)),
+                     device=dev)
+    want = encoder._reference(xc, xm, params)
+    for design in ("tc", "cuda_core") if cin <= 16 else ("tc",):
+        before = dict(_build.LAUNCHES)
+        got = encoder._launch(xc, xm, params, design)
+        torch.cuda.synchronize()
+        assert _bf16_counts(before, ("encoder", "encoder_bf16")) == {
+            "encoder": 0, "encoder_bf16": 1}
+        bf16_close(got, want)
+
+
+@pytest.mark.parametrize("has_bn", [True, False])
+@pytest.mark.parametrize("level", range(6))
+def test_decoder_bf16_levels_match_twin(gen, dev, level, has_bn):
+    """Uformer's six decoder levels at B = 2, T = 5, each on the design
+    `level_design` gives it."""
+    f, cc, cout = 4 << level, 2 * UFORMER_KERNELS[6 - level], \
+        UFORMER_KERNELS[5 - level]
+    params = to_bf16(dec_params(gen, cc, cout), device=dev)
+    xc, xm = to_bf16((rand(gen, 2, 5, f, 2 * cc), rand(gen, 2, 5, f, cc)),
+                     device=dev)
+    want = decoder._reference(xc, xm, params, has_bn)
+    before = dict(_build.LAUNCHES)
+    got = decoder.decoder_level(xc, xm, params, has_bn)
+    torch.cuda.synchronize()
+    assert _bf16_counts(before, ("decoder", "decoder_bf16")) == {
+        "decoder": 0, "decoder_bf16": 1}
+    bf16_close(got, want)
+
+
+@pytest.mark.parametrize("d1,d2", [(1, 128), (16, 8), (128, 1)])
+def test_pair_bf16_stage_matches_twin(gen, dev, d1, d2):
+    """The conformer's widths at 2 x 50 x 4 rows; the scratch y fp32."""
+    xc, xm, pc, pm = pair_inputs(gen, 2, 50, 4, 128, 32)
+    xc, xm = to_bf16((xc, xm), device=dev)
+    pc, pm = to_bf16(pc, device=dev), to_bf16(pm, device=dev)
+    want = dsconv._pair_reference(xc, xm, pc, pm, d1, d2)
+    before = dict(_build.LAUNCHES)
+    got = dsconv.dsconv_pair_block(xc, xm, pc, pm, d1, d2)
+    torch.cuda.synchronize()
+    assert _bf16_counts(before, ("dsconv_pair", "dsconv_pair_bf16")) == {
+        "dsconv_pair": 0, "dsconv_pair_bf16": 1}
+    bf16_close(got, want)
+
+
+def test_fp32_only_kernels_refuse_bf16_on_the_card(gen, dev):
+    x = torch.zeros(1, 3200, device=dev, dtype=BF16)
+    with pytest.raises(TypeError, match="item 4d"):
+        stft_fused.stft_fused(x, plain_stft.PRESET_320)
+    params = to_torch(dsconv_params(gen, 8, 4, 1), device=dev)
+    with pytest.raises(TypeError, match="item 4c"):
+        dsconv.dsconv_block(torch.zeros(1, 2, 4, 8, device=dev, dtype=BF16),
+                            params, 1, 1, 1)

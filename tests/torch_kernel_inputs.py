@@ -6,6 +6,11 @@ JAX, so the CUDA tests run where JAX is not installed."""
 import numpy as np
 import torch
 
+# att_flip_slack: the tests' slack, the package's own
+from se_tpu_torch.ops._dtype import (  # noqa: F401
+    FLIP_SHARE, att_flip_slack, bf16_compare,
+)
+
 
 def rand(rng, *shape, scale=1.0, shift=0.0):
     return (rng.standard_normal(shape) * scale + shift).astype(np.float32)
@@ -20,6 +25,31 @@ def close(got, want, atol):
         g = g.detach().cpu().numpy() if isinstance(g, torch.Tensor) else g
         w = w.detach().cpu().numpy() if isinstance(w, torch.Tensor) else w
         np.testing.assert_allclose(g, np.asarray(w), atol=atol)
+
+
+def to_bf16(arrs, device="cpu"):
+    """numpy fp32 arrays -> bf16 tensors (rounded to nearest even)."""
+    return tuple(t.to(torch.bfloat16) for t in to_torch(arrs, device))
+
+
+def _tensor(x) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else torch.from_numpy(
+        np.asarray(x, np.float32))
+
+
+def bf16_close(got, want, slack=None) -> float:
+    """Assert the bf16 kernels' tolerance (se_tpu_torch.ops._dtype
+    `bf16_compare`: |got - want| <= 2^-7 |want| + 1e-6 max|want|
+    elementwise; with `slack`, one per pair from att_flip_slack, at most
+    FLIP_SHARE of the elements past that by up to their slack) on tensors
+    or numpy arrays. Return the share of elements that differ at all."""
+    check = bf16_compare([_tensor(g) for g in got],
+                         [_tensor(w) for w in want], slack)
+    assert check.ok, (
+        f"{check.n_past} elements ({check.share_past:.3g}) past the bf16 "
+        f"tolerance{' (flip slack on <= %g)' % FLIP_SHARE if slack else ''}"
+        f"; max abs error {check.max_abs_err}")
+    return check.share_differing
 
 
 def att_inputs(rng, n, h, l):
