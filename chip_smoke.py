@@ -68,7 +68,21 @@ Phases, one JSON line per result:
              the same bf16 values; their bound at bf16 bytes and 989
              TFLOP/s (the pair's fp32-operand products at 247.5), their
              device time by kernel; yardstick F.scaled_dot_product_
-             attention in bf16.
+             attention in bf16. The bf16 LSTM (rows lstm_bf16,
+             lstm_project_bf16, lstm_recur_bf16: bf16 weights, x fp32 or
+             bf16, XP, h, c and y fp32) at the bf16 forwards' shapes
+             (FullSubNet's sub band on the step; LSTMNet 161 -> 1024 with
+             bf16 x and 1024 -> 1024 with fp32 x on the small fold;
+             DPCRN's intra over T = 4 and inter; ...): the recurrences
+             against the twin stepped along the kernel's own y (1e-4 *
+             max(1, max|twin|)) and free-running within bf16_compare with
+             one bf16 ulp of the largest output as the floor (LSTM_FLOOR:
+             each side rounds its own h, so h flips now and then), the
+             projection within bf16_compare; their bound at each product's
+             rate (989 TFLOP/s bf16 x bf16, 247.5 fp32 x bf16) and their
+             bytes; yardsticks cuDNN's LSTM in bf16 and torch.addmm on the
+             widened operands; the recurrence's plan also for its bf16
+             kernel.
   4. main:   each family from a seed at its published widths, BN
              statistics and affines moved off their defaults,
              `enhance_waveform` on B = 4 x 4 s on the card with the launch
@@ -83,11 +97,13 @@ Phases, one JSON line per result:
              DeepXi with every LayerNorm scale and bias off its default and
              its DBNormalCDF map fitted once on the CPU
              (`deepxi_xi_map`), the same on both sides.
- 4b. main bf16: Uformer and the TCM families through
-             `enhance_waveform(dtype=torch.bfloat16)` on the same B = 4
-             batch, counts set to 0 just before: Uformer launches the
-             bf16 variants 4 / 8 / 6 / 6 times and no fp32 kernel, the
-             TCM families the fp32 STFT once and nothing else
+ 4b. main bf16: Uformer, the TCM families and the six LSTM
+             families through `enhance_waveform(dtype=torch.bfloat16)` on
+             the same B = 4 batch, counts set to 0 just before: Uformer
+             launches the bf16 variants 4 / 8 / 6 / 6 times and no fp32
+             kernel, the TCM families the fp32 STFT once and nothing else,
+             the LSTM families the fp32 STFT and their phase-4 LSTM
+             launches in the bf16 variants, no fp32 LSTM launch
              (BF16_PATHS); utterance 0 against the same weights on the
              CPU in bf16 and fp32: the card within twice the CPU bf16's
              own distance from the CPU fp32 of both. bf16 GEMMs sum in
@@ -101,15 +117,16 @@ Phases, one JSON line per result:
              lines also carry the operations of one utterance
              (torch.utils.flop_counter, plus the LSTM kernels' count) and
              the rate they make. The bf16 families of phase 4b also in
-             bf16, in turn with their fp32 lines.
+             bf16, in turn with their fp32 lines (LSTM's, CRN's and
+             DPCRN's B = 256 utterance by phase 4b's bf16 rule).
   6. profile: torch.profiler over one enhance call of each family at
              B = 32: device time by kernel name and the device's busy share
              of the wall time; Uformer's must show each of its kernels by
              name (PROFILE_KERNELS, PROFILE_GATED; DeepXi's report theirs);
              a profile that misses one, as torch.profiler's dropped events
              do now and then, is taken again, up to PROFILE_ATTEMPTS in
-             all. Uformer also in bf16, its bf16 kernels by name
-             (PROFILE_KERNELS_BF16).
+             all. Uformer and the LSTM families also in bf16, their bf16
+             kernels by name (PROFILE_KERNELS_BF16).
   7. train:  (a) each kernel wrapper's autograd Function at a B = 4
              phase-3 case of each design (attention on both designs, the
              LSTM layer on both designs forward and reverse, its
@@ -146,14 +163,17 @@ Phases, one JSON line per result:
              (STREAM_PATHS; counts set to 0 just before each stream); (c)
              Uformer's `enhance_windowed` at its defaults (4 s chunks, 2 s
              context, max_batch 16) over 8.5 s against the CPU at
-             max_batch 2, with its four kernels launched; (d) the median
+             max_batch 2, with its four kernels launched, and in bf16
+             (its four bf16 variants, no fp32 kernel; its distance from
+             the fp32 decode); (d) the median
              wall time of a push that completes one chunk (0.16 s of
              audio), its real-time factor and the launches a chunk, for
              each streamer; in turns with it the same pushes with the
              LSTM weights packed once (`_PackedOnce`, ROADMAP R10) and
              their paired difference; the device busy share of a chunk;
              and Uformer's windowed audio-s/s over 60 s
-             (15 windows, one batch), each beside the card. Phase 3 holds
+             (15 windows, one batch), fp32 and bf16 in turns, each beside
+             the card. Phase 3 holds
              the LSTM kernels at these streams' shapes, each call with a
              carry (STREAM_LSTM_CALLS), and a chain of three carried calls
              across both designs (`check_carry_chain`).
@@ -261,9 +281,23 @@ def device_ms(fn, reps: int = 20) -> dict:
     return {key: ms for ms, key in rows}
 
 
-def bound(flops: float, nbytes: float,
+def ops_seconds(flops, peak: float) -> float:
+    """The least time of a case's operations: flops / peak, or for a case
+    whose products run at two rates (the bf16 LSTM: an fp32 x against bf16
+    weights, and the bf16-rounded h against them) the sum over its
+    (flops, peak) pairs."""
+    if isinstance(flops, tuple):
+        return sum(f / p for f, p in flops)
+    return flops / peak
+
+
+def total_flops(flops) -> float:
+    return sum(f for f, _ in flops) if isinstance(flops, tuple) else flops
+
+
+def bound(flops, nbytes: float,
           peak: float = PEAK_FP32_ACCURATE_FLOPS) -> tuple[float, str]:
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    t_ops, t_bytes = ops_seconds(flops, peak), nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -903,6 +937,144 @@ def lstm_recur_cases(gen, dev):
     yield case("DPCRN intra", B_MAIN * T_FRAMES, 4, 64)
 
 
+def _bf16_lstm_case(gen, dev, bf, t_len, in_dim, h, x_bf16, carry=False):
+    """x (fp32 or bf16), the weights rounded to bf16 (as the families' bf16
+    copies hold them), and a carry."""
+    import torch
+
+    x = torch.randn(bf, t_len, in_dim, generator=gen).to(dev)
+    x = x.to(torch.bfloat16) if x_bf16 else x
+    wx, wh, b = (w.to(torch.bfloat16)
+                 for w in lstm_weights(gen, dev, in_dim, h))
+    h0 = c0 = None
+    if carry:
+        h0, c0 = (torch.randn(bf, h, generator=gen).mul(0.5).to(dev)
+                  for _ in range(2))
+    return x, wx, wh, b, h0, c0
+
+
+def _x_peak(x) -> float:
+    """The rate of x . W against bf16 weights: one TF32 pass for a bf16 x,
+    two for an fp32 one."""
+    import torch
+
+    return PEAK_BF16_FLOPS if x.dtype == torch.bfloat16 \
+        else PEAK_FP32_BF16_FLOPS
+
+
+def bf16_lstm_cases(gen, dev):
+    """The bf16 layer as `lstm_layer_kernel` dispatches it: FullSubNet's
+    two sub-band calls of a B = 4 bf16 forward (the tensor-core step, fp32
+    x; the row sums them), then per-case lines: the sub band in reverse,
+    with a ragged batch and a carry, and at phase 5's B = 32; DPCRN's intra
+    BiLSTM over T = 4 (the step) both ways; LSTMNet's first layer at B = 256
+    (the step, bf16 x, In = 161: 2-byte copies); FullSubNet's full band
+    (the small fold, bf16 x). Operations: x . Wx at one TF32 pass (bf16 x)
+    or two (fp32 x), round(h) . Wh at one. Yardstick: cuDNN's LSTM in bf16
+    on the same bf16 weights (it rounds elsewhere: a yardstick of time
+    only)."""
+    import torch
+
+    def case(label, bf, t_len, in_dim, h, x_bf16=False, reverse=False,
+             carry=False, in_row=False):
+        x, wx, wh, b, h0, c0 = _bf16_lstm_case(gen, dev, bf, t_len, in_dim,
+                                                h, x_bf16, carry)
+        lib = torch.nn.LSTM(in_dim, h, batch_first=True).to(dev).to(
+            torch.bfloat16)
+        with torch.no_grad():
+            lib.weight_ih_l0.copy_(wx.t())
+            lib.weight_hh_l0.copy_(wh.t())
+            lib.bias_ih_l0.copy_(b)
+            lib.bias_hh_l0.zero_()
+        xl = (x.flip(1) if reverse else x).to(torch.bfloat16)
+        state = None if h0 is None else (h0[None].to(torch.bfloat16),
+                                         c0[None].to(torch.bfloat16))
+        rows = 2.0 * t_len * bf * 4 * h
+        flops = ((rows * in_dim, _x_peak(x)), (rows * h, PEAK_BF16_FLOPS))
+        moved = nbytes(x, wx, wh, b) + 4 * bf * h * (t_len + 2) + \
+            (nbytes(h0, c0) if carry else 0)
+        label = (f"lstm bf16 {label} {bf}x{t_len}x{in_dim}->{h} x "
+                 f"{'bf16' if x_bf16 else 'fp32'}"
+                 + (" reverse" if reverse else "")
+                 + (" carry" if carry else ""))
+        return (label, (x, wx, wh, b, reverse, h0, c0), flops, moved,
+                lambda: lib(xl, state), in_row)
+
+    b = B_MAIN
+    for in_dim, h in FSN_LAYERS[2:]:
+        yield case("FullSubNet sub band", b * FSN_F, FSN_T, in_dim, h,
+                   in_row=True)
+    yield case("FullSubNet sub band", b * FSN_F, FSN_T, 384, 384,
+               reverse=True)
+    yield case("FullSubNet sub band", b * FSN_F + 3, FSN_T, 384, 384,
+               carry=True)
+    yield case("FullSubNet sub band B=32", 32 * FSN_F, FSN_T, 384, 384)
+    for reverse in (False, True):
+        yield case("DPCRN intra", b * T_FRAMES, 4, 128, 64, reverse=reverse)
+    yield case("LSTMNet lstm1 B=256", 256, T_FRAMES, 161, 1024, x_bf16=True)
+    yield case("FullSubNet full band (small fold)", b, FSN_T, FSN_F, 512,
+               x_bf16=True)
+
+
+def bf16_lstm_project_cases(gen, dev):
+    """The bf16 projection (fp32 XP) at the three layer calls of LSTMNet's
+    B = 4 bf16 forward (lstm1: bf16 x, In = 161, 2-byte copies; lstm2:
+    fp32 x), then FullSubNet's full band (bf16 x, In = 257), GCRN's and
+    DPCRN's inter (fp32 x). Yardstick: torch.addmm on the widened
+    operands."""
+    import torch
+
+    def case(label, bf, t_len, in_dim, h, x_bf16, in_row=False):
+        x, wx, _, b, _, _ = _bf16_lstm_case(gen, dev, bf, t_len, in_dim, h,
+                                            x_bf16)
+        x2, wx2, b2 = x.view(bf * t_len, in_dim).float(), wx.float(), \
+            b.float()
+        return (f"lstm_project bf16 {label} {bf}x{t_len}x{in_dim}->{4 * h} "
+                f"x {'bf16' if x_bf16 else 'fp32'}", (x, wx, b),
+                ((2.0 * bf * t_len * in_dim * 4 * h, _x_peak(x)),),
+                nbytes(x, wx, b) + 4 * bf * t_len * 4 * h,
+                lambda: torch.addmm(b2, x2, wx2), in_row)
+
+    for (label, in_dim), x_bf16 in zip(LSTMNET_LAYERS, (True, False, False)):
+        yield case(f"LSTMNet {label}", B_MAIN, T_FRAMES, in_dim, 1024,
+                   x_bf16, True)
+    yield case("FullSubNet full band", B_MAIN, FSN_T, FSN_F, 512, True)
+    yield case("GCRN glstm", B_MAIN, T_FRAMES, 512, 512, False)
+    yield case("DPCRN inter", 4 * B_MAIN, T_FRAMES, 128, 128, False)
+
+
+def bf16_lstm_recur_cases(gen, dev):
+    """The bf16 recurrence (fp32 XP, bf16 Wh, h rounded to bf16 where the
+    product takes it: one TF32 pass) at the three layer calls of LSTMNet's
+    B = 4 bf16 forward, then DPCRN's inter, GCRN's, FullSubNet's full band
+    and DCCRN's (also in reverse and with a carry)."""
+    import torch
+
+    def case(label, bf, t_len, h, in_row=False, reverse=False, carry=False):
+        xp = torch.randn(bf, t_len, 4 * h, generator=gen).to(dev)
+        wh = lstm_weights(gen, dev, h, h)[1].to(torch.bfloat16)
+        h0 = c0 = None
+        if carry:
+            h0, c0 = (torch.randn(bf, h, generator=gen).mul(0.5).to(dev)
+                      for _ in range(2))
+        moved = nbytes(xp, wh) + 4 * bf * h * (t_len + 2) + \
+            (nbytes(h0, c0) if carry else 0)
+        return (f"lstm_recur bf16 {label} {bf}x{t_len}x{h}"
+                + (" reverse" if reverse else "") + (" carry" if carry
+                                                     else ""),
+                (xp, wh, reverse, h0, c0),
+                ((2.0 * bf * t_len * h * 4 * h, PEAK_BF16_FLOPS),), moved,
+                None, in_row)
+
+    for label, _ in LSTMNET_LAYERS:
+        yield case(f"LSTMNet {label}", B_MAIN, T_FRAMES, 1024, in_row=True)
+    yield case("DPCRN inter", 4 * B_MAIN, T_FRAMES, 128)
+    yield case("GCRN glstm", B_MAIN, T_FRAMES, 512)
+    yield case("FullSubNet full band", B_MAIN, FSN_T, 512)
+    yield case("DCCRN clstm", 2 * B_MAIN, DCCRN_T, 128, reverse=True)
+    yield case("DCCRN clstm", 2 * B_MAIN, DCCRN_T, 128, carry=True)
+
+
 # (family, In -> H, Bf at B, T) of every LSTM layer call on the main paths
 LSTM_CALLS = (("FullSubNet full band", 512, lambda b: b, FSN_T),
               ("FullSubNet sub band", 384, lambda b: FSN_F * b, FSN_T),
@@ -914,32 +1086,34 @@ LSTM_CALLS = (("FullSubNet full band", 512, lambda b: b, FSN_T),
               ("DeepXi ResLSTM", 512, lambda b: b, DEEPXI_T))
 
 
-def check_recur_plans(dev) -> None:
+def check_recur_plans(dev, dtype) -> None:
     """For every small-fold layer call of the main paths at B = 4, 32 and
     256: the shared memory ops/lstm.py plans for the recurrence's block is
-    the kernel's, and the occupancy API lets as many blocks share an SM as
-    the plan assumes (else the C entry refuses the launch)."""
+    the kernel's (the variant of `dtype`: the bf16 one widens its Wh slice
+    to fp32 in shared memory, so one plan holds both), and the occupancy
+    API lets as many blocks share an SM as the plan assumes (else the C
+    entry refuses the launch)."""
     import torch
 
-    from se_tpu_torch.ops import lstm
+    from se_tpu_torch.ops import _build, lstm
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     checked = []
+    name = _build.variant("lstm_recur", dtype)
     for label, h, fold, t_len in LSTM_CALLS:
         for batch in (4, 32, 256):
             bf = fold(batch)
             if lstm.step_variant(bf, t_len, h, sms) != "persistent":
                 continue
             plan = lstm.persistent_plan(bf, h, sms)
-            smem, per_sm = lstm.recur_fit(h, plan.chunks, dev)
+            smem, per_sm = lstm.recur_fit(h, plan.chunks, dev, dtype)
             checked.append({"call": f"{label} B={batch}", "bf": bf, "h": h,
                             "plan_smem": plan.smem, "kernel_smem": smem,
                             "plan_blocks_sm": plan.blocks_sm,
                             "occupancy_blocks_sm": per_sm})
             if smem != plan.smem or per_sm < plan.blocks_sm:
-                fail(f"lstm_recur plan for {label} B={batch}: "
-                     f"{checked[-1]}")
-    emit({"phase": "kernel", "kernel": "lstm_recur",
+                fail(f"{name} plan for {label} B={batch}: {checked[-1]}")
+    emit({"phase": "kernel", "kernel": name,
           "check": "persistent_plan against the kernel's shared memory "
           "and occupancy", "calls": checked})
 
@@ -1001,8 +1175,8 @@ def stft_cases(gen, dev):
 
 
 def _flat_lstm(fn):
-    def run(*args):
-        ys, (h, c) = fn(*args)
+    def run(*args, **kw):
+        ys, (h, c) = fn(*args, **kw)
         return ys, h, c
     return run
 
@@ -1114,9 +1288,45 @@ def check_kernels(dev, only) -> dict:
             "decoder_level_tc<bf16> (0-4, one TF32 pass), "
             "decoder_level_cc<.., bf16> (5); B = 32 per-case lines",
             {"peak": PEAK_BF16_FLOPS}),
+        # the bf16 LSTM: weights bf16, x fp32 or bf16, XP, h, c and y
+        # fp32, so its errors are fp32 sums in another order (the mma's
+        # accumulation over K = 1024: ~2e-5 of XP's ~4) and it is held as
+        # the fp32 rows are, 1e-4 * max(1, max|twin|), against its bf16
+        # twin: the projection as it is, the recurrences stepped along the
+        # kernel's own y (`h_in`), and free-running also within
+        # bf16_compare with LSTM_FLOOR (each side rounds its own h to bf16:
+        # a flip now and then). Operations at each product's rate (cases
+        # give (flops, peak) pairs)
+        "lstm_bf16": lambda: (
+            _flat_lstm(lstm.lstm_layer_kernel), _flat_lstm(lstm._reference),
+            bf16_lstm_cases, "se_tpu_torch/csrc/lstm.cu",
+            "se_tpu/ops/pallas_lstm.py:60", 2,
+            "lstm_step_tc<.., __nv_bfloat16> a frame (x fp32: 2 TF32 "
+            "passes; round(h) . Wh in the same pass count, exact): the 2 "
+            f"sub-band layer calls of FullSubNet's {b4} in bf16; its full "
+            "band takes the small fold (rows lstm_project_bf16, "
+            "lstm_recur_bf16); the other shapes are per-case lines",
+            {"peak": None, "fp32_out": True, "stepped": True}),
+        "lstm_project_bf16": lambda: (
+            lstm.lstm_project, lstm._project_reference,
+            bf16_lstm_project_cases, "se_tpu_torch/csrc/lstm.cu",
+            "se_tpu/ops/pallas_lstm.py:60", 10,
+            "lstm_proj_tc<.., __nv_bfloat16>, XP fp32: the 3 layer calls "
+            f"of LSTMNet's {b4} in bf16 (lstm1 bf16 x, 1 TF32 pass; lstm2 "
+            "fp32 x, 2 passes)", {"peak": None, "fp32_out": True}),
+        "lstm_recur_bf16": lambda: (
+            _flat_lstm(lstm.lstm_recur), _flat_lstm(lstm._recur_reference),
+            bf16_lstm_recur_cases, "se_tpu_torch/csrc/lstm.cu",
+            "se_tpu/ops/pallas_lstm.py:60", 2,
+            "lstm_recur_persistent<.., __nv_bfloat16> (Wh widened in shared "
+            "memory, h rounded as it is staged, 1 TF32 pass): the 3 layer "
+            f"calls of LSTMNet's {b4} in bf16",
+            {"peak": None, "fp32_out": True, "stepped": True}),
     }
     if "lstm_recur" in only:
-        check_recur_plans(dev)
+        check_recur_plans(dev, torch.float32)
+    if "lstm_recur_bf16" in only:
+        check_recur_plans(dev, torch.bfloat16)
     if "lstm" in only:
         check_carry_chain(dev)
     table = {}
@@ -1146,23 +1356,45 @@ def check_kernels(dev, only) -> dict:
                     tol, ok, checks = 1e-4 * scale, None, {}
                 else:
                     from se_tpu_torch.ops._dtype import (
-                        FLIP_SHARE, att_flip_slack, bf16_compare, to_float,
+                        BF16_FLOOR, FLIP_SHARE, LSTM_FLOOR, att_flip_slack,
+                        bf16_compare, to_float,
                     )
                     slack = ([att_flip_slack(*args[:4])]
                              if "slack" in extra else None)
+                    floor = LSTM_FLOOR if "stepped" in extra else BF16_FLOOR
                     err, _, past, differ, ok = bf16_compare(got, want,
-                                                            slack)
+                                                            slack, floor)
                     want32 = twin(*to_float(args))
                     want32 = want32 if isinstance(want32, tuple) \
                         else (want32,)
                     err32 = max(float((g.float() - w).abs().max())
                                 for g, w in zip(got, want32))
-                    tol = "2^-7 |twin| + 1e-6 max|twin|" + (
+                    tol = f"2^-7 |twin| + {floor:g} max|twin|" + (
                         f"; P's flip slack on <= {FLIP_SHARE}"
                         if slack else "")
                     checks = {"share_past_strict": past,
                               "share_differing": differ,
                               "max_abs_err_vs_fp32_twin": err32}
+                    if "fp32_out" in extra:
+                        # the fp32 rows' rule, against the twin stepped
+                        # along the kernel's y where it recurs; and the
+                        # share past bf16_compare's 1e-6 floor, reported
+                        checks["share_past_1e-6_floor"] = bf16_compare(
+                            got, want).share_past
+                        ref = (twin(*args, h_in=got[0])
+                               if "stepped" in extra else want)
+                        err_fp = max(float((g - w).abs().max())
+                                     for g, w in zip(got, ref))
+                        tol_fp = 1e-4 * max(1.0, max(
+                            float(w.abs().max()) for w in ref))
+                        checks.update({"max_abs_err_fp32_rule": err_fp,
+                                       "tol_fp32_rule": tol_fp})
+                        if "stepped" in extra:
+                            tol += "; stepped: 1e-4 max(1, max|twin|)"
+                        else:
+                            ok, tol = True, "1e-4 max(1, max|twin|)"
+                        ok = ok and err_fp <= tol_fp
+                        del ref
                     del slack, want32
                 del got, want
                 ms = cuda_ms(lambda: kernel(*args), reps=reps)
@@ -1172,7 +1404,7 @@ def check_kernels(dev, only) -> dict:
             line = {"phase": "kernel", "kernel": name, "case": label,
                     "max_abs_err": err, "tol": tol, **checks, "ms": ms,
                     "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
-                    "bound_by": b_by, "gflop": flops / 1e9,
+                    "bound_by": b_by, "gflop": total_flops(flops) / 1e9,
                     "mbytes": moved / 1e6, "in_row": in_row}
             if name in DEVICE_SPLIT or extra:  # where the event time goes
                 with torch.no_grad():
@@ -1194,7 +1426,7 @@ def check_kernels(dev, only) -> dict:
             row["bound_ms"] += b_ms
             if lib is not None:
                 row["library_ms"] = (row["library_ms"] or 0.0) + lib
-            t_ops += flops / peak
+            t_ops += ops_seconds(flops, peak)
             t_bytes += moved / PEAK_BYTES
         row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
         table[name] = row
@@ -1301,26 +1533,42 @@ PROFILE_GATED = ("uformer",)
 # family: the launches of a bf16 B = 4 forward (phase 4b): Uformer's four
 # kernels in their bf16 variants and no fp32 kernel; the TCM families the
 # fp32 STFT kernel (the spectral branch takes its STFT in fp32, as se_tpu)
-# and nothing else
+# and nothing else; the six LSTM families the fp32 STFT and their fp32
+# path's LSTM launches in the bf16 variants (MAIN_PATHS), no fp32 LSTM
+# launch
 BF16_KERNELS = {"attention_bf16": 4, "dsconv_pair_bf16": 8,
                 "encoder_bf16": 6, "decoder_bf16": 6}
+LSTM_KERNELS = ("lstm", "lstm_project", "lstm_recur")
+LSTM_FAMILIES = ("fullsubnet", "dccrn", "lstm", "crn", "gcrn", "dpcrn")
 BF16_PATHS = {
     "uformer": {**{k: 0 for k in ONLY_STFT}, **BF16_KERNELS},
     **{name: {**ONLY_STFT, **{k: 0 for k in BF16_KERNELS}}
        for name in TCM_FAMILIES},
+    **{name: {**ONLY_STFT, **{k: 0 for k in BF16_KERNELS},
+              **{f"{k}_bf16": MAIN_PATHS[name][k] for k in LSTM_KERNELS}}
+       for name in LSTM_FAMILIES},
 }
-# the bf16 variants' kernel names in a profile (each also with "bfloat16"
-# in its signature)
-PROFILE_KERNELS_BF16 = ("att_flash_tc", "att_small_l",
-                        "encoder_level_cc", "encoder_level_tc",
-                        "decoder_level_tc", "decoder_level_cc",
-                        "dsconv_pre_tc", "dsconv_post_tc")
+# family: the bf16 variants' kernel names its bf16 profile reports (each
+# also with "bfloat16" in its signature); Uformer's must show each
+# (PROFILE_GATED)
+_BF16_SMALL_FOLD = ("lstm_proj_tc", "lstm_recur_persistent")
+PROFILE_KERNELS_BF16 = {
+    "uformer": ("att_flash_tc", "att_small_l", "encoder_level_cc",
+                "encoder_level_tc", "decoder_level_tc", "decoder_level_cc",
+                "dsconv_pre_tc", "dsconv_post_tc"),
+    **{name: _BF16_SMALL_FOLD for name in ("dccrn", "lstm", "crn",
+                                           "gcrn")},
+    "fullsubnet": ("lstm_step_tc",) + _BF16_SMALL_FOLD,
+    "dpcrn": ("lstm_step_tc",) + _BF16_SMALL_FOLD,
+}
 # kernel: the main path whose B = 4 forward its row of the table sums
 ROW_PATH = {"attention": "uformer", "dsconv": "uformer",
             "dsconv_pair": "uformer", "encoder": "uformer",
             "decoder": "uformer", "lstm": "fullsubnet",
             "lstm_project": "lstm", "lstm_recur": "lstm", "stft": "dccrn",
-            **{k: "uformer bf16" for k in BF16_KERNELS}}
+            **{k: "uformer bf16" for k in BF16_KERNELS},
+            "lstm_bf16": "fullsubnet bf16", "lstm_project_bf16": "lstm bf16",
+            "lstm_recur_bf16": "lstm bf16"}
 # families whose B = 256 batch takes lstm_step_tc in some layer call:
 # phase 5 checks one of its utterances against the CPU
 TC_BATCH_CHECK = ("lstm", "crn", "dpcrn")
@@ -1422,11 +1670,11 @@ def bf16_path(name: str, model, cpu_model, launches) -> dict:
     """Phase 4b for one family: `enhance_waveform(dtype=torch.bfloat16)`
     on B = 4 x 4 s on the card with the counts set to 0 just before and
     read just after (BF16_PATHS: Uformer's bf16 variants 4 / 8 / 6 / 6 and
-    no fp32 kernel; the TCM families the fp32 STFT once), the output
-    finite and complete; then utterance 0 against the same weights on the
-    CPU in bf16 and in fp32: the card's distance from each (max |err| /
-    max |cpu fp32|) within twice the CPU bf16's own distance from fp32.
-    Returns the counts."""
+    no fp32 kernel; the TCM families the fp32 STFT once; the LSTM families
+    the fp32 STFT and their LSTM launches in the bf16 variants only), the
+    output finite and complete; then utterance 0 against the same weights
+    on the CPU in bf16 and in fp32 (`bf16_card_vs_cpu`). Returns the
+    counts."""
     import numpy as np
     import torch
 
@@ -1444,7 +1692,21 @@ def bf16_path(name: str, model, cpu_model, launches) -> dict:
     if est.shape != wav.shape or not np.isfinite(est).all():
         fail(f"{name} bf16: enhanced output of shape {est.shape} is not "
              "finite/complete")
-    one = wav[:1]
+    bf16_card_vs_cpu(name, est, cpu_model, wav, 0,
+                     "card bf16 vs cpu, utterance 0")
+    return counts
+
+
+def bf16_card_vs_cpu(name: str, est, cpu_model, wav, index: int,
+                     check: str) -> None:
+    """Utterance `index` of the card's bf16 batch output against the same
+    weights on the CPU on that utterance alone, in bf16 and in fp32: the
+    card's distance from each (max |err| / max |cpu fp32|) within twice
+    the CPU bf16's own distance from fp32 (PERF.md section 2)."""
+    import numpy as np
+    import torch
+
+    one = wav[index:index + 1]
     cpu32 = run_enhance(name, cpu_model, one, "cpu")[0]
     cpu16 = run_enhance(name, cpu_model, one, "cpu", torch.bfloat16)[0]
     scale = float(np.abs(cpu32).max())
@@ -1453,16 +1715,14 @@ def bf16_path(name: str, model, cpu_model, launches) -> dict:
         return float(np.abs(a - b).max()) / scale
 
     e_cpu = dist(cpu16, cpu32)
-    e32, e16 = dist(est[0], cpu32), dist(est[0], cpu16)
-    emit({"phase": "main bf16", "model": name,
-          "check": "card bf16 vs cpu, utterance 0",
+    e32, e16 = dist(est[index], cpu32), dist(est[index], cpu16)
+    emit({"phase": "main bf16", "model": name, "check": check,
           "cpu_bf16_vs_cpu_fp32": e_cpu, "card_bf16_vs_cpu_fp32": e32,
           "card_bf16_vs_cpu_bf16": e16, "limit": 2 * e_cpu})
     if not (e32 <= 2 * e_cpu and e16 <= 2 * e_cpu):
-        fail(f"{name} bf16: the card's output is {e32} from the CPU fp32 "
-             f"and {e16} from the CPU bf16, past twice the CPU bf16's own "
-             f"distance {e_cpu}")
-    return counts
+        fail(f"{name} bf16: {check}: the card's output is {e32} from the "
+             f"CPU fp32 and {e16} from the CPU bf16, past twice the CPU "
+             f"bf16's own distance {e_cpu}")
 
 
 def forward_gflop(name: str, model) -> dict:
@@ -1491,9 +1751,13 @@ def throughput(name: str, model, cpu_model, card: str, dtype=None) -> None:
         est = run_enhance(name, model, wav, dtype=dtype)  # warm-up
         warm_s = time.perf_counter() - t0
         if batch == 256 and name in TC_BATCH_CHECK:
-            card_vs_cpu(name, est, cpu_model, wav, batch - 1,
-                        f"card vs cpu, utterance {batch - 1} of a B = "
-                        f"{batch} batch (lstm_step_tc)")
+            check = (f"card vs cpu, utterance {batch - 1} of a B = {batch} "
+                     "batch (lstm_step_tc)")
+            if dtype is None:
+                card_vs_cpu(name, est, cpu_model, wav, batch - 1, check)
+            else:
+                bf16_card_vs_cpu(name, est, cpu_model, wav, batch - 1,
+                                 check.replace("card", "card bf16", 1))
         del est
         repeats = 2 if warm_s > SLOW_CALL_S else 5
         times = []
@@ -1547,7 +1811,7 @@ def profile(name: str, model, card: str, dtype=None) -> None:
         def match(k, key):
             return k in key
     else:
-        want = PROFILE_KERNELS_BF16 if name == "uformer" else ()
+        want = PROFILE_KERNELS_BF16.get(name, ())
 
         def match(k, key):
             return k in key and "bfloat16" in key
@@ -1598,7 +1862,7 @@ BACKWARD = {
     "stft": "none: stft_fused raises on an input that requires grad "
             "(se_tpu's stft_pallas has no VJP)",
     **{k: "not exercised: bf16 training is ROADMAP Queue 1 item 4e"
-       for k in BF16_KERNELS},
+       for k in (*BF16_KERNELS, *(f"{k}_bf16" for k in LSTM_KERNELS))},
 }
 # family: the launches of one train step (one forward; the backward runs
 # the twins). Uformer's train mode runs its U-net levels and DSConv blocks
@@ -2477,8 +2741,11 @@ def windowed_uformer(dev, launches, card: str) -> dict:
     chunks, 2 s context, max_batch 16) over 8.5 s, three windows in one
     padded batch, against the CPU at max_batch 2 (two batches, the second
     padded) within 1e-3 * max|cpu|, with every Uformer kernel launched;
-    then the windowed throughput over 60 s (15 windows, one batch)."""
+    the same in bf16 (its bf16 kernels, its distance from fp32); then the
+    windowed throughput over 60 s (15 windows, one batch), fp32 and bf16
+    in turns."""
     import numpy as np
+    import torch
 
     from se_tpu_torch.eval.streaming import enhance_windowed
 
@@ -2498,16 +2765,35 @@ def windowed_uformer(dev, launches, card: str) -> dict:
     missing = [k for k in MAIN_PATHS["uformer"] if counts.get(k, 0) == 0]
     if missing:
         fail(f"uformer windowed: launched no {', '.join(missing)}")
+    # bf16 (enhance_windowed(dtype=torch.bfloat16)): the four bf16
+    # variants and no fp32 kernel, finite, and its mean distance from the
+    # fp32 decode within assert_tracks's 0.1 (the CPU rule is phase 4b's
+    # and tests/test_torch_bf16_recurrent_zoo.py's)
+    launches.clear()
+    got16 = enhance_windowed("uformer", model, wav, dtype=torch.bfloat16)
+    counts16 = dict(launches)
+    mean_rel = float(np.abs(got16 - got).mean() / np.abs(got).mean())
+    line.update({"launches_bf16": counts16,
+                 "bf16_vs_fp32_mean_rel": mean_rel})
+    if any(counts16.get(k, 0) == 0 for k in BF16_KERNELS) or any(
+            counts16.get(k, 0) for k in MAIN_PATHS["uformer"]):
+        fail(f"uformer windowed bf16: launches {counts16}")
+    if not (np.isfinite(got16).all() and mean_rel < 0.1):
+        fail(f"uformer windowed bf16: mean distance {mean_rel} from fp32")
     minute = (rng.standard_normal(60 * SR) * 0.1).astype(np.float32)
-    enhance_windowed("uformer", model, minute)  # warm-up
-    times = []
-    for _ in range(3):
+    times = {None: [], torch.bfloat16: []}
+    for dtype in times:  # warm-up
+        enhance_windowed("uformer", model, minute, dtype=dtype)
+    for dtype in (None, torch.bfloat16, torch.bfloat16, None) * 2:
         t0 = time.perf_counter()
-        enhance_windowed("uformer", model, minute)
-        times.append(time.perf_counter() - t0)
+        enhance_windowed("uformer", model, minute, dtype=dtype)
+        times[dtype].append(time.perf_counter() - t0)
     line.update({"seconds_audio": 60, "windows": 15, "batches": 1,
-                 "audio_s_per_s": 60 / statistics.median(times),
-                 "call_s": times, "card": card})
+                 "audio_s_per_s": 60 / statistics.median(times[None]),
+                 "call_s": times[None],
+                 "audio_s_per_s_bf16":
+                     60 / statistics.median(times[torch.bfloat16]),
+                 "call_s_bf16": times[torch.bfloat16], "card": card})
     emit(line)
     return counts
 
@@ -2691,7 +2977,7 @@ def main() -> None:
             throughput(name, model, cpu_model, card, torch.bfloat16)
     for name, (model, _) in models.items():
         profile(name, model, card)
-        if name == "uformer":
+        if name in PROFILE_KERNELS_BF16:
             profile(name, model, card, torch.bfloat16)
     del models
     torch.cuda.empty_cache()

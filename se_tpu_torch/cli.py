@@ -291,8 +291,9 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["fp32", "bf16"], default="fp32",
                     help="bf16 training is not ported yet (ROADMAP Queue 1 "
                     "item 4e); bf16 enhance is enhance_waveform(dtype="
-                    "torch.bfloat16) for Uformer and the TCM families, the "
-                    "LSTM families' is item 4b")
+                    "torch.bfloat16) for ten families (Uformer, the TCM "
+                    "families and the six LSTM families), not DeepXi, whose "
+                    "se_tpu decode takes no dtype")
     pt.add_argument("--device", default=None, help=device_help)
     pt.set_defaults(func=cmd_train)
     return p

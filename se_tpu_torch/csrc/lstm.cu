@@ -1,4 +1,5 @@
-// One single-direction LSTM layer over a whole sequence, fp32.
+// One single-direction LSTM layer over a whole sequence, fp32, and its
+// bf16 variants (bf16 weights; see "bf16" below).
 //
 // Replaces: se_tpu/ops/pallas_lstm.py, `_pallas_lstm_tm` and its body
 // `_lstm_kernel` (entry `pallas_lstm_layer`).
@@ -115,12 +116,29 @@
 //     wave on 132 SMs. A 128-row tile (two blocks an SM, half the L2 reads
 //     a flop) was no faster at B = 32 and slower at B = 4: the mma issue
 //     rate, not L2, sets the pace (about a third of the card's TF32 peak).
-//   - Not here: wgmma, TMA, clusters, CUDA graphs, bf16. A wgmma version
+//   - Not here: wgmma, TMA, clusters, CUDA graphs. A wgmma version
 //     takes TF32 only with A and B both K-major in shared memory: the
 //     packed weights already are, and A's [x_t | h_{t-1}] rows
 //     are K-contiguous; it needs 64-row warpgroup tiles, the 128-byte
 //     swizzle in place of the padding, and the cell epilogue mapped to
 //     wgmma's accumulator layout.
+
+// bf16 (the `_bf16` entries; se_tpu's bf16 decode, pallas_lstm.py:14-16,
+// :44-46, :84-85, and its scan, se_tpu/nn/recurrent.py:36-37, :150): the
+// weights (and the combined bias) are bf16, stored so in device memory
+// (half the fp32 packs' bytes) and widened to fp32 as they are loaded into
+// shared memory, so every tile, plan and grid is the fp32 design's. x is
+// fp32 or bf16 (x_bf16); XP, h, c and y are fp32. The one rounding point
+// inside is se_tpu's `h.astype(wh.dtype)`: h_{t-1} rounded to bf16 (to
+// nearest even) where the product takes it (lstm_step_tc: in the A
+// fragments, RoundFrom; lstm_recur_persistent: as it is staged), never in
+// the carry buffers. A bf16 value is exact in TF32, so the products keep
+// fp32 accuracy in fewer passes (passes_for<TX, TW>): 2 for an fp32 x
+// against bf16 weights (x split big + small), 1 where both operands are
+// bf16-valued (a bf16 x; the rounded h against Wh). Bound: the same flops
+// at 247.5 TFLOP/s (2 passes) or 989 (1 pass), or the bytes at 3.35 TB/s.
+// A simple first version: the bf16 loads are plain loads widened in
+// registers (no cp.async for them), not bf16 mma fragments.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -139,16 +157,17 @@ __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-__device__ __forceinline__ void cell(const float* __restrict__ bias,
+template <class TB>
+__device__ __forceinline__ void cell(const TB* __restrict__ bias,
                                      float* __restrict__ c,
                                      float* __restrict__ h_next,
                                      float* __restrict__ y, float gi,
                                      float gf, float gg, float go, int row,
                                      int u, int T, int H, int t) {
-  gi += bias[u];
-  gf += bias[H + u];
-  gg += bias[2 * H + u];
-  go += bias[3 * H + u];
+  gi += to_f(bias[u]);
+  gf += to_f(bias[H + u]);
+  gg += to_f(bias[2 * H + u]);
+  go += to_f(bias[3 * H + u]);
   const size_t ci = (size_t)row * H + u;
   const float cn = sigmoidf(gf) * c[ci] + sigmoidf(gi) * tanhf(gg);
   const float hn = sigmoidf(go) * tanhf(cn);
@@ -171,17 +190,39 @@ constexpr int TC_THREADS = 32 * WM * WN;
 constexpr int TC_BLOCKS_SM = 4; // resident blocks an SM (register cap)
 constexpr int TC_SMEM = STAGES * (TM + TN) * LDS * (int)sizeof(float);
 
-// The 3xTF32 main loop of one TM x TN tile: acc += A[r0 : r0 + TM, :K] .
+// The bf16 variants' rounding of h: the A fragments' entries at K >= k0
+// (the h_{t-1} columns of [x_t | h_{t-1}]) rounded to bf16 before the
+// product, where se_tpu's `h.astype(wh.dtype)` rounds them
+// (se_tpu/nn/recurrent.py:36-37, pallas_lstm.py:44); the carry in device
+// memory stays fp32. Register j of a[mi] holds K index k + lane % 4 + 4 (j
+// >> 1) (mma_step's `prep`).
+struct RoundFrom {
+  int k0;
+  __device__ __forceinline__ void operator()(int k,
+                                             uint32_t (&a)[2][4]) const {
+    const int kl = k + (threadIdx.x & 3);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (kl + 4 * (j >> 1) >= k0)
+          a[mi][j] = __float_as_uint(round_bf16(__uint_as_float(a[mi][j])));
+  }
+};
+
+// The TF32 main loop of one TM x TN tile: acc += A[r0 : r0 + TM, :K] .
 // w[col0 : col0 + TN, :K]^T, K = In + H. Row r of A is [x_r,t | h_prev_r]:
-// x (rows, T, In) read at frame t, h_prev (rows, H). w: packed (columns,
-// Kp), K-major, zero-padded to whole tiles; rows past `rows` and K past
-// In + H are zero-filled by the copies. VEC: 16-byte copies of A (In % 4 ==
-// 0, H % 4 == 0, x 16-byte aligned). sm: STAGES x (TM + TN) x LDS floats.
-template <bool VEC>
+// x (rows, T, In) read at frame t, h_prev (rows, H; unread when H = 0).
+// w: packed (columns, Kp), K-major, zero-padded to whole tiles; rows past
+// `rows` and K past In + H are zero-filled by the copies. VEC: 16-byte
+// copies of A (In % 4 == 0, H % 4 == 0, x aligned to 4 elements). sm:
+// STAGES x (TM + TN) x LDS floats. TX, TW: x's and w's storage (fp32, or
+// bf16 widened as it is loaded); PASSES and prep as tc_ring's.
+template <bool VEC, int PASSES, class TX, class TW, class Prep>
 __device__ __forceinline__ void tc_mainloop(
-    float (&acc)[2][4][4], float* sm, const float* __restrict__ x,
-    const float* __restrict__ h_prev, const float* __restrict__ w, int rows,
-    int T, int In, int H, int Kp, int t, int r0, int col0) {
+    float (&acc)[2][4][4], float* sm, const TX* __restrict__ x,
+    const float* __restrict__ h_prev, const TW* __restrict__ w, int rows,
+    int T, int In, int H, int Kp, int t, int r0, int col0, Prep prep) {
   float* As = sm;                      // STAGES x TM x LDS
   float* Bs = sm + STAGES * TM * LDS;  // STAGES x TN x LDS
   const int tid = threadIdx.x, warp = tid >> 5;
@@ -192,8 +233,8 @@ __device__ __forceinline__ void tc_mainloop(
   constexpr int CH = TK / 4, RSTEP = TC_THREADS / CH;  // 8 chunks a row
   constexpr int NA = TM / RSTEP, NB = TN / RSTEP;      // rows a thread copies
   const int crow = tid / CH, cq = tid % CH;
-  const float* wq = w + ((size_t)col0 + crow) * Kp + 4 * cq;
-  const float* xrow[NA];
+  const TW* wq = w + ((size_t)col0 + crow) * Kp + 4 * cq;
+  const TX* xrow[NA];
   const float* hrow[NA];
   bool live[NA];
 #pragma unroll
@@ -211,43 +252,65 @@ __device__ __forceinline__ void tc_mainloop(
     float* bs = Bs + slot * TN * LDS + crow * LDS + 4 * cq;
 #pragma unroll
     for (int i = 0; i < NB; ++i)
-      cp_async16(bs + i * RSTEP * LDS, wq + (size_t)i * RSTEP * Kp + k0, 16);
+      copy4(bs + i * RSTEP * LDS, wq + (size_t)i * RSTEP * Kp + k0, true);
     if (VEC) {
       const int k = k0 + 4 * cq;
       const bool in_x = k < In, in_k = k < K;
 #pragma unroll
-      for (int i = 0; i < NA; ++i)  // past K: 0 bytes from a valid address
-        cp_async16(as + (crow + i * RSTEP) * LDS + 4 * cq,
-                   in_x || !in_k ? xrow[i] + (in_x ? k : 0)
-                                 : hrow[i] + (k - In),
-                   live[i] && in_k ? 16 : 0);
+      for (int i = 0; i < NA; ++i) {
+        float* dst = as + (crow + i * RSTEP) * LDS + 4 * cq;
+        if constexpr (sizeof(TX) == 4)  // past K: 0 bytes from a valid address
+          cp_async16(dst,
+                     in_x || !in_k ? xrow[i] + (in_x ? k : 0)
+                                   : hrow[i] + (k - In),
+                     live[i] && in_k ? 16 : 0);
+        else if (in_x)
+          copy4(dst, xrow[i] + k, live[i]);
+        else if (in_k)
+          copy4(dst, hrow[i] + (k - In), live[i]);
+        else
+          zero4(dst);
+      }
     } else {
 #pragma unroll 4
       for (int i = 0; i < TM * TK / TC_THREADS; ++i) {
         const int e = tid + i * TC_THREADS, r = e / TK, kk = e % TK;
         const int row = r0 + r, k = k0 + kk;
-        const float* src = x;
-        int bytes = 0;
-        if (row < rows && k < K) {
-          src = k < In ? x + ((size_t)row * T + t) * In + k
-                       : h_prev + (size_t)row * H + (k - In);
-          bytes = 4;
+        const bool ok = row < rows && k < K;
+        if constexpr (sizeof(TX) == 4) {
+          const float* src = x;
+          int bytes = 0;
+          if (ok) {
+            src = k < In ? x + ((size_t)row * T + t) * In + k
+                         : h_prev + (size_t)row * H + (k - In);
+            bytes = 4;
+          }
+          cp_async4(as + r * LDS + kk, src, bytes);
+        } else if (ok && k < In) {
+          copy1(as + r * LDS + kk, x + ((size_t)row * T + t) * In + k, true);
+        } else if (ok) {
+          cp_async4(as + r * LDS + kk, h_prev + (size_t)row * H + (k - In),
+                    4);
+        } else {
+          as[r * LDS + kk] = 0.f;
         }
-        cp_async4(as + r * LDS + kk, src, bytes);
       }
     }
   };
 
-  tc_ring<TM, TN, TK, LDS, STAGES, 4, false>(acc, As, Bs, nk, wm * 32,
-                                             wn * 32, load_stage);
+  tc_ring<TM, TN, TK, LDS, STAGES, 4, false, PASSES>(
+      acc, As, Bs, nk, wm * 32, wn * 32, load_stage, prep);
 }
 
 // One frame for TM rows x TU units: the main loop over [x_t | h_{t-1}],
-// then the cell. w: pack_weights' (4Hp, Kp).
-template <bool VEC>
+// then the cell. w: pack_weights' (4Hp, Kp). fp32 (TX = TW = float): 3
+// TF32 passes. bf16 weights (TW; bias in TW too): h_{t-1} rounded to bf16
+// in the fragments (RoundFrom), then 2 passes for an fp32 x, 1 for a bf16
+// x (passes_for<TX, TW>); h, c and y stay fp32.
+template <bool VEC, class TX, class TW>
 __global__ void __launch_bounds__(TC_THREADS, TC_BLOCKS_SM)
-lstm_step_tc(const float* __restrict__ x, const float* __restrict__ w,
-             const float* __restrict__ bias, const float* __restrict__ h_prev,
+lstm_step_tc(const TX* __restrict__ x, const TW* __restrict__ w,
+             const TW* __restrict__ bias, const float* __restrict__ h_prev,
              float* __restrict__ h_next, float* __restrict__ c,
              float* __restrict__ y, int Bf, int T, int In, int H, int Kp,
              int t) {
@@ -261,8 +324,13 @@ lstm_step_tc(const float* __restrict__ x, const float* __restrict__ w,
   const int r0 = blockIdx.y * TM, u0 = blockIdx.x * TU;
   // acc[m tile][gate][fragment]: rows gid (+8), units 2 tq (+1)
   float acc[2][4][4];
-  tc_mainloop<VEC>(acc, sm, x, h_prev, w, Bf, T, In, H, Kp, t, r0,
-                   blockIdx.x * TN);
+  constexpr int PASSES = passes_for<TX, TW>();
+  if constexpr (sizeof(TW) == 4)
+    tc_mainloop<VEC, PASSES>(acc, sm, x, h_prev, w, Bf, T, In, H, Kp, t, r0,
+                             blockIdx.x * TN, NoPrep());
+  else
+    tc_mainloop<VEC, PASSES>(acc, sm, x, h_prev, w, Bf, T, In, H, Kp, t, r0,
+                             blockIdx.x * TN, RoundFrom{In});
 
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
@@ -283,11 +351,12 @@ lstm_step_tc(const float* __restrict__ x, const float* __restrict__ w,
 // (M = Bf T rows, K = In), then a store. w: pack_input's (Np, Kp), torch's
 // column order (no gate interleave: no cell here). A 1-D grid, column
 // tiles fastest, so the blocks of a row tile run together and read it from
-// L2.
-template <bool VEC>
+// L2. bf16 weights (TW, bias too): 2 TF32 passes for an fp32 x, 1 for a
+// bf16 x; XP fp32 either way (se_tpu's preferred_element_type=fp32).
+template <bool VEC, class TX, class TW>
 __global__ void __launch_bounds__(TC_THREADS, TC_BLOCKS_SM)
-lstm_proj_tc(const float* __restrict__ x, const float* __restrict__ w,
-             const float* __restrict__ bias, float* __restrict__ xp, int M,
+lstm_proj_tc(const TX* __restrict__ x, const TW* __restrict__ w,
+             const TW* __restrict__ bias, float* __restrict__ xp, int M,
              int In, int N, int Kp) {
   extern __shared__ __align__(16) float sm[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -296,7 +365,8 @@ lstm_proj_tc(const float* __restrict__ x, const float* __restrict__ w,
   const int ncol = (N + TN - 1) / TN;
   const int col0 = (blockIdx.x % ncol) * TN, r0 = (blockIdx.x / ncol) * TM;
   float acc[2][4][4];
-  tc_mainloop<VEC>(acc, sm, x, x, w, M, 1, In, 0, Kp, 0, r0, col0);
+  tc_mainloop<VEC, passes_for<TX, TW>()>(acc, sm, x, nullptr, w, M, 1, In,
+                                         0, Kp, 0, r0, col0, NoPrep());
 
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
@@ -310,8 +380,8 @@ lstm_proj_tc(const float* __restrict__ x, const float* __restrict__ w,
         const int col = col0 + wn * 32 + g * 8 + 2 * tq;
         if (col < N)
           *reinterpret_cast<float2*>(xp + (size_t)row * N + col) =
-              make_float2(acc[mi][g][hh * 2] + bias[col],
-                          acc[mi][g][hh * 2 + 1] + bias[col + 1]);
+              make_float2(acc[mi][g][hh * 2] + to_f(bias[col]),
+                          acc[mi][g][hh * 2 + 1] + to_f(bias[col + 1]));
       }
     }
 }
@@ -347,11 +417,14 @@ size_t persistent_smem(int Hk, int chunks) {
 // cell (thread tid < PR PU owns row tid / PU, unit tid % PU) with the
 // gate inputs xp read ahead; h_t goes to the other half of hbuf and to y.
 // Then one grid barrier: every block's h_t is written before any block
-// reads it.
-template <bool VEC>
+// reads it. bf16 weights (TW): the slice widened to fp32 as it is loaded
+// (the same shared memory as fp32, so the same plan), h_{t-1} rounded to
+// bf16 as it is staged, one TF32 pass (both operands bf16-valued); xp, h,
+// c and y stay fp32.
+template <bool VEC, class TW>
 __global__ void __launch_bounds__(P_THREADS, P_BLOCKS_SM)
 lstm_recur_persistent(const float* __restrict__ xp,
-                      const float* __restrict__ whp, float* __restrict__ hbuf,
+                      const TW* __restrict__ whp, float* __restrict__ hbuf,
                       float* __restrict__ c, float* __restrict__ y, int Bf,
                       int T, int H, int Hk, int ng, int reverse) {
   extern __shared__ __align__(16) float sm[];
@@ -368,12 +441,13 @@ lstm_recur_persistent(const float* __restrict__ xp,
   // the cell's thread: row er of a chunk, unit eu of the block
   const int er = tid / PU, eu = tid % PU, unit = ut * PU + eu;
   const bool cell_thread = tid < PR * PU && unit < H;
+  constexpr bool BF16 = sizeof(TW) == 2;
 
   const int q4 = Hk / 4;  // 16-byte chunks a row
-  const float* wsrc = whp + (size_t)ut * 4 * PU * Hk;
+  const TW* wsrc = whp + (size_t)ut * 4 * PU * Hk;
   for (int e = tid; e < 4 * PU * q4; e += P_THREADS)
-    cp_async16(Ws + (e / q4) * ld + 4 * (e % q4),
-               wsrc + (size_t)(e / q4) * Hk + 4 * (e % q4), 16);
+    copy4(Ws + (e / q4) * ld + 4 * (e % q4),
+          wsrc + (size_t)(e / q4) * Hk + 4 * (e % q4), true);
   cp_async_commit();
   for (int q = g0, j = 0; q < nr; q += ng, ++j) {
     const int row = q * PR + er;
@@ -404,8 +478,20 @@ lstm_recur_persistent(const float* __restrict__ xp,
 #pragma unroll
         for (int g = 0; g < 4; ++g) xg[g] = __ldg(p + g * H);
       }
-      // h_{t-1} of rows r0 .. r0 + PR, zero past Bf and past H
-      if (VEC) {
+      // h_{t-1} of rows r0 .. r0 + PR, zero past Bf and past H (bf16:
+      // rounded to bf16, where se_tpu's h.astype(wh.dtype) rounds it)
+      if (VEC && BF16) {
+        for (int e = tid; e < PR * q4; e += P_THREADS) {
+          const int r = e / q4, k = 4 * (e % q4);
+          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (r0 + r < Bf && k < H)
+            v = __ldcg(reinterpret_cast<const float4*>(
+                hp + (size_t)(r0 + r) * H + k));
+          *reinterpret_cast<float4*>(As + r * ld + k) =
+              make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z),
+                          round_bf16(v.w));
+        }
+      } else if (VEC) {
         for (int e = tid; e < PR * q4; e += P_THREADS) {
           const int r = e / q4, k = 4 * (e % q4);
           const bool in = r0 + r < Bf && k < H;
@@ -417,9 +503,10 @@ lstm_recur_persistent(const float* __restrict__ xp,
       } else {
         for (int e = tid; e < PR * Hk; e += P_THREADS) {
           const int r = e / Hk, k = e % Hk;
-          As[r * ld + k] = r0 + r < Bf && k < H
-                               ? __ldcg(hp + (size_t)(r0 + r) * H + k)
-                               : 0.f;
+          const float v = r0 + r < Bf && k < H
+                              ? __ldcg(hp + (size_t)(r0 + r) * H + k)
+                              : 0.f;
+          As[r * ld + k] = BF16 ? round_bf16(v) : v;
         }
       }
       __syncthreads();
@@ -435,19 +522,25 @@ lstm_recur_persistent(const float* __restrict__ xp,
         ldsm_x4(a, as + kk);
         ldsm_x4(b[0], bs + kk);
         ldsm_x4(b[2], bs + 16 * ld + kk);
+        if constexpr (BF16) {  // bf16-valued operands: one exact pass
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          split_tf32(__uint_as_float(a[i]), a_big[i], a_small[i]);
+          for (int g = 0; g < 4; ++g) mma_tf32(acc[g], a, b[g]);
+        } else {
 #pragma unroll
-        for (int g = 0; g < 4; ++g)
+          for (int i = 0; i < 4; ++i)
+            split_tf32(__uint_as_float(a[i]), a_big[i], a_small[i]);
 #pragma unroll
-          for (int i = 0; i < 2; ++i)
-            split_tf32(__uint_as_float(b[g][i]), b_big[g][i], b_small[g][i]);
+          for (int g = 0; g < 4; ++g)
 #pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          mma_tf32(acc[g], a_small, b_big[g]);
-          mma_tf32(acc[g], a_big, b_small[g]);
-          mma_tf32(acc[g], a_big, b_big[g]);
+            for (int i = 0; i < 2; ++i)
+              split_tf32(__uint_as_float(b[g][i]), b_big[g][i],
+                         b_small[g][i]);
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            mma_tf32(acc[g], a_small, b_big[g]);
+            mma_tf32(acc[g], a_big, b_small[g]);
+            mma_tf32(acc[g], a_big, b_big[g]);
+          }
         }
       }
       // acc[g]: rows gid (+8), packed columns g PU + 2 tq (+1)
@@ -498,16 +591,17 @@ cudaError_t max_smem(K kernel, size_t bytes) {
   return err;
 }
 
-template <bool VEC>
-int run_tc(const float* x, const float* wp, const float* b, float* hbuf,
-           float* c, float* y, int Bf, int T, int In, int H, int Hp, int Kp,
+template <bool VEC, class TX, class TW>
+int run_tc(const TX* x, const TW* wp, const TW* b, float* hbuf, float* c,
+           float* y, int Bf, int T, int In, int H, int Hp, int Kp,
            int reverse, cudaStream_t st) {
-  cudaError_t err = max_smem(lstm_step_tc<VEC>, TC_SMEM);
+  auto kernel = lstm_step_tc<VEC, TX, TW>;
+  cudaError_t err = max_smem(kernel, TC_SMEM);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(Hp / TU, (Bf + TM - 1) / TM);
   const size_t half = (size_t)Bf * H;
   for (int s = 0; s < T; ++s) {
-    lstm_step_tc<VEC><<<grid, TC_THREADS, TC_SMEM, st>>>(
+    kernel<<<grid, TC_THREADS, TC_SMEM, st>>>(
         x, wp, b, hbuf + (s & 1) * half, hbuf + ((s + 1) & 1) * half, c, y,
         Bf, T, In, H, Kp, reverse ? T - 1 - s : s);
     if (s == 0 && (err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -515,25 +609,26 @@ int run_tc(const float* x, const float* wp, const float* b, float* hbuf,
   return (int)cudaGetLastError();
 }
 
-template <bool VEC>
-int run_proj(const float* x, const float* wp, const float* b, float* xp,
-             int M, int In, int N, int Kp, cudaStream_t st) {
-  cudaError_t err = max_smem(lstm_proj_tc<VEC>, TC_SMEM);
+template <bool VEC, class TX, class TW>
+int run_proj(const TX* x, const TW* wp, const TW* b, float* xp, int M,
+             int In, int N, int Kp, cudaStream_t st) {
+  auto kernel = lstm_proj_tc<VEC, TX, TW>;
+  cudaError_t err = max_smem(kernel, TC_SMEM);
   if (err != cudaSuccess) return (int)err;
   const long blocks = (long)((N + TN - 1) / TN) * ((M + TM - 1) / TM);
-  lstm_proj_tc<VEC><<<(unsigned)blocks, TC_THREADS, TC_SMEM, st>>>(
-      x, wp, b, xp, M, In, N, Kp);
+  kernel<<<(unsigned)blocks, TC_THREADS, TC_SMEM, st>>>(x, wp, b, xp, M, In,
+                                                        N, Kp);
   return (int)cudaGetLastError();
 }
 
-template <bool VEC>
-int run_recur(const float* xp, const float* whp, float* hbuf, float* c,
+template <bool VEC, class TW>
+int run_recur(const float* xp, const TW* whp, float* hbuf, float* c,
               float* y, int Bf, int T, int H, int Hk, int ng, int reverse,
               cudaStream_t st) {
   const int nu = (H + PU - 1) / PU, nr = (Bf + PR - 1) / PR;
   const unsigned blocks = (unsigned)nu * ng;
   const size_t smem = persistent_smem(Hk, (nr + ng - 1) / ng);
-  auto kernel = lstm_recur_persistent<VEC>;
+  auto kernel = lstm_recur_persistent<VEC, TW>;
   cudaError_t err = max_smem(kernel, smem);
   int dev = 0, sms = 0, per_sm = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
@@ -555,21 +650,20 @@ int run_recur(const float* xp, const float* whp, float* hbuf, float* c,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
+// x aligned to 4 of its elements: the 16-byte (fp32) or 8-byte (bf16)
+// copies of VEC
+template <class TX>
+bool aligned4(const TX* x) {
+  return reinterpret_cast<uintptr_t>(x) % (4 * sizeof(TX)) == 0;
+}
 
-// The large fold, one lstm_step_tc a frame. x (Bf, T, In); wp: pack_weights'
-// (4Hp, Kp) (Hp a multiple of 16 and Kp of 32, neither below H and In + H);
-// b (4H); hbuf (2, Bf, H) with h0 in its first half; c (Bf, H) holding c0,
-// updated in place; y (Bf, T, H). After the call h_T is in half T % 2 of
-// hbuf and c_T in c.
-extern "C" int se_lstm_layer(const float* x, const float* wp, const float* b,
-                             float* hbuf, float* c, float* y, int Bf, int T,
-                             int In, int H, int Hp, int Kp, int reverse,
-                             void* stream) {
+template <class TX, class TW>
+int layer(const TX* x, const TW* wp, const TW* b, float* hbuf, float* c,
+          float* y, int Bf, int T, int In, int H, int Hp, int Kp, int reverse,
+          void* stream) {
   if (Hp % TU != 0 || Hp < H || Kp % TK != 0 || Kp < In + H)
     return (int)cudaErrorInvalidValue;
-  const bool vec = In % 4 == 0 && H % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vec = In % 4 == 0 && H % 4 == 0 && aligned4(x);
   cudaStream_t st = (cudaStream_t)stream;
   return vec ? run_tc<true>(x, wp, b, hbuf, c, y, Bf, T, In, H, Hp, Kp,
                             reverse, st)
@@ -577,27 +671,20 @@ extern "C" int se_lstm_layer(const float* x, const float* wp, const float* b,
                              reverse, st);
 }
 
-// The small fold's projection: xp (M, N) = x (M, In) . Wx + b, N = 4H. wp:
-// pack_input's (Np, Kp), Np = N and Kp = In rounded up to 64 and 32.
-extern "C" int se_lstm_project(const float* x, const float* wp,
-                               const float* b, float* xp, int M, int In,
-                               int N, int Kp, void* stream) {
+template <class TX, class TW>
+int project(const TX* x, const TW* wp, const TW* b, float* xp, int M, int In,
+            int N, int Kp, void* stream) {
   if (Kp % TK != 0 || Kp < In || N % 2 != 0) return (int)cudaErrorInvalidValue;
   if (M == 0) return 0;
-  const bool vec =
-      In % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vec = In % 4 == 0 && aligned4(x);
   cudaStream_t st = (cudaStream_t)stream;
   return vec ? run_proj<true>(x, wp, b, xp, M, In, N, Kp, st)
              : run_proj<false>(x, wp, b, xp, M, In, N, Kp, st);
 }
 
-// The small fold's recurrence over xp (Bf, T, 4H), one cooperative launch:
-// whp pack_recurrent's (4Hk, Hk), Hk = H rounded up to 8; hbuf, c and y as
-// se_lstm_layer's; ng row groups (ops/lstm.py `persistent_plan`), so the
-// grid is ceil(H / 8) ng blocks, every one resident or the call fails.
-extern "C" int se_lstm_recur(const float* xp, const float* whp, float* hbuf,
-                             float* c, float* y, int Bf, int T, int H, int Hk,
-                             int ng, int reverse, void* stream) {
+template <class TW>
+int recur(const float* xp, const TW* whp, float* hbuf, float* c, float* y,
+          int Bf, int T, int H, int Hk, int ng, int reverse, void* stream) {
   const int nr = (Bf + PR - 1) / PR;
   if (Hk % PU != 0 || Hk < H || ng < 1 || ng > nr)
     return (int)cudaErrorInvalidValue;
@@ -610,12 +697,8 @@ extern "C" int se_lstm_recur(const float* xp, const float* whp, float* hbuf,
                                 reverse, st);
 }
 
-// What se_lstm_recur would ask for at H with `chunks` row chunks a block:
-// the dynamic shared memory of a block (*smem) and the blocks an SM the
-// occupancy API allows at that size (*per_sm). ops/lstm.py `recur_fit`
-// holds its own plan (`persistent_smem`, PERSIST_BLOCKS_SM) against these.
-extern "C" int se_lstm_recur_fit(int H, int Hk, int chunks, long* smem,
-                                 int* per_sm) {
+template <class TW>
+int recur_fit(int H, int Hk, int chunks, long* smem, int* per_sm) {
   if (Hk % PU != 0 || Hk < H || chunks < 1) return (int)cudaErrorInvalidValue;
   *smem = (long)persistent_smem(Hk, chunks);
   auto fit = [&](auto kernel) {
@@ -625,6 +708,87 @@ extern "C" int se_lstm_recur_fit(int H, int Hk, int chunks, long* smem,
                                                           P_THREADS, *smem);
     return (int)err;
   };
-  return H % 4 == 0 ? fit(lstm_recur_persistent<true>)
-                    : fit(lstm_recur_persistent<false>);
+  return H % 4 == 0 ? fit(lstm_recur_persistent<true, TW>)
+                    : fit(lstm_recur_persistent<false, TW>);
+}
+
+using bf16 = __nv_bfloat16;
+
+}  // namespace
+
+// The large fold, one lstm_step_tc a frame. x (Bf, T, In); wp: pack_weights'
+// (4Hp, Kp) (Hp a multiple of 16 and Kp of 32, neither below H and In + H);
+// b (4H); hbuf (2, Bf, H) with h0 in its first half; c (Bf, H) holding c0,
+// updated in place; y (Bf, T, H). After the call h_T is in half T % 2 of
+// hbuf and c_T in c.
+extern "C" int se_lstm_layer(const float* x, const float* wp, const float* b,
+                             float* hbuf, float* c, float* y, int Bf, int T,
+                             int In, int H, int Hp, int Kp, int reverse,
+                             void* stream) {
+  return layer(x, wp, b, hbuf, c, y, Bf, T, In, H, Hp, Kp, reverse, stream);
+}
+
+// The same with bf16 weights: wp and b bf16, x fp32 or bf16 (x_bf16);
+// hbuf, c and y fp32, h rounded to bf16 only where the product takes it.
+extern "C" int se_lstm_layer_bf16(const void* x, int x_bf16, const bf16* wp,
+                                  const bf16* b, float* hbuf, float* c,
+                                  float* y, int Bf, int T, int In, int H,
+                                  int Hp, int Kp, int reverse, void* stream) {
+  return x_bf16 ? layer(static_cast<const bf16*>(x), wp, b, hbuf, c, y, Bf,
+                        T, In, H, Hp, Kp, reverse, stream)
+                : layer(static_cast<const float*>(x), wp, b, hbuf, c, y, Bf,
+                        T, In, H, Hp, Kp, reverse, stream);
+}
+
+// The small fold's projection: xp (M, N) = x (M, In) . Wx + b, N = 4H. wp:
+// pack_input's (Np, Kp), Np = N and Kp = In rounded up to 64 and 32.
+extern "C" int se_lstm_project(const float* x, const float* wp,
+                               const float* b, float* xp, int M, int In,
+                               int N, int Kp, void* stream) {
+  return project(x, wp, b, xp, M, In, N, Kp, stream);
+}
+
+// The same with bf16 weights (wp, b), x fp32 or bf16 (x_bf16), xp fp32.
+extern "C" int se_lstm_project_bf16(const void* x, int x_bf16,
+                                    const bf16* wp, const bf16* b, float* xp,
+                                    int M, int In, int N, int Kp,
+                                    void* stream) {
+  return x_bf16 ? project(static_cast<const bf16*>(x), wp, b, xp, M, In, N,
+                          Kp, stream)
+                : project(static_cast<const float*>(x), wp, b, xp, M, In, N,
+                          Kp, stream);
+}
+
+// The small fold's recurrence over xp (Bf, T, 4H), one cooperative launch:
+// whp pack_recurrent's (4Hk, Hk), Hk = H rounded up to 8; hbuf, c and y as
+// se_lstm_layer's; ng row groups (ops/lstm.py `persistent_plan`), so the
+// grid is ceil(H / 8) ng blocks, every one resident or the call fails.
+extern "C" int se_lstm_recur(const float* xp, const float* whp, float* hbuf,
+                             float* c, float* y, int Bf, int T, int H, int Hk,
+                             int ng, int reverse, void* stream) {
+  return recur(xp, whp, hbuf, c, y, Bf, T, H, Hk, ng, reverse, stream);
+}
+
+// The same with a bf16 whp (xp, hbuf, c and y fp32).
+extern "C" int se_lstm_recur_bf16(const float* xp, const bf16* whp,
+                                  float* hbuf, float* c, float* y, int Bf,
+                                  int T, int H, int Hk, int ng, int reverse,
+                                  void* stream) {
+  return recur(xp, whp, hbuf, c, y, Bf, T, H, Hk, ng, reverse, stream);
+}
+
+// What se_lstm_recur would ask for at H with `chunks` row chunks a block:
+// the dynamic shared memory of a block (*smem) and the blocks an SM the
+// occupancy API allows at that size (*per_sm). ops/lstm.py `recur_fit`
+// holds its own plan (`persistent_smem`, PERSIST_BLOCKS_SM) against these.
+extern "C" int se_lstm_recur_fit(int H, int Hk, int chunks, long* smem,
+                                 int* per_sm) {
+  return recur_fit<float>(H, Hk, chunks, smem, per_sm);
+}
+
+// The same for se_lstm_recur_bf16's kernel (the same shared memory: its
+// slice is widened to fp32 as it is loaded).
+extern "C" int se_lstm_recur_fit_bf16(int H, int Hk, int chunks, long* smem,
+                                      int* per_sm) {
+  return recur_fit<bf16>(H, Hk, chunks, smem, per_sm);
 }

@@ -4,7 +4,9 @@
 // split, ldmatrix of fp32 fragments, the mma.sync.m16n8k8 TF32 product
 // with fp32 accumulation, one K step of 8 of a warp's tile product in 3, 2
 // or 1 TF32 passes (`mma_step`), the main loop that runs it over a
-// cp.async ring (`tc_ring`), and the bf16 storage helpers. sm_80 and up.
+// cp.async ring (`tc_ring`), and the bf16 storage helpers (`round_bf16`:
+// an fp32 value rounded to bf16 where a product takes it in bf16, as the
+// bf16 LSTM's recurrent h). sm_80 and up.
 //
 // bf16 variants keep every tile in shared memory as fp32: a bf16 operand
 // is widened as it is loaded (`copy4`, `copy1`: a plain load, converted,
@@ -97,6 +99,10 @@ __device__ __forceinline__ void copy4(float* dst, const __nv_bfloat16* src,
       __uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
       __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
 }
+// Four zeros (dst 16 bytes aligned).
+__device__ __forceinline__ void zero4(float* dst) {
+  *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+}
 // One element likewise.
 __device__ __forceinline__ void copy1(float* dst, const float* src, bool ok) {
   cp_async4(dst, src, ok ? 4 : 0);
@@ -111,6 +117,18 @@ __device__ __forceinline__ void copy1(float* dst, const __nv_bfloat16* src,
 template <class T>
 __host__ __device__ constexpr int passes_for() {
   return sizeof(T) == 2 ? 1 : 3;
+}
+// The same for an A stored as TA and a B stored as TB (a bf16 A against an
+// fp32 B would need B's split: not a case of these kernels).
+template <class TA, class TB>
+__host__ __device__ constexpr int passes_for() {
+  static_assert(sizeof(TA) == 4 || sizeof(TB) == 2, "bf16 A, fp32 B");
+  return sizeof(TB) == 4 ? 3 : sizeof(TA) == 2 ? 1 : 2;
+}
+
+// v rounded to bf16 (to nearest even, as torch's and XLA's casts), as fp32.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // v = big + small: big is v rounded to TF32 (to nearest, ties away from

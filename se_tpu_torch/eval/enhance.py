@@ -20,12 +20,17 @@ module made once and kept until a weight changes (`bf16_model`). Uformer
 takes its waveform in bf16 and its graph stays bf16 (its four kernels'
 bf16 variants on the card); its estimate comes back fp32. The spectral
 branches keep the STFT, the magnitude and the phase in fp32 and round the
-magnitude to bf16; a complex spectrum built from it and the fp32 phase is
-fp32 (JAX and torch promote alike), so the complex_map families (CTSNet,
-TaylorSENet, G2Net) run fp32 arithmetic on bf16-rounded weights, as flax
-promotes its bf16 parameters to an fp32 input. A family runs in bf16
-where its registry entry says so (`ModelEntry.bf16`); every other family
-raises (`BF16_TODO`).
+magnitude to bf16. The magnitude families (LSTMNet, CRN, FullSubNet) take
+it in bf16, and each layer computes in its input's and weights' promoted
+dtype (`ops._dtype.promoted`), as flax's do: bf16 until an LSTM, whose
+output is fp32. A complex spectrum built from the bf16 magnitude and the
+fp32 phase is fp32 (JAX and torch promote alike), so the complex families
+(GCRN, DCCRN, DPCRN, CTSNet, TaylorSENet, G2Net) run fp32 arithmetic on
+bf16-rounded weights, as flax promotes its bf16 parameters to an fp32
+input. Every LSTM keeps bf16 weights, whatever its input: they pick the
+LSTM kernels' bf16 variants, which round h to bf16 for the recurrent
+product as se_tpu's `h.astype(wh.dtype)` does (ops/lstm.py). Ten
+families run in bf16 (`ModelEntry.bf16`); DeepXi raises (`BF16_TODO`).
 """
 
 from __future__ import annotations
@@ -38,15 +43,14 @@ import torch.nn.functional as F
 
 from se_tpu_torch.device import resolve_device, weight_key
 from se_tpu_torch.models.registry import ModelEntry, get_model
+from se_tpu_torch.nn.recurrent import LSTM
 from se_tpu_torch.ops.stft import istft
 from se_tpu_torch.ops.stft_fused import stft_auto
 
-# what ports bf16 enhance for the families whose entry has no `bf16`:
-# their paths run an LSTM kernel (DeepXi's ResNetV2 none, but se_tpu's
-# DeepXi `enhance` takes no dtype and its driver is the port of both
-# networks)
-BF16_TODO = ("ROADMAP Queue 1 item 4b (the LSTM kernels in bf16, with the "
-             "six LSTM families and DeepXi's ResLSTM)")
+# why a family whose entry has no `bf16` (DeepXi, the hybrid io-kind)
+# decodes in fp32 only: se_tpu's has no bf16 decode to port
+BF16_TODO = ("se_tpu's DeepXi `enhance` takes no dtype "
+             "(se_tpu/models/deepxi.py:611): DeepXi decodes in fp32")
 
 
 def model_device(model: torch.nn.Module, device=None) -> torch.device:
@@ -129,9 +133,10 @@ def compute_dtype(entry: ModelEntry, dtype) -> torch.dtype | None:
 
 
 def _store_dtype(entry: ModelEntry) -> torch.dtype:
-    """The dtype the bf16-rounded weights are kept in: that of the model's
-    input, to which flax promotes them (bf16 for Uformer's waveform and a
-    magnitude input, fp32 for a complex spectrum)."""
+    """The dtype the bf16-rounded weights are kept in, but for the LSTMs'
+    (bf16 always: `bf16_model`): that of the model's input, to which flax
+    promotes them (bf16 for Uformer's waveform and a magnitude input, fp32
+    for a complex spectrum)."""
     return torch.float32 if entry.io_kind in ("complex_map",
                                               "complex_mask") \
         else torch.bfloat16
@@ -139,9 +144,10 @@ def _store_dtype(entry: ModelEntry) -> torch.dtype:
 
 def bf16_model(entry: ModelEntry, model: torch.nn.Module) -> torch.nn.Module:
     """A copy of `model` with every floating parameter and buffer rounded
-    to bf16 (kept in `_store_dtype`), made once and kept on `model` until
-    one of its weights moves or changes in place; `model` is not touched.
-    The copy starts with no kernel packs (they are made for its own
+    to bf16 (kept in `_store_dtype`; an LSTM's in bf16, whose dtype picks
+    its kernels' bf16 variants), made once and kept on `model` until one
+    of its weights moves or changes in place; `model` is not touched. The
+    copy starts with no kernel packs (they are made for its own
     weights)."""
     store = _store_dtype(entry)
     key = (store, weight_key([model]))
@@ -152,6 +158,9 @@ def bf16_model(entry: ModelEntry, model: torch.nn.Module) -> torch.nn.Module:
     memo = {id(mod.__dict__["_weight_cache"]): {}  # fp32 packs stay behind
             for mod in model.modules() if "_weight_cache" in mod.__dict__}
     twin = copy.deepcopy(model, memo).to(torch.bfloat16).to(store).eval()
+    for mod in twin.modules():
+        if isinstance(mod, LSTM):
+            mod.to(torch.bfloat16)
     model.__dict__["_bf16_copy"] = (key, twin)
     return twin
 

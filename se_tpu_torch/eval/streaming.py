@@ -30,7 +30,8 @@ import numpy as np
 import torch
 
 from se_tpu_torch.eval.enhance import (
-    _enhance, _magphase, enhance_waveform, model_device,
+    _enhance, _magphase, bf16_model, compute_dtype, enhance_waveform,
+    model_device,
 )
 from se_tpu_torch.models.registry import get_model
 from se_tpu_torch.ops.stft import StftConfig, _const, _padded_window
@@ -49,12 +50,11 @@ def enhance_windowed(name: str, model: torch.nn.Module, wav: np.ndarray,
     outputs keep the `chunk` after the context. The right context covers
     the iSTFT's edge (one STFT frame). The windows are independent and run
     `max_batch` at a time; the tail batch is padded with silent windows to
-    `max_batch`, as se_tpu keeps one compiled shape. fp32 only."""
-    if dtype not in (None, torch.float32):
-        raise NotImplementedError(
-            f"windowed decode in {dtype} is not ported yet: ROADMAP Queue 1 "
-            "item 4 (bf16: what is left)")
+    `max_batch`, as se_tpu keeps one compiled shape. `dtype`:
+    enhance_waveform's (torch.bfloat16 for the families whose entry has
+    `bf16`: the windows run the model's bf16 copy, `bf16_model`)."""
     entry = get_model(name)
+    dtype = compute_dtype(entry, dtype)
     dev = model_device(model, device)
     x = np.asarray(wav, np.float32)
     n = x.shape[-1]
@@ -75,13 +75,14 @@ def enhance_windowed(name: str, model: torch.nn.Module, wav: np.ndarray,
                         for s in np.arange(n_windows) * chunk])
 
     model.eval()
+    net = model if dtype is None else bf16_model(entry, model)
     outs = []
     for i in range(0, n_windows, max_batch):
         batch = windows[i:i + max_batch]
         real = batch.shape[0]
         batch = np.pad(batch, ((0, max_batch - real), (0, 0)))
-        est = _enhance(entry, model, torch.from_numpy(batch).to(dev),
-                       win_len, compressed)
+        est = _enhance(entry, net, torch.from_numpy(batch).to(dev),
+                       win_len, compressed, dtype)
         outs.append(est[:real, left:left + chunk].cpu().numpy())
     out = np.concatenate(outs, axis=0).reshape(-1)[:n]
     return out * c if inverted else out / c

@@ -130,5 +130,6 @@ register(
         stft=PRESET_320,
         io_kind="mag_mask",
         from_jax_variables=from_jax_variables,
+        bf16=True,
     )
 )

@@ -197,5 +197,6 @@ register(
         io_kind="complex_map",
         from_jax_variables=from_jax_variables,
         variants=("snr",),
+        bf16=True,
     )
 )

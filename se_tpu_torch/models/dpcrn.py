@@ -184,5 +184,6 @@ register(
         stft=PRESET_320,
         io_kind="complex_mask",
         from_jax_variables=from_jax_variables,
+        bf16=True,
     )
 )

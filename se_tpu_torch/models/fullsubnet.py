@@ -151,5 +151,6 @@ register(
         stft=PRESET_512_256,
         io_kind="cirm",
         from_jax_variables=from_jax_variables,
+        bf16=True,
     )
 )

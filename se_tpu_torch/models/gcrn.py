@@ -180,5 +180,6 @@ register(
         stft=PRESET_320,
         io_kind="complex_map",
         from_jax_variables=from_jax_variables,
+        bf16=True,
     )
 )

@@ -8,7 +8,10 @@ kb), ConvTranspose2d weights (I, O, ka, kb), unflipped, where (ka, kb) is
 DPCRN). `hwio()` gives se_tpu's (kt, kf, I, O) view. `Conv2d` and
 `ConvTranspose2d` run torch's convolutions (these convs are outside any
 Pallas kernel in se_tpu), with torch's geometry: a transposed conv gives
-(in - 1) * stride - 2 * pad + kernel + output_padding.
+(in - 1) * stride - 2 * pad + kernel + output_padding. `Conv2d`,
+`ConvTranspose2d` and `Linear` compute in their input's and weights' one
+promoted dtype (`ops._dtype.promoted`), as se_tpu's do in a bf16 decode: a
+bf16 input stays bf16, an fp32 one widens bf16 weights.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from se_tpu_torch.ops._dtype import promoted
 
 
 def _uniform_(t: torch.Tensor, bound: float, generator: torch.Generator):
@@ -67,8 +72,8 @@ class Conv2d(ConvParams):
         self.stride, self.padding = tuple(stride), padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d_nhwc(x, self.hwio(), self.stride,
-                           self.padding) + self.bias
+        x, w, b = promoted(x, self.hwio(), self.bias)
+        return conv2d_nhwc(x, w, self.stride, self.padding) + b
 
 
 class ConvTranspose2d(ConvParams):
@@ -82,9 +87,9 @@ class ConvTranspose2d(ConvParams):
         self.output_padding = tuple(output_padding)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_transpose2d_nhwc(x, self.hwio(), self.stride,
-                                     self.padding,
-                                     self.output_padding) + self.bias
+        x, w, b = promoted(x, self.hwio(), self.bias)
+        return conv_transpose2d_nhwc(x, w, self.stride, self.padding,
+                                     self.output_padding) + b
 
 
 class GluConv2d(nn.Module):
@@ -129,7 +134,8 @@ class Linear(nn.Module):
         _uniform_(self.bias, bound, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x, self.weight.t()) + self.bias
+        x, w, b = promoted(x, self.weight, self.bias)
+        return torch.matmul(x, w.t()) + b
 
 
 class Conv1d(nn.Module):

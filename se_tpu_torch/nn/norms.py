@@ -41,7 +41,9 @@ class BatchNorm(nn.Module):
     batch statistics over every axis but the last, the variance biased,
     and updates running = 0.9 running + 0.1 batch (the biased variance
     too, unlike torch's F.batch_norm). It starts in eval mode. Holds
-    torch.nn.BatchNorm*d's weight, bias, running_mean and running_var."""
+    torch.nn.BatchNorm*d's weight, bias, running_mean and running_var. A
+    bf16 copy's statistics are bf16: on a bf16 input every step rounds to
+    bf16, on an fp32 one the folded scale does, as flax's."""
 
     momentum = 0.1
 
@@ -66,9 +68,9 @@ class BatchNorm(nn.Module):
         return inv, b - mean * inv
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            inv = torch.rsqrt(self.running_var + self.eps)
-            return (x - self.running_mean) * inv * self.weight + self.bias
+        if not self.training:  # flax's order: (x - mean) * (rsqrt * scale)
+            inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+            return (x - self.running_mean) * inv + self.bias
         var, mean = torch.var_mean(x, dim=tuple(range(x.ndim - 1)),
                                    correction=0)
         with torch.no_grad():

@@ -13,6 +13,11 @@ unless a reference state_dict brings one, so an optimiser step moves the
 sum `bias_ih + bias_hh` as far as se_tpu's step moves `l{k}_b`.
 `lstm_split` runs a carried LSTM and checkpoints its state mid-sequence
 (the streaming decode's left-context replay).
+
+In a bf16 copy (`eval.enhance.bf16_model`) the weights, the buffers and
+so the combined bias are bf16 (`bias_hh` zero: the sum is `bias_ih`, as
+se_tpu's one `l{k}_b`); x may be fp32 or bf16, and y and the carry stay
+fp32 (the kernels' bf16 variants, `ops/lstm.py`).
 """
 
 from __future__ import annotations

@@ -119,7 +119,6 @@ def library() -> ctypes.CDLL:
 # The ROADMAP item (Queue 1) that ports a kernel's bf16 variant, for the
 # kernels that have none yet; a bf16 launch of one raises and names it.
 BF16_TODO = {
-    "lstm": "ROADMAP Queue 1 item 4b (the LSTM kernels in bf16)",
     "dsconv": "ROADMAP Queue 1 item 4c (the single DSConv block in bf16)",
     "stft": "ROADMAP Queue 1 item 4d (the STFT kernel in bf16)",
 }
@@ -156,6 +155,33 @@ def launch_dtype(kernel: str, *tensors: torch.Tensor) -> torch.dtype:
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{kernel}: the kernels take float32 or bfloat16, "
                         f"got {dtype}")
+    return dtype
+
+
+def lstm_dtype(x: torch.Tensor | None, weights, fp32=()) -> torch.dtype:
+    """The variant of an LSTM launch, the LSTM's own dtype rule: the
+    weights' one dtype, float32 or bfloat16 (se_tpu's bf16 decode casts
+    the parameters alone). x (None: no x) is fp32, or fp32 or bf16 at bf16
+    weights; the tensors of `fp32` ((name, tensor or None): XP, h0, c0)
+    are fp32 at either. Raise TypeError on any other mix: nothing is
+    cast."""
+    found = {w.dtype for w in weights}
+    if len(found) != 1:
+        raise TypeError(f"lstm: the weights share one dtype, got "
+                        f"{', '.join(sorted(map(str, found)))}")
+    (dtype,) = found
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"lstm: the kernels take float32 or bfloat16 "
+                        f"weights, got {dtype}")
+    xs = (torch.float32, torch.bfloat16) if dtype == torch.bfloat16 \
+        else (torch.float32,)
+    if x is not None and x.dtype not in xs:
+        raise TypeError(f"lstm: x is {x.dtype}; {dtype} weights take x in "
+                        f"{' or '.join(map(str, xs))}")
+    for name, t in fp32:
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f"lstm: {name} is float32 at every variant, "
+                            f"got {t.dtype}")
     return dtype
 
 

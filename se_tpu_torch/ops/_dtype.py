@@ -2,7 +2,8 @@
 checks: `widened` runs a twin with the Pallas kernels' bf16 rounding
 points, and `bf16_compare` / `att_flip_slack` are the one tolerance the
 bf16 kernels are held to, on the CPU (tests/torch_kernel_inputs.py
-`bf16_close`) and on the card (chip_smoke.py phase 3)."""
+`bf16_close`) and on the card (chip_smoke.py phase 3). `promoted` gives a
+layer's operands the dtype se_tpu's layers compute in."""
 
 from __future__ import annotations
 
@@ -18,6 +19,28 @@ BF16_FLOOR = 1e-6
 # attention rounds P to bf16 inside: the share of elements that may pass
 # the tolerance above by up to one P element's rounding flip
 FLIP_SHARE = 1e-3
+# the bf16 LSTM rounds h to bf16 every frame: two runs that sum in other
+# orders round an h element to neighbouring bf16 values now and then (a
+# flip), and from that frame on their sequences part by what the flip
+# moves them, a small fraction of a bf16 ulp of the largest output. Two
+# free-running sequences are held to one bf16 ulp of their largest output
+# as the floor (`bf16_compare(..., floor=LSTM_FLOOR)`); the same run
+# stepped along the other's h (ops/lstm.py `h_in`), which cannot flip, to
+# fp32's tolerance
+LSTM_FLOOR = BF16_RTOL
+
+
+def promoted(*tensors: torch.Tensor) -> tuple:
+    """The tensors in their one promoted dtype (`torch.promote_types`,
+    which for {fp32, bf16} is `jnp.promote_types`): what flax's
+    `promote_dtype` gives a Dense, and se_tpu's convs' `kernel.astype(
+    x.dtype)` a conv, in a bf16 decode, where every parameter is bf16: an
+    fp32 activation widens the bf16 weights to fp32, a bf16 one keeps them
+    bf16. torch's matmul and convolutions refuse mixed dtypes, flax
+    promotes. A tensor already in that dtype is returned as it is."""
+    dtype = functools.reduce(torch.promote_types,
+                             (t.dtype for t in tensors))
+    return tuple(t.to(dtype) for t in tensors)
 
 
 def to_float(nest):
@@ -72,9 +95,11 @@ class Bf16Check(NamedTuple):
     ok: bool
 
 
-def bf16_compare(got, want, slack=None) -> Bf16Check:
-    """|got - want| <= 2^-7 |want| + 1e-6 max|want| elementwise over the
-    pairs of tensors; with `slack` (one per pair, None for none:
+def bf16_compare(got, want, slack=None, floor: float = BF16_FLOOR
+                 ) -> Bf16Check:
+    """|got - want| <= 2^-7 |want| + floor max|want| elementwise over the
+    pairs of tensors (floor 1e-6; LSTM_FLOOR for two free-running bf16
+    LSTM sequences); with `slack` (one per pair, None for none:
     att_flip_slack), at most FLIP_SHARE of a pair's elements may pass that
     bound, each by no more than its slack."""
     err_max, past_n, diff_n, total, ok = 0.0, 0, 0, 0, True
@@ -85,7 +110,7 @@ def bf16_compare(got, want, slack=None) -> Bf16Check:
             raise ValueError(f"shapes differ: {tuple(g.shape)} and "
                              f"{tuple(w.shape)}")
         err = (g - w).abs()
-        tol = BF16_RTOL * w.abs() + BF16_FLOOR * float(w.abs().max())
+        tol = BF16_RTOL * w.abs() + floor * float(w.abs().max())
         past = err > tol
         if sl is None:
             ok = ok and not bool(past.any())

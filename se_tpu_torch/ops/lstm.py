@@ -20,6 +20,18 @@ Two designs, chosen per layer call by `step_variant`:
 Each of the three wrappers counts its own launches in `_build.LAUNCHES`
 (`lstm`, `lstm_project`, `lstm_recur`).
 
+bf16 weights (se_tpu's bf16 decode: `_enhance_jit` casts the parameters,
+not the activations) launch the bf16 variants of all three
+(`se_lstm_layer_bf16`, `se_lstm_project_bf16`, `se_lstm_recur_bf16`,
+counted as `lstm_bf16`, `lstm_project_bf16`, `lstm_recur_bf16`) by the
+LSTM's own dtype rule (`_build.lstm_dtype`): x fp32 or bf16, XP, h, c and
+y fp32. They keep se_tpu's rounding points (se_tpu/nn/recurrent.py:36-37,
+:150; pallas_lstm.py:44-46): the projection x . Wx in fp32 on the widened
+operands (XP fp32), h rounded to bf16 where the recurrent product takes
+it, the carries fp32. The twins do the same in plain torch: a torch
+matmul of two bf16 tensors would return bf16, not se_tpu's fp32
+(`preferred_element_type`).
+
 Under autograd each wrapper's launch is a Function (`_autograd.
 kernel_call`): the kernel forward, and the VJP of a plain twin recomputed
 in the backward, as se_tpu's custom VJP (`pallas_lstm.py:169-195`). The
@@ -121,12 +133,15 @@ def step_variant(bf: int, t_len: int, h_dim: int, sms: int) -> str:
     return "tensor_core"
 
 
-def recur_fit(h_dim: int, chunks: int, device=None) -> tuple[int, int]:
+def recur_fit(h_dim: int, chunks: int, device=None,
+              dtype: torch.dtype = torch.float32) -> tuple[int, int]:
     """What csrc/lstm.cu computes for a recurrence of `chunks` row chunks a
-    block at H = `h_dim`: its shared memory a block, and the blocks an SM
-    the occupancy API allows at that size (the C entry refuses a grid
-    larger than this times the SM count). The card's check that
-    `persistent_smem` and PERSIST_BLOCKS_SM agree with the kernel's."""
+    block at H = `h_dim`, for the variant of `dtype` (the weights'): its
+    shared memory a block, and the blocks an SM the occupancy API allows
+    at that size (the C entry refuses a grid larger than this times the SM
+    count). The card's check that `persistent_smem` and PERSIST_BLOCKS_SM
+    agree with the kernel's (the bf16 kernel widens its Wh slice to fp32
+    in shared memory: the same plan)."""
     import ctypes
 
     lib = _build.library()
@@ -134,11 +149,11 @@ def recur_fit(h_dim: int, chunks: int, device=None) -> tuple[int, int]:
     dev = torch.device("cuda") if device is None else torch.device(device)
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     _build._check(lib, "se_set_device", lib.se_set_device(idx))
-    fn = lib.se_lstm_recur_fit
+    fn = getattr(lib, _build.variant("se_lstm_recur_fit", dtype))
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.POINTER(ctypes.c_long), ctypes.POINTER(ctypes.c_int)]
-    _build._check(lib, "se_lstm_recur_fit",
+    _build._check(lib, _build.variant("se_lstm_recur_fit", dtype),
                   fn(h_dim, _ceil_to(h_dim, GROUP), chunks,
                      ctypes.byref(smem), ctypes.byref(per_sm)))
     return smem.value, per_sm.value
@@ -181,26 +196,46 @@ def pack_input(wx: torch.Tensor) -> torch.Tensor:
 
 
 def _project_reference(x, wx, b):
-    return torch.matmul(x, wx) + b  # (Bf, T, 4H)
+    """XP = x . wx + b (Bf, T, 4H); with bf16 weights the operands widened
+    to fp32 and XP fp32, as se_tpu's fp32-accumulated projection."""
+    if wx.dtype == torch.bfloat16:
+        x, wx, b = x.float(), wx.float(), b.float()
+    return torch.matmul(x, wx) + b
 
 
-def _recur_reference(xp, wh, reverse: bool = False, h0=None, c0=None):
+def _recur_reference(xp, wh, reverse: bool = False, h0=None, c0=None,
+                     h_in=None):
+    """The time loop over XP. With a bf16 wh, h rounded to bf16 where the
+    product takes it (se_tpu's `h.astype(wh.dtype)`), the product summed
+    in fp32; h, c and y stay fp32. `h_in` (Bf, T, H), another run's y:
+    each frame's product takes h_in at the frame walked before (h0 at the
+    first) in place of the twin's own h, which holds a bf16 run to that
+    run frame by frame (no h rounds to another bf16 value on the two
+    sides: ops/_dtype.py LSTM_FLOOR)."""
     bf, t_len, _ = xp.shape
     h_dim = wh.shape[0]
+    rounded = wh.dtype == torch.bfloat16
+    whf = wh.float() if rounded else wh
     h = xp.new_zeros(bf, h_dim) if h0 is None else h0
     c = xp.new_zeros(bf, h_dim) if c0 is None else c0
     ys = xp.new_empty(bf, t_len, h_dim)
+    prev = None
     for t in (range(t_len - 1, -1, -1) if reverse else range(t_len)):
-        i, f, g, o = (xp[:, t] + torch.matmul(h, wh)).chunk(4, dim=-1)
+        if h_in is not None and prev is not None:
+            h = h_in[:, prev].float()
+        prev = t
+        hr = h.to(torch.bfloat16).float() if rounded else h
+        i, f, g, o = (xp[:, t] + torch.matmul(hr, whf)).chunk(4, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
         ys[:, t] = h
     return ys, (h, c)
 
 
-def _reference(x, wx, wh, b, reverse: bool = False, h0=None, c0=None):
+def _reference(x, wx, wh, b, reverse: bool = False, h0=None, c0=None,
+               h_in=None):
     return _recur_reference(_project_reference(x, wx, b), wh, reverse, h0,
-                            c0)
+                            c0, h_in)
 
 
 def _chunk_reference(x, wx, wh, b, h, c, reverse: bool):
@@ -230,9 +265,9 @@ def _chunked_reference(x, wx, wh, b, reverse: bool = False, h0=None,
 
 
 def _state(ref: torch.Tensor, bf: int, h_dim: int, h0, c0):
-    """The C entries' carry buffers: hbuf (2, Bf, H) with h0 in its first
-    half, c (Bf, H) holding c0 (zeros by default)."""
-    hbuf = ref.new_zeros(2, bf, h_dim)
+    """The C entries' fp32 carry buffers on ref's device: hbuf (2, Bf, H)
+    with h0 in its first half, c (Bf, H) holding c0 (zeros by default)."""
+    hbuf = torch.zeros(2, bf, h_dim, device=ref.device)
     if h0 is not None:
         _build.check(h0, (bf, h_dim), "h0")
         hbuf[0].copy_(h0)
@@ -240,14 +275,19 @@ def _state(ref: torch.Tensor, bf: int, h_dim: int, h0, c0):
         _build.check(c0, (bf, h_dim), "c0")
         c = c0.clone()
     else:
-        c = ref.new_zeros(bf, h_dim)
+        c = torch.zeros(bf, h_dim, device=ref.device)
     return hbuf, c
+
+
+def _x_arg(x: torch.Tensor, dtype: torch.dtype) -> tuple:
+    """x as a C entry takes it: the bf16 entries also take x's dtype."""
+    return (x,) if dtype == torch.float32 else (x, x.dtype == torch.bfloat16)
 
 
 def lstm_project(x: torch.Tensor, wx: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
-    """x (Bf, T, In) -> XP = x . wx + b (Bf, T, 4H): csrc/lstm.cu
-    `lstm_proj_tc` on a CUDA tensor."""
+    """x (Bf, T, In) -> XP = x . wx + b (Bf, T, 4H), fp32: csrc/lstm.cu
+    `lstm_proj_tc` on a CUDA tensor (its bf16 variant for bf16 weights)."""
     if x.device.type == "cpu":
         return _project_reference(x, wx, b)
     return _autograd.kernel_call(_project_launch, _project_reference, x,
@@ -257,14 +297,15 @@ def lstm_project(x: torch.Tensor, wx: torch.Tensor,
 def _project_launch(x, wx, b):
     bf, t_len, in_dim = x.shape
     n = wx.shape[1]
-    _build.launch_dtype("lstm", x, wx, b)
-    _build.check(x, (bf, t_len, in_dim), "x")
-    _build.check(wx, (in_dim, n), "wx")
-    _build.check(b, (n,), "b")
-    xp = x.new_empty(bf, t_len, n)
-    _build.launch("se_lstm_project", x, pack_input(wx), b, xp, bf * t_len,
+    dtype = _build.lstm_dtype(x, (wx, b))
+    _build.check(x, (bf, t_len, in_dim), "x", x.dtype)
+    _build.check(wx, (in_dim, n), "wx", dtype)
+    _build.check(b, (n,), "b", dtype)
+    xp = torch.empty(bf, t_len, n, device=x.device)
+    _build.launch(_build.variant("se_lstm_project", dtype),
+                  *_x_arg(x, dtype), pack_input(wx), b, xp, bf * t_len,
                   in_dim, n, _ceil_to(in_dim, K_TILE))
-    _build.LAUNCHES["lstm_project"] += 1
+    _build.LAUNCHES[_build.variant("lstm_project", dtype)] += 1
     return xp
 
 
@@ -272,7 +313,8 @@ def lstm_recur(xp: torch.Tensor, wh: torch.Tensor, reverse: bool = False,
                h0=None, c0=None):
     """The recurrence over XP (Bf, T, 4H) -> (ys (Bf, T, H), (h_T, c_T)):
     csrc/lstm.cu `lstm_recur_persistent` on a CUDA tensor, one cooperative
-    launch; raises when the Wh slices do not fit the resident blocks."""
+    launch (its bf16 variant for a bf16 wh; XP and the carries fp32);
+    raises when the Wh slices do not fit the resident blocks."""
     if xp.device.type == "cpu":
         return _recur_reference(xp, wh, reverse, h0, c0)
     return _autograd.kernel_call(
@@ -286,9 +328,10 @@ def _recur_launch(xp, wh, reverse: bool, h0, c0):
     h_dim = wh.shape[0]
     if bf == 0:
         raise ValueError("lstm kernel: empty batch")
-    _build.launch_dtype("lstm", xp, wh)
+    dtype = _build.lstm_dtype(None, (wh,), (("xp", xp), ("h0", h0),
+                                            ("c0", c0)))
     _build.check(xp, (bf, t_len, 4 * h_dim), "xp")
-    _build.check(wh, (h_dim, 4 * h_dim), "wh")
+    _build.check(wh, (h_dim, 4 * h_dim), "wh", dtype)
     sms = torch.cuda.get_device_properties(xp.device).multi_processor_count
     plan = persistent_plan(bf, h_dim, sms)
     if plan is None:
@@ -296,29 +339,33 @@ def _recur_launch(xp, wh, reverse: bool, h0, c0):
                          f"the resident blocks of {sms} SMs")
     hbuf, c = _state(xp, bf, h_dim, h0, c0)
     ys = xp.new_empty(bf, t_len, h_dim)
-    _build.launch("se_lstm_recur", xp, pack_recurrent(wh), hbuf, c, ys, bf,
-                  t_len, h_dim, _ceil_to(h_dim, GROUP), plan.row_groups,
-                  bool(reverse))
-    _build.LAUNCHES["lstm_recur"] += 1
+    _build.launch(_build.variant("se_lstm_recur", dtype), xp,
+                  pack_recurrent(wh), hbuf, c, ys, bf, t_len, h_dim,
+                  _ceil_to(h_dim, GROUP), plan.row_groups, bool(reverse))
+    _build.LAUNCHES[_build.variant("lstm_recur", dtype)] += 1
     return ys, (hbuf[t_len % 2], c)
 
 
-def _check_layer(x, wx, wh, b):
+def _check_layer(x, wx, wh, b, h0=None, c0=None) -> torch.dtype:
+    """Raise on what the layer's entries do not take; return the variant's
+    dtype (`_build.lstm_dtype`)."""
     bf, t_len, in_dim = x.shape
     h_dim = wh.shape[0]
     if bf == 0:
         raise ValueError("lstm kernel: empty batch")
-    _build.launch_dtype("lstm", x, wx, wh, b)
-    _build.check(x, (bf, t_len, in_dim), "x")
-    _build.check(wx, (in_dim, 4 * h_dim), "wx")
-    _build.check(wh, (h_dim, 4 * h_dim), "wh")
-    _build.check(b, (4 * h_dim,), "b")
+    dtype = _build.lstm_dtype(x, (wx, wh, b), (("h0", h0), ("c0", c0)))
+    _build.check(x, (bf, t_len, in_dim), "x", x.dtype)
+    _build.check(wx, (in_dim, 4 * h_dim), "wx", dtype)
+    _build.check(wh, (h_dim, 4 * h_dim), "wh", dtype)
+    _build.check(b, (4 * h_dim,), "b", dtype)
+    return dtype
 
 
 def lstm_step(x: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
               b: torch.Tensor, reverse: bool = False, h0=None, c0=None):
     """The layer on the tensor-core step: csrc/lstm.cu `lstm_step_tc` a
-    frame, enqueued by one C call, on a CUDA tensor."""
+    frame, enqueued by one C call, on a CUDA tensor (its bf16 variant for
+    bf16 weights)."""
     if x.device.type == "cpu":
         return _reference(x, wx, wh, b, reverse, h0, c0)
     return _layer_call(_step_launch, x, wx, wh, b, reverse, h0, c0)
@@ -335,15 +382,16 @@ def _layer_call(launch, x, wx, wh, b, reverse: bool, h0, c0):
 
 
 def _step_launch(x, wx, wh, b, reverse: bool, h0, c0):
-    _check_layer(x, wx, wh, b)
+    dtype = _check_layer(x, wx, wh, b, h0, c0)
     bf, t_len, in_dim = x.shape
     h_dim = wh.shape[0]
     hbuf, c = _state(x, bf, h_dim, h0, c0)
-    ys = x.new_empty(bf, t_len, h_dim)
-    _build.launch("se_lstm_layer", x, pack_weights(wx, wh), b, hbuf, c, ys,
-                  bf, t_len, in_dim, h_dim, _ceil_to(h_dim, UNIT_TILE),
+    ys = torch.empty(bf, t_len, h_dim, device=x.device)
+    _build.launch(_build.variant("se_lstm_layer", dtype), *_x_arg(x, dtype),
+                  pack_weights(wx, wh), b, hbuf, c, ys, bf, t_len, in_dim,
+                  h_dim, _ceil_to(h_dim, UNIT_TILE),
                   _ceil_to(in_dim + h_dim, K_TILE), bool(reverse))
-    _build.LAUNCHES["lstm"] += 1
+    _build.LAUNCHES[_build.variant("lstm", dtype)] += 1
     return ys, (hbuf[t_len % 2], c)
 
 
@@ -352,7 +400,9 @@ def lstm_layer_kernel(x: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
                       c0=None):
     """-> (ys (Bf, T, H), (h_T, c_T)), h_T/c_T after the last frame walked
     (frame 0 when `reverse`). h0/c0 (Bf, H) default to zeros. On a CUDA
-    tensor, the design `step_variant` names for the shape. Under autograd
+    tensor, the design `step_variant` names for the shape, in the variant
+    of the weights' dtype (bf16 weights: x fp32 or bf16; ys and the carry
+    fp32 either way). Under autograd
     gradients reach x, the weights and h0/c0 through ys alone: the
     returned (h_T, c_T) carry no gradient."""
     if x.device.type == "cpu":
@@ -361,7 +411,7 @@ def lstm_layer_kernel(x: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
 
 
 def _layer_launch(x, wx, wh, b, reverse: bool, h0, c0):
-    _check_layer(x, wx, wh, b)
+    _check_layer(x, wx, wh, b, h0, c0)
     bf, t_len, _ = x.shape
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     if step_variant(bf, t_len, wh.shape[0], sms) == "persistent":

@@ -1,5 +1,6 @@
 """The bf16 enhance driver of se_tpu_torch on the CPU, without JAX: which
-families run in bf16 and which raise (naming the ROADMAP item), the bf16
+families run in bf16 and which raise (DeepXi, naming se_tpu's fp32-only
+decode), the bf16
 copy of the caller's module (made once, kept until a weight changes, the
 caller's fp32 weights untouched), the kernel packs' one entry a dtype
 (`_cached`), Uformer's U-net tail vectors folded in fp32 from bf16 values,
@@ -13,6 +14,7 @@ import torch
 from se_tpu_torch.eval import enhance as drv
 from se_tpu_torch.models import available_models, get_model
 from se_tpu_torch.models import uformer as uf
+from se_tpu_torch.nn import LSTM
 from se_tpu_torch.ops.stft import PRESET_UFORMER, istft, stft
 
 BF16 = torch.bfloat16
@@ -34,8 +36,9 @@ def _wav(n=3200, seed=0):
 @pytest.mark.parametrize(
     "name", [n for n in available_models() if not get_model(n).bf16])
 def test_other_families_raise_on_bf16_naming_the_item(name):
-    """Before any work: the model is not even looked at."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4b"):
+    """Before any work: the model is not even looked at. Only DeepXi is
+    left: se_tpu's DeepXi decode takes no dtype."""
+    with pytest.raises(NotImplementedError, match="deepxi.py:611"):
         drv.enhance_waveform(name, None, _wav(), device="cpu",
                              dtype=BF16)
 
@@ -76,6 +79,28 @@ def test_bf16_copy_is_made_once_and_kept_until_a_weight_changes():
                                  dtype=BF16)
     assert model.__dict__["_bf16_copy"][1] is not twin  # made anew
     assert not np.array_equal(again, first)
+
+
+@pytest.mark.parametrize("name,rest", [("gcrn", torch.float32),
+                                       ("dccrn", torch.float32),
+                                       ("crn", BF16), ("fullsubnet", BF16)])
+def test_bf16_copy_keeps_every_lstm_in_bf16(name, rest):
+    """An LSTM's weights stay bf16 in every family's copy (they pick the
+    LSTM kernels' bf16 variants); the other weights are kept in the input's
+    dtype: fp32 for a complex spectrum, bf16 for a magnitude."""
+    kw = dict(fb_hidden=16, sb_hidden=8) if name == "fullsubnet" else \
+        dict(kernel_num=(8, 8, 8, 8, 8, 8), rnn_units=16) \
+        if name == "dccrn" else {}
+    model = get_model(name).make(device="cpu", **kw)
+    twin = drv.bf16_model(get_model(name), model)
+    lstm_params = {id(p) for m in twin.modules() if isinstance(m, LSTM)
+                   for p in list(m.parameters()) + list(m.buffers())}
+    assert lstm_params
+    for p in list(twin.parameters()) + list(twin.buffers()):
+        assert p.dtype == (BF16 if id(p) in lstm_params else rest)
+    for p, q in zip(model.parameters(), twin.parameters()):
+        assert p.dtype == torch.float32
+        assert torch.equal(q.float(), p.to(BF16).float())
 
 
 def _uformer():

@@ -4,7 +4,9 @@ devices or lie on none, before anything is built or loaded (so the CPU
 reaches it). `launch_dtype` gives a launch's one activation dtype: fp32,
 or bf16 where the kernel has a bf16 variant; mixed dtypes and bf16 at an
 fp32-only kernel raise (naming the ROADMAP item), before anything is
-built, on meta tensors here."""
+built, on meta tensors here. The LSTM has its own rule (`lstm_dtype`):
+the weights pick the variant, x is fp32 or (bf16 weights) bf16, XP and
+the carries fp32."""
 
 import pytest
 import torch
@@ -61,8 +63,8 @@ def test_launch_dtype_of_a_launch(kernel, dtype):
 
 @pytest.mark.parametrize("kernel", sorted(_build.BF16_TODO))
 def test_launch_dtype_refuses_bf16_without_a_variant(kernel):
-    """The LSTM, single-block and STFT kernels name the item that ports
-    their bf16 variant; nothing is upcast."""
+    """The single-block and STFT kernels name the item that ports their
+    bf16 variant; nothing is upcast."""
     with pytest.raises(TypeError, match="ROADMAP Queue 1 item 4"):
         _build.launch_dtype(kernel, torch.zeros(2, dtype=BF16))
     assert _build.launch_dtype(kernel, torch.zeros(2)) == torch.float32
@@ -89,12 +91,6 @@ def _no_build(monkeypatch):
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda: lstm._project_launch(_meta(2, 3, 4), _meta(4, 8), _meta(8)),
-     "item 4b"),
-    (lambda: lstm._recur_launch(_meta(2, 3, 8), _meta(2, 8), False, None,
-                                None), "item 4b"),
-    (lambda: lstm._check_layer(_meta(2, 3, 4), _meta(4, 8), _meta(2, 8),
-                               _meta(8)), "item 4b"),
     (lambda: dsconv._block_launch(_meta(1, 2, 4, 8), (), 1, 1, 1, None),
      "item 4c"),
     (lambda: stft_fused.stft_fused(_meta(1, 3200), PRESET_320), "item 4d"),
@@ -127,4 +123,53 @@ def test_fp32_only_wrappers_refuse_bf16_before_building(monkeypatch, call,
 def test_bf16_wrappers_refuse_mixed_dtypes(monkeypatch, call):
     _no_build(monkeypatch)
     with pytest.raises(TypeError, match="share one dtype"):
+        call()
+
+
+F32 = torch.float32
+
+
+@pytest.mark.parametrize("x,w,want", [(F32, F32, F32), (F32, BF16, BF16),
+                                      (BF16, BF16, BF16), (None, BF16, BF16)])
+def test_lstm_dtype_is_the_weights(x, w, want):
+    """The LSTM's own rule: the weights pick the variant; bf16 weights take
+    an fp32 or a bf16 x (se_tpu casts the parameters, not the input)."""
+    xt = None if x is None else torch.zeros(2, dtype=x)
+    weights = (torch.zeros(2, dtype=w), torch.zeros(3, dtype=w))
+    assert _build.lstm_dtype(xt, weights, (("xp", torch.zeros(2)),)) == want
+
+
+@pytest.mark.parametrize("x,weights,fp32,match", [
+    (BF16, (F32, F32), None, "x is torch.bfloat16"),
+    (torch.float64, (BF16, BF16), None, "x is torch.float64"),
+    (F32, (F32, BF16), None, "share one dtype"),
+    (torch.float16, (torch.float16,), None, "float32 or bfloat16 weights"),
+    (F32, (BF16,), BF16, "h0 is float32 at every variant"),
+])
+def test_lstm_dtype_refuses_other_mixes(x, weights, fp32, match):
+    with pytest.raises(TypeError, match=match):
+        _build.lstm_dtype(torch.zeros(2, dtype=x),
+                          [torch.zeros(2, dtype=w) for w in weights],
+                          (("h0", None if fp32 is None
+                            else torch.zeros(2, dtype=fp32)),))
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda: lstm._project_launch(_meta(2, 3, 4), _meta(4, 8, dtype=F32),
+                                  _meta(8, dtype=F32)), "x is"),
+    (lambda: lstm._recur_launch(_meta(2, 3, 8), _meta(2, 8), False, None,
+                                None), "xp is float32"),
+    (lambda: lstm._check_layer(_meta(2, 3, 4), _meta(4, 8), _meta(2, 8),
+                               _meta(8, dtype=F32)), "share one dtype"),
+    (lambda: lstm._check_layer(_meta(2, 3, 4, dtype=F32), _meta(4, 8),
+                               _meta(2, 8), _meta(8), _meta(2, 2)),
+     "h0 is float32"),
+])
+def test_lstm_wrappers_refuse_other_mixes_before_building(monkeypatch, call,
+                                                          match):
+    """The bf16 LSTM wrappers take bf16 weights with an fp32 or bf16 x and
+    fp32 carries; any other mix raises TypeError before anything is built,
+    checked or cast."""
+    _no_build(monkeypatch)
+    with pytest.raises(TypeError, match=match):
         call()

@@ -19,6 +19,7 @@ import torch
 from se_tpu_torch.ops import _build, attention, decoder, dsconv, encoder, lstm
 from se_tpu_torch.ops import stft as plain_stft
 from se_tpu_torch.ops import stft_fused
+from se_tpu_torch.ops._dtype import LSTM_FLOOR
 from torch_kernel_inputs import (
     att_flip_slack, att_inputs, bf16_close, close, dec_params, dsconv_params,
     enc_params, lstm_inputs, pair_inputs, rand, to_bf16, to_torch,
@@ -796,3 +797,112 @@ def test_fp32_only_kernels_refuse_bf16_on_the_card(gen, dev):
     with pytest.raises(TypeError, match="item 4c"):
         dsconv.dsconv_block(torch.zeros(1, 2, 4, 8, device=dev, dtype=BF16),
                             params, 1, 1, 1)
+
+
+# The bf16 LSTM entries (bf16 weights; x fp32 or bf16; XP, h, c and y
+# fp32). Each side rounds its own h to bf16 a frame, so the kernel is held
+# to the twin stepped along the kernel's own y (`h_in`: no h rounds to
+# another bf16 value on the two sides) at ATOL, and, free-running, within
+# bf16_close with one bf16 ulp of the largest output as its floor
+# (ops/_dtype.py LSTM_FLOOR).
+BF16_LSTM_SHAPES = [(4, 257, 512), (1030, 32, 384), (8, 512, 128),
+                    (4, 1024, 1024), (2900, 32, 40), (12832, 128, 64),
+                    (1030, 33, 384), (256, 161, 1024), (19, 33, 44)]
+
+
+def _bf16_lstm_args(gen, bf, t, in_dim, h, x_dtype, dev):
+    x, wx, wh, b = lstm_inputs(gen, bf, t, in_dim, h)
+    wx, wh = wx * (in_dim + h) ** -0.5 * 5, wh * (in_dim + h) ** -0.5 * 5
+    x, wx, wh, b = to_torch((x, wx, wh, b), device=dev)
+    return x.to(x_dtype), wx.to(BF16), wh.to(BF16), b.to(BF16)
+
+
+def _lstm_bf16_counts(before):
+    return _bf16_counts(before, ("lstm", "lstm_project", "lstm_recur",
+                                 "lstm_bf16", "lstm_project_bf16",
+                                 "lstm_recur_bf16"))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("bf,in_dim,h", BF16_LSTM_SHAPES)
+def test_lstm_bf16_kernel_matches_twin(gen, dev, x_dtype, reverse, bf,
+                                       in_dim, h):
+    x, wx, wh, b = _bf16_lstm_args(gen, bf, T_LONG, in_dim, h, x_dtype, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    small = lstm.step_variant(bf, T_LONG, h, sms) == "persistent"
+    before = dict(_build.LAUNCHES)
+    ys, (hn, cn) = lstm.lstm_layer_kernel(x, wx, wh, b, reverse)
+    torch.cuda.synchronize()
+    assert ys.dtype == hn.dtype == cn.dtype == torch.float32
+    assert _lstm_bf16_counts(before) == {
+        "lstm": 0, "lstm_project": 0, "lstm_recur": 0,
+        "lstm_bf16": int(not small), "lstm_project_bf16": int(small),
+        "lstm_recur_bf16": int(small)}
+    stepped = lstm._reference(x, wx, wh, b, reverse, h_in=ys)
+    close([ys], [stepped[0]], ATOL)
+    free = lstm._reference(x, wx, wh, b, reverse)
+    bf16_close([ys, hn, cn], [free[0], *free[1]], floor=LSTM_FLOOR)
+
+
+@pytest.mark.parametrize("bf,in_dim,h", [(1030, 32, 384), (8, 512, 128)])
+def test_lstm_bf16_kernel_carry_matches_twin(gen, dev, bf, in_dim, h):
+    x, wx, wh, b = _bf16_lstm_args(gen, bf, T_LONG, in_dim, h,
+                                   torch.float32, dev)
+    h0, c0 = to_torch((rand(gen, bf, h, scale=0.5),
+                       rand(gen, bf, h, scale=0.5)), device=dev)
+    ys, (hn, cn) = lstm.lstm_layer_kernel(x, wx, wh, b, False, h0, c0)
+    torch.cuda.synchronize()
+    stepped = lstm._reference(x, wx, wh, b, False, h0, c0, h_in=ys)
+    close([ys], [stepped[0]], ATOL)
+    free = lstm._reference(x, wx, wh, b, False, h0, c0)
+    bf16_close([ys, hn, cn], [free[0], *free[1]], floor=LSTM_FLOOR)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("bf,t,in_dim,h", [(8, 12, 512, 128),
+                                           (37, 5, 161, 20),
+                                           (3, 70, 33, 44)])
+def test_lstm_project_bf16_kernel_matches_twin(gen, dev, x_dtype, bf, t,
+                                               in_dim, h):
+    x, wx, _, b = _bf16_lstm_args(gen, bf, t, in_dim, h, x_dtype, dev)
+    before = dict(_build.LAUNCHES)
+    got = lstm.lstm_project(x, wx, b)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert _lstm_bf16_counts(before)["lstm_project_bf16"] == 1
+    # fp32 out, exact products: the fp32 projection's rule
+    close([got], [lstm._project_reference(x, wx, b)], ATOL)
+
+
+@pytest.mark.parametrize("reverse,carry", [(False, False), (True, False),
+                                           (False, True)])
+@pytest.mark.parametrize("bf,h", [(8, 128), (4, 1024), (1604, 64), (30, 20)])
+def test_lstm_recur_bf16_kernel_matches_twin(gen, dev, reverse, carry, bf,
+                                             h):
+    xp = torch.from_numpy(rand(gen, bf, 9, 4 * h)).to(dev)
+    wh = (torch.from_numpy(rand(gen, h, 4 * h, scale=0.2)) * h ** -0.5 * 5
+          ).to(dev).to(BF16)
+    h0 = c0 = None
+    if carry:
+        h0, c0 = to_torch((rand(gen, bf, h, scale=0.5),
+                           rand(gen, bf, h, scale=0.5)), device=dev)
+    before = dict(_build.LAUNCHES)
+    ys, (hn, cn) = lstm.lstm_recur(xp, wh, reverse, h0, c0)
+    torch.cuda.synchronize()
+    assert _lstm_bf16_counts(before)["lstm_recur_bf16"] == 1
+    stepped = lstm._recur_reference(xp, wh, reverse, h0, c0, h_in=ys)
+    close([ys], [stepped[0]], ATOL)
+    free = lstm._recur_reference(xp, wh, reverse, h0, c0)
+    bf16_close([ys, hn, cn], [free[0], *free[1]], floor=LSTM_FLOOR)
+
+
+@pytest.mark.parametrize("h,bf", RECUR_PLANS)
+def test_persistent_plan_is_the_bf16_kernels(dev, h, bf):
+    """The bf16 recurrence widens its Wh slice to fp32 in shared memory:
+    the fp32 plan holds for it too."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = lstm.persistent_plan(bf, h, sms)
+    smem, per_sm = lstm.recur_fit(h, plan.chunks, dev, BF16)
+    assert smem == plan.smem
+    assert per_sm >= plan.blocks_sm

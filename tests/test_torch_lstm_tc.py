@@ -22,6 +22,11 @@ and the persistent kernel's grid are held here in plain torch.
   intra LSTM over 4 bins, to the tensor-core step), and `persistent_plan`
   gives each small-fold call a grid that owns every (row, unit) once, fits
   in shared memory and is resident in one wave.
+- The bf16 variants: bf16 packs (the same permutation), products against
+  bf16 weights in 2 TF32 passes of an fp32 operand and 1 of a bf16-valued
+  one (the bf16 x, the rounded h), both designs with h rounded to bf16
+  where the product takes it, held to the twin stepped along its own y
+  within the same 1e-5.
 """
 
 import numpy as np
@@ -61,24 +66,66 @@ def matmul_3xtf32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return asm @ wb + ab @ wsm + ab @ wb
 
 
-def packed_layer(x, wx, wh, b, passes: str, reverse: bool = False):
+BF16 = torch.bfloat16
+
+
+def round_bf16(v: torch.Tensor) -> torch.Tensor:
+    """tc_common.cuh `round_bf16`: to nearest even, kept as fp32."""
+    return v.to(BF16).float()
+
+
+def matmul_passes(a: torch.Tensor, w: torch.Tensor, passes: int):
+    """a @ w as the bf16 variants sum it against a bf16-valued w (exact in
+    TF32, never split): 2 passes, small.w + big.w (a split as
+    `split_tf32`); 1 pass, a.w, for a bf16-valued a (exact in TF32)."""
+    if passes == 1:
+        assert torch.equal(a, round_bf16(a))
+        return a @ w
+    big, small = split(a)
+    return small @ w + big @ w
+
+
+def _frames(t_len: int, reverse: bool, h_in):
+    """(t, the h a frame's product takes from `h_in`: its y at the frame
+    walked before, or None for the layer's own h) in walk order."""
+    prev = None
+    for t in (range(t_len - 1, -1, -1) if reverse else range(t_len)):
+        yield t, None if h_in is None or prev is None else h_in[:, prev]
+        prev = t
+
+
+def _product(a, w, passes: str, a_bf16: bool):
+    """a @ w as the kernel sums it: "fp32", "3xtf32", or "bf16" (the bf16
+    variants against bf16 weights: 1 pass for a bf16-valued a, else 2)."""
+    if passes == "bf16":
+        return matmul_passes(a, w, 1 if a_bf16 else 2)
+    return matmul_3xtf32(a, w) if passes == "3xtf32" else a @ w
+
+
+def packed_layer(x, wx, wh, b, passes: str, reverse: bool = False,
+                 h_in=None):
     """One layer as lstm_step_tc computes it: per frame, [x_t | h_{t-1}]
     zero-padded to Kp times the packed (4Hp, Kp) weights, gates read back
-    from the packed column order, the cell in fp32."""
+    from the packed column order, the cell in fp32. "bf16": bf16 weights
+    (widened), h_{t-1} rounded to bf16 in A. `h_in`: each frame's product
+    takes h_in's h (as the twin's `h_in`)."""
     bf, t_len, in_dim = x.shape
     h_dim = wh.shape[0]
-    wp = lstm.pack_weights(wx, wh)
+    wp = lstm.pack_weights(wx, wh).float()
     hp, kp = wp.shape[0] // 4, wp.shape[1]
-    h = x.new_zeros(bf, h_dim)
-    c = x.new_zeros(bf, h_dim)
-    ys = x.new_empty(bf, t_len, h_dim)
-    for t in (range(t_len - 1, -1, -1) if reverse else range(t_len)):
-        a = torch.nn.functional.pad(torch.cat([x[:, t], h], 1),
+    h = torch.zeros(bf, h_dim)
+    c = torch.zeros(bf, h_dim)
+    ys = torch.empty(bf, t_len, h_dim)
+    for t, forced in _frames(t_len, reverse, h_in):
+        h = h if forced is None else forced
+        hr = round_bf16(h) if passes == "bf16" else h
+        a = torch.nn.functional.pad(torch.cat([x[:, t].float(), hr], 1),
                                     (0, kp - in_dim - h_dim))
-        gp = matmul_3xtf32(a, wp.t()) if passes == "3xtf32" else a @ wp.t()
+        gp = _product(a, wp.t(), passes, x.dtype == BF16)
         gp = gp.view(bf, hp // lstm.GROUP, 4, lstm.GROUP)
         i, f, g, o = (gp[:, :, q].reshape(bf, hp)[:, :h_dim]
-                      + b[q * h_dim:(q + 1) * h_dim] for q in range(4))
+                      + b[q * h_dim:(q + 1) * h_dim].float()
+                      for q in range(4))
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
         ys[:, t] = h
@@ -86,24 +133,29 @@ def packed_layer(x, wx, wh, b, passes: str, reverse: bool = False):
 
 
 def persistent_layer(x, wx, wh, b, passes: str, reverse: bool = False,
-                     h0=None, c0=None):
+                     h0=None, c0=None, h_in=None):
     """One layer as the small fold computes it: XP = x . Wx + b with
     `pack_input`'s weights (lstm_proj_tc), then per frame h_{t-1}
     zero-padded to Hk times `pack_recurrent`'s (4Hk, Hk) weights
-    (lstm_recur_persistent), gates read back from the packed order."""
+    (lstm_recur_persistent), gates read back from the packed order.
+    "bf16": the projection in 2 or 1 passes (fp32 or bf16 x), h rounded to
+    bf16 against the bf16 Wh in 1; `h_in` as `packed_layer`'s."""
     bf, t_len, in_dim = x.shape
     h_dim = wh.shape[0]
-    mul = matmul_3xtf32 if passes == "3xtf32" else torch.matmul
-    wi, wr = lstm.pack_input(wx), lstm.pack_recurrent(wh)
-    xk = torch.nn.functional.pad(x, (0, wi.shape[1] - in_dim))
-    xp = mul(xk.reshape(bf * t_len, -1), wi.t())[:, :4 * h_dim] + b
-    xp = xp.view(bf, t_len, 4 * h_dim)
+    wi, wr = lstm.pack_input(wx).float(), lstm.pack_recurrent(wh).float()
+    xk = torch.nn.functional.pad(x.float(), (0, wi.shape[1] - in_dim))
+    xp = _product(xk.reshape(bf * t_len, -1), wi.t(), passes,
+                  x.dtype == BF16)
+    xp = (xp[:, :4 * h_dim] + b.float()).view(bf, t_len, 4 * h_dim)
     hk = wr.shape[1]
-    h = x.new_zeros(bf, h_dim) if h0 is None else h0
-    c = x.new_zeros(bf, h_dim) if c0 is None else c0
-    ys = x.new_empty(bf, t_len, h_dim)
-    for t in (range(t_len - 1, -1, -1) if reverse else range(t_len)):
-        gp = mul(torch.nn.functional.pad(h, (0, hk - h_dim)), wr.t())
+    h = torch.zeros(bf, h_dim) if h0 is None else h0
+    c = torch.zeros(bf, h_dim) if c0 is None else c0
+    ys = torch.empty(bf, t_len, h_dim)
+    for t, forced in _frames(t_len, reverse, h_in):
+        h = h if forced is None else forced
+        hr = round_bf16(h) if passes == "bf16" else h
+        gp = _product(torch.nn.functional.pad(hr, (0, hk - h_dim)), wr.t(),
+                      passes, True)
         gp = gp.view(bf, hk // lstm.GROUP, 4, lstm.GROUP)
         i, f, g, o = (gp[:, :, q].reshape(bf, hk)[:, :h_dim]
                       + xp[:, t, q * h_dim:(q + 1) * h_dim] for q in range(4))
@@ -342,3 +394,68 @@ def test_persistent_plan_of_each_small_fold_call(path, h, bf, batch):
         for q in chunks:
             owner[16 * q:16 * q + 16, 8 * tile:8 * tile + 8] += 1
     assert (owner == 1).all()
+
+
+# ------------------------------------------------ the bf16 variants
+
+def _bf16_layer_inputs(rng, bf, t, in_dim, h, x_dtype):
+    x, wx, wh, b = to_torch(lstm_inputs(rng, bf, t, in_dim, h))
+    return (x.to(x_dtype), wx.to(BF16), wh.to(BF16), b.to(BF16))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("bf,t,in_dim,h", [(5, 9, 6, 20), (3, 6, 33, 40)])
+def test_bf16_packed_step_matches_twin(rng, x_dtype, reverse, bf, t, in_dim,
+                                       h):
+    """The bf16 step's passes (2 for an fp32 x, 1 for a bf16 x) and its
+    rounding of h in the fragments: stepped along the twin's own y (no h
+    flips between the two), within the fp32 designs' 1e-5."""
+    x, wx, wh, b = _bf16_layer_inputs(rng, bf, t, in_dim, h, x_dtype)
+    want, _ = lstm._reference(x, wx, wh, b, reverse)
+    got = packed_layer(x, wx, wh, b, "bf16", reverse, h_in=want)
+    close([got], [want], ATOL)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("bf,t,in_dim,h", [(5, 9, 6, 20), (19, 6, 33, 44)])
+def test_bf16_persistent_layer_matches_twin(rng, x_dtype, bf, t, in_dim, h):
+    x, wx, wh, b = _bf16_layer_inputs(rng, bf, t, in_dim, h, x_dtype)
+    want, _ = lstm._reference(x, wx, wh, b)
+    got, _, _ = persistent_layer(x, wx, wh, b, "bf16", h_in=want)
+    close([got], [want], ATOL)
+
+
+def test_bf16_packs_keep_the_weights_dtype(rng):
+    """pack_weights, pack_input and pack_recurrent of bf16 weights are
+    bf16 (half the fp32 packs' bytes) and the same permutation."""
+    _, wx, wh, _ = to_torch(lstm_inputs(rng, 1, 1, 33, 44))
+    for pack, args in ((lstm.pack_weights, (wx, wh)),
+                       (lstm.pack_input, (wx,)),
+                       (lstm.pack_recurrent, (wh,))):
+        packed = pack(*(a.to(BF16) for a in args))
+        assert packed.dtype == BF16
+        assert torch.equal(packed.float(),
+                           pack(*(round_bf16(a) for a in args)))
+
+
+def test_bf16_weights_take_two_passes_of_fp32_x_and_one_of_bf16_x(rng):
+    """The sub band's second layer, K = 768, against bf16 weights: an fp32
+    A in two passes keeps fp32 accuracy against fp64 (one pass would not);
+    a bf16-valued A (a bf16 x, the rounded h) is exact in one pass."""
+    m, k, n = 256, 768, 512
+    a = np.concatenate([rng.standard_normal((m, 384)),
+                        rng.uniform(-1, 1, (m, 384))], 1).astype(np.float32)
+    w = (rng.uniform(-1, 1, (k, n)) * 384 ** -0.5).astype(np.float32)
+    ta, tw = torch.from_numpy(a), round_bf16(torch.from_numpy(w))
+    assert torch.equal(tf32(tw), tw)  # a bf16 value is exact in TF32
+
+    def rel(c, aa):
+        exact = aa.double() @ tw.double()
+        return float((c.double() - exact).abs().max()) / float(
+            exact.abs().max())
+
+    assert rel(matmul_passes(ta, tw, 2), ta) <= 1e-6
+    assert rel(tf32(ta) @ tw, ta) > 1e-5
+    ab = round_bf16(ta)
+    assert rel(matmul_passes(ab, tw, 1), ab) <= 1e-6

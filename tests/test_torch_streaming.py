@@ -303,7 +303,10 @@ def test_windowed_uformer_matches_se_tpu():
 
 
 def test_windowed_refuses_other_dtypes():
+    """float32 and bfloat16 only (enhance_waveform's rule), before any
+    work."""
     model = get_model("gcrn").make(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        streaming.enhance_windowed("gcrn", model, _wav(1600),
-                                   dtype=torch.bfloat16, device="cpu")
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            streaming.enhance_windowed("gcrn", model, _wav(1600),
+                                       dtype=dtype, device="cpu")

@@ -8,7 +8,7 @@ import torch
 
 # att_flip_slack: the tests' slack, the package's own
 from se_tpu_torch.ops._dtype import (  # noqa: F401
-    FLIP_SHARE, att_flip_slack, bf16_compare,
+    BF16_FLOOR, FLIP_SHARE, att_flip_slack, bf16_compare,
 )
 
 
@@ -37,14 +37,14 @@ def _tensor(x) -> torch.Tensor:
         np.asarray(x, np.float32))
 
 
-def bf16_close(got, want, slack=None) -> float:
+def bf16_close(got, want, slack=None, floor: float = BF16_FLOOR) -> float:
     """Assert the bf16 kernels' tolerance (se_tpu_torch.ops._dtype
-    `bf16_compare`: |got - want| <= 2^-7 |want| + 1e-6 max|want|
-    elementwise; with `slack`, one per pair from att_flip_slack, at most
+    `bf16_compare`: |got - want| <= 2^-7 |want| + floor max|want|
+    elementwise, floor 1e-6 unless given; with `slack`, one per pair from att_flip_slack, at most
     FLIP_SHARE of the elements past that by up to their slack) on tensors
     or numpy arrays. Return the share of elements that differ at all."""
     check = bf16_compare([_tensor(g) for g in got],
-                         [_tensor(w) for w in want], slack)
+                         [_tensor(w) for w in want], slack, floor)
     assert check.ok, (
         f"{check.n_past} elements ({check.share_past:.3g}) past the bf16 "
         f"tolerance{' (flip slack on <= %g)' % FLIP_SHARE if slack else ''}"
