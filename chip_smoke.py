@@ -66,7 +66,8 @@ Phases, one JSON line per result:
              it, each by no more than one P element's rounding flip,
              `att_flip_slack`), and, reported, against the fp32 twin on
              the same bf16 values; their bound at bf16 bytes and 989
-             TFLOP/s (the pair's fp32-operand products at 247.5), their
+             TFLOP/s (the pair's fp32-operand products at 329.7: three
+             bf16 pieces of the fp32 operand, the fewest exact), their
              device time by kernel; yardstick F.scaled_dot_product_
              attention in bf16. The bf16 LSTM (rows lstm_bf16,
              lstm_project_bf16, lstm_recur_bf16: bf16 weights, x fp32 or
@@ -227,10 +228,12 @@ PEAK_BYTES = 3.35e12
 # product of two bf16 operands, which the bf16 kernels run in one TF32
 # pass
 PEAK_BF16_FLOPS = 989e12
-# an fp32 operand against a bf16-valued one, fp32-accurate: the bf16 one
-# is exact in TF32, so the fp32 one split hi + lo takes two TF32 passes
-# (the bf16 DSConv pair's products, dsconv.cu PASSES = 2)
-PEAK_FP32_BF16_FLOPS = 495e12 / 2
+# an fp32 operand against a bf16-valued one, fp32-accurate: the fewest
+# exact products are three bf16 ones, the fp32 operand split in three bf16
+# pieces (the bf16 LSTM step, tc_common.cuh split_bf16x3), 329.7 TFLOP/s;
+# two TF32 passes (the bf16 one is exact in TF32, the fp32 one split hi +
+# lo: the bf16 DSConv pair and the bf16 projection) reach 247.5
+PEAK_FP32_BF16_FLOPS = 989e12 / 3
 
 
 def fail(msg: str) -> None:
@@ -954,8 +957,9 @@ def _bf16_lstm_case(gen, dev, bf, t_len, in_dim, h, x_bf16, carry=False):
 
 
 def _x_peak(x) -> float:
-    """The rate of x . W against bf16 weights: one TF32 pass for a bf16 x,
-    two for an fp32 one."""
+    """The rate of x . W against bf16 weights: 989 TFLOP/s for a bf16 x,
+    989 / 3 for an fp32 one (three bf16 pieces, the fewest exact
+    products)."""
     import torch
 
     return PEAK_BF16_FLOPS if x.dtype == torch.bfloat16 \
@@ -968,9 +972,10 @@ def bf16_lstm_cases(gen, dev):
     x; the row sums them), then per-case lines: the sub band in reverse,
     with a ragged batch and a carry, and at phase 5's B = 32; DPCRN's intra
     BiLSTM over T = 4 (the step) both ways; LSTMNet's first layer at B = 256
-    (the step, bf16 x, In = 161: 2-byte copies); FullSubNet's full band
-    (the small fold, bf16 x). Operations: x . Wx at one TF32 pass (bf16 x)
-    or two (fp32 x), round(h) . Wh at one. Yardstick: cuDNN's LSTM in bf16
+    (the step, bf16 x, In = 161: padded to 168 once by the wrapper);
+    FullSubNet's full band (the small fold, bf16 x). Operations: x . Wx at
+    989 TFLOP/s (bf16 x) or 989 / 3 (fp32 x: three bf16 pieces), round(h)
+    . Wh at 989. Yardstick: cuDNN's LSTM in bf16
     on the same bf16 weights (it rounds elsewhere: a yardstick of time
     only)."""
     import torch
@@ -1301,8 +1306,9 @@ def check_kernels(dev, only) -> dict:
             _flat_lstm(lstm.lstm_layer_kernel), _flat_lstm(lstm._reference),
             bf16_lstm_cases, "se_tpu_torch/csrc/lstm.cu",
             "se_tpu/ops/pallas_lstm.py:60", 2,
-            "lstm_step_tc<.., __nv_bfloat16> a frame (x fp32: 2 TF32 "
-            "passes; round(h) . Wh in the same pass count, exact): the 2 "
+            "lstm_step_bf16<float|bf16> a frame (bf16 mma.sync "
+            "m16n8k16: an fp32 x in three bf16 pieces, a bf16 x and the "
+            "bf16 shadow of h in one product each): the 2 "
             f"sub-band layer calls of FullSubNet's {b4} in bf16; its full "
             "band takes the small fold (rows lstm_project_bf16, "
             "lstm_recur_bf16); the other shapes are per-case lines",
@@ -1558,8 +1564,8 @@ PROFILE_KERNELS_BF16 = {
                 "dsconv_pre_tc", "dsconv_post_tc"),
     **{name: _BF16_SMALL_FOLD for name in ("dccrn", "lstm", "crn",
                                            "gcrn")},
-    "fullsubnet": ("lstm_step_tc",) + _BF16_SMALL_FOLD,
-    "dpcrn": ("lstm_step_tc",) + _BF16_SMALL_FOLD,
+    "fullsubnet": ("lstm_step_bf16",) + _BF16_SMALL_FOLD,
+    "dpcrn": ("lstm_step_bf16",) + _BF16_SMALL_FOLD,
 }
 # kernel: the main path whose B = 4 forward its row of the table sums
 ROW_PATH = {"attention": "uformer", "dsconv": "uformer",
@@ -1569,8 +1575,9 @@ ROW_PATH = {"attention": "uformer", "dsconv": "uformer",
             **{k: "uformer bf16" for k in BF16_KERNELS},
             "lstm_bf16": "fullsubnet bf16", "lstm_project_bf16": "lstm bf16",
             "lstm_recur_bf16": "lstm bf16"}
-# families whose B = 256 batch takes lstm_step_tc in some layer call:
-# phase 5 checks one of its utterances against the CPU
+# families whose B = 256 batch takes the large-fold step (lstm_step_tc;
+# in bf16 lstm_step_bf16) in some layer call: phase 5 checks one of its
+# utterances against the CPU
 TC_BATCH_CHECK = ("lstm", "crn", "dpcrn")
 
 
@@ -1752,7 +1759,9 @@ def throughput(name: str, model, cpu_model, card: str, dtype=None) -> None:
         warm_s = time.perf_counter() - t0
         if batch == 256 and name in TC_BATCH_CHECK:
             check = (f"card vs cpu, utterance {batch - 1} of a B = {batch} "
-                     "batch (lstm_step_tc)")
+                     "batch "
+                     + ("(lstm_step_tc)" if dtype is None
+                        else "(lstm_step_bf16)"))
             if dtype is None:
                 card_vs_cpu(name, est, cpu_model, wav, batch - 1, check)
             else:

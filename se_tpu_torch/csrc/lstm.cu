@@ -126,19 +126,63 @@
 // bf16 (the `_bf16` entries; se_tpu's bf16 decode, pallas_lstm.py:14-16,
 // :44-46, :84-85, and its scan, se_tpu/nn/recurrent.py:36-37, :150): the
 // weights (and the combined bias) are bf16, stored so in device memory
-// (half the fp32 packs' bytes) and widened to fp32 as they are loaded into
-// shared memory, so every tile, plan and grid is the fp32 design's. x is
-// fp32 or bf16 (x_bf16); XP, h, c and y are fp32. The one rounding point
-// inside is se_tpu's `h.astype(wh.dtype)`: h_{t-1} rounded to bf16 (to
-// nearest even) where the product takes it (lstm_step_tc: in the A
-// fragments, RoundFrom; lstm_recur_persistent: as it is staged), never in
-// the carry buffers. A bf16 value is exact in TF32, so the products keep
-// fp32 accuracy in fewer passes (passes_for<TX, TW>): 2 for an fp32 x
-// against bf16 weights (x split big + small), 1 where both operands are
-// bf16-valued (a bf16 x; the rounded h against Wh). Bound: the same flops
-// at 247.5 TFLOP/s (2 passes) or 989 (1 pass), or the bytes at 3.35 TB/s.
-// A simple first version: the bf16 loads are plain loads widened in
-// registers (no cp.async for them), not bf16 mma fragments.
+// (half the fp32 packs' bytes). x is fp32 or bf16 (x_bf16); XP, h, c and y
+// are fp32. The one rounding point inside is se_tpu's `h.astype(wh.dtype)`:
+// h_{t-1} rounded to bf16 (to nearest even) where the product takes it,
+// never in the carry buffers; x . Wx is the exact fp32 product.
+//   - The small fold's lstm_proj_tc and lstm_recur_persistent widen the
+//     bf16 operands to fp32 as they load them (every tile, plan and grid
+//     the fp32 design's) and take 2 TF32 passes for an fp32 x (x split big
+//     + small; a bf16 value is exact in TF32), 1 where both operands are
+//     bf16-valued (a bf16 x; the rounded h, staged so).
+//   - The large fold's lstm_step_bf16 runs on bf16 tensor cores instead
+//     (mma.sync.m16n8k16 bf16, fp32 accumulate). Bound: x . Wx at 989 / 3
+//     TFLOP/s for an fp32 x (three bf16 products, the fewest exact; 989
+//     for a bf16 x), round(h) . Wh at 989, or the bytes at 3.35 TB/s:
+//     by operations at every shape the paths use. What it does about it:
+//     + Two K loops a frame, not one mixed K: pack_weights_bf16 (ops/
+//       lstm.py) lays Wx's rows zero-padded to Kx (In rounded up to the
+//       32-deep stage BK), then Wh's to Kh, so a stage is wholly x or
+//       wholly h and the fragments need no per-element K test.
+//     + The weights stay bf16: 16-byte cp.async copies into a ring of
+//       bf16 shared memory (4 stages for an fp32 x, 6 for a bf16 one: 48
+//       KB, four blocks an SM), rows unpadded and swizzled (swz16: the 8
+//       rows of an ldmatrix matrix in 8 bank groups; the 64-byte swizzle
+//       of wgmma's K-major layout), read by ldmatrix as B fragments.
+//     + h in one pass: each frame's cell also writes h_t rounded to bf16
+//       into a shadow, a ping-pong pair (2, Bf, Kh) zero past H (16-byte
+//       rows for any H; the wrapper fills its first half with h0 rounded
+//       alike), which the next frame stages by cp.async and reads by
+//       ldmatrix as A fragments: one bf16 mma a k16.
+//     + An fp32 x is staged as fp32 (swz32) and split in the fragments in
+//       three bf16 pieces (tc_common.cuh split_bf16x3: their sum is x bit
+//       for bit down to |x| ~ 1e-33, each piece's product with a bf16
+//       weight exact in fp32): three mmas a k16 on one B fragment, against
+//       the four TF32 instructions of two TF32 passes. A bf16 x takes one
+//       (the wrapper pads In to a multiple of 8 where it is not: LSTMNet's
+//       161). x is never split in device memory (at FullSubNet's B = 256
+//       that would add ~38 GB).
+//     + The block tile (64 rows x 16 units x 4 gates, 4 warps), a launch
+//       a frame and the grid order (unit tiles fastest) are the fp32
+//       step's, and so are the packed gate interleave and the cell in
+//       registers (m16n8k16's accumulator layout is m16n8k8's). The warps
+//       take one of two layouts (ops/lstm.py bf16_step_design, from
+//       lstm_bf16_sweep.py): where the x part is at least as long as the
+//       h part, one m16 tile x 8 n8 tiles a warp (wgmma's m64n64 split:
+//       each fp32 x fragment split by one warp, not two) and the frames
+//       after the first launched as programmatic dependents (a frame's
+//       blocks start once every block of the frame before has, run their x
+//       stages, then wait, griddepcontrol.wait, before they read the shadow
+//       and c: the x part overlaps the frame before's tail); else two m16
+//       x 4 n8 tiles a warp (20% fewer ldmatrix bytes a k16 for the h
+//       stages, which shared memory's bandwidth bounds) and plain launches
+//       (early blocks there only slow the frame before's h stages).
+//     + The epilogue's bias is read before the main loop and c right after
+//       the wait, so their latency hides under the mmas.
+//   - Not here: wgmma + TMA (the 64 x 64 tile is one warpgroup tile, B's
+//     layout is wgmma's 64-byte swizzle; ldmatrix then leaves the loop and
+//     the warpgroup shares A and B in shared memory, half the bytes a k16
+//     of mma.sync's 2 x 2 warps), CUDA graphs, a persistent time loop.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -151,10 +195,20 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 constexpr int GROUP_UNITS = 8;  // packed columns: 4 gates x 8 units a run
 
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
+}
+
+// The cell from the four gate inputs (biases in): c updated in place;
+// returns h_t.
+__device__ __forceinline__ float lstm_cell(float gi, float gf, float gg,
+                                           float go, float& c) {
+  c = sigmoidf(gf) * c + sigmoidf(gi) * tanhf(gg);
+  return sigmoidf(go) * tanhf(c);
 }
 
 template <class TB>
@@ -169,8 +223,8 @@ __device__ __forceinline__ void cell(const TB* __restrict__ bias,
   gg += to_f(bias[2 * H + u]);
   go += to_f(bias[3 * H + u]);
   const size_t ci = (size_t)row * H + u;
-  const float cn = sigmoidf(gf) * c[ci] + sigmoidf(gi) * tanhf(gg);
-  const float hn = sigmoidf(go) * tanhf(cn);
+  float cn = c[ci];
+  const float hn = lstm_cell(gi, gf, gg, go, cn);
   c[ci] = cn;
   h_next[ci] = hn;
   y[((size_t)row * T + t) * H + u] = hn;
@@ -190,26 +244,6 @@ constexpr int TC_THREADS = 32 * WM * WN;
 constexpr int TC_BLOCKS_SM = 4; // resident blocks an SM (register cap)
 constexpr int TC_SMEM = STAGES * (TM + TN) * LDS * (int)sizeof(float);
 
-// The bf16 variants' rounding of h: the A fragments' entries at K >= k0
-// (the h_{t-1} columns of [x_t | h_{t-1}]) rounded to bf16 before the
-// product, where se_tpu's `h.astype(wh.dtype)` rounds them
-// (se_tpu/nn/recurrent.py:36-37, pallas_lstm.py:44); the carry in device
-// memory stays fp32. Register j of a[mi] holds K index k + lane % 4 + 4 (j
-// >> 1) (mma_step's `prep`).
-struct RoundFrom {
-  int k0;
-  __device__ __forceinline__ void operator()(int k,
-                                             uint32_t (&a)[2][4]) const {
-    const int kl = k + (threadIdx.x & 3);
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (kl + 4 * (j >> 1) >= k0)
-          a[mi][j] = __float_as_uint(round_bf16(__uint_as_float(a[mi][j])));
-  }
-};
-
 // The TF32 main loop of one TM x TN tile: acc += A[r0 : r0 + TM, :K] .
 // w[col0 : col0 + TN, :K]^T, K = In + H. Row r of A is [x_r,t | h_prev_r]:
 // x (rows, T, In) read at frame t, h_prev (rows, H; unread when H = 0).
@@ -217,12 +251,12 @@ struct RoundFrom {
 // `rows` and K past In + H are zero-filled by the copies. VEC: 16-byte
 // copies of A (In % 4 == 0, H % 4 == 0, x aligned to 4 elements). sm:
 // STAGES x (TM + TN) x LDS floats. TX, TW: x's and w's storage (fp32, or
-// bf16 widened as it is loaded); PASSES and prep as tc_ring's.
-template <bool VEC, int PASSES, class TX, class TW, class Prep>
+// bf16 widened as it is loaded); PASSES as tc_ring's.
+template <bool VEC, int PASSES, class TX, class TW>
 __device__ __forceinline__ void tc_mainloop(
     float (&acc)[2][4][4], float* sm, const TX* __restrict__ x,
     const float* __restrict__ h_prev, const TW* __restrict__ w, int rows,
-    int T, int In, int H, int Kp, int t, int r0, int col0, Prep prep) {
+    int T, int In, int H, int Kp, int t, int r0, int col0) {
   float* As = sm;                      // STAGES x TM x LDS
   float* Bs = sm + STAGES * TM * LDS;  // STAGES x TN x LDS
   const int tid = threadIdx.x, warp = tid >> 5;
@@ -299,18 +333,16 @@ __device__ __forceinline__ void tc_mainloop(
   };
 
   tc_ring<TM, TN, TK, LDS, STAGES, 4, false, PASSES>(
-      acc, As, Bs, nk, wm * 32, wn * 32, load_stage, prep);
+      acc, As, Bs, nk, wm * 32, wn * 32, load_stage);
 }
 
 // One frame for TM rows x TU units: the main loop over [x_t | h_{t-1}],
-// then the cell. w: pack_weights' (4Hp, Kp). fp32 (TX = TW = float): 3
-// TF32 passes. bf16 weights (TW; bias in TW too): h_{t-1} rounded to bf16
-// in the fragments (RoundFrom), then 2 passes for an fp32 x, 1 for a bf16
-// x (passes_for<TX, TW>); h, c and y stay fp32.
-template <bool VEC, class TX, class TW>
+// then the cell. w: pack_weights' (4Hp, Kp). fp32: 3 TF32 passes (the bf16
+// weights take lstm_step_bf16).
+template <bool VEC>
 __global__ void __launch_bounds__(TC_THREADS, TC_BLOCKS_SM)
-lstm_step_tc(const TX* __restrict__ x, const TW* __restrict__ w,
-             const TW* __restrict__ bias, const float* __restrict__ h_prev,
+lstm_step_tc(const float* __restrict__ x, const float* __restrict__ w,
+             const float* __restrict__ bias, const float* __restrict__ h_prev,
              float* __restrict__ h_next, float* __restrict__ c,
              float* __restrict__ y, int Bf, int T, int In, int H, int Kp,
              int t) {
@@ -324,13 +356,8 @@ lstm_step_tc(const TX* __restrict__ x, const TW* __restrict__ w,
   const int r0 = blockIdx.y * TM, u0 = blockIdx.x * TU;
   // acc[m tile][gate][fragment]: rows gid (+8), units 2 tq (+1)
   float acc[2][4][4];
-  constexpr int PASSES = passes_for<TX, TW>();
-  if constexpr (sizeof(TW) == 4)
-    tc_mainloop<VEC, PASSES>(acc, sm, x, h_prev, w, Bf, T, In, H, Kp, t, r0,
-                             blockIdx.x * TN, NoPrep());
-  else
-    tc_mainloop<VEC, PASSES>(acc, sm, x, h_prev, w, Bf, T, In, H, Kp, t, r0,
-                             blockIdx.x * TN, RoundFrom{In});
+  tc_mainloop<VEC, 3>(acc, sm, x, h_prev, w, Bf, T, In, H, Kp, t, r0,
+                      blockIdx.x * TN);
 
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
@@ -345,6 +372,318 @@ lstm_step_tc(const TX* __restrict__ x, const TW* __restrict__ w,
                acc[mi][2][j], acc[mi][3][j], row, u, T, H, t);
       }
     }
+}
+
+// ------------------------------------ bf16 step (bf16 tensor cores)
+
+// Programmatic dependent launch (sm_90): let the next frame's grid start
+// (launch_dependents), and wait until the frame before has finished and
+// its writes are visible (wait; at once where the launch was not
+// programmatic).
+__device__ __forceinline__ void dep_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void dep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+constexpr int BK = 32;  // K a stage: two k16 steps, 4 16-byte chunks of a
+                        // bf16 row, 8 of an fp32 one
+// a ring slot, in bytes: A (TM rows of x, fp32 or bf16, or of the bf16
+// shadow of h) and B (TN packed bf16 weight columns), unpadded (swizzled)
+template <class TX>
+__host__ __device__ constexpr int bf_a_slot() {
+  return TM * BK * (int)sizeof(TX);
+}
+constexpr int BF_B_SLOT = TN * BK * 2;
+// the ring's depth: 4 stages of 12 KB (fp32 x) or 6 of 8 KB (bf16 x), 48
+// KB a block either way, four blocks an SM
+template <class TX>
+__host__ __device__ constexpr int bf_stages() {
+  return sizeof(TX) == 4 ? 4 : 6;
+}
+template <class TX>
+__host__ __device__ constexpr int bf_smem() {
+  return bf_stages<TX>() * (bf_a_slot<TX>() + BF_B_SLOT);
+}
+// Element offsets in the swizzled tiles (rows of BK, no padding):
+// bf16, 16-byte chunk c of row r at chunk c ^ ((r >> 1) & 3), so the 8 rows
+// an ldmatrix matrix reads fall in 8 distinct bank groups; fp32, chunk c
+// (4 floats) of row r at c ^ 2 (r & 3), so the float2 fragment reads of a
+// half-warp (4 rows x 2 chunks) do. Both keep a thread's copies 16 bytes.
+__device__ __forceinline__ int swz16(int r, int c) {
+  return r * BK + ((c ^ ((r >> 1) & 3)) << 3);
+}
+__device__ __forceinline__ int swz32(int r, int c) {
+  return r * BK + ((c ^ ((r & 3) << 1)) << 2);
+}
+
+// One frame of the bf16 layer for TM rows x TU units on bf16 mma.sync
+// (m16n8k16, fp32 accumulate), then the cell. w: pack_weights_bf16's (4Hp,
+// Kx + Kh), K-major: Wx's rows zero-padded to Kx, then Wh's to Kh (both
+// multiples of BK), so a K stage is wholly x or wholly h. x (Bf, T, In):
+// fp32 or bf16, In a multiple of 8 and x 16-byte aligned (the wrapper pads
+// where not). hs_prev / hs_next: the bf16 shadow of h, (Bf, Kh) each, h
+// rounded to bf16 (nearest even) by the frame before, zero past H. The x
+// stages take three bf16 mmas a k16 for an fp32 x (split_bf16x3 in the
+// fragments: exact products, as se_tpu's fp32 x . bf16 Wx), one for a bf16
+// x; the h stages one (the shadow is bf16 already). h_t goes to h_next
+// and y in fp32 and, rounded, to hs_next; c stays fp32. MT: m16 tiles a
+// warp (1: 4 x 1 warps of 16 x 64; 2: 2 x 2 of 32 x 32). Every frame lets
+// the next start (dep_launch) and reads what the frame before wrote (the
+// shadow, c) only after dep_wait, so either launch mode is safe.
+template <class TX, int MT>
+__global__ void __launch_bounds__(TC_THREADS, TC_BLOCKS_SM)
+lstm_step_bf16(const TX* __restrict__ x, const bf16* __restrict__ w,
+               const bf16* __restrict__ bias,
+               const bf16* __restrict__ hs_prev, bf16* __restrict__ hs_next,
+               float* __restrict__ h_next, float* __restrict__ c,
+               float* __restrict__ y, int Bf, int T, int In, int H, int Kx,
+               int Kh, int t) {
+  extern __shared__ __align__(16) unsigned char smb[];
+  dep_launch();
+  constexpr bool XF = sizeof(TX) == 4;
+  constexpr int STAGES = bf_stages<TX>(), A_SLOT = bf_a_slot<TX>();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tq = lane & 3;
+  const int r0 = blockIdx.y * TM, u0 = blockIdx.x * TU;
+  const int Kp = Kx + Kh, nkx = Kx / BK, nk = Kp / BK;
+  auto a_slot = [&](int slot) { return smb + slot * A_SLOT; };
+  auto b_slot = [&](int slot) {
+    return reinterpret_cast<bf16*>(smb + STAGES * A_SLOT + slot * BF_B_SLOT);
+  };
+
+  // a thread's 16-byte copies in every stage, so their row pointers and
+  // (swizzled) destinations are set once: chunk bq of bf16 rows brow + 32 i
+  // (B, the shadow, a bf16 x), chunk xq of x's rows xr + XR i
+  constexpr int XE = 16 / sizeof(TX);            // x elements a chunk
+  constexpr int XN = TM * BK / XE / TC_THREADS;  // x chunks a thread
+  constexpr int XR = TC_THREADS * XE / BK;       // their row step
+  const int brow = tid >> 2, bq = tid & 3;
+  const int xr = tid / (BK / XE), xq = tid % (BK / XE);
+  const int b_dst = swz16(brow, bq);
+  const int x_dst = XF ? swz32(xr, xq) : swz16(xr, xq);
+  const bf16* wq = w + (size_t)(blockIdx.x * TN + brow) * Kp + 8 * bq;
+  const bf16* hrow[2];
+  bool hlive[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + brow + 32 * i;
+    hlive[i] = row < Bf;
+    hrow[i] = hs_prev + (size_t)(hlive[i] ? row : 0) * Kh + 8 * bq;
+  }
+  const TX* xrow[XN];
+  bool xlive[XN];
+#pragma unroll
+  for (int i = 0; i < XN; ++i) {
+    const int row = r0 + xr + XR * i;
+    xlive[i] = row < Bf;
+    xrow[i] = x + ((size_t)(xlive[i] ? row : 0) * T + t) * In + XE * xq;
+  }
+
+  // the warp's tile: MT m16 tiles (rows wm 16 MT ..) x NT n8 tiles (packed
+  // columns wn 8 NT ..; n8 tile 4 q + g of the warp is gate g of its unit
+  // group q: pack_weights' interleave); MT = 1 is wgmma's m64n64 split of
+  // the block tile over its 4 warps
+  constexpr int NT = 8 / MT, WMB = 4 / MT, NQ = NT / 4;
+  const int wm = warp % WMB, wn = warp / WMB;
+  const int ue = u0 + 8 * NQ * wn + 2 * tq;   // even; units ue + 8 q (+1)
+  const int row0 = r0 + 16 * MT * wm + gid;   // rows row0 + 16 mi (+8)
+  // c of the thread's rows and units, read when the frame before has
+  // finished (it writes c), ahead of the h stages
+  float c2[MT][NQ][2][2];
+  auto fetch_c = [&]() {
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int q = 0; q < NQ; ++q)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = row0 + 16 * mi + 8 * hh, u = ue + 8 * q;
+          const float* cp = c + (size_t)(row < Bf ? row : 0) * H + u;
+#pragma unroll
+          for (int cc = 0; cc < 2; ++cc)
+            c2[mi][q][hh][cc] = row < Bf && u + cc < H ? cp[cc] : 0.f;
+        }
+  };
+
+  // stage kt into ring slot `slot`; rows past Bf and x past In zero-filled
+  // (XR and 32 keep a row's swizzle)
+  auto load = [&](int kt, int slot) {
+    bf16* bs = b_slot(slot) + b_dst;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      cp_async16(bs + 32 * i * BK, wq + (size_t)32 * i * Kp + kt * BK, 16);
+    if (kt < nkx) {
+      const int k = kt * BK;
+      TX* as = reinterpret_cast<TX*>(a_slot(slot)) + x_dst;
+#pragma unroll
+      for (int i = 0; i < XN; ++i) {
+        const bool ok = xlive[i] && k + XE * xq < In;
+        cp_async16(as + XR * i * BK, ok ? xrow[i] + k : x, ok ? 16 : 0);
+      }
+    } else {
+      if (kt == nkx) {  // the shadow and c are the frame before's
+        dep_wait();
+        fetch_c();
+      }
+      const int k = (kt - nkx) * BK;
+      bf16* as = reinterpret_cast<bf16*>(a_slot(slot)) + b_dst;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        cp_async16(as + 32 * i * BK, hrow[i] + k, hlive[i] ? 16 : 0);
+    }
+  };
+  // wait for stage kt, queue stage kt + STAGES - 1 into the slot stage
+  // kt - 1 held (every warp is past it: the barrier); stage kt's slot
+  auto advance = [&](int kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int next = kt + STAGES - 1;
+    if (next < nk) load(next, next % STAGES);
+    cp_async_commit();
+    return kt % STAGES;
+  };
+
+  // acc[mi][n8 tile][fragment]: rows gid (+8) of m tile mi, packed
+  // columns 2 tq (+1) of the n8 tile
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load(s, s);
+    cp_async_commit();
+  }
+  // the epilogue's bias, read ahead of the main loop, which hides its
+  // latency: the four gates' at units ue + 8 q (+1) (bf16 pairs, zero past
+  // H)
+  uint32_t bias2[NQ][4];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const int u = ue + 8 * q;
+      const unsigned short* bp =
+          reinterpret_cast<const unsigned short*>(bias + g * H + u);
+      bias2[q][g] = (u < H ? (uint32_t)__ldg(bp) : 0u) |
+                    (u + 1 < H ? (uint32_t)__ldg(bp + 1) << 16 : 0u);
+    }
+  // ldmatrix addresses, in bf16 elements, for k16 step p of a stage (k
+  // 16 p): A's m16 x k16 tiles (matrices rows +0 / +8, k +0 / +8), B's n8 x
+  // k16 tiles j and j + 1 (k +0 / +8 of each) from row 8 j; every row a
+  // lane names has the swizzle (lane >> 1) & 3 (its tile's first row is a
+  // multiple of 8)
+  const int sw = (lane >> 1) & 3;
+  const int a_row = 16 * MT * wm + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int b_row = 8 * NT * wn + (lane & 7) + (lane >> 4) * 8;
+  int a_ld[2], b_ld[2];
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    a_ld[p] = a_row * BK + (((2 * p + (lane >> 4)) ^ sw) << 3);
+    b_ld[p] = b_row * BK + (((2 * p + ((lane >> 3) & 1)) ^ sw) << 3);
+  }
+  auto load_b = [&](const bf16* bs, int p, uint32_t (&b)[NT][2]) {
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) ldsm_x4(b[j], bs + b_ld[p] + j * 8 * BK);
+  };
+  int kt = 0;
+  if constexpr (XF) {
+    // fp32 x: register i of m tile mi's A fragment is row gid (+8 for i
+    // odd), k 2 tq, 2 tq + 1 (+8 for i >= 2) of the k16 step: a float2,
+    // split in three bf16 pieces. x_ld[p]: the offset of its k 8 p, row
+    // 16 MT wm + gid
+    int x_ld[4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+      x_ld[p] = (16 * MT * wm + gid) * BK +
+                (((2 * p + (tq >> 1)) ^ ((gid & 3) << 1)) << 2) +
+                2 * (tq & 1);
+    for (; kt < nkx; ++kt) {
+      const int slot = advance(kt);
+      const float* xs = reinterpret_cast<const float*>(a_slot(slot));
+      const bf16* bs = b_slot(slot);
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        uint32_t hi[MT][4], mid[MT][4], lo[MT][4], b[NT][2];
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            split_bf16x3(*reinterpret_cast<const float2*>(
+                             xs + x_ld[2 * p + (i >> 1)] +
+                             (16 * mi + 8 * (i & 1)) * BK),
+                         hi[mi][i], mid[mi][i], lo[mi][i]);
+        load_b(bs, p, b);
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            mma_bf16(acc[mi][j], lo[mi], b[j]);
+            mma_bf16(acc[mi][j], mid[mi], b[j]);
+            mma_bf16(acc[mi][j], hi[mi], b[j]);
+          }
+      }
+    }
+  }
+  // a bf16 x and the shadow of h: one pass
+  for (; kt < nk; ++kt) {
+    const int slot = advance(kt);
+    const bf16* as = reinterpret_cast<const bf16*>(a_slot(slot));
+    const bf16* bs = b_slot(slot);
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      uint32_t a[MT][4], b[NT][2];
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+        ldsm_x4(a[mi], as + a_ld[p] + 16 * mi * BK);
+      load_b(bs, p, b);
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_bf16(acc[mi][j], a[mi], b[j]);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = row0 + 16 * mi + 8 * hh, u = ue + 8 * q;
+        if (row >= Bf || u >= H) continue;
+        float hv[2];
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          float g4[4];
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            const float2 bv = unpack_bf16x2(bias2[q][g]);
+            g4[g] = acc[mi][4 * q + g][2 * hh + cc] + (cc ? bv.y : bv.x);
+          }
+          hv[cc] = lstm_cell(g4[0], g4[1], g4[2], g4[3], c2[mi][q][hh][cc]);
+        }
+        const size_t ci = (size_t)row * H + u;
+        bf16* hs = hs_next + (size_t)row * Kh + u;
+        float* yr = y + ((size_t)row * T + t) * H + u;
+        c[ci] = c2[mi][q][hh][0];
+        h_next[ci] = hv[0];
+        yr[0] = hv[0];
+        if (u + 1 < H) {
+          c[ci + 1] = c2[mi][q][hh][1];
+          h_next[ci + 1] = hv[1];
+          yr[1] = hv[1];
+          *reinterpret_cast<uint32_t*>(hs) = pack_bf16x2(hv[0], hv[1]);
+        } else {
+          *hs = __float2bfloat16_rn(hv[0]);
+        }
+      }
 }
 
 // XP = x . Wx + b for all frames at once: the main loop over rows of x
@@ -366,7 +705,7 @@ lstm_proj_tc(const TX* __restrict__ x, const TW* __restrict__ w,
   const int col0 = (blockIdx.x % ncol) * TN, r0 = (blockIdx.x / ncol) * TM;
   float acc[2][4][4];
   tc_mainloop<VEC, passes_for<TX, TW>()>(acc, sm, x, nullptr, w, M, 1, In,
-                                         0, Kp, 0, r0, col0, NoPrep());
+                                         0, Kp, 0, r0, col0);
 
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
@@ -591,11 +930,11 @@ cudaError_t max_smem(K kernel, size_t bytes) {
   return err;
 }
 
-template <bool VEC, class TX, class TW>
-int run_tc(const TX* x, const TW* wp, const TW* b, float* hbuf, float* c,
-           float* y, int Bf, int T, int In, int H, int Hp, int Kp,
+template <bool VEC>
+int run_tc(const float* x, const float* wp, const float* b, float* hbuf,
+           float* c, float* y, int Bf, int T, int In, int H, int Hp, int Kp,
            int reverse, cudaStream_t st) {
-  auto kernel = lstm_step_tc<VEC, TX, TW>;
+  auto kernel = lstm_step_tc<VEC>;
   cudaError_t err = max_smem(kernel, TC_SMEM);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(Hp / TU, (Bf + TM - 1) / TM);
@@ -605,6 +944,40 @@ int run_tc(const TX* x, const TW* wp, const TW* b, float* hbuf, float* c,
         x, wp, b, hbuf + (s & 1) * half, hbuf + ((s + 1) & 1) * half, c, y,
         Bf, T, In, H, Kp, reverse ? T - 1 - s : s);
     if (s == 0 && (err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <class TX, int MT>
+int run_bf16(const TX* x, const bf16* wp, const bf16* b, float* hbuf,
+             bf16* hs, float* c, float* y, int Bf, int T, int In, int H,
+             int Hp, int Kx, int Kh, bool programmatic, int reverse,
+             cudaStream_t st) {
+  auto kernel = lstm_step_bf16<TX, MT>;
+  constexpr int smem = bf_smem<TX>();
+  cudaError_t err = max_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(Hp / TU, (Bf + TM - 1) / TM);
+  const size_t half = (size_t)Bf * H, shalf = (size_t)Bf * Kh;
+  // programmatic: frames after the first may start as soon as every block
+  // of the frame before has (frame 0 waits: its inputs were just written)
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  for (int s = 0; s < T; ++s) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(TC_THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cfg.attrs = &attr;
+    cfg.numAttrs = s > 0 && programmatic;
+    err = cudaLaunchKernelEx(&cfg, kernel, x, wp, b,
+                             (const bf16*)(hs + (s & 1) * shalf),
+                             hs + ((s + 1) & 1) * shalf,
+                             hbuf + ((s + 1) & 1) * half, c, y, Bf, T, In, H,
+                             Kx, Kh, reverse ? T - 1 - s : s);
+    if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
 }
@@ -657,10 +1030,9 @@ bool aligned4(const TX* x) {
   return reinterpret_cast<uintptr_t>(x) % (4 * sizeof(TX)) == 0;
 }
 
-template <class TX, class TW>
-int layer(const TX* x, const TW* wp, const TW* b, float* hbuf, float* c,
-          float* y, int Bf, int T, int In, int H, int Hp, int Kp, int reverse,
-          void* stream) {
+int layer(const float* x, const float* wp, const float* b, float* hbuf,
+          float* c, float* y, int Bf, int T, int In, int H, int Hp, int Kp,
+          int reverse, void* stream) {
   if (Hp % TU != 0 || Hp < H || Kp % TK != 0 || Kp < In + H)
     return (int)cudaErrorInvalidValue;
   const bool vec = In % 4 == 0 && H % 4 == 0 && aligned4(x);
@@ -669,6 +1041,24 @@ int layer(const TX* x, const TW* wp, const TW* b, float* hbuf, float* c,
                             reverse, st)
              : run_tc<false>(x, wp, b, hbuf, c, y, Bf, T, In, H, Hp, Kp,
                              reverse, st);
+}
+
+template <class TX>
+int layer_bf16(const TX* x, const bf16* wp, const bf16* b, float* hbuf,
+               bf16* hs, float* c, float* y, int Bf, int T, int In, int H,
+               int Hp, int Kx, int Kh, int mt, int programmatic, int reverse,
+               void* stream) {
+  // 16-byte copies of x's rows only: In a whole number of them, x aligned
+  constexpr int XE = 16 / sizeof(TX);
+  if (Hp % TU != 0 || Hp < H || Kx % BK != 0 || Kx < In || Kh % BK != 0 ||
+      Kh < H || In % XE != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      (mt != 1 && mt != 2))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return mt == 1 ? run_bf16<TX, 1>(x, wp, b, hbuf, hs, c, y, Bf, T, In, H,
+                                   Hp, Kx, Kh, programmatic, reverse, st)
+                 : run_bf16<TX, 2>(x, wp, b, hbuf, hs, c, y, Bf, T, In, H,
+                                   Hp, Kx, Kh, programmatic, reverse, st);
 }
 
 template <class TX, class TW>
@@ -712,8 +1102,6 @@ int recur_fit(int H, int Hk, int chunks, long* smem, int* per_sm) {
                     : fit(lstm_recur_persistent<false, TW>);
 }
 
-using bf16 = __nv_bfloat16;
-
 }  // namespace
 
 // The large fold, one lstm_step_tc a frame. x (Bf, T, In); wp: pack_weights'
@@ -728,16 +1116,26 @@ extern "C" int se_lstm_layer(const float* x, const float* wp, const float* b,
   return layer(x, wp, b, hbuf, c, y, Bf, T, In, H, Hp, Kp, reverse, stream);
 }
 
-// The same with bf16 weights: wp and b bf16, x fp32 or bf16 (x_bf16);
-// hbuf, c and y fp32, h rounded to bf16 only where the product takes it.
+// The same with bf16 weights, one lstm_step_bf16 a frame: wp
+// pack_weights_bf16's (4Hp, Kx + Kh) and b bf16; x (Bf, T, In) fp32 or
+// bf16 (x_bf16), In a multiple of 16 bytes' elements and x 16-byte aligned
+// (the wrapper pads); Kx, Kh multiples of 32, not below In and H; hbuf, c
+// and y fp32 as se_lstm_layer's; hs (2, Bf, Kh) bf16, zero past H, h0
+// rounded to bf16 in its first half: the shadow of h the products take.
+// mt (1 or 2): m16 tiles a warp; programmatic: frames after the first
+// launched as programmatic dependents (ops/lstm.py bf16_step_design).
 extern "C" int se_lstm_layer_bf16(const void* x, int x_bf16, const bf16* wp,
-                                  const bf16* b, float* hbuf, float* c,
-                                  float* y, int Bf, int T, int In, int H,
-                                  int Hp, int Kp, int reverse, void* stream) {
-  return x_bf16 ? layer(static_cast<const bf16*>(x), wp, b, hbuf, c, y, Bf,
-                        T, In, H, Hp, Kp, reverse, stream)
-                : layer(static_cast<const float*>(x), wp, b, hbuf, c, y, Bf,
-                        T, In, H, Hp, Kp, reverse, stream);
+                                  const bf16* b, float* hbuf, bf16* hs,
+                                  float* c, float* y, int Bf, int T, int In,
+                                  int H, int Hp, int Kx, int Kh, int mt,
+                                  int programmatic, int reverse,
+                                  void* stream) {
+  return x_bf16 ? layer_bf16(static_cast<const bf16*>(x), wp, b, hbuf, hs,
+                             c, y, Bf, T, In, H, Hp, Kx, Kh, mt,
+                             programmatic, reverse, stream)
+                : layer_bf16(static_cast<const float*>(x), wp, b, hbuf, hs,
+                             c, y, Bf, T, In, H, Hp, Kx, Kh, mt,
+                             programmatic, reverse, stream);
 }
 
 // The small fold's projection: xp (M, N) = x (M, In) . Wx + b, N = 4H. wp:

@@ -4,13 +4,16 @@
 // split, ldmatrix of fp32 fragments, the mma.sync.m16n8k8 TF32 product
 // with fp32 accumulation, one K step of 8 of a warp's tile product in 3, 2
 // or 1 TF32 passes (`mma_step`), the main loop that runs it over a
-// cp.async ring (`tc_ring`), and the bf16 storage helpers (`round_bf16`:
-// an fp32 value rounded to bf16 where a product takes it in bf16, as the
-// bf16 LSTM's recurrent h). sm_80 and up.
+// cp.async ring (`tc_ring`), the bf16 storage helpers (`round_bf16`: an
+// fp32 value rounded to bf16 where a product takes it in bf16, as the bf16
+// LSTM's recurrent h), and the bf16 fragments of the bf16 LSTM step
+// (bf16 cp.async and ldmatrix, mma.sync.m16n8k16 bf16, the three-piece
+// bf16 split of an fp32 operand). sm_80 and up.
 //
-// bf16 variants keep every tile in shared memory as fp32: a bf16 operand
-// is widened as it is loaded (`copy4`, `copy1`: a plain load, converted,
-// stored; no cp.async) and written back rounded to nearest even (`put`).
+// The other bf16 variants keep every tile in shared memory as fp32: a
+// bf16 operand is widened as it is loaded (`copy4`, `copy1`: a plain load,
+// converted, stored; no cp.async) and written back rounded to nearest even
+// (`put`).
 // A bf16 value is exact in TF32 (8 significant bits of TF32's 11), so a
 // product of two bf16 operands is exact in one TF32 pass (PASSES = 1),
 // and a product of an fp32 operand A with a bf16 operand B needs only
@@ -174,6 +177,74 @@ __device__ __forceinline__ int lane_a_offset(int lane, int ld) {
 
 __device__ __forceinline__ int lane_b_offset(int lane, int ld) {
   return ((lane >> 4) * 8 + (lane & 7)) * ld + ((lane >> 3) & 1) * 4;
+}
+
+// ---- bf16 fragments (the bf16 LSTM step, lstm.cu `lstm_step_bf16`)
+
+// 16 bytes of bf16 into shared memory (dst, src 16-byte aligned), zeros
+// past `bytes` (0 or 16; src must still be a valid address).
+__device__ __forceinline__ void cp_async16(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// Four 8 x 8 bf16 matrices from shared memory (lane l gives the address of
+// row l % 8 of matrix l / 8); register i of lane l holds elements 2 (l % 4)
+// and 2 (l % 4) + 1 of row l / 4 of matrix i, the lower in the low half:
+// the m16n8k16 bf16 fragment layout. Its byte offsets are the fp32 tiles'
+// (8 bf16 = 4 floats): lane_a_offset / lane_b_offset in 4-byte words
+// address a bf16 tile too.
+__device__ __forceinline__ void ldsm_x4(uint32_t* r,
+                                        const __nv_bfloat16* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s)
+      : "memory");
+}
+
+// d += a . b on a 16 x 8 x 16 tile of bf16 operands, fp32 accumulate. The
+// accumulator layout is m16n8k8's: d0, d1 row lane / 4, columns 2 (lane %
+// 4) + 0 / 1; d2, d3 the same, 8 rows down.
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two fp32 values as one bf16x2 register (each to nearest even; the first
+// in the low half, the lower K index of a fragment), and back.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+__device__ __forceinline__ float2 unpack_bf16x2(uint32_t v) {
+  return make_float2(__uint_as_float(v << 16),
+                     __uint_as_float(v & 0xffff0000u));
+}
+
+// v = hi + mid + lo in three bf16 pieces, each the bf16 nearest what the
+// pieces before leave: hi = bf16(v), mid = bf16(v - hi), lo = bf16(v - hi -
+// mid). The differences are exact in fp32 and the last one has at most 8
+// significant bits, so the sum is v bit for bit wherever the pieces stay
+// normal (|v| >= 1e-33; below, off by less than 1e-40), and each piece's
+// product with a bf16 value is exact in fp32. Two values at a time.
+__device__ __forceinline__ void split_bf16x3(float2 v, uint32_t& hi,
+                                             uint32_t& mid, uint32_t& lo) {
+  hi = pack_bf16x2(v.x, v.y);
+  float2 p = unpack_bf16x2(hi);
+  v = make_float2(v.x - p.x, v.y - p.y);
+  mid = pack_bf16x2(v.x, v.y);
+  p = unpack_bf16x2(mid);
+  lo = pack_bf16x2(v.x - p.x, v.y - p.y);
 }
 
 // The A fragments as they are: the default of mma_step's and tc_ring's

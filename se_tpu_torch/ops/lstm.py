@@ -12,7 +12,8 @@ plain twin: `_project_reference` (the projection as one matmul) then
 Two designs, chosen per layer call by `step_variant`:
 - "tensor_core", the large fold and short sequences: `lstm_step`, one C
   call that enqueues a tensor-core step kernel a frame (3xTF32 `mma.sync`,
-  the projection inside each step, weights from `pack_weights`);
+  the projection inside each step, weights from `pack_weights`; bf16
+  weights: `lstm_step_bf16`, below);
 - "persistent", the small fold: `lstm_project` (a tensor-core GEMM for all
   frames, twin `_project_reference`), then `lstm_recur` (the whole time
   loop in one cooperative launch, each block's slice of Wh resident in
@@ -26,11 +27,18 @@ not the activations) launch the bf16 variants of all three
 counted as `lstm_bf16`, `lstm_project_bf16`, `lstm_recur_bf16`) by the
 LSTM's own dtype rule (`_build.lstm_dtype`): x fp32 or bf16, XP, h, c and
 y fp32. They keep se_tpu's rounding points (se_tpu/nn/recurrent.py:36-37,
-:150; pallas_lstm.py:44-46): the projection x . Wx in fp32 on the widened
-operands (XP fp32), h rounded to bf16 where the recurrent product takes
-it, the carries fp32. The twins do the same in plain torch: a torch
-matmul of two bf16 tensors would return bf16, not se_tpu's fp32
-(`preferred_element_type`).
+:150; pallas_lstm.py:44-46): x . Wx the exact fp32 product (XP fp32), h
+rounded to bf16 where the recurrent product takes it, the carries fp32.
+The twins do the same in plain torch: a torch matmul of two bf16 tensors
+would return bf16, not se_tpu's fp32 (`preferred_element_type`). The
+bf16 step (`lstm_step_bf16`) runs on bf16 tensor cores: its weights from
+`pack_weights_bf16` (Wx's rows padded to Kx, then Wh's to Kh, so a K
+stage is wholly x or wholly h), an fp32 x split in three bf16 pieces in
+its fragments (three exact products), a bf16 x padded once to a multiple
+of 8 elements where it is not (`aligned_x`), and h from a bf16 shadow
+that each frame writes for the next (`shadow`: one product). Its warp
+layout and launch mode come from `bf16_step_design`. The bound and what
+the design does about it: csrc/lstm.cu's header, "bf16".
 
 Under autograd each wrapper's launch is a Function (`_autograd.
 kernel_call`): the kernel forward, and the VJP of a plain twin recomputed
@@ -70,6 +78,8 @@ SMEM_OPTIN, SMEM_SM, SMEM_RESERVED = 232448, 233472, 1024
 # (two launches, packing Wx and Wh, the occupancy query); measured by
 # lstm_dispatch_sweep.py
 SHORT_T = 16
+# the bf16 step's x rows: a whole number of 16-byte copies of either dtype
+X_ALIGN = 8
 # frames a chunk of the layer's backward twin (se_tpu's chunk)
 BWD_CHUNK = 32
 
@@ -177,6 +187,18 @@ def pack_weights(wx: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
                        _ceil_to(in_dim + h_dim, K_TILE))
 
 
+def pack_weights_bf16(wx: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
+    """[Wx; Wh] -> (4Hp, Kx + Kh), K-major and interleaved as
+    `pack_weights`, for the bf16 step: Wx's rows zero-padded to Kx = In
+    rounded up to K_TILE, then Wh's to Kh = H rounded up to K_TILE, so each
+    K stage of the kernel is wholly x or wholly h."""
+    in_dim, h_dim = wx.shape[0], wh.shape[0]
+    hp = _ceil_to(h_dim, UNIT_TILE)
+    return torch.cat([_interleave(wx, h_dim, hp, _ceil_to(in_dim, K_TILE)),
+                      _interleave(wh, h_dim, hp, _ceil_to(h_dim, K_TILE))],
+                     dim=1)
+
+
 def pack_recurrent(wh: torch.Tensor) -> torch.Tensor:
     """Wh (H, 4H) -> (4Hk, Hk), K-major and interleaved as `pack_weights`,
     for the persistent recurrence: Hk = H rounded up to 8 (a unit tile and
@@ -277,6 +299,30 @@ def _state(ref: torch.Tensor, bf: int, h_dim: int, h0, c0):
     else:
         c = torch.zeros(bf, h_dim, device=ref.device)
     return hbuf, c
+
+
+def aligned_x(x: torch.Tensor) -> torch.Tensor:
+    """x (Bf, T, In) as the bf16 step copies it, 16 bytes at a time: rows
+    of a multiple of X_ALIGN elements from a 16-byte aligned start. Where
+    x is not so (LSTMNet's In = 161), a copy zero-padded to In rounded up
+    to X_ALIGN (pack_weights_bf16's rows past In are zero too)."""
+    in_dim = x.shape[2]
+    if in_dim % X_ALIGN == 0 and x.data_ptr() % 16 == 0:
+        return x
+    return F.pad(x, (0, _ceil_to(in_dim, X_ALIGN) - in_dim))
+
+
+def shadow(h0, bf: int, h_dim: int, device) -> torch.Tensor:
+    """The bf16 step's shadow of h: (2, Bf, Kh) bf16, Kh = H rounded up to
+    K_TILE, zero but for h0 rounded to bf16 (to nearest even, as se_tpu's
+    `h.astype(bf16)`) in the first half's first H columns. Each frame
+    writes h_t, rounded, to the other half: the h its successor's product
+    takes."""
+    hs = torch.zeros(2, bf, _ceil_to(h_dim, K_TILE), dtype=torch.bfloat16,
+                     device=device)
+    if h0 is not None:
+        hs[0, :, :h_dim].copy_(h0)
+    return hs
 
 
 def _x_arg(x: torch.Tensor, dtype: torch.dtype) -> tuple:
@@ -381,16 +427,42 @@ def _layer_call(launch, x, wx, wh, b, reverse: bool, h0, c0):
         x, wx, wh, b, h0, c0, no_grad_outputs=(1, 2))
 
 
-def _step_launch(x, wx, wh, b, reverse: bool, h0, c0):
+def bf16_step_design(in_dim: int, h_dim: int) -> tuple[int, bool]:
+    """The bf16 step's design for a layer: (m16 tiles a warp, frames
+    launched as programmatic dependents). Where the x part is at least as
+    long as the h part (Kx >= Kh: FullSubNet's second sub-band layer,
+    LSTMNet's and CRN's 1024 -> 1024, DPCRN's intra LSTM), one m16 tile a
+    warp (each fp32 x fragment split once, not by two warps) and
+    programmatic launches (a frame's blocks run their x stages while the
+    frame before finishes); else two m16 tiles a warp (fewer ldmatrix
+    bytes for the h stages) and plain launches (early blocks would only
+    slow the frame before's h stages). lstm_bf16_sweep.py times all four."""
+    heavy_x = _ceil_to(in_dim, K_TILE) >= _ceil_to(h_dim, K_TILE)
+    return (1, True) if heavy_x else (2, False)
+
+
+def _step_launch(x, wx, wh, b, reverse: bool, h0, c0, design=None):
+    """One layer on the step kernel; `design` forces the bf16 step's
+    (bf16_step_design's pair)."""
     dtype = _check_layer(x, wx, wh, b, h0, c0)
     bf, t_len, in_dim = x.shape
     h_dim = wh.shape[0]
     hbuf, c = _state(x, bf, h_dim, h0, c0)
     ys = torch.empty(bf, t_len, h_dim, device=x.device)
-    _build.launch(_build.variant("se_lstm_layer", dtype), *_x_arg(x, dtype),
-                  pack_weights(wx, wh), b, hbuf, c, ys, bf, t_len, in_dim,
-                  h_dim, _ceil_to(h_dim, UNIT_TILE),
-                  _ceil_to(in_dim + h_dim, K_TILE), bool(reverse))
+    if dtype == torch.bfloat16:
+        x = aligned_x(x)
+        mt, programmatic = design or bf16_step_design(in_dim, h_dim)
+        _build.launch("se_lstm_layer_bf16", x, x.dtype == torch.bfloat16,
+                      pack_weights_bf16(wx, wh), b, hbuf,
+                      shadow(h0, bf, h_dim, x.device), c, ys, bf, t_len,
+                      x.shape[2], h_dim, _ceil_to(h_dim, UNIT_TILE),
+                      _ceil_to(in_dim, K_TILE), _ceil_to(h_dim, K_TILE), mt,
+                      programmatic, bool(reverse))
+    else:
+        _build.launch("se_lstm_layer", x, pack_weights(wx, wh), b, hbuf, c,
+                      ys, bf, t_len, in_dim, h_dim,
+                      _ceil_to(h_dim, UNIT_TILE),
+                      _ceil_to(in_dim + h_dim, K_TILE), bool(reverse))
     _build.LAUNCHES[_build.variant("lstm", dtype)] += 1
     return ys, (hbuf[t_len % 2], c)
 

@@ -807,7 +807,8 @@ def test_fp32_only_kernels_refuse_bf16_on_the_card(gen, dev):
 # (ops/_dtype.py LSTM_FLOOR).
 BF16_LSTM_SHAPES = [(4, 257, 512), (1030, 32, 384), (8, 512, 128),
                     (4, 1024, 1024), (2900, 32, 40), (12832, 128, 64),
-                    (1030, 33, 384), (256, 161, 1024), (19, 33, 44)]
+                    (1030, 33, 384), (256, 161, 1024), (19, 33, 44),
+                    (2900, 161, 44)]
 
 
 def _bf16_lstm_args(gen, bf, t, in_dim, h, x_dtype, dev):
@@ -845,10 +846,14 @@ def test_lstm_bf16_kernel_matches_twin(gen, dev, x_dtype, reverse, bf,
     bf16_close([ys, hn, cn], [free[0], *free[1]], floor=LSTM_FLOOR)
 
 
-@pytest.mark.parametrize("bf,in_dim,h", [(1030, 32, 384), (8, 512, 128)])
-def test_lstm_bf16_kernel_carry_matches_twin(gen, dev, bf, in_dim, h):
-    x, wx, wh, b = _bf16_lstm_args(gen, bf, T_LONG, in_dim, h,
-                                   torch.float32, dev)
+@pytest.mark.parametrize("bf,in_dim,h,x_dtype",
+                         [(1030, 32, 384, torch.float32),
+                          (8, 512, 128, torch.float32),
+                          (2900, 161, 44, BF16)])
+def test_lstm_bf16_kernel_carry_matches_twin(gen, dev, bf, in_dim, h,
+                                             x_dtype):
+    x, wx, wh, b = _bf16_lstm_args(gen, bf, T_LONG, in_dim, h, x_dtype,
+                                   dev)
     h0, c0 = to_torch((rand(gen, bf, h, scale=0.5),
                        rand(gen, bf, h, scale=0.5)), device=dev)
     ys, (hn, cn) = lstm.lstm_layer_kernel(x, wx, wh, b, False, h0, c0)
@@ -857,6 +862,58 @@ def test_lstm_bf16_kernel_carry_matches_twin(gen, dev, bf, in_dim, h):
     close([ys], [stepped[0]], ATOL)
     free = lstm._reference(x, wx, wh, b, False, h0, c0)
     bf16_close([ys, hn, cn], [free[0], *free[1]], floor=LSTM_FLOOR)
+
+
+# The bf16 step alone (`lstm_step`: the large-fold design at any shape):
+# In = 161 (the wrapper's padded copy of x), x at an address off 16 bytes
+# (`offset` elements into its storage: copied too), ragged Bf, H not a
+# multiple of the 16-unit tile, with and without a carry.
+@pytest.mark.parametrize("x_dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("carry", [False, True])
+@pytest.mark.parametrize("bf,in_dim,h,offset", [(67, 161, 44, 0),
+                                                (130, 161, 20, 0),
+                                                (70, 32, 40, 1),
+                                                (1030, 32, 384, 0)])
+def test_lstm_bf16_step_matches_twin(gen, dev, x_dtype, carry, bf, in_dim,
+                                     h, offset):
+    x, wx, wh, b = _bf16_lstm_args(gen, bf, T_LONG, in_dim, h, x_dtype, dev)
+    if offset:
+        store = torch.empty(x.numel() + offset, dtype=x.dtype, device=dev)
+        x = store[offset:].view(x.shape).copy_(x)
+        assert x.data_ptr() % 16 != 0
+    h0 = c0 = None
+    if carry:
+        h0, c0 = to_torch((rand(gen, bf, h, scale=0.5),
+                           rand(gen, bf, h, scale=0.5)), device=dev)
+    before = dict(_build.LAUNCHES)
+    ys, (hn, cn) = lstm.lstm_step(x, wx, wh, b, False, h0, c0)
+    torch.cuda.synchronize()
+    assert _lstm_bf16_counts(before) == {
+        "lstm": 0, "lstm_project": 0, "lstm_recur": 0, "lstm_bf16": 1,
+        "lstm_project_bf16": 0, "lstm_recur_bf16": 0}
+    stepped = lstm._reference(x, wx, wh, b, False, h0, c0, h_in=ys)
+    close([ys], [stepped[0]], ATOL)
+    free = lstm._reference(x, wx, wh, b, False, h0, c0)
+    bf16_close([ys, hn, cn], [free[0], *free[1]], floor=LSTM_FLOOR)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("bf,in_dim,h", [(1030, 32, 384), (1030, 384, 384),
+                                         (70, 161, 44)])
+def test_lstm_bf16_step_designs_agree(gen, dev, x_dtype, bf, in_dim, h):
+    """The bf16 step's four designs (one or two m16 tiles a warp, plain or
+    programmatic launches: lstm.bf16_step_design picks one) sum every
+    output in the same order: the same y bit for bit, and the picked one
+    within the twin's stepped tolerance."""
+    x, wx, wh, b = _bf16_lstm_args(gen, bf, T_LONG, in_dim, h, x_dtype, dev)
+    ys = [lstm._step_launch(x, wx, wh, b, False, None, None,
+                            design=(mt, pdl))[0]
+          for mt in (1, 2) for pdl in (False, True)]
+    torch.cuda.synchronize()
+    for y in ys[1:]:
+        assert torch.equal(y, ys[0])
+    stepped = lstm._reference(x, wx, wh, b, h_in=ys[0])
+    close([ys[0]], [stepped[0]], ATOL)
 
 
 @pytest.mark.parametrize("x_dtype", [torch.float32, BF16])

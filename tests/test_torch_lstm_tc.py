@@ -22,17 +22,25 @@ and the persistent kernel's grid are held here in plain torch.
   intra LSTM over 4 bins, to the tensor-core step), and `persistent_plan`
   gives each small-fold call a grid that owns every (row, unit) once, fits
   in shared memory and is resident in one wave.
-- The bf16 variants: bf16 packs (the same permutation), products against
-  bf16 weights in 2 TF32 passes of an fp32 operand and 1 of a bf16-valued
-  one (the bf16 x, the rounded h), both designs with h rounded to bf16
-  where the product takes it, held to the twin stepped along its own y
-  within the same 1e-5.
+- The bf16 variants: bf16 packs (the same permutation), and h rounded to
+  bf16 where the product takes it, held to the twin stepped along its own
+  y within the same 1e-5. The small fold's projection takes 2 TF32 passes
+  of an fp32 x against the bf16 weights and 1 of a bf16-valued operand
+  (the bf16 x, the rounded h). The bf16 step (`lstm_step_bf16`) takes
+  `pack_weights_bf16` (the x rows padded to Kx, then the h rows to Kh:
+  each K stage wholly x or wholly h), an fp32 x as three bf16 pieces
+  (`split_bf16x3`: their sum is x bit for bit down to 1e-33), a bf16 x
+  padded to a multiple of 8 elements (`aligned_x`), and h from its bf16
+  shadow, one bf16 product each, summed in fp32 stage by stage.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
+from se_tpu.nn.recurrent import lstm_layer as j_lstm_layer
 from se_tpu.ops.pallas_lstm import _scan_forward
 from se_tpu_torch.ops import lstm
 from torch_kernel_inputs import close, lstm_inputs, to_torch
@@ -85,6 +93,37 @@ def matmul_passes(a: torch.Tensor, w: torch.Tensor, passes: int):
     return small @ w + big @ w
 
 
+def split_bf16x3(v: torch.Tensor):
+    """tc_common.cuh `split_bf16x3`: v = hi + mid + lo, each the bf16
+    nearest (to nearest even) what the pieces before leave, the
+    differences in fp32."""
+    hi = round_bf16(v)
+    rest = v - hi
+    mid = round_bf16(rest)
+    return hi, mid, round_bf16(rest - mid)
+
+
+def bf16_step_gates(x_t, hs, wp, kx: int):
+    """One frame's packed gate sums as lstm_step_bf16 forms them: x_t
+    (Bf, In) zero-padded to Kx, an fp32 x as its three bf16 pieces (lo,
+    mid, hi, one product each), a bf16 x as it is; then the shadow hs (Bf,
+    Kh), h rounded to bf16; each product of bf16 values exact in fp32,
+    summed in fp32 stage by stage (K_TILE a stage). wp: pack_weights_bf16's
+    (4Hp, Kx + Kh)."""
+    a = torch.nn.functional.pad(x_t.float(), (0, kx - x_t.shape[1]))
+    pieces = split_bf16x3(a)[::-1] if x_t.dtype == torch.float32 else (a,)
+    w = wp.float()
+    acc = torch.zeros(x_t.shape[0], w.shape[0])
+    for k0 in range(0, kx, lstm.K_TILE):
+        for piece in pieces:
+            acc = acc + piece[:, k0:k0 + lstm.K_TILE] @ \
+                w[:, k0:k0 + lstm.K_TILE].t()
+    for k0 in range(0, hs.shape[1], lstm.K_TILE):
+        acc = acc + hs[:, k0:k0 + lstm.K_TILE] @ \
+            w[:, kx + k0:kx + k0 + lstm.K_TILE].t()
+    return acc
+
+
 def _frames(t_len: int, reverse: bool, h_in):
     """(t, the h a frame's product takes from `h_in`: its y at the frame
     walked before, or None for the layer's own h) in walk order."""
@@ -103,25 +142,35 @@ def _product(a, w, passes: str, a_bf16: bool):
 
 
 def packed_layer(x, wx, wh, b, passes: str, reverse: bool = False,
-                 h_in=None):
-    """One layer as lstm_step_tc computes it: per frame, [x_t | h_{t-1}]
-    zero-padded to Kp times the packed (4Hp, Kp) weights, gates read back
-    from the packed column order, the cell in fp32. "bf16": bf16 weights
-    (widened), h_{t-1} rounded to bf16 in A. `h_in`: each frame's product
-    takes h_in's h (as the twin's `h_in`)."""
+                 h_in=None, h0=None, c0=None):
+    """One layer as the step kernels compute it, per frame, gates read
+    back from the packed column order, the cell in fp32. "fp32" /
+    "3xtf32" (lstm_step_tc): [x_t | h_{t-1}] zero-padded to Kp times
+    pack_weights' (4Hp, Kp). "bf16" (lstm_step_bf16): `bf16_step_gates`
+    with pack_weights_bf16's weights and h_{t-1} rounded to bf16 in the
+    shadow. `h_in`: each frame's product takes h_in's h (as the twin's
+    `h_in`)."""
     bf, t_len, in_dim = x.shape
     h_dim = wh.shape[0]
-    wp = lstm.pack_weights(wx, wh).float()
+    if passes == "bf16":
+        wp = lstm.pack_weights_bf16(wx, wh)
+        kx = -(-in_dim // lstm.K_TILE) * lstm.K_TILE
+        kh = wp.shape[1] - kx
+    else:
+        wp = lstm.pack_weights(wx, wh).float()
     hp, kp = wp.shape[0] // 4, wp.shape[1]
-    h = torch.zeros(bf, h_dim)
-    c = torch.zeros(bf, h_dim)
+    h = torch.zeros(bf, h_dim) if h0 is None else h0
+    c = torch.zeros(bf, h_dim) if c0 is None else c0
     ys = torch.empty(bf, t_len, h_dim)
     for t, forced in _frames(t_len, reverse, h_in):
         h = h if forced is None else forced
-        hr = round_bf16(h) if passes == "bf16" else h
-        a = torch.nn.functional.pad(torch.cat([x[:, t].float(), hr], 1),
-                                    (0, kp - in_dim - h_dim))
-        gp = _product(a, wp.t(), passes, x.dtype == BF16)
+        if passes == "bf16":
+            hs = torch.nn.functional.pad(round_bf16(h), (0, kh - h_dim))
+            gp = bf16_step_gates(x[:, t], hs, wp, kx)
+        else:
+            a = torch.nn.functional.pad(torch.cat([x[:, t], h], 1),
+                                        (0, kp - in_dim - h_dim))
+            gp = _product(a, wp.t(), passes, False)
         gp = gp.view(bf, hp // lstm.GROUP, 4, lstm.GROUP)
         i, f, g, o = (gp[:, :, q].reshape(bf, hp)[:, :h_dim]
                       + b[q * h_dim:(q + 1) * h_dim].float()
@@ -408,9 +457,9 @@ def _bf16_layer_inputs(rng, bf, t, in_dim, h, x_dtype):
 @pytest.mark.parametrize("bf,t,in_dim,h", [(5, 9, 6, 20), (3, 6, 33, 40)])
 def test_bf16_packed_step_matches_twin(rng, x_dtype, reverse, bf, t, in_dim,
                                        h):
-    """The bf16 step's passes (2 for an fp32 x, 1 for a bf16 x) and its
-    rounding of h in the fragments: stepped along the twin's own y (no h
-    flips between the two), within the fp32 designs' 1e-5."""
+    """The bf16 step's arithmetic (an fp32 x in three bf16 pieces, a bf16
+    x and the shadow of h in one product each): stepped along the twin's
+    own y (no h flips between the two), within the fp32 designs' 1e-5."""
     x, wx, wh, b = _bf16_layer_inputs(rng, bf, t, in_dim, h, x_dtype)
     want, _ = lstm._reference(x, wx, wh, b, reverse)
     got = packed_layer(x, wx, wh, b, "bf16", reverse, h_in=want)
@@ -439,10 +488,26 @@ def test_bf16_packs_keep_the_weights_dtype(rng):
                            pack(*(round_bf16(a) for a in args)))
 
 
-def test_bf16_weights_take_two_passes_of_fp32_x_and_one_of_bf16_x(rng):
+def _passes_tf32(a, w):
+    """The projection's (lstm_proj_tc): 2 TF32 passes of an fp32 a."""
+    return matmul_passes(a, w, 2)
+
+
+def _pieces_bf16(a, w):
+    """The bf16 step's (lstm_step_bf16): a's three bf16 pieces."""
+    return sum(p @ w for p in split_bf16x3(a)[::-1])
+
+
+@pytest.mark.parametrize("product,one_pass", [
+    (_passes_tf32, tf32), (_pieces_bf16, round_bf16)],
+    ids=["projection 2 tf32 passes", "step 3 bf16 pieces"])
+def test_bf16_weights_take_two_passes_of_fp32_x_and_one_of_bf16_x(
+        rng, product, one_pass):
     """The sub band's second layer, K = 768, against bf16 weights: an fp32
-    A in two passes keeps fp32 accuracy against fp64 (one pass would not);
-    a bf16-valued A (a bf16 x, the rounded h) is exact in one pass."""
+    A in the kernel's exact form (the projection's 2 TF32 passes, the
+    step's 3 bf16 pieces) keeps fp32 accuracy against fp64 (one pass of A
+    rounded to TF32 or bf16 would not); a bf16-valued A (a bf16 x, the
+    rounded h) is exact in one pass."""
     m, k, n = 256, 768, 512
     a = np.concatenate([rng.standard_normal((m, 384)),
                         rng.uniform(-1, 1, (m, 384))], 1).astype(np.float32)
@@ -455,7 +520,175 @@ def test_bf16_weights_take_two_passes_of_fp32_x_and_one_of_bf16_x(rng):
         return float((c.double() - exact).abs().max()) / float(
             exact.abs().max())
 
-    assert rel(matmul_passes(ta, tw, 2), ta) <= 1e-6
-    assert rel(tf32(ta) @ tw, ta) > 1e-5
+    assert rel(product(ta, tw), ta) <= 1e-6
+    assert rel(one_pass(ta) @ tw, ta) > 1e-5
     ab = round_bf16(ta)
     assert rel(matmul_passes(ab, tw, 1), ab) <= 1e-6
+
+
+def _exp_range(rng, n):
+    """n fp32 values of random sign spanning the exponent range: random
+    bit patterns, the NaN / inf exponent left out."""
+    bits = rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32)
+    v = torch.from_numpy(bits.view(np.int32)).view(torch.float32)
+    return v[torch.isfinite(v)]
+
+
+def _reassembled(v):
+    hi, mid, lo = split_bf16x3(v)
+    assert all(torch.equal(p, round_bf16(p)) for p in (hi, mid, lo))
+    return hi.double() + mid.double() + lo.double()
+
+
+def test_three_bf16_pieces_reassemble_fp32_x(rng):
+    """split_bf16x3: hi + mid + lo is x bit for bit for |x| >= 1e-33
+    across the exponent range, at bf16 ties (x halfway between two bf16
+    values, each way), at +-0 and up to 3e38; below 1e-33 the last rest
+    falls among the subnormals and the sum is off by less than 1e-40. So
+    each piece's product with a bf16 weight is exact in fp32, as the one
+    fp32 product of se_tpu's x . Wx."""
+    v = _exp_range(rng, 1 << 22)
+    v = v[v.abs() <= 3e38]
+    one = torch.tensor([1.0 + 2.0 ** -8])  # halfway: 1 and 1 + 2^-7
+    ties = torch.cat([one * 2.0 ** e for e in range(-100, 120, 7)])
+    ties = torch.cat([ties, -ties, ties * (1 + 2.0 ** -20),
+                      torch.tensor([0.0, -0.0, 3e38, -3e38, 1e-33])])
+    for x in (v, ties):
+        big = x.abs() >= 1e-33
+        got = _reassembled(x)
+        assert torch.equal(got[big], x[big].double())
+        err = (got[~big] - x[~big].double()).abs()
+        assert err.numel() == 0 or float(err.max()) < 1e-40
+    zeros = split_bf16x3(torch.tensor([0.0, -0.0]))
+    assert all(not p.any() for p in zeros)
+    assert torch.signbit(zeros[0][1])
+    tiny = torch.tensor([1e-34, 3e-38, 1e-40, 1e-45, -7e-39])
+    assert float((_reassembled(tiny) - tiny.double()).abs().max()) < 1e-40
+
+
+@pytest.mark.parametrize("in_dim,h", [(6, 20), (33, 44), (161, 20),
+                                      (161, 44), (32, 384)])
+def test_pack_weights_bf16_puts_x_and_h_at_their_padded_offsets(rng, in_dim,
+                                                                 h):
+    """pack_weights_bf16 is an exact permutation of [Wx; Wh], zero-padded:
+    packed column (u // 8) 32 + 8 g + u % 8 is gate g of unit u, Wx's rows
+    at K 0 .. In and Wh's at Kx .. Kx + H (Kx, Kh = In, H rounded up to
+    the 32-deep K stage), bf16 in, bf16 out."""
+    _, wx, wh, _ = to_torch(lstm_inputs(rng, 1, 1, in_dim, h))
+    wx, wh = wx.to(BF16), wh.to(BF16)
+    wp = lstm.pack_weights_bf16(wx, wh)
+    hp = -(-h // lstm.UNIT_TILE) * lstm.UNIT_TILE
+    kx = -(-in_dim // lstm.K_TILE) * lstm.K_TILE
+    kh = -(-h // lstm.K_TILE) * lstm.K_TILE
+    assert wp.shape == (4 * hp, kx + kh) and wp.is_contiguous()
+    assert wp.dtype == BF16
+    want = torch.zeros(4 * hp, kx + kh, dtype=BF16)
+    for g in range(4):
+        for u in range(h):
+            col = (u // 8) * 32 + g * 8 + u % 8
+            want[col, :in_dim] = wx[:, g * h + u]
+            want[col, kx:kx + h] = wh[:, g * h + u]
+    assert torch.equal(wp, want)
+    # the fp32 pack's permutation of the same columns, the K blocks apart
+    wf = lstm.pack_weights(wx.float(), wh.float())
+    assert torch.equal(wp[:, :in_dim].float(), wf[:, :in_dim])
+    assert torch.equal(wp[:, kx:kx + h].float(),
+                       wf[:, in_dim:in_dim + h])
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("bf,t,in_dim,h", [(5, 9, 6, 20), (3, 6, 161, 44),
+                                           (19, 5, 40, 16)])
+def test_bf16_step_order_matches_twin_and_se_tpu(rng, x_dtype, bf, t, in_dim,
+                                                  h):
+    """lstm_step_bf16's arithmetic, frame by frame in its order (x stages
+    then h stages, fp32 sums stage by stage), with a carry: stepped along
+    the twin's own y within 1e-5, and along se_tpu's bf16 scan
+    (`lstm_layer` with bf16 weights: x . Wx in fp32, h.astype(bf16) . Wh)
+    within 1e-5 max(1, max|ref|); at an fp32 x also along the Pallas
+    layer's scan oracle `_scan_forward` (bf16 weights, no carry), the
+    same."""
+    x, wx, wh, b = _bf16_layer_inputs(rng, bf, t, in_dim, h, x_dtype)
+    h0, c0 = to_torch((rng.uniform(-0.5, 0.5, (bf, h)).astype(np.float32),
+                       rng.uniform(-0.5, 0.5, (bf, h)).astype(np.float32)))
+    want, (hn, cn) = lstm._reference(x, wx, wh, b, False, h0, c0)
+    got = packed_layer(x, wx, wh, b, "bf16", h_in=want, h0=h0, c0=c0)
+    close([got], [want], ATOL)
+    jx = jnp.asarray(x.float().numpy(),
+                     jnp.bfloat16 if x_dtype == BF16 else jnp.float32)
+    jw = [jnp.asarray(a.float().numpy(), jnp.bfloat16) for a in (wx, wh, b)]
+    ref = np.array(j_lstm_layer(jx, *jw, carry=(jnp.asarray(h0.numpy()),
+                                                jnp.asarray(c0.numpy()))),
+                   np.float32)
+    got = packed_layer(x, wx, wh, b, "bf16", h_in=torch.from_numpy(ref),
+                       h0=h0, c0=c0)
+    close([got], [ref], ATOL * max(1.0, float(np.abs(ref).max())))
+    if x_dtype == torch.float32:  # the Pallas layer's scan oracle
+        scan = np.array(_scan_forward(jx, *jw), np.float32)
+        got = packed_layer(x, wx, wh, b, "bf16", h_in=torch.from_numpy(scan))
+        close([got], [scan], ATOL * max(1.0, float(np.abs(scan).max())))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, BF16])
+def test_padding_x_to_a_multiple_of_8_leaves_the_step_unchanged(rng,
+                                                                x_dtype):
+    """LSTMNet's In = 161: `aligned_x` pads x once to 168 with zeros (the
+    16-byte copies of either dtype), and the step over the padded x with
+    the same pack (its rows past In zero) gives the same result bit for
+    bit. A row length already a multiple of 8 at an aligned address is
+    taken as it is; one at an address off 16 bytes is copied."""
+    x, wx, wh, b = _bf16_layer_inputs(rng, 4, 3, 161, 20, x_dtype)
+    xa = lstm.aligned_x(x)
+    assert xa.shape == (4, 3, 168) and xa.dtype == x_dtype
+    assert xa.data_ptr() % 16 == 0 and xa.is_contiguous()
+    assert torch.equal(xa[..., :161], x) and not xa[..., 161:].any()
+    a = packed_layer(x, wx, wh, b, "bf16")
+    wp = lstm.pack_weights_bf16(wx, wh)
+    assert not wp[:, 161:192].any()
+    got = packed_layer(xa, torch.nn.functional.pad(wx, (0, 0, 0, 7)), wh,
+                       b, "bf16")
+    assert torch.equal(got, a)
+    x8 = torch.zeros(4, 3, 16, dtype=x_dtype)
+    assert lstm.aligned_x(x8) is x8
+    store = torch.zeros(4 * 3 * 16 + 1, dtype=x_dtype)
+    off = store[1:].view(4, 3, 16)
+    assert off.data_ptr() % 16 != 0
+    moved = lstm.aligned_x(off)
+    assert moved is not off and moved.data_ptr() % 16 == 0
+    assert torch.equal(moved, off)
+
+
+def test_shadow_holds_h0_rounded_and_zeros():
+    """The shadow of h: (2, Bf, Kh) bf16, h0 rounded to nearest even in the
+    first half's first H columns (se_tpu's h.astype(bf16)), zeros
+    elsewhere (the K padding the h stages read); zeros without h0."""
+    h0 = torch.tensor([[1.0 + 2.0 ** -8, -(1.0 + 3 * 2.0 ** -8), 0.3]])
+    hs = lstm.shadow(h0, 1, 3, "cpu")
+    assert hs.shape == (2, 1, 32) and hs.dtype == BF16
+    assert hs[0, 0, :3].float().tolist() == [1.0, -(1.0 + 2.0 ** -6),
+                                             float(h0[0, 2].to(BF16))]
+    assert not hs[0, :, 3:].any() and not hs[1].any()
+    assert not lstm.shadow(None, 2, 40, "cpu").any()
+    assert lstm.shadow(None, 2, 40, "cpu").shape == (2, 2, 64)
+
+
+# (layer call that takes the bf16 step, In, H, design): x part at least as
+# long as the h part -> one m16 tile a warp, programmatic launches
+BF16_STEP_DESIGNS = [
+    ("fullsubnet sub band 1", 32, 384, (2, False)),
+    ("fullsubnet sub band 2", 384, 384, (1, True)),
+    ("lstm lstm1 B=256", 161, 1024, (2, False)),
+    ("lstm / crn lstm2 B=256", 1024, 1024, (1, True)),
+    ("dpcrn intra", 128, 64, (1, True)),
+    ("H 20, In 33", 33, 20, (1, True)),
+    ("H 44, In 33", 33, 44, (1, True)),
+    ("H 44, In 20", 20, 44, (2, False)),
+]
+
+
+@pytest.mark.parametrize("path,in_dim,h,want", BF16_STEP_DESIGNS,
+                         ids=[d[0] for d in BF16_STEP_DESIGNS])
+def test_bf16_step_design_of_each_layer_call(path, in_dim, h, want):
+    """bf16_step_design compares the padded K of the two parts (Kx = In,
+    Kh = H rounded up to the 32-deep stage)."""
+    assert lstm.bf16_step_design(in_dim, h) == want
