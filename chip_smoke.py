@@ -7,8 +7,9 @@ enhancement of eleven model families: Uformer (waveform), FullSubNet
 (complex_map: cuDNN's convs and torch ops around the STFT kernel), and
 DeepXi (hybrid: `models.deepxi.enhance`; "deepxi" the shipped ResNetV2,
 "deepxi_reslstm" the ResLSTM variant on the LSTM kernels); and training
-Uformer, DPCRN, the three TCM families and both DeepXi paths (DeepXi
-through its driver's step); streaming decode (LSTMNet, CRN, GCRN and DPCRN
+every family in fp32 (DeepXi through its driver's step) and the ten
+families of the trainer in bf16 (fp32 master weights); streaming decode
+(LSTMNet, CRN, GCRN and DPCRN
 carrying their LSTM state chunk after chunk; Uformer's windowed decode);
 and the command line.
 
@@ -134,26 +135,51 @@ Phases, one JSON line per result:
              projection and recurrence alone, encoder and decoder levels
              on both designs, the single block complex and real, the pair
              stage) against its twin's own autograd on the same CUDA
-             inputs and upstream gradients: every input gradient within
-             1e-4 * max(1, max|twin grad|), one launch a forward; the STFT
-             kernel raises on an input that requires grad.
-             (b, c) Uformer, DPCRN, CTSNet, TaylorSENet and G2Net at their
+             inputs and upstream gradients: every input gradient in its
+             input's dtype and within 1e-4 * max(1, max|twin grad|), one
+             launch a forward; the STFT kernel raises on an input that
+             requires grad. The bf16 Functions the same way (attention on
+             both designs, the LSTM step with an fp32 and a bf16 x, the
+             projection, the recurrence; bf16 weights) within
+             bf16_compare (the recurrences with LSTM_FLOOR). R11's
+             yardstick: the LSTM layers' forward + backward through the
+             Function against cuDNN's (torch.nn.LSTM) at FullSubNet's
+             training sub band (Bf = 4,096, T = 253, both layers) and
+             DPCRN's inter LSTM (Bf = 128, T = 401): ms, peak GB and the
+             twin's recompute share.
+             (b, c) Uformer, FullSubNet (B = 4: its sub band then takes
+             the step), DCCRN (com_mag_mse and fusion_snr), GCRN, CRN,
+             LSTMNet, DPCRN, CTSNet, TaylorSENet and G2Net at their
              published widths, B = 2 x 4 s: one train step on the card and
              one on the CPU from the
              same weights, dropout rates 0, BN batch statistics on: the
              loss within 1e-4 relative, every gradient within 1e-3 *
              max|cpu grad| of its tensor, the BN statistics after the step
              within 1e-3 * max|cpu|, the step's launches (TRAIN_PATHS);
-             then three steps with dropout on and `enhance_waveform` of the
-             trained weights against the CPU (1e-3 * max|cpu|).
+             then the step under remat and three steps with dropout on and
+             `enhance_waveform` of the trained weights against the CPU
+             (1e-3 * max|cpu|), with the default loss only.
              DeepXi: one step of its driver (`DeepXiDriver.train_step`:
              the MagXi example, BCE, elementwise clip, Adam) at B = 2 x 4 s
              on the card and on the CPU (fp32, fp64), with 7b's loss and
              gradient tolerances and the step's launches.
+             (e) bf16: one `TrainConfig(compute_dtype="bf16")` step of
+             each of the ten families at B = 2 (FullSubNet 4) x 4 s,
+             dropout 0, on the card with its launches (BF16_TRAIN_PATHS:
+             no fp32 attention or LSTM launch) and on the CPU in bf16,
+             from the same weights on 7b's batch, against 7b's CPU fp32
+             step: `bf16_step_compare` (each tensor
+             within twice the CPU bf16's distance from the CPU fp32 plus
+             one bf16 ulp of the step's largest gradient, capped at a
+             quarter of the tensor's own scale but for scalars and
+             tensors the CPU's bf16 step does not resolve; PERF.md 2).
              (d) train throughput at B = 32 x 4 s, dropout on: 2 warm-up
-             steps, the median of 5 in audio-s/s, peak device memory, every
-             step's loss (finite); but for DPCRN the device time by kernel
-             of one step (top 10) and the busy share.
+             steps, the median of 5 in audio-s/s (FullSubNet, DCCRN,
+             GCRN, CRN, LSTMNet and every bf16 line: 1 and 3, the
+             script's time limit), peak device memory, every step's
+             loss (finite); Uformer and FullSubNet also in bf16; the
+             device time by kernel of one fp32 step (top 10) and the busy
+             share, but for DPCRN, DCCRN, GCRN, CRN and LSTMNet.
   8. stream: (a, b) LstmStreamer (a 3 s utterance plus 77 samples in
              0.1 s pieces) and CausalStreamer for CRN, GCRN and DPCRN (1.5
              s in tests/test_streaming.py's pieces), chunks of 16 frames,
@@ -184,10 +210,12 @@ Phases, one JSON line per result:
              (LSTMNet) and windowed (GCRN), score; each must exit 0, the
              enhanced wavs match the restored model's in-process decode
              within 1e-3 * max + one 16-bit step, every CSV column is
-             finite; each command's wall seconds.
+             finite; each command's wall seconds (train and both streams
+             run side by side, then enhance, then score).
 Then the kernel table as one JSON line (a row's "launches" are those of the
 phase-4 forward its note names, "launches_all_paths" those of all twelve,
-"launches_train_step" those of one train step of each trained family,
+"launches_train_step" those of one train step of each trained family and
+loss, and of each bf16 step,
 "launches_stream" those of each phase-8 path; its
 "backward" names the twin whose VJP it recomputes, "grad_max_abs_err"
 phase 7a's error) and, last, the device line. Any
@@ -245,10 +273,10 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, reps: int = 10, rounds: int = 5) -> float:
+def cuda_ms(fn, reps: int = 10, rounds: int = 5, warm: int = 3) -> float:
     import torch
 
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     times = []
     for _ in range(rounds):
@@ -1870,16 +1898,32 @@ BACKWARD = {
     "lstm_recur": "VJP of ops/lstm.py _recur_reference, recomputed",
     "stft": "none: stft_fused raises on an input that requires grad "
             "(se_tpu's stft_pallas has no VJP)",
-    **{k: "not exercised: bf16 training is ROADMAP Queue 1 item 4e"
-       for k in (*BF16_KERNELS, *(f"{k}_bf16" for k in LSTM_KERNELS))},
+    "attention_bf16": "VJP of ops/attention.py _reference in bf16 (P "
+                      "rounded to bf16), recomputed",
+    "lstm_bf16": "VJP of ops/lstm.py _chunked_reference with bf16 weights, "
+                 "recomputed",
+    "lstm_project_bf16": "VJP of ops/lstm.py _project_reference with bf16 "
+                         "weights, recomputed",
+    "lstm_recur_bf16": "VJP of ops/lstm.py _recur_reference with a bf16 "
+                       "wh, recomputed",
+    **{k: "not on any train path: Uformer trains its levels and DSConv "
+          "blocks on the plain path, as se_tpu's train mode"
+       for k in BF16_KERNELS if k != "attention_bf16"},
 }
 # family: the launches of one train step (one forward; the backward runs
 # the twins). Uformer's train mode runs its U-net levels and DSConv blocks
 # on the plain path, as se_tpu does; DPCRN's features come through the
 # STFT kernel (mix and clean) under no_grad.
+# FullSubNet's sub band (drop_band: 128 B rows at B = 4, 8 x 24 = 192
+# tensor-core blocks) takes the step, its full band the small fold; the
+# other LSTM families their phase-4 layer calls (MAIN_PATHS).
 TRAIN_PATHS = {
     "uformer": {"attention": 4, "encoder": 0, "decoder": 0,
                 "dsconv_pair": 0, "dsconv": 0},
+    "fullsubnet": {**ONLY_STFT, "lstm": 2, "lstm_project": 2,
+                   "lstm_recur": 2, "stft": 2},
+    **{name: {**ONLY_STFT, **MAIN_PATHS[name], "stft": 2}
+       for name in ("dccrn", "gcrn", "crn", "lstm")},
     "dpcrn": {"lstm": 8, "lstm_project": 4, "lstm_recur": 4, "stft": 2},
     **{name: {**ONLY_STFT, "stft": 2} for name in TCM_FAMILIES},
     # DeepXi's driver step: MagXi's example takes the STFT of s, d and x
@@ -1888,6 +1932,32 @@ TRAIN_PATHS = {
                        "lstm_recur": 5},
 }
 TRAIN_BATCH = 32  # bench.py's train default, 4 s utterances
+# the batch of phase 7b/7c and 7e's steps: 2, but FullSubNet 4, whose
+# training sub band needs 128 B >= 512 rows to take the tensor-core step
+# (at B = 2 its 256 rows, 4 x 24 blocks, would take the small fold and
+# `lstm` would never run under autograd)
+TRAIN_B = {"fullsubnet": 4}
+# family: the losses phase 7b/7c trains it with (DCCRN also fusion_snr,
+# which synthesises the waveforms inside the loss: the iSTFT under
+# autograd)
+TRAIN_LOSSES = {"dccrn": ("default", "fusion_snr")}
+# family: the launches of one bf16 train step (phase 7e). Uformer the bf16
+# attention 4 times and no other kernel (its levels and DSConv blocks on
+# the plain path, its STFT torch's); the LSTM families the fp32 STFT
+# twice (`_prep`, fp32 under no_grad, as se_tpu's) and their train step's
+# LSTM launches in the bf16 variants, no fp32 LSTM launch; the TCM
+# families the fp32 STFT twice and nothing else.
+_NO_BF16 = {**{k: 0 for k in BF16_KERNELS},
+            **{f"{k}_bf16": 0 for k in LSTM_KERNELS}}
+BF16_TRAIN_PATHS = {
+    "uformer": {**{k: 0 for k in ONLY_STFT}, **_NO_BF16,
+                "attention_bf16": 4},
+    **{name: {**ONLY_STFT, **_NO_BF16, "stft": 2,
+              **{f"{k}_bf16": TRAIN_PATHS[name][k] for k in LSTM_KERNELS}}
+       for name in ("fullsubnet", "dccrn", "gcrn", "crn", "lstm",
+                    "dpcrn")},
+    **{name: {**ONLY_STFT, **_NO_BF16, "stft": 2} for name in TCM_FAMILIES},
+}
 # fp32 round-off at a step's gradient scale: the share of its largest
 # |gradient| entry that phase 7b/7c adds to every tensor's tolerance
 GRAD_FLOOR = 1e-6
@@ -1914,13 +1984,16 @@ def _tensors(nest):
 
 
 def grad_case(kernel_name, label, wrapper, twin, args, dev, launches,
-              counter):
+              counter, floor=None):
     """The wrapper's Function on CUDA leaves of `args` against the twin's
     own autograd on the same values and upstream gradients: each input's
-    gradient within 1e-4 * max(1, max|twin grad|); the forward adds one to
-    the launch count `counter` and its outputs carry a grad_fn. Returns
-    the error."""
+    gradient in the input's dtype and within 1e-4 * max(1, max|twin
+    grad|), or, with `floor` (bf16 inputs), within `bf16_compare` with
+    that floor; the forward adds one to the launch count `counter` and its
+    outputs carry a grad_fn. Returns the error."""
     import torch
+
+    from se_tpu_torch.ops._dtype import bf16_compare
 
     runs = []
     for fn in (wrapper, twin):
@@ -1941,22 +2014,34 @@ def grad_case(kernel_name, label, wrapper, twin, args, dev, launches,
     want = torch.autograd.grad([outs_t[i] for i in diff], ins_t, gs,
                                allow_unused=True)
     torch.cuda.synchronize()
-    worst, worst_ratio = 0.0, 0.0
-    for a, w in zip(got, want):
+    worst, worst_ratio, pairs = 0.0, 0.0, []
+    for a, w, x in zip(got, want, ins_k):
         if (a is None) != (w is None):
             fail(f"{label}: the Function and the twin differ in which "
                  "inputs get a gradient")
         if w is None:
             continue
+        if a.dtype != x.dtype:
+            fail(f"{label}: a {x.dtype} input's gradient is {a.dtype}")
+        pairs.append((a, w))
         err = float((a - w).abs().max())
         tol = 1e-4 * max(1.0, float(w.abs().max()))
         worst, worst_ratio = max(worst, err), max(worst_ratio, err / tol)
-    emit({"phase": "train", "check": "gradient", "kernel": kernel_name,
-          "case": label, "max_abs_err": worst,
-          "err_over_tol": worst_ratio, "inputs": len(ins_k)})
-    if not worst_ratio <= 1.0:
-        fail(f"{label}: Function and twin gradients differ, "
-             f"{worst_ratio:.2f} x the tolerance")
+    line = {"phase": "train", "check": "gradient", "kernel": kernel_name,
+            "case": label, "max_abs_err": worst, "inputs": len(ins_k)}
+    if floor is None:
+        ok = worst_ratio <= 1.0
+        line["err_over_tol"] = worst_ratio
+    else:
+        check = bf16_compare(*zip(*pairs), floor=floor)
+        ok = check.ok
+        line.update(rule=f"bf16_compare, floor {floor}",
+                    share_past=check.share_past,
+                    share_differing=check.share_differing)
+    emit(line)
+    if not ok:
+        fail(f"{label}: Function and twin gradients differ past the "
+             "tolerance")
     return worst
 
 
@@ -1969,6 +2054,7 @@ def check_gradients(dev, only, launches) -> dict:
     from se_tpu_torch.ops import (
         attention, decoder, dsconv, encoder, lstm, stft_fused,
     )
+    from se_tpu_torch.ops._dtype import BF16_FLOOR, LSTM_FLOOR
     from se_tpu_torch.ops.stft import PRESET_320
 
     gen = torch.Generator().manual_seed(3)
@@ -1979,7 +2065,8 @@ def check_gradients(dev, only, launches) -> dict:
 
     cases = {"attention": [], "lstm": [], "lstm_project": [],
              "lstm_recur": [], "encoder": [], "decoder": [], "dsconv": [],
-             "dsconv_pair": []}
+             "dsconv_pair": [], "attention_bf16": [], "lstm_bf16": [],
+             "lstm_project_bf16": [], "lstm_recur_bf16": []}
     for n, h, l, design in ((b * 4, 8, t, "flash_tc"),
                             (b * t, 8, 4, "small_l")):
         cases["attention"].append((
@@ -2051,13 +2138,45 @@ def check_gradients(dev, only, launches) -> dict:
          dsconv_params(gen, 256, 64, "cpu"),
          dsconv_params(gen, 128, 32, "cpu")), "dsconv_pair"))
 
+    bf16 = torch.bfloat16
+    for n, h, l, design in ((b * 4, 8, t, "flash_tc"),
+                            (b * t, 8, 4, "small_l")):
+        cases["attention_bf16"].append((
+            f"attention_bf16 {n}x{h}x{l}x16 design={design}",
+            lambda q, k, v: attention.sdp_attention(q, k, v, 0.25),
+            lambda q, k, v: attention._reference(q, k, v, 0.25),
+            tuple(r(n, h, l, 16, scale=0.5).to(bf16) for _ in range(3)),
+            "attention_bf16", BF16_FLOOR))
+    # the bf16 LSTM: DPCRN's intra layer on the step with x fp32 and bf16,
+    # LSTMNet's first projection and DPCRN's inter recurrence alone; bf16
+    # weights, the recurrences held with one bf16 ulp of the largest
+    # gradient as the floor (LSTM_FLOOR)
+    wx, wh, bias = (w.to(bf16) for w in lstm_weights(gen, "cpu", 128, 64))
+    for x_dtype in (torch.float32, bf16):
+        cases["lstm_bf16"].append((
+            f"lstm_bf16 DPCRN intra (lstm_step_bf16) {b * t}x4x128->64 "
+            f"x {x_dtype}", lstm.lstm_layer_kernel, lstm._reference,
+            (r(b * t, 4, 128).to(x_dtype), wx, wh, bias), "lstm_bf16",
+            LSTM_FLOOR))
+    wx, _, bias = (w.to(bf16) for w in lstm_weights(gen, "cpu", 161, 1024))
+    cases["lstm_project_bf16"].append((
+        f"lstm_project_bf16 LSTMNet lstm1 {b}x{t}x161->4096",
+        lstm.lstm_project, lstm._project_reference,
+        (r(b, t, 161), wx, bias), "lstm_project_bf16", BF16_FLOOR))
+    _, wh, _ = lstm_weights(gen, "cpu", 128, 128)
+    cases["lstm_recur_bf16"].append((
+        f"lstm_recur_bf16 DPCRN inter {b * 4}x{t}x128",
+        lambda xp, wh: lstm.lstm_recur(xp, wh),
+        lambda xp, wh: lstm._recur_reference(xp, wh),
+        (r(b * 4, t, 512), wh.to(bf16)), "lstm_recur_bf16", LSTM_FLOOR))
+
     errors = {}
     for name, kernel_cases in cases.items():
         if name not in only:
             continue
         errors[name] = max(grad_case(name, label, wrapper, twin, args, dev,
-                                     launches, counter)
-                           for label, wrapper, twin, args, counter
+                                     launches, *rest)
+                           for label, wrapper, twin, args, *rest
                            in kernel_cases)
         torch.cuda.empty_cache()
     if "stft" in only:
@@ -2233,9 +2352,11 @@ def grads_vs_cpu(card: dict, cpu: dict, exact: dict) -> dict:
             "cpu_fp32_vs_fp64_worst": sorted(cpu_rel, reverse=True)[:3]}
 
 
-def train_vs_cpu(name: str, dev, launches) -> dict:
-    """Phase 7b/7c: one train step of `name` at its published widths, B = 2
-    x 4 s, from the same weights (init_fn(0)), dropout rates 0, BN batch
+def train_vs_cpu(name: str, dev, launches, loss_fn: str = "default"
+                 ) -> dict:
+    """Phase 7b/7c: one train step of `name` with the loss `loss_fn` at its
+    published widths, B = 2 (TRAIN_B: FullSubNet 4) x 4 s, from the same
+    weights (init_fn(0)), dropout rates 0, BN batch
     statistics on, on the card and on the CPU in fp32, and on the CPU in
     fp64 as the exact step, the CPU's steps taking the card's branch at
     every PReLU input within round-off of 0 (`prelu_branches`: such an
@@ -2262,14 +2383,19 @@ def train_vs_cpu(name: str, dev, launches) -> dict:
     Between the two, the card's step under remat "full" and "dots"
     against its step without, all three with cuDNN's deterministic
     algorithms (loss 1e-5 relative, gradients to the same tolerance).
-    Returns the launch counts."""
+    The remat steps and the three steps run with the family's default
+    loss only: with another (DCCRN's fusion_snr) the one step against the
+    CPU. Returns the launch counts and the CPU's fp32 step ({"loss", the
+    gradients, the BN statistics after it}: phase 7e's fp32 reference).
+    """
     import numpy as np
     import torch
 
     from se_tpu_torch.eval.enhance import enhance_waveform
     from se_tpu_torch.train.trainer import TrainConfig, make_train_step
 
-    cfg = TrainConfig(model=name)
+    cfg = TrainConfig(model=name, loss=loss_fn)
+    b = TRAIN_B.get(name, 2)
     sides = {}
     masks: list = []  # the card's PReLU branches, call by call
     wav = waveforms(2, 5)
@@ -2283,7 +2409,7 @@ def train_vs_cpu(name: str, dev, launches) -> dict:
             enhance_waveform(name, model, wav, device=where)
         _dropout(model, 0.0)
         batch = {k: v.to(dtype) if v.is_floating_point() else v
-                 for k, v in _train_batch(2, where, 11).items()}
+                 for k, v in _train_batch(b, where, 11).items()}
         launches.clear()
         t0 = time.perf_counter()
         with prelu_branches(model, masks, record=side == "card") as seen:
@@ -2310,7 +2436,8 @@ def train_vs_cpu(name: str, dev, launches) -> dict:
                       for k, v in cpu[6].items()] or [0.0])
     counts = card[7]
     emit({"phase": "train", "check": "card vs cpu step", "model": name,
-          "batch": 2, "loss_card": card[4], "loss_cpu": cpu[4],
+          "loss_fn": cfg.loss, "batch": b, "loss_card": card[4],
+          "loss_cpu": cpu[4],
           "loss_cpu_fp64": exact[4], "loss_rel_err": loss_err,
           **{k: v for k, v in grads.items() if k != "rows"},
           "grad_worst": rows[:4], "bn_stat_err_over_max": stat_worst,
@@ -2330,6 +2457,10 @@ def train_vs_cpu(name: str, dev, launches) -> dict:
         if counts.get(kernel, 0) != want:
             fail(f"{name}: a train step launched {kernel} "
                  f"{counts.get(kernel, 0)} times, expected {want}")
+    cpu_step = {"loss": torch.tensor(cpu[4], dtype=torch.float64), **cpu[5],
+                **{k: v for k, v in cpu[6].items() if "running" in k}}
+    if loss_fn != "default":
+        return counts, cpu_step
 
     # The same step with the forward recomputed. cuDNN's default
     # algorithms sum some weight gradients in another order from run to
@@ -2342,7 +2473,8 @@ def train_vs_cpu(name: str, dev, launches) -> dict:
         steps = {}
         for remat in ("none", "full", "dots"):
             model, init_fn, step_fn, _ = make_train_step(
-                TrainConfig(model=name, remat=remat), device=dev)
+                TrainConfig(model=name, loss=loss_fn, remat=remat),
+                device=dev)
             state = init_fn(0)
             _dropout(model, 0.0)
             state, loss = step_fn(state, card[3])
@@ -2358,7 +2490,8 @@ def train_vs_cpu(name: str, dev, launches) -> dict:
                     / (1e-3 * float(grads_none[k].abs().max()) + floor)
                     for k, g in grads.items())
         emit({"phase": "train", "check": f"remat {remat} vs none, card, "
-              "cuDNN deterministic", "model": name, "loss": loss,
+              "cuDNN deterministic", "model": name, "loss_fn": cfg.loss,
+              "loss": loss,
               "loss_none": loss_none, "grad_err_over_tol": worst})
         if not (abs(loss - loss_none) <= 1e-5 * abs(loss_none)
                 and worst <= 1.0):
@@ -2378,20 +2511,22 @@ def train_vs_cpu(name: str, dev, launches) -> dict:
     err = float(np.abs(est - ref).max())
     tol = 1e-3 * float(np.abs(ref).max())
     emit({"phase": "train", "check": "enhance after 3 steps with dropout, "
-          "card vs cpu", "model": name, "max_abs_err": err, "tol": tol})
+          "card vs cpu", "model": name, "loss_fn": cfg.loss,
+          "max_abs_err": err, "tol": tol})
     if not err <= tol:
         fail(f"{name}: enhance after training differs from the CPU's by "
              f"{err} > {tol}")
-    return counts
+    return counts, cpu_step
 
 
-def trainer_step(name: str, dev):
+def trainer_step(name: str, dev, dtype: str = "fp32"):
     """One train step of `name` at B = TRAIN_BATCH x 4 s through
-    `make_train_step` (dropout on), as a call that returns its loss."""
+    `make_train_step` in `dtype` (dropout on), as a call that returns its
+    loss."""
     from se_tpu_torch.train.trainer import TrainConfig, make_train_step
 
-    _, init_fn, step_fn, _ = make_train_step(TrainConfig(model=name),
-                                             device=dev)
+    _, init_fn, step_fn, _ = make_train_step(
+        TrainConfig(model=name, compute_dtype=dtype), device=dev)
     state = init_fn(0)
     batch = _train_batch(TRAIN_BATCH, dev, 21)
     return lambda: step_fn(state, batch)[1]
@@ -2492,28 +2627,184 @@ def deepxi_train_vs_cpu(name: str, dev, launches) -> dict:
     return counts
 
 
-def train_throughput(name: str, step, card: str, do_profile: bool) -> None:
-    """Phase 7d: `step()` (one train step at B = TRAIN_BATCH x 4 s, its
-    loss returned) 2 warm-up times, then the median of 5 in audio-s/s,
-    peak device memory, every step's loss (all finite); with
-    `do_profile`, device time by kernel of one step (torch.profiler, top
-    10) and the device's busy share."""
+def bf16_train_vs_cpu(name: str, dev, launches, cpu32: dict) -> dict:
+    """Phase 7e: one bf16 train step (`TrainConfig(compute_dtype="bf16")`:
+    fp32 masters, the model on their bf16 casts) of `name` at its
+    published widths, B = 2 (TRAIN_B: FullSubNet 4) x 4 s, dropout rates
+    0, from init_fn(0), on phase 7b's batch,
+    on the card with the counts set to 0 just before and read just after
+    (BF16_TRAIN_PATHS: no fp32 attention or LSTM launch); then the same
+    step on the CPU in bf16; the CPU's fp32 step is phase 7b's (`cpu32`,
+    from the same weights and batch). The loss, every gradient and
+    the BN statistics after the step held by `bf16_step_compare` (the
+    card's distance from the CPU fp32 step within twice the CPU bf16
+    step's own, plus one bf16 ulp of the step's largest gradient capped
+    at a quarter of the tensor's own scale but for scalars and tensors
+    the CPU's bf16 step does not resolve; at most 1% of the tensors
+    within four times it; pooled, within twice; PERF.md section 2).
+    Returns the counts."""
+    import numpy as np
+
+    from se_tpu_torch.ops._dtype import bf16_step_compare
+    from se_tpu_torch.train.trainer import TrainConfig, make_train_step
+
+    b = TRAIN_B.get(name, 2)
+    sides = {}
+    for side, where, dtype in (("card", dev, "bf16"),
+                               ("cpu_bf16", "cpu", "bf16")):
+        model, init_fn, step_fn, _ = make_train_step(
+            TrainConfig(model=name, compute_dtype=dtype), device=where)
+        state = init_fn(0)
+        _dropout(model, 0.0)
+        batch = _train_batch(b, where, 11)
+        launches.clear()
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, batch)
+        out = {"loss": loss.detach().cpu().double()}
+        step_s = time.perf_counter() - t0
+        out.update((k, p.grad.detach().cpu().double())
+                   for k, p in model.named_parameters())
+        out.update((k, v.detach().cpu().double())
+                   for k, v in model.named_buffers() if "running" in k)
+        sides[side] = out, dict(launches), step_s
+        del model, init_fn, step_fn, state
+    (card, counts, step_s), cpu16 = sides["card"], sides["cpu_bf16"][0]
+    check = bf16_step_compare(card, cpu16, cpu32)
+    loss = float(card["loss"])
+    emit({"phase": "train", "check": "bf16 card vs cpu step", "model": name,
+          "batch": b, "loss_card_bf16": loss,
+          "loss_cpu_bf16": float(cpu16["loss"]),
+          "loss_cpu_fp32": float(cpu32["loss"]),
+          "pooled_card_vs_cpu_fp32": check.pooled_got,
+          "pooled_cpu_bf16_vs_cpu_fp32": check.pooled_ref,
+          "tensors": len(cpu32), "past_twice": check.failures[:6],
+          "worst_over_limit": check.worst,
+          "floor_cap_lifted": check.uncapped, "launches": counts,
+          "step_s_card": step_s, "step_s_cpu_bf16": sides["cpu_bf16"][2]})
+    if not np.isfinite(loss) or not check.ok:
+        fail(f"{name}: the card's bf16 step is past the bf16 rule: "
+             f"{check.failures[:3]}, pooled {check.pooled_got} against "
+             f"the CPU bf16's {check.pooled_ref}")
+    for kernel, want in BF16_TRAIN_PATHS[name].items():
+        if counts.get(kernel, 0) != want:
+            fail(f"{name}: a bf16 train step launched {kernel} "
+                 f"{counts.get(kernel, 0)} times, expected {want}")
+    return counts
+
+
+# phase 7d: the families whose step is not profiled; bf16 beside fp32 for
+# Uformer and FullSubNet
+TRAIN_UNPROFILED = ("dpcrn", "dccrn", "gcrn", "crn", "lstm")
+TRAIN_BF16_SPEED = ("uformer", "fullsubnet")
+# phase 7d's (warm-up, timed) steps: 2 and 5; 1 and 3 for the families
+# whose fp32 line came with bf16 training and for every bf16 line (the
+# script's time limit)
+TRAIN_SPEED_STEPS = (2, 5)
+TRAIN_SPEED_STEPS_SHORT = (1, 3)
+TRAIN_SPEED_SHORT = ("fullsubnet", "dccrn", "gcrn", "crn", "lstm")
+
+
+# R11's yardstick: the LSTM layer's train-time cost (forward + backward)
+# through kernel_call against cuDNN's torch.nn.LSTM at two training shapes
+# (label, Bf, T, ((In, H) a layer)); a yardstick, nothing on the main path
+# calls cuDNN
+R11_SHAPES = (
+    ("FullSubNet training sub band", 128 * TRAIN_BATCH, FSN_T,
+     FSN_LAYERS[2:]),
+    ("DPCRN inter", 4 * TRAIN_BATCH, T_FRAMES, ((128, 128),)),
+)
+
+
+def lstm_train_yardsticks(dev, card: str) -> None:
+    """Phase 7a, R11: at each R11_SHAPES shape, the layers' forward +
+    backward through `lstm_layer_kernel` (kernel forward, the chunked
+    twin's VJP recomputed), its forward alone and the twin's forward under
+    autograd (what the backward recomputes: its share of the step), and
+    torch.nn.LSTM's (cuDNN) forward + backward on the same input and
+    upstream gradient; CUDA-event ms (median of 3 after a warm-up) and
+    each one's peak device memory."""
+    import torch
+
+    from se_tpu_torch.ops import lstm
+
+    gen = torch.Generator().manual_seed(17)
+    for label, bf, t_len, layers in R11_SHAPES:
+        in0, h = layers[0][0], layers[-1][1]
+        x = torch.randn(bf, t_len, in0, generator=gen).to(dev)
+        g = torch.randn(bf, t_len, h, generator=gen).to(dev)
+        weights = [[w.requires_grad_() for w in lstm_weights(gen, dev, i, hh)]
+                   for i, hh in layers]
+        xg = x.clone().requires_grad_()
+
+        def port():
+            y = xg
+            for wx, wh, b in weights:
+                y, _ = lstm.lstm_layer_kernel(y, wx, wh, b)
+            return y
+
+        def twin():
+            y = xg
+            for wx, wh, b in weights:
+                y, _ = lstm._chunked_reference(y, wx, wh, b)
+            return y
+
+        cudnn = torch.nn.LSTM(in0, h, num_layers=len(layers),
+                              batch_first=True).to(dev)
+
+        def fwd_bwd(fn):
+            def run():
+                fn().backward(g)
+            return run
+
+        rows = {}
+        for key, fn in (("port_fwd_bwd", fwd_bwd(port)),
+                        ("port_fwd", lambda: port().detach()),
+                        ("twin_fwd_recompute", lambda: twin().detach()),
+                        ("cudnn_fwd_bwd", fwd_bwd(lambda: cudnn(xg)[0]))):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(fn, reps=1, rounds=3, warm=1)
+            rows[key] = {"ms": ms,
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        emit({"phase": "train", "check": "R11 yardstick: LSTM forward + "
+              "backward", "case": label, "bf": bf, "t": t_len,
+              "layers": [list(l) for l in layers], **rows,
+              "recompute_share": rows["twin_fwd_recompute"]["ms"]
+              / rows["port_fwd_bwd"]["ms"],
+              "port_over_cudnn": rows["port_fwd_bwd"]["ms"]
+              / rows["cudnn_fwd_bwd"]["ms"], "card": card})
+        del x, g, xg, weights, cudnn
+        torch.cuda.empty_cache()
+
+
+def train_throughput(name: str, step, card: str, do_profile: bool,
+                     dtype: str = "fp32") -> None:
+    """Phase 7d: `step()` (one train step at B = TRAIN_BATCH x 4 s in
+    `dtype`, its loss returned) TRAIN_SPEED_STEPS' warm-up times, then the
+    median of its timed ones in audio-s/s (TRAIN_SPEED_STEPS_SHORT for
+    TRAIN_SPEED_SHORT and bf16), peak device memory, every step's loss
+    (all finite); with
+    `do_profile`, device time by kernel of one step (torch.profiler over
+    the device's activity alone, top 10) and the device's busy share."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
+    short = dtype == "bf16" or name in TRAIN_SPEED_SHORT
+    warm, timed = TRAIN_SPEED_STEPS_SHORT if short else TRAIN_SPEED_STEPS
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
-    for i in range(7):
+    for i in range(warm + timed):
         t0 = time.perf_counter()
         losses.append(step().item())
-        if i >= 2:
+        if i >= warm:
             times.append(time.perf_counter() - t0)
     rates = [TRAIN_BATCH * SECONDS / t for t in times]
-    emit({"phase": "train", "metric": f"{name}_train_fp32",
-          "batch": TRAIN_BATCH, "seconds_audio": SECONDS,
+    emit({"phase": "train", "metric": f"{name}_train_{dtype}",
+          "batch": TRAIN_BATCH, "seconds_audio": SECONDS, "warm_up": warm,
+          "timed": timed,
           "audio_s_per_s": statistics.median(rates), "min": min(rates),
           "max": max(rates), "step_ms": [t * 1e3 for t in times],
           "losses": losses,
@@ -2523,16 +2814,30 @@ def train_throughput(name: str, step, card: str, do_profile: bool) -> None:
         fail(f"{name}: a train step's loss is not finite: {losses}")
     if not do_profile:
         return
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step().item()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = sorted(((evt.device_time_total / 1e3, evt.count, evt.key)
-                   for evt in prof.key_averages()
-                   if evt.device_type == DeviceType.CUDA), reverse=True)
+    # the device's activity alone: a step's ~1e5 host ops, recorded too,
+    # took most of the phase's seconds and stretched the profiled wall
+    # time; with both where the device's alone shows no kernel
+    start, rows = time.perf_counter(), []
+    for activities in ([ProfilerActivity.CUDA],
+                       [ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        try:
+            with torch_profile(activities=activities) as prof:
+                t0 = time.perf_counter()
+                step().item()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        except (AssertionError, RuntimeError):  # a profiler refusing it
+            continue
+        rows = sorted(((evt.device_time_total / 1e3, evt.count, evt.key)
+                       for evt in prof.key_averages()
+                       if evt.device_type == DeviceType.CUDA),
+                      reverse=True)
+        if rows:
+            break
     device_total = sum(ms for ms, _, _ in rows)
-    emit({"phase": "train", "profile": name, "batch": TRAIN_BATCH,
+    emit({"phase": "train", "profile": f"{name} {dtype}",
+          "batch": TRAIN_BATCH,
+          "activities": [str(a).split(".")[-1] for a in activities],
+          "profiling_s": time.perf_counter() - start,
           "wall_ms": wall_ms, "device_ms": device_total,
           "device_busy_share": device_total / wall_ms,
           "top": [{"ms": ms, "calls": n, "name": key[:90]}
@@ -2818,9 +3123,11 @@ def cli_phase(dev, card: str) -> None:
     temporary directory with two seeded 1 s noisy / clean pairs and a
     manifest (the verify recipe's fixture): train DPCRN one step, enhance
     from its checkpoint, stream exact (LSTMNet) and windowed (GCRN),
-    score. Each must exit 0; the enhanced wavs must match the restored
-    model's in-process `enhance_waveform` within 1e-3 * max + one 16-bit
-    step; every CSV column must be finite."""
+    score. The commands that need no other's output run side by side
+    (train and both streams, then enhance, then score; each wall from its
+    start to its exit). Each must exit 0; the enhanced wavs must match
+    the restored model's in-process `enhance_waveform` within 1e-3 * max
+    + one 16-bit step; every CSV column must be finite."""
     import csv
     import json
     import os
@@ -2847,31 +3154,51 @@ def cli_phase(dev, card: str) -> None:
         with open(os.path.join(tmp, "files.json"), "w") as f:
             json.dump(ids, f)
         env = dict(os.environ, PYTHONPATH=str(ROOT))
-        commands = (
-            ("train", ["train", "--model", "dpcrn", "--mix-dir", "noisy",
-                       "--clean-dir", "clean", "--manifest", "files.json",
-                       "--batch-size", "2", "--epochs", "1",
-                       "--checkpoint-dir", "CP"]),
-            ("enhance", ["enhance", "--model", "dpcrn", "--checkpoint",
-                         "CP", "--mix-dir", "noisy", "--out-dir", "est"]),
-            ("stream exact", ["stream", "--mode", "exact", "--model",
-                              "lstm", "--mix-dir", "noisy", "--out-dir",
-                              "stream_exact"]),
-            ("stream windowed", ["stream", "--mode", "windowed", "--model",
-                                 "gcrn", "--mix-dir", "noisy", "--out-dir",
-                                 "stream_windowed"]),
-            ("score", ["score", "--est-dir", "est", "--ref-dir", "clean",
-                       "--csv", "results/r.csv"]))
+        stages = (
+            (("train", ["train", "--model", "dpcrn", "--mix-dir", "noisy",
+                        "--clean-dir", "clean", "--manifest", "files.json",
+                        "--batch-size", "2", "--epochs", "1",
+                        "--checkpoint-dir", "CP"]),
+             ("stream exact", ["stream", "--mode", "exact", "--model",
+                               "lstm", "--mix-dir", "noisy", "--out-dir",
+                               "stream_exact"]),
+             ("stream windowed", ["stream", "--mode", "windowed",
+                                  "--model", "gcrn", "--mix-dir", "noisy",
+                                  "--out-dir", "stream_windowed"])),
+            (("enhance", ["enhance", "--model", "dpcrn", "--checkpoint",
+                          "CP", "--mix-dir", "noisy", "--out-dir",
+                          "est"]),),
+            (("score", ["score", "--est-dir", "est", "--ref-dir", "clean",
+                        "--csv", "results/r.csv"]),))
         walls = {}
-        for label, argv in commands:
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, "-m", "se_tpu_torch", *argv], cwd=tmp,
-                env=env, capture_output=True, text=True, timeout=600)
-            walls[label] = time.perf_counter() - t0
-            if proc.returncode != 0:
-                fail(f"cli {label}: exit {proc.returncode}\n"
-                     f"{proc.stderr[-3000:]}")
+        for stage in stages:
+            running = {}
+            for label, argv in stage:
+                err = open(os.path.join(tmp, f"{label}.err"), "w+")
+                running[label] = (time.perf_counter(), err, subprocess.Popen(
+                    [sys.executable, "-m", "se_tpu_torch", *argv], cwd=tmp,
+                    env=env, stdout=subprocess.DEVNULL, stderr=err))
+            while running:
+                for label, (t0, err, proc) in list(running.items()):
+                    code = proc.poll()
+                    late = time.perf_counter() - t0 > 600
+                    if code is None and not late:
+                        continue
+                    walls[label] = time.perf_counter() - t0
+                    del running[label]
+                    err.seek(0)
+                    text = err.read()[-3000:]
+                    err.close()
+                    if code != 0:
+                        for _, other_err, other in running.values():
+                            other.kill()
+                            other.wait()
+                            other_err.close()
+                        proc.kill()
+                        proc.wait()
+                        fail(f"cli {label}: exit {code} after "
+                             f"{walls[label]:.0f} s\n{text}")
+                time.sleep(0.05)
 
         model, init_fn, _, _ = make_train_step(TrainConfig(model="dpcrn"),
                                                device=dev)
@@ -2928,7 +3255,12 @@ def parse_args():
 
 def main() -> None:
     args = parse_args()
+    start = time.perf_counter()
     import torch
+
+    def elapsed(done: str) -> None:
+        emit({"phase": "elapsed", "done": done,
+              "seconds": time.perf_counter() - start})
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this needs an NVIDIA GPU")
@@ -2964,6 +3296,7 @@ def main() -> None:
                     or ln.startswith("==")]})
 
     table = check_kernels(dev, args.kernels)
+    elapsed("3 kernel")
     models, counts, totals = {}, {}, {}
     for name in args.families:
         model, cpu_model, counts[name] = main_path(name, dev,
@@ -2980,10 +3313,12 @@ def main() -> None:
         # the launches of the forward whose times the row sums
         row["launches"] = counts.get(ROW_PATH[name], {}).get(name, 0)
         row["launches_all_paths"] = totals.get(name, 0)
+    elapsed("4 main, 4b main bf16")
     for name, (model, cpu_model) in models.items():
         throughput(name, model, cpu_model, card)
         if name in bf16_families:  # beside fp32, in the same call
             throughput(name, model, cpu_model, card, torch.bfloat16)
+    elapsed("5 speed")
     for name, (model, _) in models.items():
         profile(name, model, card)
         if name in PROFILE_KERNELS_BF16:
@@ -2991,25 +3326,49 @@ def main() -> None:
     del models
     torch.cuda.empty_cache()
 
+    elapsed("6 profile")
     grad_errors = check_gradients(dev, args.kernels, _build.LAUNCHES)
-    train_counts = {}
+    if "lstm" in args.kernels:
+        lstm_train_yardsticks(dev, card)
+    elapsed("7a train gradients")
+    train_counts, cpu_fp32_steps = {}, {}
     train_families = [f for f in TRAIN_PATHS if f in args.families]
     for name in train_families:
-        check = deepxi_train_vs_cpu if name in DEEPXI_NETWORK else \
-            train_vs_cpu
-        train_counts[name] = check(name, dev, _build.LAUNCHES)
+        if name in DEEPXI_NETWORK:
+            train_counts[name] = deepxi_train_vs_cpu(name, dev,
+                                                     _build.LAUNCHES)
+        for loss_fn in () if name in DEEPXI_NETWORK else \
+                TRAIN_LOSSES.get(name, ("default",)):
+            key = name if loss_fn == "default" else f"{name} {loss_fn}"
+            train_counts[key], cpu_step = train_vs_cpu(
+                name, dev, _build.LAUNCHES, loss_fn)
+            if loss_fn == "default":
+                cpu_fp32_steps[name] = cpu_step
+            elapsed(f"7b/7c {key}")
         torch.cuda.empty_cache()
+    for name in (f for f in BF16_TRAIN_PATHS if f in args.families):
+        train_counts[f"{name} bf16"] = bf16_train_vs_cpu(
+            name, dev, _build.LAUNCHES, cpu_fp32_steps.pop(name))
+        torch.cuda.empty_cache()
+        elapsed(f"7e {name}")
     for name in train_families:
-        make_step = deepxi_step if name in DEEPXI_NETWORK else trainer_step
-        train_throughput(name, make_step(name, dev), card,
-                         do_profile=name != "dpcrn")
-        torch.cuda.empty_cache()
+        if name in DEEPXI_NETWORK:
+            train_throughput(name, deepxi_step(name, dev), card, True)
+            elapsed(f"7d {name}")
+        for dtype in () if name in DEEPXI_NETWORK else \
+                ("fp32", "bf16") if name in TRAIN_BF16_SPEED else ("fp32",):
+            train_throughput(
+                name, trainer_step(name, dev, dtype=dtype), card,
+                name not in TRAIN_UNPROFILED and dtype == "fp32", dtype)
+            torch.cuda.empty_cache()
+            elapsed(f"7d {name} {dtype}")
     for name, row in table.items():
         row["backward"] = BACKWARD[name]
         row["grad_max_abs_err"] = grad_errors.get(name)
         row["launches_train_step"] = {
             fam: c.get(name, 0) for fam, c in train_counts.items()}
 
+    elapsed("7d train speed")
     stream_counts = {}
     for name in (f for f in STREAM_PATHS if f in args.families):
         stream_counts[f"{name} stream"] = stream_path(name, dev,
@@ -3018,8 +3377,10 @@ def main() -> None:
         stream_counts["uformer windowed"] = windowed_uformer(
             dev, _build.LAUNCHES, card)
     torch.cuda.empty_cache()
+    elapsed("8 stream")
     if set(CLI_FAMILIES) <= set(args.families):
         cli_phase(dev, card)
+    elapsed("9 cli")
     for name, row in table.items():
         row["launches_stream"] = {path: c.get(name, 0)
                                   for path, c in stream_counts.items()}

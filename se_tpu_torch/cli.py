@@ -216,7 +216,7 @@ def cmd_train(args):
         _, _, history = train_epochs(cfg, ds, epochs=args.epochs,
                                      checkpoint_dir=args.checkpoint_dir,
                                      device=dev)
-    except NotImplementedError as err:  # the trainer's own (bf16)
+    except NotImplementedError as err:  # the trainer's own (DeepXi's)
         raise SystemExit(str(err)) from err
     if history:
         print(f"final loss: {history[-1][1]:.5f}")
@@ -289,11 +289,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="activation rematerialization policy")
     pt.add_argument("--compute-dtype", dest="compute_dtype",
                     choices=["fp32", "bf16"], default="fp32",
-                    help="bf16 training is not ported yet (ROADMAP Queue 1 "
-                    "item 4e); bf16 enhance is enhance_waveform(dtype="
-                    "torch.bfloat16) for ten families (Uformer, the TCM "
-                    "families and the six LSTM families), not DeepXi, whose "
-                    "se_tpu decode takes no dtype")
+                    help="bf16 trains with fp32 master weights (every "
+                    "family this command trains; DeepXi trains through "
+                    "its driver, in fp32)")
     pt.add_argument("--device", default=None, help=device_help)
     pt.set_defaults(func=cmd_train)
     return p

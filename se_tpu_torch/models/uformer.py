@@ -583,10 +583,6 @@ class Uformer(nn.Module):
         if self.training and generator is None:
             raise ValueError("Uformer in train mode draws its dropout from a "
                              "torch.Generator: pass `generator`")
-        if self.training and noisy.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "Uformer trains in fp32: bf16 training is ROADMAP Queue 1 "
-                "item 4e")
         cfg = PRESET_UFORMER
         n_re, n_im = stft(noisy, cfg)  # (B, T, F)
         s_re, s_im = stft(src, cfg)

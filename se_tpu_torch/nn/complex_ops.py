@@ -3,6 +3,8 @@
 A complex op with shared real/imag sub-ops combines them as
 out_re = op_r(x_re) - op_i(x_im), out_im = op_i(x_re) + op_r(x_im).
 Complex feature maps carry their channels as [real-half | imag-half].
+The complex convs and the dense layer compute in their input's dtype, the
+kernel and bias cast to it, as se_tpu's (`w.astype(x.dtype)`).
 """
 
 from __future__ import annotations
@@ -65,7 +67,8 @@ class ComplexConv2d(_ComplexConvBase):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w, b = self.block()
-        return conv2d_nhwc(x, w, self.stride, self.padding) + b
+        out = conv2d_nhwc(x, w.to(x.dtype), self.stride, self.padding)
+        return out + b.to(out.dtype)
 
 
 class ComplexConvTranspose2d(_ComplexConvBase):
@@ -79,8 +82,9 @@ class ComplexConvTranspose2d(_ComplexConvBase):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w, b = self.block()
-        return conv_transpose2d_nhwc(x, w, self.stride, self.padding,
-                                     self.output_padding) + b
+        out = conv_transpose2d_nhwc(x, w.to(x.dtype), self.stride,
+                                    self.padding, self.output_padding)
+        return out + b.to(out.dtype)
 
 
 class NaiveComplexLSTM(nn.Module):
@@ -127,6 +131,7 @@ class ComplexDense(nn.Module):
         br, bi = self.real_linear.bias, self.imag_linear.bias
         w = torch.cat([torch.cat([kr, ki], dim=-1),
                        torch.cat([-ki, kr], dim=-1)], dim=0)
-        out = torch.matmul(torch.cat([re, im], dim=-1), w)
-        out = out + torch.cat([br - bi, br + bi])
+        x = torch.cat([re, im], dim=-1)
+        out = torch.matmul(x, w.to(x.dtype))
+        out = out + torch.cat([br - bi, br + bi]).to(out.dtype)
         return out[..., : self.features], out[..., self.features:]

@@ -43,7 +43,10 @@ class BatchNorm(nn.Module):
     too, unlike torch's F.batch_norm). It starts in eval mode. Holds
     torch.nn.BatchNorm*d's weight, bias, running_mean and running_var. A
     bf16 copy's statistics are bf16: on a bf16 input every step rounds to
-    bf16, on an fp32 one the folded scale does, as flax's."""
+    bf16, on an fp32 one the folded scale does, as flax's. In train mode
+    the batch statistics and the normalisation are at least fp32 and the
+    output takes x's dtype, and the running statistics are replaced by
+    flax's 0.9 old + 0.1 batch (`_momentum`)."""
 
     momentum = 0.1
 
@@ -71,13 +74,27 @@ class BatchNorm(nn.Module):
         if not self.training:  # flax's order: (x - mean) * (rsqrt * scale)
             inv = torch.rsqrt(self.running_var + self.eps) * self.weight
             return (x - self.running_mean) * inv + self.bias
-        var, mean = torch.var_mean(x, dim=tuple(range(x.ndim - 1)),
+        xs = x.to(_stat_dtype(x))
+        var, mean = torch.var_mean(xs, dim=tuple(range(x.ndim - 1)),
                                    correction=0)
+        keep = 1.0 - self.momentum
         with torch.no_grad():
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
+            self.running_mean = _momentum(self.running_mean, mean, keep)
+            self.running_var = _momentum(self.running_var, var, keep)
+        y = (xs - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
             + self.bias
+        return y.to(x.dtype)
+
+
+def _momentum(old: torch.Tensor, batch: torch.Tensor,
+              keep: float) -> torch.Tensor:
+    """flax's `keep * old + (1 - keep) * batch` as XLA computes it, in the
+    batch statistics' dtype: `keep` is weakly typed, so it rounds to the
+    old statistics' dtype (bf16 in a bf16 train step, whose casts they
+    are: 0.8984375), and the product is not rounded (XLA's excess
+    precision inside a fusion)."""
+    k = float(torch.tensor(keep, dtype=old.dtype))
+    return old.to(batch.dtype) * k + batch * (1.0 - keep)
 
 
 def _stat_dtype(x: torch.Tensor) -> torch.dtype:

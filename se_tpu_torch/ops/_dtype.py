@@ -123,3 +123,109 @@ def bf16_compare(got, want, slack=None, floor: float = BF16_FLOOR
         total += err.numel()
     total = max(total, 1)
     return Bf16Check(err_max, past_n, past_n / total, diff_n / total, ok)
+
+
+# a bf16 train step's gradients. Each tensor's floor is one bf16 ulp
+# (2^-7) of the step's largest gradient, capped at FLOOR_SHARE of the
+# tensor's own largest |value|, so that a tensor is held at its own scale
+# however small its gradient: a zeroed or negated tensor fails wherever the
+# reference's bf16 step resolves it. The cap is lifted (the floor is the
+# step's) for two kinds of tensor, whose bf16 distance is round-off at the
+# scale of their terms, not of their own value: one the reference's bf16
+# step does not resolve (its distance from fp32 at least UNRESOLVED of the
+# tensor's scale: a conv bias before BN with batch statistics, an attention
+# key bias, zero in exact arithmetic), and a scalar (a PReLU slope, a
+# ShareSepConv kernel of one tap: one sum of ~1e5-1e6 terms that cancel,
+# whose distance is one draw, so twice another step's does not bound it).
+STEP_FLOOR = BF16_RTOL
+FLOOR_SHARE = 0.25
+UNRESOLVED = 0.5
+# the BN statistics and the loss: 1e-6 of their own scale
+STAT_FLOOR = 1e-6
+# a bf16 step is in effect: the reference's gradients part from its fp32
+# step's by more than this share, pooled over the step (and the checked
+# step's by half of theirs at least)
+BF16_IN_EFFECT = 1e-3
+# the share of a step's tensors that may pass twice the reference's
+# distance (each within four times it, plus the floor): where bf16 parts a
+# step far from fp32 (G2Net's), the distances of two equally good bf16
+# steps from fp32 scatter around each other by up to a few times
+STRAY_SHARE = 0.01
+
+
+class StepCheck(NamedTuple):
+    failures: list   # (name, e_got, e_ref, limit): tensors past 2 e_ref
+    pooled_got: float  # sum |got - fp32| / sum |fp32| over the gradients
+    pooled_ref: float  # the same for the reference's bf16 step
+    ok: bool
+    uncapped: int  # gradients whose floor is the step's, cap lifted
+    worst: float   # the largest e_got / (2 e_ref + floor) over the tensors
+
+
+def cap_lifted(e_ref: float, scale: float, numel: int) -> bool:
+    """A gradient tensor of `numel` entries and largest |fp32 value|
+    `scale`, `e_ref` from the reference's bf16 step, whose floor is the
+    step's, uncapped: a scalar, or one the reference does not resolve."""
+    return numel == 1 or e_ref >= UNRESOLVED * scale
+
+
+def bf16_step_compare(got: dict, ref16: dict, ref32: dict) -> StepCheck:
+    """A bf16 train step `got` against a reference's bf16 (`ref16`) and
+    fp32 (`ref32`) steps from the same weights and batch; each a dict
+    name -> tensor or array: "loss", every gradient, and the BN statistics
+    after the step (names holding "running"). Each tensor's distance from
+    fp32, e = max |x - ref32|, within twice the reference bf16's own plus
+    a floor: for a gradient STEP_FLOOR x the step's largest |gradient|,
+    capped at FLOOR_SHARE x the tensor's largest |value| unless
+    `cap_lifted`; STAT_FLOOR x the tensor's largest |value| for the loss
+    and a statistic. At most STRAY_SHARE of the tensors past that, each
+    within four times the reference's plus the floor. Pooled over the
+    gradients, sum |got - ref32| within half and twice the reference's,
+    which is above BF16_IN_EFFECT of sum |ref32|: bf16 in effect on both
+    sides (a step that left weights in fp32 would part from fp32 by
+    less). A non-finite value fails its tensor; in a reference step it
+    raises ValueError."""
+    def arr(x):
+        x = x.detach().cpu().double() if isinstance(x, torch.Tensor) \
+            else torch.as_tensor(x, dtype=torch.float64)
+        return x.reshape(-1)
+
+    g, r16, r32 = ({k: arr(v) for k, v in d.items()}
+                   for d in (got, ref16, ref32))
+    if g.keys() != r32.keys() or r16.keys() != r32.keys():
+        raise ValueError(f"the steps hold other tensors: "
+                         f"{sorted(set(g) ^ set(r32))}"
+                         f"{sorted(set(r16) ^ set(r32))}")
+    broken = [k for d in (r16, r32) for k, v in d.items()
+              if not bool(torch.isfinite(v).all())]
+    if broken:
+        raise ValueError(f"a reference step holds non-finite values: "
+                         f"{broken[:4]}")
+    grads = [k for k in r32 if k != "loss" and "running" not in k]
+    gmax = max(float(r32[k].abs().max()) for k in grads)
+    failures, strays_ok, uncapped, worst = [], True, 0, 0.0
+    for k, want in r32.items():
+        e_got = float((g[k] - want).abs().max()) \
+            if bool(torch.isfinite(g[k]).all()) else float("inf")
+        e_ref = float((r16[k] - want).abs().max())
+        scale = float(want.abs().max())
+        if k not in grads:
+            floor = STAT_FLOOR * scale
+        elif cap_lifted(e_ref, scale, want.numel()):
+            floor = STEP_FLOOR * gmax
+            uncapped += 1
+        else:
+            floor = min(STEP_FLOOR * gmax, FLOOR_SHARE * scale)
+        worst = max(worst, e_got / (2 * e_ref + floor))
+        if e_got > 2 * e_ref + floor:
+            failures.append((k, e_got, e_ref, 2 * e_ref + floor))
+            strays_ok = strays_ok and e_got <= 4 * e_ref + floor
+    total = sum(float(r32[k].abs().sum()) for k in grads)
+    pooled_got = sum(float((g[k] - r32[k]).abs().sum())
+                     for k in grads) / total
+    pooled_ref = sum(float((r16[k] - r32[k]).abs().sum())
+                     for k in grads) / total
+    ok = (strays_ok and len(failures) <= STRAY_SHARE * len(r32)
+          and pooled_ref / 2 <= pooled_got <= 2 * pooled_ref
+          and BF16_IN_EFFECT < pooled_ref)
+    return StepCheck(failures, pooled_got, pooled_ref, ok, uncapped, worst)

@@ -240,17 +240,21 @@ def _recur_reference(xp, wh, reverse: bool = False, h0=None, c0=None,
     whf = wh.float() if rounded else wh
     h = xp.new_zeros(bf, h_dim) if h0 is None else h0
     c = xp.new_zeros(bf, h_dim) if c0 is None else c0
-    ys = xp.new_empty(bf, t_len, h_dim)
+    # frames taken by unbind and y put together by stack: under autograd
+    # each frame's gradient is its own (Bf, 4H), where indexing xp[:, t]
+    # and writing ys[:, t] would make a (Bf, T, 4H) one a frame
+    xs, ys = xp.unbind(1), [None] * t_len
     prev = None
     for t in (range(t_len - 1, -1, -1) if reverse else range(t_len)):
         if h_in is not None and prev is not None:
             h = h_in[:, prev].float()
         prev = t
         hr = h.to(torch.bfloat16).float() if rounded else h
-        i, f, g, o = (xp[:, t] + torch.matmul(hr, whf)).chunk(4, dim=-1)
+        i, f, g, o = (xs[t] + torch.matmul(hr, whf)).chunk(4, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
-        ys[:, t] = h
+        ys[t] = h
+    ys = torch.stack(ys, 1) if t_len else xp.new_empty(bf, 0, h_dim)
     return ys, (h, c)
 
 
@@ -276,8 +280,9 @@ def _chunked_reference(x, wx, wh, b, reverse: bool = False, h0=None,
 
     bf, t_len, _ = x.shape
     h_dim = wh.shape[0]
-    h = x.new_zeros(bf, h_dim) if h0 is None else h0
-    c = x.new_zeros(bf, h_dim) if c0 is None else c0
+    carry = torch.promote_types(x.dtype, torch.float32)  # fp32 at bf16 x
+    h = x.new_zeros(bf, h_dim, dtype=carry) if h0 is None else h0
+    c = x.new_zeros(bf, h_dim, dtype=carry) if c0 is None else c0
     starts = list(range(0, t_len, chunk))
     ys = {}
     for s in reversed(starts) if reverse else starts:

@@ -44,11 +44,23 @@ def com_mse_loss(esti, label, frames):
     return ((esti - label) * m).square().sum() / denom
 
 
+def magnitude(pairs: torch.Tensor) -> torch.Tensor:
+    """sqrt(re^2 + im^2 + 0.0) over the last axis, with no floor, as
+    se_tpu's losses take it, but with the gradient 0 where the magnitude
+    is exactly 0: se_tpu's is 0 / 0 = NaN there, and a bf16 step meets
+    it (one estimate bin whose two components both round to 0 turned
+    every gradient of a TaylorSENet step NaN)."""
+    sq = pairs.square().sum(-1)
+    live = sq > 0
+    return torch.where(live, torch.sqrt(torch.where(live, sq, 1.0) + 0.0),
+                       0.0)
+
+
 def com_mag_mse_loss(esti, label, frames):
     """0.5 RI-MSE + 0.5 mag-MSE, the magnitude sqrt(re^2 + im^2 + 0.0)
-    with no floor (:51-56)."""
-    mag_e = torch.sqrt(esti.square().sum(-1) + 0.0)
-    mag_l = torch.sqrt(label.square().sum(-1) + 0.0)
+    with no floor (:51-56; `magnitude`)."""
+    mag_e = magnitude(esti)
+    mag_l = magnitude(label)
     return 0.5 * (mag_mse_loss(mag_e, mag_l, frames)
                   + com_mse_loss(esti, label, frames))
 

@@ -20,9 +20,18 @@ the card that should agree with the CPU needs
 `torch.backends.cudnn.allow_tf32 = False` (torch's default is True) and
 `torch.backends.cuda.matmul.allow_tf32 = False`, as chip_smoke.py sets.
 
-Not here yet: `compute_dtype="bf16"` (ROADMAP Queue 1 item 4e), a device
-mesh (Queue 1 item 13). The hybrid io-kind (DeepXi) trains through its own
-driver, `models.deepxi_driver.DeepXiDriver.train`, as in se_tpu (whose
+`compute_dtype="bf16"` is se_tpu's mixed precision (its trainer.py
+`forward_loss`): the fp32 master weights stay the model's parameters, and
+inside the graph the model runs on their bf16 casts and on its buffers'
+(`torch.func.functional_call`), so each master's `.grad` is fp32. The
+model's inputs are cast to bf16 and its outputs back to fp32; the BN
+statistics it updates (fp32: flax mixes the bf16 old ones with fp32 batch
+ones) are written back to its buffers. The features (`_prep`), the
+losses, the clip and Adam stay fp32.
+
+Not here yet: a device mesh (Queue 1 item 13). The hybrid io-kind
+(DeepXi) trains through its own driver,
+`models.deepxi_driver.DeepXiDriver.train`, as in se_tpu (whose
 `make_train_step` has no DeepXi branch either).
 """
 
@@ -35,11 +44,13 @@ import os
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from se_tpu_torch.device import resolve_device
 from se_tpu_torch.models import get_model
 from se_tpu_torch.models.fullsubnet import drop_band
 from se_tpu_torch.models.registry import ModelEntry
+from se_tpu_torch.ops._dtype import to_float
 from se_tpu_torch.ops.stft import istft
 from se_tpu_torch.ops.stft_fused import stft_auto
 from se_tpu_torch.train import losses as L
@@ -140,10 +151,7 @@ def make_train_step(cfg: TrainConfig, device=None):
     model's device; `state` holds the model, the optimiser's state
     ("count", "mu", "nu"), "step", "lr_scale" and the dropout
     "generator"."""
-    if cfg.compute_dtype == "bf16":
-        raise NotImplementedError("bf16 training is not ported yet: ROADMAP "
-                                  "Queue 1 item 4e")
-    if cfg.compute_dtype != "fp32":
+    if cfg.compute_dtype not in ("fp32", "bf16"):
         raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}")
     if cfg.remat not in ("none", "dots", "full"):
         raise ValueError(f"unknown remat policy {cfg.remat!r}")
@@ -156,12 +164,14 @@ def make_train_step(cfg: TrainConfig, device=None):
     model = entry.make(**cfg.model_kwargs, device=dev)
     loss_name = cfg.loss if cfg.loss != "default" else \
         DEFAULT_LOSSES[cfg.model]
+    net = model if cfg.compute_dtype == "fp32" else \
+        functools.partial(_bf16_call, model)
 
     def forward_loss(batch, generator):
         mix, clean, frames = batch["mix"], batch["clean"], batch["frames"]
         if entry.io_kind == "waveform":
-            est, src, est_cplx, src_cplx = model(mix, clean,
-                                                 generator=generator)
+            est, src, est_cplx, src_cplx = net(mix, clean,
+                                               generator=generator)
             e, s = torch.stack(est_cplx, -1), torch.stack(src_cplx, -1)
             return (L.uformer_sisnr_loss(est, src)
                     + L.uformer_cplx_mse_loss(e, s)
@@ -169,10 +179,10 @@ def make_train_step(cfg: TrainConfig, device=None):
 
         mag, lmag, spec, lspec = _prep(entry, mix, clean, cfg.compressed)
         if entry.io_kind == "mag_mask":
-            return L.mag_mse_loss(model(mag), lmag, frames)
+            return L.mag_mse_loss(net(mag), lmag, frames)
 
         if entry.io_kind == "cirm":
-            mask = model(mag)
+            mask = net(mag)
             if model.training and mask.shape[2] != spec.shape[2]:
                 # FullSubNet's drop_band shrank F and regrouped the batch:
                 # the same for the features, labels and frame counts (ref
@@ -189,7 +199,7 @@ def make_train_step(cfg: TrainConfig, device=None):
             return L.com_mag_mse_loss(est, lspec, frames)
 
         # complex_map / complex_mask
-        est = model(spec)
+        est = net(spec)
         if loss_name == "stagewise_com_mag_mse":
             return L.stagewise_com_mag_mse_loss(list(est), lspec, frames)
         if est.ndim == 5:
@@ -246,12 +256,12 @@ def make_train_step(cfg: TrainConfig, device=None):
             return forward_loss(batch, generator)
 
         loss = checkpoint(run, use_reentrant=False, context_fn=context_fn)
-        buffers = [(b, b.clone()) for b in model.buffers()]
+        kept = {n: b.clone() for n, b in model.named_buffers()}
         after = generator.get_state()
         loss.backward()
-        with torch.no_grad():
-            for b, kept in buffers:
-                b.copy_(kept)
+        with torch.no_grad():  # by name: BN replaces its statistics
+            for n, b in model.named_buffers():
+                b.copy_(kept[n])
         generator.set_state(after)
         return loss
 
@@ -284,6 +294,33 @@ def make_train_step(cfg: TrainConfig, device=None):
         return loss
 
     return model, init_fn, step_fn, eval_fn
+
+
+def _bf16(nest):
+    """The floating tensors of a nest (tuples and lists) cast to bf16."""
+    if isinstance(nest, (tuple, list)):
+        return type(nest)(_bf16(x) for x in nest)
+    if isinstance(nest, torch.Tensor) and nest.is_floating_point():
+        return nest.to(torch.bfloat16)
+    return nest
+
+
+def _bf16_call(model: torch.nn.Module, *args, **kw):
+    """`model(*args, **kw)` in se_tpu's bf16 train contract: the floating
+    parameters and buffers cast to bf16 inside the graph (the casts'
+    backward hands the fp32 masters fp32 gradients), the inputs cast to
+    bf16, the outputs widened to fp32. A buffer the forward replaced (BN's
+    running statistics, fp32) is copied back into the model's own."""
+    own = dict(model.named_parameters())
+    own.update(model.named_buffers())
+    cast = {n: _bf16(t) for n, t in own.items()}
+    state = dict(cast)
+    out = functional_call(model, state, _bf16(args), kw)
+    with torch.no_grad():
+        for n, t in state.items():
+            if t is not cast[n]:
+                own[n].copy_(t)
+    return to_float(out)
 
 
 def decay_learning_rate(state: dict, rate: float = 0.5) -> dict:

@@ -4,7 +4,7 @@ decode), the bf16
 copy of the caller's module (made once, kept until a weight changes, the
 caller's fp32 weights untouched), the kernel packs' one entry a dtype
 (`_cached`), Uformer's U-net tail vectors folded in fp32 from bf16 values,
-bf16 training refused, and the STFT's dtypes (se_tpu's: the forward
+Uformer's bf16 train forward, and the STFT's dtypes (se_tpu's: the forward
 rounds to its input's dtype, the inverse returns fp32)."""
 
 import numpy as np
@@ -16,6 +16,7 @@ from se_tpu_torch.models import available_models, get_model
 from se_tpu_torch.models import uformer as uf
 from se_tpu_torch.nn import LSTM
 from se_tpu_torch.ops.stft import PRESET_UFORMER, istft, stft
+from se_tpu_torch.train import trainer
 
 BF16 = torch.bfloat16
 
@@ -177,11 +178,36 @@ def test_uformer_level_tails_fold_in_fp32_from_bf16_values():
                                atol=0)
 
 
+def test_uformer_bf16_train_forward_runs():
+    """Uformer's train mode runs a bf16 forward (its levels and DSConv
+    blocks on the plain path, in bf16) with gradients back to bf16 weights
+    (tests/test_torch_bf16_train_conv.py holds the step against
+    se_tpu's)."""
+    model = _uformer().train().to(BF16)
+    x = torch.from_numpy(_wav(1600)).to(BF16)
+    est, _, (re, im), _ = model(x, x, generator=torch.Generator())
+    assert re.dtype == BF16 and est.dtype == torch.float32  # the iSTFT's
+    assert bool(torch.isfinite(est).all())
+    (est.float().square().sum() + re.float().sum()).backward()
+    grads = [p.grad for p in model.parameters()]
+    assert all(g is not None and g.dtype == BF16 for g in grads)
+
+
 def test_uformer_trains_in_fp32_only():
+    """The weights Uformer trains are fp32 only: the bf16 train contract
+    (`trainer._bf16_call`) runs its train forward on bf16 casts made
+    inside the graph, and its own parameters, their gradients and its
+    buffers stay fp32, the outputs widened to fp32."""
     model = _uformer().train()
-    x = torch.zeros(1, 1600, dtype=BF16)
-    with pytest.raises(NotImplementedError, match="item 4e"):
-        model.to(BF16)(x, x, generator=torch.Generator())
+    x = torch.from_numpy(_wav(1600))
+    est, _, (re, _), _ = trainer._bf16_call(model, x, x,
+                                            generator=torch.Generator())
+    assert est.dtype == re.dtype == torch.float32
+    (est.square().sum() + re.sum()).backward()
+    for p in model.parameters():
+        assert p.dtype == p.grad.dtype == torch.float32
+    assert all(b.dtype == torch.float32 for b in model.buffers()
+               if b.is_floating_point())
 
 
 def test_stft_dtypes_follow_se_tpu():

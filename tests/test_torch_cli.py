@@ -348,9 +348,36 @@ def test_train_writes_checkpoints_that_enhance_restores(tmp_path, capsys):
                                            device="cpu"))
 
 
+def test_train_bf16_checkpoint_restores_fp32_weights(tmp_path):
+    """`train --compute-dtype bf16`: one DPCRN step (two 1 s utterances at
+    batch 2) whose checkpoint restores fp32 weights that moved from the
+    init and are finite."""
+    _corpus(str(tmp_path), n_utts=2, n=SR)
+    ckpt = str(tmp_path / "CP")
+    cli.main(["train", "--model", "dpcrn", "--mix-dir",
+              str(tmp_path / "noisy"), "--clean-dir",
+              str(tmp_path / "clean"), "--manifest",
+              str(tmp_path / "files.json"), "--batch-size", "2",
+              "--compute-dtype", "bf16", "--checkpoint-dir", ckpt,
+              "--device", "cpu"])
+    assert "model.ckpt-0-1" in os.listdir(ckpt)
+    model, init_fn, _, _ = make_train_step(TrainConfig(model="dpcrn"),
+                                           device="cpu")
+    start = {k: v.clone() for k, v in init_fn(0)["model"].state_dict()
+             .items()}
+    state, found = restore_checkpoint(ckpt, init_fn(3))
+    assert found and state["step"] == 1
+    moved = 0
+    for key, w in model.state_dict().items():
+        assert w.dtype == torch.float32 and bool(torch.isfinite(w).all()), key
+        moved += not torch.equal(w, start[key])
+    assert moved > len(start) // 2
+    for mu in state["opt_state"]["mu"].values():
+        assert mu.dtype == torch.float32
+
+
 @pytest.mark.parametrize("flags, item", [
-    (["--data-parallel"], "item 13"),
-    (["--compute-dtype", "bf16"], "item 4")])
+    (["--data-parallel"], "item 13")])
 def test_train_refuses_what_is_not_ported(tmp_path, flags, item):
     _corpus(str(tmp_path), n_utts=2, n=3200)
     with pytest.raises(SystemExit, match=item):

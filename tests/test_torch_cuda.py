@@ -963,3 +963,81 @@ def test_persistent_plan_is_the_bf16_kernels(dev, h, bf):
     smem, per_sm = lstm.recur_fit(h, plan.chunks, dev, BF16)
     assert smem == plan.smem
     assert per_sm >= plan.blocks_sm
+
+
+# ------------------------------------------------ training on the card
+
+def test_fullsubnet_fp32_train_step_runs_the_step(dev):
+    """One fp32 train step of FullSubNet at B = 4 x 2 s: drop_band hands
+    its sub band 128 B = 512 rows, past the SMs' worth of tensor-core
+    blocks, so the layer takes the step kernel under autograd; every
+    gradient finite."""
+    from se_tpu_torch.train.trainer import TrainConfig, make_train_step
+
+    model, init_fn, step_fn, _ = make_train_step(
+        TrainConfig(model="fullsubnet"), device=dev)
+    state = init_fn(0)
+    g = torch.Generator(device=dev).manual_seed(1)
+    clean = torch.randn(4, 32000, generator=g, device=dev) * 0.1
+    batch = {"mix": clean + 0.05 * torch.randn(4, 32000, generator=g,
+                                               device=dev),
+             "clean": clean,
+             "frames": torch.full((4,), 126, dtype=torch.int64, device=dev)}
+    before = dict(_build.LAUNCHES)
+    state, loss = step_fn(state, batch)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["lstm"] - before.get("lstm", 0) > 0
+    assert bool(torch.isfinite(loss))
+    for k, p in model.named_parameters():
+        assert bool(torch.isfinite(p.grad).all()), k
+
+
+def _bf16_grad_case(fn, twin, args, floor):
+    """fn's Function (kernel forward, the twin's VJP) against the twin's
+    own autograd on the same CUDA leaves and upstream gradient: each
+    input's gradient in its dtype, within bf16_close with `floor`."""
+    runs = []
+    for f in (fn, twin):
+        leaves = [a.detach().clone().requires_grad_() for a in args]
+        out = f(*leaves)
+        out = out[0] if isinstance(out, tuple) else out
+        runs.append((leaves, out))
+    (lk, ok), (lt, ot) = runs
+    assert ok.grad_fn is not None
+    up = torch.randn(ok.shape, generator=torch.Generator(
+        device=ok.device).manual_seed(7), device=ok.device).to(ok.dtype)
+    got = torch.autograd.grad(ok, lk, up)
+    want = torch.autograd.grad(ot, lt, up)
+    torch.cuda.synchronize()
+    for a, w, x in zip(got, want, lk):
+        assert a.dtype == x.dtype
+    bf16_close(got, want, floor=floor)
+
+
+@pytest.mark.parametrize("length", [4, 65])  # small_l, flash_tc
+def test_attention_bf16_function_gradients_match_twin(dev, length):
+    g = torch.Generator(device=dev).manual_seed(length)
+    q, k, v = ((torch.randn(64, 2, length, 16, generator=g, device=dev)
+                * 0.5).to(BF16) for _ in range(3))
+    _bf16_grad_case(lambda *a: attention.sdp_attention(*a, 0.25),
+                    lambda *a: attention._reference(*a, 0.25), (q, k, v),
+                    1e-6)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("bf,t", [(1030, 5), (8, 40)])  # step, small fold
+def test_lstm_bf16_function_gradients_match_twin(gen, dev, x_dtype, bf, t):
+    args = _bf16_lstm_args(gen, bf, t, 33, 44, x_dtype, dev)
+    _bf16_grad_case(lstm.lstm_layer_kernel, lstm._reference, args,
+                    LSTM_FLOOR)
+
+
+def test_lstm_project_and_recur_bf16_function_gradients_match_twin(gen,
+                                                                   dev):
+    x, wx, wh, b = _bf16_lstm_args(gen, 8, 40, 33, 44, torch.float32, dev)
+    _bf16_grad_case(lstm.lstm_project, lstm._project_reference, (x, wx, b),
+                    1e-6)
+    xp = torch.randn(8, 40, 176, device=dev)
+    _bf16_grad_case(lambda a, w: lstm.lstm_recur(a, w),
+                    lambda a, w: lstm._recur_reference(a, w), (xp, wh),
+                    LSTM_FLOOR)

@@ -151,3 +151,28 @@ def test_masks_match_jax():
     np.testing.assert_array_equal(
         P.sample_mask_from_frames(_to_torch(frames), N, HOP).numpy(),
         np.asarray(J.sample_mask_from_frames(jnp.asarray(frames), N, HOP)))
+
+
+def test_com_mag_mse_gradient_is_finite_at_a_zero_estimate_bin():
+    """An estimate bin with both components exactly 0: se_tpu's magnitude
+    gradient there is 0 / 0 = NaN (in a train step it spreads to every
+    weight); the port's is 0 (`magnitude`), so that bin takes the RI-MSE
+    half's gradient alone, and every other bin se_tpu's."""
+    rng = np.random.default_rng(9)
+    esti, label = _spec(rng, B, T, F, 2), _spec(rng, B, T, F, 2)
+    esti[1, 3, 4] = 0.0
+    frames = _frames()
+    jg = np.asarray(jax.grad(lambda e: J.com_mag_mse_loss(
+        e, jnp.asarray(label), jnp.asarray(frames)))(jnp.asarray(esti)))
+    assert np.isnan(jg[1, 3, 4]).all()
+    x = torch.from_numpy(esti).requires_grad_()
+    P.com_mag_mse_loss(x, torch.from_numpy(label),
+                       _to_torch(frames)).backward()
+    g = x.grad.numpy()
+    assert np.isfinite(g).all()
+    keep = np.ones(g.shape[:-1], bool)
+    keep[1, 3, 4] = False
+    np.testing.assert_allclose(g[keep], jg[keep], rtol=0,
+                               atol=1e-5 * np.abs(jg[keep]).max())
+    ri_half = 0.5 * (0.0 - label[1, 3, 4]) / (frames.sum() * F)
+    np.testing.assert_allclose(g[1, 3, 4], ri_half, rtol=1e-6)

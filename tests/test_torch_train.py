@@ -491,8 +491,17 @@ def test_train_mode_draws_dropout_from_a_generator():
 
 
 def test_unported_dtype_and_io_kind_name_their_roadmap_items():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        make_train_step(TrainConfig(model="lstm", compute_dtype="bf16"),
+    """DeepXi's io kind trains through its driver; bf16 training, once a
+    refusal here, runs on the CPU (tests/test_torch_bf16_train*.py hold it
+    against se_tpu's)."""
+    model, init_fn, step_fn, _ = make_train_step(
+        TrainConfig(model="lstm", compute_dtype="bf16",
+                    model_kwargs=dict(hidden=16)), device="cpu")
+    state, loss = step_fn(init_fn(0), _torch_batch(*_batch()))
+    assert bool(torch.isfinite(loss)) and state["step"] == 1
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    with pytest.raises(ValueError, match="compute_dtype"):
+        make_train_step(TrainConfig(model="lstm", compute_dtype="fp16"),
                         device="cpu")
     with pytest.raises(NotImplementedError, match="DeepXiDriver"):
         make_train_step(TrainConfig(model="deepxi"), device="cpu")
