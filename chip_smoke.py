@@ -11,12 +11,12 @@ every family in fp32 (DeepXi through its driver's step) and the ten
 families of the trainer in bf16 (fp32 master weights); streaming decode
 (LSTMNet, CRN, GCRN and DPCRN
 carrying their LSTM state chunk after chunk; Uformer's windowed decode);
-and the command line.
+the command line; and data parallelism (two ranks on the one card).
 
     python3 chip_smoke.py [--kernels lstm,...] [--families fullsubnet,...]
 
 With no options, every kernel and every family; the options narrow
-phases 3 and 7a to some kernels and phases 4-6, 7b-7d and 8-9 to some
+phases 3 and 7a to some kernels and phases 4-6, 7b-7d and 8-10 to some
 families, for comparing two versions of the package (run the script in
 each tree). `--families lstm,crn,gcrn,dpcrn,uformer` runs every stream
 and the command line.
@@ -210,13 +210,26 @@ Phases, one JSON line per result:
              (LSTMNet) and windowed (GCRN), score; each must exit 0, the
              enhanced wavs match the restored model's in-process decode
              within 1e-3 * max + one 16-bit step, every CSV column is
-             finite; each command's wall seconds (train and both streams
-             run side by side, then enhance, then score).
+             finite; each command's wall seconds (train, `train
+             --data-parallel` (a world of one, NCCL) and both streams
+             run side by side, then enhance, then score); the two
+             trains' checkpoints agree (`checkpoints_agree`: gradients
+             by phase 7b's rule, weights within 1e-5 x max but where
+             Adam's first step moved a round-off gradient by +-lr).
+ 10. parallel: data parallelism, two ranks (processes, this script run
+             with --parallel-rank) on the one card in a gloo group
+             (its collectives on CUDA tensors checked; two more try NCCL
+             there, reported): Uformer's and DPCRN's sharded decodes at
+             B = 4 x 4 s against the one-process card decode (phase 4's
+             rule), au-s/s of both; one sharded fp32 train step of DPCRN
+             (B = 4) and FullSubNet (B = 8) against the one-process card
+             step (phase 7b's rules); each rank's launches.
 Then the kernel table as one JSON line (a row's "launches" are those of the
 phase-4 forward its note names, "launches_all_paths" those of all twelve,
 "launches_train_step" those of one train step of each trained family and
 loss, and of each bf16 step,
-"launches_stream" those of each phase-8 path; its
+"launches_stream" those of each phase-8 path, "launches_parallel" those of
+each rank's part of each phase-10 path; its
 "backward" names the twin whose VJP it recomputes, "grad_max_abs_err"
 phase 7a's error) and, last, the device line. Any
 failure exits non-zero; without a CUDA device, or without the se_tpu_torch
@@ -3117,17 +3130,60 @@ def windowed_uformer(dev, launches, card: str) -> dict:
 CLI_FAMILIES = ("dpcrn", "lstm", "gcrn")
 
 
+def checkpoints_agree(plain: dict, other: dict) -> dict:
+    """Two checkpoints of one train step from the same weights and batch:
+    the gradients (Adam's first moment / (1 - b1)) within phase 7b's rule
+    (1e-3 x max|g| + GRAD_FLOOR x the step's largest |g|, the floor); no
+    gradient above the floor with another sign in the two; each weight
+    and buffer within 1e-5 x max(1, max|w|) of its tensor, but where the
+    gradient is round-off (|g| <= the floor in both), which Adam's first
+    update u = g / (|g| + 1e-8) moves by up to lr whatever its size: there
+    2 lr apart. The card's cuDNN sums some weight gradients in an order
+    that varies from run to run, so two plain runs part the same way.
+    Fails otherwise; returns the worst ratios and counts."""
+    import torch
+
+    b1, lr = 0.9, 1e-3  # optax's scale_by_adam; the CLI's default rate
+    g_p = {k: m / (1 - b1) for k, m in plain["opt_state"]["mu"].items()}
+    g_o = {k: m / (1 - b1) for k, m in other["opt_state"]["mu"].items()}
+    floor = GRAD_FLOOR * max(float(g.abs().max()) for g in g_p.values())
+    grad_worst = max(float((g_o[k] - g).abs().max())
+                     / (1e-3 * float(g.abs().max()) + floor)
+                     for k, g in g_p.items())
+    big_flips, round_off, apart = 0, 0, 0
+    for k, w in plain["model"].items():
+        d = (other["model"][k] - w).abs()
+        near = d <= 1e-5 * max(1.0, float(w.abs().max()))
+        if k in g_p:
+            small = torch.maximum(g_p[k].abs(), g_o[k].abs()) <= floor
+            big_flips += int(((torch.sign(g_p[k]) != torch.sign(g_o[k]))
+                              & ~small).sum())
+            round_off += int((small & ~near).sum())
+            near = near | (small & (d <= 2 * lr))
+        apart += int((~near).sum())
+    out = {"grad_err_over_tol": grad_worst, "grad_floor": floor,
+           "sign_flips_above_floor": big_flips,
+           "round_off_weights_apart": round_off, "weights_apart": apart}
+    if not (grad_worst <= 1.0 and big_flips == 0 and apart == 0):
+        fail(f"cli train --data-parallel: its checkpoint parts from the "
+             f"plain train's: {out}")
+    return out
+
+
 def cli_phase(dev, card: str) -> None:
     """Phase 9: the command line as its users run it, each command a
     subprocess `python -m se_tpu_torch ...` (the TF32 flags its own) in a
     temporary directory with two seeded 1 s noisy / clean pairs and a
-    manifest (the verify recipe's fixture): train DPCRN one step, enhance
-    from its checkpoint, stream exact (LSTMNet) and windowed (GCRN),
-    score. The commands that need no other's output run side by side
-    (train and both streams, then enhance, then score; each wall from its
-    start to its exit). Each must exit 0; the enhanced wavs must match
-    the restored model's in-process `enhance_waveform` within 1e-3 * max
-    + one 16-bit step; every CSV column must be finite."""
+    manifest (the verify recipe's fixture): train DPCRN one step, the same
+    with `--data-parallel` (one rank on the one card, NCCL), enhance from
+    the plain train's checkpoint, stream exact (LSTMNet) and windowed
+    (GCRN), score. The commands that need no other's output run side by
+    side (both trains and both streams, then enhance, then score; each
+    wall from its start to its exit). Each must exit 0; the two trains'
+    checkpoints must agree (`checkpoints_agree`); the
+    enhanced wavs must match the restored model's in-process
+    `enhance_waveform` within 1e-3 * max + one 16-bit step; every CSV
+    column must be finite."""
     import csv
     import json
     import os
@@ -3159,6 +3215,11 @@ def cli_phase(dev, card: str) -> None:
                         "--clean-dir", "clean", "--manifest", "files.json",
                         "--batch-size", "2", "--epochs", "1",
                         "--checkpoint-dir", "CP"]),
+             ("train data parallel", [
+                 "train", "--model", "dpcrn", "--mix-dir", "noisy",
+                 "--clean-dir", "clean", "--manifest", "files.json",
+                 "--batch-size", "2", "--epochs", "1", "--checkpoint-dir",
+                 "CP_dp", "--data-parallel"]),
              ("stream exact", ["stream", "--mode", "exact", "--model",
                                "lstm", "--mix-dir", "noisy", "--out-dir",
                                "stream_exact"]),
@@ -3206,6 +3267,11 @@ def cli_phase(dev, card: str) -> None:
                                           init_fn(0))
         if not found or state["step"] != 1:
             fail("cli train: no checkpoint of step 1 in CP")
+        import torch
+
+        dp_err = checkpoints_agree(*(
+            torch.load(os.path.join(tmp, d, "model.ckpt-0-1"),
+                       weights_only=False) for d in ("CP", "CP_dp")))
         errs = []
         for fid in ("u0.wav", "u1.wav"):
             wav, _ = read_wav(os.path.join(tmp, "noisy", fid))
@@ -3229,7 +3295,358 @@ def cli_phase(dev, card: str) -> None:
         if len(rows) != 2 or not np.isfinite(values).all():
             fail(f"cli score: {len(rows)} rows, values {values}")
         emit({"phase": "cli", "wall_s": walls, "enhance_vs_in_process": errs,
+              "data_parallel_vs_plain_train": dp_err,
               "score_rows": rows, "card": card})
+
+
+# --------------------------------------------------------- phase 10: parallel
+
+# two ranks share the one card (gloo: `collectives.choose_backend`);
+# parallel_cards.py runs the phase with one rank a card (NCCL)
+PARALLEL_WORLD = 2
+PARALLEL_DECODES = ("uformer", "dpcrn")  # 4 s utterances, 2 a rank
+PARALLEL_DECODE_ROWS = 2
+# family: the rows a rank of its sharded train step (FullSubNet's shard
+# of 4 puts 512 rows in its sub band: the tensor-core step, as TRAIN_B)
+PARALLEL_STEPS = {"dpcrn": 2, "fullsubnet": 4}
+PARALLEL_REPS = 5  # timed decodes, after one untimed
+# family: the launches each rank's part of a path must show; the LSTM
+# layer calls by their count on either design ("lstm" the tensor-core
+# step, "lstm_recur" the small fold), since a shard picks its own
+PARALLEL_PATHS = {
+    "uformer decode": {"attention": 4, "dsconv_pair": 8, "encoder": 6,
+                       "decoder": 6},
+    "dpcrn decode": {"stft": 1, "lstm calls": 12},
+    "dpcrn train": {"stft": 2, "lstm calls": 12},
+    "fullsubnet train": {"stft": 2, "lstm": 2, "lstm_project": 2,
+                         "lstm_recur": 2},
+}
+
+
+def _path_ok(counts: dict, want: dict) -> bool:
+    got = dict(counts)
+    got["lstm calls"] = got.get("lstm", 0) + got.get("lstm_recur", 0)
+    return all(got.get(k, 0) == n for k, n in want.items()) and \
+        got.get("lstm_project", 0) == got.get("lstm_recur", 0)
+
+
+def _probe_gloo_cuda(dev) -> dict:
+    """gloo's all_reduce, broadcast and all_gather on CUDA tensors, each
+    result held to what it must be (the port hands gloo its CUDA tensors
+    as they are: `parallel.collectives`)."""
+    import torch
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    seen = {}
+    for op in ("all_reduce", "broadcast", "all_gather"):
+        t = torch.full((4,), float(rank + 1), device=dev)
+        try:
+            if op == "all_reduce":
+                dist.all_reduce(t)
+                want = [world * (world + 1) / 2] * 4
+            elif op == "broadcast":
+                dist.broadcast(t, 0)
+                want = [1.0] * 4
+            else:
+                parts = [torch.empty_like(t) for _ in range(world)]
+                dist.all_gather(parts, t)
+                t, want = torch.cat(parts), [float(r + 1) for r in
+                                             range(world) for _ in range(4)]
+            seen[op] = "ok" if t.tolist() == want else f"wrong: {t.tolist()}"
+        except Exception as err:  # the probe's answer, checked below
+            seen[op] = f"{type(err).__name__}: {str(err)[:160]}"
+    return seen
+
+
+def parallel_rank(rank: int, world: int, out_dir: str, address: str,
+                  backend_wanted: str) -> None:
+    """One rank of phase 10, a process of its own on card rank % cards:
+    join the group, wait for the one-process decodes' timing to end
+    (DIR/go), decode Uformer and DPCRN over the mesh (one untimed call, the
+    launches of one, then PARALLEL_REPS timed between barriers), take one
+    sharded train step of DPCRN and FullSubNet recording its PReLU
+    branches, and save it all as DIR/rank{rank}.pt. `backend_wanted`
+    "nccl" is the probe: ranks that share a card under NCCL, its outcome
+    saved as DIR/nccl{rank}.json."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from se_tpu_torch.eval.enhance import enhance_waveform
+    from se_tpu_torch.ops import _build
+    from se_tpu_torch.parallel import (
+        initialize_multihost, make_mesh, rank_device,
+    )
+    from se_tpu_torch.parallel.collectives import barrier
+    from se_tpu_torch.train.trainer import TrainConfig, make_train_step
+
+    out = Path(out_dir)
+    dev = rank_device("cuda", rank)
+    torch.cuda.set_device(dev)
+    if backend_wanted == "nccl":
+        try:
+            dist.init_process_group("nccl", init_method=address,
+                                    world_size=world, rank=rank)
+            t = torch.ones(4, device=dev)
+            dist.all_reduce(t)
+            torch.cuda.synchronize()
+            said = f"ok: all_reduce gave {t.tolist()}"
+        except Exception as err:  # the probe's answer
+            said = f"{type(err).__name__}: {str(err)[:300]}"
+        (out / f"nccl{rank}.json").write_text(json.dumps(said))
+        os._exit(0)  # a refused communicator may not tear down cleanly
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = initialize_multihost(address, world, rank, "cuda")
+    mesh = make_mesh()
+    _build.library()
+    result = {"rank": rank, "device": str(dev), "backend": backend,
+              "gloo_cuda": _probe_gloo_cuda(dev) if backend == "gloo"
+              else None, "paths": {}}
+    while not (out / "go").exists():
+        time.sleep(0.05)
+    for name in PARALLEL_DECODES:
+        model = seeded(name, 0).to(dev)
+        wav = waveforms(PARALLEL_DECODE_ROWS * world, 0)
+        enhance_waveform(name, model, wav, mesh=mesh)  # packs, cuDNN plans
+        _build.LAUNCHES.clear()
+        est = enhance_waveform(name, model, wav, mesh=mesh)
+        counts = dict(_build.LAUNCHES)
+        barrier(mesh)
+        t0 = time.perf_counter()
+        for _ in range(PARALLEL_REPS):
+            enhance_waveform(name, model, wav, mesh=mesh)
+        torch.cuda.synchronize()
+        barrier(mesh)
+        result["paths"][f"{name} decode"] = {
+            "est": est, "launches": counts,
+            "wall_s": time.perf_counter() - t0}
+        del model
+    for name, rows in PARALLEL_STEPS.items():
+        model, init_fn, step_fn, _ = make_train_step(
+            TrainConfig(model=name), device=dev, mesh=mesh)
+        state = init_fn(0)
+        _dropout(model, 0.0)
+        batch = _train_batch(rows * world, dev, 11)
+        masks: list = []
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with prelu_branches(model, masks, record=True):
+            state, loss = step_fn(state, batch)
+            loss = loss.item()
+        result["paths"][f"{name} train"] = {
+            "loss": loss, "launches": dict(_build.LAUNCHES),
+            "step_s": time.perf_counter() - t0, "masks": masks,
+            "grads": {k: p.grad.detach().cpu() for k, p in
+                      model.named_parameters()},
+            "stats": {k: v.detach().cpu() for k, v in
+                      model.named_buffers()}}
+        del model, state
+        torch.cuda.empty_cache()
+    torch.save(result, out / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def _spawn_ranks(out_dir: str, backend: str, world: int) -> list:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        address = f"tcp://localhost:{sock.getsockname()[1]}"
+    procs = []
+    for rank in range(world):
+        log = open(Path(out_dir) / f"{backend}{rank}.log", "w+")
+        procs.append((log, subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--parallel-rank", str(rank), "--parallel-world", str(world),
+             "--parallel-dir", out_dir,
+             "--parallel-address", address, "--parallel-backend", backend],
+            stdout=log, stderr=subprocess.STDOUT)))
+    return procs
+
+
+def _join(procs: list, seconds: float) -> list:
+    """Wait for `procs` up to `seconds` in all, kill what is left; returns
+    (exit code or None if killed, log tail) per process."""
+    deadline = time.perf_counter() + seconds
+    out = []
+    for log, proc in procs:
+        try:
+            code = proc.wait(timeout=max(deadline - time.perf_counter(), 1))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            code = None
+        log.seek(0)
+        out.append((code, log.read()[-3000:]))
+        log.close()
+    return out
+
+
+def parallel_phase(dev, card: str, world: int = PARALLEL_WORLD) -> dict:
+    """Phase 10: data parallelism on the card. Two ranks, two processes on
+    the one card, join a gloo group (the backend `choose_backend` picks
+    for ranks that share a card), whose all_reduce, broadcast and
+    all_gather on CUDA tensors must give the right values, and beside
+    them two more try NCCL on the same card (reported: NCCL refuses a
+    duplicate device). Before the ranks
+    start their work, this process times the one-process decodes of
+    Uformer and DPCRN at B = 4 x 4 s (one untimed call, PARALLEL_REPS
+    timed). Each rank's part of the sharded decode (shards of 2) must
+    launch its family's kernels (PARALLEL_PATHS) and its gathered output
+    match the one-process card decode within 1e-3 x max|ref| (phase 4's
+    rule); au-s/s of both, beside the card. Then one sharded fp32 train
+    step each of DPCRN (B = 4) and FullSubNet (B = 8), dropout 0, against
+    the one-process card step on the same global batch, the reference
+    taking the ranks' PReLU branches where its own input is within
+    round-off of 0 (`prelu_branches`, as phase 7b): the loss within 1e-4
+    relative, each gradient within 1e-3 x max|ref| + GRAD_FLOOR x the
+    step's largest, the BN statistics within 1e-3 x max|ref| (phase 7b's
+    rules). With `world` ranks on as many cards (parallel_cards.py) they
+    join an NCCL group, and the batches grow with the world (2 decoded
+    utterances a rank, DPCRN 2 and FullSubNet 4 rows a rank in the
+    steps). Returns the launches of each rank's paths."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from se_tpu_torch.eval.enhance import enhance_waveform
+    from se_tpu_torch.ops import _build
+    from se_tpu_torch.train.trainer import TrainConfig, make_train_step
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = _spawn_ranks(tmp, "auto", world)
+        shared = world > torch.cuda.device_count()  # ranks share a card
+        probe = _spawn_ranks(tmp, "nccl", world) if shared else []
+        wav = waveforms(PARALLEL_DECODE_ROWS * world, 0)
+        ref = {}
+        for name in PARALLEL_DECODES:
+            model = seeded(name, 0).to(dev)
+            enhance_waveform(name, model, wav)
+            t0 = time.perf_counter()
+            for _ in range(PARALLEL_REPS):
+                est = enhance_waveform(name, model, wav)
+            torch.cuda.synchronize()
+            ref[name] = (est, time.perf_counter() - t0)
+            del model
+        torch.cuda.empty_cache()
+        (Path(tmp) / "go").touch()
+        done = _join(ranks, 240)
+        probed = _join(probe, 5)
+        for rank, (code, log) in enumerate(done):
+            if code != 0:
+                fail(f"parallel rank {rank}: exit {code}\n{log}")
+        results = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                   for r in range(world)]
+        nccl = []
+        for rank, (code, log) in enumerate(probed):
+            said = Path(tmp) / f"nccl{rank}.json"
+            nccl.append(json.loads(said.read_text()) if said.exists() else
+                        f"exit {code}: {log[-300:]}")
+    t_ranks = time.perf_counter() - t_phase
+    emit({"phase": "parallel", "check": "ranks", "world": world,
+          "backend": results[0]["backend"],
+          "devices": [r["device"] for r in results],
+          "gloo_cuda": [r["gloo_cuda"] for r in results],
+          "nccl_two_ranks_one_card": nccl, "card": card})
+    if results[0]["backend"] != ("gloo" if shared else "nccl") or shared \
+            and any(v != "ok" for r in results
+                    for v in r["gloo_cuda"].values()):
+        fail("parallel: ranks that share a card must run gloo, and gloo "
+             "must take CUDA tensors; a card a rank NCCL: "
+             f"{results[0]['backend']}, {[r['gloo_cuda'] for r in results]}")
+    launches = {}
+    audio_s = PARALLEL_DECODE_ROWS * world * SECONDS * PARALLEL_REPS
+    for name in PARALLEL_DECODES:
+        want, one_wall = ref[name]
+        tol = 1e-3 * float(np.abs(want).max())
+        errs, walls = [], []
+        for r in results:
+            part = r["paths"][f"{name} decode"]
+            launches[f"{name} decode rank {r['rank']}"] = part["launches"]
+            walls.append(part["wall_s"])
+            errs.append(float(np.abs(part["est"] - want).max()))
+            if part["est"].shape != want.shape or not errs[-1] <= tol:
+                fail(f"parallel {name} decode, rank {r['rank']}: "
+                     f"{errs[-1]} > {tol} from the one-process decode")
+            if not _path_ok(part["launches"],
+                            PARALLEL_PATHS[f"{name} decode"]):
+                fail(f"parallel {name} decode, rank {r['rank']}: launches "
+                     f"{part['launches']}, expected "
+                     f"{PARALLEL_PATHS[f'{name} decode']}")
+        emit({"phase": "parallel", "model": name, "check": "sharded decode "
+              "vs one-process card decode",
+              "batch": PARALLEL_DECODE_ROWS * world, "shards": world,
+              "max_abs_err": errs, "tol": tol,
+              "launches": {r["rank"]: r["paths"][f"{name} decode"]
+                           ["launches"] for r in results},
+              "au_s_per_s_sharded": audio_s / max(walls),
+              "au_s_per_s_one_process": audio_s / one_wall, "card": card})
+    for name, rows in PARALLEL_STEPS.items():
+        b = rows * world
+        parts = [r["paths"][f"{name} train"] for r in results]
+        for r, part in zip(results, parts):
+            launches[f"{name} train rank {r['rank']}"] = part["launches"]
+            if not _path_ok(part["launches"],
+                            PARALLEL_PATHS[f"{name} train"]):
+                fail(f"parallel {name} train, rank {r['rank']}: launches "
+                     f"{part['launches']}, expected "
+                     f"{PARALLEL_PATHS[f'{name} train']}")
+        # the global batch's PReLU branches: each call's ranks' rows
+        masks = [torch.cat(call) for call in zip(*(p["masks"]
+                                                   for p in parts))]
+        model, init_fn, step_fn, _ = make_train_step(TrainConfig(model=name),
+                                                     device=dev)
+        state = init_fn(0)
+        _dropout(model, 0.0)
+        batch = _train_batch(b, dev, 11)
+        t0 = time.perf_counter()
+        with prelu_branches(model, masks, record=False) as seen:
+            state, loss = step_fn(state, batch)
+            loss = loss.item()
+        one_s = time.perf_counter() - t0
+        grads = {k: p.grad.detach().cpu() for k, p in
+                 model.named_parameters()}
+        stats = {k: v.detach().cpu() for k, v in model.named_buffers()}
+        floor = GRAD_FLOOR * max(float(g.abs().max()) for g in
+                                 grads.values())
+        worst = []
+        for r, part in zip(results, parts):
+            loss_err = abs(part["loss"] - loss) / abs(loss)
+            g_over = max((float((part["grads"][k] - g).abs().max())
+                          / (1e-3 * float(g.abs().max()) + floor), k)
+                         for k, g in grads.items())
+            s_err = max([float((part["stats"][k] - v).abs().max())
+                         / (float(v.abs().max()) or 1.0)
+                         for k, v in stats.items()] or [0.0])
+            worst.append({"rank": r["rank"], "loss": part["loss"],
+                          "loss_rel_err": loss_err,
+                          "grad_err_over_tol": g_over,
+                          "bn_stat_err_over_max": s_err,
+                          "step_s": part["step_s"]})
+            if not (loss_err <= 1e-4 and g_over[0] <= 1.0
+                    and s_err <= 1e-3):
+                fail(f"parallel {name} train, rank {r['rank']}: loss "
+                     f"{loss_err}, gradient {g_over}, statistics {s_err} "
+                     "past phase 7b's tolerances")
+        emit({"phase": "parallel", "model": name, "check": "sharded train "
+              "step vs one-process card step", "batch": b,
+              "shards": world, "loss_one_process": loss,
+              "step_s_one_process": one_s,
+              "ranks": worst, "grad_floor": floor,
+              "prelu_flips_taken_from_the_ranks": seen["flips"],
+              "launches": {r["rank"]: p["launches"]
+                           for r, p in zip(results, parts)}, "card": card})
+        del model, state
+        torch.cuda.empty_cache()
+    emit({"phase": "parallel", "check": "phase seconds",
+          "ranks_s": t_ranks, "seconds": time.perf_counter() - t_phase})
+    return launches
 
 
 def parse_args():
@@ -3241,8 +3658,13 @@ def parse_args():
     p.add_argument("--kernels", default=",".join(ROW_PATH),
                    help="phase 3 for these kernels only (comma-separated)")
     p.add_argument("--families", default=",".join(MAIN_PATHS),
-                   help="phases 4-9 for these families only (phase 9 "
-                   "needs dpcrn, lstm and gcrn)")
+                   help="phases 4-10 for these families only (phase 9 "
+                   "needs dpcrn, lstm and gcrn; phase 10 uformer, dpcrn "
+                   "and fullsubnet)")
+    # phase 10's rank processes (this script run again by itself)
+    for flag in ("--parallel-rank", "--parallel-world", "--parallel-dir",
+                 "--parallel-address", "--parallel-backend"):
+        p.add_argument(flag, default=None, help=argparse.SUPPRESS)
     args = p.parse_args()
     args.kernels = args.kernels.split(",")
     args.families = args.families.split(",")
@@ -3267,6 +3689,11 @@ def main() -> None:
     if not (ROOT / "se_tpu_torch" / "csrc").is_dir():
         fail(f"no se_tpu_torch package beside {Path(__file__).name}")
     sys.path.insert(0, str(ROOT))
+    if args.parallel_rank is not None:  # a phase-10 rank, not the script
+        parallel_rank(int(args.parallel_rank), int(args.parallel_world),
+                      args.parallel_dir, args.parallel_address,
+                      args.parallel_backend)
+        return
     from se_tpu_torch.ops import _build
 
     smi = subprocess.run(
@@ -3381,9 +3808,15 @@ def main() -> None:
     if set(CLI_FAMILIES) <= set(args.families):
         cli_phase(dev, card)
     elapsed("9 cli")
+    parallel_counts = {}
+    if {*PARALLEL_DECODES, *PARALLEL_STEPS} <= set(args.families):
+        parallel_counts = parallel_phase(dev, card)
+    elapsed("10 parallel")
     for name, row in table.items():
         row["launches_stream"] = {path: c.get(name, 0)
                                   for path, c in stream_counts.items()}
+        row["launches_parallel"] = {path: c.get(name, 0)
+                                    for path, c in parallel_counts.items()}
 
     print(card, flush=True)
     emit({"kernels": list(table.values())})

@@ -186,16 +186,22 @@ def cmd_score(args):
 
 
 def cmd_train(args):
-    from se_tpu_torch.data import ManifestDataset
     from se_tpu_torch.device import resolve_device
+
+    if args.data_parallel:
+        _train_data_parallel(args)
+    else:
+        _train(args, resolve_device(args.device))
+
+
+def _train(args, dev, mesh=None) -> None:
+    """`train` on `dev`; under `mesh` this rank's part of the sharded
+    run, rank 0 writing the checkpoints and printing the loss."""
+    from se_tpu_torch.data import ManifestDataset
     from se_tpu_torch.models import get_model
     from se_tpu_torch.train.trainer import TrainConfig, train_epochs
     from se_tpu_torch.utils.config import get_preset
 
-    if args.data_parallel:
-        raise SystemExit("--data-parallel is not ported yet: ROADMAP Queue 1 "
-                         "item 13 (data parallelism)")
-    dev = resolve_device(args.device)
     preset = get_preset(args.preset) if args.preset else None
     model_name = preset.model if preset else args.model
     cfg = TrainConfig(
@@ -215,11 +221,61 @@ def cmd_train(args):
     try:
         _, _, history = train_epochs(cfg, ds, epochs=args.epochs,
                                      checkpoint_dir=args.checkpoint_dir,
-                                     device=dev)
+                                     device=dev, mesh=mesh)
     except NotImplementedError as err:  # the trainer's own (DeepXi's)
         raise SystemExit(str(err)) from err
-    if history:
+    if history and (mesh is None or mesh.rank == 0):
         print(f"final loss: {history[-1][1]:.5f}")
+
+
+def _train_data_parallel(args) -> None:
+    """`train --data-parallel`: one rank a card over a "data" mesh. Under
+    a launcher (torchrun: RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and
+    MASTER_PORT set) this process is its rank; otherwise it runs one rank
+    a visible card, itself the only one on a single card; with `--device
+    cpu`, one gloo rank."""
+    import socket
+
+    from se_tpu_torch.device import resolve_device
+
+    kind = resolve_device(args.device).type
+    if "WORLD_SIZE" in os.environ:
+        _rank(None, None, None, args, kind)
+        return
+    with socket.socket() as sock:  # a free port on this host
+        sock.bind(("localhost", 0))
+        address = f"tcp://localhost:{sock.getsockname()[1]}"
+    world = torch.cuda.device_count() if kind == "cuda" else 1
+    if world == 1:
+        _rank(0, 1, address, args, kind)
+    else:
+        torch.multiprocessing.spawn(_rank, (world, address, args, kind),
+                                    nprocs=world)
+
+
+def _rank(rank, world, address, args, kind: str) -> None:
+    """One rank of `train --data-parallel`: join the group (`address`,
+    `world`, `rank`; all None: the launcher's environment), train on this
+    rank's device, leave the group."""
+    import torch.distributed as dist
+
+    from se_tpu_torch.parallel import (
+        initialize_multihost, make_mesh, rank_device,
+    )
+
+    if rank is not None:
+        torch.backends.cudnn.allow_tf32 = False  # a spawned rank's own
+        torch.backends.cuda.matmul.allow_tf32 = False
+    backend = initialize_multihost(address, world, rank, kind)
+    mesh = make_mesh()
+    dev = rank_device(kind, rank)
+    if mesh.rank == 0:
+        print(f"data parallel: {mesh.data} rank(s) on {kind}, backend "
+              f"{backend}", flush=True)
+    try:
+        _train(args, dev, mesh)
+    finally:
+        dist.destroy_process_group()
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -283,7 +339,9 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--uncompressed", action="store_true")
     pt.add_argument("--checkpoint-dir", default="./CP_dir")
     pt.add_argument("--data-parallel", action="store_true",
-                    help="not ported yet (ROADMAP Queue 1 item 13)")
+                    help="shard each batch over one rank a card (under "
+                    "torchrun: its ranks), a step equal to one device's "
+                    "on the whole batch; --device cpu: one gloo rank")
     pt.add_argument("--remat", choices=["none", "dots", "full"],
                     default="none",
                     help="activation rematerialization policy")

@@ -1,24 +1,48 @@
-"""WAV I/O and resampling on numpy and scipy alone: se_tpu/data/wav.py's
-pure-Python path, copied (the port imports nothing of se_tpu).
+"""WAV I/O and resampling: the port of se_tpu/data/wav.py, with its native
+fast paths (`runtime/native.py`, the copied wavio.cc built by g++ at first
+use) and its pure-Python ones on numpy and scipy (the port imports
+nothing of se_tpu).
 
 A small RIFF reader/writer (PCM 8/16/24/32-bit and IEEE float, mono or
-multichannel) plus a polyphase resampler on scipy. Reference behaviors
-being replicated:
+multichannel) plus a polyphase resampler. Reference behaviors being
+replicated:
 - sf.read returns float64 in [-1, 1); we return float32.
 - librosa.resample(orig_sr, 16000) in the decode scripts -> resample_poly.
+
+Which path each call took is counted in `PATHS` ("read_wav native",
+"read_wav python", "resample native", "resample python");
+`runtime.native.status()` says why the native one is unavailable when it
+is.
 """
 
 from __future__ import annotations
 
+import collections
 import struct
 
 import numpy as np
 from scipy.signal import resample_poly
 
+from se_tpu_torch.runtime.native import resample_poly_native, wav_decode_native
 
-def read_wav(path: str) -> tuple[np.ndarray, int]:
-    """Returns (float32 waveform in [-1, 1], sample_rate). Multichannel
-    data comes back as (n, channels); mono as (n,)."""
+PATHS: collections.Counter = collections.Counter()
+
+
+def read_wav(path: str, prefer_native: bool = True) -> tuple[np.ndarray, int]:
+    """Returns (float32 waveform in [-1, 1], sample_rate).
+
+    Uses the C++ decoder when built, as se_tpu's does: it returns the
+    FIRST channel only, (n,), which is what the pipeline consumes. The
+    pure-Python parser (`prefer_native=False`, no library, or a file the
+    decoder declines) returns multichannel data as (n, channels), mono as
+    (n,).
+    """
+    if prefer_native:
+        decoded = wav_decode_native(path)
+        if decoded is not None:
+            PATHS["read_wav native"] += 1
+            return decoded
+    PATHS["read_wav python"] += 1
     with open(path, "rb") as f:
         data = f.read()
     if data[:4] != b"RIFF" or data[8:12] != b"WAVE":
@@ -90,11 +114,19 @@ def write_wav(path: str, x: np.ndarray, sr: int, bits: int = 16) -> None:
         f.write(hdr + data)
 
 
-def resample(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
-    """Polyphase resampling on scipy (the decode scripts' librosa.resample
-    role, e.g. LSTM/lstm_decode_vb.py:34)."""
+def resample(x: np.ndarray, orig_sr: int, target_sr: int,
+             prefer_native: bool = True) -> np.ndarray:
+    """Polyphase resampling (the decode scripts' librosa.resample role,
+    e.g. LSTM/lstm_decode_vb.py:34): the C++ kaiser-windowed polyphase
+    kernel when built (matches scipy to ~2e-7), scipy otherwise."""
     if orig_sr == target_sr:
         return x.astype(np.float32)
     g = np.gcd(int(orig_sr), int(target_sr))
     up, down = target_sr // g, orig_sr // g
+    if prefer_native and x.ndim == 1:
+        out = resample_poly_native(x, up, down)
+        if out is not None:
+            PATHS["resample native"] += 1
+            return out
+    PATHS["resample python"] += 1
     return resample_poly(x, up, down).astype(np.float32)

@@ -46,6 +46,8 @@ from se_tpu_torch.models.registry import ModelEntry, get_model
 from se_tpu_torch.nn.recurrent import LSTM
 from se_tpu_torch.ops.stft import istft
 from se_tpu_torch.ops.stft_fused import stft_auto
+from se_tpu_torch.parallel.collectives import all_gather_rows
+from se_tpu_torch.parallel.mesh import check_replicated, shard_batch
 
 # why a family whose entry has no `bf16` (DeepXi, the hybrid io-kind)
 # decodes in fp32 only: se_tpu's has no bf16 decode to port
@@ -189,7 +191,7 @@ def _enhance(entry: ModelEntry, model: torch.nn.Module, wav: torch.Tensor,
 
 def enhance_waveform(name: str, model: torch.nn.Module, wav: np.ndarray,
                      compressed: bool = True, device=None,
-                     dtype=None) -> np.ndarray:
+                     dtype=None, mesh=None) -> np.ndarray:
     """Enhance a batch (B, N) or one (N,) waveform with `model`, a module
     of family `name` whose weights already live on `device` (None means the
     card; raises when CUDA is absent). `compressed` selects the mag**0.5
@@ -197,7 +199,16 @@ def enhance_waveform(name: str, model: torch.nn.Module, wav: np.ndarray,
     constructor argument). `dtype`: None or torch.float32 (fp32), or
     torch.bfloat16 for a family whose entry has `bf16` (se_tpu's bf16 decode;
     the caller's module keeps its fp32 weights). Returns float32 numpy of
-    the input shape."""
+    the input shape.
+
+    `mesh`: a `parallel.make_mesh` over torch.distributed ranks, every
+    rank calling with the same batch and a module whose weights it checks
+    equal to rank 0's (`parallel.check_replicated`). The batch is padded
+    with zero rows to a multiple of the "data" size, each rank enhances
+    its contiguous rows on its own device, and the rows are gathered to
+    every rank and trimmed: every rank returns what one device returns
+    for the whole batch (se_tpu/eval/enhance.py's mesh path; tests hold
+    it to the one-process decode and to se_tpu's)."""
     entry = get_model(name)
     dtype = compute_dtype(entry, dtype)
     dev = model_device(model, device)
@@ -212,8 +223,16 @@ def enhance_waveform(name: str, model: torch.nn.Module, wav: np.ndarray,
     x_in = x / c if inverted else x * c
     model.eval()
     net = model if dtype is None else bf16_model(entry, model)
-    est = _enhance(entry, net, torch.from_numpy(x_in).to(dev), n,
-                   compressed, dtype)
+    if mesh is None:
+        est = _enhance(entry, net, torch.from_numpy(x_in).to(dev), n,
+                       compressed, dtype)
+    else:
+        check_replicated(model, mesh)
+        pad = (-x_in.shape[0]) % mesh.data
+        rows = shard_batch(np.pad(x_in, ((0, pad), (0, 0))), mesh)
+        est = _enhance(entry, net, torch.from_numpy(rows).to(dev), n,
+                       compressed, dtype)
+        est = all_gather_rows(est, mesh)[:x_in.shape[0]]
     est = est.cpu().numpy()
     est = est * c if inverted else est / c
     return est[0] if single else est

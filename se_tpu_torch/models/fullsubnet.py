@@ -6,8 +6,10 @@ into 31-wide sub-band units (reflect pad and shifted slices), concat with
 the full-band output, a sub-band 2-layer LSTM(384) on the (B*F, T, 32)
 fold, and a 2-channel cIRM. Look-ahead of 2 frames by pad and slice. All
 four LSTM layers run `nn.recurrent.lstm_layer`: the CUDA kernel on the
-card, its plain twin on the CPU. In train mode (`model.train()`) at B > 1
-the sub-band input goes through `drop_band`, the training-time frequency
+card, its plain twin on the CPU. In train mode (`model.train()`) at a
+global batch above 1 (under an active mesh: this rank's rows of it, each
+grouped by its global index) the sub-band input goes through `drop_band`,
+the training-time frequency
 subsampling, as se_tpu's `train=True` (se_tpu/models/fullsubnet.py:116-117):
 the mask then covers F // 2 bins of a regrouped batch, and the trainer
 regroups its features and labels the same way.
@@ -31,6 +33,7 @@ from se_tpu_torch.models import jax_tree as jt
 from se_tpu_torch.models.registry import ModelEntry, register
 from se_tpu_torch.nn import LSTM, Linear
 from se_tpu_torch.ops.stft import PRESET_512_256
+from se_tpu_torch.parallel.mesh import data_size, row_offset
 
 EPS = float(np.finfo(np.float32).eps)
 
@@ -78,15 +81,28 @@ def unfold_subband(x: torch.Tensor, n: int) -> torch.Tensor:
     return torch.stack([xp[..., i:i + f] for i in range(2 * n + 1)], dim=-1)
 
 
-def drop_band(x: torch.Tensor, num_groups: int = 2) -> torch.Tensor:
+def drop_band(x: torch.Tensor, num_groups: int = 2,
+              offset: int = 0) -> torch.Tensor:
     """Training-only frequency subsampling: (B, T, F, C) -> (B', T,
-    F // num_groups, C), group g taking samples g::G and freqs g::G."""
+    F // num_groups, C), group g taking the samples whose global index
+    (`offset` + row: `offset` a shard's first global row) is g mod G, and
+    freqs g::G. The rows come group by group, as `group_rows` orders
+    them."""
     if num_groups <= 1:
         return x
     f = x.shape[2] - x.shape[2] % num_groups
     x = x[:, :, :f]
-    return torch.cat([x[g::num_groups, :, g::num_groups]
+    return torch.cat([x[(g - offset) % num_groups::num_groups, :,
+                        g::num_groups]
                       for g in range(num_groups)], dim=0)
+
+
+def group_rows(x: torch.Tensor, num_groups: int,
+               offset: int = 0) -> torch.Tensor:
+    """`x`'s rows in drop_band's order: group by group (the frame counts
+    that go with drop_band's output)."""
+    return torch.cat([x[(g - offset) % num_groups::num_groups]
+                      for g in range(num_groups)])
 
 
 class FullSubNet(nn.Module):
@@ -123,8 +139,9 @@ class FullSubNet(nn.Module):
         sb_in = offline_laplace_norm(torch.cat(
             [unfold_subband(mag, self.sb_num_neighbors),
              unfold_subband(fb_out, self.fb_num_neighbors)], dim=-1))
-        if self.training and b > 1:
-            sb_in = drop_band(sb_in, self.num_groups_in_drop_band)
+        if self.training and b * data_size() > 1:  # the global batch's
+            sb_in = drop_band(sb_in, self.num_groups_in_drop_band,
+                              row_offset(b))
             b, f = sb_in.shape[0], sb_in.shape[2]
         folded = sb_in.transpose(1, 2).reshape(b * f, t_len, sb_in.shape[-1])
         del sb_in, fb_out  # the fold is the large tensor from here on

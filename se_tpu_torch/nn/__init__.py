@@ -9,14 +9,14 @@ from se_tpu_torch.nn.conv import (
     GluConvTranspose2d, Linear, ShareSepConv,
 )
 from se_tpu_torch.nn.norms import (
-    BatchNorm, CumulativeLayerNorm1d, CumulativeLayerNorm2d, FrameLayerNorm,
-    InstanceNorm, InstanceNorm1d, InstanceNorm2d, LayerNorm,
+    BatchNorm, ChannelWiseLayerNorm, CumulativeLayerNorm1d,
+    CumulativeLayerNorm2d, FrameLayerNorm, InstanceNorm, InstanceNorm1d, InstanceNorm2d, LayerNorm,
     OnePassLayerNorm, SeqCausalLayerNorm, SeqLayerNorm, deepxi_normalisation,
 )
 from se_tpu_torch.nn.recurrent import LSTM, lstm_layer
 
-__all__ = ["BatchNorm", "ComplexConv2d", "ComplexConvTranspose2d",
-           "ComplexDense", "Conv1d", "Conv2d", "ConvParams",
+__all__ = ["BatchNorm", "ChannelWiseLayerNorm", "ComplexConv2d",
+           "ComplexConvTranspose2d", "ComplexDense", "Conv1d", "Conv2d", "ConvParams",
            "ConvTranspose2d", "CumulativeLayerNorm1d",
            "CumulativeLayerNorm2d", "Dropout", "FrameLayerNorm",
            "GluConv2d", "GluConvTranspose2d", "InstanceNorm",

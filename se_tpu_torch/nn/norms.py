@@ -1,15 +1,19 @@
 """Norms of se_tpu/nn/norms.py on channel-last tensors, with the reference
-PyTorch parameter and buffer names: LayerNorm and BatchNorm over the last
-axis; the instance norms and the cumulative (causal) layer norms of the
-TCM families (CTSNet, TaylorSENet, G2Net); DeepXi's: flax's LayerNorm
-with its one-pass variance, and the reference's frame, sequence and
-sequence-causal norms. No norm but BatchNorm keeps running statistics, so
-the others act alike in train and eval mode."""
+PyTorch parameter and buffer names: LayerNorm, ChannelWiseLayerNorm and
+BatchNorm over the last axis; the instance norms and the cumulative
+(causal) layer norms of the TCM families (CTSNet, TaylorSENet, G2Net);
+DeepXi's: flax's LayerNorm with its one-pass variance, and the
+reference's frame, sequence and sequence-causal norms. No norm but
+BatchNorm keeps running statistics, so the others act alike in train and
+eval mode."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from se_tpu_torch.parallel.collectives import all_reduce
+from se_tpu_torch.parallel.mesh import active_mesh
 
 
 class LayerNorm(nn.Module):
@@ -34,11 +38,33 @@ class LayerNorm(nn.Module):
         return (y * self.weight + self.bias).to(x.dtype)
 
 
+class ChannelWiseLayerNorm(nn.Module):
+    """LayerNorm over the channel axis of (B, T, C) sequences with affine
+    parameters, eps 1e-5, statistics in fp32 (ref FullSubNet
+    feature.py:396-414, an nn.LayerNorm whose input it transposes to put C
+    last: this layout has it there; se_tpu/nn/norms.py:272). The reference's
+    `weight` is se_tpu's `scale`. No model of either package uses it."""
+
+    def __init__(self, ch: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(ch))
+        self.bias = nn.Parameter(torch.zeros(ch))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        mean = xf.mean(-1, keepdim=True)
+        var = (xf - mean).square().mean(-1, keepdim=True)
+        y = (xf - mean) * torch.reciprocal(torch.sqrt(var + self.eps))
+        return (y * self.weight + self.bias).to(x.dtype)
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over the last axis, eps 1e-5, as se_tpu's (flax's
     nn.BatchNorm with momentum 1 - 0.1). In eval mode it reads the running
     statistics. In train mode (`module.train()`) it normalises with the
-    batch statistics over every axis but the last, the variance biased,
+    batch statistics over every axis but the last, the variance biased
+    (under an active mesh the global batch's, `_batch_var_mean`),
     and updates running = 0.9 running + 0.1 batch (the biased variance
     too, unlike torch's F.batch_norm). It starts in eval mode. Holds
     torch.nn.BatchNorm*d's weight, bias, running_mean and running_var. A
@@ -75,8 +101,7 @@ class BatchNorm(nn.Module):
             inv = torch.rsqrt(self.running_var + self.eps) * self.weight
             return (x - self.running_mean) * inv + self.bias
         xs = x.to(_stat_dtype(x))
-        var, mean = torch.var_mean(xs, dim=tuple(range(x.ndim - 1)),
-                                   correction=0)
+        var, mean = _batch_var_mean(xs)
         keep = 1.0 - self.momentum
         with torch.no_grad():
             self.running_mean = _momentum(self.running_mean, mean, keep)
@@ -84,6 +109,24 @@ class BatchNorm(nn.Module):
         y = (xs - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
             + self.bias
         return y.to(x.dtype)
+
+
+def _batch_var_mean(xs: torch.Tensor):
+    """The biased variance and the mean over every axis but the last.
+    Under an active mesh they are the global batch's, on every rank, in
+    two passes: the all-reduced sum and count give the mean, then the
+    all-reduced sum of (x - mean)^2 the variance (collectives.all_reduce,
+    whose backward all-reduces the gradient)."""
+    dims = tuple(range(xs.ndim - 1))
+    mesh = active_mesh()
+    if mesh is None or mesh.data == 1:
+        return torch.var_mean(xs, dim=dims, correction=0)
+    count = torch.full((1,), xs.numel() // xs.shape[-1], dtype=xs.dtype,
+                       device=xs.device)
+    total = all_reduce(torch.cat([xs.sum(dims), count]), mesh)
+    mean = total[:-1] / total[-1]
+    var = all_reduce((xs - mean).square().sum(dims), mesh) / total[-1]
+    return var, mean
 
 
 def _momentum(old: torch.Tensor, batch: torch.Tensor,

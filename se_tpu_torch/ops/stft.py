@@ -244,3 +244,22 @@ def istft(re: torch.Tensor, im: torch.Tensor, cfg: StftConfig,
         pad = length - out.shape[-1]
         out = _pad_last(out, 0, pad) if pad > 0 else out[..., :length]
     return out
+
+
+def stft_magphase(x: torch.Tensor, cfg: StftConfig, eps: float = 1e-12
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Waveform -> (magnitude, cos(phase), sin(phase)), the magnitude
+    sqrt(re^2 + im^2 + eps) (se_tpu/ops/stft.py `stft_magphase`: its
+    matmul STFT, `stft` here)."""
+    re, im = stft(x, cfg)
+    mag = torch.sqrt(re * re + im * im + eps)
+    return mag, re / mag, im / mag
+
+
+def compress_mag(mag: torch.Tensor, power: float = 0.5) -> torch.Tensor:
+    """Magnitude compression `mag**power` (ref: LSTM/lstm_decode.py:44)."""
+    return torch.pow(torch.clamp(mag, min=0.0), power)
+
+
+def decompress_mag(mag: torch.Tensor, power: float = 0.5) -> torch.Tensor:
+    return torch.pow(torch.clamp(mag, min=0.0), 1.0 / power)

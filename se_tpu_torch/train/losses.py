@@ -5,6 +5,22 @@ Conventions: spectra are (B, T, F) magnitudes or (B, T, F, 2) complex
 pairs; waveforms are (B, N). `frames` is the per-utterance valid frame
 count (the reference's `frame_mask_list`); everything is vectorized, no
 loop over the batch.
+
+Under an active mesh (`parallel.activation_mesh`) each rank holds its
+rows of the global batch, and a loss is this rank's share of the global
+batch's loss: the local numerator over the global denominator, so the
+ranks' losses, and their gradients, sum to one device's. Two kinds:
+- masked: the denominator counts valid frames or kept utterances, which
+  differ from rank to rank; it is all-reduced (`global_sum`):
+  `mag_mse_loss`, `com_mse_loss`, and through them `com_mag_mse_loss`,
+  `mse_com_mag_mse_loss`, `stagewise_com_mag_mse_loss`; and
+  `uformer_sisnr_loss`'s count of utterances it keeps;
+- plain means over the batch: every rank's shard has as many rows, so
+  the global denominator is the local one times the "data" size, and no
+  collective is needed (`_mean`): `sisdr_loss`, `snr_loss`,
+  `fusion_snr_loss`, `StftmLoss`, `uformer_cplx_mse_loss`,
+  `uformer_mag_mse_loss`, the two sub-band losses, `uformer_time_mae_loss`
+  and `uformer_bce_loss`.
 """
 
 from __future__ import annotations
@@ -12,7 +28,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from se_tpu_torch.parallel.mesh import data_size, global_sum
+
 EPSILON = 1e-12
+
+
+def _mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over the global batch's rows, as this rank's share: x's
+    mean divided by the "data" size (1 without a mesh)."""
+    n = data_size()
+    return x.mean() if n == 1 else x.mean() / n
 
 
 def frame_mask(frames: torch.Tensor, t_max: int) -> torch.Tensor:
@@ -33,14 +58,14 @@ def sample_mask_from_frames(frames: torch.Tensor, n_max: int,
 def mag_mse_loss(esti, label, frames):
     """(B, T, F) masked MSE, over valid frames x F (:37-41)."""
     m = frame_mask(frames, esti.shape[1])[..., None]
-    denom = m.sum() * esti.shape[-1]
+    denom = global_sum(m.sum()) * esti.shape[-1]
     return ((esti - label) * m).square().sum() / denom
 
 
 def com_mse_loss(esti, label, frames):
     """(B, T, F, 2) masked MSE over both components (:44-48)."""
     m = frame_mask(frames, esti.shape[1])[..., None, None]
-    denom = 2.0 * m.sum() * esti.shape[-2]
+    denom = 2.0 * global_sum(m.sum()) * esti.shape[-2]
     return ((esti - label) * m).square().sum() / denom
 
 
@@ -87,7 +112,7 @@ def sisdr_loss(esti, label, frames, hop: int, eps: float = EPSILON):
            / ((l * l).sum(-1, keepdim=True) + eps)) * l
     e_n = e - s_t
     ratio = s_t.square().sum(-1) / e_n.square().sum(-1) + eps
-    return torch.mean(-10.0 * torch.log10(ratio))
+    return _mean(-10.0 * torch.log10(ratio))
 
 
 def snr_loss(esti, label, frames, hop: int):
@@ -96,7 +121,7 @@ def snr_loss(esti, label, frames, hop: int):
     e, l = esti * m, label * m
     ratio = l.square().sum(-1) / ((l - e).square().sum(-1) + EPSILON) \
         + EPSILON
-    return torch.mean(-10.0 * torch.log10(ratio))
+    return _mean(-10.0 * torch.log10(ratio))
 
 
 def fusion_snr_loss(esti, label, lengths):
@@ -108,9 +133,9 @@ def fusion_snr_loss(esti, label, lengths):
     s_t = l * (e * l).sum(-1, keepdim=True) / (
         l.square().sum(-1, keepdim=True) + EPSILON)
     e_n = e - s_t
-    loss1 = torch.mean(-10.0 * torch.log10(
+    loss1 = _mean(-10.0 * torch.log10(
         s_t.square().sum(-1) / (e_n.square().sum(-1) + EPSILON) + EPSILON))
-    loss2 = torch.mean(-10.0 * torch.log10(
+    loss2 = _mean(-10.0 * torch.log10(
         l.square().sum(-1) / (e - l).square().sum(-1) + EPSILON))
     return 0.5 * (loss1 + loss2)
 
@@ -139,7 +164,7 @@ class StftmLoss:
         fe, fl = self._frames(esti), self._frames(label)
         er, ei = fe @ dr, fe @ di
         lr, li = fl @ dr, fl @ di
-        return torch.mean((lr - er).abs() + (li - ei).abs())
+        return _mean((lr - er).abs() + (li - ei).abs())
 
 
 # ------------------------------------------------- Uformer loss set (loss.py)
@@ -156,7 +181,8 @@ def uformer_sisnr_loss(esti, label, eps: float = EPSILON):
     den = torch.sqrt((x_zm - t).square().sum(-1))
     per_utt = -20.0 * torch.log10(eps + num / (den + eps))
     nonzero = (label.square().mean(-1) >= 1.2e-8).float()
-    return (per_utt * nonzero).sum() / torch.clamp(nonzero.sum(), min=1.0)
+    return (per_utt * nonzero).sum() / torch.clamp(global_sum(nonzero.sum()),
+                                                   min=1.0)
 
 
 def uformer_cplx_mse_loss(esti, label):
@@ -164,7 +190,7 @@ def uformer_cplx_mse_loss(esti, label):
     (:159-163)."""
     f = esti.shape[2]
     per = (esti - label).square().sum(dim=(1, 2, 3)) / f
-    return per.mean() / 2.0
+    return _mean(per) / 2.0
 
 
 def uformer_mag_mse_loss(esti, label):
@@ -173,7 +199,7 @@ def uformer_mag_mse_loss(esti, label):
     me = torch.sqrt(torch.clamp(esti.square().sum(-1), min=EPSILON))
     ml = torch.sqrt(torch.clamp(label.square().sum(-1), min=EPSILON))
     f = esti.shape[2]
-    return ((me - ml).square().sum(dim=(1, 2)) / f).mean()
+    return _mean((me - ml).square().sum(dim=(1, 2)) / f)
 
 
 _SUBBAND_W4 = (1.5, 1.2, 0.8, 0.5)
@@ -191,7 +217,7 @@ def uformer_cplx_mse_subband_loss(esti, label):
     f = e.shape[2]
     w = torch.tensor(_SUBBAND_W4, device=esti.device)
     per = (_bands(e) - _bands(l)).square().sum(dim=(1, 2, 3)) * w  # (B, 4)
-    return per.sum() / e.shape[0] / f / 2.0
+    return per.sum() / (e.shape[0] * data_size()) / f / 2.0
 
 
 def uformer_mag_mse_subband_loss(esti, label):
@@ -203,12 +229,12 @@ def uformer_mag_mse_subband_loss(esti, label):
     me, ml = me[:, :, 1:], ml[:, :, 1:]
     w = torch.tensor(_SUBBAND_W4, device=esti.device)
     per = (_bands(me) - _bands(ml)).square().sum(dim=(1, 2)) * w
-    return per.sum() / me.shape[0] / me.shape[1]
+    return per.sum() / (me.shape[0] * data_size()) / me.shape[1]
 
 
 def uformer_time_mae_loss(esti, label):
     """(:208-210)."""
-    return (esti - label).abs().sum(-1).mean()
+    return _mean((esti - label).abs().sum(-1))
 
 
 def uformer_bce_loss(output, target):
@@ -217,7 +243,7 @@ def uformer_bce_loss(output, target):
     eps = 1e-7
     o = torch.clamp(output, eps, 1.0 - eps)
     bce = -(target * torch.log(o) + (1.0 - target) * torch.log(1.0 - o))
-    return bce.sum() / output.shape[0] / output.shape[1]
+    return bce.sum() / (output.shape[0] * data_size()) / output.shape[1]
 
 
 def uformer_accuracy(output, target):

@@ -29,7 +29,21 @@ statistics it updates (fp32: flax mixes the bf16 old ones with fp32 batch
 ones) are written back to its buffers. The features (`_prep`), the
 losses, the clip and Adam stay fp32.
 
-Not here yet: a device mesh (Queue 1 item 13). The hybrid io-kind
+`mesh` (a `parallel.make_mesh` over torch.distributed ranks, one process
+a rank): every rank calls the step on the same global batch, computes
+its contiguous rows, and the step equals one device's step on the global
+batch, as se_tpu's over a mesh does (its GSPMD step; tests hold the two
+together). Under `parallel.activation_mesh` BN takes the global batch's
+statistics, dropout the global mask's rows, drop_band groups rows by
+their global index, and each loss divides this rank's numerator by the
+global denominator (`train.losses`); the backward's gradients are then
+all-reduced (a sum), and the clip and Adam run alike on every rank. The
+weights start as `init_fn(seed)` draws them on every rank, broadcast from
+rank 0 and checked equal (`parallel.replicate`); the dropout generators
+are seeded alike and stay in step. No DDP: it averages gradients by the
+world size and re-broadcasts buffers, where this step sums gradients
+whose losses already carry the global denominators and keeps BN's
+statistics equal by computing them globally. The hybrid io-kind
 (DeepXi) trains through its own driver,
 `models.deepxi_driver.DeepXiDriver.train`, as in se_tpu (whose
 `make_train_step` has no DeepXi branch either).
@@ -48,11 +62,15 @@ from torch.func import functional_call
 
 from se_tpu_torch.device import resolve_device
 from se_tpu_torch.models import get_model
-from se_tpu_torch.models.fullsubnet import drop_band
+from se_tpu_torch.models.fullsubnet import drop_band, group_rows
 from se_tpu_torch.models.registry import ModelEntry
 from se_tpu_torch.ops._dtype import to_float
 from se_tpu_torch.ops.stft import istft
 from se_tpu_torch.ops.stft_fused import stft_auto
+from se_tpu_torch.parallel import collectives as C
+from se_tpu_torch.parallel.mesh import (
+    activation_mesh, replicate, row_offset, shard_batch,
+)
 from se_tpu_torch.train import losses as L
 from se_tpu_torch.train.checkpoint import save_checkpoint
 
@@ -144,13 +162,16 @@ def adam_update(params, grads, opt_state: dict, lr: float,
         params[n].sub_(lr * u)
 
 
-def make_train_step(cfg: TrainConfig, device=None):
+def make_train_step(cfg: TrainConfig, device=None, mesh=None):
     """Returns (model, init_fn(seed) -> state, step_fn(state, batch) ->
     (state, loss), eval_fn(state, batch) -> loss). `device` None means the
-    card (raises without one). A batch is `batch_to_torch`'s dict on the
-    model's device; `state` holds the model, the optimiser's state
-    ("count", "mu", "nu"), "step", "lr_scale" and the dropout
-    "generator"."""
+    card (raises without one); under `mesh`, this rank's device. A batch
+    is `batch_to_torch`'s dict on the model's device, the global batch on
+    every rank of `mesh` (its rows divide over the "data" axis); `state`
+    holds the model, the optimiser's state ("count", "mu", "nu"), "step",
+    "lr_scale" and the dropout "generator". Under `mesh` the losses are
+    the global batch's, on every rank, and so are the gradients the step
+    leaves in `.grad`."""
     if cfg.compute_dtype not in ("fp32", "bf16"):
         raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}")
     if cfg.remat not in ("none", "dots", "full"):
@@ -188,10 +209,10 @@ def make_train_step(cfg: TrainConfig, device=None):
                 # the same for the features, labels and frame counts (ref
                 # fullsubnet_net_sa/model.py:101-104)
                 groups = model.num_groups_in_drop_band
-                spec, lspec = drop_band(spec, groups), drop_band(lspec,
-                                                                 groups)
-                frames = torch.cat([frames[g::groups]
-                                    for g in range(groups)])
+                first = row_offset(frames.shape[0])  # a shard's global row
+                spec = drop_band(spec, groups, first)
+                lspec = drop_band(lspec, groups, first)
+                frames = group_rows(frames, groups, first)
             m_re, m_im = mask[..., 0], mask[..., 1]
             est = torch.stack([m_re * spec[..., 0] - m_im * spec[..., 1],
                                m_re * spec[..., 1] + m_im * spec[..., 0]],
@@ -224,6 +245,8 @@ def make_train_step(cfg: TrainConfig, device=None):
         fresh = entry.make(**cfg.model_kwargs, device="cpu",
                            generator=torch.Generator().manual_seed(seed))
         model.load_state_dict(fresh.state_dict())
+        if mesh is not None:
+            replicate(model, mesh)
         return {"model": model,
                 "opt_state": adam_state(dict(model.named_parameters())),
                 "step": 0, "lr_scale": 1.0,
@@ -274,9 +297,17 @@ def make_train_step(cfg: TrainConfig, device=None):
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
-        loss = loss_and_grads(batch, state["generator"])
+        if mesh is None:
+            loss = loss_and_grads(batch, state["generator"])
+        else:
+            with activation_mesh(mesh):
+                loss = loss_and_grads(shard_batch(batch, mesh),
+                                      state["generator"])
+            loss = C.all_reduce_sum(loss, mesh)
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items()}
+        if mesh is not None:
+            grads = _all_reduce_grads(params, grads, mesh)
         with torch.no_grad():
             adam_update(params, grads, state["opt_state"],
                         cfg.learning_rate * state["lr_scale"],
@@ -285,15 +316,35 @@ def make_train_step(cfg: TrainConfig, device=None):
         return state, loss.detach()
 
     def eval_fn(state: dict, batch: dict):
-        """The loss in eval mode (running statistics, no dropout)."""
+        """The loss in eval mode (running statistics, no dropout); under
+        `mesh` the global batch's, each rank computing its rows."""
         was = model.training
         model.eval()
         with torch.no_grad():
-            loss = forward_loss(batch, None)
+            if mesh is None:
+                loss = forward_loss(batch, None)
+            else:
+                with activation_mesh(mesh):
+                    loss = forward_loss(shard_batch(batch, mesh), None)
+                loss = C.all_reduce_sum(loss, mesh)
         model.train(was)
         return loss
 
     return model, init_fn, step_fn, eval_fn
+
+
+def _all_reduce_grads(params: dict, grads: dict, mesh) -> dict:
+    """Every gradient summed over the ranks (one all-reduce of them all,
+    flattened), written back into each parameter's `.grad`."""
+    names = list(grads)
+    flat = C.all_reduce_sum(torch.cat([grads[n].reshape(-1)
+                                       for n in names]), mesh)
+    out = {}
+    for n, part in zip(names, flat.split([grads[n].numel()
+                                          for n in names])):
+        out[n] = part.view_as(grads[n])
+        params[n].grad = out[n]
+    return out
 
 
 def _bf16(nest):
@@ -342,13 +393,19 @@ def batch_to_torch(batch, device=None) -> dict:
 
 def train_epochs(cfg: TrainConfig, train_ds, cv_ds=None, epochs: int = 1,
                  checkpoint_dir: str | None = None, log_every: int = 50,
-                 device=None):
+                 device=None, mesh=None):
     """Simple epoch loop with best-model tracking and lr decay, from
     `init_fn(0)`; returns (model, state, history), history the (step,
     train loss) pairs logged every `log_every` steps, written to
-    `loss_curve.csv` beside the checkpoints."""
-    model, init_fn, step_fn, eval_fn = make_train_step(cfg, device=device)
+    `loss_curve.csv` beside the checkpoints. Under `mesh` every rank
+    iterates the same global batches and steps as `make_train_step`
+    says; the validation loss every rank decides on is rank 0's, rank 0
+    alone writes the checkpoints and the curve, and every rank waits for
+    them (any rank may restore them after)."""
+    model, init_fn, step_fn, eval_fn = make_train_step(cfg, device=device,
+                                                       mesh=mesh)
     dev = next(model.parameters()).device
+    writer = mesh is None or mesh.rank == 0
     state = init_fn(0)
     best_cv = np.inf
     history = []
@@ -361,16 +418,19 @@ def train_epochs(cfg: TrainConfig, train_ds, cv_ds=None, epochs: int = 1,
             cv_losses = [float(eval_fn(state, batch_to_torch(b, dev)))
                          for b in cv_ds]
             cv = float(np.mean(cv_losses)) if cv_losses else np.inf
+            if mesh is not None:  # one decision on every rank: rank 0's
+                cv = float(C.broadcast_(torch.tensor(
+                    [cv], dtype=torch.float64, device=dev), mesh)[0])
             if cv < best_cv:
                 best_cv = cv
-                if checkpoint_dir:
+                if checkpoint_dir and writer:
                     save_checkpoint(checkpoint_dir, state, epoch,
                                     state["step"], best=True)
             else:
                 state = decay_learning_rate(state)
-        if checkpoint_dir:
+        if checkpoint_dir and writer:
             save_checkpoint(checkpoint_dir, state, epoch, state["step"])
-    if checkpoint_dir and history:
+    if checkpoint_dir and history and writer:
         # the training-loss curve (the reference's loss_dir .mat role, ref
         # LSTM/config.py:10)
         with open(os.path.join(checkpoint_dir, "loss_curve.csv"), "w",
@@ -378,4 +438,6 @@ def train_epochs(cfg: TrainConfig, train_ds, cv_ds=None, epochs: int = 1,
             w = csv.writer(f)
             w.writerow(["step", "train_loss"])
             w.writerows(history)
+    if mesh is not None:
+        C.barrier(mesh)
     return model, state, history

@@ -8,9 +8,9 @@ modules, against se_tpu, on the CPU.
   `stream` modes against the port's streamers called directly; `score`'s
   CSV and average.csv against se_tpu's CLI on the same directories, to
   1e-6 relative; `train` writes the checkpoints, the pointer and the loss
-  curve that `enhance` restores; the errors of what is not ported
-  (`--data-parallel`, bf16) name their ROADMAP items; without `--device`
-  on a box without CUDA the command raises. A written wav holds 16-bit
+  curve that `enhance` restores; `train --data-parallel --device cpu`
+  (one gloo rank) writes the plain `train`'s checkpoint; without
+  `--device` on a box without CUDA the command raises. A written wav holds 16-bit
   samples: outputs are compared within 1e-4 * max + one 16-bit step.
 - The copies: PESQ, the composite measures and HASQI / HASPI equal
   se_tpu's; every preset equals se_tpu's and builds the port's model;
@@ -376,17 +376,30 @@ def test_train_bf16_checkpoint_restores_fp32_weights(tmp_path):
         assert mu.dtype == torch.float32
 
 
-@pytest.mark.parametrize("flags, item", [
-    (["--data-parallel"], "item 13")])
-def test_train_refuses_what_is_not_ported(tmp_path, flags, item):
+def test_train_data_parallel_equals_plain_train(tmp_path, capsys):
+    """`train --data-parallel --device cpu`: one gloo rank over a "data"
+    mesh of one, whose checkpoint (weights, BN statistics, Adam's state,
+    the generator) equals the plain `train`'s, bit for bit."""
     _corpus(str(tmp_path), n_utts=2, n=3200)
-    with pytest.raises(SystemExit, match=item):
-        cli.main(["train", "--model", "dpcrn", "--mix-dir",
-                  str(tmp_path / "noisy"), "--clean-dir",
-                  str(tmp_path / "clean"), "--manifest",
-                  str(tmp_path / "files.json"), "--checkpoint-dir",
-                  str(tmp_path / "CP"), "--device", "cpu"] + flags)
-    assert not os.path.exists(tmp_path / "CP")
+    args = ["train", "--model", "dpcrn", "--mix-dir",
+            str(tmp_path / "noisy"), "--clean-dir", str(tmp_path / "clean"),
+            "--manifest", str(tmp_path / "files.json"), "--batch-size", "2",
+            "--device", "cpu", "--checkpoint-dir"]
+    cli.main(args + [str(tmp_path / "CP")])
+    cli.main(args + [str(tmp_path / "CP_dp"), "--data-parallel"])
+    out = capsys.readouterr().out
+    assert "data parallel: 1 rank(s) on cpu, backend gloo" in out
+    assert not torch.distributed.is_initialized()
+    plain, sharded = (torch.load(tmp_path / d / "model.ckpt-0-1",
+                                 weights_only=False)
+                      for d in ("CP", "CP_dp"))
+    assert plain["step"] == sharded["step"] == 1
+    for key, w in plain["model"].items():
+        assert torch.equal(sharded["model"][key], w), key
+    for part in ("mu", "nu"):
+        for key, m in plain["opt_state"][part].items():
+            assert torch.equal(sharded["opt_state"][part][key], m), key
+    assert torch.equal(plain["generator"], sharded["generator"])
 
 
 # --------------------------------------------------------------------- copies

@@ -34,7 +34,9 @@ def _imported_roots(path: Path) -> set:
 
 def test_port_imports_no_jax_flax_or_se_tpu():
     files = sorted((ROOT / "se_tpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "lstm_dispatch_sweep.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "lstm_dispatch_sweep.py",
+              ROOT / "tests" / "torch_parallel_worker.py",
+              ROOT / "parallel_cards.py"]
     assert len(files) > 10
     pkg = ROOT / "se_tpu_torch"
     for new in ("train/losses.py", "train/trainer.py", "train/checkpoint.py",
@@ -45,7 +47,9 @@ def test_port_imports_no_jax_flax_or_se_tpu():
                 "eval/gains.py", "eval/metrics.py", "ops/stdct.py",
                 "eval/streaming.py", "eval/pesq.py", "eval/composite.py",
                 "eval/hasqi.py", "utils/config.py", "utils/profiling.py",
-                "cli.py", "__main__.py"):
+                "cli.py", "__main__.py", "parallel/mesh.py",
+                "parallel/collectives.py", "ops/features.py", "ops/mel.py",
+                "runtime/native.py"):
         assert pkg / new in files, new
     for path in files:
         bad = _imported_roots(path) & FORBIDDEN
