@@ -30,9 +30,9 @@ Phases, one JSON line per result:
              the PRESET_320 models: T = 401), against its twin on the same
              CUDA inputs: max abs error within 1e-4 * max(1, max|twin|),
              kernel and twin times (CUDA events, median of 5 runs after
-             warm-up), the bound from the shapes (operations at the
-             card's fp32-accurate tensor-core rate, bytes at HBM's; the
-             larger), and as a yardstick the
+             warm-up; the twin's of 3 after 1), the bound from the shapes
+             (operations at the card's fp32-accurate tensor-core rate,
+             bytes at HBM's; the larger), and as a yardstick the
              port never calls F.scaled_dot_product_attention (attention),
              cuDNN's LSTM (lstm), torch.addmm (lstm_project) and
              torch.stft, cuFFT (stft, center cases). The single DSConv
@@ -52,10 +52,10 @@ Phases, one JSON line per result:
              pairs and at B = 32; the STFT also with pad_end and valid
              framing, at n_fft 384 and 2048 (a generic radix-3 stage; past
              the default shared memory), and its center presets at B = 32
-             and 256, each case also as device time by kernel
-             (torch.profiler) beside torch.stft's. The attention, block,
-             encoder, pair stage and STFT lines carry that device time by
-             kernel (`device_ms`) beside the CUDA-event time.
+             and 256. The attention, block, encoder, pair stage, STFT and
+             bf16 lines that their row sums carry the device time by kernel
+             (`device_ms`, torch.profiler) beside the CUDA-event time (and
+             torch.stft's beside the STFT's).
              A kernel's row of the table sums the cases of one forward,
              named in its "note": the shapes of the other paths are the
              per-case lines. The bf16 variants of Uformer's four kernels
@@ -84,7 +84,16 @@ Phases, one JSON line per result:
              rate (989 TFLOP/s bf16 x bf16, 247.5 fp32 x bf16) and their
              bytes; yardsticks cuDNN's LSTM in bf16 and torch.addmm on the
              widened operands; the recurrence's plan also for its bf16
-             kernel.
+             kernel. The last two bf16 variants: the single DSConv block
+             (row dsconv_bf16) at its 16 shapes in bf16 with bf16 weights
+             against its bf16 twin (the same bf16 rule; its bound at 329.7
+             TFLOP/s, fp32 operands against bf16 weights), and the STFT's
+             basis product (row stft_bf16: a bf16 waveform, the bf16
+             window x DFT basis, fp32 out) at DCCRN's 512/128 at B = 4 and
+             the three center presets at B = 32 against its twin within
+             1e-4 * max(1, max|twin|) (fp32 out; and the bf16 rule,
+             reported), its bound at 989 TFLOP/s and bf16 in / fp32 out
+             bytes, torch.stft on the widened waveform its yardstick.
   4. main:   each family from a seed at its published widths, BN
              statistics and affines moved off their defaults,
              `enhance_waveform` on B = 4 x 4 s on the card with the launch
@@ -99,6 +108,15 @@ Phases, one JSON line per result:
              DeepXi with every LayerNorm scale and bias off its default and
              its DBNormalCDF map fitted once on the CPU
              (`deepxi_xi_map`), the same on both sides.
+ 4c. entry: the single DSConv block's and the bf16 STFT's paths, the op
+             and module entry points a user calls (no model runs them):
+             Uformer's 16 DSConvCplx / DSConvReal modules (phase 4's
+             weights) in eval on B = 4 x 401 x 4 inputs, in fp32 and as
+             bf16 copies on bf16 inputs, and `stft_auto` on DCCRN's
+             512/128 with a bf16 B = 4 x 4 s waveform, each with the
+             counts set to 0 just before and read just after: 16 launches
+             of dsconv, of dsconv_bf16, one of stft_bf16 and no fp32 STFT
+             (ENTRY_PATHS); each output against its twin (phase 3's rules).
  4b. main bf16: Uformer, the TCM families and the six LSTM
              families through `enhance_waveform(dtype=torch.bfloat16)` on
              the same B = 4 batch, counts set to 0 just before: Uformer
@@ -111,7 +129,7 @@ Phases, one JSON line per result:
              own distance from the CPU fp32 of both. bf16 GEMMs sum in
              fp32 (allow_bf16_reduced_precision_reduction off, phase 1).
   5. speed:  fp32 enhance throughput of every family at B = 32 and B = 256
-             x 4 s, median audio-seconds/s of 5 timed calls (2 where one
+             x 4 s, median audio-seconds/s of 3 timed calls (2 where one
              call takes over 20 s, said so in the line), with peak device
              memory; where the B = 256 batch takes the tensor-core LSTM
              step (LSTM, CRN, DPCRN), its last utterance against the CPU
@@ -210,9 +228,10 @@ Phases, one JSON line per result:
              (LSTMNet) and windowed (GCRN), score; each must exit 0, the
              enhanced wavs match the restored model's in-process decode
              within 1e-3 * max + one 16-bit step, every CSV column is
-             finite; each command's wall seconds (train, `train
-             --data-parallel` (a world of one, NCCL) and both streams
-             run side by side, then enhance, then score); the two
+             finite; each command's wall seconds (train, then `train
+             --data-parallel` (a world of one, NCCL), each alone on the
+             card, then both streams and enhance side by side, then
+             score); the two
              trains' checkpoints agree (`checkpoints_agree`: gradients
              by phase 7b's rule, weights within 1e-5 x max but where
              Adam's first step moved a round-off gradient by +-lr).
@@ -223,7 +242,16 @@ Phases, one JSON line per result:
              B = 4 x 4 s against the one-process card decode (phase 4's
              rule), au-s/s of both; one sharded fp32 train step of DPCRN
              (B = 4) and FullSubNet (B = 8) against the one-process card
-             step (phase 7b's rules); each rank's launches.
+             step (phase 7b's rules); each rank's launches. Then the
+             "model" axis on the same ranks, a {"data": 1, "model": 2}
+             mesh (parallel_cards.py: {"data": 2, "model": 2} on four
+             cards): Uformer's decode of the same batch, each rank its
+             kernels on half of each call's rows (attention 4, pair 8,
+             encoder 6, decoder 6; the rows each kernel took counted
+             against the unmapped decode's), against the one-process card
+             decode (1e-5 * max|ref|), and one Uformer train step at B =
+             2 a data group (its attention mapped) against the
+             one-process card step by phase 7b's rules.
 Then the kernel table as one JSON line (a row's "launches" are those of the
 phase-4 forward its note names, "launches_all_paths" those of all twelve,
 "launches_train_step" those of one train step of each trained family and
@@ -762,6 +790,62 @@ def bf16_pair_cases(gen, dev):
                nbytes(xc, xm, pc, pm, xc, xm), None, in_row)
 
 
+def bf16_dsconv_cases(gen, dev):
+    """The 16 block shapes of `dsconv_cases` in bf16: weights rounded to
+    bf16 (as a bf16 copy of DSConvCplx / DSConvReal holds them) and packed
+    once, x bf16."""
+    import torch
+
+    from se_tpu_torch.ops import dsconv
+
+    b, t, f = B_MAIN, T_FRAMES, 4
+    n = len(DILATIONS)
+    for ncomp, cin, tot in ((2, 256, 64), (1, 128, 32)):
+        params = tuple(p.to(torch.bfloat16)
+                       for p in dsconv_params(gen, cin, tot, dev))
+        packed = dsconv.pack_block_weights(params, ncomp)
+        x = torch.randn(b, t, f, cin, generator=gen).to(dev).to(
+            torch.bfloat16)
+        for i, d1 in enumerate(DILATIONS):
+            d2 = DILATIONS[n - i - 1]
+            yield (f"dsconv bf16 ncomp={ncomp} {b}x{t}x{f}x{cin} "
+                   f"d=({d1},{d2})", (x, params, d1, d2, ncomp, packed),
+                   dsconv_flops(b, t, f, cin, tot, d1, d2),
+                   nbytes(x, params, x), None, True)
+
+
+def bf16_stft_cases(gen, dev):
+    """The bf16 basis product: DCCRN's 512/128 call at B = 4 (the row),
+    then the three center presets at phase 5's B = 32, on a bf16 waveform.
+    The bound is the product's: 2 frame_len 2F flops a frame at 989
+    TFLOP/s (two bf16 operands), the bf16 waveform and basis in and the
+    fp32 spectrum out. Yardstick: torch.stft (cuFFT) on the widened
+    waveform."""
+    import torch
+
+    from se_tpu_torch.ops import stft as plain
+    from se_tpu_torch.ops.windows import get_window
+
+    center = (("DCCRN 512/128 k=4", plain.PRESET_512_128),
+              ("FullSubNet 512/256 k=2", plain.PRESET_512_256),
+              ("PRESET_320 320/160 k=2", plain.PRESET_320))
+    cases = [(*center[0], B_MAIN, True)]
+    cases += [(label, cfg, 32, False) for label, cfg in center]
+    for label, cfg, batch, in_row in cases:
+        x = torch.randn(batch, SECONDS * SR, generator=gen).mul(0.1).to(
+            dev).to(torch.bfloat16)
+        t_len, n2 = plain.num_frames(x.shape[1], cfg), 2 * cfg.bins
+        flops = 2.0 * batch * t_len * cfg.frame_len * n2
+        moved = nbytes(x) + 2 * cfg.frame_len * n2 + 4 * batch * t_len * n2
+        win = torch.from_numpy(get_window(cfg.window, cfg.win_length,
+                                          cfg.periodic)).to(dev)
+        library = (lambda cfg=cfg, win=win, x=x: torch.stft(
+            x.float(), cfg.fft, cfg.hop, cfg.win_length, win, center=True,
+            pad_mode="reflect", return_complex=True))
+        yield (f"stft bf16 {label} {batch}x{x.shape[1]}", (x, cfg), flops,
+               moved, library, in_row)
+
+
 def lstm_weights(gen, dev, in_dim, h):
     """wx (In, 4H), wh (H, 4H), b (4H) U(+-1/sqrt(H)) as torch's init."""
     import torch
@@ -1252,10 +1336,10 @@ def check_kernels(dev, only) -> dict:
         "dsconv": lambda: (
             _block_kernel, _block_twin, dsconv_cases,
             "se_tpu_torch/csrc/dsconv.cu", "se_tpu/ops/pallas_dsconv.py:113",
-            10, f"the 16 block shapes of Uformer's {b4}: "
+            10, "the 16 DSConvCplx / DSConvReal module forwards of phase "
+            "4c's path (Uformer's block shapes at B = 4): "
             "dsconv_block_pre_tc + dsconv_block_post_tc a call, on the "
-            "tensor cores (the module forward of DSConvCplx / DSConvReal; "
-            "the stage runs dsconv_pair)"),
+            "tensor cores (Uformer's stage runs dsconv_pair)"),
         "dsconv_pair": lambda: (
             _pair_kernel, _pair_twin, pair_cases,
             "se_tpu_torch/csrc/dsconv.cu", "se_tpu/ops/pallas_dsconv.py:325",
@@ -1319,6 +1403,21 @@ def check_kernels(dev, only) -> dict:
             "dsconv_post_tc <bf16> a stage (2 TF32 passes: fp32 operands, "
             "bf16 weights); B = 32 a per-case line",
             {"peak": PEAK_FP32_BF16_FLOPS}),
+        "dsconv_bf16": lambda: (
+            _block_kernel, _block_twin, bf16_dsconv_cases,
+            "se_tpu_torch/csrc/dsconv.cu", "se_tpu/ops/pallas_dsconv.py:113",
+            10, "the 16 DSConvCplx / DSConvReal module forwards of phase "
+            "4c's bf16 path (Uformer's block shapes at B = 4): "
+            "dsconv_block_pre_tc + dsconv_block_post_tc <bf16> a call (2 "
+            "TF32 passes: fp32 operands, bf16 weights)",
+            {"peak": PEAK_FP32_BF16_FLOPS}),
+        "stft_bf16": lambda: (
+            stft_fused.stft_fused, stft_fused._reference, bf16_stft_cases,
+            "se_tpu_torch/csrc/stft.cu", "se_tpu/ops/pallas_stft.py:67", 10,
+            "stft_basis_bf16, the bf16 basis product on the CUDA cores "
+            "(fp32 out): phase 4c's stft_auto call, DCCRN's 512/128 at "
+            "B = 4; B = 32 per-case lines",
+            {"peak": PEAK_BF16_FLOPS, "fp32_out": True}),
         "encoder_bf16": lambda: (
             _encoder_kernel, _encoder_twin, bf16_encoder_cases,
             "se_tpu_torch/csrc/encoder.cu", "se_tpu/ops/pallas_encoder.py:98",
@@ -1445,7 +1544,9 @@ def check_kernels(dev, only) -> dict:
                     del slack, want32
                 del got, want
                 ms = cuda_ms(lambda: kernel(*args), reps=reps)
-                plain = cuda_ms(lambda: twin(*args), reps=reps)
+                # the twin, no yardstick of speed: 3 runs after 1
+                plain = cuda_ms(lambda: twin(*args), reps=reps,
+                                rounds=3, warm=1)
                 lib = cuda_ms(library, reps=reps) if library else None
             b_ms, b_by = bound(flops, moved, peak)
             line = {"phase": "kernel", "kernel": name, "case": label,
@@ -1453,7 +1554,8 @@ def check_kernels(dev, only) -> dict:
                     "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
                     "bound_by": b_by, "gflop": total_flops(flops) / 1e9,
                     "mbytes": moved / 1e6, "in_row": in_row}
-            if name in DEVICE_SPLIT or extra:  # where the event time goes
+            # where the event time goes, for the cases the row sums
+            if in_row and (name in DEVICE_SPLIT or extra):
                 with torch.no_grad():
                     line["device_ms"] = device_ms(lambda: kernel(*args))
                     if library:
@@ -1609,13 +1711,21 @@ PROFILE_KERNELS_BF16 = {
     "dpcrn": ("lstm_step_bf16",) + _BF16_SMALL_FOLD,
 }
 # kernel: the main path whose B = 4 forward its row of the table sums
-ROW_PATH = {"attention": "uformer", "dsconv": "uformer",
+ROW_PATH = {"attention": "uformer", "dsconv": "conformer blocks",
             "dsconv_pair": "uformer", "encoder": "uformer",
             "decoder": "uformer", "lstm": "fullsubnet",
             "lstm_project": "lstm", "lstm_recur": "lstm", "stft": "dccrn",
             **{k: "uformer bf16" for k in BF16_KERNELS},
             "lstm_bf16": "fullsubnet bf16", "lstm_project_bf16": "lstm bf16",
-            "lstm_recur_bf16": "lstm bf16"}
+            "lstm_recur_bf16": "lstm bf16",
+            "dsconv_bf16": "conformer blocks bf16", "stft_bf16": "stft bf16"}
+# phase 4c, the entry points that run the single block and the bf16 STFT:
+# the launches each must show
+ENTRY_PATHS = {
+    "conformer blocks": {"dsconv": 16, "dsconv_bf16": 0},
+    "conformer blocks bf16": {"dsconv": 0, "dsconv_bf16": 16},
+    "stft bf16": {"stft": 0, "stft_bf16": 1},
+}
 # families whose B = 256 batch takes the large-fold step (lstm_step_tc;
 # in bf16 lstm_step_bf16) in some layer call: phase 5 checks one of its
 # utterances against the CPU
@@ -1745,6 +1855,85 @@ def bf16_path(name: str, model, cpu_model, launches) -> dict:
     return counts
 
 
+def entry_paths(uformer_model, dev, launches) -> dict:
+    """Phase 4c: the paths of the single DSConv block and the bf16 STFT,
+    the entry points a user calls. Uformer's 16 DSConvCplx / DSConvReal
+    modules (phase 4's weights on the card) in eval on B = 4 x 401 x 4
+    inputs (256 and 128 channels), then bf16 copies of them on the same
+    inputs in bf16, then `stft_auto` on DCCRN's 512/128 with a bf16 B = 4
+    x 4 s waveform; counts set to 0 just before each path and read just
+    after (ENTRY_PATHS). Each block's output against its twin on the same
+    inputs (fp32: 1e-4 * max(1, max|twin|); bf16: `bf16_compare`), the
+    spectrum against its twin (1e-4 * max(1, max|twin|)). Returns the
+    counts by path."""
+    import torch
+
+    from se_tpu_torch.ops import dsconv, stft_fused
+    from se_tpu_torch.ops._dtype import bf16_compare
+    from se_tpu_torch.ops.stft import PRESET_512_128
+
+    conf = uformer_model.conformer
+    blocks = [*conf.dsconv_cplx, *conf.dsconv_real]
+    gen = torch.Generator().manual_seed(7)
+    inputs = {c: torch.randn(B_MAIN, T_FRAMES, 4, c, generator=gen).to(dev)
+              for c in (256, 128)}
+    counts, errs = {}, {}
+    for path, dtype in (("conformer blocks", torch.float32),
+                        ("conformer blocks bf16", torch.bfloat16)):
+        mods = [copy.deepcopy(b).to(dtype) if dtype != torch.float32
+                else b for b in blocks]
+        xs = [inputs[b.layernorm_conv1.weight.shape[0] * b.ncomp].to(dtype)
+              for b in mods]
+        for m, x in zip(mods, xs):  # the packs, made before the count
+            m.weights()
+        with torch.no_grad():
+            launches.clear()
+            outs = [m(x) for m, x in zip(mods, xs)]
+            counts[path] = dict(launches)
+            worst = 0.0
+            for m, x, out in zip(mods, xs, outs):
+                want = dsconv._reference(x, m.params(), m.dilation1,
+                                         m.dilation2, m.ncomp)
+                if dtype == torch.float32:
+                    err = float((out - want).abs().max())
+                    tol = 1e-4 * max(1.0, float(want.abs().max()))
+                    ok = err <= tol
+                    worst = max(worst, err / tol)
+                else:
+                    check = bf16_compare([out], [want])
+                    ok, err = check.ok, check.max_abs_err
+                    worst = max(worst, err)
+                if not ok:
+                    fail(f"{path}: a block's output differs from its twin "
+                         f"by {err}")
+            errs[path] = worst
+        del mods, outs
+    wav = torch.from_numpy(waveforms(B_MAIN, 0)).to(dev).to(torch.bfloat16)
+    with torch.no_grad():
+        launches.clear()
+        got = stft_fused.stft_auto(wav, PRESET_512_128)
+        counts["stft bf16"] = dict(launches)
+        want = stft_fused._reference(wav, PRESET_512_128)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    tol = 1e-4 * max(1.0, max(float(w.abs().max()) for w in want))
+    if not err <= tol or got[0].dtype != torch.float32:
+        fail(f"stft bf16: {got[0].dtype} spectrum {err} from its twin, past "
+             f"{tol}")
+    errs["stft bf16"] = err
+    for path, want_counts in ENTRY_PATHS.items():
+        for kernel, n in want_counts.items():
+            if counts[path].get(kernel, 0) != n:
+                fail(f"{path}: launched {kernel} "
+                     f"{counts[path].get(kernel, 0)} times, expected {n}")
+    emit({"phase": "entry", "launches": counts,
+          "worst": {"conformer blocks (err / tol)":
+                    errs["conformer blocks"],
+                    "conformer blocks bf16 (max abs err)":
+                    errs["conformer blocks bf16"],
+                    "stft bf16 (max abs err)": errs["stft bf16"]}})
+    return counts
+
+
 def bf16_card_vs_cpu(name: str, est, cpu_model, wav, index: int,
                      check: str) -> None:
     """Utterance `index` of the card's bf16 batch output against the same
@@ -1809,7 +1998,7 @@ def throughput(name: str, model, cpu_model, card: str, dtype=None) -> None:
                 bf16_card_vs_cpu(name, est, cpu_model, wav, batch - 1,
                                  check.replace("card", "card bf16", 1))
         del est
-        repeats = 2 if warm_s > SLOW_CALL_S else 5
+        repeats = 2 if warm_s > SLOW_CALL_S else 3
         times = []
         for _ in range(repeats):
             t0 = time.perf_counter()
@@ -1921,7 +2110,9 @@ BACKWARD = {
                        "wh, recomputed",
     **{k: "not on any train path: Uformer trains its levels and DSConv "
           "blocks on the plain path, as se_tpu's train mode"
-       for k in BF16_KERNELS if k != "attention_bf16"},
+       for k in (*BF16_KERNELS, "dsconv_bf16") if k != "attention_bf16"},
+    "stft_bf16": "none: stft_fused raises on an input that requires grad "
+                 "(se_tpu's stft_pallas has no VJP)",
 }
 # family: the launches of one train step (one forward; the backward runs
 # the twins). Uformer's train mode runs its U-net levels and DSConv blocks
@@ -3147,8 +3338,8 @@ def checkpoints_agree(plain: dict, other: dict) -> dict:
     g_p = {k: m / (1 - b1) for k, m in plain["opt_state"]["mu"].items()}
     g_o = {k: m / (1 - b1) for k, m in other["opt_state"]["mu"].items()}
     floor = GRAD_FLOOR * max(float(g.abs().max()) for g in g_p.values())
-    grad_worst = max(float((g_o[k] - g).abs().max())
-                     / (1e-3 * float(g.abs().max()) + floor)
+    grad_worst = max((float((g_o[k] - g).abs().max())
+                      / (1e-3 * float(g.abs().max()) + floor), k)
                      for k, g in g_p.items())
     big_flips, round_off, apart = 0, 0, 0
     for k, w in plain["model"].items():
@@ -3164,7 +3355,7 @@ def checkpoints_agree(plain: dict, other: dict) -> dict:
     out = {"grad_err_over_tol": grad_worst, "grad_floor": floor,
            "sign_flips_above_floor": big_flips,
            "round_off_weights_apart": round_off, "weights_apart": apart}
-    if not (grad_worst <= 1.0 and big_flips == 0 and apart == 0):
+    if not (grad_worst[0] <= 1.0 and big_flips == 0 and apart == 0):
         fail(f"cli train --data-parallel: its checkpoint parts from the "
              f"plain train's: {out}")
     return out
@@ -3177,10 +3368,12 @@ def cli_phase(dev, card: str) -> None:
     manifest (the verify recipe's fixture): train DPCRN one step, the same
     with `--data-parallel` (one rank on the one card, NCCL), enhance from
     the plain train's checkpoint, stream exact (LSTMNet) and windowed
-    (GCRN), score. The commands that need no other's output run side by
-    side (both trains and both streams, then enhance, then score; each
-    wall from its start to its exit). Each must exit 0; the two trains'
-    checkpoints must agree (`checkpoints_agree`); the
+    (GCRN), score. The two trains run one after the other, each alone on
+    the card (beside other processes cuDNN may pick other algorithms in
+    one than in the other, and a gradient within round-off of a kink then
+    takes another branch), then both streams and enhance side by side,
+    then score (each wall from its start to its exit). Each must exit 0; the two trains' checkpoints must
+    agree (`checkpoints_agree`); the
     enhanced wavs must match the restored model's in-process
     `enhance_waveform` within 1e-3 * max + one 16-bit step; every CSV
     column must be finite."""
@@ -3210,25 +3403,21 @@ def cli_phase(dev, card: str) -> None:
         with open(os.path.join(tmp, "files.json"), "w") as f:
             json.dump(ids, f)
         env = dict(os.environ, PYTHONPATH=str(ROOT))
-        stages = (
-            (("train", ["train", "--model", "dpcrn", "--mix-dir", "noisy",
-                        "--clean-dir", "clean", "--manifest", "files.json",
-                        "--batch-size", "2", "--epochs", "1",
-                        "--checkpoint-dir", "CP"]),
-             ("train data parallel", [
-                 "train", "--model", "dpcrn", "--mix-dir", "noisy",
+        train = ["train", "--model", "dpcrn", "--mix-dir", "noisy",
                  "--clean-dir", "clean", "--manifest", "files.json",
-                 "--batch-size", "2", "--epochs", "1", "--checkpoint-dir",
-                 "CP_dp", "--data-parallel"]),
-             ("stream exact", ["stream", "--mode", "exact", "--model",
+                 "--batch-size", "2", "--epochs", "1", "--checkpoint-dir"]
+        stages = (
+            (("train", train + ["CP"]),),
+            (("train data parallel", train + ["CP_dp", "--data-parallel"]),),
+            (("stream exact", ["stream", "--mode", "exact", "--model",
                                "lstm", "--mix-dir", "noisy", "--out-dir",
                                "stream_exact"]),
              ("stream windowed", ["stream", "--mode", "windowed",
                                   "--model", "gcrn", "--mix-dir", "noisy",
-                                  "--out-dir", "stream_windowed"])),
-            (("enhance", ["enhance", "--model", "dpcrn", "--checkpoint",
+                                  "--out-dir", "stream_windowed"]),
+             ("enhance", ["enhance", "--model", "dpcrn", "--checkpoint",
                           "CP", "--mix-dir", "noisy", "--out-dir",
-                          "est"]),),
+                          "est"])),
             (("score", ["score", "--est-dir", "est", "--ref-dir", "clean",
                         "--csv", "results/r.csv"]),))
         walls = {}
@@ -3313,9 +3502,16 @@ PARALLEL_REPS = 5  # timed decodes, after one untimed
 # family: the launches each rank's part of a path must show; the LSTM
 # layer calls by their count on either design ("lstm" the tensor-core
 # step, "lstm_recur" the small fold), since a shard picks its own
+# the "model" axis (ROADMAP 13b) on the same ranks: model groups of two
+# ranks (an even world), and the rows a data group of its Uformer step
+MODEL_STEP_ROWS = 2
+UFORMER_KERNELS = {"attention": 4, "dsconv_pair": 8, "encoder": 6,
+                   "decoder": 6}
 PARALLEL_PATHS = {
-    "uformer decode": {"attention": 4, "dsconv_pair": 8, "encoder": 6,
-                       "decoder": 6},
+    "uformer decode": UFORMER_KERNELS,
+    "uformer decode model": UFORMER_KERNELS,
+    "uformer train model": {"attention": 4, "dsconv_pair": 0, "encoder": 0,
+                            "decoder": 0},
     "dpcrn decode": {"stft": 1, "lstm calls": 12},
     "dpcrn train": {"stft": 2, "lstm calls": 12},
     "fullsubnet train": {"stft": 2, "lstm": 2, "lstm_project": 2,
@@ -3446,8 +3642,95 @@ def parallel_rank(rank: int, world: int, out_dir: str, address: str,
                       model.named_buffers()}}
         del model, state
         torch.cuda.empty_cache()
+    model_axis_rank(result, world, dev)
     torch.save(result, out / f"rank{rank}.pt")
     dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def kernel_rows(rows: dict):
+    """While open, each `_build.launch` adds its first tensor's leading
+    size (the rows a kernel took: q's N, x's B) to rows[entry]."""
+    from se_tpu_torch.ops import _build
+
+    real = _build.launch
+
+    def launch(entry, *args):
+        rows[entry] = rows.get(entry, 0) + args[0].shape[0]
+        return real(entry, *args)
+
+    _build.launch = launch
+    try:
+        yield rows
+    finally:
+        _build.launch = real
+
+
+def model_mesh(world: int) -> dict:
+    """Phase 10's "model" axis mesh: {"data": world / 2, "model": 2}."""
+    if world % 2:
+        fail(f"parallel: the model axis needs an even world, got {world}")
+    return {"data": world // 2, "model": 2}
+
+
+def model_axis_rank(result: dict, world: int, dev) -> None:
+    """A phase-10 rank's "model" axis part (`model_mesh`): Uformer's
+    decode of the data paths' batch over the mesh (one untimed call, the
+    launches and kernel rows of one, PARALLEL_REPS timed), the kernel rows
+    of the same decode without a mesh, and one Uformer train step at
+    MODEL_STEP_ROWS a data group, dropout 0, recording its PReLU branches;
+    into result["paths"]."""
+    import torch
+
+    from se_tpu_torch.eval.enhance import enhance_waveform
+    from se_tpu_torch.ops import _build
+    from se_tpu_torch.parallel import make_mesh
+    from se_tpu_torch.parallel.collectives import barrier
+    from se_tpu_torch.train.trainer import TrainConfig, make_train_step
+
+    mesh = make_mesh(model_mesh(world))
+    model = seeded("uformer", 0).to(dev)
+    wav = waveforms(PARALLEL_DECODE_ROWS * world, 0)
+    enhance_waveform("uformer", model, wav, mesh=mesh)
+    _build.LAUNCHES.clear()
+    with kernel_rows({}) as mapped:
+        est = enhance_waveform("uformer", model, wav, mesh=mesh)
+    counts = dict(_build.LAUNCHES)
+    with kernel_rows({}) as whole:  # this rank's data rows, unmapped
+        enhance_waveform("uformer", model, wav[
+            mesh.data_index * len(wav) // mesh.data:
+            (mesh.data_index + 1) * len(wav) // mesh.data])
+    barrier(mesh)
+    t0 = time.perf_counter()
+    for _ in range(PARALLEL_REPS):
+        enhance_waveform("uformer", model, wav, mesh=mesh)
+    torch.cuda.synchronize()
+    barrier(mesh)
+    result["paths"]["uformer decode model"] = {
+        "est": est, "launches": counts, "rows": mapped, "rows_whole": whole,
+        "wall_s": time.perf_counter() - t0, "mesh": dict(mesh.shape),
+        "data_index": mesh.data_index, "model_index": mesh.model_index}
+    del model
+    model, init_fn, step_fn, _ = make_train_step(
+        TrainConfig(model="uformer"), device=dev, mesh=mesh)
+    state = init_fn(0)
+    _dropout(model, 0.0)
+    batch = _train_batch(MODEL_STEP_ROWS * mesh.data, dev, 11)
+    masks: list = []
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with prelu_branches(model, masks, record=True):
+        state, loss = step_fn(state, batch)
+        loss = loss.item()
+    result["paths"]["uformer train model"] = {
+        "loss": loss, "launches": dict(_build.LAUNCHES),
+        "step_s": time.perf_counter() - t0, "masks": masks,
+        "grads": {k: p.grad.detach().cpu() for k, p in
+                  model.named_parameters()},
+        "stats": {k: v.detach().cpu() for k, v in model.named_buffers()},
+        "data_index": mesh.data_index, "model_index": mesh.model_index}
+    del model, state
+    torch.cuda.empty_cache()
 
 
 def _spawn_ranks(out_dir: str, backend: str, world: int) -> list:
@@ -3505,10 +3788,15 @@ def parallel_phase(dev, card: str, world: int = PARALLEL_WORLD) -> dict:
     round-off of 0 (`prelu_branches`, as phase 7b): the loss within 1e-4
     relative, each gradient within 1e-3 x max|ref| + GRAD_FLOOR x the
     step's largest, the BN statistics within 1e-3 x max|ref| (phase 7b's
-    rules). With `world` ranks on as many cards (parallel_cards.py) they
-    join an NCCL group, and the batches grow with the world (2 decoded
-    utterances a rank, DPCRN 2 and FullSubNet 4 rows a rank in the
-    steps). Returns the launches of each rank's paths."""
+    rules). Then the "model" axis on the same ranks (`model_axis_rank`,
+    `model_mesh`): Uformer's decode of the same batch against the
+    one-process decode (`model_axis_decode`) and one Uformer step at
+    MODEL_STEP_ROWS a data group against the one-process step at that
+    batch, by the same rules. With `world` ranks on as many cards
+    (parallel_cards.py) they join an NCCL group, and the batches grow with
+    the world (2 decoded utterances a rank, DPCRN 2 and FullSubNet 4 rows
+    a rank in the steps; the model axis a {"data": 2, "model": 2} mesh at
+    four). Returns the launches of each rank's paths."""
     import tempfile
 
     import numpy as np
@@ -3587,19 +3875,25 @@ def parallel_phase(dev, card: str, world: int = PARALLEL_WORLD) -> dict:
                            ["launches"] for r in results},
               "au_s_per_s_sharded": audio_s / max(walls),
               "au_s_per_s_one_process": audio_s / one_wall, "card": card})
-    for name, rows in PARALLEL_STEPS.items():
-        b = rows * world
-        parts = [r["paths"][f"{name} train"] for r in results]
+    mmesh = model_mesh(world)
+    launches.update(model_axis_decode(results, ref["uformer"][0], world,
+                                      card))
+    steps = [(f"{name} train", name, rows * world)
+             for name, rows in PARALLEL_STEPS.items()]
+    steps.append(("uformer train model", "uformer",
+                  MODEL_STEP_ROWS * mmesh["data"]))
+    for path, name, b in steps:
+        parts = [r["paths"][path] for r in results]
         for r, part in zip(results, parts):
-            launches[f"{name} train rank {r['rank']}"] = part["launches"]
-            if not _path_ok(part["launches"],
-                            PARALLEL_PATHS[f"{name} train"]):
-                fail(f"parallel {name} train, rank {r['rank']}: launches "
-                     f"{part['launches']}, expected "
-                     f"{PARALLEL_PATHS[f'{name} train']}")
-        # the global batch's PReLU branches: each call's ranks' rows
-        masks = [torch.cat(call) for call in zip(*(p["masks"]
-                                                   for p in parts))]
+            launches[f"{path} rank {r['rank']}"] = part["launches"]
+            if not _path_ok(part["launches"], PARALLEL_PATHS[path]):
+                fail(f"parallel {path}, rank {r['rank']}: launches "
+                     f"{part['launches']}, expected {PARALLEL_PATHS[path]}")
+        # the global batch's PReLU branches: each call's rows from one
+        # rank of each data coordinate (a model group's ranks hold the
+        # same rows), in data order
+        masks = [torch.cat(call) for call in zip(*(
+            p["masks"] for p in parts if p.get("model_index", 0) == 0))]
         model, init_fn, step_fn, _ = make_train_step(TrainConfig(model=name),
                                                      device=dev)
         state = init_fn(0)
@@ -3631,12 +3925,13 @@ def parallel_phase(dev, card: str, world: int = PARALLEL_WORLD) -> dict:
                           "step_s": part["step_s"]})
             if not (loss_err <= 1e-4 and g_over[0] <= 1.0
                     and s_err <= 1e-3):
-                fail(f"parallel {name} train, rank {r['rank']}: loss "
+                fail(f"parallel {path}, rank {r['rank']}: loss "
                      f"{loss_err}, gradient {g_over}, statistics {s_err} "
                      "past phase 7b's tolerances")
         emit({"phase": "parallel", "model": name, "check": "sharded train "
-              "step vs one-process card step", "batch": b,
-              "shards": world, "loss_one_process": loss,
+              "step vs one-process card step", "path": path, "batch": b,
+              "mesh": mmesh if path.endswith("model")
+              else {"data": world}, "loss_one_process": loss,
               "step_s_one_process": one_s,
               "ranks": worst, "grad_floor": floor,
               "prelu_flips_taken_from_the_ranks": seen["flips"],
@@ -3646,6 +3941,53 @@ def parallel_phase(dev, card: str, world: int = PARALLEL_WORLD) -> dict:
         torch.cuda.empty_cache()
     emit({"phase": "parallel", "check": "phase seconds",
           "ranks_s": t_ranks, "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def model_axis_decode(results: list, want, world: int, card: str) -> dict:
+    """Phase 10's "model" axis decode: each rank's gathered Uformer decode
+    against the one-process card decode `want` of the same batch, within
+    1e-5 * max|ref| where a data group holds the whole batch (the convs
+    then see one process's rows) and phase 4's 1e-3 * max|ref| otherwise
+    (other row counts pick other cuDNN algorithms: 2.7e-5 of max on four
+    cards, PERF.md); its launches (PARALLEL_PATHS), and every kernel entry
+    having taken 1/model of the rows the same decode gives it unmapped.
+    Returns each rank's launches."""
+    import numpy as np
+
+    mesh = model_mesh(world)
+    rel = 1e-5 if mesh["data"] == 1 else 1e-3
+    tol = rel * float(np.abs(want).max())
+    launches, errs, walls = {}, [], []
+    for r in results:
+        part = r["paths"]["uformer decode model"]
+        launches[f"uformer decode model rank {r['rank']}"] = part["launches"]
+        walls.append(part["wall_s"])
+        errs.append(float(np.abs(part["est"] - want).max()))
+        if part["est"].shape != want.shape or not errs[-1] <= tol:
+            fail(f"parallel uformer decode model, rank {r['rank']}: "
+                 f"{errs[-1]} > {tol} from the one-process decode")
+        if not _path_ok(part["launches"],
+                        PARALLEL_PATHS["uformer decode model"]):
+            fail(f"parallel uformer decode model, rank {r['rank']}: "
+                 f"launches {part['launches']}, expected "
+                 f"{PARALLEL_PATHS['uformer decode model']}")
+        halves = {k: (n, part["rows_whole"].get(k)) for k, n in
+                  part["rows"].items()}
+        if not halves or any(n * mesh["model"] != whole
+                             for n, whole in halves.values()):
+            fail(f"parallel uformer decode model, rank {r['rank']}: the "
+                 f"kernels' rows (mapped, unmapped) {halves} are not "
+                 f"1/{mesh['model']} of the unmapped decode's")
+    audio_s = PARALLEL_DECODE_ROWS * world * SECONDS * PARALLEL_REPS
+    emit({"phase": "parallel", "model": "uformer", "check": "model-axis "
+          "decode vs one-process card decode", "mesh": mesh,
+          "batch": PARALLEL_DECODE_ROWS * world, "max_abs_err": errs,
+          "tol": tol, "kernel_rows": {r["rank"]: r["paths"][
+              "uformer decode model"]["rows"] for r in results},
+          "launches": {r["rank"]: r["paths"]["uformer decode model"]
+                       ["launches"] for r in results},
+          "au_s_per_s_model_axis": audio_s / max(walls), "card": card})
     return launches
 
 
@@ -3733,6 +4075,9 @@ def main() -> None:
     for name in bf16_families:  # phase 4b
         counts[f"{name} bf16"] = bf16_path(name, *models[name],
                                            _build.LAUNCHES)
+    if "uformer" in models:  # phase 4c
+        counts.update(entry_paths(models["uformer"][0], dev,
+                                  _build.LAUNCHES))
     for path in counts.values():
         for kernel, n in path.items():
             totals[kernel] = totals.get(kernel, 0) + n
@@ -3740,7 +4085,7 @@ def main() -> None:
         # the launches of the forward whose times the row sums
         row["launches"] = counts.get(ROW_PATH[name], {}).get(name, 0)
         row["launches_all_paths"] = totals.get(name, 0)
-    elapsed("4 main, 4b main bf16")
+    elapsed("4 main, 4b main bf16, 4c entry")
     for name, (model, cpu_model) in models.items():
         throughput(name, model, cpu_model, card)
         if name in bf16_families:  # beside fp32, in the same call

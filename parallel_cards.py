@@ -1,16 +1,22 @@
 #!/usr/bin/env python3
-"""Data parallelism across every visible NVIDIA GPU, one rank a card (an
-NCCL group): chip_smoke.py's phase 10 at that world, and `train
---data-parallel` on all cards against the plain `train` on one.
+"""Parallelism across every visible NVIDIA GPU, one rank a card (an NCCL
+group): chip_smoke.py's phase 10 at that world, its "data" mesh and a
+{"data": world / 2, "model": 2} mesh, and `train --data-parallel` on all
+cards against the plain `train` on one.
 
     python3 parallel_cards.py
 
-Needs two cards or more. It builds the kernels, then runs
+Needs an even number of cards. It builds the kernels, then runs
 `chip_smoke.parallel_phase` with one rank a card: the sharded Uformer and
 DPCRN decodes (2 utterances of 4 s a rank) against the one-process decode
 on card 0, within 1e-3 x max|ref|, and the sharded DPCRN and FullSubNet
 train steps (2 and 4 rows a rank) against the one-process step, by phase
-7b's rules; each rank's launches. Then, in a temporary directory of
+7b's rules; each rank's launches. The ranks then form a {"data": world /
+2, "model": 2} mesh (on four cards subgroups of two): Uformer's decode of
+the same batch, each rank its kernels on half its data group's rows,
+against card 0's one-process decode (phase 4's rule), and one Uformer
+train step at 2 rows a data group against card 0's one-process step (7b's
+rules). Then, in a temporary directory of
 4 x world seeded 1 s noisy / clean pairs, `python -m se_tpu_torch train
 --model dpcrn --batch-size 4 x world --data-parallel` (it spawns a rank a
 card) beside the same `train` without it (one card): one step each,
@@ -99,10 +105,10 @@ def main() -> None:
         print("parallel_cards: FAIL: no CUDA device", file=sys.stderr)
         sys.exit(1)
     world = torch.cuda.device_count()
-    if world < 2:
-        print(f"parallel_cards: FAIL: {world} card(s); this needs two or "
-              "more (chip_smoke.py phase 10 runs two ranks on one)",
-              file=sys.stderr)
+    if world < 2 or world % 2:
+        print(f"parallel_cards: FAIL: {world} card(s); this needs an even "
+              "number (the model axis pairs them; chip_smoke.py phase 10 "
+              "runs two ranks on one)", file=sys.stderr)
         sys.exit(1)
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs

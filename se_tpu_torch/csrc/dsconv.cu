@@ -1,5 +1,4 @@
-// The gated dilated DSConv blocks of the Uformer conformer, fp32, and the
-// pair stage also in bf16.
+// The gated dilated DSConv blocks of the Uformer conformer, fp32 and bf16.
 //
 // Replaces: se_tpu/ops/pallas_dsconv.py
 //   - `_pallas_dsconv` and its body `_kernel` / `_block_math` (entry
@@ -88,7 +87,15 @@
 // two TF32 passes (small.B + big.B: tc_common.cuh PASSES = 2), as exact
 // as 3xTF32, whose third product is then zero. x is widened as it is
 // staged (tc_common.cuh `copy4`: plain 8-byte loads, not cp.async) and in
-// LN1's statistics and the residual. The single block has no bf16 variant.
+// LN1's statistics and the residual.
+//
+// The single block in bf16 (`se_dsconv_block_tc_bf16`, both launches: the
+// TPU kernel's `_pallas_dsconv` on a bf16 x, pallas_dsconv.py:107-108) is
+// the same design with the same rounding points: x widened as it is staged
+// (LN1's load and statistics, the residual), y and z fp32, out rounded once,
+// every product two TF32 passes against the bf16-valued weights. Bound at
+// the main path's shapes by operations at 329.7 TFLOP/s (an fp32 operand
+// against a bf16 one: three bf16 pieces, the fewest exact products).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -531,10 +538,11 @@ dsconv_post_tc(const Tx* __restrict__ xc, const float* __restrict__ yc,
 // ------------------------------------- the single block, tensor cores
 
 // One block's pre stage: y (M, tot) = PReLU(LN1(x) . w1 + bb1), x (M, cin)
-// in nseg component segments; NT n8 tiles a warp (N = 64 complex, 32 real).
-template <int NT>
+// in nseg component segments, fp32 or bf16 storage T (y fp32 either way);
+// NT n8 tiles a warp (N = 64 complex, 32 real).
+template <int NT, class T>
 __global__ void __launch_bounds__(THREADS, 4)
-dsconv_block_pre_tc(const float* __restrict__ x, Branch p,
+dsconv_block_pre_tc(const T* __restrict__ x, Branch p,
                     float* __restrict__ y, int M, int cin, int tot,
                     int nseg) {
   extern __shared__ __align__(16) float sm[];
@@ -548,13 +556,15 @@ __host__ __device__ inline int block_post_smem_floats(int tot) {
 
 // The rest of one block for rows r0 .. r0 + TM: the gated dilated convs,
 // LN2 and swish in shared memory, the output 1x1 conv (K = tot, N = cin,
-// CO channels a pass: 2 x 2 warps of 32 rows x 16 channels), + bs + x.
-template <int NT>
+// CO channels a pass: 2 x 2 warps of 32 rows x 16 channels), + bs + x; x
+// and out in storage Tx (fp32, or bf16: x widened, out rounded once).
+template <int NT, class Tx>
 __global__ void __launch_bounds__(THREADS, 3)
-dsconv_block_post_tc(const float* __restrict__ x,
+dsconv_block_post_tc(const Tx* __restrict__ x,
                      const float* __restrict__ y, Branch p,
-                     float* __restrict__ out, int M, int T, int F, int cin,
+                     Tx* __restrict__ out, int M, int T, int F, int cin,
                      int tot, int nseg, int d1, int d2) {
+  constexpr int P = pair_passes<Tx>();
   extern __shared__ __align__(16) float sm[];
   const int kz = round_up(tot, 8), ldz = kz + 4;
   float* ring = sm;
@@ -565,7 +575,7 @@ dsconv_block_post_tc(const float* __restrict__ x,
   const int wm = warp % WM, wn = warp / WM, gid = lane >> 2, tq = lane & 3;
   const int r0 = blockIdx.x * TM;
 
-  gated<NT>(ring, y, p, z, ldz, kz, M, T, F, tot, d1, d2, r0);
+  gated<NT, P>(ring, y, p, z, ldz, kz, M, T, F, tot, d1, d2, r0);
 
   // ws packed K-major (cin rows of kz), a pass's CO rows in the ring, zero
   // past cin
@@ -632,7 +642,7 @@ dsconv_block_post_tc(const float* __restrict__ x,
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[mi][g][j] = 0.f;
     for (int k = 0; k < kz; k += 8)
-      mma_step<2>(acc, za + k, ldz, wb + k, ldz, k, none);
+      mma_step<2, P>(acc, za + k, ldz, wb + k, ldz, k, none);
     __syncthreads();  // every warp is done with this pass's ws
     if (ps + 1 < npass) load_ws(ps + 1);
     cp_async_commit();
@@ -648,11 +658,9 @@ dsconv_block_post_tc(const float* __restrict__ x,
         for (int g = 0; g < 2; ++g) {
           const int c = ps * CO + wn * 16 + g * 8 + 2 * tq;
           if (c >= cin) continue;  // cin % 4 == 0: c + 1 < cin too
-          const float2 xv =
-              *reinterpret_cast<const float2*>(x + row * cin + c);
-          *reinterpret_cast<float2*>(out + row * cin + c) = make_float2(
-              acc[mi][g][hh * 2] + p.bs[c] + xv.x,
-              acc[mi][g][hh * 2 + 1] + p.bs[c + 1] + xv.y);
+          const Tx* xr = x + row * cin + c;
+          put2(out + row * cin + c, acc[mi][g][hh * 2] + p.bs[c] + to_f(xr[0]),
+               acc[mi][g][hh * 2 + 1] + p.bs[c + 1] + to_f(xr[1]));
         }
       }
   }
@@ -679,20 +687,37 @@ int launch_smem(void (*fn)(P...), unsigned blocks, int smem, cudaStream_t st,
   return (int)cudaGetLastError();
 }
 
-template <int NT>
-int block_tc(const float* x, const tcp::Branch& p, float* y, float* out,
-             long M, int T, int F, int cin, int tot, int ncomp, int d1,
-             int d2, cudaStream_t st) {
+template <int NT, class Tx>
+int block_tc(const Tx* x, const tcp::Branch& p, float* y, Tx* out, long M,
+             int T, int F, int cin, int tot, int ncomp, int d1, int d2,
+             cudaStream_t st) {
   const unsigned blocks = (unsigned)((M + tcp::TM - 1) / tcp::TM);
   const int pre_smem =
       (tcp::ring_floats(tcp::PRE_STAGES) + 4 * tcp::TM) * (int)sizeof(float);
-  int err = launch_smem(tcp::dsconv_block_pre_tc<NT>, blocks, pre_smem, st,
-                        x, p, y, (int)M, cin, tot, ncomp);
+  int err = launch_smem(tcp::dsconv_block_pre_tc<NT, Tx>, blocks, pre_smem,
+                        st, x, p, y, (int)M, cin, tot, ncomp);
   if (err != 0) return err;
   const int post_smem = tcp::block_post_smem_floats(tot) * (int)sizeof(float);
-  return launch_smem(tcp::dsconv_block_post_tc<NT>, blocks, post_smem, st, x,
-                     (const float*)y, p, out, (int)M, T, F, cin, tot, ncomp,
-                     d1, d2);
+  return launch_smem(tcp::dsconv_block_post_tc<NT, Tx>, blocks, post_smem, st,
+                     x, (const float*)y, p, out, (int)M, T, F, cin, tot,
+                     ncomp, d1, d2);
+}
+
+template <class Tx>
+int block_entry(const Tx* x, const tcp::Branch& p, float* y, Tx* out, int B,
+                int T, int F, int cin, int tot, int ncomp, int d1, int d2,
+                cudaStream_t st) {
+  const int n_max = ncomp == 2 ? tcp::N_C : tcp::N_M;
+  if ((ncomp != 1 && ncomp != 2) || cin % 4 != 0 || tot % 4 != 0 ||
+      cin <= 0 || tot <= 0 || tot > n_max || misaligned(x) || misaligned(y))
+    return (int)cudaErrorInvalidValue;
+  const long M = (long)B * T * F;
+  if (M == 0) return 0;
+  if (ncomp == 2)
+    return block_tc<tcp::NT_C>(x, p, y, out, M, T, F, cin, tot, ncomp, d1,
+                               d2, st);
+  return block_tc<tcp::NT_M>(x, p, y, out, M, T, F, cin, tot, ncomp, d1, d2,
+                             st);
 }
 
 }  // namespace
@@ -710,20 +735,26 @@ extern "C" int se_dsconv_block_tc(
     const float* wd2, const float* bd2, const float* g2, const float* b2,
     const float* ws, const float* bs, float* y, float* out, int B, int T,
     int F, int cin, int tot, int ncomp, int d1, int d2, void* stream) {
-  const int n_max = ncomp == 2 ? tcp::N_C : tcp::N_M;
-  if ((ncomp != 1 && ncomp != 2) || cin % 4 != 0 || tot % 4 != 0 ||
-      cin <= 0 || tot <= 0 || tot > n_max || misaligned(x) || misaligned(y))
-    return (int)cudaErrorInvalidValue;
-  const long M = (long)B * T * F;
-  if (M == 0) return 0;
   const tcp::Branch p{w1, g1, b1, bb1, alpha, wd1, bd1,
                       wd2, bd2, g2, b2, ws, bs};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (ncomp == 2)
-    return block_tc<tcp::NT_C>(x, p, y, out, M, T, F, cin, tot, ncomp, d1,
-                               d2, st);
-  return block_tc<tcp::NT_M>(x, p, y, out, M, T, F, cin, tot, ncomp, d1, d2,
-                             st);
+  return block_entry(x, p, y, out, B, T, F, cin, tot, ncomp, d1, d2,
+                     (cudaStream_t)stream);
+}
+
+// The block in bf16: x and out bf16; the packed weights (fp32 holding bf16
+// values), the vectors and the scratch y fp32; otherwise as
+// se_dsconv_block_tc.
+extern "C" int se_dsconv_block_tc_bf16(
+    const __nv_bfloat16* x, const float* w1, const float* g1,
+    const float* b1, const float* bb1, const float* alpha, const float* wd1,
+    const float* bd1, const float* wd2, const float* bd2, const float* g2,
+    const float* b2, const float* ws, const float* bs, float* y,
+    __nv_bfloat16* out, int B, int T, int F, int cin, int tot, int ncomp,
+    int d1, int d2, void* stream) {
+  const tcp::Branch p{w1, g1, b1, bb1, alpha, wd1, bd1,
+                      wd2, bd2, g2, b2, ws, bs};
+  return block_entry(x, p, y, out, B, T, F, cin, tot, ncomp, d1, d2,
+                     (cudaStream_t)stream);
 }
 
 namespace {

@@ -1,4 +1,5 @@
-// Fused STFT: framing, window and a real FFT a frame in one kernel, fp32.
+// Fused STFT: framing, window and a real FFT a frame in one kernel, fp32;
+// on a bf16 waveform the TPU kernel's basis product.
 //
 // Replaces: se_tpu/ops/pallas_stft.py, `stft_pallas` and its body
 // `_kernel` (a matmul-DFT there).
@@ -45,8 +46,34 @@
 // default 48 KB: the entry opts into more shared memory and runs fewer
 // frames a block where even that is short (one at n = 16384).
 
+// bf16 (`stft_basis_bf16`, C entry `se_stft_basis_bf16`). On a bf16
+// waveform `stft_pallas` rounds its window x DFT basis to bf16
+// (pallas_stft.py:102), multiplies the bf16 slots by it with fp32
+// accumulation (:61-62) and writes fp32 (:115). An FFT has no basis to
+// round, so this variant computes that product itself:
+//
+//   out[b, t, c] = sum_l xp[b, t * hop + l] * basis[l, c],  l < K,
+//
+// basis (K, 2F) the window x [cos | -sin] basis rounded to bf16
+// (ops/stft_fused.py `_bf16_basis`), the product of two bf16 values exact
+// in fp32, the sums fp32 (in the tensor cores' order, not the twin's). A
+// GEMM of M = B T frames, N = 2F, K
+// = frame_len, on the tensor cores in bf16 (`mma.sync.m16n8k16`, fp32
+// accumulate: the MXU's arithmetic in `stft_pallas`): a block of 4 warps
+// owns a 64 x 64 output tile, K in stages of 32; the A stage copied from
+// the waveform with cp.async, 16 bytes a copy, where a frame's samples lie
+// inside it, through the padding map (`padded_index`) elsewhere, the B
+// stage copied with cp.async from the basis given transposed and padded to
+// a multiple of 32 in K (ops/stft_fused.py `_bf16_basis`), both read into
+// the fragments with ldmatrix. Bound on the H100 by bytes at every preset
+// (the fp32 spectrum: 4 B a column against 2 K flops, under the bf16
+// ridge of ~295 flops a byte).
+
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tc_common.cuh"
 
 namespace {
 
@@ -159,15 +186,20 @@ __device__ __forceinline__ void stage_any(const float2* __restrict__ in,
 // Sample j of the padded waveform from x's row of L samples: x[j - pad],
 // reflected at the ends within `pad` samples of them (as torch's reflect
 // padding), zero past that.
-__device__ __forceinline__ float padded(const float* __restrict__ row,
-                                        long j, int pad, int L) {
+__device__ __forceinline__ long padded_index(long j, int pad, int L) {
   long i = j - pad;
   if (i < 0) i = -i;  // pad > 0: within the reflected head
   if (i >= L) {
-    if (i >= (long)L + pad) return 0.f;
+    if (i >= (long)L + pad) return -1;
     i = 2L * (L - 1) - i;
   }
-  return __ldg(row + i);
+  return i;
+}
+
+__device__ __forceinline__ float padded(const float* __restrict__ row,
+                                        long j, int pad, int L) {
+  const long i = padded_index(j, pad, L);
+  return i < 0 ? 0.f : __ldg(row + i);
 }
 
 template <bool V4>
@@ -261,6 +293,119 @@ stft_fft(const float* __restrict__ x, const float* __restrict__ win,
   }
 }
 
+constexpr int BM = 64, BN = 64, BK = 32, BT = 128;  // the bf16 product
+constexpr int LDK = BK + 8;  // a tile row in bf16: 80 bytes, no conflicts
+
+// out (B T, N2) fp32 = the frames of x (B, L) bf16 times the basis,
+// given transposed, basis_t (N2, Kp) bf16 (Kp a multiple of BK, zero past
+// K): a 64 x 64 tile a block, 2 x 2 warps of 32 x 32 (two m16 tiles by
+// four n8), K in stages of BK, each stage two m16n8k16 steps. Each tile
+// row's waveform offset and first sample are found once. V8: 8 samples (16
+// bytes) a copy where they lie inside x (hop, L and pad multiples of 8, x
+// 16-byte aligned), the padding map sample by sample elsewhere.
+template <bool V8>
+__global__ void __launch_bounds__(BT)
+stft_basis_bf16(const __nv_bfloat16* __restrict__ x,
+                const __nv_bfloat16* __restrict__ basis_t,
+                float* __restrict__ out, int B, int L, int pad, int T,
+                int K, int Kp, int hop, int N2) {
+  __shared__ __align__(16) __nv_bfloat16 As[BM][LDK];  // frames, k inner
+  __shared__ __align__(16) __nv_bfloat16 Bs[BN][LDK];  // basis_t rows
+  __shared__ long row_x[BM], row_s[BM];  // b L and t hop; row_x -1: past M
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % 2, wn = warp / 2;
+  const long M = (long)B * T, m0 = (long)blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  if (tid < BM) {
+    const long g = m0 + tid;
+    row_x[tid] = g < M ? g / T * L : -1;
+    row_s[tid] = g < M ? g % T * hop : 0;
+  }
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mi][j][q] = 0.f;
+  // ldmatrix lane addresses: A rows lane % 16 at k (lane / 16) 8; B rows
+  // (lane / 16) 8 + lane % 8 at k ((lane / 8) % 2) 8
+  const int a_row = lane % 16, a_k = (lane / 16) * 8;
+  const int b_row = (lane / 16) * 8 + lane % 8, b_k = ((lane / 8) % 2) * 8;
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+  __syncthreads();
+  for (int k0 = 0; k0 < Kp; k0 += BK) {
+    // B: BN basis rows of BK, 16 bytes a copy, zeros past N2
+    for (int e = tid; e < BN * (BK / 8); e += BT) {
+      const int nn = e / (BK / 8), c8 = e % (BK / 8);
+      const bool ok = n0 + nn < N2;
+      cp_async16(&Bs[nn][8 * c8],
+                 basis_t + (size_t)(ok ? n0 + nn : 0) * Kp + k0 + 8 * c8,
+                 ok ? 16 : 0);
+    }
+    cp_async_commit();
+    // A: BM frames x BK samples, 8 a thread: one 16-byte copy inside x,
+    // else each through the padding map (zeros past K)
+    for (int e = tid; e < BM * (BK / 8); e += BT) {
+      const int mm = e / (BK / 8), kk = 8 * (e % (BK / 8)), k = k0 + kk;
+      const long j0 = row_s[mm] + k - pad;  // the first sample's index in x
+      if (V8 && row_x[mm] >= 0 && k + 8 <= K && j0 >= 0 && j0 + 8 <= L) {
+        cp_async16(&As[mm][kk], x + row_x[mm] + j0, 16);
+        continue;
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        __nv_bfloat16 v = zero;
+        if (row_x[mm] >= 0 && k + q < K) {
+          const long i = padded_index(row_s[mm] + k + q, pad, L);
+          if (i >= 0) v = x[row_x[mm] + i];
+        }
+        As[mm][kk + q] = v;
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < BK; ks += 16) {
+      uint32_t a[2][4], b[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        ldsm_x4(a[mi], &As[wm * 32 + mi * 16 + a_row][ks + a_k]);
+#pragma unroll
+      for (int j = 0; j < 4; j += 2) {
+        uint32_t r[4];
+        ldsm_x4(r, &Bs[wn * 32 + j * 8 + b_row][ks + b_k]);
+        b[j][0] = r[0];
+        b[j][1] = r[1];
+        b[j + 1][0] = r[2];
+        b[j + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_bf16(acc[mi][j], a[mi], b[j]);
+    }
+    __syncthreads();
+  }
+  // acc[mi][j][hh * 2 + q]: row wm 32 + mi 16 + hh 8 + lane / 4, column
+  // wn 32 + 8 j + 2 (lane % 4) + q; N2 even, so a column pair is whole
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const long g = m0 + wm * 32 + mi * 16 + hh * 8 + lane / 4;
+      if (g >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = n0 + wn * 32 + 8 * j + 2 * (lane % 4);
+        if (c < N2)
+          *reinterpret_cast<float2*>(out + g * N2 + c) =
+              make_float2(acc[mi][j][hh * 2], acc[mi][j][hh * 2 + 1]);
+      }
+    }
+}
+
 }  // namespace
 
 // x (B, L) the waveform; pad: the samples reflected at each end (center),
@@ -305,5 +450,29 @@ extern "C" int se_stft_fwd(const float* x, const float* win, const float* tw,
   kernel<<<blocks, fpb * 32, fpb * per_frame, st>>>(
       x, win, reinterpret_cast<const float2*>(tw), radices, out, B, L, pad,
       T, K, n, hop, nst);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 variant: x (B, L) bf16, padding and frames as se_stft_fwd's
+// (pad < L), basis_t (N2, Kp) bf16 the window x DFT basis transposed, zero
+// past K (ops/stft_fused.py `_bf16_basis`; Kp a multiple of 32, 16-byte
+// aligned), out (B, T, N2) fp32, N2 = 2 (n / 2 + 1).
+extern "C" int se_stft_basis_bf16(const __nv_bfloat16* x,
+                                  const __nv_bfloat16* basis_t, float* out,
+                                  int B, int L, int pad, int T, int K,
+                                  int Kp, int hop, int N2, void* stream) {
+  if (K < 1 || Kp < K || Kp % BK != 0 || N2 < 2 || N2 % 2 != 0 ||
+      hop < 1 || pad < 0 || (pad > 0 && pad >= L) ||
+      reinterpret_cast<uintptr_t>(basis_t) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const long frames = (long)B * T;
+  if (frames == 0) return 0;
+  const dim3 grid((unsigned)((frames + BM - 1) / BM),
+                  (unsigned)((N2 + BN - 1) / BN));
+  const bool v8 = hop % 8 == 0 && L % 8 == 0 && pad % 8 == 0 &&
+                  reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  auto kernel = v8 ? stft_basis_bf16<true> : stft_basis_bf16<false>;
+  kernel<<<grid, BT, 0, (cudaStream_t)stream>>>(x, basis_t, out, B, L, pad,
+                                                T, K, Kp, hop, N2);
   return (int)cudaGetLastError();
 }

@@ -47,7 +47,9 @@ from se_tpu_torch.nn.recurrent import LSTM
 from se_tpu_torch.ops.stft import istft
 from se_tpu_torch.ops.stft_fused import stft_auto
 from se_tpu_torch.parallel.collectives import all_gather_rows
-from se_tpu_torch.parallel.mesh import check_replicated, shard_batch
+from se_tpu_torch.parallel.mesh import (
+    activation_mesh, check_replicated, shard_batch,
+)
 
 # why a family whose entry has no `bf16` (DeepXi, the hybrid io-kind)
 # decodes in fp32 only: se_tpu's has no bf16 decode to port
@@ -205,8 +207,10 @@ def enhance_waveform(name: str, model: torch.nn.Module, wav: np.ndarray,
     rank calling with the same batch and a module whose weights it checks
     equal to rank 0's (`parallel.check_replicated`). The batch is padded
     with zero rows to a multiple of the "data" size, each rank enhances
-    its contiguous rows on its own device, and the rows are gathered to
-    every rank and trimmed: every rank returns what one device returns
+    its contiguous rows on its own device (a "model" axis above 1 splits
+    each kernel's rows over the model group: `parallel.map_leading`), and
+    the rows are gathered to every rank and trimmed: every rank returns
+    what one device returns
     for the whole batch (se_tpu/eval/enhance.py's mesh path; tests hold
     it to the one-process decode and to se_tpu's)."""
     entry = get_model(name)
@@ -230,8 +234,9 @@ def enhance_waveform(name: str, model: torch.nn.Module, wav: np.ndarray,
         check_replicated(model, mesh)
         pad = (-x_in.shape[0]) % mesh.data
         rows = shard_batch(np.pad(x_in, ((0, pad), (0, 0))), mesh)
-        est = _enhance(entry, net, torch.from_numpy(rows).to(dev), n,
-                       compressed, dtype)
+        with activation_mesh(mesh):  # the kernels split over "model"
+            est = _enhance(entry, net, torch.from_numpy(rows).to(dev), n,
+                           compressed, dtype)
         est = all_gather_rows(est, mesh)[:x_in.shape[0]]
     est = est.cpu().numpy()
     est = est * c if inverted else est / c

@@ -116,14 +116,6 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-# The ROADMAP item (Queue 1) that ports a kernel's bf16 variant, for the
-# kernels that have none yet; a bf16 launch of one raises and names it.
-BF16_TODO = {
-    "dsconv": "ROADMAP Queue 1 item 4c (the single DSConv block in bf16)",
-    "stft": "ROADMAP Queue 1 item 4d (the STFT kernel in bf16)",
-}
-
-
 def check(t: torch.Tensor, shape: tuple, name: str,
           dtype: torch.dtype = torch.float32) -> None:
     """Raise unless `t` is a contiguous CUDA tensor of `dtype` and
@@ -140,18 +132,15 @@ def check(t: torch.Tensor, shape: tuple, name: str,
 
 
 def launch_dtype(kernel: str, *tensors: torch.Tensor) -> torch.dtype:
-    """The one dtype of a launch's activations `tensors`: float32, or
-    bfloat16 where `kernel` has a bf16 variant. Raise TypeError on mixed
-    dtypes, on any other dtype, and on bf16 at a kernel that has no bf16
-    variant (naming the ROADMAP item that ports it): nothing is cast."""
+    """The one dtype of a launch's activations `tensors` (`kernel` names
+    the launch in the message): float32 or bfloat16, each kernel's fp32
+    or bf16 variant. Raise TypeError on mixed dtypes and on any other
+    dtype: nothing is cast."""
     found = {t.dtype for t in tensors}
     if len(found) != 1:
         raise TypeError(f"{kernel}: a launch's activations share one dtype, "
                         f"got {', '.join(sorted(map(str, found)))}")
     (dtype,) = found
-    if dtype == torch.bfloat16 and kernel in BF16_TODO:
-        raise TypeError(f"{kernel}: no bf16 variant yet: "
-                        f"{BF16_TODO[kernel]}")
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{kernel}: the kernels take float32 or bfloat16, "
                         f"got {dtype}")

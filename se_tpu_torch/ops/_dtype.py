@@ -54,15 +54,18 @@ def to_float(nest):
 def widened(twin):
     """`twin` run in bf16 with the Pallas kernels' rounding points: the
     activations and every parameter widened to fp32, the math in fp32,
-    each output rounded to bf16 once (pallas_encoder.py:91-94,
-    pallas_decoder.py:110-113, pallas_dsconv.py:320-321). fp32 and fp64
-    calls run `twin` as it is."""
+    each output (a tensor or a tuple of them) rounded to bf16 once
+    (pallas_encoder.py:91-94, pallas_decoder.py:110-113,
+    pallas_dsconv.py:107-108 and :320-321). fp32 and fp64 calls run
+    `twin` as it is."""
 
     @functools.wraps(twin)
     def run(*args, **kw):
         if args[0].dtype != torch.bfloat16:
             return twin(*args, **kw)
         out = twin(*to_float(args), **kw)
+        if isinstance(out, torch.Tensor):
+            return out.to(torch.bfloat16)
         return tuple(o.to(torch.bfloat16) for o in out)
 
     return run

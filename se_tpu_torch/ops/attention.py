@@ -33,6 +33,7 @@ import torch
 
 from se_tpu_torch.ops import _autograd, _build
 from se_tpu_torch.ops.encoder import _aligned
+from se_tpu_torch.parallel.mesh import map_leading
 
 HEAD_DIM = 16  # the kernels' compile-time head width (Uformer's hidden 16)
 SMALL_L_MAX = 32  # the largest L att_small_l takes (csrc SMALL_L_MAX)
@@ -90,7 +91,14 @@ def _sm_count(index: int) -> int:
 
 def sdp_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float) -> torch.Tensor:
-    """softmax(q k^T * scale) v over (N, H, L, D) for each (n, h)."""
+    """softmax(q k^T * scale) v over (N, H, L, D) for each (n, h). Under
+    an active mesh with a "model" axis N splits over the model group
+    (`parallel.map_leading`: Uformer's folds, sequence-parallel)."""
+    return map_leading(lambda q, k, v: _attention(q, k, v, scale),
+                       (q, k, v))
+
+
+def _attention(q, k, v, scale: float) -> torch.Tensor:
     if q.device.type == "cpu":
         return _reference(q, k, v, scale)
     n, h, l, _ = q.shape

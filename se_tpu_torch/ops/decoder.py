@@ -40,6 +40,7 @@ from se_tpu_torch.ops._dtype import widened
 from se_tpu_torch.ops.encoder import (
     _aligned, _prelu, _round_up, fuse, launch_params,
 )
+from se_tpu_torch.parallel.mesh import map_leading
 
 
 def split_phase_weights(kernel: torch.Tensor):
@@ -135,8 +136,14 @@ def decoder_level(xc: torch.Tensor, xm: torch.Tensor, params,
     """xc (B, T, F, 2*Cc) = [skip_re | x_re | skip_im | x_im], xm (B, T, F,
     Cc) = [skip_m | m] -> ((B, T, 2F, 2*Cout), (B, T, 2F, Cout)). `packed`:
     `pack_decoder_weights(params)`, where the caller keeps it; packed here
-    for a tensor-core level without it."""
-    params = tuple(params)
+    for a tensor-core level without it. B splits over an active mesh's
+    model group (`parallel.map_leading`)."""
+    return map_leading(lambda xc, xm, *params: _level(xc, xm, params,
+                                                      has_bn, packed),
+                       (xc, xm), tuple(params))
+
+
+def _level(xc, xm, params, has_bn: bool, packed):
     if xc.device.type == "cpu":
         return _reference(xc, xm, params, has_bn)
     design = level_design(xc.shape[-1] // 2, params[6].shape[-1])

@@ -33,12 +33,12 @@ backwards are the VJPs of `_reference` and `_pair_reference`, recomputed
 (se_tpu's `pallas_dsconv.py:245-249` and `:370-375`); the packs are
 constants to them.
 
-bf16 xc and xm launch the pair's bf16 variant (`se_dsconv_pair_tc_bf16`,
-counted as `dsconv_pair_bf16`): bf16 parameters (packed in fp32 holding
-their values), every intermediate fp32 (the scratch y between the two
-launches too), the outputs rounded once, as se_tpu's Pallas pair kernel;
-`_pair_reference` mirrors that. The single block has no bf16 variant: a
-bf16 launch of it raises (`_build.BF16_TODO`).
+bf16 activations launch the bf16 variants (`se_dsconv_block_tc_bf16`
+and `se_dsconv_pair_tc_bf16`, counted as `dsconv_bf16` and
+`dsconv_pair_bf16`): bf16 parameters (packed in fp32 holding their
+values), every intermediate fp32 (the scratch y between the two launches
+too), the outputs rounded once, as se_tpu's Pallas kernels; `_reference`
+and `_pair_reference` mirror that (`_dtype.widened`).
 """
 
 from __future__ import annotations
@@ -51,6 +51,7 @@ from se_tpu_torch.nn.conv import conv2d_nhwc
 from se_tpu_torch.ops import _autograd, _build
 from se_tpu_torch.ops._dtype import widened
 from se_tpu_torch.ops.encoder import _aligned, _round_up
+from se_tpu_torch.parallel.mesh import map_leading
 
 _LN_EPS = 1e-5
 _FUSION_EPS = float(np.finfo(np.float32).eps)
@@ -60,7 +61,11 @@ def _prelu(x, alpha):
     return torch.where(x >= 0, x, alpha * x)
 
 
+@widened
 def _reference(x, params, d1: int, d2: int, ncomp: int):
+    """One block. In bf16 with the Pallas kernel's rounding points
+    (`_dtype.widened`: fp32 inside, the output rounded once), as se_tpu's
+    `_reference` widens x too (pallas_dsconv.py:199, :232)."""
     (g1, b1, w1, bb1, alpha, wd1, bd1, wd2, bd2, g2, b2, ws, bs) = params
     tot = w1.shape[1]
 
@@ -164,7 +169,7 @@ def pack_block_weights(params, ncomp: int):
     ws = params[11]
     tot = ws.shape[0]
     packed[11] = F.pad(ws, (0, 0, 0, _round_up(tot, 8) - tot)).t() \
-        .contiguous()
+        .float().contiguous()
     return tuple(packed)
 
 
@@ -172,8 +177,13 @@ def dsconv_block(x: torch.Tensor, params, d1: int, d2: int, ncomp: int,
                  packed=None) -> torch.Tensor:
     """x (B, T, F, Cin) -> same shape, residual included. `packed`:
     `pack_block_weights(params, ncomp)`, where the caller keeps it; packed
-    here without it."""
-    params = tuple(params)
+    here without it. B splits over an active mesh's model group
+    (`parallel.map_leading`)."""
+    return map_leading(lambda x, *params: _block(x, params, d1, d2, ncomp,
+                                                 packed), (x,), tuple(params))
+
+
+def _block(x, params, d1: int, d2: int, ncomp: int, packed):
     if x.device.type == "cpu":
         return _reference(x, params, d1, d2, ncomp)
     return _autograd.kernel_call(
@@ -182,16 +192,18 @@ def dsconv_block(x: torch.Tensor, params, d1: int, d2: int, ncomp: int,
 
 
 def _block_launch(x, params, d1: int, d2: int, ncomp: int, packed):
-    _build.launch_dtype("dsconv", x)
+    """The block's two launches, fp32 or bf16 by x's dtype; the scratch y
+    between them is fp32 either way."""
+    dtype = _build.launch_dtype("dsconv", x)
     b, t, f, cin = x.shape
     tot = _check_block(x, params, ncomp, "dsconv")
     pk = pack_block_weights(params, ncomp) if packed is None else packed
     _check_packed(pk, cin, tot, ncomp, cin, "block")
-    y = torch.empty((b, t, f, tot), device=x.device, dtype=x.dtype)
+    y = torch.empty((b, t, f, tot), device=x.device, dtype=torch.float32)
     out = torch.empty_like(x)
-    _build.launch("se_dsconv_block_tc", _aligned(x), *pk, y, out, b, t, f,
-                  cin, tot, ncomp, d1, d2)
-    _build.LAUNCHES["dsconv"] += 1
+    _build.launch(_build.variant("se_dsconv_block_tc", dtype), _aligned(x),
+                  *pk, y, out, b, t, f, cin, tot, ncomp, d1, d2)
+    _build.LAUNCHES[_build.variant("dsconv", dtype)] += 1
     return out
 
 
@@ -254,8 +266,16 @@ def dsconv_pair_block(xc: torch.Tensor, xm: torch.Tensor, params_c,
     """One conformer stage: xc (B, T, F, 2C) = [re | im] and xm (B, T, F,
     C) -> (oc, om) of the same shapes, residuals and fusion included.
     `packed`: `pack_pair_weights(params_c, params_m)`, where the caller
-    keeps it; packed here without it."""
+    keeps it; packed here without it. B splits over an active mesh's model
+    group (`parallel.map_leading`)."""
     params_c, params_m = tuple(params_c), tuple(params_m)
+    n = len(params_c)
+    return map_leading(lambda xc, xm, *p: _pair(xc, xm, p[:n], p[n:], d1, d2,
+                                                packed),
+                       (xc, xm), params_c + params_m)
+
+
+def _pair(xc, xm, params_c, params_m, d1: int, d2: int, packed):
     if xc.device.type == "cpu":
         return _pair_reference(xc, xm, params_c, params_m, d1, d2)
     return _autograd.kernel_call(

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from se_tpu_torch.nn.conv import conv2d_nhwc
 from se_tpu_torch.ops import _autograd, _build
 from se_tpu_torch.ops._dtype import widened
+from se_tpu_torch.parallel.mesh import map_leading
 
 EPS = float(np.finfo(np.float32).eps)
 
@@ -118,8 +119,14 @@ def pack_encoder_weights(params):
 def encoder_level(xc: torch.Tensor, xm: torch.Tensor, params, packed=None):
     """xc (B, T, F, 2*Cin), xm (B, T, F, Cin) -> ((B, T, F//2, 2*Cout),
     (B, T, F//2, Cout)). `packed`: `pack_encoder_weights(params)`, where
-    the caller keeps it; packed here for a tensor-core level without it."""
-    params = tuple(params)
+    the caller keeps it; packed here for a tensor-core level without it.
+    B splits over an active mesh's model group (`parallel.map_leading`)."""
+    return map_leading(lambda xc, xm, *params: _level(xc, xm, params,
+                                                      packed),
+                       (xc, xm), tuple(params))
+
+
+def _level(xc, xm, params, packed):
     if xc.device.type == "cpu":
         return _reference(xc, xm, params)
     design = level_design(xc.shape[-1] // 2)

@@ -58,6 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from se_tpu_torch.ops import _autograd, _build
+from se_tpu_torch.parallel.mesh import map_leading
 
 # the tensor-core step's block: ROW_TILE rows x UNIT_TILE units, K in stages
 # of K_TILE (csrc/lstm.cu TM, TU, TK); the projection's column tile
@@ -481,7 +482,14 @@ def lstm_layer_kernel(x: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
     of the weights' dtype (bf16 weights: x fp32 or bf16; ys and the carry
     fp32 either way). Under autograd
     gradients reach x, the weights and h0/c0 through ys alone: the
-    returned (h_T, c_T) carry no gradient."""
+    returned (h_T, c_T) carry no gradient. Under an active mesh with a
+    "model" axis Bf splits over the model group (`parallel.map_leading`:
+    x and the carries mapped, the weights replicated)."""
+    return map_leading(lambda x, h0, c0, wx, wh, b: _layer(
+        x, wx, wh, b, reverse, h0, c0), (x, h0, c0), (wx, wh, b))
+
+
+def _layer(x, wx, wh, b, reverse: bool, h0, c0):
     if x.device.type == "cpu":
         return _reference(x, wx, wh, b, reverse, h0, c0)
     return _layer_call(_layer_launch, x, wx, wh, b, reverse, h0, c0)

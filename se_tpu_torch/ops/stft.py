@@ -189,16 +189,26 @@ def frame_signal(x: torch.Tensor, cfg: StftConfig) -> torch.Tensor:
     return x[..., idx]
 
 
-def stft(x: torch.Tensor, cfg: StftConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """(..., n) waveform -> ((..., T, F) real, (..., T, F) imag)."""
-    frames = frame_signal(x, cfg)
-    # se_tpu's: the basis in x's dtype, products summed in fp32 at least,
-    # the output rounded to x's dtype (bf16 keeps Uformer's graph in bf16)
+def basis_product(x: torch.Tensor, cfg: StftConfig
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., n) waveform -> the spectrum in fp32 at least (fp64 stays
+    fp64): the frames times the windowed DFT basis rounded to x's dtype,
+    the products summed in that wider dtype (se_tpu's
+    `preferred_element_type`). On a bf16 waveform this is what se_tpu's
+    `stft_pallas` returns (fp32); `stft` rounds it to x's dtype."""
     acc = torch.promote_types(x.dtype, torch.float32)
     basis = _const("forward", cfg, x.device).to(x.dtype)
-    out = torch.matmul(frames.to(acc), basis.to(acc)).to(x.dtype)
+    out = torch.matmul(frame_signal(x, cfg).to(acc), basis.to(acc))
     f_bins = cfg.bins
     return out[..., :f_bins], out[..., f_bins:]
+
+
+def stft(x: torch.Tensor, cfg: StftConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., n) waveform -> ((..., T, F) real, (..., T, F) imag), rounded
+    to x's dtype as se_tpu's jnp `stft` (bf16 keeps Uformer's graph in
+    bf16)."""
+    re, im = basis_product(x, cfg)
+    return re.to(x.dtype), im.to(x.dtype)
 
 
 def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:

@@ -11,7 +11,19 @@ kernel took 24-37% of the device time at B = 256, chip_smoke.py phase
 3), windows it and takes its real FFT in shared memory: n real points as
 an n/2-point complex FFT in radix stages (`radix_plan`), then a
 real-split pass. On a CPU tensor it runs `_reference`, the plain twin
-(`ops.stft.stft`: framing, then one matmul with the DFT basis).
+(`ops.stft.basis_product`: framing, then one matmul with the windowed
+DFT basis; `ops.stft.stft` in fp32).
+
+A bf16 waveform launches the bf16 variant, `se_stft_basis_bf16`
+(counted as `stft_bf16`), which computes what `stft_pallas` computes on
+one (pallas_stft.py:102, :61-62, :115): the frames times the window x DFT
+basis rounded to bf16 (`_bf16_basis`), each product of two bf16 values
+exact and summed in fp32, the spectrum fp32. An FFT has no basis to
+round, so a widened fp32 FFT would part from it by that rounding. The
+twin is the same product in torch. se_tpu's own jnp `stft` returns the
+bf16 spectrum (its output cast to x's dtype, se_tpu/ops/stft.py:194-205),
+and so does the port's `ops.stft.stft`: the kernel and its twin follow
+`stft_pallas`, fp32, whichever path se_tpu would take.
 
 `stft_auto` sends a 2-D input to the kernel where frame_len % hop == 0
 (`takes_kernel`, decided from shapes alone), as the TPU entry's contract
@@ -33,8 +45,10 @@ import numpy as np
 import torch
 
 from se_tpu_torch.ops import _build
-from se_tpu_torch.ops.stft import StftConfig, _const, num_frames
-from se_tpu_torch.ops.stft import stft as _reference
+from se_tpu_torch.ops.stft import StftConfig, _const, num_frames, stft
+# the kernels' plain twin: on fp32 `stft` itself, on bf16 `stft_pallas`'s
+# product (a bf16 basis, fp32 sums and spectrum)
+from se_tpu_torch.ops.stft import basis_product as _reference
 
 RADICES = (4, 2, 5)  # the kernel's unrolled butterflies, in plan order
 MAX_POINTS = 8192    # complex points a frame: two buffers of 64 KB each
@@ -95,6 +109,20 @@ def twiddle_table(n: int) -> np.ndarray:
     return np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
 
 
+BF16_K_TILE = 32  # the bf16 kernel's K stage: frame_len padded to it
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_basis(cfg: StftConfig, device: torch.device) -> torch.Tensor:
+    """The bf16 variant's basis on `device`, made once: the window x DFT
+    basis rounded to bf16, as `stft_pallas` rounds it to a bf16 waveform's
+    dtype, transposed to (2F, Kp) (the kernel's B operand, K inner) and
+    zero past frame_len to Kp, a multiple of BF16_K_TILE."""
+    basis = _const("forward", cfg, device).to(torch.bfloat16).t()
+    pad = -cfg.frame_len % BF16_K_TILE
+    return torch.nn.functional.pad(basis, (0, pad)).contiguous()
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_consts(cfg: StftConfig, device: torch.device):
     """What a launch for `cfg` reads besides the waveform, made once on
@@ -113,7 +141,8 @@ def takes_kernel(x: torch.Tensor, cfg: StftConfig) -> bool:
 
 
 def stft_fused(x: torch.Tensor, cfg: StftConfig):
-    """(B, n) fp32 waveform -> ((B, T, F) real, (B, T, F) imag). Raises on
+    """(B, n) fp32 or bf16 waveform -> ((B, T, F) real, (B, T, F) imag),
+    fp32 either way (a bf16 waveform: the bf16 basis product). Raises on
     an input that requires grad under grad mode: as se_tpu's `stft_pallas`
     the kernel has no gradient (the trainer makes its features under
     `torch.no_grad()`), and an output without one would drop it."""
@@ -137,15 +166,22 @@ def stft_fused(x: torch.Tensor, cfg: StftConfig):
         raise ValueError(f"stft kernel: reflect padding {pad} needs more "
                          f"than {pad} samples, got {n}")
     x = x.contiguous()
-    _build.launch_dtype("stft", x)
-    _build.check(x, (b, n), "x")
+    dtype = _build.launch_dtype("stft", x)
+    _build.check(x, (b, n), "x", dtype)
     t_frames = num_frames(n, cfg)
-    win, tw, radices = _kernel_consts(cfg, x.device)
     bins = cfg.bins
-    out = x.new_empty(b, t_frames, 2 * bins)
-    _build.launch("se_stft_fwd", x, win, tw, radices, out, b, n, pad,
-                  t_frames, cfg.frame_len, cfg.fft, cfg.hop, len(radices))
-    _build.LAUNCHES["stft"] += 1
+    out = torch.empty(b, t_frames, 2 * bins, device=x.device)
+    if dtype == torch.bfloat16:
+        basis_t = _bf16_basis(cfg, x.device)
+        _build.launch("se_stft_basis_bf16", x, basis_t, out, b, n, pad,
+                      t_frames, cfg.frame_len, basis_t.shape[1], cfg.hop,
+                      2 * bins)
+    else:
+        win, tw, radices = _kernel_consts(cfg, x.device)
+        _build.launch("se_stft_fwd", x, win, tw, radices, out, b, n, pad,
+                      t_frames, cfg.frame_len, cfg.fft, cfg.hop,
+                      len(radices))
+    _build.LAUNCHES[_build.variant("stft", dtype)] += 1
     return out[..., :bins], out[..., bins:]
 
 
@@ -155,4 +191,4 @@ def stft_auto(x: torch.Tensor, cfg: StftConfig):
     Uformer's center 512/160)."""
     if takes_kernel(x, cfg):
         return stft_fused(x, cfg)
-    return _reference(x, cfg)
+    return stft(x, cfg)

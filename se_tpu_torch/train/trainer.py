@@ -37,7 +37,11 @@ together). Under `parallel.activation_mesh` BN takes the global batch's
 statistics, dropout the global mask's rows, drop_band groups rows by
 their global index, and each loss divides this rank's numerator by the
 global denominator (`train.losses`); the backward's gradients are then
-all-reduced (a sum), and the clip and Adam run alike on every rank. The
+all-reduced (a sum) over the data group, and the clip and Adam run alike
+on every rank. A "model" axis above 1 splits each kernel's rows over the
+model group (`parallel.map_leading`: Uformer's attention in a train
+step); its backward sums the weights' gradients over that group, so the
+data group's all-reduce sums whole gradients. The
 weights start as `init_fn(seed)` draws them on every rank, broadcast from
 rank 0 and checked equal (`parallel.replicate`); the dropout generators
 are seeded alike and stay in step. No DDP: it averages gradients by the
@@ -334,8 +338,8 @@ def make_train_step(cfg: TrainConfig, device=None, mesh=None):
 
 
 def _all_reduce_grads(params: dict, grads: dict, mesh) -> dict:
-    """Every gradient summed over the ranks (one all-reduce of them all,
-    flattened), written back into each parameter's `.grad`."""
+    """Every gradient summed over the data group (one all-reduce of them
+    all, flattened), written back into each parameter's `.grad`."""
     names = list(grads)
     flat = C.all_reduce_sum(torch.cat([grads[n].reshape(-1)
                                        for n in names]), mesh)

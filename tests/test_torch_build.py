@@ -1,20 +1,17 @@
 """se_tpu_torch/ops/_build.py `launch` runs an entry on its tensors' one
 CUDA device: `launch_device` finds it and refuses tensors that span
 devices or lie on none, before anything is built or loaded (so the CPU
-reaches it). `launch_dtype` gives a launch's one activation dtype: fp32,
-or bf16 where the kernel has a bf16 variant; mixed dtypes and bf16 at an
-fp32-only kernel raise (naming the ROADMAP item), before anything is
-built, on meta tensors here. The LSTM has its own rule (`lstm_dtype`):
+reaches it). `launch_dtype` gives a launch's one activation dtype: fp32
+or bf16, each kernel's variant; mixed dtypes and any other dtype raise,
+before anything is built, on meta tensors here. The LSTM has its own
+rule (`lstm_dtype`):
 the weights pick the variant, x is fp32 or (bf16 weights) bf16, XP and
 the carries fp32."""
 
 import pytest
 import torch
 
-from se_tpu_torch.ops import (
-    _build, attention, decoder, dsconv, encoder, lstm, stft_fused,
-)
-from se_tpu_torch.ops.stft import PRESET_320
+from se_tpu_torch.ops import _build, attention, decoder, dsconv, encoder, lstm
 
 CUDA0, CUDA1 = torch.device("cuda", 0), torch.device("cuda", 1)
 
@@ -51,23 +48,15 @@ BF16 = torch.bfloat16
 
 
 @pytest.mark.parametrize("kernel", ["attention", "encoder", "decoder",
-                                    "dsconv_pair"])
+                                    "dsconv_pair", "dsconv", "stft"])
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
 def test_launch_dtype_of_a_launch(kernel, dtype):
-    """Uformer's four kernels take fp32 or their bf16 variant."""
+    """Every kernel but the LSTM's (`lstm_dtype`) takes fp32 or its bf16
+    variant, by its activations' one dtype."""
     x = torch.zeros(2, dtype=dtype)
     assert _build.launch_dtype(kernel, x, x.clone()) == dtype
     assert _build.variant("se_x", dtype) == (
         "se_x_bf16" if dtype == BF16 else "se_x")
-
-
-@pytest.mark.parametrize("kernel", sorted(_build.BF16_TODO))
-def test_launch_dtype_refuses_bf16_without_a_variant(kernel):
-    """The single-block and STFT kernels name the item that ports their
-    bf16 variant; nothing is upcast."""
-    with pytest.raises(TypeError, match="ROADMAP Queue 1 item 4"):
-        _build.launch_dtype(kernel, torch.zeros(2, dtype=BF16))
-    assert _build.launch_dtype(kernel, torch.zeros(2)) == torch.float32
 
 
 @pytest.mark.parametrize("kernel", ["attention", "encoder", "lstm"])
@@ -88,20 +77,6 @@ def _no_build(monkeypatch):
         raise AssertionError("launch built the library")
 
     monkeypatch.setattr(_build, "library", no_build)
-
-
-@pytest.mark.parametrize("call,item", [
-    (lambda: dsconv._block_launch(_meta(1, 2, 4, 8), (), 1, 1, 1, None),
-     "item 4c"),
-    (lambda: stft_fused.stft_fused(_meta(1, 3200), PRESET_320), "item 4d"),
-])
-def test_fp32_only_wrappers_refuse_bf16_before_building(monkeypatch, call,
-                                                        item):
-    """A bf16 tensor at an fp32-only kernel raises TypeError naming its
-    ROADMAP item, before anything is built, checked or cast."""
-    _no_build(monkeypatch)
-    with pytest.raises(TypeError, match=item):
-        call()
 
 
 @pytest.mark.parametrize("call", [

@@ -789,14 +789,47 @@ def test_pair_bf16_stage_matches_twin(gen, dev, d1, d2):
     bf16_close(got, want)
 
 
-def test_fp32_only_kernels_refuse_bf16_on_the_card(gen, dev):
-    x = torch.zeros(1, 3200, device=dev, dtype=BF16)
-    with pytest.raises(TypeError, match="item 4d"):
-        stft_fused.stft_fused(x, plain_stft.PRESET_320)
-    params = to_torch(dsconv_params(gen, 8, 4, 1), device=dev)
-    with pytest.raises(TypeError, match="item 4c"):
-        dsconv.dsconv_block(torch.zeros(1, 2, 4, 8, device=dev, dtype=BF16),
-                            params, 1, 1, 1)
+@pytest.mark.parametrize("ncomp,cin,cm", [(2, 256, 32), (1, 128, 32),
+                                           (2, 8, 2)])
+@pytest.mark.parametrize("d1,d2", [(1, 128), (4, 2)])
+def test_block_bf16_matches_twin(gen, dev, ncomp, cin, cm, d1, d2):
+    """The single block in bf16 at 2 x 50 x 4 rows (the conformer's widths,
+    and Cin 8 with Cm 2 a component: padded tiles); the scratch y fp32."""
+    params = to_bf16(dsconv_params(gen, cin, cm, ncomp), device=dev)
+    (x,) = to_bf16((rand(gen, 2, 50, 4, cin, scale=0.5),), device=dev)
+    want = dsconv._reference(x, params, d1, d2, ncomp)
+    before = dict(_build.LAUNCHES)
+    got = dsconv.dsconv_block(x, params, d1, d2, ncomp)
+    torch.cuda.synchronize()
+    assert _bf16_counts(before, ("dsconv", "dsconv_bf16")) == {
+        "dsconv": 0, "dsconv_bf16": 1}
+    assert got.dtype == BF16
+    bf16_close([got], [want])
+
+
+@pytest.mark.parametrize("cfg", [
+    plain_stft.PRESET_512_128, plain_stft.PRESET_320,
+    plain_stft.StftConfig(512, 256, 512, window="hamming",
+                          convention="pad_end"),
+    plain_stft.StftConfig(400, 100, 512, convention="valid")],
+    ids=["center-512-128", "center-320", "pad_end", "valid"])
+@pytest.mark.parametrize("n", [4000, 4001])
+def test_stft_bf16_matches_twin(gen, dev, cfg, n):
+    """The bf16 basis product (bf16 tensor cores) on a waveform whose
+    frames the kernel copies 16 bytes at a time where they lie inside it
+    (n = 4000; hop a multiple of 8) and sample by sample (n = 4001, and
+    the valid preset's hop 100): fp32 out, sums in another order than the
+    twin's matmul, 1e-5 of the largest |twin| (the fp32 kernels' rule on
+    O(1) spectra is 1e-4)."""
+    (x,) = to_bf16((rand(gen, 3, n, scale=0.1),), device=dev)
+    want = stft_fused._reference(x, cfg)
+    before = dict(_build.LAUNCHES)
+    got = stft_fused.stft_auto(x, cfg)
+    torch.cuda.synchronize()
+    assert _bf16_counts(before, ("stft", "stft_bf16")) == {
+        "stft": 0, "stft_bf16": 1}
+    assert all(g.dtype == torch.float32 for g in got)
+    close(got, want, 1e-5 * max(float(w.abs().max()) for w in want))
 
 
 # The bf16 LSTM entries (bf16 weights; x fp32 or bf16; XP, h, c and y

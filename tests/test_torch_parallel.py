@@ -32,8 +32,8 @@ se_tpu's mesh path.
   these families), for LSTMNet and DPCRN: the first step's loss (1e-5
   relative), gradients (1e-5 of the largest) and BN statistics; and
   DPCRN's `enhance_waveform(mesh=)` at B = 3 (1e-4 abs and rel).
-- Refusals: a "model" axis above 1 (ROADMAP item 13b), a batch that does
-  not divide, a mesh larger than the world; the backend by topology;
+- Refusals: a "model" axis that does not divide the world, a batch that
+  does not divide, a mesh larger than the world; the backend by topology;
   `initialize_multihost` with nothing configured makes no group.
 """
 
@@ -72,22 +72,28 @@ SE_TPU_SEEDS = {"lstm": 3, "dpcrn": 3}  # the cases that start from se_tpu's
 def _jax_variables(name: str, kw: dict, seed: int) -> dict:
     entry = jmodels.get_model(name)
     bins = get_model(name).stft.bins
-    args = (np.zeros((1, 16, bins), np.float32),) if entry.io_kind in (
-        "mag_mask", "cirm") else (np.zeros((1, 16, bins, 2), np.float32),)
+    if entry.io_kind == "waveform":  # Uformer: (mix, clean)
+        args = (np.zeros((1, W.N_SAMPLES), np.float32),) * 2
+    elif entry.io_kind in ("mag_mask", "cirm"):
+        args = (np.zeros((1, 16, bins), np.float32),)
+    else:
+        args = (np.zeros((1, 16, bins, 2), np.float32),)
     return fill_tree(jax.eval_shape(entry.make(**kw).init,
                                     jax.random.PRNGKey(0), *args), seed)
 
 
 class _Ranks:
-    """The spawned ranks; `results(name)` waits for them once, then
-    returns each rank's result of case `name`; `reference(name)` the
-    one-process run."""
+    """The spawned ranks, a group a layout (world, model: 0 for a "data"
+    mesh); `results(name)` waits for them once, then returns each rank's
+    result of case `name`; `reference(name)` the one-process run. The
+    cases of `seeds` start from se_tpu's weights drawn from the seed."""
 
-    def __init__(self, out_dir: Path):
+    def __init__(self, out_dir: Path, layouts=((2, 0), (3, 0)),
+                 seeds=SE_TPU_SEEDS):
         self.dir = out_dir
         self.variables = {}
-        for name, seed in SE_TPU_SEEDS.items():
-            case = W.CASES[name]
+        for name, seed in seeds.items():
+            case = W.case(name)
             self.variables[name] = _jax_variables(case["model"], case["kw"],
                                                   seed)
             torch.save(get_model(case["model"]).from_jax_variables(
@@ -96,9 +102,9 @@ class _Ranks:
                    JAX_PLATFORMS="cpu")
         self.procs = [subprocess.Popen(
             [sys.executable, str(WORKER), str(out_dir), str(world),
-             str(rank)], env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT)
-            for world in (2, 3) for rank in range(world)]
+             str(rank), *([str(model)] if model else [])], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for world, model in layouts for rank in range(world)]
         self.done = False
         self.refs = {}
 
@@ -120,7 +126,7 @@ class _Ranks:
         self.wait()
         return [torch.load(self.dir / f"{name}_rank{r}.pt",
                            weights_only=False)
-                for r in range(W.CASES[name]["world"])]
+                for r in range(W.case(name)["world"])]
 
     def extras(self) -> list:
         self.wait()
@@ -268,9 +274,12 @@ def test_world_three_gathers_and_checks_replicas(ranks):
         assert extra == {"gathered": True, "replicate_refused": True}, rank
 
 
-def test_model_axis_raises_naming_13b():
-    with pytest.raises(NotImplementedError, match="13b"):
-        make_mesh({"data": 1, "model": 2})
+@pytest.mark.parametrize("axes", [{"data": 1, "model": 2}, {"model": 3}])
+def test_model_axis_must_divide_the_world(axes):
+    """A "model" axis above 1 is a mesh like any other: its product with
+    "data" is the world (here one process), or it raises."""
+    with pytest.raises(ValueError, match="1 ranks"):
+        make_mesh(axes)
 
 
 def test_mesh_must_cover_the_world():
