@@ -24,7 +24,10 @@ and the command line.
 Phases, one JSON line per result:
   1. env:    the card (nvidia-smi name and power limit), torch and CUDA;
              TF32 off for matmuls and cuDNN; bf16 GEMMs reduce in fp32.
-  2. build:  nvcc builds se_tpu_torch/csrc/*.cu (timed).
+  2. build:  nvcc builds se_tpu_torch/csrc/*.cu (timed): each kernel's
+             registers and spills (ptxas -v); the bf16 ring kernels'
+             registers, spills, shared bytes and blocks an SM as the
+             runtime reports them (`kernel_resources`).
   3. kernel: each kernel at every shape one forward at B = 4 x 4 s gives
              it (Uformer: T = 401; FullSubNet: T = 253; DCCRN: T = 501;
              the PRESET_320 models: T = 401), against its twin on the same
@@ -1399,9 +1402,11 @@ def check_kernels(dev, only) -> dict:
         "dsconv_pair_bf16": lambda: (
             _pair_kernel, _pair_twin, bf16_pair_cases,
             "se_tpu_torch/csrc/dsconv.cu", "se_tpu/ops/pallas_dsconv.py:325",
-            10, f"the 8 stages of Uformer's {b4} in bf16: dsconv_pre_tc + "
-            "dsconv_post_tc <bf16> a stage (2 TF32 passes: fp32 operands, "
-            "bf16 weights); B = 32 a per-case line",
+            10, f"the 8 stages of Uformer's {b4} in bf16: dsconv_pre_bf16 "
+            "+ dsconv_post_bf16 a stage (bf16 mma.sync m16n8k16 from a "
+            "bf16 cp.async ring, bf16 packs; each fp32 operand, LN1's "
+            "output, y's taps and z, in three bf16 pieces); B = 32 a "
+            "per-case line",
             {"peak": PEAK_FP32_BF16_FLOPS}),
         "dsconv_bf16": lambda: (
             _block_kernel, _block_twin, bf16_dsconv_cases,
@@ -1430,7 +1435,8 @@ def check_kernels(dev, only) -> dict:
             "se_tpu_torch/csrc/decoder.cu",
             "se_tpu/ops/pallas_decoder.py:117", 10,
             f"the 6 levels of Uformer's {b4} in bf16: "
-            "decoder_level_tc<bf16> (0-4, one TF32 pass), "
+            "decoder_level_tc_bf16 (0-4: bf16 mma.sync m16n8k16 from a "
+            "bf16 cp.async ring, bf16 packs, one product a k16), "
             "decoder_level_cc<.., bf16> (5); B = 32 per-case lines",
             {"peak": PEAK_BF16_FLOPS}),
         # the bf16 LSTM: weights bf16, x fp32 or bf16, XP, h, c and y
@@ -1703,8 +1709,8 @@ BF16_PATHS = {
 _BF16_SMALL_FOLD = ("lstm_proj_tc", "lstm_recur_persistent")
 PROFILE_KERNELS_BF16 = {
     "uformer": ("att_flash_tc", "att_small_l", "encoder_level_cc",
-                "encoder_level_tc", "decoder_level_tc", "decoder_level_cc",
-                "dsconv_pre_tc", "dsconv_post_tc"),
+                "encoder_level_tc", "decoder_level_tc_bf16",
+                "decoder_level_cc", "dsconv_pre_bf16", "dsconv_post_bf16"),
     **{name: _BF16_SMALL_FOLD for name in ("dccrn", "lstm", "crn",
                                            "gcrn")},
     "fullsubnet": ("lstm_step_bf16",) + _BF16_SMALL_FOLD,
@@ -3991,6 +3997,33 @@ def model_axis_decode(results: list, want, world: int, card: str) -> dict:
     return launches
 
 
+def kernel_resources(lib) -> dict:
+    """Phase 2: the bf16 tensor-core kernels' registers, spill bytes,
+    dynamic shared bytes and resident blocks an SM as the runtime reports
+    them (their `*_resources` entries: the decoder level's, the pair
+    stage's and the single block's, at the conformer's widths). Fails
+    where an entry does."""
+    import ctypes
+
+    names = ("registers", "spill_bytes", "smem_bytes", "blocks_per_sm")
+    res = (ctypes.c_int * 8)()
+    if lib.se_decoder_level_tc_bf16_resources(res):
+        fail("se_decoder_level_tc_bf16_resources failed")
+    out = {"decoder_level_tc_bf16": dict(zip(names, res[:4]))}
+    if lib.se_dsconv_pair_tc_bf16_resources(64, 32, res):
+        fail("se_dsconv_pair_tc_bf16_resources failed")
+    out["dsconv_pre_bf16"] = dict(zip(names, res[:4]))
+    out["dsconv_post_bf16"] = dict(zip(names, res[4:]))
+    # the single block in bf16 (row dsconv_bf16), complex and real
+    for ncomp, tot in ((2, 64), (1, 32)):
+        if lib.se_dsconv_block_tc_bf16_resources(ncomp, tot, res):
+            fail("se_dsconv_block_tc_bf16_resources failed")
+        out[f"dsconv_block_pre_tc<{ncomp}, bf16>"] = dict(zip(names, res[:4]))
+        out[f"dsconv_block_post_tc<{ncomp}, bf16>"] = dict(zip(names,
+                                                              res[4:]))
+    return out
+
+
 def parse_args():
     import argparse
 
@@ -4058,11 +4091,12 @@ def main() -> None:
           "allow_bf16_reduced_precision_reduction": False})
 
     t0 = time.perf_counter()
-    _build.library()
+    lib = _build.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": [ln.strip() for ln in _build.build_log.splitlines()
                     if "registers" in ln or "spill" in ln
-                    or ln.startswith("==")]})
+                    or ln.startswith("==")],
+          "resources": kernel_resources(lib)})
 
     table = check_kernels(dev, args.kernels)
     elapsed("3 kernel")

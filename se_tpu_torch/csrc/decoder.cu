@@ -74,14 +74,32 @@
 //
 // bf16 (`se_decoder_level_tc_bf16`, `se_decoder_level_cc_bf16`): xc, xm
 // (the skip concat of bf16 tensors), yc and ym in bf16, the TPU kernel's
-// rounding points (pallas_decoder.py:110-113): every sum, the bias, the BN
-// affine, PReLU and the fusion fp32, the two outputs rounded once. The
-// weights come packed (tc) or as they are (cc) in fp32 holding bf16
-// values (ops/decoder.py), the tail vectors in fp32. Both designs are the
-// fp32 ones templated on the storage: the A tiles are widened to fp32 as
-// they are staged (tc_common.cuh `copy4`: 8-byte loads of 4 channels, not
-// cp.async), and the tensor-core GEMM runs one TF32 pass, exact on two
-// bf16 operands (tc_common.cuh), where fp32 takes three.
+// rounding points (pallas_decoder.py:101-113): every sum, the bias, the BN
+// affine, PReLU and the fusion fp32, the two outputs rounded once; the
+// tail vectors fp32.
+//   - decoder_level_tc_bf16 (levels 0-4): decoder_level_tc's tile, grid,
+//     K and column order and epilogue on bf16 tensor cores, bound by
+//     operations at 989 TFLOP/s. mma.sync.m16n8k16 bf16 with fp32
+//     accumulation, one product a k16 (bf16 times bf16 is exact in fp32),
+//     a fresh fragment a K stage of 32 as above (m16n8k16's accumulator
+//     layout is m16n8k8's: the epilogue is unchanged). The fp32 design
+//     templated on bf16 storage would stage A by synchronous widening
+//     loads, so its ring would overlap only B's copies, keep B in fp32
+//     (twice the bytes through L2 and shared memory) and run a TF32 k8
+//     instruction for every 8 of K. Here the packs stay bf16
+//     (pack_decoder_weights), and A (gathered at copy time in 16-byte
+//     chunks of 8 channels: Cin a multiple of 8, zero-filled as above)
+//     and B pass through a bf16 cp.async ring (tc_common.cuh bfr::ring)
+//     of 8 KB stages, rows unpadded and swizzled (bfr::swz16:
+//     conflict-free ldmatrix). Four
+//     stages (32 KB) and at most 96 registers (no spills): five blocks an
+//     SM. Levels 0-5 at B = 32 took 4.62-4.65 ms so (five stages: 4.60),
+//     4.79 at six blocks of three stages (80 registers, spills) and 5.00
+//     at four blocks of six (bf16_ring_sweep.py decoder, NVIDIA H100
+//     80GB HBM3, 700 W; PERF.md).
+//   - decoder_level_cc<.., bf16> (level 5) is the fp32 design on the
+//     storage: weights as they are in fp32 holding bf16 values, the input
+//     tile widened as it is staged.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -188,6 +206,114 @@ decoder_level_tc(const T* __restrict__ xc, const T* __restrict__ xm,
   // acc[mi][tile][hh * 2 + cc]: position row gid + 8 hh of m tile mi,
   // channel 2 tq + cc of the warp's 8; tiles re, im (complex) and m (real)
   // of the even (ph = 0) and odd (ph = 1) column
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int p = r0 + wm * 32 + mi * 16 + hh * 8 + gid;
+      if (p >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = ct * CT + wn * 8 + 2 * tq + j;
+        if (c >= cout) continue;
+        const int f = hh * 2 + j;
+#pragma unroll
+        for (int ph = 0; ph < 2; ++ph)
+          level_out(P, acc_c[mi][2 * ph][f], acc_c[mi][2 * ph + 1][f],
+                    acc_m[mi][ph][f], (size_t)p * 2 + ph, c, cout,
+                    has_bn != 0, yc, ym);
+      }
+    }
+}
+
+// ------------------------------------------- tensor cores, bf16 (k16)
+
+using bf16 = __nv_bfloat16;
+constexpr int BF_STAGES = 4;   // cp.async ring depth: 4 x 8 KB ...
+constexpr int BF_BLOCKS = 5;   // ... five blocks an SM (96 registers)
+constexpr int BF_SMEM = BF_STAGES * (TM + WN * NT_C * 8) * bfr::BK * 2;
+
+// acc[m tile][n8 tile][fragment] = A . w^T over one branch, as branch_loop
+// on bf16 tensor cores: x (M, Cin) bf16, Cin a multiple of 8; w (ncols, 6
+// Cinp) bf16 packed. A stage is 32 channels of one tap: 4 16-byte chunks a
+// row, zero-filled by the copy where branch_loop zero-fills.
+template <int NT>
+__device__ __forceinline__ void branch_loop_bf16(
+    float (&acc)[2][NT][4], unsigned char* sm, const bf16* __restrict__ x,
+    const bf16* __restrict__ w, int M, int Tn, int F, int cin, int cinp,
+    int r0, int col0) {
+  constexpr int NB_COLS = WN * NT * 8;  // packed columns a block
+  constexpr int NA = TM / 32, NB = NB_COLS / 32;  // rows a thread copies
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int wm = warp % WM, wn = warp / WM;
+  const int kp = 6 * cinp, nk = kp / bfr::BK;
+  const int crow = tid >> 2, cq = tid & 3, dst = bfr::swz16(crow, cq);
+  const bf16* wq = w + ((size_t)col0 + crow) * kp + 8 * cq;
+  int pos[NA];
+  bool live[NA], t0[NA], qlo[NA], qhi[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) {
+    const int p = r0 + crow + 32 * i;
+    const int q = p % F;
+    live[i] = p < M;
+    pos[i] = p;
+    t0[i] = (p / F) % Tn == 0;
+    qlo[i] = q == 0;
+    qhi[i] = q == F - 1;
+  }
+  auto load = [&](int kt, bf16* as, bf16* bs) {
+    const int k0 = kt * bfr::BK, tap = k0 / cinp;
+    const int ci = k0 - tap * cinp + 8 * cq;
+    const int it = tap / 3, jf = tap % 3;
+    const long shift = (long)(it - 1) * F + (jf - 1);
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+      cp_async16(bs + dst + 32 * i * bfr::BK, wq + (size_t)32 * i * kp + k0,
+                 16);
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const bool in = live[i] && ci < cin && !(it == 0 && t0[i]) &&
+                      !(jf == 0 && qlo[i]) && !(jf == 2 && qhi[i]);
+      // outside: nothing read from a valid address, zeros stored
+      cp_async16(as + dst + 32 * i * bfr::BK,
+                 in ? x + (size_t)(pos[i] + shift) * cin + ci : x,
+                 in ? 16 : 0);
+    }
+  };
+  int a_ld[2];
+  bfr::a_lanes(wm * 32, a_ld);
+  auto frag = [&](int p, int, const bf16* as, uint32_t (&a)[1][2][4]) {
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+      ldsm_x4(a[0][mi], as + a_ld[p] + 16 * mi * bfr::BK);
+  };
+  bfr::ring<TM, NB_COLS, BF_STAGES, NT, 1, bf16>(acc, sm, nk, wn * NT * 8,
+                                                 load, frag);
+  __syncthreads();  // every warp is done with the ring before it is reused
+}
+
+// decoder_level_tc's tile, grid and epilogue on bf16 tensor cores: xc, xm,
+// the packed weights, yc and ym bf16; every sum and the epilogue fp32.
+__global__ void __launch_bounds__(TC_THREADS, BF_BLOCKS)
+decoder_level_tc_bf16(const bf16* __restrict__ xc, const bf16* __restrict__ xm,
+                      const bf16* __restrict__ wcp,
+                      const bf16* __restrict__ wmp, Tail P,
+                      bf16* __restrict__ yc, bf16* __restrict__ ym, int M,
+                      int Tn, int F, int cc, int cout, int cinp_c, int cinp_m,
+                      int has_bn) {
+  extern __shared__ __align__(16) unsigned char smb[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp % WM, wn = warp / WM;
+  const int gid = lane >> 2, tq = lane & 3;
+  const int nct = (cout + CT - 1) / CT;
+  const int ct = blockIdx.x % nct, r0 = (blockIdx.x / nct) * TM;
+  float acc_c[2][NT_C][4], acc_m[2][NT_M][4];
+  branch_loop_bf16<NT_C>(acc_c, smb, xc, wcp, M, Tn, F, 2 * cc, cinp_c, r0,
+                         ct * WN * NT_C * 8);
+  branch_loop_bf16<NT_M>(acc_m, smb, xm, wmp, M, Tn, F, cc, cinp_m, r0,
+                         ct * WN * NT_M * 8);
+  // the fragment layout of m16n8k16's accumulator is m16n8k8's: as
+  // decoder_level_tc
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -454,20 +580,43 @@ extern "C" int se_decoder_level_cc(
                   yc, ym, B, T, F, cc, cout, has_bn, (cudaStream_t)stream);
 }
 
-// The bf16 variants: xc, xm, yc, ym bf16; the weights (fp32 holding bf16
-// values) and the tail vectors fp32; otherwise as above.
+// The tensor-core design in bf16 (decoder_level_tc_bf16): xc, xm, the
+// packed weights (pack_decoder_weights' layout, in bf16), yc and ym bf16;
+// the tail vectors fp32; otherwise as se_decoder_level_tc. Needs cc % 8 ==
+// 0 (16-byte copies of 8 channels) and xc, xm 16-byte aligned.
 extern "C" int se_decoder_level_tc_bf16(
-    const __nv_bfloat16* xc, const __nv_bfloat16* xm, const float* wcp,
-    const float* wmp, const float* bc, const float* sc, const float* tc,
-    const float* ac, const float* bm, const float* sm, const float* tm,
-    const float* am, __nv_bfloat16* yc, __nv_bfloat16* ym, int B, int T,
-    int F, int cc, int cout, int cinp_c, int cinp_m, int has_bn,
-    void* stream) {
-  return level_tc(xc, xm, wcp, wmp, bc, sc, tc, ac, bm, sm, tm, am, yc, ym,
-                  B, T, F, cc, cout, cinp_c, cinp_m, has_bn,
-                  (cudaStream_t)stream);
+    const bf16* xc, const bf16* xm, const bf16* wcp, const bf16* wmp,
+    const float* bc, const float* sc, const float* tc, const float* ac,
+    const float* bm, const float* sm, const float* tm, const float* am,
+    bf16* yc, bf16* ym, int B, int T, int F, int cc, int cout, int cinp_c,
+    int cinp_m, int has_bn, void* stream) {
+  if (cc % 8 != 0 || cinp_c % bfr::BK != 0 || cinp_c < 2 * cc ||
+      cinp_m % bfr::BK != 0 || cinp_m < cc ||
+      reinterpret_cast<uintptr_t>(xc) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(xm) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const long M = (long)B * T * F;
+  if (M == 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      decoder_level_tc_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      BF_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const long blocks = (long)((cout + CT - 1) / CT) * ((M + TM - 1) / TM);
+  const Tail P{bc, sc, tc, ac, bm, sm, tm, am};
+  decoder_level_tc_bf16<<<(unsigned)blocks, TC_THREADS, BF_SMEM,
+                          (cudaStream_t)stream>>>(
+      xc, xm, wcp, wmp, P, yc, ym, (int)M, T, F, cc, cout, cinp_c, cinp_m,
+      has_bn);
+  return (int)cudaGetLastError();
 }
 
+// decoder_level_tc_bf16's resources (tc_common.cuh kernel_resources).
+extern "C" int se_decoder_level_tc_bf16_resources(int* out) {
+  return kernel_resources(decoder_level_tc_bf16, TC_THREADS, BF_SMEM, out);
+}
+
+// The CUDA-core design in bf16: xc, xm, yc, ym bf16; the weights (fp32
+// holding bf16 values) and the tail vectors fp32; otherwise as above.
 extern "C" int se_decoder_level_cc_bf16(
     const __nv_bfloat16* xc, const __nv_bfloat16* xm, const float* wce,
     const float* wco, const float* bc, const float* sc, const float* tc,

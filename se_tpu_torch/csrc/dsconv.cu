@@ -75,25 +75,47 @@
 // a thread a (row, segment), every walk from channel 0) it ran 4% slower at
 // B = 32 (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W; PERF.md).
 //
-// The pair stage in bf16 (`se_dsconv_pair_tc_bf16`, both launches): xc,
-// xm, oc and om in bf16, the TPU kernel's rounding points
-// (pallas_dsconv.py:108, :320-321): x widened to fp32, every intermediate
-// fp32, the two outputs rounded once. The weights come packed in fp32
-// holding bf16 values, the vectors in fp32 (ops/dsconv.py). The scratch y
-// between the launches stays fp32 in device memory (se_tpu never rounds
-// it). Which products run which way: every GEMM of the stage has an fp32
-// A operand (LN1's output in the pre GEMM, y's taps in the dilated convs,
-// z in the output conv) and a bf16-valued B (the weights), so each runs
-// two TF32 passes (small.B + big.B: tc_common.cuh PASSES = 2), as exact
-// as 3xTF32, whose third product is then zero. x is widened as it is
-// staged (tc_common.cuh `copy4`: plain 8-byte loads, not cp.async) and in
-// LN1's statistics and the residual.
+// The pair stage in bf16 (`se_dsconv_pair_tc_bf16`: dsconv_pre_bf16,
+// dsconv_post_bf16): xc, xm, oc and om in bf16, the TPU kernel's rounding
+// points (pallas_dsconv.py:292-321): x widened to fp32, every intermediate
+// fp32 (the scratch y between the launches too: se_tpu never rounds it),
+// the two outputs rounded once. The pre and post kernels' tiles, grids,
+// packed orders and epilogues are the fp32 ones'; their products run on
+// bf16 tensor cores (mma.sync.m16n8k16, fp32 accumulation) from a bf16
+// cp.async ring (tc_common.cuh bfr::ring, 32-deep K stages, rows unpadded
+// and swizzled) against bf16 packs (pack_pair_weights keeps w1, wd1, wd2
+// and ws bf16; the vectors fp32). Every GEMM has an fp32 A operand (LN1's
+// output, y's taps, z), which the fragments split in three bf16 pieces
+// (split_bf16x3: their sum is the operand bit for bit), a product each:
+// exact products, bound by operations at 989 / 3 = 329.7 TFLOP/s. The
+// fp32 design templated on bf16 storage (as the single block below) would
+// widen x by synchronous loads, keep the weights in fp32 and run two TF32
+// passes (247.5 TFLOP/s).
+//   - pre: x staged bf16 as it is (16-byte cp.async: Cin a multiple of 8),
+//     LN1's statistics from the same values widened (row_stats, two
+//     passes); in the fragments each pair widened, normalised in fp32 and
+//     split. 4 stages of 8 KB.
+//   - post: y's taps staged fp32 (bfr::swz32: conflict-free float2
+//     fragment reads) against bf16 wd; z fp32 in shared memory at a row
+//     stride of 8 mod 32 words (float2 reads), split against bf16 ws, a
+//     pass's ws at a stride of 4 mod 32 words (ldmatrix); both widths
+//     multiples of 16 (the output GEMM's k16). The ring's B side is half
+//     the fp32 one's: 2 stages of 12 KB, 54.8 KB a block, four blocks an
+//     SM where the fp32 post holds three. A stage at B = 32 took
+//     0.41-0.44 ms so (the post 0.30 on the device), 0.55 with three
+//     blocks of three stages (0.41), 0.51-0.54 with two blocks of four or
+//     six; at B = 4, one block an SM whatever the residency, two to six
+//     stages ran within 4% of each other; the pre's three and eight
+//     stages no faster than its four (bf16_ring_sweep.py decoder and
+//     pair, NVIDIA H100 80GB HBM3, 700 W; PERF.md).
 //
 // The single block in bf16 (`se_dsconv_block_tc_bf16`, both launches: the
 // TPU kernel's `_pallas_dsconv` on a bf16 x, pallas_dsconv.py:107-108) is
-// the same design with the same rounding points: x widened as it is staged
-// (LN1's load and statistics, the residual), y and z fp32, out rounded once,
-// every product two TF32 passes against the bf16-valued weights. Bound at
+// the fp32 block's design templated on the storage, with the pair's
+// rounding points: x widened as it is staged (tc_common.cuh `copy4`: LN1's
+// load and statistics, the residual), y and z fp32, out rounded once,
+// every product two TF32 passes against the packs in fp32 holding bf16
+// values (pack_block_weights). Bound at
 // the main path's shapes by operations at 329.7 TFLOP/s (an fp32 operand
 // against a bf16 one: three bf16 pieces, the fewest exact products).
 
@@ -107,6 +129,8 @@
 namespace {
 
 constexpr float LN_EPS = 1e-5f;
+
+using bf16 = __nv_bfloat16;
 
 // ------------------------------------- the pair stage, tensor cores
 
@@ -535,6 +559,385 @@ dsconv_post_tc(const Tx* __restrict__ xc, const float* __restrict__ yc,
   cp_async_wait<0>();
 }
 
+// ------------------------------- the pair stage, bf16 tensor cores (k16)
+
+constexpr int PRE_BF_STAGES = 4;   // pre: 4 x 8 KB
+constexpr int POST_BF_STAGES = 2;  // post: 2 x 12 KB, 54.3 KB a block ...
+constexpr int POST_BF_BLOCKS = 4;  // ... four an SM
+
+// A branch's tuple for the bf16 kernels: the packed weights bf16, the
+// vectors fp32.
+struct BranchBf {
+  const bf16* w1;
+  const float *g1, *b1, *bb1, *alpha;
+  const bf16* wd1;
+  const float* bd1;
+  const bf16* wd2;
+  const float *bd2, *g2, *b2;
+  const bf16* ws;
+  const float* bs;
+};
+
+// Bytes of the bf16 rings: pre, A and B bf16; post, A (y's taps) fp32.
+__host__ __device__ constexpr int pre_bf_ring() {
+  return PRE_BF_STAGES * (TM + N_C) * bfr::BK * 2;
+}
+__host__ __device__ constexpr int post_bf_ring() {
+  return POST_BF_STAGES * (TM * 4 + N_C * 2) * bfr::BK;
+}
+
+// pre_branch on bf16 tensor cores: y (M, tot) = PReLU(LN1(x) . w1 + bb1)
+// for rows r0 .. r0 + TM, x (M, cin) bf16 (cin a multiple of 8) staged as
+// it is by 16-byte cp.async; in the fragments each pair of x widened,
+// normalised in fp32 ((v - mean) * rstd * gamma + beta, the statistics
+// row_stats' from the same bf16 values) and split in three bf16 pieces, a
+// product each against the bf16 w1.
+template <int NT>
+__device__ void pre_branch_bf16(unsigned char* smb, const bf16* __restrict__ x,
+                                const BranchBf& p, float* __restrict__ y,
+                                int M, int cin, int tot, int nseg, int r0) {
+  constexpr int NB_COLS = WN * NT * 8;
+  constexpr int NA = TM / 32, NB = NB_COLS / 32;  // rows a thread copies
+  float* mu = reinterpret_cast<float*>(smb + pre_bf_ring());  // TM x 2
+  float* rs = mu + 2 * TM;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WM, wn = warp / WM, gid = lane >> 2, tq = lane & 3;
+  const int kp = round_up(cin, bfr::BK), nk = kp / bfr::BK, cs = cin / nseg;
+  row_stats(x, M, cin, nseg, r0, mu, rs);
+  __syncthreads();
+  float m_[2][2][2], r_[2][2][2];  // as pre_branch's
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const int q = (wm * 32 + mi * 16 + hh * 8 + gid) * 2 +
+                      (s < nseg ? s : 0);
+        m_[mi][hh][s] = mu[q];
+        r_[mi][hh][s] = rs[q];
+      }
+
+  const int crow = tid >> 2, cq = tid & 3, dst = bfr::swz16(crow, cq);
+  const bf16* wq = p.w1 + (size_t)crow * kp + 8 * cq;
+  auto load = [&](int kt, bf16* as, bf16* bs) {
+    const int k0 = kt * bfr::BK, ci = k0 + 8 * cq;
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+      cp_async16(bs + dst + 32 * i * bfr::BK, wq + (size_t)32 * i * kp + k0,
+                 16);
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const long row = (long)r0 + crow + 32 * i;
+      const bool ok = row < M && ci < cin;
+      cp_async16(as + dst + 32 * i * bfr::BK, ok ? x + row * cin + ci : x,
+                 ok ? 16 : 0);
+    }
+  };
+  // register i = 2 h + hh of m tile mi: row hh of the tile's halves, K
+  // index k + 2 tq (+1) + 8 h; one segment for both (cs is even)
+  int a_ld[2];
+  bfr::a_lanes(wm * 32, a_ld);
+  const float* __restrict__ g1 = p.g1;
+  const float* __restrict__ b1 = p.b1;
+  auto frag = [&](int ps, int k, const bf16* as, uint32_t (&a)[3][2][4]) {
+    uint32_t raw[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+      ldsm_x4(raw[mi], as + a_ld[ps] + 16 * mi * bfr::BK);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kk = k + 2 * tq + 8 * h;
+      const float g0 = __ldg(g1 + kk), g1v = __ldg(g1 + kk + 1);
+      const float c0 = __ldg(b1 + kk), c1 = __ldg(b1 + kk + 1);
+      const bool s1 = kk >= cs;
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float mean = s1 ? m_[mi][hh][1] : m_[mi][hh][0];
+          const float rstd = s1 ? r_[mi][hh][1] : r_[mi][hh][0];
+          float2 v = unpack_bf16x2(raw[mi][2 * h + hh]);
+          v.x = fmaf((v.x - mean) * rstd, g0, c0);
+          v.y = fmaf((v.y - mean) * rstd, g1v, c1);
+          bfr::split3(v, a, mi, 2 * h + hh);
+        }
+    }
+  };
+  float acc[2][NT][4];
+  bfr::ring<TM, NB_COLS, PRE_BF_STAGES, NT, 3, bf16>(acc, smb, nk,
+                                                     wn * NT * 8, load, frag);
+  const float alpha = *p.alpha;
+  each_frag<NT>(acc, [&](int r, int c, float v) {
+    const long row = (long)r0 + r;
+    if (row < M && c < tot) {
+      v += p.bb1[c];
+      y[row * tot + c] = v >= 0.f ? v : alpha * v;
+    }
+  });
+  __syncthreads();  // the ring and the statistics are reused
+}
+
+__global__ void __launch_bounds__(THREADS, 4)
+dsconv_pre_bf16(const bf16* __restrict__ xc, BranchBf pc,
+                float* __restrict__ yc, const bf16* __restrict__ xm,
+                BranchBf pm, float* __restrict__ ym, int M, int cm, int totc,
+                int totm) {
+  extern __shared__ __align__(16) unsigned char smb[];
+  const int r0 = blockIdx.x * TM;
+  pre_branch_bf16<NT_C>(smb, xc, pc, yc, M, 2 * cm, totc, 2, r0);
+  pre_branch_bf16<NT_M>(smb, xm, pm, ym, M, cm, totm, 1, r0);
+}
+
+// dilated on bf16 tensor cores: y's taps staged fp32 (8 16-byte chunks a
+// row, zero-filled where dilated zero-fills) and split in three bf16
+// pieces in the fragments, against the bf16 w.
+template <int NT>
+__device__ void dilated_bf16(float (&acc)[2][NT][4], unsigned char* smb,
+                             const float* __restrict__ y,
+                             const bf16* __restrict__ w, int M, int T, int F,
+                             int tot, int d, int r0) {
+  constexpr int NB_COLS = WN * NT * 8;
+  constexpr int NA = TM / 16, NB = NB_COLS / 32;  // rows a thread copies
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int wm = warp % WM, wn = warp / WM;
+  const int totp = round_up(tot, bfr::BK), kp = 9 * totp, nk = kp / bfr::BK;
+  const int ar = tid >> 3, aq = tid & 7, a_dst = bfr::swz32(ar, aq);
+  const int br = tid >> 2, bq = tid & 3, b_dst = bfr::swz16(br, bq);
+  const bf16* wq = w + (size_t)br * kp + 8 * bq;
+  int tt[NA], ff[NA];  // the thread's A rows' frame and bin; tt < 0: past M
+#pragma unroll
+  for (int i = 0; i < NA; ++i) {
+    const int p = r0 + ar + 16 * i;
+    ff[i] = p % F;
+    tt[i] = p < M ? (p / F) % T : -(1 << 30);
+  }
+  auto load = [&](int kt, float* as, bf16* bs) {
+    const int k0 = kt * bfr::BK, tap = k0 / totp;
+    const int ci = k0 - tap * totp + 4 * aq;
+    const int dt = (tap / 3 - 1) * d, df = tap % 3 - 1;
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+      cp_async16(bs + b_dst + 32 * i * bfr::BK,
+                 wq + (size_t)32 * i * kp + k0, 16);
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const int ts = tt[i] + dt, fs = ff[i] + df;
+      const bool ok = ci < tot && ts >= 0 && ts < T && fs >= 0 && fs < F;
+      const long src = (long)r0 + ar + 16 * i + (long)dt * F + df;
+      cp_async16(as + a_dst + 16 * i * bfr::BK, ok ? y + src * tot + ci : y,
+                 ok ? 16 : 0);
+    }
+  };
+  int x_ld[4];
+  bfr::x_lanes(wm * 32, x_ld);
+  auto frag = [&](int ps, int, const float* as, uint32_t (&a)[3][2][4]) {
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        bfr::split3(*reinterpret_cast<const float2*>(
+                        as + x_ld[2 * ps + (i >> 1)] +
+                        (16 * mi + 8 * (i & 1)) * bfr::BK),
+                    a, mi, i);
+  };
+  bfr::ring<TM, NB_COLS, POST_BF_STAGES, NT, 3, float>(acc, smb, nk,
+                                                       wn * NT * 8, load,
+                                                       frag);
+  __syncthreads();  // every warp is done with the ring before it is reused
+}
+
+// gated on bf16 tensor cores.
+template <int NT>
+__device__ void gated_bf16(unsigned char* smb, const float* __restrict__ y,
+                           const BranchBf& p, float* z, int ldz, int kz,
+                           int M, int T, int F, int tot, int d1, int d2,
+                           int r0) {
+  float acc[2][NT][4];
+  dilated_bf16<NT>(acc, smb, y, p.wd2, M, T, F, tot, d2, r0);
+  each_frag<NT>(acc, [&](int r, int c, float v) {
+    if (c < kz) z[r * ldz + c] = c < tot ? sigmoidf(v + p.bd2[c]) : 0.f;
+  });
+  dilated_bf16<NT>(acc, smb, y, p.wd1, M, T, F, tot, d1, r0);
+  each_frag<NT>(acc, [&](int r, int c, float v) {
+    if (c < kz)
+      z[r * ldz + c] = c < tot ? (v + p.bd1[c]) * z[r * ldz + c] : 0.f;
+  });
+}
+
+// Bytes of dsconv_post_bf16's shared memory (totc, totm multiples of 16):
+// the ring, zc and zm at row strides of tot + 8 floats (8 mod 32: a
+// half-warp's float2 fragment reads hit 32 distinct banks), LN2's
+// statistics.
+__host__ __device__ inline int post_bf_smem(int totc, int totm) {
+  return post_bf_ring() + 4 * TM * (totc + 8 + totm + 8) + 4 * 6 * TM;
+}
+
+// sum[mi][g] += z . ws^T over K = kz (a multiple of 16) for the warp's 32
+// rows of z (fp32, row stride ldz, from row wm 32; each pair split in
+// three bf16 pieces) and NT n8 tiles of ws (bf16, row stride ldw, from
+// row b_row0; ldw = 4 mod 32 words: conflict-free ldmatrix).
+template <int NT>
+__device__ __forceinline__ void out_gemm_bf16(float (&sum)[2][NT][4],
+                                              const float* z, int ldz,
+                                              const bf16* ws, int ldw,
+                                              int kz, int b_row0) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp % WM, gid = lane >> 2, tq = lane & 3;
+  const float* za = z + (wm * 32 + gid) * ldz + 2 * tq;
+  const bf16* wb = ws + (b_row0 + (lane & 7) + (lane >> 4) * 8) * ldw +
+                   ((lane >> 3) & 1) * 8;
+  for (int k = 0; k < kz; k += 16) {
+    uint32_t a[3][2][4], b[NT][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        bfr::split3(*reinterpret_cast<const float2*>(
+                        za + (16 * mi + 8 * (i & 1)) * ldz + k +
+                        8 * (i >> 1)),
+                    a, mi, i);
+#pragma unroll
+    for (int g = 0; g < NT; g += 2) ldsm_x4(b[g], wb + g * 8 * ldw + k);
+#pragma unroll
+    for (int pc = 0; pc < 3; ++pc)
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int g = 0; g < NT; ++g) mma_bf16(sum[mi][g], a[pc][mi], b[g]);
+  }
+}
+
+// dsconv_post_tc on bf16 tensor cores: xc, xm, oc, om bf16; yc, ym the pre
+// kernel's fp32; the weights bf16. totc and totm multiples of 16.
+__global__ void __launch_bounds__(THREADS, POST_BF_BLOCKS)
+dsconv_post_bf16(const bf16* __restrict__ xc, const float* __restrict__ yc,
+                 BranchBf pc, const bf16* __restrict__ xm,
+                 const float* __restrict__ ym, BranchBf pm,
+                 bf16* __restrict__ oc, bf16* __restrict__ om, int M, int T,
+                 int F, int cm, int totc, int totm, int d1, int d2) {
+  extern __shared__ __align__(16) unsigned char smb[];
+  const int kc = totc, km = totm, ldc = kc + 8, ldm = km + 8;
+  float* zc = reinterpret_cast<float*>(smb + post_bf_ring());  // TM x ldc
+  float* zm = zc + TM * ldc;                                   // TM x ldm
+  float* mu = zm + TM * ldm;  // TM x 3: complex segments 0 and 1, real
+  float* rs = mu + 3 * TM;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WM, wn = warp / WM, gid = lane >> 2, tq = lane & 3;
+  const int r0 = blockIdx.x * TM;
+
+  // 1. the gated dilated convs of both branches
+  gated_bf16<NT_C>(smb, yc, pc, zc, ldc, kc, M, T, F, totc, d1, d2, r0);
+  gated_bf16<NT_M>(smb, ym, pm, zm, ldm, km, M, T, F, totm, d1, d2, r0);
+
+  // the output GEMM's packed ws, a pass (2 CO complex rows of kc, CO real
+  // rows of km, at strides kc + 8 and km + 8) in the ring; pass 0 loads
+  // during LN2
+  const int npass = (cm + CO - 1) / CO;
+  bf16* bc = reinterpret_cast<bf16*>(smb);
+  bf16* bm = bc + 2 * CO * ldc;
+  auto load_ws = [&](int ps) {
+    const int qc = kc / 8, qm = km / 8;
+    for (int e = tid; e < 2 * CO * qc; e += THREADS)
+      cp_async16(bc + (e / qc) * ldc + 8 * (e % qc),
+                 pc.ws + ((size_t)ps * 2 * CO + e / qc) * kc + 8 * (e % qc),
+                 16);
+    for (int e = tid; e < CO * qm; e += THREADS)
+      cp_async16(bm + (e / qm) * ldm + 8 * (e % qm),
+                 pm.ws + ((size_t)ps * CO + e / qm) * km + 8 * (e % qm), 16);
+  };
+  load_ws(0);
+  cp_async_commit();
+  __syncthreads();  // both z tiles are complete
+
+  // 2. LN2 per component segment, two passes as the twin: a thread a (row,
+  // segment), then z * sigmoid(z) in place
+  const int csc = totc / 2;
+  for (int q = tid; q < 3 * TM; q += THREADS) {
+    const int r = q / 3, s = q % 3;
+    const float* v = s < 2 ? zc + r * ldc + s * csc : zm + r * ldm;
+    const int n = s < 2 ? csc : totm;
+    float sum = 0.f;
+    for (int i = 0; i < n; ++i) sum += v[i];
+    const float mean = sum / n;
+    float sq = 0.f;
+    for (int i = 0; i < n; ++i) {
+      const float dv = v[i] - mean;
+      sq += dv * dv;
+    }
+    mu[q] = mean;
+    rs[q] = rsqrtf(sq / n + LN_EPS);
+  }
+  __syncthreads();
+  for (int e = tid; e < TM * kc; e += THREADS) {
+    const int r = e / kc, c = e % kc, q = r * 3 + (c >= csc);
+    float* v = zc + r * ldc + c;
+    const float zn = (*v - mu[q]) * rs[q] * pc.g2[c] + pc.b2[c];
+    *v = zn * sigmoidf(zn);
+  }
+  for (int e = tid; e < TM * km; e += THREADS) {
+    const int r = e / km, c = e % km, q = r * 3 + 2;
+    float* v = zm + r * ldm + c;
+    const float zn = (*v - mu[q]) * rs[q] * pm.g2[c] + pm.b2[c];
+    *v = zn * sigmoidf(zn);
+  }
+
+  // 3. the output 1x1 convs, + bias + x, and the fusion, CO channels a pass
+  for (int ps = 0; ps < npass; ++ps) {
+    cp_async_wait<0>();  // pass ps has landed
+    __syncthreads();     // ... for all; (ps 0) z is normalised
+    float sc[2][NT_C][4], sg[2][NT_M][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int g = 0; g < NT_C; ++g) sc[mi][g][j] = 0.f;
+#pragma unroll
+        for (int g = 0; g < NT_M; ++g) sg[mi][g][j] = 0.f;
+      }
+    out_gemm_bf16<NT_C>(sc, zc, ldc, bc, ldc, kc, wn * NT_C * 8);
+    out_gemm_bf16<NT_M>(sg, zm, ldm, bm, ldm, km, wn * NT_M * 8);
+    __syncthreads();  // every warp is done with this pass's ws
+    if (ps + 1 < npass) load_ws(ps + 1);  // lands during the epilogue
+    cp_async_commit();
+    // as dsconv_post_tc's: sc[mi][2 g + part], sg[mi][g]
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const long row = (long)r0 + wm * 32 + mi * 16 + hh * 8 + gid;
+        if (row >= M) continue;
+#pragma unroll
+        for (int g = 0; g < 2; ++g) {
+          const int c = ps * CO + wn * 16 + g * 8 + 2 * tq;
+          if (c >= cm) continue;  // cm % 8 == 0: c + 1 < cm too
+          const bf16* xr = xc + row * 2 * cm + c;
+          const bf16* xq = xm + row * cm + c;
+          float o_re[2], o_im[2], o_m[2];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const float re =
+                sc[mi][2 * g][hh * 2 + j] + pc.bs[c + j] + to_f(xr[j]);
+            const float im = sc[mi][2 * g + 1][hh * 2 + j] +
+                             pc.bs[cm + c + j] + to_f(xr[cm + j]);
+            const float m =
+                sg[mi][g][hh * 2 + j] + pm.bs[c + j] + to_f(xq[j]);
+            const float s = sigmoidf(m);
+            o_re[j] = re + s;
+            o_im[j] = im + s;
+            o_m[j] = m + sigmoidf(sqrtf(fmaxf(re * re + im * im, FUSION_EPS)));
+          }
+          bf16* orow = oc + row * 2 * cm + c;
+          put2(orow, o_re[0], o_re[1]);
+          put2(orow + cm, o_im[0], o_im[1]);
+          put2(om + row * cm + c, o_m[0], o_m[1]);
+        }
+      }
+  }
+  cp_async_wait<0>();
+}
+
 // ------------------------------------- the single block, tensor cores
 
 // One block's pre stage: y (M, tot) = PReLU(LN1(x) . w1 + bb1), x (M, cin)
@@ -757,6 +1160,28 @@ extern "C" int se_dsconv_block_tc_bf16(
                      (cudaStream_t)stream);
 }
 
+// The bf16 block's two kernels' resources at (ncomp, tot) (tc_common.cuh
+// kernel_resources): out[0..3] dsconv_block_pre_tc's, out[4..7]
+// dsconv_block_post_tc's.
+extern "C" int se_dsconv_block_tc_bf16_resources(int ncomp, int tot,
+                                                 int* out) {
+  const int pre = (tcp::ring_floats(tcp::PRE_STAGES) + 4 * tcp::TM) *
+                  (int)sizeof(float);
+  const int post = tcp::block_post_smem_floats(tot) * (int)sizeof(float);
+  const int err =
+      ncomp == 2
+          ? kernel_resources(tcp::dsconv_block_pre_tc<tcp::NT_C, bf16>,
+                             tcp::THREADS, pre, out)
+          : kernel_resources(tcp::dsconv_block_pre_tc<tcp::NT_M, bf16>,
+                             tcp::THREADS, pre, out);
+  if (err != 0) return err;
+  return ncomp == 2
+             ? kernel_resources(tcp::dsconv_block_post_tc<tcp::NT_C, bf16>,
+                                tcp::THREADS, post, out + 4)
+             : kernel_resources(tcp::dsconv_block_post_tc<tcp::NT_M, bf16>,
+                                tcp::THREADS, post, out + 4);
+}
+
 namespace {
 
 template <class T>
@@ -810,24 +1235,52 @@ extern "C" int se_dsconv_pair_tc(
                  d2, (cudaStream_t)stream);
 }
 
-// The stage in bf16: xc, xm, oc, om bf16; the packed weights (fp32 holding
-// bf16 values), the vectors and the scratch yc, ym fp32; otherwise as
-// se_dsconv_pair_tc.
+// The stage on bf16 tensor cores (dsconv_pre_bf16, dsconv_post_bf16): xc,
+// xm, oc, om bf16; the packed weights (pack_pair_weights' layout, in bf16)
+// bf16; the vectors and the scratch yc, ym fp32; otherwise as
+// se_dsconv_pair_tc. Needs cm a multiple of 8 (16-byte copies of x),
+// totc and totm multiples of 16 (the output GEMM's k16 steps), totc <= 64,
+// totm <= 32, and xc, xm, yc, ym 16-byte aligned.
 extern "C" int se_dsconv_pair_tc_bf16(
-    const __nv_bfloat16* xc, const __nv_bfloat16* xm, const float* w1c,
-    const float* g1c, const float* b1c, const float* bb1c, const float* ac,
-    const float* wd1c, const float* bd1c, const float* wd2c,
-    const float* bd2c, const float* g2c, const float* b2c, const float* wsc,
-    const float* bsc, const float* w1m, const float* g1m, const float* b1m,
-    const float* bb1m, const float* am, const float* wd1m, const float* bd1m,
-    const float* wd2m, const float* bd2m, const float* g2m, const float* b2m,
-    const float* wsm, const float* bsm, float* yc, float* ym,
-    __nv_bfloat16* oc, __nv_bfloat16* om, int B, int T, int F, int cm,
+    const bf16* xc, const bf16* xm, const bf16* w1c, const float* g1c,
+    const float* b1c, const float* bb1c, const float* ac, const bf16* wd1c,
+    const float* bd1c, const bf16* wd2c, const float* bd2c, const float* g2c,
+    const float* b2c, const bf16* wsc, const float* bsc, const bf16* w1m,
+    const float* g1m, const float* b1m, const float* bb1m, const float* am,
+    const bf16* wd1m, const float* bd1m, const bf16* wd2m, const float* bd2m,
+    const float* g2m, const float* b2m, const bf16* wsm, const float* bsm,
+    float* yc, float* ym, bf16* oc, bf16* om, int B, int T, int F, int cm,
     int totc, int totm, int d1, int d2, void* stream) {
-  const tcp::Branch pc{w1c, g1c, b1c, bb1c, ac, wd1c, bd1c,
-                       wd2c, bd2c, g2c, b2c, wsc, bsc};
-  const tcp::Branch pm{w1m, g1m, b1m, bb1m, am, wd1m, bd1m,
-                       wd2m, bd2m, g2m, b2m, wsm, bsm};
-  return pair_tc(xc, xm, pc, pm, yc, ym, oc, om, B, T, F, cm, totc, totm, d1,
-                 d2, (cudaStream_t)stream);
+  if (cm % 8 != 0 || totc % 16 != 0 || totm % 16 != 0 || cm <= 0 ||
+      totc <= 0 || totm <= 0 || totc > tcp::N_C || totm > tcp::N_M ||
+      misaligned(xc) || misaligned(xm) || misaligned(yc) || misaligned(ym))
+    return (int)cudaErrorInvalidValue;
+  const long M = (long)B * T * F;
+  if (M == 0) return 0;
+  const tcp::BranchBf pc{w1c, g1c, b1c, bb1c, ac, wd1c, bd1c,
+                         wd2c, bd2c, g2c, b2c, wsc, bsc};
+  const tcp::BranchBf pm{w1m, g1m, b1m, bb1m, am, wd1m, bd1m,
+                         wd2m, bd2m, g2m, b2m, wsm, bsm};
+  const cudaStream_t st = (cudaStream_t)stream;
+  const unsigned blocks = (unsigned)((M + tcp::TM - 1) / tcp::TM);
+  const int err = launch_smem(tcp::dsconv_pre_bf16, blocks,
+                              tcp::pre_bf_ring() + 16 * tcp::TM, st, xc, pc,
+                              yc, xm, pm, ym, (int)M, cm, totc, totm);
+  if (err != 0) return err;
+  return launch_smem(tcp::dsconv_post_bf16, blocks,
+                     tcp::post_bf_smem(totc, totm), st, xc, (const float*)yc,
+                     pc, xm, (const float*)ym, pm, oc, om, (int)M, T, F, cm,
+                     totc, totm, d1, d2);
+}
+
+// The bf16 stage's resources at (totc, totm) (tc_common.cuh
+// kernel_resources): out[0..3] dsconv_pre_bf16's, out[4..7]
+// dsconv_post_bf16's.
+extern "C" int se_dsconv_pair_tc_bf16_resources(int totc, int totm,
+                                                int* out) {
+  const int err = kernel_resources(tcp::dsconv_pre_bf16, tcp::THREADS,
+                                   tcp::pre_bf_ring() + 16 * tcp::TM, out);
+  if (err != 0) return err;
+  return kernel_resources(tcp::dsconv_post_bf16, tcp::THREADS,
+                          tcp::post_bf_smem(totc, totm), out + 4);
 }

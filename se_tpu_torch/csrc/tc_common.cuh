@@ -8,10 +8,13 @@
 // fp32 value rounded to bf16 where a product takes it in bf16, as the bf16
 // LSTM's recurrent h), and the bf16 fragments of the bf16 LSTM step
 // (bf16 cp.async and ldmatrix, mma.sync.m16n8k16 bf16, the three-piece
-// bf16 split of an fp32 operand). sm_80 and up.
+// bf16 split of an fp32 operand), and the bf16 main loop built from them
+// (`bfr::ring`: the bf16 decoder level and DSConv pair stage). sm_80 and
+// up.
 //
-// The other bf16 variants keep every tile in shared memory as fp32: a
-// bf16 operand is widened as it is loaded (`copy4`, `copy1`: a plain load,
+// The bf16 variants of the encoder, attention, the single DSConv block and
+// the LSTM's small fold keep every tile in shared memory as fp32: a bf16
+// operand is widened as it is loaded (`copy4`, `copy1`: a plain load,
 // converted, stored; no cp.async) and written back rounded to nearest even
 // (`put`).
 // A bf16 value is exact in TF32 (8 significant bits of TF32's 11), so a
@@ -374,6 +377,171 @@ __device__ __forceinline__ void tc_ring(float (&acc)[2][NT][4],
     }
   }
   cp_async_wait<0>();
+}
+
+
+// ---- the bf16 ring (decoder.cu `decoder_level_tc_bf16`, dsconv.cu
+// `dsconv_pre_bf16` / `dsconv_post_bf16`)
+
+namespace bfr {
+
+constexpr int BK = 32;  // K a stage: two k16 steps; a row is 64 bytes of
+                        // bf16 (4 16-byte chunks) or 128 of fp32 (8)
+
+// Element offset of 16-byte chunk c of row r in a stage tile of BK-element
+// rows, unpadded and swizzled (as lstm.cu's bf16 step): bf16, chunk c at c
+// ^ ((r >> 1) & 3), so the 8 rows an ldmatrix matrix reads fall in 8
+// distinct bank groups (wgmma's 64-byte K-major swizzle); fp32, chunk c at
+// c ^ 2 (r & 3), so a half-warp's float2 fragment reads (4 rows x 2
+// chunks) do. A row r + 32 i (bf16) or r + 16 i (fp32) keeps r's swizzle.
+__device__ __forceinline__ int swz16(int r, int c) {
+  return r * BK + ((c ^ ((r >> 1) & 3)) << 3);
+}
+__device__ __forceinline__ int swz32(int r, int c) {
+  return r * BK + ((c ^ ((r & 3) << 1)) << 2);
+}
+
+// The lane's ldmatrix offsets in a swizzled bf16 tile for k16 step p of a
+// stage: A's m16 x k16 tile at row a_row0 (a multiple of 16; matrices
+// rows +0 / +8, k +0 / +8) or B's two n8 x k16 tiles at row b_row0 (a
+// multiple of 8; k +0 / +8 of each). Every row a lane names has the
+// swizzle (lane >> 1) & 3.
+__device__ __forceinline__ void a_lanes(int a_row0, int (&ld)[2]) {
+  const int lane = threadIdx.x & 31, sw = (lane >> 1) & 3;
+  const int r = a_row0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+    ld[p] = r * BK + (((2 * p + (lane >> 4)) ^ sw) << 3);
+}
+__device__ __forceinline__ void b_lanes(int b_row0, int (&ld)[2]) {
+  const int lane = threadIdx.x & 31, sw = (lane >> 1) & 3;
+  const int r = b_row0 + (lane & 7) + (lane >> 4) * 8;
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+    ld[p] = r * BK + (((2 * p + ((lane >> 3) & 1)) ^ sw) << 3);
+}
+
+// A's m16n8k16 fragments read from a swizzled fp32 tile: register i of m
+// tile mi in k16 step p is the float2 at row a_row0 + 16 mi + 8 (i & 1) +
+// lane / 4, K 16 p + 8 (i >> 1) + 2 (lane % 4), at ld[2 p + (i >> 1)] +
+// (16 mi + 8 (i & 1)) BK (a_row0 a multiple of 4).
+__device__ __forceinline__ void x_lanes(int a_row0, int (&ld)[4]) {
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    ld[q] = (a_row0 + gid) * BK +
+            (((2 * q + (tq >> 1)) ^ ((gid & 3) << 1)) << 2) + 2 * (tq & 1);
+}
+
+// An fp32 A fragment pair v (register i's two K values) as three bf16
+// pieces, hi + mid + lo = v (split_bf16x3), into a[2] (hi), a[1] (mid) and
+// a[0] (lo): `ring` sums a[0] first.
+__device__ __forceinline__ void split3(float2 v, uint32_t (&a)[3][2][4],
+                                       int mi, int i) {
+  split_bf16x3(v, a[2][mi][i], a[1][mi][i], a[0][mi][i]);
+}
+
+// The bf16 main loop: acc[m16 tile][n8 tile][fragment] = A . B^T over nk
+// K stages of BK, for the warp's 32 A rows and its NT (even) n8 tiles of B
+// rows from b_row0, on bf16 mma.sync.m16n8k16 with fp32 accumulation. The
+// stages pass through a STAGES-deep cp.async ring at `smem`: a slot is A
+// (TM rows of BK elements of TA, swizzled: swz16 for bf16, swz32 for fp32)
+// then B (BROWS rows of BK bf16, swz16). load(kt, as, bs) issues stage
+// kt's copies (every thread of the block) into a slot's A and B;
+// frag(p, k, as, a) forms the warp's A fragments of k16 step p of a stage
+// (K index k) in PIECES bf16 pieces, a[piece][m16 tile][register], whose
+// products are summed piece by piece, a[0] first. Each stage sums into a
+// fresh fragment that joins acc by fp32 adds (the mma's own accumulation
+// rounds toward zero, which drifts over a long K: decoder.cu). Returns
+// with every copy landed; a caller that reuses the ring must
+// __syncthreads() first.
+template <int TM, int BROWS, int STAGES, int NT, int PIECES, class TA,
+          class Load, class Frag>
+__device__ __forceinline__ void ring(float (&acc)[2][NT][4],
+                                     unsigned char* smem, int nk,
+                                     int b_row0, Load&& load, Frag&& frag) {
+  static_assert(NT % 2 == 0, "ldmatrix.x4 reads two n8 tiles of B");
+  constexpr int A_SLOT = TM * BK * (int)sizeof(TA);
+  constexpr int SLOT = A_SLOT + BROWS * BK * 2;
+  auto a_slot = [&](int s) { return reinterpret_cast<TA*>(smem + s * SLOT); };
+  auto b_slot = [&](int s) {
+    return reinterpret_cast<__nv_bfloat16*>(smem + s * SLOT + A_SLOT);
+  };
+  int b_ld[2];
+  b_lanes(b_row0, b_ld);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int g = 0; g < NT; ++g)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mi][g][j] = 0.f;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load(s, a_slot(s), b_slot(s));
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();  // stage kt has landed
+    __syncthreads();              // ... for all, and stage kt - 1 is read
+    const int next = kt + STAGES - 1;  // into the slot stage kt - 1 held
+    if (next < nk) load(next, a_slot(next % STAGES), b_slot(next % STAGES));
+    cp_async_commit();
+    const TA* as = a_slot(kt % STAGES);
+    const __nv_bfloat16* bs = b_slot(kt % STAGES);
+    float part[2][NT][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int g = 0; g < NT; ++g)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) part[mi][g][j] = 0.f;
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      uint32_t a[PIECES][2][4], b[NT][2];
+      frag(p, kt * BK + 16 * p, as, a);
+#pragma unroll
+      for (int g = 0; g < NT; g += 2)
+        ldsm_x4(b[g], bs + b_ld[p] + g * 8 * BK);
+      // piece-major: the mmas in a row write different fragments
+#pragma unroll
+      for (int pc = 0; pc < PIECES; ++pc)
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int g = 0; g < NT; ++g) mma_bf16(part[mi][g], a[pc][mi], b[g]);
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int g = 0; g < NT; ++g)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[mi][g][j] += part[mi][g][j];
+  }
+  cp_async_wait<0>();
+}
+
+}  // namespace bfr
+
+// A kernel's resources as the runtime reports them, for a launch of
+// `threads` threads and `smem` dynamic shared bytes: out[0] registers a
+// thread, out[1] local (spill) bytes a thread, out[2] smem, out[3]
+// resident blocks an SM.
+template <class Kernel>
+int kernel_resources(Kernel kernel, int threads, int smem, int* out) {
+  cudaFuncAttributes attr;
+  int blocks = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = smem;
+  out[3] = blocks;
+  return 0;
 }
 
 }  // namespace

@@ -43,6 +43,14 @@ def promoted(*tensors: torch.Tensor) -> tuple:
     return tuple(t.to(dtype) for t in tensors)
 
 
+def pack_dtype(weight: torch.Tensor) -> torch.dtype:
+    """The dtype a conv weight keeps in a tensor-core pack: bf16 stays
+    bf16 (the B operand of the bf16 kernels' `mma.m16n8k16`: the decoder
+    level's and the DSConv pair stage's), any other packs as fp32."""
+    return torch.bfloat16 if weight.dtype == torch.bfloat16 \
+        else torch.float32
+
+
 def to_float(nest):
     """The tensors of a nest (tuples and lists) widened to fp32; anything
     else as it is."""

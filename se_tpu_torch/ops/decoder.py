@@ -25,9 +25,12 @@ backward is the VJP of `_reference`, recomputed (se_tpu's
 `pallas_decoder.py:169-175`); `packed` is a constant to it.
 
 bf16 xc and xm launch each design's bf16 variant (`se_decoder_level_tc_bf16`,
-`se_decoder_level_cc_bf16`, counted as `decoder_bf16`), as the encoder's:
-bf16 conv weights (packed in fp32 holding their values), fp32 tail
-vectors, fp32 inside, the outputs rounded once; `_reference` mirrors it.
+`se_decoder_level_cc_bf16`, counted as `decoder_bf16`): bf16 conv weights
+(the tensor-core design's packed in bf16, on bf16 `mma.m16n8k16`; the
+CUDA-core design's widened to fp32), fp32 tail vectors, fp32 sums and
+epilogue, the outputs rounded once; `_reference` mirrors it. The bf16
+tensor-core design copies 8 channels at a time: it raises unless Cc is a
+multiple of 8 (Uformer's levels 0-4: 256 ... 32).
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from se_tpu_torch.ops import _autograd, _build
-from se_tpu_torch.ops._dtype import widened
+from se_tpu_torch.ops._dtype import pack_dtype, widened
 from se_tpu_torch.ops.encoder import (
     _aligned, _prelu, _round_up, fuse, launch_params,
 )
@@ -108,7 +111,8 @@ def _pack_branch(w_even, w_odd, parts: int):
     Column (g8, phase, part, c8) for channel 8 g8 + c8: per 8 channels the
     n8 tiles [re even, im even, re odd, im odd] (complex) or [even, odd]
     (real). Cin is zero-padded to Cinp (a multiple of 32), Cout to Coutp (a
-    multiple of 16)."""
+    multiple of 16). bf16 weights pack in bf16, others in fp32
+    (`_dtype.pack_dtype`)."""
     _, cin, n = w_even.shape
     cout = n // parts
     cinp, coutp = _round_up(cin, TC_K), _round_up(cout, TC_CHANNELS)
@@ -119,14 +123,15 @@ def _pack_branch(w_even, w_odd, parts: int):
     full = F.pad(full, (0, coutp - cout, 0, 0, 0, cinp - cin))
     full = full.reshape(2, 6, cinp, parts, coutp // 8, 8)
     packed = full.permute(4, 0, 3, 5, 1, 2)  # (g8, phase, part, c8, tap, ci)
-    return packed.reshape(-1, 6 * cinp).float().contiguous()
+    return packed.reshape(-1, 6 * cinp).to(pack_dtype(w_even)).contiguous()
 
 
 def pack_decoder_weights(params):
     """The 12-tuple's phase weights packed for the tensor-core design, on
-    their device, in fp32 (holding bf16 values for bf16 kernels): complex
-    (4 Coutp, 6 Cinp_c) and real (2 Coutp, 6 Cinp_m), K-major. Done once a
-    model (Uformer keeps them, a pack a dtype), not once a call."""
+    their device, in bf16 for bf16 weights (the bf16 kernel's) and fp32
+    otherwise: complex (4 Coutp, 6 Cinp_c) and real (2 Coutp, 6 Cinp_m),
+    K-major. Done once a model (Uformer keeps them, a pack a dtype), not
+    once a call."""
     return (_pack_branch(params[0], params[1], 2),
             _pack_branch(params[6], params[7], 1))
 
@@ -169,6 +174,10 @@ def _launch(xc, xm, params, has_bn: bool, design: str, packed=None):
               (1, 1))
     _build.check(xc, (b, t, f, 2 * cc), "xc", dtype)
     _build.check(xm, (b, t, f, cc), "xm", dtype)
+    if design == "tc" and dtype == torch.bfloat16 and cc % 8:
+        raise ValueError(f"decoder kernel: the bf16 tensor-core design "
+                         f"copies 8 channels at a time, Cc must be a "
+                         f"multiple of 8, got {cc}")
     if design == "tc" and packed is None:
         packed = pack_decoder_weights(params)
     args = launch_params(params, shapes, names, (0, 1, 6, 7), dtype,
@@ -179,8 +188,8 @@ def _launch(xc, xm, params, has_bn: bool, design: str, packed=None):
         wc, wm = packed
         coutp = _round_up(cout, TC_CHANNELS)
         cinp_c, cinp_m = _round_up(2 * cc, TC_K), _round_up(cc, TC_K)
-        _build.check(wc, (4 * coutp, 6 * cinp_c), "packed wc")
-        _build.check(wm, (2 * coutp, 6 * cinp_m), "packed wm")
+        _build.check(wc, (4 * coutp, 6 * cinp_c), "packed wc", dtype)
+        _build.check(wm, (2 * coutp, 6 * cinp_m), "packed wm", dtype)
         _build.launch(_build.variant("se_decoder_level_tc", dtype),
                       _aligned(xc), _aligned(xm), wc, wm, *args[2:6],
                       *args[8:12], yc, ym, b, t, f, cc, cout, cinp_c, cinp_m,

@@ -35,10 +35,14 @@ constants to them.
 
 bf16 activations launch the bf16 variants (`se_dsconv_block_tc_bf16`
 and `se_dsconv_pair_tc_bf16`, counted as `dsconv_bf16` and
-`dsconv_pair_bf16`): bf16 parameters (packed in fp32 holding their
-values), every intermediate fp32 (the scratch y between the two launches
-too), the outputs rounded once, as se_tpu's Pallas kernels; `_reference`
-and `_pair_reference` mirror that (`_dtype.widened`).
+`dsconv_pair_bf16`): bf16 parameters, every intermediate fp32 (the scratch
+y between the two launches too), the outputs rounded once, as se_tpu's
+Pallas kernels; `_reference` and `_pair_reference` mirror that
+(`_dtype.widened`). The block packs its bf16 weights in fp32 holding their
+values (two TF32 passes); the pair stage keeps them bf16 (bf16
+`mma.m16n8k16`, each fp32 operand in three bf16 pieces) and needs Cm (the
+stage's C) a multiple of 8 and both blocks' widths multiples of 16 (the
+conformer's: 128; 64 and 32).
 """
 
 from __future__ import annotations
@@ -49,7 +53,7 @@ import torch.nn.functional as F
 
 from se_tpu_torch.nn.conv import conv2d_nhwc
 from se_tpu_torch.ops import _autograd, _build
-from se_tpu_torch.ops._dtype import widened
+from se_tpu_torch.ops._dtype import pack_dtype, widened
 from se_tpu_torch.ops.encoder import _aligned, _round_up
 from se_tpu_torch.parallel.mesh import map_leading
 
@@ -103,7 +107,8 @@ def _pack_branch(params, n_cols: int):
     zero-padded to K1p (a multiple of 32), Cm to n_cols; g1, b1 (K1p,) zero
     past Cin; wd (n_cols, 9 Cmp): K index tap * Cmp + ci with tap = 3 i + j
     (t-tap i, f-tap j), each tap's Cm zero-padded to Cmp (a multiple of
-    32)."""
+    32). w1 and wd in `_dtype.pack_dtype` (bf16 stays bf16), the rest
+    fp32."""
     (g1, b1, w1, bb1, alpha, wd1, bd1, wd2, bd2, g2, b2, ws, bs) = params
     cin, tot = w1.shape
     k1p, totp = _round_up(cin, PAIR_K), _round_up(tot, PAIR_K)
@@ -117,8 +122,11 @@ def _pack_branch(params, n_cols: int):
         w = F.pad(w, (0, n_cols - tot, 0, totp - tot))
         return w.permute(2, 0, 1).reshape(n_cols, 9 * totp).contiguous()
 
-    return [t.float() for t in (w1p, vec(g1), vec(b1), bb1, alpha, dil(wd1),
-                                bd1, dil(wd2), bd2, g2, b2, ws, bs)]
+    out = [t.float() for t in (w1p, vec(g1), vec(b1), bb1, alpha, dil(wd1),
+                               bd1, dil(wd2), bd2, g2, b2, ws, bs)]
+    for i in (0, 5, 7):
+        out[i] = out[i].to(pack_dtype(w1))
+    return out
 
 
 def _check_block(x, params, ncomp: int, what: str) -> int:
@@ -147,25 +155,28 @@ def _check_block(x, params, ncomp: int, what: str) -> int:
 
 
 def _check_packed(pk, cin: int, tot: int, ncomp: int, ws_rows: int,
-                  name: str) -> None:
+                  name: str, weights: torch.dtype = torch.float32) -> None:
     """Raise unless a packed 13-tuple has `_pack_branch`'s shapes for (Cin,
-    Cm, ncomp) and a packed ws of ws_rows rows of round_up(Cm, 8)."""
+    Cm, ncomp) and a packed ws of ws_rows rows of round_up(Cm, 8), its
+    weights in `weights` and its vectors fp32."""
     k1p, totp = _round_up(cin, PAIR_K), _round_up(tot, PAIR_K)
     n = PAIR_N[ncomp == 1]
     for i, shape in ((0, (n, k1p)), (1, (k1p,)), (2, (k1p,)),
                      (5, (n, 9 * totp)), (7, (n, 9 * totp)),
                      (11, (ws_rows, _round_up(tot, 8)))):
-        _build.check(pk[i], shape, f"packed {name} [{i}]")
+        _build.check(pk[i], shape, f"packed {name} [{i}]",
+                     weights if i in (0, 5, 7, 11) else torch.float32)
 
 
 def pack_block_weights(params, ncomp: int):
     """One block's 13-tuple as csrc/dsconv.cu's `se_dsconv_block_tc` takes
     it, on its device: `_pack_branch`'s (N = 64 for ncomp 2, 32 for ncomp
     1), and ws (Cm, Cin) K-major: (Cin, round_up(Cm, 8)), row c = column c
-    of ws, zero past Cm. Done once a module (DSConvCplx and DSConvReal keep
-    it), not once a call."""
+    of ws, zero past Cm, all in fp32 (bf16 weights too: the block's bf16
+    variant widens them). Done once a module (DSConvCplx and DSConvReal
+    keep it), not once a call."""
     params = tuple(params)
-    packed = _pack_branch(params, PAIR_N[ncomp == 1])
+    packed = [t.float() for t in _pack_branch(params, PAIR_N[ncomp == 1])]
     ws = params[11]
     tot = ws.shape[0]
     packed[11] = F.pad(ws, (0, 0, 0, _round_up(tot, 8) - tot)).t() \
@@ -228,22 +239,25 @@ def _pack_out(wsc, wsm):
     them, K-major: complex (Cp / 8 * 2 * 8, round_up(Cm_c, 8)), row (g8,
     part, c8) = column part * C + 8 g8 + c8 of wsc (per 8 fusion channels
     the n8 tiles re, im); real (Cp, round_up(Cm_m, 8)), row c = column c of
-    wsm. C zero-padded to Cp (a multiple of 32), K with zeros."""
+    wsm. C zero-padded to Cp (a multiple of 32), K with zeros; in
+    `pack_dtype`."""
     totc, c2 = wsc.shape
     totm, c = wsm.shape
     cp, kc, km = _round_up(c, PAIR_CO), _round_up(totc, 8), _round_up(totm, 8)
     wc = F.pad(wsc.reshape(totc, 2, c), (0, cp - c, 0, 0, 0, kc - totc))
     wc = wc.reshape(kc, 2, cp // 8, 8).permute(2, 1, 3, 0)
     wm = F.pad(wsm, (0, cp - c, 0, km - totm)).t()
-    return wc.reshape(-1, kc).float().contiguous(), wm.float().contiguous()
+    return (wc.reshape(-1, kc).to(pack_dtype(wsc)).contiguous(),
+            wm.to(pack_dtype(wsm)).contiguous())
 
 
 def pack_pair_weights(params_c, params_m):
-    """Both blocks' 13-tuples as csrc/dsconv.cu's `se_dsconv_pair_tc` takes
-    them, on their device, in fp32 (holding bf16 values for the bf16
-    variant): (complex, real), each (w1p, g1p, b1p, bb1, alpha, wd1p, bd1,
-    wd2p, bd2, g2, b2, ws packed, bs). Done once a model (Uformer keeps
-    them, a pack a dtype), not once a call."""
+    """Both blocks' 13-tuples as csrc/dsconv.cu's `se_dsconv_pair_tc` (or,
+    from bf16 weights, `se_dsconv_pair_tc_bf16`) takes them, on their
+    device: (complex, real), each (w1p, g1p, b1p, bb1, alpha, wd1p, bd1,
+    wd2p, bd2, g2, b2, ws packed, bs), the weights w1p, wd1p, wd2p and ws
+    in `_dtype.pack_dtype` (bf16 stays bf16), the vectors fp32. Done once
+    a model (Uformer keeps them, a pack a dtype), not once a call."""
     pc = _pack_branch(tuple(params_c), PAIR_N[0])
     pm = _pack_branch(tuple(params_m), PAIR_N[1])
     pc[11], pm[11] = _pack_out(params_c[11], params_m[11])
@@ -291,11 +305,15 @@ def _pair_launch(xc, xm, params_c, params_m, d1: int, d2: int, packed):
     cm = xm.shape[-1]
     dtype = _build.launch_dtype("dsconv_pair", xc, xm)
     totc, totm = _check_pair(xc, xm, params_c, params_m)
+    if dtype == torch.bfloat16 and (cm % 8 or totc % 16 or totm % 16):
+        raise ValueError(f"dsconv_pair kernel: the bf16 stage needs C a "
+                         f"multiple of 8 and both blocks' Cm multiples of "
+                         f"16, got C={cm}, Cm={totc}, {totm}")
     pc, pm = pack_pair_weights(params_c, params_m) if packed is None \
         else packed
     cp = _round_up(cm, PAIR_CO)
-    _check_packed(pc, cc, totc, 2, 2 * cp, "complex")
-    _check_packed(pm, cm, totm, 1, cp, "real")
+    _check_packed(pc, cc, totc, 2, 2 * cp, "complex", dtype)
+    _check_packed(pm, cm, totm, 1, cp, "real", dtype)
     yc = torch.empty((b, t, f, totc), device=xc.device, dtype=torch.float32)
     ym = torch.empty((b, t, f, totm), device=xc.device, dtype=torch.float32)
     oc, om = torch.empty_like(xc), torch.empty_like(xm)

@@ -20,14 +20,21 @@ twins against se_tpu's Pallas kernels, and their arithmetic emulated.
   tests/test_torch_{attention,encoder,decoder,dsconv_pair}_tc.py emulate
   the fp32 ones: a product of two bf16 values is exact in one TF32 pass
   (the 3xTF32 split of a bf16 value has a zero small part), so the
-  encoder's and decoder's implicit GEMMs run one pass, also at K = 2560
-  where one pass of fp32 operands misses (test_torch_encoder_tc.py); the
-  attention kernels' two sweeps (the row max and sum, then P normalised,
-  rounded and multiplied by V); the pair stage's products of an fp32
-  operand and a bf16 weight in two passes, equal to 3xTF32 bit for bit.
-  Before the output rounding within 1e-5 * max(1, max|twin|) of the fp32
-  twin on the widened inputs (the fp32 tests' tolerance), after it within
-  the bf16 tolerance of the bf16 twin.
+  encoder's implicit GEMM runs one pass, also at K = 2560 where one pass
+  of fp32 operands misses (test_torch_encoder_tc.py); the attention
+  kernels' two sweeps (the row max and sum, then P normalised, rounded
+  and multiplied by V). The decoder level and the DSConv pair stage run
+  on bf16 `mma.m16n8k16` from bf16 packs: the decoder's bf16 products
+  exact, summed a fresh fp32 fragment a K stage of 32 (`k16_stages`, at
+  Uformer's levels 0-4, K up to 3072); the pair's fp32 operands in three
+  bf16 pieces (`three_pieces`: tests/test_torch_lstm_tc.py's
+  `split_bf16x3`, the pieces' sum the operand bit for bit), each product
+  exact. Beside them the designs they replaced (one TF32 pass; two
+  passes, equal to 3xTF32 bit for bit) on the same packs, widened. Before
+  the output rounding within 1e-5 * max(1, max|twin|) of the fp32 twin on
+  the widened inputs (the fp32 tests' tolerance), after it within the
+  bf16 tolerance of the bf16 twin; each bf16 pack is the fp32 pack of the
+  same values, in bf16.
 """
 
 import math
@@ -48,13 +55,14 @@ from test_torch_decoder_tc import implicit_gemm_level as decoder_gemm
 from test_torch_decoder_tc import split_big
 from test_torch_dsconv_pair_tc import stage_emulated
 from test_torch_encoder_tc import implicit_gemm_level as encoder_gemm
-from test_torch_lstm_tc import matmul_3xtf32, split
+from test_torch_lstm_tc import matmul_3xtf32, split, split_bf16x3
 from torch_kernel_inputs import (
     att_flip_slack, att_inputs, bf16_close, dec_params, enc_params,
     pair_inputs, rand, to_bf16,
 )
 
 RTOL = 1e-5
+STAGE_K = 32  # K a stage of the bf16 ring (tc_common.cuh bfr::BK)
 LOG2E = math.log2(math.e)
 BF16 = torch.bfloat16
 
@@ -84,6 +92,34 @@ def two_pass(a, w):
     """An fp32 A split, a B exact in TF32: small.B + big.B."""
     big, small = split(a)
     return small @ w + big @ w
+
+
+def k16_stages(a, w):
+    """decoder_level_tc_bf16's sums of a . w: a bf16-valued, w bf16, each
+    product exact in fp32, a fresh fp32 sum a K stage of 32, the stages'
+    sums added in order."""
+    assert torch.equal(a, a.to(BF16).float()) and w.dtype == BF16
+    w = w.float()
+    acc = torch.zeros(a.shape[0], w.shape[1])
+    for k0 in range(0, a.shape[1], STAGE_K):
+        acc = acc + a[:, k0:k0 + STAGE_K] @ w[k0:k0 + STAGE_K]
+    return acc
+
+
+def three_pieces(a, w):
+    """The bf16 pair stage's sums of a . w: an fp32 a in three bf16 pieces
+    (`split_bf16x3`, whose sum is a bit for bit), each against the bf16 w
+    (exact products), a fresh fp32 sum a K stage of 32, lo first."""
+    hi, mid, lo = split_bf16x3(a)
+    assert torch.equal(hi.double() + mid.double() + lo.double(), a.double())
+    assert w.dtype == BF16
+    w = w.float()
+    acc = torch.zeros(a.shape[0], w.shape[1])
+    for k0 in range(0, a.shape[1], STAGE_K):
+        ks = slice(k0, k0 + STAGE_K)
+        acc = acc + (lo[:, ks] @ w[ks] + mid[:, ks] @ w[ks]
+                     + hi[:, ks] @ w[ks])
+    return acc
 
 
 def _close32(got, want):
@@ -191,15 +227,55 @@ def test_encoder_gemm_one_pass(rng, b, t, f, cin, cout):
 @pytest.mark.parametrize("b,t,f,cc,cout", [(2, 5, 4, 6, 3),
                                            (1, 3, 4, 256, 128)])
 def test_decoder_gemm_one_pass(rng, b, t, f, cc, cout, has_bn):
+    """The design test_decoder_gemm_bf16_k16 replaced: one TF32 pass on
+    the bf16 pack widened, each product exact as there."""
     params = to_bf16(dec_params(rng, cc, cout))
     xc, xm = to_bf16((rand(rng, b, t, f, 2 * cc), rand(rng, b, t, f, cc)))
-    packed = decoder.pack_decoder_weights(params)
+    packed = to_float(decoder.pack_decoder_weights(params))
     got = decoder_gemm(xc.float(), xm.float(), to_float(params), has_bn,
                        packed, one_pass)
     _close32(got, decoder._reference.__wrapped__(
         xc.float(), xm.float(), to_float(params), has_bn))
     bf16_close([g.to(BF16) for g in got],
                decoder._reference(xc, xm, params, has_bn))
+
+
+# (B, T, F, Cc, Cout): Uformer's decoder levels 0-4 (level 0's K = 6 x 512
+# = 3072), then a narrow level (Cout padded to 16)
+DEC_LEVELS = [(1, 3, 4, 256, 128), (1, 3, 4, 256, 64), (2, 3, 4, 128, 32),
+              (2, 3, 8, 64, 16), (2, 5, 4, 32, 8), (2, 5, 4, 8, 12)]
+
+
+@pytest.mark.parametrize("has_bn", [True, False])
+@pytest.mark.parametrize("b,t,f,cc,cout", DEC_LEVELS)
+def test_decoder_gemm_bf16_k16(rng, b, t, f, cc, cout, has_bn):
+    """decoder_level_tc_bf16's arithmetic on the bf16 pack."""
+    params = to_bf16(dec_params(rng, cc, cout))
+    xc, xm = to_bf16((rand(rng, b, t, f, 2 * cc), rand(rng, b, t, f, cc)))
+    packed = decoder.pack_decoder_weights(params)
+    got = decoder_gemm(xc.float(), xm.float(), to_float(params), has_bn,
+                       packed, k16_stages)
+    _close32(got, decoder._reference.__wrapped__(
+        xc.float(), xm.float(), to_float(params), has_bn))
+    bf16_close([g.to(BF16) for g in got],
+               decoder._reference(xc, xm, params, has_bn))
+
+
+@pytest.mark.parametrize("cc,cout", [(256, 128), (32, 8), (6, 3)])
+def test_decoder_bf16_pack_is_the_fp32_pack_in_bf16(rng, cc, cout):
+    """A permutation of the bf16 phase weights plus zeros, in bf16: the
+    fp32 pack of the same values, bit for bit."""
+    params = to_bf16(dec_params(rng, cc, cout))
+    packed = decoder.pack_decoder_weights(params)
+    want = decoder.pack_decoder_weights(to_float(params))
+    for got, ref, (we, wo) in zip(packed, want, (params[0:2],
+                                                 params[6:8])):
+        assert got.dtype == BF16 and ref.dtype == torch.float32
+        assert torch.equal(got.float(), ref)
+        vals = torch.sort(got[got != 0].float()).values
+        src = torch.cat([we.flatten(), wo.flatten()]).float()
+        torch.testing.assert_close(vals, torch.sort(src[src != 0]).values,
+                                   rtol=0, atol=0)
 
 
 def flash_bf16_emulated(q, k, v, scale):
@@ -264,17 +340,58 @@ def test_attention_bf16_designs_match_twin(rng, length):
 
 @pytest.mark.parametrize("d1,d2", [(1, 128), (4, 2)])
 def test_pair_stage_two_passes_match_twin(rng, d1, d2):
-    """At the conformer's widths (C 128, Cm 32 a component), T = 9."""
+    """The design test_pair_stage_three_pieces_match_twin replaced, at the
+    conformer's widths (C 128, Cm 32 a component), T = 9: two TF32 passes
+    against the bf16 pack widened."""
     xc, xm, pc, pm = pair_inputs(rng, 1, 9, 4, 128, 32)
     xc, xm = to_bf16((xc, xm))
     pc, pm = to_bf16(pc), to_bf16(pm)
-    packed = dsconv.pack_pair_weights(pc, pm)
-    assert all(t.dtype == torch.float32 for pk in packed for t in pk)
+    packed = to_float(dsconv.pack_pair_weights(pc, pm))
     got = stage_emulated(xc.float(), xm.float(), packed, d1, d2, two_pass)
     _close32(got, dsconv._pair_reference.__wrapped__(
         xc.float(), xm.float(), to_float(pc), to_float(pm), d1, d2))
     bf16_close([g.to(BF16) for g in got],
                dsconv._pair_reference(xc, xm, pc, pm, d1, d2))
+
+
+PAIR_WEIGHTS = (0, 5, 7, 11)  # w1, wd1, wd2, ws in a packed tuple
+
+
+@pytest.mark.parametrize("d1,d2", [(2 ** i, 2 ** (7 - i)) for i in range(8)])
+def test_pair_stage_three_pieces_match_twin(rng, d1, d2):
+    """se_dsconv_pair_tc_bf16's arithmetic on the bf16 pack, at the
+    conformer's widths and every dilation pair of its eight stages (T = 9:
+    d >= 16 reaches past both ends)."""
+    xc, xm, pc, pm = pair_inputs(rng, 1, 9, 4, 128, 32)
+    xc, xm = to_bf16((xc, xm))
+    pc, pm = to_bf16(pc), to_bf16(pm)
+    packed = dsconv.pack_pair_weights(pc, pm)
+    got = stage_emulated(xc.float(), xm.float(), packed, d1, d2,
+                         three_pieces)
+    _close32(got, dsconv._pair_reference.__wrapped__(
+        xc.float(), xm.float(), to_float(pc), to_float(pm), d1, d2))
+    bf16_close([g.to(BF16) for g in got],
+               dsconv._pair_reference(xc, xm, pc, pm, d1, d2))
+
+
+@pytest.mark.parametrize("c,cm", [(128, 32), (40, 16)])
+def test_pair_bf16_pack_is_the_fp32_pack_in_bf16(rng, c, cm):
+    """The weights a permutation of the bf16 weights plus zeros, in bf16
+    (the fp32 pack of the same values, bit for bit); the vectors fp32."""
+    _, _, pc, pm = pair_inputs(rng, 1, 1, 4, c, cm)
+    pc, pm = to_bf16(pc), to_bf16(pm)
+    packed = dsconv.pack_pair_weights(pc, pm)
+    want = dsconv.pack_pair_weights(to_float(pc), to_float(pm))
+    for pk, ref, params in zip(packed, want, (pc, pm)):
+        for i, (got, r) in enumerate(zip(pk, ref)):
+            assert got.dtype == (BF16 if i in PAIR_WEIGHTS
+                                 else torch.float32)
+            assert torch.equal(got.float(), r)
+        for i in PAIR_WEIGHTS:
+            vals = torch.sort(pk[i][pk[i] != 0].float()).values
+            src = params[{0: 2, 5: 5, 7: 7, 11: 11}[i]].float()
+            torch.testing.assert_close(
+                vals, torch.sort(src[src != 0]).values, rtol=0, atol=0)
 
 
 def test_twins_widen_and_round_once(rng):

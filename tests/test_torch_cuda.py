@@ -774,9 +774,84 @@ def test_decoder_bf16_levels_match_twin(gen, dev, level, has_bn):
     bf16_close(got, want)
 
 
-@pytest.mark.parametrize("d1,d2", [(1, 128), (16, 8), (128, 1)])
+@pytest.mark.parametrize("has_bn", [True, False])
+@pytest.mark.parametrize("level", range(5))
+def test_decoder_bf16_ragged_levels_match_twin(gen, dev, level, has_bn):
+    """Levels 0-4 (the bf16 tensor-core design) at B = 3, T = 7: 84 x 2^i
+    positions, the last 64-position tile part empty at levels 0-3."""
+    f, cc, cout = 4 << level, 2 * UFORMER_KERNELS[6 - level], \
+        UFORMER_KERNELS[5 - level]
+    params = to_bf16(dec_params(gen, cc, cout), device=dev)
+    xc, xm = to_bf16((rand(gen, 3, 7, f, 2 * cc), rand(gen, 3, 7, f, cc)),
+                     device=dev)
+    want = decoder._reference(xc, xm, params, has_bn)
+    packed = decoder.pack_decoder_weights(params)
+    assert all(p.dtype == BF16 for p in packed)
+    got = decoder.decoder_level(xc, xm, params, has_bn, packed=packed)
+    torch.cuda.synchronize()
+    bf16_close(got, want)
+
+
+def test_decoder_bf16_refuses_cc_not_a_multiple_of_8(gen, dev):
+    """The bf16 tensor-core design copies 8 channels at a time: Cc = 12
+    (a tensor-core level by `level_design`) raises, in fp32 it runs."""
+    params = dec_params(gen, 12, 16)
+    xc, xm = rand(gen, 1, 3, 4, 24), rand(gen, 1, 3, 4, 12)
+    assert decoder.level_design(12, 16) == "tc"
+    with pytest.raises(ValueError, match="multiple of 8"):
+        decoder.decoder_level(*to_bf16((xc, xm), device=dev),
+                              to_bf16(params, device=dev), True)
+    got = decoder.decoder_level(*to_torch((xc, xm), device=dev),
+                                to_torch(params, device=dev), True)
+    assert all(g.dtype == torch.float32 for g in got)
+
+
+def test_pair_bf16_refuses_widths_it_cannot_copy(gen, dev):
+    """C 12 (not a multiple of 8) and Cm 4 + 4 a block (not multiples of
+    16) raise in bf16; the fp32 stage runs them."""
+    for c, cm in ((12, 16), (64, 4)):
+        xc, xm, pc, pm = pair_inputs(gen, 1, 5, 4, c, cm)
+        with pytest.raises(ValueError, match="multiple"):
+            dsconv.dsconv_pair_block(*to_bf16((xc, xm), device=dev),
+                                     to_bf16(pc, device=dev),
+                                     to_bf16(pm, device=dev), 1, 2)
+        got = dsconv.dsconv_pair_block(*to_torch((xc, xm), device=dev),
+                                       to_torch(pc, device=dev),
+                                       to_torch(pm, device=dev), 1, 2)
+        assert all(g.dtype == torch.float32 for g in got)
+
+
+def test_uformer_bf16_packs_are_bf16_and_made_once(dev):
+    """Uformer's bf16 copy packs its decoder levels 0-4 and its DSConv
+    stages from its bf16 weights, in bf16 (the vectors fp32), once: the
+    same objects come back; the fp32 model's packs stay fp32."""
+    from se_tpu_torch.eval.enhance import bf16_model
+    from se_tpu_torch.models import get_model
+
+    model = get_model("uformer").make(device=dev)
+    twin = bf16_model(get_model("uformer"), model)
+    with torch.no_grad():
+        for i in range(5):
+            _, packed = twin._decoder_weights(i)
+            assert all(p.dtype == BF16 for p in packed)
+            assert twin._decoder_weights(i)[1] is packed
+            assert all(p.dtype == torch.float32
+                       for p in model._decoder_weights(i)[1])
+        for k in range(8):
+            packed = twin.conformer._stage_weights(k)[2]
+            for pk in packed:
+                assert [t.dtype for t in pk] == [
+                    BF16 if i in (0, 5, 7, 11) else torch.float32
+                    for i in range(13)]
+            assert twin.conformer._stage_weights(k)[2] is packed
+            assert all(t.dtype == torch.float32 for pk in
+                       model.conformer._stage_weights(k)[2] for t in pk)
+
+
+@pytest.mark.parametrize("d1,d2", [(2 ** i, 2 ** (7 - i)) for i in range(8)])
 def test_pair_bf16_stage_matches_twin(gen, dev, d1, d2):
-    """The conformer's widths at 2 x 50 x 4 rows; the scratch y fp32."""
+    """The conformer's widths at 2 x 50 x 4 rows, every dilation pair of
+    its eight stages; the scratch y fp32."""
     xc, xm, pc, pm = pair_inputs(gen, 2, 50, 4, 128, 32)
     xc, xm = to_bf16((xc, xm), device=dev)
     pc, pm = to_bf16(pc, device=dev), to_bf16(pm, device=dev)
@@ -786,6 +861,21 @@ def test_pair_bf16_stage_matches_twin(gen, dev, d1, d2):
     torch.cuda.synchronize()
     assert _bf16_counts(before, ("dsconv_pair", "dsconv_pair_bf16")) == {
         "dsconv_pair": 0, "dsconv_pair_bf16": 1}
+    bf16_close(got, want)
+
+
+@pytest.mark.parametrize("b,t", [(3, 7), (32, 401)])
+def test_pair_bf16_stage_ragged_and_b32_matches_twin(gen, dev, b, t):
+    """84 rows (the second 64-row tile part empty), and a stage at B =
+    32 x 4 s (51,328 rows), with the packs passed as Uformer passes
+    them."""
+    xc, xm, pc, pm = pair_inputs(gen, b, t, 4, 128, 32)
+    xc, xm = to_bf16((xc, xm), device=dev)
+    pc, pm = to_bf16(pc, device=dev), to_bf16(pm, device=dev)
+    want = dsconv._pair_reference(xc, xm, pc, pm, 1, 128)
+    got = dsconv.dsconv_pair_block(xc, xm, pc, pm, 1, 128,
+                                   packed=dsconv.pack_pair_weights(pc, pm))
+    torch.cuda.synchronize()
     bf16_close(got, want)
 
 
