@@ -703,8 +703,8 @@ def bf16_attention_cases(gen, dev):
 
 def bf16_encoder_cases(gen, dev):
     """The six levels of Uformer's B = 4 forward in bf16, each on the
-    design `level_design` gives it (packed once from the bf16 weights, as
-    Uformer's bf16 copy keeps them), then at B = 32."""
+    design `level_design` gives it (packed once from the bf16 weights, in
+    bf16, as Uformer's bf16 copy keeps them), then at B = 32."""
     import torch
 
     from se_tpu_torch.ops import encoder
@@ -724,21 +724,39 @@ def bf16_encoder_cases(gen, dev):
             f_taps = valid_taps(f, ((fo, [2 * fo + j - 2 for j in range(5)])
                                     for fo in range(f // 2)))
             flops = 2.0 * b * (2 * t - 1) * f_taps * 5 * cin * cout
-            design = encoder.level_design(cin)
+            design = encoder.level_design(cin, torch.bfloat16)
             packed = encoder.pack_encoder_weights(params) \
-                if design == "tc" else None
+                if design == "tc" else None  # bf16, as Uformer keeps it
             moved = nbytes(xc, xm, params) + b * t * (f // 2) * 3 * cout * 2
             yield (f"encoder bf16 level {i} B={b} {b}x{t}x{f}x{cin}->{cout} "
                    f"design={design}", (xc, xm, params, packed, None), flops,
                    moved, None, b == B_MAIN)
 
 
+def widened_case(kind: str):
+    """Fail unless a case of `kind` ("decoder", "dsconv_pair") that a bf16
+    generator has just yielded ran the widened route: call before the
+    yield, and the returned check after it (the generator resumes once
+    phase 3 is done with the case)."""
+    from se_tpu_torch.ops import _build
+
+    key = f"{kind}_bf16_widened"
+    before = _build.LAUNCHES[key]
+
+    def check(label: str) -> None:
+        if _build.LAUNCHES[key] == before:
+            fail(f"{label}: no {key} launch")
+    return check
+
+
 def bf16_decoder_cases(gen, dev):
     """The six levels of Uformer's B = 4 forward in bf16, each on its
-    design, then at B = 32."""
+    design, then at B = 32; then a level of Cc = 12 (not a multiple of 8:
+    se_tpu's other widths), which must take the widened route."""
     import torch
 
     from se_tpu_torch.ops import decoder
+    from se_tpu_torch.ops._dtype import pack_dtype
 
     for b in (B_MAIN, 32):
         t = T_FRAMES
@@ -764,14 +782,39 @@ def bf16_decoder_cases(gen, dev):
             yield (f"decoder bf16 level {i} B={b} {b}x{t}x{f}x{cc}->{cout} "
                    f"design={design}", (xc, xm, params, i < 5, packed, None),
                    flops, moved, None, b == B_MAIN)
+    b, t, f, cc, cout = B_MAIN, T_FRAMES, 16, 12, 16
+    shapes = ((6, 2 * cc, 2 * cout), (4, 2 * cc, 2 * cout), (1, 2 * cout),
+              (1, 2 * cout), (1, 2 * cout), (1, 1), (6, cc, cout),
+              (4, cc, cout), (1, cout), (1, cout), (1, cout), (1, 1))
+    params = _bf16_params(level_params(gen, shapes, dev))
+    xc = torch.randn(b, t, f, 2 * cc, generator=gen).to(dev)
+    xm = torch.randn(b, t, f, cc, generator=gen).to(dev)
+    xc, xm = xc.to(torch.bfloat16), xm.to(torch.bfloat16)
+    f_taps = valid_taps(f, ((q, [q + j - 1 for j in range(3)])
+                            for q in range(f)))
+    f_taps += valid_taps(f, ((q, [q + j for j in range(2)])
+                             for q in range(f)))
+    design = decoder.level_design(cc, cout, torch.bfloat16)
+    label = f"decoder bf16 widened {b}x{t}x{f}x{cc}->{cout} design={design}"
+    check = widened_case("decoder")
+    packed = decoder.pack_decoder_weights(params, pack_dtype(params[0],
+                                                             design))
+    yield (label, (xc, xm, params, True, packed, None),
+           2.0 * b * (2 * t - 1) * f_taps * 5 * cc * cout,
+           nbytes(xc, xm, params) + b * t * 2 * f * 3 * cout * 2, None,
+           False)
+    check(label)
 
 
 def bf16_pair_cases(gen, dev):
     """The eight stages of Uformer's B = 4 forward in bf16 (weights
-    rounded to bf16, packed once), then one stage at B = 32."""
+    rounded to bf16, packed once), then one stage at B = 32; then stages of
+    C = 12 and of Cm 4 + 4 a block (not multiples of 8 and 16: se_tpu's
+    other widths), which must take the widened route."""
     import torch
 
     from se_tpu_torch.ops import dsconv
+    from se_tpu_torch.ops._dtype import pack_dtype
 
     t, f = T_FRAMES, 4
     n = len(DILATIONS)
@@ -791,6 +834,25 @@ def bf16_pair_cases(gen, dev):
         yield (f"dsconv_pair bf16 {b}x{t}x{f}x(256+128) d=({d1},{d2})",
                (xc, xm, pc, pm, d1, d2, packed), flops,
                nbytes(xc, xm, pc, pm, xc, xm), None, in_row)
+    b = B_MAIN
+    for c, cm in ((12, 16), (64, 4)):
+        pc = tuple(p.to(torch.bfloat16)
+                   for p in dsconv_params(gen, 2 * c, 2 * cm, dev))
+        pm = tuple(p.to(torch.bfloat16) for p in dsconv_params(gen, c, cm,
+                                                               dev))
+        xc = torch.randn(b, t, f, 2 * c, generator=gen).to(dev)
+        xm = torch.randn(b, t, f, c, generator=gen).to(dev)
+        xc, xm = xc.to(torch.bfloat16), xm.to(torch.bfloat16)
+        design = dsconv.pair_design(c, 2 * cm, cm, torch.bfloat16)
+        label = (f"dsconv_pair bf16 widened {b}x{t}x{f}x({2 * c}+{c}) "
+                 f"Cm=({2 * cm}+{cm}) d=(1,2) design={design}")
+        check = widened_case("dsconv_pair")
+        packed = dsconv.pack_pair_weights(pc, pm, pack_dtype(pc[2], design))
+        yield (label, (xc, xm, pc, pm, 1, 2, packed),
+               dsconv_flops(b, t, f, 2 * c, 2 * cm, 1, 2)
+               + dsconv_flops(b, t, f, c, cm, 1, 2),
+               nbytes(xc, xm, pc, pm, xc, xm), None, False)
+        check(label)
 
 
 def bf16_dsconv_cases(gen, dev):
@@ -1395,8 +1457,9 @@ def check_kernels(dev, only) -> dict:
             _att_kernel, _att_twin, bf16_attention_cases,
             "se_tpu_torch/csrc/attention.cu",
             "se_tpu/ops/pallas_attention.py:53", 10,
-            f"the 4 calls of Uformer's {b4} in bf16: att_flash_tc<.., bf16> "
-            "(T, L = 401), att_small_l<.., bf16> (F, L = 4); B = 32 "
+            f"the 4 calls of Uformer's {b4} in bf16: att_flash_bf16 (T, "
+            "L = 401: two sweeps over K, bf16 mma.sync m16n8k16 from a "
+            "bf16 cp.async ring), att_small_l<.., bf16> (F, L = 4); B = 32 "
             "per-case lines",
             {"peak": PEAK_BF16_FLOPS, "slack": True}),
         "dsconv_pair_bf16": lambda: (
@@ -1405,8 +1468,8 @@ def check_kernels(dev, only) -> dict:
             10, f"the 8 stages of Uformer's {b4} in bf16: dsconv_pre_bf16 "
             "+ dsconv_post_bf16 a stage (bf16 mma.sync m16n8k16 from a "
             "bf16 cp.async ring, bf16 packs; each fp32 operand, LN1's "
-            "output, y's taps and z, in three bf16 pieces); B = 32 a "
-            "per-case line",
+            "output, y's taps and z, in three bf16 pieces); B = 32 and "
+            "C = 12 and Cm 4 + 4 (the widened route) per-case lines",
             {"peak": PEAK_FP32_BF16_FLOPS}),
         "dsconv_bf16": lambda: (
             _block_kernel, _block_twin, bf16_dsconv_cases,
@@ -1427,8 +1490,9 @@ def check_kernels(dev, only) -> dict:
             _encoder_kernel, _encoder_twin, bf16_encoder_cases,
             "se_tpu_torch/csrc/encoder.cu", "se_tpu/ops/pallas_encoder.py:98",
             10, f"the 6 levels of Uformer's {b4} in bf16: "
-            "encoder_level_cc<bf16> (0), encoder_level_tc<.., bf16> (1-5, "
-            "one TF32 pass); B = 32 per-case lines",
+            "encoder_level_cc<bf16> (0), encoder_level_tc_bf16 (1-5: bf16 "
+            "mma.sync m16n8k16 from a bf16 cp.async ring, bf16 packs, one "
+            "product a k16); B = 32 per-case lines",
             {"peak": PEAK_BF16_FLOPS}),
         "decoder_bf16": lambda: (
             _decoder_kernel, _decoder_twin, bf16_decoder_cases,
@@ -1437,7 +1501,8 @@ def check_kernels(dev, only) -> dict:
             f"the 6 levels of Uformer's {b4} in bf16: "
             "decoder_level_tc_bf16 (0-4: bf16 mma.sync m16n8k16 from a "
             "bf16 cp.async ring, bf16 packs, one product a k16), "
-            "decoder_level_cc<.., bf16> (5); B = 32 per-case lines",
+            "decoder_level_cc<.., bf16> (5); B = 32 and Cc = 12 (the "
+            "widened route) per-case lines",
             {"peak": PEAK_BF16_FLOPS}),
         # the bf16 LSTM: weights bf16, x fp32 or bf16, XP, h, c and y
         # fp32, so its errors are fp32 sums in another order (the mma's
@@ -1708,8 +1773,8 @@ BF16_PATHS = {
 # (PROFILE_GATED)
 _BF16_SMALL_FOLD = ("lstm_proj_tc", "lstm_recur_persistent")
 PROFILE_KERNELS_BF16 = {
-    "uformer": ("att_flash_tc", "att_small_l", "encoder_level_cc",
-                "encoder_level_tc", "decoder_level_tc_bf16",
+    "uformer": ("att_flash_bf16", "att_small_l", "encoder_level_cc",
+                "encoder_level_tc_bf16", "decoder_level_tc_bf16",
                 "decoder_level_cc", "dsconv_pre_bf16", "dsconv_post_bf16"),
     **{name: _BF16_SMALL_FOLD for name in ("dccrn", "lstm", "crn",
                                            "gcrn")},
@@ -4000,16 +4065,24 @@ def model_axis_decode(results: list, want, world: int, card: str) -> dict:
 def kernel_resources(lib) -> dict:
     """Phase 2: the bf16 tensor-core kernels' registers, spill bytes,
     dynamic shared bytes and resident blocks an SM as the runtime reports
-    them (their `*_resources` entries: the decoder level's, the pair
+    them (their `*_resources` entries: the encoder and decoder levels',
+    the flash attention's at each warps a block it launches, the pair
     stage's and the single block's, at the conformer's widths). Fails
     where an entry does."""
     import ctypes
 
     names = ("registers", "spill_bytes", "smem_bytes", "blocks_per_sm")
     res = (ctypes.c_int * 8)()
-    if lib.se_decoder_level_tc_bf16_resources(res):
-        fail("se_decoder_level_tc_bf16_resources failed")
-    out = {"decoder_level_tc_bf16": dict(zip(names, res[:4]))}
+    out = {}
+    for kind in ("encoder", "decoder"):
+        entry = f"se_{kind}_level_tc_bf16_resources"
+        if getattr(lib, entry)(res):
+            fail(f"{entry} failed")
+        out[f"{kind}_level_tc_bf16"] = dict(zip(names, res[:4]))
+    for warps in (1, 2, 4):  # `attention.flash_warps`'s choices
+        if lib.se_att_flash_tc_bf16_resources(warps, res):
+            fail("se_att_flash_tc_bf16_resources failed")
+        out[f"att_flash_bf16<{warps}>"] = dict(zip(names, res[:4]))
     if lib.se_dsconv_pair_tc_bf16_resources(64, 32, res):
         fail("se_dsconv_pair_tc_bf16_resources failed")
     out["dsconv_pre_bf16"] = dict(zip(names, res[:4]))

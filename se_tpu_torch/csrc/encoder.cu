@@ -63,13 +63,33 @@
 // yc and ym in bf16, the TPU kernel's rounding points
 // (pallas_encoder.py:91-94): the input and the weights are bf16 values,
 // every sum, the bias, the BN affine, PReLU and the fusion fp32, the two
-// outputs rounded once. The weights come packed (tc) or as they are (cc)
-// in fp32 holding bf16 values (ops/encoder.py), the tail vectors in fp32.
-// Both designs are the fp32 ones templated on the storage: the A tiles
-// are widened to fp32 as they are staged (tc_common.cuh `copy4`, `copy1`:
-// plain loads, not cp.async; 8-byte loads of 4 channels, 2-byte ones
-// where Cin % 4 != 0), and the tensor-core GEMM runs one TF32 pass, exact
-// on two bf16 operands (tc_common.cuh), where fp32 takes three.
+// outputs rounded once; the tail vectors fp32.
+//   - encoder_level_tc_bf16 (Cin % 8 == 0: Uformer's levels 1-5):
+//     encoder_level_tc's tile, grid, K order and packed column order and
+//     epilogue on bf16 tensor cores (989 TFLOP/s: bound by operations at
+//     the deep levels, by bytes at the shallow ones). mma.sync.m16n8k16
+//     bf16 with fp32 accumulation, one product a k16 (bf16 times bf16 is
+//     exact in fp32), a fresh fragment a K stage of 32 joined by fp32 adds
+//     (level 5's K = 2560; m16n8k16's accumulator layout is m16n8k8's: the
+//     epilogue is unchanged). The fp32 design templated on bf16 storage staged A by
+//     synchronous 8-byte widening loads, so its ring overlapped only B's
+//     copies, kept B in fp32 (twice the bytes through L2 and shared
+//     memory) and ran a TF32 k8 instruction for every 8 of K. Here the
+//     packs stay bf16 (pack_encoder_weights), and A (gathered at copy time
+//     in 16-byte chunks of 8 channels of one input row, zero-filled where
+//     the tap falls before t = 0, outside [0, F), past Cin or past M) and
+//     B pass through the decoder's bf16 cp.async ring (tc_common.cuh
+//     bfr::ring) of 8 KB stages, rows unpadded and swizzled (bfr::swz16:
+//     conflict-free ldmatrix). ENC_BF_STAGES stages, ENC_BF_BLOCKS blocks
+//     an SM: chosen by bf16_ring_sweep.py encoder (PERF.md).
+//   - A bf16 level whose Cin is a multiple of 4 but not of 8 runs
+//     encoder_level_tc on the inputs widened to fp32 and rounds its outputs
+//     once (ops/encoder.py `level_design`, "tc_widened"): the same
+//     rounding points.
+//   - encoder_level_cc<bf16> (level 0, Cin 1) is the fp32 design on the
+//     storage: weights as they are in fp32 holding bf16 values, the input
+//     tile widened as it is staged (tc_common.cuh `ldg_f`); bound by
+//     bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -192,6 +212,119 @@ encoder_level_tc(const T* __restrict__ xc, const T* __restrict__ xm,
   // acc_c[mi][2 g + part][hh * 2 + j]: position row gid + 8 hh of m tile
   // mi, channel 8 g + 2 tq + j of the warp's 16, part re (0) or im (1);
   // acc_m[mi][g][hh * 2 + j] the real branch's
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int p = r0 + wm * 32 + mi * 16 + hh * 8 + gid;
+      if (p >= M) continue;
+#pragma unroll
+      for (int g = 0; g < 2; ++g)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = ct * CT + wn * 16 + g * 8 + 2 * tq + j;
+          if (c >= cout) continue;
+          level_out(P, acc_c[mi][2 * g][hh * 2 + j],
+                    acc_c[mi][2 * g + 1][hh * 2 + j], acc_m[mi][g][hh * 2 + j],
+                    (size_t)p, c, cout, true, yc, ym);
+        }
+    }
+}
+
+// ------------------------------------------- tensor cores, bf16 (k16)
+
+using bf16 = __nv_bfloat16;
+constexpr int ENC_BF_STAGES = 4;  // cp.async ring depth: 4 x 8 KB ...
+constexpr int ENC_BF_BLOCKS = 5;  // ... five blocks an SM (96 registers)
+constexpr int BF_SMEM = ENC_BF_STAGES * (TM + WN * NT_C * 8) * bfr::BK * 2;
+
+// acc[m tile][n8 tile][fragment] = A . w^T over one branch, as branch_loop
+// on bf16 tensor cores: x (B T F, cin) bf16, cin a multiple of 8; w (ncols,
+// 10 cinp) bf16 packed. A stage is 32 channels of one tap: 4 16-byte
+// chunks a row, zero-filled by the copy where branch_loop zero-fills.
+template <int NT>
+__device__ __forceinline__ void branch_loop_bf16(
+    float (&acc)[2][NT][4], unsigned char* sm, const bf16* __restrict__ x,
+    const bf16* __restrict__ w, int M, int Tn, int F, int cin, int cinp,
+    int r0, int col0) {
+  constexpr int NB_COLS = WN * NT * 8;  // packed columns a block
+  constexpr int NA = TM / 32, NB = NB_COLS / 32;  // rows a thread copies
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int wm = warp % WM, wn = warp / WM;
+  const int kp = TAPS * cinp, nk = kp / bfr::BK;
+  const int crow = tid >> 2, cq = tid & 3, dst = bfr::swz16(crow, cq);
+  const bf16* wq = w + ((size_t)col0 + crow) * kp + 8 * cq;
+  // the thread's A rows: input row 2p of (t, 2 fo), and a bit a tap that
+  // lands inside the input (none past M)
+  long base[NA];
+  unsigned inside[NA];
+  const int fo_n = F / 2;
+#pragma unroll
+  for (int i = 0; i < NA; ++i) {
+    const int p = r0 + crow + 32 * i;
+    base[i] = 2L * p;
+    unsigned bits = 0;
+    if (p < M) {
+      const int fo = p % fo_n, t = (p / fo_n) % Tn;
+#pragma unroll
+      for (int tap = 0; tap < TAPS; ++tap) {
+        const int it = tap / 5, ff = 2 * fo + tap % 5 - 2;
+        if ((it == 1 || t > 0) && ff >= 0 && ff < F) bits |= 1u << tap;
+      }
+    }
+    inside[i] = bits;
+  }
+  auto load = [&](int kt, bf16* as, bf16* bs) {
+    const int k0 = kt * bfr::BK, tap = k0 / cinp;
+    const int ci = k0 - tap * cinp + 8 * cq;
+    const long shift = (long)(tap / 5 - 1) * F + (tap % 5 - 2);
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+      cp_async16(bs + dst + 32 * i * bfr::BK, wq + (size_t)32 * i * kp + k0,
+                 16);
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const bool in = ((inside[i] >> tap) & 1u) && ci < cin;
+      // outside: nothing read from a valid address, zeros stored
+      cp_async16(as + dst + 32 * i * bfr::BK,
+                 in ? x + (size_t)(base[i] + shift) * cin + ci : x,
+                 in ? 16 : 0);
+    }
+  };
+  int a_ld[2];
+  bfr::a_lanes(wm * 32, a_ld);
+  auto frag = [&](int p, int, const bf16* as, uint32_t (&a)[1][2][4]) {
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+      ldsm_x4(a[0][mi], as + a_ld[p] + 16 * mi * bfr::BK);
+  };
+  bfr::ring<TM, NB_COLS, ENC_BF_STAGES, NT, 1, bf16>(acc, sm, nk,
+                                                     wn * NT * 8, load, frag);
+  __syncthreads();  // every warp is done with the ring before it is reused
+}
+
+// encoder_level_tc's tile, grid and epilogue on bf16 tensor cores: xc, xm,
+// the packed weights, yc and ym bf16; every sum and the epilogue fp32.
+__global__ void __launch_bounds__(TC_THREADS, ENC_BF_BLOCKS)
+encoder_level_tc_bf16(const bf16* __restrict__ xc, const bf16* __restrict__ xm,
+                      const bf16* __restrict__ wcp,
+                      const bf16* __restrict__ wmp, Tail P,
+                      bf16* __restrict__ yc, bf16* __restrict__ ym, int M,
+                      int Tn, int F, int cin, int cout, int cinp_c,
+                      int cinp_m) {
+  extern __shared__ __align__(16) unsigned char smb[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp % WM, wn = warp / WM;
+  const int gid = lane >> 2, tq = lane & 3;
+  const int nct = (cout + CT - 1) / CT;
+  const int ct = blockIdx.x % nct, r0 = (blockIdx.x / nct) * TM;
+  float acc_c[2][NT_C][4], acc_m[2][NT_M][4];
+  branch_loop_bf16<NT_C>(acc_c, smb, xc, wcp, M, Tn, F, 2 * cin, cinp_c, r0,
+                         ct * WN * NT_C * 8);
+  branch_loop_bf16<NT_M>(acc_m, smb, xm, wmp, M, Tn, F, cin, cinp_m, r0,
+                         ct * WN * NT_M * 8);
+  // the fragment layout of m16n8k16's accumulator is m16n8k8's: as
+  // encoder_level_tc
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -401,8 +534,8 @@ extern "C" int se_encoder_level_tc(
                   B, T, F, cin, cout, cinp_c, cinp_m, (cudaStream_t)stream);
 }
 
-// The bf16 variants: xc, xm, yc, ym bf16; the weights (fp32 holding bf16
-// values) and the tail vectors fp32; otherwise as above.
+// The CUDA-core design in bf16: xc, xm, yc, ym bf16; the weights (fp32
+// holding bf16 values) and the tail vectors fp32; otherwise as above.
 extern "C" int se_encoder_level_cc_bf16(
     const __nv_bfloat16* xc, const __nv_bfloat16* xm, const float* wc,
     const float* bc, const float* sc, const float* tc, const float* ac,
@@ -413,12 +546,37 @@ extern "C" int se_encoder_level_cc_bf16(
                   T, F, cin, cout, (cudaStream_t)stream);
 }
 
+// The tensor-core design in bf16 (encoder_level_tc_bf16): xc, xm, the
+// packed weights (pack_encoder_weights' layout, in bf16), yc and ym bf16;
+// the tail vectors fp32; otherwise as se_encoder_level_tc. Needs cin % 8
+// == 0 (16-byte copies of 8 channels of both branches), F even and xc, xm
+// 16-byte aligned.
 extern "C" int se_encoder_level_tc_bf16(
-    const __nv_bfloat16* xc, const __nv_bfloat16* xm, const float* wcp,
-    const float* wmp, const float* bc, const float* sc, const float* tc,
-    const float* ac, const float* bm, const float* sm, const float* tm,
-    const float* am, __nv_bfloat16* yc, __nv_bfloat16* ym, int B, int T,
-    int F, int cin, int cout, int cinp_c, int cinp_m, void* stream) {
-  return level_tc(xc, xm, wcp, wmp, bc, sc, tc, ac, bm, sm, tm, am, yc, ym,
-                  B, T, F, cin, cout, cinp_c, cinp_m, (cudaStream_t)stream);
+    const bf16* xc, const bf16* xm, const bf16* wcp, const bf16* wmp,
+    const float* bc, const float* sc, const float* tc, const float* ac,
+    const float* bm, const float* sm, const float* tm, const float* am,
+    bf16* yc, bf16* ym, int B, int T, int F, int cin, int cout, int cinp_c,
+    int cinp_m, void* stream) {
+  if (F % 2 != 0 || cin % 8 != 0 || cinp_c % bfr::BK != 0 ||
+      cinp_c < 2 * cin || cinp_m % bfr::BK != 0 || cinp_m < cin ||
+      reinterpret_cast<uintptr_t>(xc) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(xm) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const long M = (long)B * T * (F / 2);
+  if (M == 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      encoder_level_tc_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      BF_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const long blocks = (long)((cout + CT - 1) / CT) * ((M + TM - 1) / TM);
+  const Tail P{bc, sc, tc, ac, bm, sm, tm, am};
+  encoder_level_tc_bf16<<<(unsigned)blocks, TC_THREADS, BF_SMEM,
+                          (cudaStream_t)stream>>>(
+      xc, xm, wcp, wmp, P, yc, ym, (int)M, T, F, cin, cout, cinp_c, cinp_m);
+  return (int)cudaGetLastError();
+}
+
+// encoder_level_tc_bf16's resources (tc_common.cuh kernel_resources).
+extern "C" int se_encoder_level_tc_bf16_resources(int* out) {
+  return kernel_resources(encoder_level_tc_bf16, TC_THREADS, BF_SMEM, out);
 }

@@ -8,15 +8,16 @@
 // fp32 value rounded to bf16 where a product takes it in bf16, as the bf16
 // LSTM's recurrent h), and the bf16 fragments of the bf16 LSTM step
 // (bf16 cp.async and ldmatrix, mma.sync.m16n8k16 bf16, the three-piece
-// bf16 split of an fp32 operand), and the bf16 main loop built from them
-// (`bfr::ring`: the bf16 decoder level and DSConv pair stage). sm_80 and
-// up.
+// bf16 split of an fp32 operand; `ldsm_x4_t`, the transposed bf16
+// ldmatrix of the bf16 attention's V), and the bf16 main loop built from
+// them (`bfr::ring`: the bf16 encoder and decoder levels and DSConv pair
+// stage). sm_80 and up.
 //
-// The bf16 variants of the encoder, attention, the single DSConv block and
-// the LSTM's small fold keep every tile in shared memory as fp32: a bf16
-// operand is widened as it is loaded (`copy4`, `copy1`: a plain load,
-// converted, stored; no cp.async) and written back rounded to nearest even
-// (`put`).
+// The bf16 variants of the single DSConv block, attention's short-L
+// kernel, the encoder's level 0 and the LSTM's small fold keep every tile
+// in shared memory as fp32: a bf16 operand is widened as it is loaded
+// (`copy4`, `copy1`: a plain load, converted, stored; no cp.async) and
+// written back rounded to nearest even (`put`).
 // A bf16 value is exact in TF32 (8 significant bits of TF32's 11), so a
 // product of two bf16 operands is exact in one TF32 pass (PASSES = 1),
 // and a product of an fp32 operand A with a bf16 operand B needs only
@@ -211,6 +212,21 @@ __device__ __forceinline__ void ldsm_x4(uint32_t* r,
       : "memory");
 }
 
+// The same four matrices transposed: register i of lane l holds elements
+// (2 (l % 4), l / 4) and (2 (l % 4) + 1, l / 4) of matrix i, the lower in
+// the low half. From a row-major (K, N) tile (8 K rows of 8 N values a
+// matrix) it is the m16n8k16 B fragment of k rows 2 (l % 4) + 0 / 1 at
+// column l / 4 (bf16 attention's V: keys down, d across).
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r,
+                                          const __nv_bfloat16* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s)
+      : "memory");
+}
+
 // d += a . b on a 16 x 8 x 16 tile of bf16 operands, fp32 accumulate. The
 // accumulator layout is m16n8k8's: d0, d1 row lane / 4, columns 2 (lane %
 // 4) + 0 / 1; d2, d3 the same, 8 rows down.
@@ -380,8 +396,9 @@ __device__ __forceinline__ void tc_ring(float (&acc)[2][NT][4],
 }
 
 
-// ---- the bf16 ring (decoder.cu `decoder_level_tc_bf16`, dsconv.cu
-// `dsconv_pre_bf16` / `dsconv_post_bf16`)
+// ---- the bf16 ring (encoder.cu `encoder_level_tc_bf16`, decoder.cu
+// `decoder_level_tc_bf16`, dsconv.cu `dsconv_pre_bf16` /
+// `dsconv_post_bf16`)
 
 namespace bfr {
 

@@ -54,6 +54,7 @@ from se_tpu_torch.nn.conv import (
     conv2d_nhwc, interleave_complex_bias, interleave_complex_kernel,
 )
 from se_tpu_torch.ops import dsconv
+from se_tpu_torch.ops._dtype import pack_dtype
 from se_tpu_torch.ops.attention import sdp_attention
 from se_tpu_torch.ops.decoder import (
     _tconv_phase_split, decoder_level, level_design, pack_decoder_weights,
@@ -61,6 +62,7 @@ from se_tpu_torch.ops.decoder import (
 )
 from se_tpu_torch.ops.dsconv import (
     dsconv_block, dsconv_pair_block, pack_block_weights, pack_pair_weights,
+    pair_design,
 )
 from se_tpu_torch.ops.encoder import (
     encoder_level, fuse, fusion, pack_encoder_weights,
@@ -393,15 +395,20 @@ class DilatedDualpathConformer(nn.Module):
 
     def _stage_weights(self, k: int):
         """DSConv stage k's two 13-tuples and, on the card, their packs for
-        the tensor-core stage; kept as `_cached` says."""
+        the tensor-core stage (in `pack_dtype` for the stage's design);
+        kept as `_cached` says."""
         blk_c, blk_m = self.dsconv_cplx[k], self.dsconv_real[k]
 
         def make():
             params_c, params_m = blk_c.params(), blk_m.params()
             packed = None
             if params_c[0].device.type == "cuda":
+                w1c, w1m = params_c[2], params_m[2]
+                design = pair_design(w1m.shape[0], w1c.shape[1],
+                                     w1m.shape[1], w1c.dtype)
                 with torch.no_grad():
-                    packed = pack_pair_weights(params_c, params_m)
+                    packed = pack_pair_weights(params_c, params_m,
+                                               pack_dtype(w1c, design))
             return params_c, params_m, packed
 
         return _cached(self, "dsconv_pair", k, (blk_c, blk_m), make)
@@ -517,23 +524,26 @@ class Uformer(nn.Module):
 
     def _encoder_weights(self, i: int):
         """Encoder level i's 10-tuple and, for a tensor-core level on the
-        card, its packed weights; kept as `_cached` says."""
+        card, its packed weights (in `pack_dtype` for the level's design);
+        kept as `_cached` says."""
         enc, enc_r = self.encoder[i], self.encoder_real[i]
 
         def make():
             params = _level_params(*enc, *enc_r, split=False)
+            design = enc_level_design(params[5].shape[2], params[0].dtype)
             packed = None
-            if params[0].device.type == "cuda" and \
-                    enc_level_design(params[5].shape[2]) == "tc":
+            if params[0].device.type == "cuda" and design != "cuda_core":
                 with torch.no_grad():
-                    packed = pack_encoder_weights(params)
+                    packed = pack_encoder_weights(
+                        params, pack_dtype(params[0], design))
             return params, packed
 
         return _cached(self, "encoder", i, (enc, enc_r), make)
 
     def _decoder_weights(self, i: int):
         """Decoder level i's 12-tuple and, for a tensor-core level on the
-        card, its packed weights; kept as `_cached` says."""
+        card, its packed weights (in `pack_dtype` for the level's design);
+        kept as `_cached` says."""
         dec, dec_r = self.decoder[i], self.decoder_real[i]
 
         def make():
@@ -543,11 +553,12 @@ class Uformer(nn.Module):
             params = _level_params(dec[0], *tail_c, dec_r[0], *tail_m,
                                    split=True)
             cc, cout = params[6].shape[1], params[6].shape[2]
+            design = level_design(cc, cout, params[0].dtype)
             packed = None
-            if params[0].device.type == "cuda" and \
-                    level_design(cc, cout) == "tc":
+            if params[0].device.type == "cuda" and design != "cuda_core":
                 with torch.no_grad():
-                    packed = pack_decoder_weights(params)
+                    packed = pack_decoder_weights(
+                        params, pack_dtype(params[0], design))
             return params, packed
 
         return _cached(self, "decoder", i, (dec, dec_r), make)

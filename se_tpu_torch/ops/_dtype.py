@@ -1,9 +1,11 @@
-"""bf16 helpers of the kernel wrappers' twins and of the bf16 kernels'
+"""bf16 helpers of the kernel wrappers, their twins and the bf16 kernels'
 checks: `widened` runs a twin with the Pallas kernels' bf16 rounding
-points, and `bf16_compare` / `att_flip_slack` are the one tolerance the
-bf16 kernels are held to, on the CPU (tests/torch_kernel_inputs.py
-`bf16_close`) and on the card (chip_smoke.py phase 3). `promoted` gives a
-layer's operands the dtype se_tpu's layers compute in."""
+points and `widened_launch` a kernel's fp32 design with the same points,
+`pack_dtype` says what a pack holds, and `bf16_compare` /
+`att_flip_slack` are the one tolerance the bf16 kernels are held to, on
+the CPU (tests/torch_kernel_inputs.py `bf16_close`) and on the card
+(chip_smoke.py phase 3). `promoted` gives a layer's operands the dtype
+se_tpu's layers compute in."""
 
 from __future__ import annotations
 
@@ -11,6 +13,8 @@ import functools
 from typing import NamedTuple
 
 import torch
+
+from se_tpu_torch.ops import _build
 
 # one bf16 ulp of each element (two fp32 sums in another order round to
 # neighbours), plus 1e-6 of the largest output for elements near zero
@@ -43,12 +47,14 @@ def promoted(*tensors: torch.Tensor) -> tuple:
     return tuple(t.to(dtype) for t in tensors)
 
 
-def pack_dtype(weight: torch.Tensor) -> torch.dtype:
-    """The dtype a conv weight keeps in a tensor-core pack: bf16 stays
-    bf16 (the B operand of the bf16 kernels' `mma.m16n8k16`: the decoder
-    level's and the DSConv pair stage's), any other packs as fp32."""
+def pack_dtype(weight: torch.Tensor, design: str = "tc") -> torch.dtype:
+    """The dtype a conv weight keeps in a tensor-core pack for `design`:
+    bf16 stays bf16 on "tc" (the B operand of the bf16 kernels'
+    `mma.m16n8k16`: the encoder and decoder levels' and the DSConv pair
+    stage's); the widened route ("tc_widened", the fp32 kernel) and any
+    other weight pack as fp32."""
     return torch.bfloat16 if weight.dtype == torch.bfloat16 \
-        else torch.float32
+        and design == "tc" else torch.float32
 
 
 def to_float(nest):
@@ -77,6 +83,31 @@ def widened(twin):
         return tuple(o.to(torch.bfloat16) for o in out)
 
     return run
+
+
+def widened_launch(kernel: str, run, xc, xm, params, weights, packed,
+                   pack):
+    """A bf16 U-net level or conformer stage on its kernel's fp32 design
+    ("tc_widened", where the bf16 design cannot copy its widths): the bf16
+    conv weights (indices `weights` of the flat `params`) checked, xc, xm
+    and `params` widened to fp32, `run(xc, xm, params, packed)` the fp32
+    launches (uncounted) on the caller's fp32 packs (`pack(params,
+    torch.float32)`, made once where the caller keeps them; here
+    otherwise), the outputs rounded to bf16 once: the rounding points of
+    `widened`. Counted as `kernel`_bf16 and `kernel`_bf16_widened."""
+    if _build.launch_dtype(kernel, xc, xm) != torch.bfloat16:
+        raise ValueError(f"{kernel} kernel: the tc_widened design takes "
+                         f"bf16 activations, got {xc.dtype}")
+    for i in weights:
+        if params[i].dtype != torch.bfloat16:
+            raise TypeError(f"{kernel} kernel: a bf16 launch takes bf16 "
+                            f"conv weights, got {params[i].dtype}")
+    if packed is None:
+        packed = pack(params, torch.float32)
+    out = run(xc.float(), xm.float(), to_float(tuple(params)), packed)
+    _build.LAUNCHES[f"{kernel}_bf16"] += 1
+    _build.LAUNCHES[f"{kernel}_bf16_widened"] += 1
+    return tuple(o.to(torch.bfloat16) for o in out)
 
 
 def att_flip_slack(q, k, v, scale: float) -> torch.Tensor:

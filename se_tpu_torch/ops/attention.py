@@ -17,11 +17,12 @@ thread a query row; L <= SMALL_L_MAX, the F-attention's 4). Each launch
 counts in `_build.LAUNCHES["attention"]` and in the design's own
 `attention_flash_tc` / `attention_small_l`.
 
-bf16 q, k and v launch each design's bf16 variant (`se_att_flash_tc_bf16`,
-`se_att_small_l_bf16`; counted as `attention_bf16` and
-`attention_flash_tc_bf16` / `attention_small_l_bf16`), which keeps the
-TPU kernel's rounding points: fp32 scores and softmax, P rounded to bf16,
-a bf16 output; `_reference` mirrors them.
+bf16 q, k and v keep the TPU kernel's rounding points (fp32 scores and
+softmax, P normalised, then rounded to bf16, a bf16 output; `_reference`
+mirrors them) and launch a kernel of their own: `se_att_flash_tc_bf16`
+(bf16 `mma.m16n8k16` fed by a bf16 cp.async ring, two sweeps over K: the
+row's max and sum, then P and P V) or `se_att_small_l_bf16`. Counted as
+`attention_bf16` and the design's `attention_<design>_bf16`.
 """
 
 from __future__ import annotations

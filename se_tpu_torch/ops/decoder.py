@@ -29,8 +29,11 @@ bf16 xc and xm launch each design's bf16 variant (`se_decoder_level_tc_bf16`,
 (the tensor-core design's packed in bf16, on bf16 `mma.m16n8k16`; the
 CUDA-core design's widened to fp32), fp32 tail vectors, fp32 sums and
 epilogue, the outputs rounded once; `_reference` mirrors it. The bf16
-tensor-core design copies 8 channels at a time: it raises unless Cc is a
-multiple of 8 (Uformer's levels 0-4: 256 ... 32).
+tensor-core design copies 8 channels at a time (Uformer's levels 0-4: Cc
+256 ... 32); a bf16 level whose Cc is a multiple of 4 but not of 8 takes
+"tc_widened" (`_dtype.widened_launch`): the fp32 tensor-core kernel on
+the widened inputs and fp32 packs, its outputs rounded to bf16 once,
+counted also as `decoder_bf16_widened`.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from se_tpu_torch.ops import _autograd, _build
-from se_tpu_torch.ops._dtype import pack_dtype, widened
+from se_tpu_torch.ops._dtype import pack_dtype, widened, widened_launch
 from se_tpu_torch.ops.encoder import (
     _aligned, _prelu, _round_up, fuse, launch_params,
 )
@@ -92,18 +95,24 @@ TC_K = 32         # K a stage: each tap's Cin padded to it
 TC_MIN_COUT = 8   # narrower levels take the CUDA cores
 
 
-def level_design(cc: int, cout: int) -> str:
-    """The design csrc/decoder.cu runs a level with: "tc" (the implicit GEMM
-    on the tensor cores) for Cout >= 8, Uformer's levels 0-4 (level 4's
-    Cout 8 fills half of each block's channels, and still ran 2.3-2.6x
-    faster than on the CUDA cores on the card), where Cc % 4 == 0 (16-byte
-    copies of both branches' channels); "cuda_core" otherwise (level 5,
-    Cout 1, bounded by bytes). The CUDA-core entry refuses a level whose
-    staged weights and input tile do not fit a block's shared memory."""
-    return "tc" if cout >= TC_MIN_COUT and cc % 4 == 0 else "cuda_core"
+def level_design(cc: int, cout: int,
+                 dtype: torch.dtype = torch.float32) -> str:
+    """The design csrc/decoder.cu runs a level of `dtype` with: "tc" (the
+    implicit GEMM on the tensor cores) for Cout >= 8, Uformer's levels 0-4
+    (level 4's Cout 8 fills half of each block's channels, and still ran
+    2.3-2.6x faster than on the CUDA cores on the card), where Cc % 4 == 0
+    (16-byte copies of both branches' channels; in bf16 Cc % 8 == 0, 8
+    channels a copy); in bf16 "tc_widened" (the fp32 tensor-core kernel on
+    widened inputs) where Cc % 4 == 0 but Cc % 8 != 0; "cuda_core"
+    otherwise (level 5, Cout 1, bounded by bytes; a bf16 variant of its
+    own). The CUDA-core entry refuses a level whose staged weights and
+    input tile do not fit a block's shared memory."""
+    if cout < TC_MIN_COUT or cc % 4:
+        return "cuda_core"
+    return "tc_widened" if dtype == torch.bfloat16 and cc % 8 else "tc"
 
 
-def _pack_branch(w_even, w_odd, parts: int):
+def _pack_branch(w_even, w_odd, parts: int, dtype: torch.dtype):
     """(6, Cin, parts * Cout) and (4, Cin, parts * Cout) phase weights ->
     (Coutp / 8 * 2 * parts * 8, 6 * Cinp). K index tap * Cinp + ci with tap
     = it * 3 + jf over x[t - 1 + it, q - 1 + jf]: the even phase's taps as
@@ -111,8 +120,7 @@ def _pack_branch(w_even, w_odd, parts: int):
     Column (g8, phase, part, c8) for channel 8 g8 + c8: per 8 channels the
     n8 tiles [re even, im even, re odd, im odd] (complex) or [even, odd]
     (real). Cin is zero-padded to Cinp (a multiple of 32), Cout to Coutp (a
-    multiple of 16). bf16 weights pack in bf16, others in fp32
-    (`_dtype.pack_dtype`)."""
+    multiple of 16). In `dtype`."""
     _, cin, n = w_even.shape
     cout = n // parts
     cinp, coutp = _round_up(cin, TC_K), _round_up(cout, TC_CHANNELS)
@@ -123,17 +131,19 @@ def _pack_branch(w_even, w_odd, parts: int):
     full = F.pad(full, (0, coutp - cout, 0, 0, 0, cinp - cin))
     full = full.reshape(2, 6, cinp, parts, coutp // 8, 8)
     packed = full.permute(4, 0, 3, 5, 1, 2)  # (g8, phase, part, c8, tap, ci)
-    return packed.reshape(-1, 6 * cinp).to(pack_dtype(w_even)).contiguous()
+    return packed.reshape(-1, 6 * cinp).to(dtype).contiguous()
 
 
-def pack_decoder_weights(params):
+def pack_decoder_weights(params, dtype: torch.dtype | None = None):
     """The 12-tuple's phase weights packed for the tensor-core design, on
-    their device, in bf16 for bf16 weights (the bf16 kernel's) and fp32
-    otherwise: complex (4 Coutp, 6 Cinp_c) and real (2 Coutp, 6 Cinp_m),
-    K-major. Done once a model (Uformer keeps them, a pack a dtype), not
-    once a call."""
-    return (_pack_branch(params[0], params[1], 2),
-            _pack_branch(params[6], params[7], 1))
+    their device: complex (4 Coutp, 6 Cinp_c) and real (2 Coutp, 6
+    Cinp_m), K-major, in `dtype`; by default in bf16 for bf16 weights (the
+    bf16 kernel's) and fp32 otherwise (`_dtype.pack_dtype`; the widened
+    route takes fp32 packs of bf16 weights). Done once a model (Uformer
+    keeps them, a pack a dtype), not once a call."""
+    dtype = dtype or pack_dtype(params[0])
+    return (_pack_branch(params[0], params[1], 2, dtype),
+            _pack_branch(params[6], params[7], 1, dtype))
 
 
 def decoder_level(xc: torch.Tensor, xm: torch.Tensor, params,
@@ -151,7 +161,7 @@ def decoder_level(xc: torch.Tensor, xm: torch.Tensor, params,
 def _level(xc, xm, params, has_bn: bool, packed):
     if xc.device.type == "cpu":
         return _reference(xc, xm, params, has_bn)
-    design = level_design(xc.shape[-1] // 2, params[6].shape[-1])
+    design = level_design(xc.shape[-1] // 2, params[6].shape[-1], xc.dtype)
     return _autograd.kernel_call(
         lambda xc, xm, params: _launch(xc, xm, params, has_bn, design,
                                        packed),
@@ -159,10 +169,17 @@ def _level(xc, xm, params, has_bn: bool, packed):
         xc, xm, params)
 
 
-def _launch(xc, xm, params, has_bn: bool, design: str, packed=None):
-    """Launch `design` ("tc" or "cuda_core") on CUDA tensors, its fp32 or
-    its bf16 variant by xc and xm's one dtype (as the encoder's
-    `_launch`)."""
+def _launch(xc, xm, params, has_bn: bool, design: str, packed=None,
+            count=True):
+    """Launch `design` ("tc", "cuda_core"; bf16 also "tc_widened") on
+    CUDA tensors, its fp32 or its bf16 variant by xc and xm's one dtype
+    (as the encoder's `_launch`, `count` too)."""
+    if design == "tc_widened":
+        return widened_launch(
+            "decoder",
+            lambda xc, xm, params, packed: _launch(xc, xm, params, has_bn,
+                                                   "tc", packed, False),
+            xc, xm, params, (0, 1, 6, 7), packed, pack_decoder_weights)
     b, t, f, c2 = xc.shape
     cc, cout = c2 // 2, params[6].shape[-1]
     dtype = _build.launch_dtype("decoder", xc, xm)
@@ -199,5 +216,6 @@ def _launch(xc, xm, params, has_bn: bool, design: str, packed=None):
                       *args, yc, ym, b, t, f, cc, cout, bool(has_bn))
     else:
         raise ValueError(f"unknown decoder design {design!r}")
-    _build.LAUNCHES[_build.variant("decoder", dtype)] += 1
+    if count:
+        _build.LAUNCHES[_build.variant("decoder", dtype)] += 1
     return yc, ym

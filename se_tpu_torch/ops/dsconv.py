@@ -40,9 +40,12 @@ y between the two launches too), the outputs rounded once, as se_tpu's
 Pallas kernels; `_reference` and `_pair_reference` mirror that
 (`_dtype.widened`). The block packs its bf16 weights in fp32 holding their
 values (two TF32 passes); the pair stage keeps them bf16 (bf16
-`mma.m16n8k16`, each fp32 operand in three bf16 pieces) and needs Cm (the
-stage's C) a multiple of 8 and both blocks' widths multiples of 16 (the
-conformer's: 128; 64 and 32).
+`mma.m16n8k16`, each fp32 operand in three bf16 pieces) where the stage's
+C is a multiple of 8 and both blocks' widths multiples of 16 (the
+conformer's: 128; 64 and 32), and otherwise takes "tc_widened"
+(`pair_design`, `_dtype.widened_launch`): the fp32 stage on the widened
+inputs and fp32 packs, its outputs rounded to bf16 once, counted also as
+`dsconv_pair_bf16_widened`.
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ import torch.nn.functional as F
 
 from se_tpu_torch.nn.conv import conv2d_nhwc
 from se_tpu_torch.ops import _autograd, _build
-from se_tpu_torch.ops._dtype import pack_dtype, widened
+from se_tpu_torch.ops._dtype import pack_dtype, widened, widened_launch
 from se_tpu_torch.ops.encoder import _aligned, _round_up
 from se_tpu_torch.parallel.mesh import map_leading
 
@@ -95,20 +98,20 @@ def _reference(x, params, d1: int, d2: int, ncomp: int):
     return x + (torch.matmul(z, ws) + bs[0])
 
 
+PAIR_WEIGHTS = (2, 5, 7, 11)  # w1, wd1, wd2, ws in a 13-tuple
 PAIR_K = 32           # K a stage: Cin and each dilated tap's Cm padded to it
 PAIR_N = (64, 32)     # the block's N, complex and real: Cm padded to it
 PAIR_CO = 32          # fusion channels an output pass: C padded to it
 
 
-def _pack_branch(params, n_cols: int):
+def _pack_branch(params, n_cols: int, dtype: torch.dtype):
     """One block's 13-tuple with w1, g1, b1, wd1, wd2 packed for the
     tensor-core stage (ws and bs as they are; `pack_pair_weights` packs the
     two blocks' ws together). w1 (n_cols, K1p): column c of w1 as row c, Cin
     zero-padded to K1p (a multiple of 32), Cm to n_cols; g1, b1 (K1p,) zero
     past Cin; wd (n_cols, 9 Cmp): K index tap * Cmp + ci with tap = 3 i + j
     (t-tap i, f-tap j), each tap's Cm zero-padded to Cmp (a multiple of
-    32). w1 and wd in `_dtype.pack_dtype` (bf16 stays bf16), the rest
-    fp32."""
+    32). w1 and wd in `dtype`, the rest fp32."""
     (g1, b1, w1, bb1, alpha, wd1, bd1, wd2, bd2, g2, b2, ws, bs) = params
     cin, tot = w1.shape
     k1p, totp = _round_up(cin, PAIR_K), _round_up(tot, PAIR_K)
@@ -125,7 +128,7 @@ def _pack_branch(params, n_cols: int):
     out = [t.float() for t in (w1p, vec(g1), vec(b1), bb1, alpha, dil(wd1),
                                bd1, dil(wd2), bd2, g2, b2, ws, bs)]
     for i in (0, 5, 7):
-        out[i] = out[i].to(pack_dtype(w1))
+        out[i] = out[i].to(dtype)
     return out
 
 
@@ -176,7 +179,7 @@ def pack_block_weights(params, ncomp: int):
     variant widens them). Done once a module (DSConvCplx and DSConvReal
     keep it), not once a call."""
     params = tuple(params)
-    packed = [t.float() for t in _pack_branch(params, PAIR_N[ncomp == 1])]
+    packed = _pack_branch(params, PAIR_N[ncomp == 1], torch.float32)
     ws = params[11]
     tot = ws.shape[0]
     packed[11] = F.pad(ws, (0, 0, 0, _round_up(tot, 8) - tot)).t() \
@@ -234,33 +237,36 @@ def _pair_reference(xc, xm, params_c, params_m, d1: int, d2: int):
     return torch.cat([re + s, im + s], dim=-1), ym + torch.sigmoid(cplx_mag)
 
 
-def _pack_out(wsc, wsm):
+def _pack_out(wsc, wsm, dtype: torch.dtype):
     """The output 1x1 convs' ws of both blocks as the stage's GEMM reads
     them, K-major: complex (Cp / 8 * 2 * 8, round_up(Cm_c, 8)), row (g8,
     part, c8) = column part * C + 8 g8 + c8 of wsc (per 8 fusion channels
     the n8 tiles re, im); real (Cp, round_up(Cm_m, 8)), row c = column c of
     wsm. C zero-padded to Cp (a multiple of 32), K with zeros; in
-    `pack_dtype`."""
+    `dtype`."""
     totc, c2 = wsc.shape
     totm, c = wsm.shape
     cp, kc, km = _round_up(c, PAIR_CO), _round_up(totc, 8), _round_up(totm, 8)
     wc = F.pad(wsc.reshape(totc, 2, c), (0, cp - c, 0, 0, 0, kc - totc))
     wc = wc.reshape(kc, 2, cp // 8, 8).permute(2, 1, 3, 0)
     wm = F.pad(wsm, (0, cp - c, 0, km - totm)).t()
-    return (wc.reshape(-1, kc).to(pack_dtype(wsc)).contiguous(),
-            wm.to(pack_dtype(wsm)).contiguous())
+    return (wc.reshape(-1, kc).to(dtype).contiguous(),
+            wm.to(dtype).contiguous())
 
 
-def pack_pair_weights(params_c, params_m):
+def pack_pair_weights(params_c, params_m, dtype: torch.dtype | None = None):
     """Both blocks' 13-tuples as csrc/dsconv.cu's `se_dsconv_pair_tc` (or,
     from bf16 weights, `se_dsconv_pair_tc_bf16`) takes them, on their
     device: (complex, real), each (w1p, g1p, b1p, bb1, alpha, wd1p, bd1,
     wd2p, bd2, g2, b2, ws packed, bs), the weights w1p, wd1p, wd2p and ws
-    in `_dtype.pack_dtype` (bf16 stays bf16), the vectors fp32. Done once
-    a model (Uformer keeps them, a pack a dtype), not once a call."""
-    pc = _pack_branch(tuple(params_c), PAIR_N[0])
-    pm = _pack_branch(tuple(params_m), PAIR_N[1])
-    pc[11], pm[11] = _pack_out(params_c[11], params_m[11])
+    in `dtype`, by default `_dtype.pack_dtype`'s (bf16 stays bf16; the
+    widened route takes fp32 packs of bf16 weights), the vectors fp32.
+    Done once a model (Uformer keeps them, a pack a dtype), not once a
+    call."""
+    dtype = dtype or pack_dtype(params_c[2])
+    pc = _pack_branch(tuple(params_c), PAIR_N[0], dtype)
+    pm = _pack_branch(tuple(params_m), PAIR_N[1], dtype)
+    pc[11], pm[11] = _pack_out(params_c[11], params_m[11], dtype)
     return tuple(pc), tuple(pm)
 
 
@@ -298,17 +304,38 @@ def _pair(xc, xm, params_c, params_m, d1: int, d2: int, packed):
         xc, xm, params_c, params_m)
 
 
-def _pair_launch(xc, xm, params_c, params_m, d1: int, d2: int, packed):
-    """The stage's two launches, fp32 or bf16 by xc and xm's one dtype;
-    the scratch y between them is fp32 either way."""
+def pair_design(c: int, totc: int, totm: int,
+                dtype: torch.dtype = torch.float32) -> str:
+    """The design a conformer stage of `dtype` runs with, C the real
+    branch's channels and totc / totm the blocks' widths: "tc" (the stage's
+    tensor-core kernels; in bf16 `se_dsconv_pair_tc_bf16`, which copies 8
+    channels of C at a time and steps both blocks' widths by k16: C % 8 ==
+    0, totc % 16 == totm % 16 == 0); in bf16 "tc_widened" otherwise (the
+    fp32 stage on widened inputs)."""
+    if dtype == torch.bfloat16 and (c % 8 or totc % 16 or totm % 16):
+        return "tc_widened"
+    return "tc"
+
+
+def _pair_launch(xc, xm, params_c, params_m, d1: int, d2: int, packed,
+                 count=True):
+    """The stage's two launches, fp32 or bf16 by xc and xm's one dtype
+    (`pair_design`'s "tc_widened": the fp32 launches on widened inputs);
+    the scratch y between them is fp32 either way. `count` as the
+    encoder's `_launch`."""
     b, t, f, cc = xc.shape
     cm = xm.shape[-1]
     dtype = _build.launch_dtype("dsconv_pair", xc, xm)
     totc, totm = _check_pair(xc, xm, params_c, params_m)
-    if dtype == torch.bfloat16 and (cm % 8 or totc % 16 or totm % 16):
-        raise ValueError(f"dsconv_pair kernel: the bf16 stage needs C a "
-                         f"multiple of 8 and both blocks' Cm multiples of "
-                         f"16, got C={cm}, Cm={totc}, {totm}")
+    if pair_design(cm, totc, totm, dtype) == "tc_widened":
+        n = len(params_c)
+        return widened_launch(
+            "dsconv_pair",
+            lambda xc, xm, p, pk: _pair_launch(xc, xm, p[:n], p[n:], d1, d2,
+                                               pk, False),
+            xc, xm, params_c + params_m, PAIR_WEIGHTS + tuple(
+                n + i for i in PAIR_WEIGHTS), packed,
+            lambda p, dtype: pack_pair_weights(p[:n], p[n:], dtype))
     pc, pm = pack_pair_weights(params_c, params_m) if packed is None \
         else packed
     cp = _round_up(cm, PAIR_CO)
@@ -320,5 +347,6 @@ def _pair_launch(xc, xm, params_c, params_m, d1: int, d2: int, packed):
     _build.launch(_build.variant("se_dsconv_pair_tc", dtype), _aligned(xc),
                   _aligned(xm), *pc, *pm, yc, ym, oc, om, b, t, f, cm, totc,
                   totm, d1, d2)
-    _build.LAUNCHES[_build.variant("dsconv_pair", dtype)] += 1
+    if count:
+        _build.LAUNCHES[_build.variant("dsconv_pair", dtype)] += 1
     return oc, om

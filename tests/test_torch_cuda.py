@@ -716,13 +716,19 @@ def _bf16_counts(before, names):
     return {n: _build.LAUNCHES[n] - before.get(n, 0) for n in names}
 
 
+# the flash kernel at L = 401 (the T-attention at B = 4 and 32), 65, 1,
+# 512 and at a long utterance's 588 and 1100 (two sweeps over K at every
+# L), the short-L kernel and the flash kernel at the F-attention's L = 4
 @pytest.mark.parametrize("n,h,length,design", [
     (16, 1, 401, "flash_tc"), (16, 8, 401, "flash_tc"),
-    (16, 1, 65, "flash_tc"), (16, 1, 1, "flash_tc"),
+    (128, 8, 401, "flash_tc"), (16, 1, 65, "flash_tc"),
+    (16, 1, 1, "flash_tc"), (12, 1, 512, "flash_tc"),
+    (16, 8, 588, "flash_tc"), (3, 1, 588, "flash_tc"),
+    (2, 8, 1100, "flash_tc"),
     (1604, 8, 4, "small_l"), (1604, 8, 4, "flash_tc"),
     (200, 1, 32, "small_l")])
 def test_attention_bf16_designs_match_twin(dev, n, h, length, design):
-    """bf16 q, k, v: each design's bf16 variant against the bf16 twin on
+    """bf16 q, k, v: each design's bf16 kernel against the bf16 twin on
     the card (`bf16_close` with P's flip slack, tests/
     test_torch_bf16_kernels.py); counted as attention_bf16, not as the
     fp32 kernel."""
@@ -740,19 +746,87 @@ def test_attention_bf16_designs_match_twin(dev, n, h, length, design):
     bf16_close([got], [want], [att_flip_slack(q, k, v, 0.25)])
 
 
+def test_attention_bf16_takes_its_design_by_length(dev):
+    """sdp_attention in bf16 launches the design att_design names by L:
+    the short-L kernel, then the flash kernel."""
+    for length in (4, 401, 588):
+        g = torch.Generator(device=dev).manual_seed(length)
+        q, k, v = ((torch.randn(4, 2, length, 16, generator=g, device=dev)
+                    * 0.5).to(BF16) for _ in range(3))
+        design = attention.att_design(8, length)
+        before = dict(_build.LAUNCHES)
+        got = attention.sdp_attention(q, k, v, 0.25)
+        torch.cuda.synchronize()
+        names = ["attention", "attention_bf16"] + [
+            f"attention_{d}_bf16" for d in attention.DESIGNS]
+        counts = _bf16_counts(before, names)
+        assert counts == {n: int(n in ("attention_bf16",
+                                       f"attention_{design}_bf16"))
+                          for n in names}
+        bf16_close([got], [_att_twin(q, k, v, 0.25)],
+                   [att_flip_slack(q, k, v, 0.25)])
+
+
 @pytest.mark.parametrize("b,t,f,cin,cout", ENC_SHAPES)
 def test_encoder_bf16_levels_match_twin(gen, dev, b, t, f, cin, cout):
+    """Each shape on the design `level_design` gives it in bf16
+    (encoder_level_tc_bf16 where Cin % 8 == 0; Cin 12 the widened route,
+    Cin 1 and 3 the CUDA cores), the narrow ones also on the CUDA cores and
+    any Cin % 4 == 0 also on the widened route."""
     params = to_bf16(enc_params(gen, cin, cout), device=dev)
     xc, xm = to_bf16((rand(gen, b, t, f, 2 * cin), rand(gen, b, t, f, cin)),
                      device=dev)
     want = encoder._reference(xc, xm, params)
-    for design in ("tc", "cuda_core") if cin <= 16 else ("tc",):
+    designs = {encoder.level_design(cin, BF16)}
+    designs |= {"cuda_core"} if cin <= 16 else set()
+    designs |= {"tc_widened"} if cin % 4 == 0 else set()
+    for design in sorted(designs):
         before = dict(_build.LAUNCHES)
         got = encoder._launch(xc, xm, params, design)
         torch.cuda.synchronize()
-        assert _bf16_counts(before, ("encoder", "encoder_bf16")) == {
-            "encoder": 0, "encoder_bf16": 1}
+        assert _bf16_counts(before, ("encoder", "encoder_bf16",
+                                     "encoder_bf16_widened")) == {
+            "encoder": 0, "encoder_bf16": 1,
+            "encoder_bf16_widened": int(design == "tc_widened")}
         bf16_close(got, want)
+
+
+@pytest.mark.parametrize("level", range(6))
+def test_encoder_bf16_ragged_levels_match_twin(gen, dev, level):
+    """Uformer's six encoder levels at B = 3, T = 7 (21 x 2^(7 - level)
+    positions: the last 64-position tile part empty at levels 2-5), each on
+    the design `level_design` gives it (encoder_level_tc_bf16 at 1-5), the
+    packs bf16, passed as Uformer passes them."""
+    f, cin, cout = 256 >> level, UFORMER_KERNELS[level], \
+        UFORMER_KERNELS[level + 1]
+    params = to_bf16(enc_params(gen, cin, cout), device=dev)
+    xc, xm = to_bf16((rand(gen, 3, 7, f, 2 * cin), rand(gen, 3, 7, f, cin)),
+                     device=dev)
+    want = encoder._reference(xc, xm, params)
+    design = encoder.level_design(cin, BF16)
+    assert design == ("cuda_core" if level == 0 else "tc")
+    packed = encoder.pack_encoder_weights(params) if design == "tc" \
+        else None
+    assert packed is None or all(p.dtype == BF16 for p in packed)
+    before = dict(_build.LAUNCHES)
+    got = encoder.encoder_level(xc, xm, params, packed=packed)
+    torch.cuda.synchronize()
+    assert _bf16_counts(before, ("encoder", "encoder_bf16",
+                                 "encoder_bf16_widened")) == {
+        "encoder": 0, "encoder_bf16": 1, "encoder_bf16_widened": 0}
+    bf16_close(got, want)
+
+
+def test_encoder_bf16_tc_refuses_cin_not_a_multiple_of_8(gen, dev):
+    """Asked for by name, the bf16 tensor-core design refuses Cin = 12
+    before any launch; `level_design` sends it to the widened route."""
+    params = to_bf16(enc_params(gen, 12, 16), device=dev)
+    xc, xm = to_bf16((rand(gen, 1, 3, 8, 24), rand(gen, 1, 3, 8, 12)),
+                     device=dev)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        encoder._launch(xc, xm, params, "tc")
+    assert _bf16_counts(before, ("encoder_bf16",)) == {"encoder_bf16": 0}
 
 
 @pytest.mark.parametrize("has_bn", [True, False])
@@ -792,29 +866,59 @@ def test_decoder_bf16_ragged_levels_match_twin(gen, dev, level, has_bn):
     bf16_close(got, want)
 
 
-def test_decoder_bf16_refuses_cc_not_a_multiple_of_8(gen, dev):
-    """The bf16 tensor-core design copies 8 channels at a time: Cc = 12
-    (a tensor-core level by `level_design`) raises, in fp32 it runs."""
+def test_decoder_bf16_widened_route_matches_twin(gen, dev):
+    """Cc = 12, which the bf16 tensor-core design cannot copy 8 channels
+    at a time: `level_design` picks the widened route (the fp32 kernel on
+    widened inputs, rounded once), within the bf16 rule of the bf16 twin,
+    from the caller's fp32 pack of the bf16 weights and without one; the
+    caller's bf16 pack is refused, not widened a call; fp32 runs it as
+    before."""
     params = dec_params(gen, 12, 16)
     xc, xm = rand(gen, 1, 3, 4, 24), rand(gen, 1, 3, 4, 12)
     assert decoder.level_design(12, 16) == "tc"
-    with pytest.raises(ValueError, match="multiple of 8"):
-        decoder.decoder_level(*to_bf16((xc, xm), device=dev),
-                              to_bf16(params, device=dev), True)
+    assert decoder.level_design(12, 16, BF16) == "tc_widened"
+    p16 = to_bf16(params, device=dev)
+    x16 = to_bf16((xc, xm), device=dev)
+    want = decoder._reference(*x16, p16, True)
+    for packed in (None, decoder.pack_decoder_weights(p16, torch.float32)):
+        before = dict(_build.LAUNCHES)
+        got = decoder.decoder_level(*x16, p16, True, packed=packed)
+        torch.cuda.synchronize()
+        assert _bf16_counts(before, ("decoder", "decoder_bf16",
+                                     "decoder_bf16_widened")) == {
+            "decoder": 0, "decoder_bf16": 1, "decoder_bf16_widened": 1}
+        assert all(g.dtype == BF16 for g in got)
+        bf16_close(got, want)
+    with pytest.raises(TypeError, match="packed wc"):
+        decoder.decoder_level(*x16, p16, True,
+                              packed=decoder.pack_decoder_weights(p16))
     got = decoder.decoder_level(*to_torch((xc, xm), device=dev),
                                 to_torch(params, device=dev), True)
     assert all(g.dtype == torch.float32 for g in got)
 
 
-def test_pair_bf16_refuses_widths_it_cannot_copy(gen, dev):
+def test_pair_bf16_widened_route_matches_twin(gen, dev):
     """C 12 (not a multiple of 8) and Cm 4 + 4 a block (not multiples of
-    16) raise in bf16; the fp32 stage runs them."""
+    16): `pair_design` picks the widened route, within the bf16 rule of
+    the bf16 twin, from the caller's fp32 pack and without one; the fp32
+    stage runs them as before."""
     for c, cm in ((12, 16), (64, 4)):
         xc, xm, pc, pm = pair_inputs(gen, 1, 5, 4, c, cm)
-        with pytest.raises(ValueError, match="multiple"):
-            dsconv.dsconv_pair_block(*to_bf16((xc, xm), device=dev),
-                                     to_bf16(pc, device=dev),
-                                     to_bf16(pm, device=dev), 1, 2)
+        x16 = to_bf16((xc, xm), device=dev)
+        p16 = to_bf16(pc, device=dev), to_bf16(pm, device=dev)
+        assert dsconv.pair_design(c, 2 * cm, cm, BF16) == "tc_widened"
+        want = dsconv._pair_reference(*x16, *p16, 1, 2)
+        for packed in (None, dsconv.pack_pair_weights(*p16, torch.float32)):
+            before = dict(_build.LAUNCHES)
+            got = dsconv.dsconv_pair_block(*x16, *p16, 1, 2, packed=packed)
+            torch.cuda.synchronize()
+            assert _bf16_counts(before, (
+                "dsconv_pair", "dsconv_pair_bf16",
+                "dsconv_pair_bf16_widened")) == {
+                "dsconv_pair": 0, "dsconv_pair_bf16": 1,
+                "dsconv_pair_bf16_widened": 1}
+            assert all(g.dtype == BF16 for g in got)
+            bf16_close(got, want)
         got = dsconv.dsconv_pair_block(*to_torch((xc, xm), device=dev),
                                        to_torch(pc, device=dev),
                                        to_torch(pm, device=dev), 1, 2)
@@ -822,15 +926,23 @@ def test_pair_bf16_refuses_widths_it_cannot_copy(gen, dev):
 
 
 def test_uformer_bf16_packs_are_bf16_and_made_once(dev):
-    """Uformer's bf16 copy packs its decoder levels 0-4 and its DSConv
-    stages from its bf16 weights, in bf16 (the vectors fp32), once: the
-    same objects come back; the fp32 model's packs stay fp32."""
+    """Uformer's bf16 copy packs its encoder levels 1-5, its decoder
+    levels 0-4 and its DSConv stages from its bf16 weights, in bf16 (the
+    vectors fp32), once: the same objects come back; the fp32 model's
+    packs stay fp32."""
     from se_tpu_torch.eval.enhance import bf16_model
     from se_tpu_torch.models import get_model
 
     model = get_model("uformer").make(device=dev)
     twin = bf16_model(get_model("uformer"), model)
     with torch.no_grad():
+        assert twin._encoder_weights(0)[1] is None  # level 0: CUDA cores
+        for i in range(1, 6):
+            _, packed = twin._encoder_weights(i)
+            assert all(p.dtype == BF16 for p in packed)
+            assert twin._encoder_weights(i)[1] is packed
+            assert all(p.dtype == torch.float32
+                       for p in model._encoder_weights(i)[1])
         for i in range(5):
             _, packed = twin._decoder_weights(i)
             assert all(p.dtype == BF16 for p in packed)

@@ -36,6 +36,7 @@ def test_port_imports_no_jax_flax_or_se_tpu():
     files = sorted((ROOT / "se_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "lstm_dispatch_sweep.py",
               ROOT / "lstm_bf16_sweep.py", ROOT / "bf16_ring_sweep.py",
+              ROOT / "kernel_digest.py",
               ROOT / "tests" / "torch_parallel_worker.py",
               ROOT / "parallel_cards.py"]
     assert len(files) > 10
