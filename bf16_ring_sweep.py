@@ -3,18 +3,21 @@
 bf16 tensor-core kernels on one NVIDIA GPU: the decoder level
 (csrc/decoder.cu `BF_STAGES`, `BF_BLOCKS`), the DSConv pair stage
 (csrc/dsconv.cu `PRE_BF_STAGES`, `POST_BF_STAGES`, `POST_BF_BLOCKS`), the
-encoder level (csrc/encoder.cu `ENC_BF_STAGES`, `ENC_BF_BLOCKS`) and the
-flash attention (csrc/attention.cu `ATT_BF_STAGES`). It is what those
+encoder level (csrc/encoder.cu `ENC_BF_STAGES`, `ENC_BF_BLOCKS`), the
+flash attention (csrc/attention.cu `ATT_BF_STAGES`) and the bf16 LSTM's
+small fold (csrc/lstm.cu: the projection's `PROJ_STAGES`, `PROJ_NT`,
+`PROJ_BLOCKS`, its ring depth, its column tile of 16 PROJ_NT and its
+register cap; every variant also times the recurrence). It is what those
 constants are chosen from.
 
-    python3 bf16_ring_sweep.py [decoder|pair|encoder|attention]
+    python3 bf16_ring_sweep.py [decoder|pair|encoder|attention|lstm]
 
 `decoder` (the default) varies chiefly the decoder's constants, `pair`
 the pair stage's, and every variant of the two times both kernels;
-`encoder` and `attention` time their own kernel, `attention` also the
-complex T-attention's shape at L = 640 to 2048 (a long utterance decoded
-in one call). Each variant runs in a process of its own (`--variant sweep i`):
-the sources copied under se_tpu_torch/_build/sweep/ with the variant's
+`encoder`, `attention` and `lstm` time their own kernels, `attention`
+also the complex T-attention's shape at L = 640 to 2048 (a long utterance
+decoded in one call). Each variant runs in a process of its own
+(`--variant sweep i`): the sources copied under se_tpu_torch/_build/sweep/ with the variant's
 constants written in (a name with a dot sets that attribute of
 se_tpu_torch.ops.<module> instead), built and loaded from there; the
 shipped constants run first and last. One JSON line a variant: the
@@ -73,11 +76,20 @@ SWEEPS = {
                   ("ring 2 stages", {"ATT_BF_STAGES": 2}),
                   ("ring 6 stages", {"ATT_BF_STAGES": 6}),
                   SHIPPED),
+    "lstm": (SHIPPED,
+             ("ring 3 stages", {"PROJ_STAGES": 3}),
+             ("ring 6 stages", {"PROJ_STAGES": 6}),
+             ("128-column tile", {"PROJ_NT": 8}),
+             ("four blocks an SM (128 registers)", {"PROJ_BLOCKS": 4}),
+             ("128-column tile, ring 3 stages",
+              {"PROJ_NT": 8, "PROJ_STAGES": 3}),
+             SHIPPED),
 }
 # sweep: the phase-3 rows it times
 TIMED = {"decoder": ("decoder_bf16", "dsconv_pair_bf16"),
          "pair": ("decoder_bf16", "dsconv_pair_bf16"),
-         "encoder": ("encoder_bf16",), "attention": ("attention_bf16",)}
+         "encoder": ("encoder_bf16",), "attention": ("attention_bf16",),
+         "lstm": ("lstm_project_bf16", "lstm_recur_bf16")}
 LONG_L = (640, 1024, 1500, 2048)
 
 
@@ -133,8 +145,10 @@ def run_variant(sweep: str, i: int) -> None:
 
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
-    from se_tpu_torch.ops import _build
-    from se_tpu_torch.ops._dtype import att_flip_slack, bf16_compare
+    from se_tpu_torch.ops import _build, lstm
+    from se_tpu_torch.ops._dtype import (
+        BF16_FLOOR, LSTM_FLOOR, att_flip_slack, bf16_compare,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -160,6 +174,11 @@ def run_variant(sweep: str, i: int) -> None:
                          cs._encoder_twin),
         "attention_bf16": (cs.bf16_attention_cases, cs._att_kernel,
                            cs._att_twin),
+        "lstm_project_bf16": (cs.bf16_lstm_project_cases, lstm.lstm_project,
+                              lstm._project_reference),
+        "lstm_recur_bf16": (cs.bf16_lstm_recur_cases,
+                            cs._flat_lstm(lstm.lstm_recur),
+                            cs._flat_lstm(lstm._recur_reference)),
     }
     for kind in TIMED[sweep]:
         cases, kernel, twin = kinds[kind]
@@ -171,14 +190,16 @@ def run_variant(sweep: str, i: int) -> None:
         every = cases(gen, dev)  # lazily: a case's tensors one at a time
         if kind == "attention_bf16":
             every = itertools.chain(every, long_attention_cases(gen, dev))
-        for case, args, _, _, _, in_row in every:
+        for case, args, _, _, _, in_row, *_ in every:
             with torch.no_grad():
                 slack = ([att_flip_slack(*args[:4])]
                          if kind == "attention_bf16" else None)
                 got, want = kernel(*args), twin(*args)
                 got = got if isinstance(got, tuple) else (got,)
                 want = want if isinstance(want, tuple) else (want,)
-                check = bf16_compare(got, want, slack)
+                check = bf16_compare(
+                    got, want, slack,
+                    LSTM_FLOOR if kind == "lstm_recur_bf16" else BF16_FLOOR)
                 del got, want, slack
                 ms = cs.cuda_ms(lambda: kernel(*args))
                 split = cs.device_ms(lambda: kernel(*args))

@@ -33,7 +33,8 @@ Phases, one JSON line per result:
              the PRESET_320 models: T = 401), against its twin on the same
              CUDA inputs: max abs error within 1e-4 * max(1, max|twin|),
              kernel and twin times (CUDA events, median of 5 runs after
-             warm-up; the twin's of 3 after 1), the bound from the shapes
+             warm-up; the twin's of 3 after 1, in the cases its row
+             sums), the bound from the shapes
              (operations at the card's fp32-accurate tensor-core rate,
              bytes at HBM's; the larger), and as a yardstick the
              port never calls F.scaled_dot_product_attention (attention),
@@ -84,12 +85,16 @@ Phases, one JSON line per result:
              one bf16 ulp of the largest output as the floor (LSTM_FLOOR:
              each side rounds its own h, so h flips now and then), the
              projection within bf16_compare; their bound at each product's
-             rate (989 TFLOP/s bf16 x bf16, 247.5 fp32 x bf16) and their
-             bytes; yardsticks cuDNN's LSTM in bf16 and torch.addmm on the
-             widened operands; the recurrence's plan also for its bf16
-             kernel. The last two bf16 variants: the single DSConv block
-             (row dsconv_bf16) at its 16 shapes in bf16 with bf16 weights
-             against its bf16 twin (the same bf16 rule; its bound at 329.7
+             rate (989 TFLOP/s bf16 x bf16, 329.7 fp32 x bf16) and their
+             bytes; yardsticks cuDNN's LSTM in bf16 (the layer; for the
+             small fold's two kernels together, once a layer shape in the
+             recurrence row: one call computes what the pair computes) and
+             torch.addmm on the widened operands;
+             the recurrence's plan also for its bf16 kernel, and the
+             row's device time a frame (`us_per_frame`). The last
+             two bf16 variants: the single DSConv block (row dsconv_bf16)
+             at its 16 shapes in bf16 with bf16 weights against its bf16
+             twin (the same bf16 rule; its bound at 329.7
              TFLOP/s, fp32 operands against bf16 weights), and the STFT's
              basis product (row stft_bf16: a bf16 waveform, the bf16
              window x DFT basis, fp32 out) at DCCRN's 512/128 at B = 4 and
@@ -1130,6 +1135,27 @@ def lstm_recur_cases(gen, dev):
     yield case("DPCRN intra", B_MAIN * T_FRAMES, 4, 64)
 
 
+def cudnn_lstm_bf16(dev, in_dim, h, wx, wh, b, bf, t_len, reverse=False,
+                    h0=None, c0=None):
+    """cuDNN's bf16 LSTM layer (torch.nn.LSTM) on the same bf16 weights
+    and a bf16 x of (bf, t_len, in_dim), as a call to time: a yardstick of
+    time only (it rounds elsewhere)."""
+    import torch
+
+    lib = torch.nn.LSTM(in_dim, h, batch_first=True).to(dev).to(
+        torch.bfloat16)
+    with torch.no_grad():
+        lib.weight_ih_l0.copy_(wx.t())
+        lib.weight_hh_l0.copy_(wh.t())
+        lib.bias_ih_l0.copy_(b)
+        lib.bias_hh_l0.zero_()
+    lib.flatten_parameters()  # else every call compacts the weights first
+    x = torch.randn(bf, t_len, in_dim, device=dev).to(torch.bfloat16)
+    state = None if h0 is None else (h0[None].to(torch.bfloat16),
+                                     c0[None].to(torch.bfloat16))
+    return lambda: lib(x.flip(1) if reverse else x, state)
+
+
 def _bf16_lstm_case(gen, dev, bf, t_len, in_dim, h, x_bf16, carry=False):
     """x (fp32 or bf16), the weights rounded to bf16 (as the families' bf16
     copies hold them), and a carry."""
@@ -1174,16 +1200,6 @@ def bf16_lstm_cases(gen, dev):
              carry=False, in_row=False):
         x, wx, wh, b, h0, c0 = _bf16_lstm_case(gen, dev, bf, t_len, in_dim,
                                                 h, x_bf16, carry)
-        lib = torch.nn.LSTM(in_dim, h, batch_first=True).to(dev).to(
-            torch.bfloat16)
-        with torch.no_grad():
-            lib.weight_ih_l0.copy_(wx.t())
-            lib.weight_hh_l0.copy_(wh.t())
-            lib.bias_ih_l0.copy_(b)
-            lib.bias_hh_l0.zero_()
-        xl = (x.flip(1) if reverse else x).to(torch.bfloat16)
-        state = None if h0 is None else (h0[None].to(torch.bfloat16),
-                                         c0[None].to(torch.bfloat16))
         rows = 2.0 * t_len * bf * 4 * h
         flops = ((rows * in_dim, _x_peak(x)), (rows * h, PEAK_BF16_FLOPS))
         moved = nbytes(x, wx, wh, b) + 4 * bf * h * (t_len + 2) + \
@@ -1193,7 +1209,8 @@ def bf16_lstm_cases(gen, dev):
                  + (" reverse" if reverse else "")
                  + (" carry" if carry else ""))
         return (label, (x, wx, wh, b, reverse, h0, c0), flops, moved,
-                lambda: lib(xl, state), in_row)
+                cudnn_lstm_bf16(dev, in_dim, h, wx, wh, b, bf, t_len,
+                                reverse, h0, c0), in_row)
 
     b = B_MAIN
     for in_dim, h in FSN_LAYERS[2:]:
@@ -1212,16 +1229,19 @@ def bf16_lstm_cases(gen, dev):
 
 
 def bf16_lstm_project_cases(gen, dev):
-    """The bf16 projection (fp32 XP) at the three layer calls of LSTMNet's
-    B = 4 bf16 forward (lstm1: bf16 x, In = 161, 2-byte copies; lstm2:
-    fp32 x), then FullSubNet's full band (bf16 x, In = 257), GCRN's and
-    DPCRN's inter (fp32 x). Yardstick: torch.addmm on the widened
-    operands."""
+    """The bf16 projection (fp32 XP, lstm_proj_bf16) at the three layer
+    calls of LSTMNet's B = 4 bf16 forward (lstm1: bf16 x, In = 161, padded
+    to 168 by the wrapper; lstm2: fp32 x), then FullSubNet's full band
+    (bf16 x, In = 257), GCRN's and DPCRN's inter (fp32 x), and H = 12 and
+    100 (4H not a whole 64-column tile; In 161 and 100). Yardstick:
+    torch.addmm on the widened operands (the library call); cuDNN's bf16
+    LSTM layer, the projection and the recurrence in one call, is timed at
+    the same layer shapes by `bf16_lstm_recur_cases`."""
     import torch
 
     def case(label, bf, t_len, in_dim, h, x_bf16, in_row=False):
-        x, wx, _, b, _, _ = _bf16_lstm_case(gen, dev, bf, t_len, in_dim, h,
-                                            x_bf16)
+        x, wx, _, b, _, _ = _bf16_lstm_case(gen, dev, bf, t_len, in_dim,
+                                            h, x_bf16)
         x2, wx2, b2 = x.view(bf * t_len, in_dim).float(), wx.float(), \
             b.float()
         return (f"lstm_project bf16 {label} {bf}x{t_len}x{in_dim}->{4 * h} "
@@ -1236,38 +1256,57 @@ def bf16_lstm_project_cases(gen, dev):
     yield case("FullSubNet full band", B_MAIN, FSN_T, FSN_F, 512, True)
     yield case("GCRN glstm", B_MAIN, T_FRAMES, 512, 512, False)
     yield case("DPCRN inter", 4 * B_MAIN, T_FRAMES, 128, 128, False)
+    yield case("H=12", 5, 33, 161, 12, True)
+    yield case("H=100", 37, 40, 100, 100, False)
 
 
 def bf16_lstm_recur_cases(gen, dev):
-    """The bf16 recurrence (fp32 XP, bf16 Wh, h rounded to bf16 where the
-    product takes it: one TF32 pass) at the three layer calls of LSTMNet's
-    B = 4 bf16 forward, then DPCRN's inter, GCRN's, FullSubNet's full band
-    and DCCRN's (also in reverse and with a carry)."""
+    """The bf16 recurrence (lstm_recur_bf16: fp32 XP, bf16 Wh, h rounded to
+    bf16 where the product takes it, exact products) at the three layer
+    calls of LSTMNet's B = 4 bf16 forward, then DPCRN's inter, GCRN's,
+    FullSubNet's full band and DCCRN's (also in reverse and with a
+    carry), and H = 12 and 100 (K and the unit tiles padded), reverse and
+    with a carry. Yardstick: cuDNN's bf16 LSTM layer at the layer's shape
+    (In, H: the projection and the recurrence in one call), one call a
+    shape (LSTMNet's lstm2 and lstm3 share theirs; `check_kernels` times
+    it once)."""
     import torch
 
-    def case(label, bf, t_len, h, in_row=False, reverse=False, carry=False):
+    layers = {}
+
+    def case(label, bf, t_len, h, in_dim=None, in_row=False, reverse=False,
+             carry=False):
+        in_dim = in_dim or h
         xp = torch.randn(bf, t_len, 4 * h, generator=gen).to(dev)
-        wh = lstm_weights(gen, dev, h, h)[1].to(torch.bfloat16)
+        wx, wh, b = (w.to(torch.bfloat16)
+                     for w in lstm_weights(gen, dev, in_dim, h))
         h0 = c0 = None
         if carry:
             h0, c0 = (torch.randn(bf, h, generator=gen).mul(0.5).to(dev)
                       for _ in range(2))
         moved = nbytes(xp, wh) + 4 * bf * h * (t_len + 2) + \
             (nbytes(h0, c0) if carry else 0)
+        shape = (bf, t_len, in_dim, h, reverse, carry)
+        if shape not in layers:
+            layers[shape] = cudnn_lstm_bf16(dev, in_dim, h, wx, wh, b, bf,
+                                            t_len, reverse, h0, c0)
         return (f"lstm_recur bf16 {label} {bf}x{t_len}x{h}"
                 + (" reverse" if reverse else "") + (" carry" if carry
                                                      else ""),
                 (xp, wh, reverse, h0, c0),
                 ((2.0 * bf * t_len * h * 4 * h, PEAK_BF16_FLOPS),), moved,
-                None, in_row)
+                layers[shape], in_row)
 
-    for label, _ in LSTMNET_LAYERS:
-        yield case(f"LSTMNet {label}", B_MAIN, T_FRAMES, 1024, in_row=True)
+    for label, in_dim in LSTMNET_LAYERS:
+        yield case(f"LSTMNet {label}", B_MAIN, T_FRAMES, 1024, in_dim,
+                   in_row=True)
     yield case("DPCRN inter", 4 * B_MAIN, T_FRAMES, 128)
     yield case("GCRN glstm", B_MAIN, T_FRAMES, 512)
-    yield case("FullSubNet full band", B_MAIN, FSN_T, 512)
-    yield case("DCCRN clstm", 2 * B_MAIN, DCCRN_T, 128, reverse=True)
-    yield case("DCCRN clstm", 2 * B_MAIN, DCCRN_T, 128, carry=True)
+    yield case("FullSubNet full band", B_MAIN, FSN_T, 512, FSN_F)
+    yield case("DCCRN clstm", 2 * B_MAIN, DCCRN_T, 128, 512, reverse=True)
+    yield case("DCCRN clstm", 2 * B_MAIN, DCCRN_T, 128, 512, carry=True)
+    yield case("H=12", 5, 33, 12, 161, reverse=True)
+    yield case("H=100", 37, 40, 100, carry=True)
 
 
 # (family, In -> H, Bf at B, T) of every LSTM layer call on the main paths
@@ -1283,11 +1322,11 @@ LSTM_CALLS = (("FullSubNet full band", 512, lambda b: b, FSN_T),
 
 def check_recur_plans(dev, dtype) -> None:
     """For every small-fold layer call of the main paths at B = 4, 32 and
-    256: the shared memory ops/lstm.py plans for the recurrence's block is
-    the kernel's (the variant of `dtype`: the bf16 one widens its Wh slice
-    to fp32 in shared memory, so one plan holds both), and the occupancy
-    API lets as many blocks share an SM as the plan assumes (else the C
-    entry refuses the launch)."""
+    256: the shared memory ops/lstm.py plans for the recurrence's block in
+    the variant of `dtype` (`persistent_plan`: fp32, 8 units a block; bf16,
+    the units and warps it picks of `recur_bf16_designs`) is that
+    variant's kernel's, and the occupancy API lets as many blocks share an
+    SM as the plan assumes (else the C entry refuses the launch)."""
     import torch
 
     from se_tpu_torch.ops import _build, lstm
@@ -1298,11 +1337,14 @@ def check_recur_plans(dev, dtype) -> None:
     for label, h, fold, t_len in LSTM_CALLS:
         for batch in (4, 32, 256):
             bf = fold(batch)
-            if lstm.step_variant(bf, t_len, h, sms) != "persistent":
+            if lstm.step_variant(bf, t_len, h, sms, dtype) != "persistent":
                 continue
-            plan = lstm.persistent_plan(bf, h, sms)
-            smem, per_sm = lstm.recur_fit(h, plan.chunks, dev, dtype)
+            plan = lstm.persistent_plan(bf, h, sms, dtype)
+            smem, per_sm = lstm.recur_fit(h, plan.chunks, dev, dtype,
+                                          plan.tile, plan.warps)
             checked.append({"call": f"{label} B={batch}", "bf": bf, "h": h,
+                            "tile": plan.tile, "warps": plan.warps,
+                            "blocks": plan.blocks,
                             "plan_smem": plan.smem, "kernel_smem": smem,
                             "plan_blocks_sm": plan.blocks_sm,
                             "occupancy_blocks_sm": per_sm})
@@ -1528,16 +1570,20 @@ def check_kernels(dev, only) -> dict:
             lstm.lstm_project, lstm._project_reference,
             bf16_lstm_project_cases, "se_tpu_torch/csrc/lstm.cu",
             "se_tpu/ops/pallas_lstm.py:60", 10,
-            "lstm_proj_tc<.., __nv_bfloat16>, XP fp32: the 3 layer calls "
-            f"of LSTMNet's {b4} in bf16 (lstm1 bf16 x, 1 TF32 pass; lstm2 "
-            "fp32 x, 2 passes)", {"peak": None, "fp32_out": True}),
+            "lstm_proj_bf16<float|bf16>, XP fp32 (bf16 mma.sync m16n8k16 "
+            "from the bf16 cp.async ring, bfr::ring: lstm1's bf16 x in one "
+            "product, lstm2's fp32 x in three bf16 pieces): the 3 layer "
+            f"calls of LSTMNet's {b4} in bf16; cuDNN's bf16 LSTM layer at "
+            "these shapes: row lstm_recur_bf16's library_ms",
+            {"peak": None, "fp32_out": True}),
         "lstm_recur_bf16": lambda: (
             _flat_lstm(lstm.lstm_recur), _flat_lstm(lstm._recur_reference),
             bf16_lstm_recur_cases, "se_tpu_torch/csrc/lstm.cu",
             "se_tpu/ops/pallas_lstm.py:60", 2,
-            "lstm_recur_persistent<.., __nv_bfloat16> (Wh widened in shared "
-            "memory, h rounded as it is staged, 1 TF32 pass): the 3 layer "
-            f"calls of LSTMNet's {b4} in bf16",
+            "lstm_recur_bf16<units, warps> (the Wh slice in bf16 shared "
+            "memory, h from the bf16 shadow by cp.async, bf16 mma.sync "
+            f"m16n8k16): the 3 layer calls of LSTMNet's {b4} in bf16; "
+            "library: cuDNN's bf16 LSTM layer at the same shapes",
             {"peak": None, "fp32_out": True, "stepped": True}),
     }
     if "lstm_recur" in only:
@@ -1558,7 +1604,11 @@ def check_kernels(dev, only) -> dict:
                "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                "library_ms": None, "note": note}
         t_ops = t_bytes = 0.0
+        shared_lib = shared_ms = shared_dev = None
         for label, args, flops, moved, library, in_row in cases(gen, dev):
+            # consecutive cases that share a library call time it once
+            if library is not shared_lib:
+                shared_lib = shared_ms = shared_dev = None
             with torch.no_grad():
                 got = kernel(*args)
                 want = twin(*args)
@@ -1615,22 +1665,35 @@ def check_kernels(dev, only) -> dict:
                     del slack, want32
                 del got, want
                 ms = cuda_ms(lambda: kernel(*args), reps=reps)
-                # the twin, no yardstick of speed: 3 runs after 1
-                plain = cuda_ms(lambda: twin(*args), reps=reps,
-                                rounds=3, warm=1)
-                lib = cuda_ms(library, reps=reps) if library else None
+                # the twin, no yardstick of speed: 3 runs after 1, where
+                # the row sums it (elsewhere it only cost the script time)
+                plain = cuda_ms(lambda: twin(*args), reps=reps, rounds=3,
+                                warm=1) if in_row else None
+                if library is not None and shared_lib is None:
+                    shared_lib = library
+                    shared_ms = cuda_ms(library, reps=reps)
+                lib = shared_ms
             b_ms, b_by = bound(flops, moved, peak)
             line = {"phase": "kernel", "kernel": name, "case": label,
                     "max_abs_err": err, "tol": tol, **checks, "ms": ms,
-                    "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
-                    "bound_by": b_by, "gflop": total_flops(flops) / 1e9,
+                    "plain_ms": plain, "library_ms": lib,
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "gflop": total_flops(flops) / 1e9,
                     "mbytes": moved / 1e6, "in_row": in_row}
             # where the event time goes, for the cases the row sums
             if in_row and (name in DEVICE_SPLIT or extra):
                 with torch.no_grad():
                     line["device_ms"] = device_ms(lambda: kernel(*args))
-                    if library:
-                        line["library_device_ms"] = device_ms(library)
+                    if library is not None:
+                        if shared_dev is None:
+                            shared_dev = device_ms(library)
+                        line["library_device_ms"] = shared_dev
+            if name in PER_FRAME and "device_ms" in line:
+                frames = args[0].shape[1]
+                line["us_per_frame"] = 1e3 * sum(
+                    t for k, t in line["device_ms"].items()
+                    if "lstm_recur" in k) / frames
+                line["bound_us_per_frame"] = 1e3 * b_ms / frames
             emit(line)
             if ok is False or (ok is None and not err <= tol):
                 fail(f"{label}: kernel and twin differ by {err} > {tol}")
@@ -1740,6 +1803,8 @@ MAIN_PATHS = {
 # kernels whose phase-3 lines carry the device time by kernel name
 # (torch.profiler) beside the CUDA-event time
 DEVICE_SPLIT = ("stft", "encoder", "dsconv_pair", "attention", "dsconv")
+# the bf16 recurrence: the row's cases also their device time a frame
+PER_FRAME = ("lstm_recur_bf16",)
 # family: the kernel names its phase-6 profile reports (and must show, for
 # the families of PROFILE_GATED)
 PROFILE_KERNELS = {
@@ -1771,15 +1836,15 @@ BF16_PATHS = {
 # family: the bf16 variants' kernel names its bf16 profile reports (each
 # also with "bfloat16" in its signature); Uformer's must show each
 # (PROFILE_GATED)
-_BF16_SMALL_FOLD = ("lstm_proj_tc", "lstm_recur_persistent")
+_LSTM_PROJ_RECUR_BF16 = ("lstm_proj_bf16", "lstm_recur_bf16")
 PROFILE_KERNELS_BF16 = {
     "uformer": ("att_flash_bf16", "att_small_l", "encoder_level_cc",
                 "encoder_level_tc_bf16", "decoder_level_tc_bf16",
                 "decoder_level_cc", "dsconv_pre_bf16", "dsconv_post_bf16"),
-    **{name: _BF16_SMALL_FOLD for name in ("dccrn", "lstm", "crn",
-                                           "gcrn")},
-    "fullsubnet": ("lstm_step_bf16",) + _BF16_SMALL_FOLD,
-    "dpcrn": ("lstm_step_bf16",) + _BF16_SMALL_FOLD,
+    **{name: _LSTM_PROJ_RECUR_BF16 for name in ("dccrn", "lstm", "crn",
+                                                "gcrn")},
+    "fullsubnet": ("lstm_step_bf16",) + _LSTM_PROJ_RECUR_BF16,
+    "dpcrn": ("lstm_step_bf16",) + _LSTM_PROJ_RECUR_BF16,
 }
 # kernel: the main path whose B = 4 forward its row of the table sums
 ROW_PATH = {"attention": "uformer", "dsconv": "conformer blocks",
@@ -4067,9 +4132,11 @@ def kernel_resources(lib) -> dict:
     dynamic shared bytes and resident blocks an SM as the runtime reports
     them (their `*_resources` entries: the encoder and decoder levels',
     the flash attention's at each warps a block it launches, the pair
-    stage's and the single block's, at the conformer's widths). Fails
-    where an entry does."""
+    stage's and the single block's, at the conformer's widths, the LSTM
+    projection's and recurrence's). Fails where an entry does."""
     import ctypes
+
+    from se_tpu_torch.ops import lstm
 
     names = ("registers", "spill_bytes", "smem_bytes", "blocks_per_sm")
     res = (ctypes.c_int * 8)()
@@ -4094,6 +4161,19 @@ def kernel_resources(lib) -> dict:
         out[f"dsconv_block_pre_tc<{ncomp}, bf16>"] = dict(zip(names, res[:4]))
         out[f"dsconv_block_post_tc<{ncomp}, bf16>"] = dict(zip(names,
                                                               res[4:]))
+    # the bf16 small fold: the projection for either x, the recurrence in
+    # each of its designs at one row chunk a block and H = 1024 and 128
+    for x_bf16 in (0, 1):
+        if lib.se_lstm_project_bf16_resources(x_bf16, res):
+            fail("se_lstm_project_bf16_resources failed")
+        out[f"lstm_proj_bf16<{'bf16' if x_bf16 else 'float'}>"] = dict(
+            zip(names, res[:4]))
+    for tile, warps in lstm.BF16_DESIGNS:
+        for kh in (1024, 128):
+            if lib.se_lstm_recur_bf16_resources(kh, 1, tile, warps, res):
+                fail("se_lstm_recur_bf16_resources failed")
+            out[f"lstm_recur_bf16<{tile}, {warps}> Kh={kh}"] = dict(
+                zip(names, res[:4]))
     return out
 
 

@@ -4,10 +4,12 @@ inputs made from a seed, on one NVIDIA GPU: every fp32 design of Uformer's
 kernels (attention's flash and short-L kernels, the encoder and decoder
 levels on the tensor cores and the CUDA cores, the DSConv pair stage and
 the single block), the bf16 decoder level, pair stage and single block,
-and Uformer's fp32 forward from a seeded model. Equal digests are equal
-outputs, bit for bit: run the script from the root of each of two trees
-on the same card and compare the lines, to show that a change left these
-kernels' results as they were.
+Uformer's fp32 forward from a seeded model, the fp32 LSTM kernels (the
+tensor-core step, the small fold's projection and recurrence: forward,
+reverse, with a carry) and the bf16 large-fold step (fp32 and bf16 x).
+Equal digests are equal outputs, bit for bit: run the script from the
+root of each of two trees on the same card and compare the lines, to show
+that a change left these kernels' results as they were.
 
     python3 kernel_digest.py
 
@@ -50,7 +52,7 @@ def main() -> None:
         sys.exit("kernel_digest: torch.cuda.is_available() is false")
     sys.path.insert(0, str(Path.cwd()))
     from se_tpu_torch.models import get_model
-    from se_tpu_torch.ops import attention, decoder, dsconv, encoder
+    from se_tpu_torch.ops import attention, decoder, dsconv, encoder, lstm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -137,6 +139,40 @@ def main() -> None:
                           dsconv.dsconv_block(
                               x.to(bf16), tuple(p.to(bf16) for p in params),
                               1, 128, ncomp)))
+        # the LSTM: (Bf, T, In, H) of a sub-band-like step (In 32 and 161:
+        # 16-byte and 4-byte copies; H = 44 a ragged unit tile) and of
+        # small folds (H = 128, 1024; H = 20 the 4-byte staging)
+        for bf, t, in_dim, h in ((200, 12, 32, 64), (70, 9, 161, 44)):
+            wx, wh, b = (r(*shape, scale=h ** -0.5)
+                         for shape in ((in_dim, 4 * h), (h, 4 * h), (4 * h,)))
+            x = r(bf, t, in_dim)
+            h0, c0 = r(bf, h, scale=0.5), r(bf, h, scale=0.5)
+            for reverse, carry in ((False, False), (True, True)):
+                state = (h0, c0) if carry else (None, None)
+                cases.append((f"lstm step fp32 {bf}x{t}x{in_dim}->{h} "
+                              f"reverse={reverse} carry={carry}",
+                              lstm.lstm_step(x, wx, wh, b, reverse, *state)))
+                for x_dtype in (torch.float32, bf16):
+                    cases.append((
+                        f"lstm step bf16 {bf}x{t}x{in_dim}->{h} x "
+                        f"{x_dtype} reverse={reverse} carry={carry}",
+                        lstm.lstm_step(x.to(x_dtype), wx.to(bf16),
+                                       wh.to(bf16), b.to(bf16), reverse,
+                                       *state)))
+        for bf, t, in_dim, h in ((8, 30, 161, 128), (4, 20, 64, 1024),
+                                 (30, 9, 33, 20)):
+            wx, wh, b = (r(*shape, scale=h ** -0.5)
+                         for shape in ((in_dim, 4 * h), (h, 4 * h), (4 * h,)))
+            x = r(bf, t, in_dim)
+            cases.append((f"lstm project fp32 {bf}x{t}x{in_dim}->{4 * h}",
+                          lstm.lstm_project(x, wx, b)))
+            xp = r(bf, t, 4 * h)
+            h0, c0 = r(bf, h, scale=0.5), r(bf, h, scale=0.5)
+            for reverse, carry in ((False, False), (True, True)):
+                state = (h0, c0) if carry else (None, None)
+                cases.append((f"lstm recur fp32 {bf}x{t}x{h} "
+                              f"reverse={reverse} carry={carry}",
+                              lstm.lstm_recur(xp, wh, reverse, *state)))
         model = get_model("uformer").make(
             device=dev, generator=torch.Generator().manual_seed(0))
         noisy, src = r(B, 16000, scale=0.1), r(B, 16000, scale=0.1)

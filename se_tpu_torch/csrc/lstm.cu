@@ -130,11 +130,40 @@
 // are fp32. The one rounding point inside is se_tpu's `h.astype(wh.dtype)`:
 // h_{t-1} rounded to bf16 (to nearest even) where the product takes it,
 // never in the carry buffers; x . Wx is the exact fp32 product.
-//   - The small fold's lstm_proj_tc and lstm_recur_persistent widen the
-//     bf16 operands to fp32 as they load them (every tile, plan and grid
-//     the fp32 design's) and take 2 TF32 passes for an fp32 x (x split big
-//     + small; a bf16 value is exact in TF32), 1 where both operands are
-//     bf16-valued (a bf16 x; the rounded h, staged so).
+//   - The small fold's projection, lstm_proj_bf16: tc_common.cuh's bf16
+//     ring (bfr::ring, the decoder's and encoder's) over K stages of 32,
+//     64 x 64 tiles of 2 x 2 warps, a 1-D grid with the column tiles
+//     fastest. The weights are pack_input's in bf16; an fp32 x is staged
+//     fp32 and split in three bf16 pieces in the fragments, a bf16 x read
+//     by ldmatrix as it is; XP fp32. Bound: x . Wx at 989 / 3 TFLOP/s
+//     (fp32 x) or 989 (bf16 x), or its bytes; at LSTMNet's B = 4 the
+//     bytes of XP (26 MB a call) and the operations are of one order.
+//   - The small fold's recurrence, lstm_recur_bf16: lstm_recur_persistent's
+//     grid and grid barrier a frame, on bf16 mma.sync.m16n8k16. Its bound
+//     by operations (round(h) . Wh at 989 TFLOP/s: 14 us a LSTMNet call)
+//     is far below what sets its time: a chain of T frames, each an L2
+//     round trip for h, the product, the partial sums and the cell, and a
+//     grid barrier. What it does about the chain:
+//     + the Wh slice stays bf16 in shared memory (64 KB at H = 1024 for 16
+//       units: a block can own 16 units, so half the blocks meet at the
+//       barrier), copied once by cp.async in K tiles of 32 (bfr::swz16)
+//       and read by ldmatrix as B fragments;
+//     + h comes from the shadow the step kernel uses: each cell writes
+//       h_t rounded to bf16 beside its fp32 h and y, and the next frame
+//       copies the rows by 16-byte cp.async.cg (half the fp32 bytes, no
+//       rounding on the way in), one bf16 product a k16;
+//     + each warp copies and waits for its own K slice of the rows alone
+//       (no block barrier before the product), and restages it for the
+//       block's next row chunk as soon as its fragments are read;
+//     + XP's gate inputs are read a frame ahead, at the start of the frame
+//       before (read just before the barrier, thread 0's fence in
+//       grid.sync waited for them: 4% slower at LSTMNet's shape).
+//     What is left is the chain itself: 2.2-2.3 us a frame at H = 128
+//     with 8-16 blocks, 3.5 at H = 1024 (PERF.md, PR 22).
+//     Units a block and warps are template parameters, in three designs
+//     (16 x 8, 16 x 4, 8 x 4); the wrapper's plan takes, of the designs
+//     for its H, the one with the fewest row chunks a block (ops/lstm.py
+//     recur_bf16_designs, measured by lstm_bf16_sweep.py recur).
 //   - The large fold's lstm_step_bf16 runs on bf16 tensor cores instead
 //     (mma.sync.m16n8k16 bf16, fp32 accumulate). Bound: x . Wx at 989 / 3
 //     TFLOP/s for an fp32 x (three bf16 products, the fewest exact; 989
@@ -250,12 +279,11 @@ constexpr int TC_SMEM = STAGES * (TM + TN) * LDS * (int)sizeof(float);
 // w: packed (columns, Kp), K-major, zero-padded to whole tiles; rows past
 // `rows` and K past In + H are zero-filled by the copies. VEC: 16-byte
 // copies of A (In % 4 == 0, H % 4 == 0, x aligned to 4 elements). sm:
-// STAGES x (TM + TN) x LDS floats. TX, TW: x's and w's storage (fp32, or
-// bf16 widened as it is loaded); PASSES as tc_ring's.
-template <bool VEC, int PASSES, class TX, class TW>
+// STAGES x (TM + TN) x LDS floats; PASSES as tc_ring's.
+template <bool VEC, int PASSES>
 __device__ __forceinline__ void tc_mainloop(
-    float (&acc)[2][4][4], float* sm, const TX* __restrict__ x,
-    const float* __restrict__ h_prev, const TW* __restrict__ w, int rows,
+    float (&acc)[2][4][4], float* sm, const float* __restrict__ x,
+    const float* __restrict__ h_prev, const float* __restrict__ w, int rows,
     int T, int In, int H, int Kp, int t, int r0, int col0) {
   float* As = sm;                      // STAGES x TM x LDS
   float* Bs = sm + STAGES * TM * LDS;  // STAGES x TN x LDS
@@ -267,8 +295,8 @@ __device__ __forceinline__ void tc_mainloop(
   constexpr int CH = TK / 4, RSTEP = TC_THREADS / CH;  // 8 chunks a row
   constexpr int NA = TM / RSTEP, NB = TN / RSTEP;      // rows a thread copies
   const int crow = tid / CH, cq = tid % CH;
-  const TW* wq = w + ((size_t)col0 + crow) * Kp + 4 * cq;
-  const TX* xrow[NA];
+  const float* wq = w + ((size_t)col0 + crow) * Kp + 4 * cq;
+  const float* xrow[NA];
   const float* hrow[NA];
   bool live[NA];
 #pragma unroll
@@ -291,43 +319,25 @@ __device__ __forceinline__ void tc_mainloop(
       const int k = k0 + 4 * cq;
       const bool in_x = k < In, in_k = k < K;
 #pragma unroll
-      for (int i = 0; i < NA; ++i) {
-        float* dst = as + (crow + i * RSTEP) * LDS + 4 * cq;
-        if constexpr (sizeof(TX) == 4)  // past K: 0 bytes from a valid address
-          cp_async16(dst,
-                     in_x || !in_k ? xrow[i] + (in_x ? k : 0)
-                                   : hrow[i] + (k - In),
-                     live[i] && in_k ? 16 : 0);
-        else if (in_x)
-          copy4(dst, xrow[i] + k, live[i]);
-        else if (in_k)
-          copy4(dst, hrow[i] + (k - In), live[i]);
-        else
-          zero4(dst);
-      }
+      for (int i = 0; i < NA; ++i)  // past K: 0 bytes from a valid address
+        cp_async16(as + (crow + i * RSTEP) * LDS + 4 * cq,
+                   in_x || !in_k ? xrow[i] + (in_x ? k : 0)
+                                 : hrow[i] + (k - In),
+                   live[i] && in_k ? 16 : 0);
     } else {
 #pragma unroll 4
       for (int i = 0; i < TM * TK / TC_THREADS; ++i) {
         const int e = tid + i * TC_THREADS, r = e / TK, kk = e % TK;
         const int row = r0 + r, k = k0 + kk;
         const bool ok = row < rows && k < K;
-        if constexpr (sizeof(TX) == 4) {
-          const float* src = x;
-          int bytes = 0;
-          if (ok) {
-            src = k < In ? x + ((size_t)row * T + t) * In + k
-                         : h_prev + (size_t)row * H + (k - In);
-            bytes = 4;
-          }
-          cp_async4(as + r * LDS + kk, src, bytes);
-        } else if (ok && k < In) {
-          copy1(as + r * LDS + kk, x + ((size_t)row * T + t) * In + k, true);
-        } else if (ok) {
-          cp_async4(as + r * LDS + kk, h_prev + (size_t)row * H + (k - In),
-                    4);
-        } else {
-          as[r * LDS + kk] = 0.f;
+        const float* src = x;
+        int bytes = 0;
+        if (ok) {
+          src = k < In ? x + ((size_t)row * T + t) * In + k
+                       : h_prev + (size_t)row * H + (k - In);
+          bytes = 4;
         }
+        cp_async4(as + r * LDS + kk, src, bytes);
       }
     }
   };
@@ -690,12 +700,11 @@ lstm_step_bf16(const TX* __restrict__ x, const bf16* __restrict__ w,
 // (M = Bf T rows, K = In), then a store. w: pack_input's (Np, Kp), torch's
 // column order (no gate interleave: no cell here). A 1-D grid, column
 // tiles fastest, so the blocks of a row tile run together and read it from
-// L2. bf16 weights (TW, bias too): 2 TF32 passes for an fp32 x, 1 for a
-// bf16 x; XP fp32 either way (se_tpu's preferred_element_type=fp32).
-template <bool VEC, class TX, class TW>
+// L2. (bf16 weights: lstm_proj_bf16.)
+template <bool VEC>
 __global__ void __launch_bounds__(TC_THREADS, TC_BLOCKS_SM)
-lstm_proj_tc(const TX* __restrict__ x, const TW* __restrict__ w,
-             const TW* __restrict__ bias, float* __restrict__ xp, int M,
+lstm_proj_tc(const float* __restrict__ x, const float* __restrict__ w,
+             const float* __restrict__ bias, float* __restrict__ xp, int M,
              int In, int N, int Kp) {
   extern __shared__ __align__(16) float sm[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -704,8 +713,7 @@ lstm_proj_tc(const TX* __restrict__ x, const TW* __restrict__ w,
   const int ncol = (N + TN - 1) / TN;
   const int col0 = (blockIdx.x % ncol) * TN, r0 = (blockIdx.x / ncol) * TM;
   float acc[2][4][4];
-  tc_mainloop<VEC, passes_for<TX, TW>()>(acc, sm, x, nullptr, w, M, 1, In,
-                                         0, Kp, 0, r0, col0);
+  tc_mainloop<VEC, 3>(acc, sm, x, nullptr, w, M, 1, In, 0, Kp, 0, r0, col0);
 
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
@@ -719,8 +727,126 @@ lstm_proj_tc(const TX* __restrict__ x, const TW* __restrict__ w,
         const int col = col0 + wn * 32 + g * 8 + 2 * tq;
         if (col < N)
           *reinterpret_cast<float2*>(xp + (size_t)row * N + col) =
-              make_float2(acc[mi][g][hh * 2] + to_f(bias[col]),
-                          acc[mi][g][hh * 2 + 1] + to_f(bias[col + 1]));
+              make_float2(acc[mi][g][hh * 2] + bias[col],
+                          acc[mi][g][hh * 2 + 1] + bias[col + 1]);
+      }
+    }
+}
+
+// The same on bf16 tensor cores for bf16 weights (lstm.cu header, "bf16"):
+// tc_common.cuh bfr::ring over K stages of 32, a 1-D grid of TM x
+// PROJ_COLS tiles (column tiles fastest). x (M, In) fp32 or bf16, In a
+// multiple of 8 elements and x 16-byte aligned (ops/lstm.py aligned_x), K
+// past In zero-filled by the copies; w pack_input's (Np, Kp) in bf16, rows
+// past N zero-filled too. An fp32 x is staged fp32 (swz32) and split in
+// three bf16 pieces in the fragments (split3: exact products, as se_tpu's
+// fp32 x . bf16 Wx), a bf16 x (swz16) read as it is; XP = the fp32 sums
+// plus the bf16 bias, stored fp32.
+constexpr int PROJ_NT = 4;       // n8 tiles a warp: 2 x 2 warps of 32 x 32
+constexpr int PROJ_STAGES = 4;   // bf16 ring depth
+constexpr int PROJ_BLOCKS = 3;   // register cap: 168 a thread (an fp32
+                                 // x's three pieces spill at 128)
+constexpr int PROJ_COLS = WN * PROJ_NT * 8;  // packed columns a block
+template <class TX>
+__host__ __device__ constexpr int proj_bf16_smem() {
+  return PROJ_STAGES *
+         (TM * bfr::BK * (int)sizeof(TX) + PROJ_COLS * bfr::BK * 2);
+}
+
+template <class TX>
+__global__ void __launch_bounds__(TC_THREADS, PROJ_BLOCKS)
+lstm_proj_bf16(const TX* __restrict__ x, const bf16* __restrict__ w,
+               const bf16* __restrict__ bias, float* __restrict__ xp, int M,
+               int In, int N, int Kp) {
+  extern __shared__ __align__(16) unsigned char smb[];
+  constexpr bool XF = sizeof(TX) == 4;
+  constexpr int XE = 16 / sizeof(TX);             // x elements a chunk
+  constexpr int XC = bfr::BK / XE;                // chunks a row
+  constexpr int XR = TC_THREADS / XC;             // x rows a pass
+  constexpr int NA = TM / XR, NB = PROJ_COLS / 32;  // passes of A, of B
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WM, wn = warp / WM;
+  const int gid = lane >> 2, tq = lane & 3;
+  const int ncol = (N + PROJ_COLS - 1) / PROJ_COLS;
+  const int col0 = (blockIdx.x % ncol) * PROJ_COLS;
+  const int r0 = (blockIdx.x / ncol) * TM;
+  // a thread's 16-byte copies: chunk xq of x rows xr + XR i, chunk bq of
+  // w rows brow + 32 i (XR and 32 keep a row's swizzle)
+  const int xr = tid / XC, xq = tid % XC, brow = tid >> 2, bq = tid & 3;
+  const int x_dst = XF ? bfr::swz32(xr, xq) : bfr::swz16(xr, xq);
+  const int b_dst = bfr::swz16(brow, bq);
+  const TX* xrow[NA];
+  bool xlive[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) {
+    const int row = r0 + xr + XR * i;
+    xlive[i] = row < M;
+    xrow[i] = x + (size_t)(xlive[i] ? row : 0) * In + XE * xq;
+  }
+  const bf16* wrow[NB];
+  bool wlive[NB];
+#pragma unroll
+  for (int i = 0; i < NB; ++i) {
+    const int col = col0 + brow + 32 * i;
+    wlive[i] = col < N;
+    wrow[i] = w + (size_t)(wlive[i] ? col : 0) * Kp + 8 * bq;
+  }
+  auto load = [&](int kt, TX* as, bf16* bs) {
+    const int k = kt * bfr::BK;
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+      cp_async16(bs + b_dst + 32 * i * bfr::BK, wrow[i] + k,
+                 wlive[i] ? 16 : 0);
+    const bool in_k = k + XE * xq < In;
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const bool ok = xlive[i] && in_k;
+      cp_async16(as + x_dst + XR * i * bfr::BK, ok ? xrow[i] + k : x,
+                 ok ? 16 : 0);
+    }
+  };
+  float acc[2][PROJ_NT][4];
+  if constexpr (XF) {
+    int x_ld[4];
+    bfr::x_lanes(wm * 32, x_ld);
+    auto frag = [&](int p, int, const float* as, uint32_t (&a)[3][2][4]) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          bfr::split3(*reinterpret_cast<const float2*>(
+                          as + x_ld[2 * p + (i >> 1)] +
+                          (16 * mi + 8 * (i & 1)) * bfr::BK),
+                      a, mi, i);
+    };
+    bfr::ring<TM, PROJ_COLS, PROJ_STAGES, PROJ_NT, 3, float>(
+        acc, smb, Kp / bfr::BK, wn * PROJ_NT * 8, load, frag);
+  } else {
+    int a_ld[2];
+    bfr::a_lanes(wm * 32, a_ld);
+    auto frag = [&](int p, int, const bf16* as, uint32_t (&a)[1][2][4]) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        ldsm_x4(a[0][mi], as + a_ld[p] + 16 * mi * bfr::BK);
+    };
+    bfr::ring<TM, PROJ_COLS, PROJ_STAGES, PROJ_NT, 1, bf16>(
+        acc, smb, Kp / bfr::BK, wn * PROJ_NT * 8, load, frag);
+  }
+
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = r0 + wm * 32 + mi * 16 + hh * 8 + gid;
+      if (row >= M) continue;
+#pragma unroll
+      for (int j = 0; j < PROJ_NT; ++j) {
+        // N = 4H is even and col is: a float2 stays inside the row
+        const int col = col0 + wn * PROJ_NT * 8 + 8 * j + 2 * tq;
+        if (col < N)
+          *reinterpret_cast<float2*>(xp + (size_t)row * N + col) =
+              make_float2(acc[mi][j][hh * 2] + ldg_f(bias + col),
+                          acc[mi][j][hh * 2 + 1] + ldg_f(bias + col + 1));
       }
     }
 }
@@ -756,14 +882,11 @@ size_t persistent_smem(int Hk, int chunks) {
 // cell (thread tid < PR PU owns row tid / PU, unit tid % PU) with the
 // gate inputs xp read ahead; h_t goes to the other half of hbuf and to y.
 // Then one grid barrier: every block's h_t is written before any block
-// reads it. bf16 weights (TW): the slice widened to fp32 as it is loaded
-// (the same shared memory as fp32, so the same plan), h_{t-1} rounded to
-// bf16 as it is staged, one TF32 pass (both operands bf16-valued); xp, h,
-// c and y stay fp32.
-template <bool VEC, class TW>
+// reads it. (bf16 weights: lstm_recur_bf16.)
+template <bool VEC>
 __global__ void __launch_bounds__(P_THREADS, P_BLOCKS_SM)
 lstm_recur_persistent(const float* __restrict__ xp,
-                      const TW* __restrict__ whp, float* __restrict__ hbuf,
+                      const float* __restrict__ whp, float* __restrict__ hbuf,
                       float* __restrict__ c, float* __restrict__ y, int Bf,
                       int T, int H, int Hk, int ng, int reverse) {
   extern __shared__ __align__(16) float sm[];
@@ -780,10 +903,9 @@ lstm_recur_persistent(const float* __restrict__ xp,
   // the cell's thread: row er of a chunk, unit eu of the block
   const int er = tid / PU, eu = tid % PU, unit = ut * PU + eu;
   const bool cell_thread = tid < PR * PU && unit < H;
-  constexpr bool BF16 = sizeof(TW) == 2;
 
   const int q4 = Hk / 4;  // 16-byte chunks a row
-  const TW* wsrc = whp + (size_t)ut * 4 * PU * Hk;
+  const float* wsrc = whp + (size_t)ut * 4 * PU * Hk;
   for (int e = tid; e < 4 * PU * q4; e += P_THREADS)
     copy4(Ws + (e / q4) * ld + 4 * (e % q4),
           wsrc + (size_t)(e / q4) * Hk + 4 * (e % q4), true);
@@ -817,20 +939,8 @@ lstm_recur_persistent(const float* __restrict__ xp,
 #pragma unroll
         for (int g = 0; g < 4; ++g) xg[g] = __ldg(p + g * H);
       }
-      // h_{t-1} of rows r0 .. r0 + PR, zero past Bf and past H (bf16:
-      // rounded to bf16, where se_tpu's h.astype(wh.dtype) rounds it)
-      if (VEC && BF16) {
-        for (int e = tid; e < PR * q4; e += P_THREADS) {
-          const int r = e / q4, k = 4 * (e % q4);
-          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (r0 + r < Bf && k < H)
-            v = __ldcg(reinterpret_cast<const float4*>(
-                hp + (size_t)(r0 + r) * H + k));
-          *reinterpret_cast<float4*>(As + r * ld + k) =
-              make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z),
-                          round_bf16(v.w));
-        }
-      } else if (VEC) {
+      // h_{t-1} of rows r0 .. r0 + PR, zero past Bf and past H
+      if (VEC) {
         for (int e = tid; e < PR * q4; e += P_THREADS) {
           const int r = e / q4, k = 4 * (e % q4);
           const bool in = r0 + r < Bf && k < H;
@@ -845,7 +955,7 @@ lstm_recur_persistent(const float* __restrict__ xp,
           const float v = r0 + r < Bf && k < H
                               ? __ldcg(hp + (size_t)(r0 + r) * H + k)
                               : 0.f;
-          As[r * ld + k] = BF16 ? round_bf16(v) : v;
+          As[r * ld + k] = v;
         }
       }
       __syncthreads();
@@ -861,25 +971,19 @@ lstm_recur_persistent(const float* __restrict__ xp,
         ldsm_x4(a, as + kk);
         ldsm_x4(b[0], bs + kk);
         ldsm_x4(b[2], bs + 16 * ld + kk);
-        if constexpr (BF16) {  // bf16-valued operands: one exact pass
 #pragma unroll
-          for (int g = 0; g < 4; ++g) mma_tf32(acc[g], a, b[g]);
-        } else {
+        for (int i = 0; i < 4; ++i)
+          split_tf32(__uint_as_float(a[i]), a_big[i], a_small[i]);
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-            split_tf32(__uint_as_float(a[i]), a_big[i], a_small[i]);
+        for (int g = 0; g < 4; ++g)
 #pragma unroll
-          for (int g = 0; g < 4; ++g)
+          for (int i = 0; i < 2; ++i)
+            split_tf32(__uint_as_float(b[g][i]), b_big[g][i], b_small[g][i]);
 #pragma unroll
-            for (int i = 0; i < 2; ++i)
-              split_tf32(__uint_as_float(b[g][i]), b_big[g][i],
-                         b_small[g][i]);
-#pragma unroll
-          for (int g = 0; g < 4; ++g) {
-            mma_tf32(acc[g], a_small, b_big[g]);
-            mma_tf32(acc[g], a_big, b_small[g]);
-            mma_tf32(acc[g], a_big, b_big[g]);
-          }
+        for (int g = 0; g < 4; ++g) {
+          mma_tf32(acc[g], a_small, b_big[g]);
+          mma_tf32(acc[g], a_big, b_small[g]);
+          mma_tf32(acc[g], a_big, b_big[g]);
         }
       }
       // acc[g]: rows gid (+8), packed columns g PU + 2 tq (+1)
@@ -917,6 +1021,209 @@ lstm_recur_persistent(const float* __restrict__ xp,
     if (cell_thread && row < Bf)
       c[(size_t)row * H + unit] = cs[j * PR * PU + tid];
   }
+}
+
+// ------------------------------ persistent recurrence, bf16 (small fold)
+
+// Units a block (TILE: 16, or 8 with 4 warps; 4 TILE packed columns) and
+// warps over K (WARPS: 8 or 4) are the plan's (ops/lstm.py
+// `persistent_plan`, by dtype); the register cap (__launch_bounds__:
+// 16 / WARPS blocks) gives each variant 128 registers a thread.
+// Partial-sum row stride in floats: gate-major columns g TILE + unit, 5
+// TILE apart, so the cell's reads (a warp: 32 / TILE rows of TILE units)
+// fall in 32 distinct banks.
+__host__ __device__ constexpr int rb_red_ld(int tile) {
+  return 5 * tile;
+}
+
+// Dynamic shared memory of lstm_recur_bf16 (ops/lstm.py `persistent_smem`
+// for bf16 computes the same): the bf16 Wh slice (4 TILE rows) and the
+// staged shadow rows (PR), both Kh = H rounded up to 32 long in stage
+// tiles of bfr::BK; the warps' partial sums; the block's c.
+size_t recur_bf16_smem(int Kh, int chunks, int tile, int warps) {
+  return (size_t)(4 * tile + PR) * Kh * sizeof(bf16) +
+         ((size_t)warps * PR * rb_red_ld(tile) + (size_t)chunks * PR * tile) *
+             sizeof(float);
+}
+
+// The bf16 small fold's time loop, one cooperative launch; the grid as
+// lstm_recur_persistent's with TILE units a block (unit tile ut = b % nu,
+// row chunks g0 = b / nu, g0 + ng, ...). whp: pack_recurrent's (4Hk, Hk)
+// in bf16 (Hk = H rounded up to 8): the block's 4 TILE packed rows are
+// copied once by 16-byte cp.async into bf16 shared memory, in K tiles of
+// 32 (rows unpadded, bfr::swz16; rows past 4 Hk and K past Hk zero-filled
+// by the copy), and read by ldmatrix as m16n8k16 B fragments. hs: the
+// bf16 shadow of h, (2, Bf, Kh), zero past H, h0 rounded in its first
+// half (ops/lstm.py `shadow`). A step, per chunk of PR rows: warp w stages
+// the shadow rows of its own k16 steps (a contiguous WARPS-th of Kh / 16)
+// by cp.async.cg (from L2: the other blocks wrote them), waits for them
+// alone (__syncwarp, no block barrier), and sums its part of round(h) . Wh
+// on bf16 mma.sync.m16n8k16 (exact products, fp32 accumulation); the
+// warps' partial sums meet in shared memory, and the cell thread of (row,
+// unit) adds them in warp order onto XP's gate input (the first chunk's
+// read a frame ahead, at the start of the frame before: read just before
+// the grid barrier, thread 0's fence there waited for them, 4% slower).
+// h_t goes to y in fp32 and, rounded to nearest even, to the shadow's
+// other half (the last frame's also to hbuf: h_T); c stays fp32 in shared
+// memory. A warp restages its slice for the block's next chunk as soon as
+// its product is read. Then one grid barrier a frame.
+template <int TILE, int WARPS>
+__global__ void __launch_bounds__(32 * WARPS, 16 / WARPS)
+lstm_recur_bf16(const float* __restrict__ xp, const bf16* __restrict__ whp,
+                float* __restrict__ hbuf, bf16* __restrict__ hs,
+                float* __restrict__ c, float* __restrict__ y, int Bf, int T,
+                int H, int Hk, int Kh, int ng, int reverse) {
+  constexpr int COLS = 4 * TILE, NT = COLS / 8, THREADS = 32 * WARPS;
+  constexpr int RLD = rb_red_ld(TILE);
+  constexpr int CELLS = (PR * TILE + THREADS - 1) / THREADS;  // a thread
+  constexpr int BK = bfr::BK;
+  extern __shared__ __align__(16) unsigned char smb[];
+  bf16* Ws = reinterpret_cast<bf16*>(smb);      // Kh / BK tiles x COLS x BK
+  bf16* As = Ws + (size_t)COLS * Kh;            // Kh / BK tiles x PR x BK
+  float* red = reinterpret_cast<float*>(As + (size_t)PR * Kh);
+  float* cs = red + WARPS * PR * RLD;           // chunks x PR x TILE
+  const int nu = (H + TILE - 1) / TILE, nr = (Bf + PR - 1) / PR;
+  const int ut = blockIdx.x % nu, g0 = blockIdx.x / nu;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tq = lane & 3;
+  const size_t half = (size_t)Bf * H, shalf = (size_t)Bf * Kh;
+  const size_t H4 = 4 * (size_t)H;
+
+  // the Wh slice, once: 16-byte chunk e % (Kh / 8) of packed row e / (Kh
+  // / 8) of the block's
+  const int kc = Kh / 8;
+  const bf16* wsrc = whp + (size_t)ut * COLS * Hk;
+  for (int e = tid; e < COLS * kc; e += THREADS) {
+    const int r = e / kc, q = e % kc;
+    const bool ok = ut * COLS + r < 4 * Hk && 8 * q < Hk;
+    cp_async16(Ws + (q >> 2) * COLS * BK + bfr::swz16(r, q & 3),
+               ok ? wsrc + (size_t)r * Hk + 8 * q : whp, ok ? 16 : 0);
+  }
+  cp_async_commit();
+  // c of the block's cells: cell e of chunk j is row e / TILE, unit e % TILE
+  for (int q = g0, j = 0; q < nr; q += ng, ++j)
+    for (int e = tid; e < PR * TILE; e += THREADS) {
+      const int row = q * PR + e / TILE, unit = ut * TILE + e % TILE;
+      cs[j * PR * TILE + e] =
+          row < Bf && unit < H ? c[(size_t)row * H + unit] : 0.f;
+    }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the warp's k16 steps s0 .. s1 of Kh / 16; lane l stages row l / 2,
+  // 16-byte half l % 2 of each
+  const int steps = Kh / 16;
+  const int s0 = warp * steps / WARPS, s1 = (warp + 1) * steps / WARPS;
+  const int srow = lane >> 1, shalf16 = lane & 1;
+  auto stage = [&](const bf16* hp, int r0) {
+    const bool ok = r0 + srow < Bf;
+    const bf16* src = hp + (size_t)(ok ? r0 + srow : 0) * Kh + 8 * shalf16;
+    for (int st = s0; st < s1; ++st)
+      cp_async16(As + (st >> 1) * PR * BK +
+                     bfr::swz16(srow, 2 * (st & 1) + shalf16),
+                 src + 16 * st, ok ? 16 : 0);
+    cp_async_commit();
+  };
+  int a_ld[2], b_ld[2];
+  bfr::a_lanes(0, a_ld);
+  bfr::b_lanes(0, b_ld);
+  // XP's gate inputs of the thread's cells of chunk q at frame t (xn: the
+  // next frame's of the first chunk)
+  float xg[CELLS][4], xn[CELLS][4];
+  auto fetch_xg = [&](float (&dst)[CELLS][4], int q, int t) {
+#pragma unroll
+    for (int i = 0; i < CELLS; ++i) {
+      const int e = tid + i * THREADS;
+      const int row = q * PR + e / TILE, unit = ut * TILE + e % TILE;
+      const bool live = e < PR * TILE && row < Bf && unit < H;
+      const float* p = xp + ((size_t)(live ? row : 0) * T + t) * H4 + unit;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) dst[i][g] = live ? __ldg(p + g * H) : 0.f;
+    }
+  };
+
+  cg::grid_group grid = cg::this_grid();
+  fetch_xg(xg, g0, reverse ? T - 1 : 0);
+  for (int s = 0; s < T; ++s) {
+    const int t = reverse ? T - 1 - s : s;
+    const bf16* hp = hs + (s & 1) * shalf;
+    bf16* hsn = hs + ((s + 1) & 1) * shalf;
+    float* hn = hbuf + ((s + 1) & 1) * half;
+    stage(hp, g0 * PR);
+    if (s + 1 < T) fetch_xg(xn, g0, reverse ? T - 2 - s : s + 1);
+    for (int q = g0, j = 0; q < nr; q += ng, ++j) {
+      if (j > 0) fetch_xg(xg, q, t);
+      float acc[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+      cp_async_wait<0>();
+      __syncwarp();  // the warp's rows have landed, for every lane
+#pragma unroll 4  // the next steps' fragments load under the mmas (4% on
+                   // LSTMNet's shape against no unrolling)
+      for (int st = s0; st < s1; ++st) {
+        // selects, not an index: a_ld and b_ld stay in registers
+        const int ao = st & 1 ? a_ld[1] : a_ld[0];
+        const int bo = st & 1 ? b_ld[1] : b_ld[0];
+        const bf16* bs = Ws + (st >> 1) * COLS * BK;
+        uint32_t a[4], b[NT][2];
+        ldsm_x4(a, As + (st >> 1) * PR * BK + ao);
+#pragma unroll
+        for (int n = 0; n < NT; n += 2) ldsm_x4(b[n], bs + bo + n * 8 * BK);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) mma_bf16(acc[n], a, b[n]);
+      }
+      __syncwarp();  // every lane has read its fragments of the rows
+      if (q + ng < nr) stage(hp, (q + ng) * PR);
+      // acc[n]: rows gid (+8), packed columns 8 n + 2 tq (+1) of the
+      // block: gate n % 4 of units 8 (n / 4) + 2 tq (+1)
+      float* rw = red + warp * PR * RLD;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          *reinterpret_cast<float2*>(rw + (gid + 8 * hh) * RLD +
+                                     (n & 3) * TILE + 8 * (n >> 2) + 2 * tq) =
+              make_float2(acc[n][2 * hh], acc[n][2 * hh + 1]);
+      __syncthreads();  // the partial sums are in
+#pragma unroll
+      for (int i = 0; i < CELLS; ++i) {
+        const int e = tid + i * THREADS;
+        const int er = e / TILE, eu = e % TILE;
+        const int row = q * PR + er, unit = ut * TILE + eu;
+        if (e >= PR * TILE || row >= Bf || unit >= H) continue;
+        float gs[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          float sum = xg[i][g];
+#pragma unroll
+          for (int w = 0; w < WARPS; ++w)
+            sum += red[(w * PR + er) * RLD + g * TILE + eu];
+          gs[g] = sum;
+        }
+        float& cc = cs[j * PR * TILE + e];
+        const float hv = lstm_cell(gs[0], gs[1], gs[2], gs[3], cc);
+        if (s + 1 == T) hn[(size_t)row * H + unit] = hv;
+        y[((size_t)row * T + t) * H + unit] = hv;
+        hsn[(size_t)row * Kh + unit] = __float2bfloat16_rn(hv);
+      }
+      if (q + ng < nr) __syncthreads();  // red is read before it is rewritten
+    }
+    if (s + 1 < T) {
+#pragma unroll
+      for (int i = 0; i < CELLS; ++i)
+#pragma unroll
+        for (int g = 0; g < 4; ++g) xg[i][g] = xn[i][g];
+      grid.sync();  // h_t of every block in before step s + 1
+    }
+  }
+  for (int q = g0, j = 0; q < nr; q += ng, ++j)
+    for (int e = tid; e < PR * TILE; e += THREADS) {
+      const int row = q * PR + e / TILE, unit = ut * TILE + e % TILE;
+      if (row < Bf && unit < H)
+        c[(size_t)row * H + unit] = cs[j * PR * TILE + e];
+    }
 }
 
 template <class K>
@@ -982,10 +1289,10 @@ int run_bf16(const TX* x, const bf16* wp, const bf16* b, float* hbuf,
   return (int)cudaGetLastError();
 }
 
-template <bool VEC, class TX, class TW>
-int run_proj(const TX* x, const TW* wp, const TW* b, float* xp, int M,
-             int In, int N, int Kp, cudaStream_t st) {
-  auto kernel = lstm_proj_tc<VEC, TX, TW>;
+template <bool VEC>
+int run_proj(const float* x, const float* wp, const float* b, float* xp,
+             int M, int In, int N, int Kp, cudaStream_t st) {
+  auto kernel = lstm_proj_tc<VEC>;
   cudaError_t err = max_smem(kernel, TC_SMEM);
   if (err != cudaSuccess) return (int)err;
   const long blocks = (long)((N + TN - 1) / TN) * ((M + TM - 1) / TM);
@@ -994,14 +1301,26 @@ int run_proj(const TX* x, const TW* wp, const TW* b, float* xp, int M,
   return (int)cudaGetLastError();
 }
 
-template <bool VEC, class TW>
-int run_recur(const float* xp, const TW* whp, float* hbuf, float* c,
-              float* y, int Bf, int T, int H, int Hk, int ng, int reverse,
-              cudaStream_t st) {
-  const int nu = (H + PU - 1) / PU, nr = (Bf + PR - 1) / PR;
-  const unsigned blocks = (unsigned)nu * ng;
-  const size_t smem = persistent_smem(Hk, (nr + ng - 1) / ng);
-  auto kernel = lstm_recur_persistent<VEC, TW>;
+template <class TX>
+int run_proj_bf16(const TX* x, const bf16* wp, const bf16* b, float* xp,
+                  int M, int In, int N, int Kp, cudaStream_t st) {
+  auto kernel = lstm_proj_bf16<TX>;
+  constexpr int smem = proj_bf16_smem<TX>();
+  cudaError_t err = max_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long blocks =
+      (long)((N + PROJ_COLS - 1) / PROJ_COLS) * ((M + TM - 1) / TM);
+  kernel<<<(unsigned)blocks, TC_THREADS, smem, st>>>(x, wp, b, xp, M, In, N,
+                                                     Kp);
+  return (int)cudaGetLastError();
+}
+
+// Launch a persistent recurrence of `blocks` blocks, `threads` threads and
+// `smem` bytes cooperatively: every block resident, or the grid barrier
+// would never open, so a grid past the occupancy API's count is refused.
+template <class K>
+int launch_persistent(K kernel, unsigned blocks, int threads, size_t smem,
+                      void** args, cudaStream_t st) {
   cudaError_t err = max_smem(kernel, smem);
   int dev = 0, sms = 0, per_sm = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
@@ -1009,18 +1328,38 @@ int run_recur(const float* xp, const TW* whp, float* hbuf, float* c,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        P_THREADS, smem);
+                                                        threads, smem);
   if (err != cudaSuccess) return (int)err;
-  // every block resident, or the grid barrier would never open
   if ((long)per_sm * sms < (long)blocks)
     return (int)cudaErrorCooperativeLaunchTooLarge;
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks),
+                                    dim3(threads), args, smem, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <bool VEC>
+int run_recur(const float* xp, const float* whp, float* hbuf, float* c,
+              float* y, int Bf, int T, int H, int Hk, int ng, int reverse,
+              cudaStream_t st) {
+  const int nu = (H + PU - 1) / PU, nr = (Bf + PR - 1) / PR;
   void* args[] = {(void*)&xp, (void*)&whp, (void*)&hbuf, (void*)&c,
                   (void*)&y,  (void*)&Bf,  (void*)&T,    (void*)&H,
                   (void*)&Hk, (void*)&ng,  (void*)&reverse};
-  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks),
-                                    dim3(P_THREADS), args, smem, st);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch_persistent(lstm_recur_persistent<VEC>, (unsigned)nu * ng,
+                           P_THREADS, persistent_smem(Hk, (nr + ng - 1) / ng),
+                           args, st);
+}
+
+// f(lstm_recur_bf16<tile, warps>) for the designs ops/lstm.py
+// recur_bf16_designs offers, (16, 8), (16, 4) and (8, 4);
+// cudaErrorInvalidValue for any other pair.
+template <class F>
+int with_recur_bf16(int tile, int warps, F&& f) {
+  if (tile == 16 && warps == 8) return f(lstm_recur_bf16<16, 8>);
+  if (tile == 16 && warps == 4) return f(lstm_recur_bf16<16, 4>);
+  if (tile == 8 && warps == 4) return f(lstm_recur_bf16<8, 4>);
+  return (int)cudaErrorInvalidValue;
 }
 
 // x aligned to 4 of its elements: the 16-byte (fp32) or 8-byte (bf16)
@@ -1061,9 +1400,8 @@ int layer_bf16(const TX* x, const bf16* wp, const bf16* b, float* hbuf,
                                    Hp, Kx, Kh, programmatic, reverse, st);
 }
 
-template <class TX, class TW>
-int project(const TX* x, const TW* wp, const TW* b, float* xp, int M, int In,
-            int N, int Kp, void* stream) {
+int project(const float* x, const float* wp, const float* b, float* xp,
+            int M, int In, int N, int Kp, void* stream) {
   if (Kp % TK != 0 || Kp < In || N % 2 != 0) return (int)cudaErrorInvalidValue;
   if (M == 0) return 0;
   const bool vec = In % 4 == 0 && aligned4(x);
@@ -1072,8 +1410,18 @@ int project(const TX* x, const TW* wp, const TW* b, float* xp, int M, int In,
              : run_proj<false>(x, wp, b, xp, M, In, N, Kp, st);
 }
 
-template <class TW>
-int recur(const float* xp, const TW* whp, float* hbuf, float* c, float* y,
+template <class TX>
+int project_bf16(const TX* x, const bf16* wp, const bf16* b, float* xp,
+                 int M, int In, int N, int Kp, void* stream) {
+  // 16-byte copies of x's rows only: In a multiple of 8, x aligned
+  if (Kp % bfr::BK != 0 || Kp < In || N % 2 != 0 || In % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (M == 0) return 0;
+  return run_proj_bf16(x, wp, b, xp, M, In, N, Kp, (cudaStream_t)stream);
+}
+
+int recur(const float* xp, const float* whp, float* hbuf, float* c, float* y,
           int Bf, int T, int H, int Hk, int ng, int reverse, void* stream) {
   const int nr = (Bf + PR - 1) / PR;
   if (Hk % PU != 0 || Hk < H || ng < 1 || ng > nr)
@@ -1087,7 +1435,6 @@ int recur(const float* xp, const TW* whp, float* hbuf, float* c, float* y,
                                 reverse, st);
 }
 
-template <class TW>
 int recur_fit(int H, int Hk, int chunks, long* smem, int* per_sm) {
   if (Hk % PU != 0 || Hk < H || chunks < 1) return (int)cudaErrorInvalidValue;
   *smem = (long)persistent_smem(Hk, chunks);
@@ -1098,8 +1445,15 @@ int recur_fit(int H, int Hk, int chunks, long* smem, int* per_sm) {
                                                           P_THREADS, *smem);
     return (int)err;
   };
-  return H % 4 == 0 ? fit(lstm_recur_persistent<true, TW>)
-                    : fit(lstm_recur_persistent<false, TW>);
+  return H % 4 == 0 ? fit(lstm_recur_persistent<true>)
+                    : fit(lstm_recur_persistent<false>);
+}
+
+// Hk = H rounded up to 8 (the pack's), Kh = H rounded up to 32 (the
+// shadow's and the shared tiles')
+bool recur_bf16_dims(int H, int Hk, int Kh) {
+  return Hk % PU == 0 && Hk >= H && Hk < H + PU && Kh % bfr::BK == 0 &&
+         Kh >= Hk;
 }
 
 }  // namespace
@@ -1146,15 +1500,27 @@ extern "C" int se_lstm_project(const float* x, const float* wp,
   return project(x, wp, b, xp, M, In, N, Kp, stream);
 }
 
-// The same with bf16 weights (wp, b), x fp32 or bf16 (x_bf16), xp fp32.
+// The same on bf16 tensor cores (lstm_proj_bf16): wp, b bf16; x fp32 or
+// bf16 (x_bf16), its rows In long, In a multiple of 8 and x 16-byte
+// aligned (ops/lstm.py aligned_x; Kp the unpadded In's rounding, not
+// below In); xp fp32.
 extern "C" int se_lstm_project_bf16(const void* x, int x_bf16,
                                     const bf16* wp, const bf16* b, float* xp,
                                     int M, int In, int N, int Kp,
                                     void* stream) {
-  return x_bf16 ? project(static_cast<const bf16*>(x), wp, b, xp, M, In, N,
-                          Kp, stream)
-                : project(static_cast<const float*>(x), wp, b, xp, M, In, N,
-                          Kp, stream);
+  return x_bf16 ? project_bf16(static_cast<const bf16*>(x), wp, b, xp, M, In,
+                               N, Kp, stream)
+                : project_bf16(static_cast<const float*>(x), wp, b, xp, M,
+                               In, N, Kp, stream);
+}
+
+// lstm_proj_bf16's resources for an fp32 or a bf16 x (tc_common.cuh
+// kernel_resources).
+extern "C" int se_lstm_project_bf16_resources(int x_bf16, int* out) {
+  return x_bf16 ? kernel_resources(lstm_proj_bf16<bf16>, TC_THREADS,
+                                   proj_bf16_smem<bf16>(), out)
+                : kernel_resources(lstm_proj_bf16<float>, TC_THREADS,
+                                   proj_bf16_smem<float>(), out);
 }
 
 // The small fold's recurrence over xp (Bf, T, 4H), one cooperative launch:
@@ -1167,12 +1533,31 @@ extern "C" int se_lstm_recur(const float* xp, const float* whp, float* hbuf,
   return recur(xp, whp, hbuf, c, y, Bf, T, H, Hk, ng, reverse, stream);
 }
 
-// The same with a bf16 whp (xp, hbuf, c and y fp32).
+// The same with bf16 weights (lstm_recur_bf16): whp pack_recurrent's in
+// bf16; hs the shadow of h, (2, Bf, Kh) bf16, Kh = H rounded up to 32,
+// zero past H, h0 rounded to bf16 in its first half (xp, hbuf, c and y
+// fp32); tile units a block and warps, 16 x 8, 16 x 4 or 8 x 4 (any
+// other pair is refused), so the grid is
+// ceil(H / tile) ng blocks, every one resident or the call fails.
 extern "C" int se_lstm_recur_bf16(const float* xp, const bf16* whp,
-                                  float* hbuf, float* c, float* y, int Bf,
-                                  int T, int H, int Hk, int ng, int reverse,
+                                  float* hbuf, bf16* hs, float* c, float* y,
+                                  int Bf, int T, int H, int Hk, int Kh,
+                                  int ng, int tile, int warps, int reverse,
                                   void* stream) {
-  return recur(xp, whp, hbuf, c, y, Bf, T, H, Hk, ng, reverse, stream);
+  const int nr = (Bf + PR - 1) / PR;
+  if (!recur_bf16_dims(H, Hk, Kh) || ng < 1 || ng > nr)
+    return (int)cudaErrorInvalidValue;
+  if (T == 0) return 0;
+  const unsigned blocks = (unsigned)((H + tile - 1) / tile) * ng;
+  const size_t smem = recur_bf16_smem(Kh, (nr + ng - 1) / ng, tile, warps);
+  void* args[] = {(void*)&xp, (void*)&whp, (void*)&hbuf, (void*)&hs,
+                  (void*)&c,  (void*)&y,   (void*)&Bf,   (void*)&T,
+                  (void*)&H,  (void*)&Hk,  (void*)&Kh,   (void*)&ng,
+                  (void*)&reverse};
+  return with_recur_bf16(tile, warps, [&](auto kernel) {
+    return launch_persistent(kernel, blocks, 32 * warps, smem, args,
+                             (cudaStream_t)stream);
+  });
 }
 
 // What se_lstm_recur would ask for at H with `chunks` row chunks a block:
@@ -1181,12 +1566,31 @@ extern "C" int se_lstm_recur_bf16(const float* xp, const bf16* whp,
 // holds its own plan (`persistent_smem`, PERSIST_BLOCKS_SM) against these.
 extern "C" int se_lstm_recur_fit(int H, int Hk, int chunks, long* smem,
                                  int* per_sm) {
-  return recur_fit<float>(H, Hk, chunks, smem, per_sm);
+  return recur_fit(H, Hk, chunks, smem, per_sm);
 }
 
-// The same for se_lstm_recur_bf16's kernel (the same shared memory: its
-// slice is widened to fp32 as it is loaded).
-extern "C" int se_lstm_recur_fit_bf16(int H, int Hk, int chunks, long* smem,
-                                      int* per_sm) {
-  return recur_fit<bf16>(H, Hk, chunks, smem, per_sm);
+// The same for se_lstm_recur_bf16's kernel of (tile, warps), Kh = H
+// rounded up to 32.
+extern "C" int se_lstm_recur_fit_bf16(int H, int Kh, int chunks, int tile,
+                                      int warps, long* smem, int* per_sm) {
+  if (Kh % bfr::BK != 0 || Kh < H || chunks < 1)
+    return (int)cudaErrorInvalidValue;
+  *smem = (long)recur_bf16_smem(Kh, chunks, tile, warps);
+  return with_recur_bf16(tile, warps, [&](auto kernel) {
+    cudaError_t err = max_smem(kernel, (size_t)*smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                          32 * warps, *smem);
+    return (int)err;
+  });
+}
+
+// lstm_recur_bf16<tile, warps>'s resources at Kh and `chunks` row chunks a
+// block (tc_common.cuh kernel_resources).
+extern "C" int se_lstm_recur_bf16_resources(int Kh, int chunks, int tile,
+                                            int warps, int* out) {
+  const int smem = (int)recur_bf16_smem(Kh, chunks, tile, warps);
+  return with_recur_bf16(tile, warps, [&](auto kernel) {
+    return kernel_resources(kernel, 32 * warps, smem, out);
+  });
 }

@@ -4,18 +4,17 @@
 // split, ldmatrix of fp32 fragments, the mma.sync.m16n8k8 TF32 product
 // with fp32 accumulation, one K step of 8 of a warp's tile product in 3, 2
 // or 1 TF32 passes (`mma_step`), the main loop that runs it over a
-// cp.async ring (`tc_ring`), the bf16 storage helpers (`round_bf16`: an
-// fp32 value rounded to bf16 where a product takes it in bf16, as the bf16
-// LSTM's recurrent h), and the bf16 fragments of the bf16 LSTM step
+// cp.async ring (`tc_ring`), the bf16 storage helpers, and the bf16
+// fragments of the bf16 LSTM step
 // (bf16 cp.async and ldmatrix, mma.sync.m16n8k16 bf16, the three-piece
 // bf16 split of an fp32 operand; `ldsm_x4_t`, the transposed bf16
 // ldmatrix of the bf16 attention's V), and the bf16 main loop built from
-// them (`bfr::ring`: the bf16 encoder and decoder levels and DSConv pair
-// stage). sm_80 and up.
+// them (`bfr::ring`: the bf16 encoder and decoder levels, DSConv pair
+// stage and LSTM projection). sm_80 and up.
 //
 // The bf16 variants of the single DSConv block, attention's short-L
-// kernel, the encoder's level 0 and the LSTM's small fold keep every tile
-// in shared memory as fp32: a bf16 operand is widened as it is loaded
+// kernel and the encoder's level 0 keep every tile in shared memory as
+// fp32: a bf16 operand is widened as it is loaded
 // (`copy4`, `copy1`: a plain load, converted, stored; no cp.async) and
 // written back rounded to nearest even (`put`).
 // A bf16 value is exact in TF32 (8 significant bits of TF32's 11), so a
@@ -124,18 +123,6 @@ __device__ __forceinline__ void copy1(float* dst, const __nv_bfloat16* src,
 template <class T>
 __host__ __device__ constexpr int passes_for() {
   return sizeof(T) == 2 ? 1 : 3;
-}
-// The same for an A stored as TA and a B stored as TB (a bf16 A against an
-// fp32 B would need B's split: not a case of these kernels).
-template <class TA, class TB>
-__host__ __device__ constexpr int passes_for() {
-  static_assert(sizeof(TA) == 4 || sizeof(TB) == 2, "bf16 A, fp32 B");
-  return sizeof(TB) == 4 ? 3 : sizeof(TA) == 2 ? 1 : 2;
-}
-
-// v rounded to bf16 (to nearest even, as torch's and XLA's casts), as fp32.
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // v = big + small: big is v rounded to TF32 (to nearest, ties away from
@@ -398,7 +385,8 @@ __device__ __forceinline__ void tc_ring(float (&acc)[2][NT][4],
 
 // ---- the bf16 ring (encoder.cu `encoder_level_tc_bf16`, decoder.cu
 // `decoder_level_tc_bf16`, dsconv.cu `dsconv_pre_bf16` /
-// `dsconv_post_bf16`)
+// `dsconv_post_bf16`, lstm.cu `lstm_proj_bf16`; its swizzle and lane
+// offsets also lstm.cu `lstm_recur_bf16`'s resident tiles)
 
 namespace bfr {
 

@@ -30,15 +30,20 @@ y fp32. They keep se_tpu's rounding points (se_tpu/nn/recurrent.py:36-37,
 :150; pallas_lstm.py:44-46): x . Wx the exact fp32 product (XP fp32), h
 rounded to bf16 where the recurrent product takes it, the carries fp32.
 The twins do the same in plain torch: a torch matmul of two bf16 tensors
-would return bf16, not se_tpu's fp32 (`preferred_element_type`). The
-bf16 step (`lstm_step_bf16`) runs on bf16 tensor cores: its weights from
-`pack_weights_bf16` (Wx's rows padded to Kx, then Wh's to Kh, so a K
-stage is wholly x or wholly h), an fp32 x split in three bf16 pieces in
+would return bf16, not se_tpu's fp32 (`preferred_element_type`). All three
+run on bf16 tensor cores. The bf16 step (`lstm_step_bf16`): its weights
+from `pack_weights_bf16` (Wx's rows padded to Kx, then Wh's to Kh, so a
+K stage is wholly x or wholly h), an fp32 x split in three bf16 pieces in
 its fragments (three exact products), a bf16 x padded once to a multiple
 of 8 elements where it is not (`aligned_x`), and h from a bf16 shadow
-that each frame writes for the next (`shadow`: one product). Its warp
-layout and launch mode come from `bf16_step_design`. The bound and what
-the design does about it: csrc/lstm.cu's header, "bf16".
+that each frame writes for the next (`shadow`: one product); its warp
+layout and launch mode come from `bf16_step_design`. The small fold's
+projection (`lstm_proj_bf16`): the same x and `pack_input`'s weights in
+bf16 through tc_common.cuh's bf16 ring; its recurrence
+(`lstm_recur_bf16`): `pack_recurrent`'s slice in bf16 shared memory, h
+from the same shadow, its plan (units and warps a block) from
+`recur_bf16_designs`. The bound and what each design does about it:
+csrc/lstm.cu's header, "bf16".
 
 Under autograd each wrapper's launch is a Function (`_autograd.
 kernel_call`): the kernel forward, and the VJP of a plain twin recomputed
@@ -71,6 +76,10 @@ GROUP = 8
 # PERSIST_WARPS warps, at most PERSIST_BLOCKS_SM blocks an SM
 PERSIST_ROWS, PERSIST_WARPS, PERSIST_BLOCKS_SM = 16, 8, 2
 RED_LD = 4 * GROUP + 4
+# its bf16 variant (csrc/lstm.cu lstm_recur_bf16<tile, warps>): (units a
+# block, warps over K) of each design built, at most 16 / warps blocks an
+# SM (the register cap); the ones `recur_bf16_designs` offers by H
+BF16_DESIGNS = ((16, 8), (16, 4), (8, 4))
 # shared memory a block may opt into on sm_90 (the only target built), and
 # an SM's for its resident blocks, each of which also holds 1 KB reserved
 SMEM_OPTIN, SMEM_SM, SMEM_RESERVED = 232448, 233472, 1024
@@ -90,69 +99,117 @@ def _ceil_to(n: int, m: int) -> int:
 
 
 class Plan(NamedTuple):
-    """The persistent recurrence's grid: `units` unit tiles x `row_groups`
-    row groups; block b owns unit tile b % units and the row chunks
-    b // units + row_groups j; `chunks` a block at most, `smem` bytes a
-    block, `blocks_sm` resident blocks an SM assumed."""
+    """The persistent recurrence's grid: `units` unit tiles of `tile` units
+    x `row_groups` row groups; block b owns unit tile b % units and the row
+    chunks b // units + row_groups j; `chunks` a block at most, `smem`
+    bytes a block, `blocks_sm` resident blocks an SM assumed, K over
+    `warps` warps."""
     units: int
     row_groups: int
     chunks: int
     smem: int
     blocks_sm: int
+    tile: int = GROUP
+    warps: int = PERSIST_WARPS
 
     @property
     def blocks(self) -> int:
         return self.units * self.row_groups
 
 
-def persistent_smem(h_dim: int, chunks: int) -> int:
-    """csrc/lstm.cu `persistent_smem`: the Wh slice and the staged rows
-    (Hk + 4 floats a row), the warps' partial sums and the block's c."""
+def persistent_smem(h_dim: int, chunks: int,
+                    dtype: torch.dtype = torch.float32, tile: int = GROUP,
+                    warps: int = PERSIST_WARPS) -> int:
+    """The recurrence's shared memory a block. fp32 (csrc/lstm.cu
+    `persistent_smem`): the Wh slice and the staged rows (Hk + 4 floats a
+    row), the warps' partial sums and the block's c. bf16
+    (`recur_bf16_smem`, `tile` units and `warps` warps a block): the bf16
+    Wh slice (4 tile rows) and staged shadow rows, Kh = H rounded up to
+    K_TILE bf16 each, the partial sums (rows of 5 tile floats) and c."""
+    if dtype == torch.bfloat16:
+        kh = _ceil_to(h_dim, K_TILE)
+        return (2 * (4 * tile + PERSIST_ROWS) * kh
+                + 4 * warps * PERSIST_ROWS * 5 * tile
+                + 4 * chunks * PERSIST_ROWS * tile)
     ld = _ceil_to(h_dim, GROUP) + 4
     return 4 * ((4 * GROUP + PERSIST_ROWS) * ld
                 + PERSIST_WARPS * PERSIST_ROWS * RED_LD
                 + chunks * PERSIST_ROWS * GROUP)
 
 
-def persistent_plan(bf: int, h_dim: int, sms: int) -> Plan | None:
-    """The largest grid of resident blocks for the small fold's recurrence,
-    or None when even one block an SM cannot hold every unit tile's Wh
-    slice at once (the barrier needs every block resident)."""
-    units = -(-h_dim // GROUP)
+def recur_bf16_designs(h_dim: int) -> tuple[tuple[int, int, int], ...]:
+    """The bf16 recurrence's designs at H = `h_dim`, each (units a block,
+    warps, most blocks an SM), the preferred first (lstm_bf16_sweep.py
+    recur): from H = 256, 16 units and 8 warps (half the blocks at the
+    grid barrier of 8 units'; 3-9% ahead of the other designs at
+    H = 1024, within the spread of two calls at H = 512 and B = 4), and
+    16 units and 4 warps, whose smaller partial sums let two blocks share
+    an SM at H = 512 (half the row chunks a block at GCRN's B = 256); below
+    H = 256, 8 units and 4 warps (a few k16 steps a warp)."""
+    if h_dim >= 256:
+        return (16, 8, 2), (16, 4, 4)
+    return ((8, 4, 4),)
+
+
+def persistent_plan(bf: int, h_dim: int, sms: int,
+                    dtype: torch.dtype = torch.float32,
+                    design: tuple[int, int, int] | None = None) -> Plan | None:
+    """The largest grid of resident blocks for the small fold's recurrence
+    in the variant of `dtype` (the weights'), or None when even one block
+    an SM cannot hold every unit tile's Wh slice at once (the barrier
+    needs every block resident). bf16: of the designs `recur_bf16_designs`
+    offers, the plan with the fewest row chunks a block (the first on a
+    tie); `design` (units a block, warps, most blocks an SM) forces one."""
+    if dtype != torch.bfloat16:
+        return _plan(bf, h_dim, sms, dtype,
+                     (GROUP, PERSIST_WARPS, PERSIST_BLOCKS_SM))
+    plans = [p for p in (_plan(bf, h_dim, sms, dtype, d) for d in
+                         ((design,) if design else recur_bf16_designs(h_dim)))
+             if p is not None]
+    return min(plans, key=lambda p: p.chunks, default=None)
+
+
+def _plan(bf: int, h_dim: int, sms: int, dtype: torch.dtype,
+          design: tuple[int, int, int]) -> Plan | None:
+    tile, warps, most = design
+    units = -(-h_dim // tile)
     chunks_total = -(-bf // PERSIST_ROWS)
-    for blocks_sm in range(PERSIST_BLOCKS_SM, 0, -1):
+    for blocks_sm in range(most, 0, -1):
         groups = min(chunks_total, blocks_sm * sms // units)
         if groups == 0:
             return None
         chunks = -(-chunks_total // groups)
-        smem = persistent_smem(h_dim, chunks)
+        smem = persistent_smem(h_dim, chunks, dtype, tile, warps)
         if (smem <= SMEM_OPTIN
                 and blocks_sm * (smem + SMEM_RESERVED) <= SMEM_SM):
-            return Plan(units, groups, chunks, smem, blocks_sm)
+            return Plan(units, groups, chunks, smem, blocks_sm, tile, warps)
     return None
 
 
-def step_variant(bf: int, t_len: int, h_dim: int, sms: int) -> str:
+def step_variant(bf: int, t_len: int, h_dim: int, sms: int,
+                 dtype: torch.dtype = torch.float32) -> str:
     """The design a layer call takes: "persistent" when the tensor-core
     step's grid would leave some of the `sms` SMs without a block, the
-    sequence has at least SHORT_T frames and the recurrence's Wh slices fit
-    the resident blocks; "tensor_core" otherwise."""
+    sequence has at least SHORT_T frames and the recurrence's Wh slices (in
+    the variant of `dtype`) fit the resident blocks; "tensor_core"
+    otherwise."""
     tc_blocks = -(-bf // ROW_TILE) * -(-h_dim // UNIT_TILE)
     if (tc_blocks < sms and t_len >= SHORT_T
-            and persistent_plan(bf, h_dim, sms) is not None):
+            and persistent_plan(bf, h_dim, sms, dtype) is not None):
         return "persistent"
     return "tensor_core"
 
 
 def recur_fit(h_dim: int, chunks: int, device=None,
-              dtype: torch.dtype = torch.float32) -> tuple[int, int]:
+              dtype: torch.dtype = torch.float32, tile: int = GROUP,
+              warps: int = PERSIST_WARPS) -> tuple[int, int]:
     """What csrc/lstm.cu computes for a recurrence of `chunks` row chunks a
-    block at H = `h_dim`, for the variant of `dtype` (the weights'): its
-    shared memory a block, and the blocks an SM the occupancy API allows
-    at that size (the C entry refuses a grid larger than this times the SM
-    count). The card's check that `persistent_smem` and PERSIST_BLOCKS_SM
-    agree with the kernel's (the bf16 kernel widens its Wh slice to fp32
-    in shared memory: the same plan)."""
+    block at H = `h_dim`, for the variant of `dtype` (the weights'; bf16:
+    lstm_recur_bf16<tile, warps>): its shared memory a block, and the
+    blocks an SM the occupancy API allows at that size (the C entry
+    refuses a grid larger than this times the SM count). The card's check
+    that `persistent_smem` and the plan's blocks an SM agree with the
+    kernel's."""
     import ctypes
 
     lib = _build.library()
@@ -160,13 +217,17 @@ def recur_fit(h_dim: int, chunks: int, device=None,
     dev = torch.device("cuda") if device is None else torch.device(device)
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     _build._check(lib, "se_set_device", lib.se_set_device(idx))
-    fn = getattr(lib, _build.variant("se_lstm_recur_fit", dtype))
+    entry = _build.variant("se_lstm_recur_fit", dtype)
+    fn = getattr(lib, entry)
+    out = [ctypes.POINTER(ctypes.c_long), ctypes.POINTER(ctypes.c_int)]
+    if dtype == torch.bfloat16:
+        args = (h_dim, _ceil_to(h_dim, K_TILE), chunks, tile, warps)
+    else:
+        args = (h_dim, _ceil_to(h_dim, GROUP), chunks)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.POINTER(ctypes.c_long), ctypes.POINTER(ctypes.c_int)]
-    _build._check(lib, _build.variant("se_lstm_recur_fit", dtype),
-                  fn(h_dim, _ceil_to(h_dim, GROUP), chunks,
-                     ctypes.byref(smem), ctypes.byref(per_sm)))
+    fn.argtypes = [ctypes.c_int] * len(args) + out
+    _build._check(lib, entry, fn(*args, ctypes.byref(smem),
+                                 ctypes.byref(per_sm)))
     return smem.value, per_sm.value
 
 
@@ -201,9 +262,10 @@ def pack_weights_bf16(wx: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
 
 
 def pack_recurrent(wh: torch.Tensor) -> torch.Tensor:
-    """Wh (H, 4H) -> (4Hk, Hk), K-major and interleaved as `pack_weights`,
-    for the persistent recurrence: Hk = H rounded up to 8 (a unit tile and
-    an mma's K)."""
+    """Wh (H, 4H) -> (4Hk, Hk) in Wh's dtype, K-major and interleaved as
+    `pack_weights`, for the persistent recurrence: Hk = H rounded up to 8
+    (an fp32 unit tile and an mma's K; the bf16 kernel zero-fills its
+    16-unit tiles and its K to Kh as it copies)."""
     h_dim = wh.shape[0]
     hk = _ceil_to(h_dim, GROUP)
     return _interleave(wh, h_dim, hk, hk)
@@ -308,10 +370,10 @@ def _state(ref: torch.Tensor, bf: int, h_dim: int, h0, c0):
 
 
 def aligned_x(x: torch.Tensor) -> torch.Tensor:
-    """x (Bf, T, In) as the bf16 step copies it, 16 bytes at a time: rows
-    of a multiple of X_ALIGN elements from a 16-byte aligned start. Where
-    x is not so (LSTMNet's In = 161), a copy zero-padded to In rounded up
-    to X_ALIGN (pack_weights_bf16's rows past In are zero too)."""
+    """x (Bf, T, In) as the bf16 step and projection copy it, 16 bytes at
+    a time: rows of a multiple of X_ALIGN elements from a 16-byte aligned
+    start. Where x is not so (LSTMNet's In = 161), a copy zero-padded to
+    In rounded up to X_ALIGN (the packs' rows past In are zero too)."""
     in_dim = x.shape[2]
     if in_dim % X_ALIGN == 0 and x.data_ptr() % 16 == 0:
         return x
@@ -319,11 +381,11 @@ def aligned_x(x: torch.Tensor) -> torch.Tensor:
 
 
 def shadow(h0, bf: int, h_dim: int, device) -> torch.Tensor:
-    """The bf16 step's shadow of h: (2, Bf, Kh) bf16, Kh = H rounded up to
-    K_TILE, zero but for h0 rounded to bf16 (to nearest even, as se_tpu's
-    `h.astype(bf16)`) in the first half's first H columns. Each frame
-    writes h_t, rounded, to the other half: the h its successor's product
-    takes."""
+    """The bf16 step's and recurrence's shadow of h: (2, Bf, Kh) bf16, Kh
+    = H rounded up to K_TILE, zero but for h0 rounded to bf16 (to nearest
+    even, as se_tpu's `h.astype(bf16)`) in the first half's first H
+    columns. Each frame writes h_t, rounded, to the other half: the h its
+    successor's product takes."""
     hs = torch.zeros(2, bf, _ceil_to(h_dim, K_TILE), dtype=torch.bfloat16,
                      device=device)
     if h0 is not None:
@@ -339,7 +401,7 @@ def _x_arg(x: torch.Tensor, dtype: torch.dtype) -> tuple:
 def lstm_project(x: torch.Tensor, wx: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
     """x (Bf, T, In) -> XP = x . wx + b (Bf, T, 4H), fp32: csrc/lstm.cu
-    `lstm_proj_tc` on a CUDA tensor (its bf16 variant for bf16 weights)."""
+    `lstm_proj_tc` on a CUDA tensor (`lstm_proj_bf16` for bf16 weights)."""
     if x.device.type == "cpu":
         return _project_reference(x, wx, b)
     return _autograd.kernel_call(_project_launch, _project_reference, x,
@@ -354,9 +416,11 @@ def _project_launch(x, wx, b):
     _build.check(wx, (in_dim, n), "wx", dtype)
     _build.check(b, (n,), "b", dtype)
     xp = torch.empty(bf, t_len, n, device=x.device)
+    if dtype == torch.bfloat16:
+        x = aligned_x(x)
     _build.launch(_build.variant("se_lstm_project", dtype),
                   *_x_arg(x, dtype), pack_input(wx), b, xp, bf * t_len,
-                  in_dim, n, _ceil_to(in_dim, K_TILE))
+                  x.shape[2], n, _ceil_to(in_dim, K_TILE))
     _build.LAUNCHES[_build.variant("lstm_project", dtype)] += 1
     return xp
 
@@ -365,7 +429,7 @@ def lstm_recur(xp: torch.Tensor, wh: torch.Tensor, reverse: bool = False,
                h0=None, c0=None):
     """The recurrence over XP (Bf, T, 4H) -> (ys (Bf, T, H), (h_T, c_T)):
     csrc/lstm.cu `lstm_recur_persistent` on a CUDA tensor, one cooperative
-    launch (its bf16 variant for a bf16 wh; XP and the carries fp32);
+    launch (`lstm_recur_bf16` for a bf16 wh; XP and the carries fp32);
     raises when the Wh slices do not fit the resident blocks."""
     if xp.device.type == "cpu":
         return _recur_reference(xp, wh, reverse, h0, c0)
@@ -375,7 +439,9 @@ def lstm_recur(xp: torch.Tensor, wh: torch.Tensor, reverse: bool = False,
         xp, wh, h0, c0, no_grad_outputs=(1, 2))
 
 
-def _recur_launch(xp, wh, reverse: bool, h0, c0):
+def _recur_launch(xp, wh, reverse: bool, h0, c0, design=None):
+    """The recurrence on its kernel; `design` forces the bf16 plan's
+    (`persistent_plan`'s)."""
     bf, t_len, _ = xp.shape
     h_dim = wh.shape[0]
     if bf == 0:
@@ -385,15 +451,21 @@ def _recur_launch(xp, wh, reverse: bool, h0, c0):
     _build.check(xp, (bf, t_len, 4 * h_dim), "xp")
     _build.check(wh, (h_dim, 4 * h_dim), "wh", dtype)
     sms = torch.cuda.get_device_properties(xp.device).multi_processor_count
-    plan = persistent_plan(bf, h_dim, sms)
+    plan = persistent_plan(bf, h_dim, sms, dtype, design)
     if plan is None:
         raise ValueError(f"lstm_recur: H = {h_dim}'s Wh slices do not fit "
                          f"the resident blocks of {sms} SMs")
     hbuf, c = _state(xp, bf, h_dim, h0, c0)
     ys = xp.new_empty(bf, t_len, h_dim)
-    _build.launch(_build.variant("se_lstm_recur", dtype), xp,
-                  pack_recurrent(wh), hbuf, c, ys, bf, t_len, h_dim,
-                  _ceil_to(h_dim, GROUP), plan.row_groups, bool(reverse))
+    hk = _ceil_to(h_dim, GROUP)
+    if dtype == torch.bfloat16:
+        _build.launch("se_lstm_recur_bf16", xp, pack_recurrent(wh), hbuf,
+                      shadow(h0, bf, h_dim, xp.device), c, ys, bf, t_len,
+                      h_dim, hk, _ceil_to(h_dim, K_TILE), plan.row_groups,
+                      plan.tile, plan.warps, bool(reverse))
+    else:
+        _build.launch("se_lstm_recur", xp, pack_recurrent(wh), hbuf, c, ys,
+                      bf, t_len, h_dim, hk, plan.row_groups, bool(reverse))
     _build.LAUNCHES[_build.variant("lstm_recur", dtype)] += 1
     return ys, (hbuf[t_len % 2], c)
 
@@ -496,9 +568,9 @@ def _layer(x, wx, wh, b, reverse: bool, h0, c0):
 
 
 def _layer_launch(x, wx, wh, b, reverse: bool, h0, c0):
-    _check_layer(x, wx, wh, b, h0, c0)
+    dtype = _check_layer(x, wx, wh, b, h0, c0)
     bf, t_len, _ = x.shape
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    if step_variant(bf, t_len, wh.shape[0], sms) == "persistent":
+    if step_variant(bf, t_len, wh.shape[0], sms, dtype) == "persistent":
         return _recur_launch(_project_launch(x, wx, b), wh, reverse, h0, c0)
     return _step_launch(x, wx, wh, b, reverse, h0, c0)

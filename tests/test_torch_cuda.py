@@ -1066,7 +1066,7 @@ def test_lstm_bf16_kernel_matches_twin(gen, dev, x_dtype, reverse, bf,
                                        in_dim, h):
     x, wx, wh, b = _bf16_lstm_args(gen, bf, T_LONG, in_dim, h, x_dtype, dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    small = lstm.step_variant(bf, T_LONG, h, sms) == "persistent"
+    small = lstm.step_variant(bf, T_LONG, h, sms, BF16) == "persistent"
     before = dict(_build.LAUNCHES)
     ys, (hn, cn) = lstm.lstm_layer_kernel(x, wx, wh, b, reverse)
     torch.cuda.synchronize()
@@ -1151,10 +1151,15 @@ def test_lstm_bf16_step_designs_agree(gen, dev, x_dtype, bf, in_dim, h):
     close([ys[0]], [stepped[0]], ATOL)
 
 
+# Bf T = 96 to 210 rows: ragged 64-row tiles; In = 161 and 33 (x padded
+# to 168 and 40 by the wrapper), 100; 4H = 48, 80, 176, 400: ragged
+# 64-column tiles
 @pytest.mark.parametrize("x_dtype", [torch.float32, BF16])
 @pytest.mark.parametrize("bf,t,in_dim,h", [(8, 12, 512, 128),
                                            (37, 5, 161, 20),
-                                           (3, 70, 33, 44)])
+                                           (3, 70, 33, 44),
+                                           (5, 33, 161, 12),
+                                           (37, 4, 100, 100)])
 def test_lstm_project_bf16_kernel_matches_twin(gen, dev, x_dtype, bf, t,
                                                in_dim, h):
     x, wx, _, b = _bf16_lstm_args(gen, bf, t, in_dim, h, x_dtype, dev)
@@ -1167,9 +1172,11 @@ def test_lstm_project_bf16_kernel_matches_twin(gen, dev, x_dtype, bf, t,
     close([got], [lstm._project_reference(x, wx, b)], ATOL)
 
 
+# H = 20, 12 and 100: K padded to 32 and 128, the unit tiles ragged
 @pytest.mark.parametrize("reverse,carry", [(False, False), (True, False),
                                            (False, True)])
-@pytest.mark.parametrize("bf,h", [(8, 128), (4, 1024), (1604, 64), (30, 20)])
+@pytest.mark.parametrize("bf,h", [(8, 128), (4, 1024), (1604, 64), (30, 20),
+                                  (5, 12), (37, 100)])
 def test_lstm_recur_bf16_kernel_matches_twin(gen, dev, reverse, carry, bf,
                                              h):
     xp = torch.from_numpy(rand(gen, bf, 9, 4 * h)).to(dev)
@@ -1191,13 +1198,63 @@ def test_lstm_recur_bf16_kernel_matches_twin(gen, dev, reverse, carry, bf,
 
 @pytest.mark.parametrize("h,bf", RECUR_PLANS)
 def test_persistent_plan_is_the_bf16_kernels(dev, h, bf):
-    """The bf16 recurrence widens its Wh slice to fp32 in shared memory:
-    the fp32 plan holds for it too."""
+    """The bf16 recurrence's own plan (its bf16 Wh slice, the units and
+    warps it picks of `recur_bf16_designs`) agrees with lstm_recur_bf16:
+    the same shared memory a block, and the occupancy API lets the planned
+    blocks share an SM."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = lstm.persistent_plan(bf, h, sms)
-    smem, per_sm = lstm.recur_fit(h, plan.chunks, dev, BF16)
+    plan = lstm.persistent_plan(bf, h, sms, BF16)
+    assert plan is not None
+    smem, per_sm = lstm.recur_fit(h, plan.chunks, dev, BF16, plan.tile,
+                                  plan.warps)
     assert smem == plan.smem
     assert per_sm >= plan.blocks_sm
+
+
+def _recur_bf16_resources(h, plan):
+    import ctypes
+
+    out = (ctypes.c_int * 4)()
+    lib = _build.library()
+    assert lib.se_lstm_recur_bf16_resources(
+        -(-h // lstm.K_TILE) * lstm.K_TILE, plan.chunks, plan.tile,
+        plan.warps, out) == 0
+    return list(out)
+
+
+@pytest.mark.parametrize("tile,warps", lstm.BF16_DESIGNS)
+@pytest.mark.parametrize("h,bf", RECUR_PLANS)
+def test_lstm_recur_bf16_resources(dev, tile, warps, h, bf):
+    """Every design of lstm_recur_bf16 at every planned shape: no register
+    spills, at most 128 registers a thread (its __launch_bounds__), and
+    where shared memory sets the plan's blocks an SM (below the design's
+    register cap of 16 / warps) the occupancy API's count is the plan's."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = lstm.persistent_plan(bf, h, sms, BF16, (tile, warps, 16 // warps))
+    if plan is None:
+        pytest.skip(f"no plan of {tile} units, {warps} warps fits H = {h}")
+    regs, spill, smem, per_sm = _recur_bf16_resources(h, plan)
+    assert spill == 0 and regs <= 128
+    assert smem == plan.smem
+    assert per_sm >= plan.blocks_sm
+    if plan.blocks_sm < 16 // warps:
+        assert per_sm == plan.blocks_sm
+
+
+@pytest.mark.parametrize("tile,warps", lstm.BF16_DESIGNS)
+@pytest.mark.parametrize("bf,h", [(4, 1024), (37, 100), (64, 512)])
+def test_lstm_recur_bf16_designs_match_twin(gen, dev, tile, warps, bf, h):
+    """Each design the plan may pick (units and warps a block) within the
+    twin's stepped tolerance: the warps split K in other places, so the
+    designs differ by fp32 round-off, never by more."""
+    xp = torch.from_numpy(rand(gen, bf, 9, 4 * h)).to(dev)
+    wh = (torch.from_numpy(rand(gen, h, 4 * h, scale=0.2)) * h ** -0.5 * 5
+          ).to(dev).to(BF16)
+    ys, _ = lstm._recur_launch(xp, wh, True, None, None,
+                               design=(tile, warps, 16 // warps))
+    torch.cuda.synchronize()
+    stepped = lstm._recur_reference(xp, wh, True, h_in=ys)
+    close([ys], [stepped[0]], ATOL)
 
 
 # ------------------------------------------------ training on the card

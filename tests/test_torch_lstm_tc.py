@@ -24,9 +24,12 @@ and the persistent kernel's grid are held here in plain torch.
   in shared memory and is resident in one wave.
 - The bf16 variants: bf16 packs (the same permutation), and h rounded to
   bf16 where the product takes it, held to the twin stepped along its own
-  y within the same 1e-5. The small fold's projection takes 2 TF32 passes
-  of an fp32 x against the bf16 weights and 1 of a bf16-valued operand
-  (the bf16 x, the rounded h). The bf16 step (`lstm_step_bf16`) takes
+  y within the same 1e-5. The small fold's projection (`lstm_proj_bf16`)
+  takes an fp32 x in three bf16 pieces against the bf16 weights and a
+  bf16-valued operand (the bf16 x; the rounded h, `lstm_recur_bf16`) in
+  one exact product; 2 TF32 passes of an fp32 operand against a bf16 one
+  (the widened bf16 kernels: the single DSConv block) are exact too. The
+  bf16 step (`lstm_step_bf16`) takes
   `pack_weights_bf16` (the x rows padded to Kx, then the h rows to Kh:
   each K stage wholly x or wholly h), an fp32 x as three bf16 pieces
   (`split_bf16x3`: their sum is x bit for bit down to 1e-33), a bf16 x
@@ -134,10 +137,13 @@ def _frames(t_len: int, reverse: bool, h_in):
 
 
 def _product(a, w, passes: str, a_bf16: bool):
-    """a @ w as the kernel sums it: "fp32", "3xtf32", or "bf16" (the bf16
-    variants against bf16 weights: 1 pass for a bf16-valued a, else 2)."""
+    """a @ w as the kernel sums it: "fp32", "3xtf32", or "bf16" (the small
+    fold's bf16 kernels against bf16 weights: a bf16-valued a in one exact
+    product, an fp32 a in three bf16 pieces, lo first)."""
     if passes == "bf16":
-        return matmul_passes(a, w, 1 if a_bf16 else 2)
+        if a_bf16:
+            return matmul_passes(a, w, 1)
+        return sum(p @ w for p in split_bf16x3(a)[::-1])
     return matmul_3xtf32(a, w) if passes == "3xtf32" else a @ w
 
 
@@ -187,8 +193,9 @@ def persistent_layer(x, wx, wh, b, passes: str, reverse: bool = False,
     `pack_input`'s weights (lstm_proj_tc), then per frame h_{t-1}
     zero-padded to Hk times `pack_recurrent`'s (4Hk, Hk) weights
     (lstm_recur_persistent), gates read back from the packed order.
-    "bf16": the projection in 2 or 1 passes (fp32 or bf16 x), h rounded to
-    bf16 against the bf16 Wh in 1; `h_in` as `packed_layer`'s."""
+    "bf16" (lstm_proj_bf16, lstm_recur_bf16): the projection of an fp32 x
+    in three bf16 pieces, of a bf16 x in one product, h rounded to bf16
+    against the bf16 Wh in one; `h_in` as `packed_layer`'s."""
     bf, t_len, in_dim = x.shape
     h_dim = wh.shape[0]
     wi, wr = lstm.pack_input(wx).float(), lstm.pack_recurrent(wh).float()
@@ -489,7 +496,8 @@ def test_bf16_packs_keep_the_weights_dtype(rng):
 
 
 def _passes_tf32(a, w):
-    """The projection's (lstm_proj_tc): 2 TF32 passes of an fp32 a."""
+    """The widened bf16 kernels' (the single DSConv block's): 2 TF32
+    passes of an fp32 a against a bf16-valued w."""
     return matmul_passes(a, w, 2)
 
 
