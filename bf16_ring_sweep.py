@@ -7,14 +7,17 @@ encoder level (csrc/encoder.cu `ENC_BF_STAGES`, `ENC_BF_BLOCKS`), the
 flash attention (csrc/attention.cu `ATT_BF_STAGES`) and the bf16 LSTM's
 small fold (csrc/lstm.cu: the projection's `PROJ_STAGES`, `PROJ_NT`,
 `PROJ_BLOCKS`, its ring depth, its column tile of 16 PROJ_NT and its
-register cap; every variant also times the recurrence). It is what those
-constants are chosen from.
+register cap; every variant also times the recurrence) and the single
+DSConv block in bf16, which shares the pair's three constants. It is what
+those constants are chosen from.
 
-    python3 bf16_ring_sweep.py [decoder|pair|encoder|attention|lstm]
+    python3 bf16_ring_sweep.py [decoder|pair|encoder|attention|lstm|block]
 
 `decoder` (the default) varies chiefly the decoder's constants, `pair`
 the pair stage's, and every variant of the two times both kernels;
-`encoder`, `attention` and `lstm` time their own kernels, `attention`
+`encoder`, `attention`, `lstm` and `block` time their own kernels
+(`block`: the pair's constants, chip_smoke.py's dsconv_bf16 cases at B =
+4 and 32), `attention`
 also the complex T-attention's shape at L = 640 to 2048 (a long utterance
 decoded in one call). Each variant runs in a process of its own
 (`--variant sweep i`): the sources copied under se_tpu_torch/_build/sweep/ with the variant's
@@ -76,6 +79,15 @@ SWEEPS = {
                   ("ring 2 stages", {"ATT_BF_STAGES": 2}),
                   ("ring 6 stages", {"ATT_BF_STAGES": 6}),
                   SHIPPED),
+    "block": (SHIPPED,
+              ("post 3 stages, 3 blocks",
+               {"POST_BF_STAGES": 3, "POST_BF_BLOCKS": 3}),
+              ("post 4 stages, 2 blocks; pre 8 stages",
+               {"POST_BF_STAGES": 4, "POST_BF_BLOCKS": 2,
+                "PRE_BF_STAGES": 8}),
+              ("post 2 stages, 5 blocks; pre 3 stages",
+               {"POST_BF_BLOCKS": 5, "PRE_BF_STAGES": 3}),
+              SHIPPED),
     "lstm": (SHIPPED,
              ("ring 3 stages", {"PROJ_STAGES": 3}),
              ("ring 6 stages", {"PROJ_STAGES": 6}),
@@ -89,6 +101,7 @@ SWEEPS = {
 TIMED = {"decoder": ("decoder_bf16", "dsconv_pair_bf16"),
          "pair": ("decoder_bf16", "dsconv_pair_bf16"),
          "encoder": ("encoder_bf16",), "attention": ("attention_bf16",),
+         "block": ("dsconv_bf16",),
          "lstm": ("lstm_project_bf16", "lstm_recur_bf16")}
 LONG_L = (640, 1024, 1500, 2048)
 
@@ -172,6 +185,8 @@ def run_variant(sweep: str, i: int) -> None:
                              cs._pair_twin),
         "encoder_bf16": (cs.bf16_encoder_cases, cs._encoder_kernel,
                          cs._encoder_twin),
+        "dsconv_bf16": (cs.bf16_dsconv_cases, cs._block_kernel,
+                        cs._block_twin),
         "attention_bf16": (cs.bf16_attention_cases, cs._att_kernel,
                            cs._att_twin),
         "lstm_project_bf16": (cs.bf16_lstm_project_cases, lstm.lstm_project,

@@ -33,8 +33,9 @@ Phases, one JSON line per result:
              the PRESET_320 models: T = 401), against its twin on the same
              CUDA inputs: max abs error within 1e-4 * max(1, max|twin|),
              kernel and twin times (CUDA events, median of 5 runs after
-             warm-up; the twin's of 3 after 1, in the cases its row
-             sums), the bound from the shapes
+             warm-up in the cases a row sums, of 3 after 1 in the
+             per-case lines; the twin's of 3 after 1, in the cases its
+             row sums), the bound from the shapes
              (operations at the card's fp32-accurate tensor-core rate,
              bytes at HBM's; the larger), and as a yardstick the
              port never calls F.scaled_dot_product_attention (attention),
@@ -91,11 +92,12 @@ Phases, one JSON line per result:
              recurrence row: one call computes what the pair computes) and
              torch.addmm on the widened operands;
              the recurrence's plan also for its bf16 kernel, and the
-             row's device time a frame (`us_per_frame`). The last
-             two bf16 variants: the single DSConv block (row dsconv_bf16)
-             at its 16 shapes in bf16 with bf16 weights against its bf16
-             twin (the same bf16 rule; its bound at 329.7
-             TFLOP/s, fp32 operands against bf16 weights), and the STFT's
+             row's device time a frame (`us_per_frame`). The single
+             DSConv block (row dsconv_bf16) at its 16 shapes in bf16 with
+             bf16 weights, each width at B = 32, and Cin 12, Cm 8 (the
+             widened route), against its bf16 twin (the same bf16 rule;
+             its bound at 329.7 TFLOP/s, fp32 operands against bf16
+             weights), and the STFT's
              basis product (row stft_bf16: a bf16 waveform, the bf16
              window x DFT basis, fp32 out) at DCCRN's 512/128 at B = 4 and
              the three center presets at B = 32 against its twin within
@@ -199,10 +201,12 @@ Phases, one JSON line per result:
              one bf16 ulp of the step's largest gradient, capped at a
              quarter of the tensor's own scale but for scalars and
              tensors the CPU's bf16 step does not resolve; PERF.md 2).
-             (d) train throughput at B = 32 x 4 s, dropout on: 2 warm-up
-             steps, the median of 5 in audio-s/s (FullSubNet, DCCRN,
-             GCRN, CRN, LSTMNet and every bf16 line: 1 and 3, the
-             script's time limit), peak device memory, every step's
+             The CPU's steps and enhances of (b, c, e) run in worker
+             processes (`cpu_workers`) while this one runs the card's
+             sides; each check is made once its CPU side is in.
+             (d) train throughput at B = 32 x 4 s, dropout on: one
+             warm-up step, the median of 3 in audio-s/s (the script's
+             time limit), peak device memory, every step's
              loss (finite); Uformer and FullSubNet also in bf16; the
              device time by kernel of one fp32 step (top 10) and the busy
              share, but for DPCRN, DCCRN, GCRN, CRN and LSTMNet.
@@ -239,10 +243,12 @@ Phases, one JSON line per result:
              finite; each command's wall seconds (train, then `train
              --data-parallel` (a world of one, NCCL), each alone on the
              card, then both streams and enhance side by side, then
-             score); the two
-             trains' checkpoints agree (`checkpoints_agree`: gradients
-             by phase 7b's rule, weights within 1e-5 x max but where
-             Adam's first step moved a round-off gradient by +-lr).
+             score); the two trains, both the CLI's `main` under
+             cuDNN's deterministic algorithms (`CLI_DETERMINISTIC`, as
+             7b's remat steps), have checkpoints that agree
+             (`checkpoints_agree`: gradients by phase 7b's rule, weights
+             within 1e-5 x max but where Adam's first step moved a
+             round-off gradient by +-lr).
  10. parallel: data parallelism, two ranks (processes, this script run
              with --parallel-rank) on the one card in a gloo group
              (its collectives on CUDA tensors checked; two more try NCCL
@@ -277,6 +283,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import functools
+import itertools
 import json
 import statistics
 import subprocess
@@ -739,10 +746,10 @@ def bf16_encoder_cases(gen, dev):
 
 
 def widened_case(kind: str):
-    """Fail unless a case of `kind` ("decoder", "dsconv_pair") that a bf16
-    generator has just yielded ran the widened route: call before the
-    yield, and the returned check after it (the generator resumes once
-    phase 3 is done with the case)."""
+    """Fail unless a case of `kind` ("decoder", "dsconv_pair", "dsconv")
+    that a bf16 generator has just yielded ran the widened route: call
+    before the yield, and the returned check after it (the generator
+    resumes once phase 3 is done with the case)."""
     from se_tpu_torch.ops import _build
 
     key = f"{kind}_bf16_widened"
@@ -863,25 +870,47 @@ def bf16_pair_cases(gen, dev):
 def bf16_dsconv_cases(gen, dev):
     """The 16 block shapes of `dsconv_cases` in bf16: weights rounded to
     bf16 (as a bf16 copy of DSConvCplx / DSConvReal holds them) and packed
-    once, x bf16."""
+    once, x bf16; then each width at phase 5's B = 32."""
     import torch
 
     from se_tpu_torch.ops import dsconv
 
-    b, t, f = B_MAIN, T_FRAMES, 4
+    t, f = T_FRAMES, 4
     n = len(DILATIONS)
     for ncomp, cin, tot in ((2, 256, 64), (1, 128, 32)):
         params = tuple(p.to(torch.bfloat16)
                        for p in dsconv_params(gen, cin, tot, dev))
         packed = dsconv.pack_block_weights(params, ncomp)
-        x = torch.randn(b, t, f, cin, generator=gen).to(dev).to(
-            torch.bfloat16)
-        for i, d1 in enumerate(DILATIONS):
-            d2 = DILATIONS[n - i - 1]
+        blocks = [(B_MAIN, d1, DILATIONS[n - i - 1], True)
+                  for i, d1 in enumerate(DILATIONS)] + [(32, 1, 128, False)]
+        for b, d1, d2, in_row in blocks:
+            x = torch.randn(b, t, f, cin, generator=gen).to(dev).to(
+                torch.bfloat16)
             yield (f"dsconv bf16 ncomp={ncomp} {b}x{t}x{f}x{cin} "
                    f"d=({d1},{d2})", (x, params, d1, d2, ncomp, packed),
                    dsconv_flops(b, t, f, cin, tot, d1, d2),
-                   nbytes(x, params, x), None, True)
+                   nbytes(x, params, x), None, in_row)
+
+
+def bf16_dsconv_widened_cases(gen, dev):
+    """A bf16 block of Cin 12 and Cm 8 (not multiples of 8 and 16: se_tpu's
+    other widths), which must take the widened route."""
+    import torch
+
+    from se_tpu_torch.ops import dsconv
+
+    b, t, f, cin, tot = B_MAIN, T_FRAMES, 4, 12, 8
+    params = tuple(p.to(torch.bfloat16)
+                   for p in dsconv_params(gen, cin, tot, dev))
+    x = torch.randn(b, t, f, cin, generator=gen).to(dev).to(torch.bfloat16)
+    design = dsconv.block_design(cin, tot, torch.bfloat16)
+    label = (f"dsconv bf16 widened ncomp=1 {b}x{t}x{f}x{cin} Cm={tot} "
+             f"d=(1,2) design={design}")
+    check = widened_case("dsconv")
+    yield (label, (x, params, 1, 2, 1, dsconv.pack_block_weights(params, 1)),
+           dsconv_flops(b, t, f, cin, tot, 1, 2), nbytes(x, params, x), None,
+           False)
+    check(label)
 
 
 def bf16_stft_cases(gen, dev):
@@ -1514,12 +1543,18 @@ def check_kernels(dev, only) -> dict:
             "C = 12 and Cm 4 + 4 (the widened route) per-case lines",
             {"peak": PEAK_FP32_BF16_FLOPS}),
         "dsconv_bf16": lambda: (
-            _block_kernel, _block_twin, bf16_dsconv_cases,
+            _block_kernel, _block_twin,
+            lambda gen, dev: itertools.chain(
+                bf16_dsconv_cases(gen, dev),
+                bf16_dsconv_widened_cases(gen, dev)),
             "se_tpu_torch/csrc/dsconv.cu", "se_tpu/ops/pallas_dsconv.py:113",
             10, "the 16 DSConvCplx / DSConvReal module forwards of phase "
             "4c's bf16 path (Uformer's block shapes at B = 4): "
-            "dsconv_block_pre_tc + dsconv_block_post_tc <bf16> a call (2 "
-            "TF32 passes: fp32 operands, bf16 weights)",
+            "dsconv_block_pre_bf16 + dsconv_block_post_bf16 a call (bf16 "
+            "mma.sync m16n8k16 from a bf16 cp.async ring, bf16 packs; each "
+            "fp32 operand, LN1's output, y's taps and z, in three bf16 "
+            "pieces); B = 32 and Cin 12, Cm 8 (the widened route) per-case "
+            "lines",
             {"peak": PEAK_FP32_BF16_FLOPS}),
         "stft_bf16": lambda: (
             stft_fused.stft_fused, stft_fused._reference, bf16_stft_cases,
@@ -1598,6 +1633,7 @@ def check_kernels(dev, only) -> dict:
             continue
         kernel, twin, cases, source, replaces, reps, note, *extra = kind()
         extra = extra[0] if extra else None
+        row_start = time.perf_counter()
         peak = extra["peak"] if extra else PEAK_FP32_ACCURATE_FLOPS
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
@@ -1664,7 +1700,10 @@ def check_kernels(dev, only) -> dict:
                         del ref
                     del slack, want32
                 del got, want
-                ms = cuda_ms(lambda: kernel(*args), reps=reps)
+                # 5 rounds after 3 where the row sums the case, 3 after 1
+                # for the per-case lines (the script's time limit)
+                ms = cuda_ms(lambda: kernel(*args), reps=reps,
+                             **({} if in_row else {"rounds": 3, "warm": 1}))
                 # the twin, no yardstick of speed: 3 runs after 1, where
                 # the row sums it (elsewhere it only cost the script time)
                 plain = cuda_ms(lambda: twin(*args), reps=reps, rounds=3,
@@ -1712,6 +1751,7 @@ def check_kernels(dev, only) -> dict:
             t_ops += ops_seconds(flops, peak)
             t_bytes += moved / PEAK_BYTES
         row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        row["check_s"] = time.perf_counter() - row_start
         table[name] = row
     return table
 
@@ -2692,8 +2732,103 @@ def grads_vs_cpu(card: dict, cpu: dict, exact: dict) -> dict:
             "cpu_fp32_vs_fp64_worst": sorted(cpu_rel, reverse=True)[:3]}
 
 
-def train_vs_cpu(name: str, dev, launches, loss_fn: str = "default"
-                 ) -> dict:
+# phase 7b-7e's worker processes for the CPU's sides of the train checks
+CPU_WORKERS = 3
+
+
+def _cpu_worker_init(threads: int) -> None:
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.set_num_threads(threads)
+
+
+@contextlib.contextmanager
+def cpu_workers():
+    """A pool of CPU_WORKERS spawned processes (no CUDA in them) for phase
+    7b-7e's CPU steps and enhances, which run there while this process
+    runs the card's sides: each worker on an equal share of the cores but
+    one, this process on the rest (its torch threads set so while the pool
+    lives), so that the processes' threads together do not outnumber the
+    cores. Every process of the pool has ended on the way out."""
+    import concurrent.futures
+    import multiprocessing
+    import os
+
+    import torch
+
+    cores = len(os.sched_getaffinity(0))
+    threads = max(1, (cores - 1) // CPU_WORKERS)
+    own = torch.get_num_threads()
+    torch.set_num_threads(max(1, cores - CPU_WORKERS * threads))
+    emit({"phase": "train", "cpu_workers": CPU_WORKERS,
+          "threads_each": threads, "threads_here": torch.get_num_threads()})
+    pool = concurrent.futures.ProcessPoolExecutor(
+        CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_cpu_worker_init, initargs=(threads,))
+    try:
+        yield pool
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+        torch.set_num_threads(own)
+
+
+def _numpy(tensors: dict) -> dict:
+    """A dict of CPU tensors as numpy arrays, to pass between processes."""
+    return {k: v.detach().cpu().numpy() for k, v in tensors.items()}
+
+
+def _torch(arrays: dict) -> dict:
+    import torch
+
+    return {k: torch.from_numpy(v) for k, v in arrays.items()}
+
+
+def _cpu_train_side(name: str, loss_fn: str, dtype: str, masks: list):
+    """Phase 7b/7c's CPU side in a worker process: the step of
+    `train_vs_cpu` on the CPU in `dtype` ("float32", or "float64": the
+    exact step), its PReLUs taking the card's branches (`masks`, numpy).
+    Returns the loss, the gradients and buffers (float64, numpy), the
+    step's seconds and its flip counts."""
+    import torch
+
+    from se_tpu_torch.train.trainer import TrainConfig, make_train_step
+
+    dtype = getattr(torch, dtype)
+    model, init_fn, step_fn, _ = make_train_step(
+        TrainConfig(model=name, loss=loss_fn), device="cpu")
+    model.to(dtype)
+    state = init_fn(0)
+    _dropout(model, 0.0)
+    batch = {k: v.to(dtype) if v.is_floating_point() else v
+             for k, v in _train_batch(TRAIN_B.get(name, 2), "cpu",
+                                      11).items()}
+    masks = [torch.from_numpy(m) for m in masks]
+    t0 = time.perf_counter()
+    with prelu_branches(model, masks, record=False) as seen:
+        state, loss = step_fn(state, batch)
+        loss = loss.item()
+    step_s = time.perf_counter() - t0
+    return (loss, _numpy({k: p.grad.double()
+                          for k, p in model.named_parameters()}),
+            _numpy({k: b.double() for k, b in model.named_buffers()}),
+            step_s, {k: seen[k] for k in ("flips", "flip_max_rel")})
+
+
+def _cpu_enhance(name: str, loss_fn: str, weights: dict, wav):
+    """Phase 7b's CPU enhance in a worker process: `enhance_waveform` of
+    `name` on the CPU with the card's trained `weights` (numpy)."""
+    from se_tpu_torch.eval.enhance import enhance_waveform
+    from se_tpu_torch.train.trainer import TrainConfig, make_train_step
+
+    model = make_train_step(TrainConfig(model=name, loss=loss_fn),
+                            device="cpu")[0]
+    model.load_state_dict(_torch(weights))
+    return enhance_waveform(name, model, wav, device="cpu")
+
+
+def train_vs_cpu(name: str, dev, launches, pool,
+                 loss_fn: str = "default"):
     """Phase 7b/7c: one train step of `name` with the loss `loss_fn` at its
     published widths, B = 2 (TRAIN_B: FullSubNet 4) x 4 s, from the same
     weights (init_fn(0)), dropout rates 0, BN batch
@@ -2725,8 +2860,11 @@ def train_vs_cpu(name: str, dev, launches, loss_fn: str = "default"
     algorithms (loss 1e-5 relative, gradients to the same tolerance).
     The remat steps and the three steps run with the family's default
     loss only: with another (DCCRN's fusion_snr) the one step against the
-    CPU. Returns the launch counts and the CPU's fp32 step ({"loss", the
-    gradients, the BN statistics after it}: phase 7e's fp32 reference).
+    CPU. The card's side runs now, the CPU's steps and its enhance in
+    `pool` (`cpu_workers`). Returns a function that waits for them,
+    checks, keeps the CPU's fp32 step in the dict it is given under `name`
+    ({"loss", the gradients, the BN statistics after it}: phase 7e's fp32
+    reference) and returns the launch counts.
     """
     import numpy as np
     import torch
@@ -2736,77 +2874,110 @@ def train_vs_cpu(name: str, dev, launches, loss_fn: str = "default"
 
     cfg = TrainConfig(model=name, loss=loss_fn)
     b = TRAIN_B.get(name, 2)
-    sides = {}
     masks: list = []  # the card's PReLU branches, call by call
     wav = waveforms(2, 5)
-    for side, where, dtype in (("card", dev, torch.float32),
-                               ("exact", "cpu", torch.float64),
-                               ("cpu", "cpu", torch.float32)):
-        model, init_fn, step_fn, _ = make_train_step(cfg, device=where)
-        model.to(dtype)
-        state = init_fn(0)
-        if side == "card":  # packs cached by an eval forward
-            enhance_waveform(name, model, wav, device=where)
-        _dropout(model, 0.0)
-        batch = {k: v.to(dtype) if v.is_floating_point() else v
-                 for k, v in _train_batch(b, where, 11).items()}
-        launches.clear()
-        t0 = time.perf_counter()
-        with prelu_branches(model, masks, record=side == "card") as seen:
-            state, loss = step_fn(state, batch)
-            loss = loss.item()
-        step_s = time.perf_counter() - t0
-        counts = dict(launches)
-        grads = {k: p.grad.detach().cpu().double()
-                 for k, p in model.named_parameters()}
-        stats = {k: b.detach().cpu().double()
-                 for k, b in model.named_buffers()}
-        sides[side] = (model, state, step_fn, batch, loss, grads, stats,
-                       counts, step_s, {k: seen[k] for k in
-                                        ("flips", "flip_max_rel")})
-    exact, cpu, card = sides["exact"], sides["cpu"], sides["card"]
-    loss_err = abs(card[4] - cpu[4]) / abs(cpu[4])
-    grads = grads_vs_cpu(card[5], cpu[5], exact[5])
-    rows, worst = grads["rows"], grads["grad_err_over_tol"]
-    floor = grads["grad_floor"]
-    # the buffers: BN statistics, and the LSTMs' zero `bias_hh` (one
-    # trained bias), whose error counts absolute
-    stat_worst = max([float((card[6][k] - v).abs().max())
-                      / (float(v.abs().max()) or 1.0)
-                      for k, v in cpu[6].items()] or [0.0])
-    counts = card[7]
-    emit({"phase": "train", "check": "card vs cpu step", "model": name,
-          "loss_fn": cfg.loss, "batch": b, "loss_card": card[4],
-          "loss_cpu": cpu[4],
-          "loss_cpu_fp64": exact[4], "loss_rel_err": loss_err,
-          **{k: v for k, v in grads.items() if k != "rows"},
-          "grad_worst": rows[:4], "bn_stat_err_over_max": stat_worst,
-          "prelu_calls": len(masks),
-          "prelu_branches_taken_from_the_card": {"cpu_fp32": cpu[9],
-                                                 "cpu_fp64": exact[9]},
-          "launches": counts, "step_s_card": card[8],
-          "step_s_cpu": cpu[8], "step_s_cpu_fp64": exact[8]})
-    if not np.isfinite(card[4]) or not loss_err <= 1e-4:
-        fail(f"{name}: card loss {card[4]} against the CPU's {cpu[4]}")
-    if not worst <= 1.0:
-        fail(f"{name}: a gradient differs by {worst} x the tolerance "
-             f"({rows[0][1]}, {rows[0][2]})")
-    if not stat_worst <= 1e-3:
-        fail(f"{name}: BN statistics differ from the CPU's by {stat_worst}")
-    for kernel, want in TRAIN_PATHS[name].items():
-        if counts.get(kernel, 0) != want:
-            fail(f"{name}: a train step launched {kernel} "
-                 f"{counts.get(kernel, 0)} times, expected {want}")
-    cpu_step = {"loss": torch.tensor(cpu[4], dtype=torch.float64), **cpu[5],
-                **{k: v for k, v in cpu[6].items() if "running" in k}}
-    if loss_fn != "default":
-        return counts, cpu_step
+    model, init_fn, step_fn, _ = make_train_step(cfg, device=dev)
+    state = init_fn(0)
+    enhance_waveform(name, model, wav, device=dev)  # packs cached
+    _dropout(model, 0.0)
+    batch = _train_batch(b, dev, 11)
+    launches.clear()
+    t0 = time.perf_counter()
+    with prelu_branches(model, masks, record=True):
+        state, loss = step_fn(state, batch)
+        loss = loss.item()
+    step_s = time.perf_counter() - t0
+    counts = dict(launches)
+    grads = {k: p.grad.detach().cpu().double()
+             for k, p in model.named_parameters()}
+    stats = {k: b.detach().cpu().double() for k, b in model.named_buffers()}
+    masks = [m.numpy() for m in masks]
+    cpu_sides = {side: pool.submit(_cpu_train_side, name, loss_fn, dtype,
+                                   masks)
+                 for side, dtype in (("exact", "float64"),
+                                     ("cpu", "float32"))}
+    enhanced = remat = None
+    if loss_fn == "default":
+        remat = remat_steps(name, loss_fn, batch, dev)
+        _dropout(model, 0.1)
+        for _ in range(3):
+            state, loss_d = step_fn(state, batch)
+        if not np.isfinite(loss_d.item()):
+            fail(f"{name}: a train step with dropout gave loss "
+                 f"{loss_d.item()}")
+        est = enhance_waveform(name, model, wav, device=dev)
+        enhanced = est, pool.submit(_cpu_enhance, name, loss_fn,
+                                    _numpy(model.state_dict()), wav)
+    del model, init_fn, step_fn, state, batch
 
-    # The same step with the forward recomputed. cuDNN's default
-    # algorithms sum some weight gradients in another order from run to
-    # run (atomics; up to 1% of a tensor's largest entry in CTSNet's
-    # ShareSepConv kernels, sums of ~5e4 terms that cancel): the three
-    # steps compared here run its deterministic algorithms.
+    def finish(cpu_fp32_steps: dict) -> dict:
+        exact, cpu = (cpu_sides[k].result() for k in ("exact", "cpu"))
+        exact_grads, cpu_grads = _torch(exact[1]), _torch(cpu[1])
+        cpu_stats = _torch(cpu[2])
+        loss_err = abs(loss - cpu[0]) / abs(cpu[0])
+        check = grads_vs_cpu(grads, cpu_grads, exact_grads)
+        rows, worst = check["rows"], check["grad_err_over_tol"]
+        # the buffers: BN statistics, and the LSTMs' zero `bias_hh` (one
+        # trained bias), whose error counts absolute
+        stat_worst = max([float((stats[k] - v).abs().max())
+                          / (float(v.abs().max()) or 1.0)
+                          for k, v in cpu_stats.items()] or [0.0])
+        emit({"phase": "train", "check": "card vs cpu step", "model": name,
+              "loss_fn": cfg.loss, "batch": b, "loss_card": loss,
+              "loss_cpu": cpu[0], "loss_cpu_fp64": exact[0],
+              "loss_rel_err": loss_err,
+              **{k: v for k, v in check.items() if k != "rows"},
+              "grad_worst": rows[:4], "bn_stat_err_over_max": stat_worst,
+              "prelu_calls": len(masks),
+              "prelu_branches_taken_from_the_card": {"cpu_fp32": cpu[4],
+                                                     "cpu_fp64": exact[4]},
+              "launches": counts, "step_s_card": step_s,
+              "step_s_cpu": cpu[3], "step_s_cpu_fp64": exact[3]})
+        if not np.isfinite(loss) or not loss_err <= 1e-4:
+            fail(f"{name}: card loss {loss} against the CPU's {cpu[0]}")
+        if not worst <= 1.0:
+            fail(f"{name}: a gradient differs by {worst} x the tolerance "
+                 f"({rows[0][1]}, {rows[0][2]})")
+        if not stat_worst <= 1e-3:
+            fail(f"{name}: BN statistics differ from the CPU's by "
+                 f"{stat_worst}")
+        for kernel, want in TRAIN_PATHS[name].items():
+            if counts.get(kernel, 0) != want:
+                fail(f"{name}: a train step launched {kernel} "
+                     f"{counts.get(kernel, 0)} times, expected {want}")
+        if remat is not None:
+            remat_check(name, cfg.loss, remat, check["grad_floor"])
+        if loss_fn == "default":
+            cpu_fp32_steps[name] = {
+                "loss": torch.tensor(cpu[0], dtype=torch.float64),
+                **cpu_grads,
+                **{k: v for k, v in cpu_stats.items() if "running" in k}}
+        if enhanced is not None:
+            est, ref = enhanced[0], enhanced[1].result()
+            err = float(np.abs(est - ref).max())
+            tol = 1e-3 * float(np.abs(ref).max())
+            emit({"phase": "train", "check": "enhance after 3 steps with "
+                  "dropout, card vs cpu", "model": name, "loss_fn": cfg.loss,
+                  "max_abs_err": err, "tol": tol})
+            if not err <= tol:
+                fail(f"{name}: enhance after training differs from the "
+                     f"CPU's by {err} > {tol}")
+        return counts
+
+    return finish
+
+
+def remat_steps(name: str, loss_fn: str, batch: dict, dev) -> dict:
+    """Phase 7b: the card's step of `name` on `batch` under remat "none",
+    "full" and "dots", all three with cuDNN's deterministic algorithms
+    (its default ones sum some weight gradients in another order from run
+    to run: atomics; up to 1% of a tensor's largest entry in CTSNet's
+    ShareSepConv kernels, sums of ~5e4 terms that cancel). Returns remat:
+    (loss, gradients on the CPU)."""
+    import torch
+
+    from se_tpu_torch.train.trainer import TrainConfig, make_train_step
+
     was_deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
@@ -2817,46 +2988,34 @@ def train_vs_cpu(name: str, dev, launches, loss_fn: str = "default"
                 device=dev)
             state = init_fn(0)
             _dropout(model, 0.0)
-            state, loss = step_fn(state, card[3])
+            state, loss = step_fn(state, batch)
             steps[remat] = loss.item(), {
                 k: p.grad.detach().cpu().double()
                 for k, p in model.named_parameters()}
             del model, init_fn, step_fn, state
     finally:
         torch.backends.cudnn.deterministic = was_deterministic
-    loss_none, grads_none = steps.pop("none")
-    for remat, (loss, grads) in steps.items():
+    return steps
+
+
+def remat_check(name: str, loss_fn: str, steps: dict, floor: float
+                ) -> None:
+    """`remat_steps`' "full" and "dots" against "none": loss 1e-5
+    relative, every gradient within 1e-3 * max|grad| + `floor` (the step's
+    `grads_vs_cpu` floor)."""
+    loss_none, grads_none = steps["none"]
+    for remat in ("full", "dots"):
+        loss, grads = steps[remat]
         worst = max(float((g - grads_none[k]).abs().max())
                     / (1e-3 * float(grads_none[k].abs().max()) + floor)
                     for k, g in grads.items())
         emit({"phase": "train", "check": f"remat {remat} vs none, card, "
-              "cuDNN deterministic", "model": name, "loss_fn": cfg.loss,
+              "cuDNN deterministic", "model": name, "loss_fn": loss_fn,
               "loss": loss,
               "loss_none": loss_none, "grad_err_over_tol": worst})
         if not (abs(loss - loss_none) <= 1e-5 * abs(loss_none)
                 and worst <= 1.0):
             fail(f"{name}: remat={remat} changed the step on the card")
-
-    model, state, step_fn, batch = card[:4]
-    _dropout(model, 0.1)
-    for _ in range(3):
-        state, loss = step_fn(state, batch)
-    if not np.isfinite(loss.item()):
-        fail(f"{name}: a train step with dropout gave loss {loss.item()}")
-    est = enhance_waveform(name, model, wav, device=dev)
-    cpu_model = cpu[0]
-    cpu_model.load_state_dict({k: v.cpu() for k, v in
-                               model.state_dict().items()})
-    ref = enhance_waveform(name, cpu_model, wav, device="cpu")
-    err = float(np.abs(est - ref).max())
-    tol = 1e-3 * float(np.abs(ref).max())
-    emit({"phase": "train", "check": "enhance after 3 steps with dropout, "
-          "card vs cpu", "model": name, "loss_fn": cfg.loss,
-          "max_abs_err": err, "tol": tol})
-    if not err <= tol:
-        fail(f"{name}: enhance after training differs from the CPU's by "
-             f"{err} > {tol}")
-    return counts, cpu_step
 
 
 def trainer_step(name: str, dev, dtype: str = "fp32"):
@@ -2872,15 +3031,16 @@ def trainer_step(name: str, dev, dtype: str = "fp32"):
     return lambda: step_fn(state, batch)[1]
 
 
-def deepxi_driver(name: str, where, dtype):
+def deepxi_driver(name: str, where, dtype, fitted=None):
     """DeepXi's driver for `name` on `where` in `dtype`: the weights of
-    `seeded(name, 0)`, the map of `deepxi_xi_map()`."""
+    `seeded(name, 0)`, the map `fitted` (by default `deepxi_xi_map()`)."""
     from se_tpu_torch.models.deepxi_driver import DeepXiDriver
 
     drv = DeepXiDriver(network=DEEPXI_NETWORK[name], device=where)
     drv.model.load_state_dict(seeded(name, 0).state_dict())
     drv.model.to(dtype)
-    fitted = deepxi_xi_map()
+    if fitted is None:
+        fitted = deepxi_xi_map()
     drv.xi_map.mu, drv.xi_map.sigma = fitted.mu, fitted.sigma
     return drv
 
@@ -2908,7 +3068,31 @@ def deepxi_step(name: str, dev):
     return lambda: drv.train_step(s, x, frames, opt_state)
 
 
-def deepxi_train_vs_cpu(name: str, dev, launches) -> dict:
+def _cpu_deepxi_side(name: str, dtype: str, masks: list, fitted):
+    """Phase 7b's CPU side for DeepXi in a worker process: the driver step
+    of `deepxi_train_vs_cpu` on the CPU in `dtype` with the card's map
+    `fitted`, its ReLUs taking the card's branches (`masks`, numpy).
+    Returns the loss, the gradients (float64, numpy), the step's seconds
+    and its flip counts."""
+    import torch
+
+    from se_tpu_torch.train.trainer import adam_state
+
+    dtype = getattr(torch, dtype)
+    drv = deepxi_driver(name, "cpu", dtype, fitted)
+    s, x, frames = deepxi_batch(2, "cpu", dtype, 11)
+    opt_state = adam_state(dict(drv.model.named_parameters()))
+    masks = [torch.from_numpy(m) for m in masks]
+    t0 = time.perf_counter()
+    with relu_branches(masks, record=False) as seen:
+        loss = drv.train_step(s, x, frames, opt_state).item()
+    step_s = time.perf_counter() - t0
+    return (loss, _numpy({k: p.grad.double()
+                          for k, p in drv.model.named_parameters()}),
+            step_s, {k: seen[k] for k in ("flips", "flip_max_rel")})
+
+
+def deepxi_train_vs_cpu(name: str, dev, launches, pool):
     """Phase 7b for DeepXi: one driver step (`DeepXiDriver.train_step`:
     the MagXi example, BCE with the frame mask, elementwise clip, Adam) of
     `name` at B = 2 x 4 s from the same weights and map on the card in
@@ -2918,130 +3102,161 @@ def deepxi_train_vs_cpu(name: str, dev, launches) -> dict:
     relative of the CPU's, every gradient inside `grads_vs_cpu`'s
     tolerance (phase 7b's), the step's launches
     (TRAIN_PATHS: the STFT kernel for s, d and x; the ResLSTM's layers
-    forward). Returns the launch counts."""
+    forward). The card's side runs now, the CPU's in `pool`. Returns a
+    function that waits for them, checks and returns the launch
+    counts."""
     import numpy as np
     import torch
 
     from se_tpu_torch.train.trainer import adam_state
 
-    sides = {}
     masks: list = []  # the card's ReLU branches, call by call
-    for side, where, dtype in (("card", dev, torch.float32),
-                               ("exact", "cpu", torch.float64),
-                               ("cpu", "cpu", torch.float32)):
-        drv = deepxi_driver(name, where, dtype)
-        s, x, frames = deepxi_batch(2, where, dtype, 11)
-        opt_state = adam_state(dict(drv.model.named_parameters()))
-        launches.clear()
-        t0 = time.perf_counter()
-        with relu_branches(masks, record=side == "card") as seen:
-            loss = drv.train_step(s, x, frames, opt_state).item()
-        step_s = time.perf_counter() - t0
-        grads = {k: p.grad.detach().cpu().double()
-                 for k, p in drv.model.named_parameters()}
-        sides[side] = loss, grads, dict(launches), step_s, {
-            k: seen[k] for k in ("flips", "flip_max_rel")}
-    (loss, grads, counts, step_s, _), cpu, exact = (
-        sides["card"], sides["cpu"], sides["exact"])
-    loss_err = abs(loss - cpu[0]) / abs(cpu[0])
-    check = grads_vs_cpu(grads, cpu[1], exact[1])
-    rows = check.pop("rows")
-    emit({"phase": "train", "check": "card vs cpu step (DeepXiDriver)",
-          "model": name, "network": DEEPXI_NETWORK[name], "batch": 2,
-          "loss_card": loss, "loss_cpu": cpu[0], "loss_cpu_fp64": exact[0],
-          "loss_rel_err": loss_err, **check, "grad_worst": rows[:4],
-          "relu_calls": len(masks),
-          "relu_branches_taken_from_the_card": {"cpu_fp32": cpu[4],
-                                                "cpu_fp64": exact[4]},
-          "launches": counts, "step_s_card": step_s, "step_s_cpu": cpu[3],
-          "step_s_cpu_fp64": exact[3]})
-    if not np.isfinite(loss) or not loss_err <= 1e-4:
-        fail(f"{name}: card loss {loss} against the CPU's {cpu[0]}")
-    if not check["grad_err_over_tol"] <= 1.0:
-        fail(f"{name}: a gradient differs by {check['grad_err_over_tol']} "
-             f"x the tolerance ({rows[0][1]}, {rows[0][2]})")
-    for kernel, want in TRAIN_PATHS[name].items():
-        if counts.get(kernel, 0) != want:
-            fail(f"{name}: a train step launched {kernel} "
-                 f"{counts.get(kernel, 0)} times, expected {want}")
-    return counts
+    fitted = deepxi_xi_map()
+    drv = deepxi_driver(name, dev, torch.float32, fitted)
+    s, x, frames = deepxi_batch(2, dev, torch.float32, 11)
+    opt_state = adam_state(dict(drv.model.named_parameters()))
+    launches.clear()
+    t0 = time.perf_counter()
+    with relu_branches(masks, record=True):
+        loss = drv.train_step(s, x, frames, opt_state).item()
+    step_s = time.perf_counter() - t0
+    grads = {k: p.grad.detach().cpu().double()
+             for k, p in drv.model.named_parameters()}
+    counts = dict(launches)
+    del drv, s, x, frames, opt_state
+    masks = [m.numpy() for m in masks]
+    cpu_sides = {side: pool.submit(_cpu_deepxi_side, name, dtype, masks,
+                                   fitted)
+                 for side, dtype in (("exact", "float64"),
+                                     ("cpu", "float32"))}
+
+    def finish(cpu_fp32_steps: dict) -> dict:
+        exact, cpu = (cpu_sides[k].result() for k in ("exact", "cpu"))
+        loss_err = abs(loss - cpu[0]) / abs(cpu[0])
+        check = grads_vs_cpu(grads, _torch(cpu[1]), _torch(exact[1]))
+        rows = check.pop("rows")
+        emit({"phase": "train", "check": "card vs cpu step (DeepXiDriver)",
+              "model": name, "network": DEEPXI_NETWORK[name], "batch": 2,
+              "loss_card": loss, "loss_cpu": cpu[0],
+              "loss_cpu_fp64": exact[0], "loss_rel_err": loss_err, **check,
+              "grad_worst": rows[:4], "relu_calls": len(masks),
+              "relu_branches_taken_from_the_card": {"cpu_fp32": cpu[3],
+                                                    "cpu_fp64": exact[3]},
+              "launches": counts, "step_s_card": step_s,
+              "step_s_cpu": cpu[2], "step_s_cpu_fp64": exact[2]})
+        if not np.isfinite(loss) or not loss_err <= 1e-4:
+            fail(f"{name}: card loss {loss} against the CPU's {cpu[0]}")
+        if not check["grad_err_over_tol"] <= 1.0:
+            fail(f"{name}: a gradient differs by "
+                 f"{check['grad_err_over_tol']} x the tolerance "
+                 f"({rows[0][1]}, {rows[0][2]})")
+        for kernel, want in TRAIN_PATHS[name].items():
+            if counts.get(kernel, 0) != want:
+                fail(f"{name}: a train step launched {kernel} "
+                     f"{counts.get(kernel, 0)} times, expected {want}")
+        return counts
+
+    return finish
 
 
-def bf16_train_vs_cpu(name: str, dev, launches, cpu32: dict) -> dict:
+def _step_tensors(model, loss) -> dict:
+    """A step's loss, every gradient and the BN statistics after it, as
+    float64 numpy arrays (phase 7e's comparison)."""
+    out = {"loss": loss.detach().double()}
+    out.update((k, p.grad.double()) for k, p in model.named_parameters())
+    out.update((k, v.double()) for k, v in model.named_buffers()
+               if "running" in k)
+    return _numpy(out)
+
+
+def _cpu_bf16_side(name: str):
+    """Phase 7e's CPU side in a worker process: the bf16 step of
+    `bf16_train_vs_cpu` on the CPU. Returns `_step_tensors` and the step's
+    seconds."""
+    from se_tpu_torch.train.trainer import TrainConfig, make_train_step
+
+    model, init_fn, step_fn, _ = make_train_step(
+        TrainConfig(model=name, compute_dtype="bf16"), device="cpu")
+    state = init_fn(0)
+    _dropout(model, 0.0)
+    batch = _train_batch(TRAIN_B.get(name, 2), "cpu", 11)
+    t0 = time.perf_counter()
+    state, loss = step_fn(state, batch)
+    out = _step_tensors(model, loss)
+    return out, time.perf_counter() - t0
+
+
+def bf16_train_vs_cpu(name: str, dev, launches, pool):
     """Phase 7e: one bf16 train step (`TrainConfig(compute_dtype="bf16")`:
     fp32 masters, the model on their bf16 casts) of `name` at its
     published widths, B = 2 (TRAIN_B: FullSubNet 4) x 4 s, dropout rates
     0, from init_fn(0), on phase 7b's batch,
     on the card with the counts set to 0 just before and read just after
     (BF16_TRAIN_PATHS: no fp32 attention or LSTM launch); then the same
-    step on the CPU in bf16; the CPU's fp32 step is phase 7b's (`cpu32`,
-    from the same weights and batch). The loss, every gradient and
+    step on the CPU in bf16 (in `pool`); the CPU's fp32 step is phase 7b's
+    (from the same weights and batch). The loss, every gradient and
     the BN statistics after the step held by `bf16_step_compare` (the
     card's distance from the CPU fp32 step within twice the CPU bf16
     step's own, plus one bf16 ulp of the step's largest gradient capped
     at a quarter of the tensor's own scale but for scalars and tensors
     the CPU's bf16 step does not resolve; at most 1% of the tensors
     within four times it; pooled, within twice; PERF.md section 2).
-    Returns the counts."""
+    Returns a function that takes phase 7b's CPU fp32 steps by family,
+    waits for the CPU's bf16 step, checks and returns the counts."""
     import numpy as np
 
     from se_tpu_torch.ops._dtype import bf16_step_compare
     from se_tpu_torch.train.trainer import TrainConfig, make_train_step
 
     b = TRAIN_B.get(name, 2)
-    sides = {}
-    for side, where, dtype in (("card", dev, "bf16"),
-                               ("cpu_bf16", "cpu", "bf16")):
-        model, init_fn, step_fn, _ = make_train_step(
-            TrainConfig(model=name, compute_dtype=dtype), device=where)
-        state = init_fn(0)
-        _dropout(model, 0.0)
-        batch = _train_batch(b, where, 11)
-        launches.clear()
-        t0 = time.perf_counter()
-        state, loss = step_fn(state, batch)
-        out = {"loss": loss.detach().cpu().double()}
-        step_s = time.perf_counter() - t0
-        out.update((k, p.grad.detach().cpu().double())
-                   for k, p in model.named_parameters())
-        out.update((k, v.detach().cpu().double())
-                   for k, v in model.named_buffers() if "running" in k)
-        sides[side] = out, dict(launches), step_s
-        del model, init_fn, step_fn, state
-    (card, counts, step_s), cpu16 = sides["card"], sides["cpu_bf16"][0]
-    check = bf16_step_compare(card, cpu16, cpu32)
-    loss = float(card["loss"])
-    emit({"phase": "train", "check": "bf16 card vs cpu step", "model": name,
-          "batch": b, "loss_card_bf16": loss,
-          "loss_cpu_bf16": float(cpu16["loss"]),
-          "loss_cpu_fp32": float(cpu32["loss"]),
-          "pooled_card_vs_cpu_fp32": check.pooled_got,
-          "pooled_cpu_bf16_vs_cpu_fp32": check.pooled_ref,
-          "tensors": len(cpu32), "past_twice": check.failures[:6],
-          "worst_over_limit": check.worst,
-          "floor_cap_lifted": check.uncapped, "launches": counts,
-          "step_s_card": step_s, "step_s_cpu_bf16": sides["cpu_bf16"][2]})
-    if not np.isfinite(loss) or not check.ok:
-        fail(f"{name}: the card's bf16 step is past the bf16 rule: "
-             f"{check.failures[:3]}, pooled {check.pooled_got} against "
-             f"the CPU bf16's {check.pooled_ref}")
-    for kernel, want in BF16_TRAIN_PATHS[name].items():
-        if counts.get(kernel, 0) != want:
-            fail(f"{name}: a bf16 train step launched {kernel} "
-                 f"{counts.get(kernel, 0)} times, expected {want}")
-    return counts
+    cpu_side = pool.submit(_cpu_bf16_side, name)
+    model, init_fn, step_fn, _ = make_train_step(
+        TrainConfig(model=name, compute_dtype="bf16"), device=dev)
+    state = init_fn(0)
+    _dropout(model, 0.0)
+    batch = _train_batch(b, dev, 11)
+    launches.clear()
+    t0 = time.perf_counter()
+    state, loss = step_fn(state, batch)
+    card = _step_tensors(model, loss.cpu())
+    step_s = time.perf_counter() - t0
+    counts = dict(launches)
+    del model, init_fn, step_fn, state, batch
+
+    def finish(cpu_fp32_steps: dict) -> dict:
+        cpu32 = cpu_fp32_steps.pop(name)
+        cpu16, cpu_s = cpu_side.result()
+        check = bf16_step_compare(card, cpu16, cpu32)
+        loss = float(card["loss"])
+        emit({"phase": "train", "check": "bf16 card vs cpu step",
+              "model": name, "batch": b, "loss_card_bf16": loss,
+              "loss_cpu_bf16": float(cpu16["loss"]),
+              "loss_cpu_fp32": float(cpu32["loss"]),
+              "pooled_card_vs_cpu_fp32": check.pooled_got,
+              "pooled_cpu_bf16_vs_cpu_fp32": check.pooled_ref,
+              "tensors": len(cpu32), "past_twice": check.failures[:6],
+              "worst_over_limit": check.worst,
+              "floor_cap_lifted": check.uncapped, "launches": counts,
+              "step_s_card": step_s, "step_s_cpu_bf16": cpu_s})
+        if not np.isfinite(loss) or not check.ok:
+            fail(f"{name}: the card's bf16 step is past the bf16 rule: "
+                 f"{check.failures[:3]}, pooled {check.pooled_got} against "
+                 f"the CPU bf16's {check.pooled_ref}")
+        for kernel, want in BF16_TRAIN_PATHS[name].items():
+            if counts.get(kernel, 0) != want:
+                fail(f"{name}: a bf16 train step launched {kernel} "
+                     f"{counts.get(kernel, 0)} times, expected {want}")
+        return counts
+
+    return finish
 
 
 # phase 7d: the families whose step is not profiled; bf16 beside fp32 for
 # Uformer and FullSubNet
 TRAIN_UNPROFILED = ("dpcrn", "dccrn", "gcrn", "crn", "lstm")
 TRAIN_BF16_SPEED = ("uformer", "fullsubnet")
-# phase 7d's (warm-up, timed) steps: 2 and 5; 1 and 3 for the families
-# whose fp32 line came with bf16 training and for every bf16 line (the
-# script's time limit)
-TRAIN_SPEED_STEPS = (2, 5)
-TRAIN_SPEED_STEPS_SHORT = (1, 3)
-TRAIN_SPEED_SHORT = ("fullsubnet", "dccrn", "gcrn", "crn", "lstm")
+# phase 7d's (warm-up, timed) steps (the script's time limit)
+TRAIN_SPEED_STEPS = (1, 3)
 
 
 # R11's yardstick: the LSTM layer's train-time cost (forward + backward)
@@ -3121,8 +3336,8 @@ def train_throughput(name: str, step, card: str, do_profile: bool,
                      dtype: str = "fp32") -> None:
     """Phase 7d: `step()` (one train step at B = TRAIN_BATCH x 4 s in
     `dtype`, its loss returned) TRAIN_SPEED_STEPS' warm-up times, then the
-    median of its timed ones in audio-s/s (TRAIN_SPEED_STEPS_SHORT for
-    TRAIN_SPEED_SHORT and bf16), peak device memory, every step's loss
+    median of its timed ones in audio-s/s, peak device memory, every
+    step's loss
     (all finite); with
     `do_profile`, device time by kernel of one step (torch.profiler over
     the device's activity alone, top 10) and the device's busy share."""
@@ -3132,8 +3347,7 @@ def train_throughput(name: str, step, card: str, do_profile: bool,
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    short = dtype == "bf16" or name in TRAIN_SPEED_SHORT
-    warm, timed = TRAIN_SPEED_STEPS_SHORT if short else TRAIN_SPEED_STEPS
+    warm, timed = TRAIN_SPEED_STEPS
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
     for i in range(warm + timed):
@@ -3455,6 +3669,14 @@ def windowed_uformer(dev, launches, card: str) -> dict:
 # -------------------------------------------------------------- phase 9: cli
 
 CLI_FAMILIES = ("dpcrn", "lstm", "gcrn")
+# the two trains that `checkpoints_agree` compares: the CLI's own `main` on
+# the same arguments, under cuDNN's deterministic algorithms (its default
+# ones sum some weight gradients in an order that varies from run to run:
+# atomics; once 1.88 x the gradient rule apart on DPCRN's last transposed
+# conv, de.de_module.3.0, with one sign flipped above the floor)
+CLI_DETERMINISTIC = ("import sys, torch; "
+                     "torch.backends.cudnn.deterministic = True; "
+                     "from se_tpu_torch.cli import main; main(sys.argv[1:])")
 
 
 def checkpoints_agree(plain: dict, other: dict) -> dict:
@@ -3465,9 +3687,9 @@ def checkpoints_agree(plain: dict, other: dict) -> dict:
     and buffer within 1e-5 x max(1, max|w|) of its tensor, but where the
     gradient is round-off (|g| <= the floor in both), which Adam's first
     update u = g / (|g| + 1e-8) moves by up to lr whatever its size: there
-    2 lr apart. The card's cuDNN sums some weight gradients in an order
-    that varies from run to run, so two plain runs part the same way.
-    Fails otherwise; returns the worst ratios and counts."""
+    2 lr apart. Both trains run under cuDNN's deterministic algorithms
+    (`CLI_DETERMINISTIC`). Fails otherwise; returns the worst ratios and
+    counts."""
     import torch
 
     b1, lr = 0.9, 1e-3  # optax's scale_by_adam; the CLI's default rate
@@ -3499,7 +3721,8 @@ def checkpoints_agree(plain: dict, other: dict) -> dict:
 
 def cli_phase(dev, card: str) -> None:
     """Phase 9: the command line as its users run it, each command a
-    subprocess `python -m se_tpu_torch ...` (the TF32 flags its own) in a
+    subprocess `python -m se_tpu_torch ...` (the TF32 flags its own; the
+    two trains the CLI's `main` under `CLI_DETERMINISTIC`) in a
     temporary directory with two seeded 1 s noisy / clean pairs and a
     manifest (the verify recipe's fixture): train DPCRN one step, the same
     with `--data-parallel` (one rank on the one card, NCCL), enhance from
@@ -3542,27 +3765,30 @@ def cli_phase(dev, card: str) -> None:
         train = ["train", "--model", "dpcrn", "--mix-dir", "noisy",
                  "--clean-dir", "clean", "--manifest", "files.json",
                  "--batch-size", "2", "--epochs", "1", "--checkpoint-dir"]
+        cli, fixed = ["-m", "se_tpu_torch"], ["-c", CLI_DETERMINISTIC]
         stages = (
-            (("train", train + ["CP"]),),
-            (("train data parallel", train + ["CP_dp", "--data-parallel"]),),
-            (("stream exact", ["stream", "--mode", "exact", "--model",
-                               "lstm", "--mix-dir", "noisy", "--out-dir",
-                               "stream_exact"]),
-             ("stream windowed", ["stream", "--mode", "windowed",
-                                  "--model", "gcrn", "--mix-dir", "noisy",
-                                  "--out-dir", "stream_windowed"]),
-             ("enhance", ["enhance", "--model", "dpcrn", "--checkpoint",
-                          "CP", "--mix-dir", "noisy", "--out-dir",
-                          "est"])),
-            (("score", ["score", "--est-dir", "est", "--ref-dir", "clean",
-                        "--csv", "results/r.csv"]),))
+            (("train", fixed + train + ["CP"]),),
+            (("train data parallel",
+              fixed + train + ["CP_dp", "--data-parallel"]),),
+            (("stream exact",
+              cli + ["stream", "--mode", "exact", "--model", "lstm",
+                     "--mix-dir", "noisy", "--out-dir", "stream_exact"]),
+             ("stream windowed",
+              cli + ["stream", "--mode", "windowed", "--model", "gcrn",
+                     "--mix-dir", "noisy", "--out-dir", "stream_windowed"]),
+             ("enhance",
+              cli + ["enhance", "--model", "dpcrn", "--checkpoint", "CP",
+                     "--mix-dir", "noisy", "--out-dir", "est"])),
+            (("score",
+              cli + ["score", "--est-dir", "est", "--ref-dir", "clean",
+                     "--csv", "results/r.csv"]),))
         walls = {}
         for stage in stages:
             running = {}
             for label, argv in stage:
                 err = open(os.path.join(tmp, f"{label}.err"), "w+")
                 running[label] = (time.perf_counter(), err, subprocess.Popen(
-                    [sys.executable, "-m", "se_tpu_torch", *argv], cwd=tmp,
+                    [sys.executable, *argv], cwd=tmp,
                     env=env, stdout=subprocess.DEVNULL, stderr=err))
             while running:
                 for label, (t0, err, proc) in list(running.items()):
@@ -4158,9 +4384,9 @@ def kernel_resources(lib) -> dict:
     for ncomp, tot in ((2, 64), (1, 32)):
         if lib.se_dsconv_block_tc_bf16_resources(ncomp, tot, res):
             fail("se_dsconv_block_tc_bf16_resources failed")
-        out[f"dsconv_block_pre_tc<{ncomp}, bf16>"] = dict(zip(names, res[:4]))
-        out[f"dsconv_block_post_tc<{ncomp}, bf16>"] = dict(zip(names,
-                                                              res[4:]))
+        nt = "NT_C" if ncomp == 2 else "NT_M"
+        out[f"dsconv_block_pre_bf16<{nt}>"] = dict(zip(names, res[:4]))
+        out[f"dsconv_block_post_bf16<{nt}>"] = dict(zip(names, res[4:]))
     # the bf16 small fold: the projection for either x, the recurrence in
     # each of its designs at one row chunk a block and H = 1024 and 128
     for x_bf16 in (0, 1):
@@ -4208,9 +4434,13 @@ def main() -> None:
     start = time.perf_counter()
     import torch
 
+    walls, last = {}, [start]  # each phase's wall seconds
+
     def elapsed(done: str) -> None:
-        emit({"phase": "elapsed", "done": done,
-              "seconds": time.perf_counter() - start})
+        now = time.perf_counter()
+        walls[done] = now - last[0]
+        last[0] = now
+        emit({"phase": "elapsed", "done": done, "seconds": now - start})
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this needs an NVIDIA GPU")
@@ -4250,7 +4480,7 @@ def main() -> None:
                     if "registers" in ln or "spill" in ln
                     or ln.startswith("==")],
           "resources": kernel_resources(lib)})
-
+    elapsed("1-2 env, build")
     table = check_kernels(dev, args.kernels)
     elapsed("3 kernel")
     models, counts, totals = {}, {}, {}
@@ -4290,26 +4520,28 @@ def main() -> None:
     if "lstm" in args.kernels:
         lstm_train_yardsticks(dev, card)
     elapsed("7a train gradients")
-    train_counts, cpu_fp32_steps = {}, {}
+    train_counts, cpu_fp32_steps, checks = {}, {}, []
     train_families = [f for f in TRAIN_PATHS if f in args.families]
-    for name in train_families:
-        if name in DEEPXI_NETWORK:
-            train_counts[name] = deepxi_train_vs_cpu(name, dev,
-                                                     _build.LAUNCHES)
-        for loss_fn in () if name in DEEPXI_NETWORK else \
-                TRAIN_LOSSES.get(name, ("default",)):
-            key = name if loss_fn == "default" else f"{name} {loss_fn}"
-            train_counts[key], cpu_step = train_vs_cpu(
-                name, dev, _build.LAUNCHES, loss_fn)
-            if loss_fn == "default":
-                cpu_fp32_steps[name] = cpu_step
-            elapsed(f"7b/7c {key}")
-        torch.cuda.empty_cache()
-    for name in (f for f in BF16_TRAIN_PATHS if f in args.families):
-        train_counts[f"{name} bf16"] = bf16_train_vs_cpu(
-            name, dev, _build.LAUNCHES, cpu_fp32_steps.pop(name))
-        torch.cuda.empty_cache()
-        elapsed(f"7e {name}")
+    with cpu_workers() as pool:  # the CPU's sides beside the card's
+        for name in train_families:
+            if name in DEEPXI_NETWORK:
+                checks.append((name, deepxi_train_vs_cpu(
+                    name, dev, _build.LAUNCHES, pool)))
+            for loss_fn in () if name in DEEPXI_NETWORK else \
+                    TRAIN_LOSSES.get(name, ("default",)):
+                key = name if loss_fn == "default" else f"{name} {loss_fn}"
+                checks.append((key, train_vs_cpu(name, dev, _build.LAUNCHES,
+                                                 pool, loss_fn)))
+                elapsed(f"7b/7c {key} card")
+            torch.cuda.empty_cache()
+        for name in (f for f in BF16_TRAIN_PATHS if f in args.families):
+            checks.append((f"{name} bf16", bf16_train_vs_cpu(
+                name, dev, _build.LAUNCHES, pool)))
+            torch.cuda.empty_cache()
+            elapsed(f"7e {name} card")
+        for key, finish in checks:  # in order: 7e takes 7b's fp32 steps
+            train_counts[key] = finish(cpu_fp32_steps)
+    elapsed("7b/7c/7e the CPU's sides")
     for name in train_families:
         if name in DEEPXI_NETWORK:
             train_throughput(name, deepxi_step(name, dev), card, True)
@@ -4350,6 +4582,8 @@ def main() -> None:
         row["launches_parallel"] = {path: c.get(name, 0)
                                     for path, c in parallel_counts.items()}
 
+    emit({"phase": "wall", "seconds": walls,
+          "total": time.perf_counter() - start})
     print(card, flush=True)
     emit({"kernels": list(table.values())})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -88,9 +88,8 @@
 // output, y's taps, z), which the fragments split in three bf16 pieces
 // (split_bf16x3: their sum is the operand bit for bit), a product each:
 // exact products, bound by operations at 989 / 3 = 329.7 TFLOP/s. The
-// fp32 design templated on bf16 storage (as the single block below) would
-// widen x by synchronous loads, keep the weights in fp32 and run two TF32
-// passes (247.5 TFLOP/s).
+// fp32 design templated on bf16 storage would widen x by synchronous loads,
+// keep the weights in fp32 and run two TF32 passes (247.5 TFLOP/s).
 //   - pre: x staged bf16 as it is (16-byte cp.async: Cin a multiple of 8),
 //     LN1's statistics from the same values widened (row_stats, two
 //     passes); in the fragments each pair widened, normalised in fp32 and
@@ -109,15 +108,32 @@
 //     stages no faster than its four (bf16_ring_sweep.py decoder and
 //     pair, NVIDIA H100 80GB HBM3, 700 W; PERF.md).
 //
-// The single block in bf16 (`se_dsconv_block_tc_bf16`, both launches: the
-// TPU kernel's `_pallas_dsconv` on a bf16 x, pallas_dsconv.py:107-108) is
-// the fp32 block's design templated on the storage, with the pair's
-// rounding points: x widened as it is staged (tc_common.cuh `copy4`: LN1's
-// load and statistics, the residual), y and z fp32, out rounded once,
-// every product two TF32 passes against the packs in fp32 holding bf16
-// values (pack_block_weights). Bound at
-// the main path's shapes by operations at 329.7 TFLOP/s (an fp32 operand
-// against a bf16 one: three bf16 pieces, the fewest exact products).
+// The single block in bf16 (`se_dsconv_block_tc_bf16`:
+// dsconv_block_pre_bf16, dsconv_block_post_bf16; the TPU kernel's
+// `_pallas_dsconv` on a bf16 x, pallas_dsconv.py:107-108) is the bf16 pair
+// stage's design for one branch, with its rounding points: x widened to
+// fp32 inside, y and z fp32, out rounded once.
+//   - pre: `pre_branch_bf16` (x staged bf16 by 16-byte cp.async: Cin a
+//     multiple of 8; LN1's statistics from the same values widened; LN1's
+//     output split in three bf16 pieces against the bf16 w1 on bfr::ring;
+//     bias and PReLU in the epilogue).
+//   - post: `gated_bf16` (y's taps staged fp32 and split against the bf16
+//     wd1 and wd2), LN2 and z * sigmoid(z) in shared memory (z at a row
+//     stride of tot + 8 floats, as the pair's), then the output 1x1 conv as
+//     `out_gemm_bf16`: K = Cm, N = Cin (256 complex, 128 real), CO = 32
+//     channels a pass, a pass's bf16 ws (K-major, Cin rows of Cm) loading
+//     during the previous pass's epilogue; + bs + x, out written once. Cm a
+//     multiple of 16 (the k16 steps).
+// Other bf16 widths run the fp32 block on widened inputs (ops/dsconv.py
+// `block_design`'s "tc_widened"). Bound at the main path's shapes by
+// operations at 329.7 TFLOP/s (an fp32 operand against a bf16 one: three
+// bf16 pieces, the fewest exact products). With the pair's ring depths and
+// four blocks an SM (no other setting of bf16_ring_sweep.py block was
+// faster at both B = 4 and 32), the 16 B = 4 calls of the conformer's
+// shapes took 0.93 ms on the device, against 1.00 for the fp32 design on
+// bf16 storage (two TF32 passes) that it replaced; at B = 32 a call 0.26
+// complex and 0.11 real, against 0.33 and 0.13 (chip_smoke.py shapes,
+// NVIDIA H100 80GB HBM3, 700 W; PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -952,6 +968,44 @@ dsconv_block_pre_tc(const T* __restrict__ x, Branch p,
   pre_branch<NT>(sm, x, p, y, M, cin, tot, nseg, blockIdx.x * TM);
 }
 
+// A block's LN2 per component segment of z (TM rows at stride ldz, tot
+// columns in nseg segments), two passes as the twin: a thread a (row,
+// segment), consecutive threads on consecutive rows, each starting its
+// walk at channel r % cs (ldz = 4 mod 8 or 8 mod 32: at cs = 32 a warp's
+// 32 rows read 32 distinct banks, where all starting at channel 0 read 8
+// or 4); then z * sigmoid(z) in place on the columns below tot of kz. mu
+// and rs hold 2 TM floats each.
+__device__ void block_ln2_swish(float* z, int ldz, int kz, int tot, int nseg,
+                                const float* __restrict__ g2,
+                                const float* __restrict__ b2, float* mu,
+                                float* rs) {
+  const int tid = threadIdx.x, cs = tot / nseg;
+  for (int q = tid; q < TM * nseg; q += THREADS) {
+    const int r = q % TM, s = q / TM, j0 = r % cs;
+    const float* v = z + r * ldz + s * cs;
+    float sum = 0.f;
+    for (int i = 0, j = j0; i < cs; ++i, j = j + 1 == cs ? 0 : j + 1)
+      sum += v[j];
+    const float mean = sum / cs;
+    float sq = 0.f;
+    for (int i = 0, j = j0; i < cs; ++i, j = j + 1 == cs ? 0 : j + 1) {
+      const float dv = v[j] - mean;
+      sq += dv * dv;
+    }
+    mu[r * 2 + s] = mean;
+    rs[r * 2 + s] = rsqrtf(sq / cs + LN_EPS);
+  }
+  __syncthreads();
+  for (int e = tid; e < TM * kz; e += THREADS) {
+    const int r = e / kz, c = e % kz;
+    if (c >= tot) continue;
+    const int q = r * 2 + (c >= cs);
+    float* v = z + r * ldz + c;
+    const float zn = (*v - mu[q]) * rs[q] * g2[c] + b2[c];
+    *v = zn * sigmoidf(zn);
+  }
+}
+
 // Floats of dsconv_block_post_tc's shared memory.
 __host__ __device__ inline int block_post_smem_floats(int tot) {
   return ring_floats(POST_STAGES) + TM * (round_up(tot, 8) + 4) + 4 * TM;
@@ -960,7 +1014,7 @@ __host__ __device__ inline int block_post_smem_floats(int tot) {
 // The rest of one block for rows r0 .. r0 + TM: the gated dilated convs,
 // LN2 and swish in shared memory, the output 1x1 conv (K = tot, N = cin,
 // CO channels a pass: 2 x 2 warps of 32 rows x 16 channels), + bs + x; x
-// and out in storage Tx (fp32, or bf16: x widened, out rounded once).
+// and out in storage Tx (fp32; the bf16 block has kernels of its own).
 template <int NT, class Tx>
 __global__ void __launch_bounds__(THREADS, 3)
 dsconv_block_post_tc(const Tx* __restrict__ x,
@@ -998,35 +1052,7 @@ dsconv_block_post_tc(const Tx* __restrict__ x,
   cp_async_commit();
   __syncthreads();  // z is complete
 
-  // LN2 per component segment, two passes as the twin: a thread a (row,
-  // segment), consecutive threads on consecutive rows, each starting its
-  // walk at channel r % cs (ldz = 4 mod 8: at cs = 32 a warp's 32 rows
-  // read 32 distinct banks, where all starting at channel 0 read 8)
-  const int cs = tot / nseg;
-  for (int q = tid; q < TM * nseg; q += THREADS) {
-    const int r = q % TM, s = q / TM, j0 = r % cs;
-    const float* v = z + r * ldz + s * cs;
-    float sum = 0.f;
-    for (int i = 0, j = j0; i < cs; ++i, j = j + 1 == cs ? 0 : j + 1)
-      sum += v[j];
-    const float mean = sum / cs;
-    float sq = 0.f;
-    for (int i = 0, j = j0; i < cs; ++i, j = j + 1 == cs ? 0 : j + 1) {
-      const float dv = v[j] - mean;
-      sq += dv * dv;
-    }
-    mu[r * 2 + s] = mean;
-    rs[r * 2 + s] = rsqrtf(sq / cs + LN_EPS);
-  }
-  __syncthreads();
-  for (int e = tid; e < TM * kz; e += THREADS) {
-    const int r = e / kz, c = e % kz;
-    if (c >= tot) continue;
-    const int q = r * 2 + (c >= cs);
-    float* v = z + r * ldz + c;
-    const float zn = (*v - mu[q]) * rs[q] * p.g2[c] + p.b2[c];
-    *v = zn * sigmoidf(zn);
-  }
+  block_ln2_swish(z, ldz, kz, tot, nseg, p.g2, p.b2, mu, rs);
 
   // the output 1x1 conv, CO channels a pass (2 x 2 warps of 32 rows x 16
   // channels), + bs + x; pass 0's ws landed during LN2, pass ps + 1 loads
@@ -1062,6 +1088,117 @@ dsconv_block_post_tc(const Tx* __restrict__ x,
           const int c = ps * CO + wn * 16 + g * 8 + 2 * tq;
           if (c >= cin) continue;  // cin % 4 == 0: c + 1 < cin too
           const Tx* xr = x + row * cin + c;
+          put2(out + row * cin + c, acc[mi][g][hh * 2] + p.bs[c] + to_f(xr[0]),
+               acc[mi][g][hh * 2 + 1] + p.bs[c + 1] + to_f(xr[1]));
+        }
+      }
+  }
+  cp_async_wait<0>();
+}
+
+// ------------------------------- the single block, bf16 tensor cores (k16)
+
+// The block's bf16 kernels run with the pair's PRE_BF_STAGES,
+// POST_BF_STAGES and POST_BF_BLOCKS (see the header). Bytes of
+// dsconv_block_pre_bf16's shared memory (the ring, LN1's
+// statistics) and of dsconv_block_post_bf16's (the ring, z at a row stride
+// of tot + 8 floats as the pair's, LN2's statistics).
+__host__ __device__ constexpr int block_pre_bf_smem() {
+  return pre_bf_ring() + 16 * TM;
+}
+__host__ __device__ inline int block_post_bf_smem(int tot) {
+  return post_bf_ring() + 4 * TM * (tot + 8) + 16 * TM;
+}
+
+// Component segments of the block whose N is NT n8 tiles a warp: 2 for
+// the complex block (N = 64), 1 for the real one (N = 32); a constant, so
+// the segment selects of LN1 and LN2 fold.
+template <int NT>
+__host__ __device__ constexpr int block_nseg() {
+  return NT == NT_C ? 2 : 1;
+}
+
+// One block's pre stage on bf16 tensor cores: y (M, tot) = PReLU(LN1(x) .
+// w1 + bb1), x (M, cin) bf16, y fp32; the pair's pre_branch_bf16.
+template <int NT>
+__global__ void __launch_bounds__(THREADS, 4)
+dsconv_block_pre_bf16(const bf16* __restrict__ x, BranchBf p,
+                      float* __restrict__ y, int M, int cin, int tot) {
+  extern __shared__ __align__(16) unsigned char smb[];
+  pre_branch_bf16<NT>(smb, x, p, y, M, cin, tot, block_nseg<NT>(),
+                      blockIdx.x * TM);
+}
+
+// The rest of one block on bf16 tensor cores for rows r0 .. r0 + TM: the
+// gated dilated convs (gated_bf16), LN2 and swish in shared memory, the
+// output 1x1 conv (K = tot, N = cin, CO channels a pass: 2 x 2 warps of 32
+// rows x 16 channels, out_gemm_bf16), + bs + x, out rounded to bf16 once.
+// x and out bf16, y fp32, tot a multiple of 16.
+template <int NT>
+__global__ void __launch_bounds__(THREADS, POST_BF_BLOCKS)
+dsconv_block_post_bf16(const bf16* __restrict__ x,
+                       const float* __restrict__ y, BranchBf p,
+                       bf16* __restrict__ out, int M, int T, int F, int cin,
+                       int tot, int d1, int d2) {
+  extern __shared__ __align__(16) unsigned char smb[];
+  const int ldz = tot + 8;
+  float* z = reinterpret_cast<float*>(smb + post_bf_ring());  // TM x ldz
+  float* mu = z + TM * ldz;  // TM x 2 segments
+  float* rs = mu + 2 * TM;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WM, wn = warp / WM, gid = lane >> 2, tq = lane & 3;
+  const int r0 = blockIdx.x * TM;
+
+  gated_bf16<NT>(smb, y, p, z, ldz, tot, M, T, F, tot, d1, d2, r0);
+
+  // ws packed K-major (cin rows of tot), a pass's CO rows in the ring at a
+  // row stride of tot + 8 (the 8 rows an ldmatrix reads in distinct bank
+  // groups), zero past cin
+  const int npass = (cin + CO - 1) / CO;
+  bf16* bw = reinterpret_cast<bf16*>(smb);
+  auto load_ws = [&](int ps) {
+    const int qz = tot / 8;
+    for (int e = tid; e < CO * qz; e += THREADS) {
+      const int row = ps * CO + e / qz;
+      const bool ok = row < cin;
+      cp_async16(bw + (e / qz) * ldz + 8 * (e % qz),
+                 p.ws + (size_t)(ok ? row : 0) * tot + 8 * (e % qz),
+                 ok ? 16 : 0);
+    }
+  };
+  load_ws(0);
+  cp_async_commit();
+  __syncthreads();  // z is complete
+  block_ln2_swish(z, ldz, tot, tot, block_nseg<NT>(), p.g2, p.b2, mu, rs);
+
+  // the output 1x1 conv, CO channels a pass, + bs + x; pass 0's ws landed
+  // during LN2, pass ps + 1 loads during pass ps's epilogue
+  for (int ps = 0; ps < npass; ++ps) {
+    cp_async_wait<0>();  // pass ps has landed
+    __syncthreads();     // ... for all; (ps 0) z is normalised
+    float acc[2][2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int g = 0; g < 2; ++g)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[mi][g][j] = 0.f;
+    out_gemm_bf16<2>(acc, z, ldz, bw, ldz, tot, wn * 16);
+    __syncthreads();  // every warp is done with this pass's ws
+    if (ps + 1 < npass) load_ws(ps + 1);
+    cp_async_commit();
+    // as dsconv_block_post_tc's: acc[mi][g][hh * 2 + j]
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const long row = (long)r0 + wm * 32 + mi * 16 + hh * 8 + gid;
+        if (row >= M) continue;
+#pragma unroll
+        for (int g = 0; g < 2; ++g) {
+          const int c = ps * CO + wn * 16 + g * 8 + 2 * tq;
+          if (c >= cin) continue;  // cin % 8 == 0: c + 1 < cin too
+          const bf16* xr = x + row * cin + c;
           put2(out + row * cin + c, acc[mi][g][hh * 2] + p.bs[c] + to_f(xr[0]),
                acc[mi][g][hh * 2 + 1] + p.bs[c + 1] + to_f(xr[1]));
         }
@@ -1144,41 +1281,69 @@ extern "C" int se_dsconv_block_tc(
                      (cudaStream_t)stream);
 }
 
-// The block in bf16: x and out bf16; the packed weights (fp32 holding bf16
-// values), the vectors and the scratch y fp32; otherwise as
-// se_dsconv_block_tc.
+namespace {
+
+template <int NT>
+int block_bf16(const bf16* x, const tcp::BranchBf& p, float* y, bf16* out,
+               long M, int T, int F, int cin, int tot, int d1, int d2,
+               cudaStream_t st) {
+  const unsigned blocks = (unsigned)((M + tcp::TM - 1) / tcp::TM);
+  const int err = launch_smem(tcp::dsconv_block_pre_bf16<NT>, blocks,
+                              tcp::block_pre_bf_smem(), st, x, p, y, (int)M,
+                              cin, tot);
+  if (err != 0) return err;
+  return launch_smem(tcp::dsconv_block_post_bf16<NT>, blocks,
+                     tcp::block_post_bf_smem(tot), st, x, (const float*)y, p,
+                     out, (int)M, T, F, cin, tot, d1, d2);
+}
+
+}  // namespace
+
+// The block on bf16 tensor cores (dsconv_block_pre_bf16,
+// dsconv_block_post_bf16): x and out bf16; the packed weights
+// (pack_block_weights' layout, in bf16) bf16; the vectors and the scratch
+// y fp32; otherwise as se_dsconv_block_tc. Needs cin a multiple of 8
+// (16-byte copies of x), tot a multiple of 16 (the output GEMM's k16
+// steps), tot <= 64 (ncomp 2) or 32 (ncomp 1), and x, y 16-byte aligned.
 extern "C" int se_dsconv_block_tc_bf16(
-    const __nv_bfloat16* x, const float* w1, const float* g1,
-    const float* b1, const float* bb1, const float* alpha, const float* wd1,
-    const float* bd1, const float* wd2, const float* bd2, const float* g2,
-    const float* b2, const float* ws, const float* bs, float* y,
-    __nv_bfloat16* out, int B, int T, int F, int cin, int tot, int ncomp,
-    int d1, int d2, void* stream) {
-  const tcp::Branch p{w1, g1, b1, bb1, alpha, wd1, bd1,
-                      wd2, bd2, g2, b2, ws, bs};
-  return block_entry(x, p, y, out, B, T, F, cin, tot, ncomp, d1, d2,
-                     (cudaStream_t)stream);
+    const bf16* x, const bf16* w1, const float* g1, const float* b1,
+    const float* bb1, const float* alpha, const bf16* wd1, const float* bd1,
+    const bf16* wd2, const float* bd2, const float* g2, const float* b2,
+    const bf16* ws, const float* bs, float* y, bf16* out, int B, int T,
+    int F, int cin, int tot, int ncomp, int d1, int d2, void* stream) {
+  const int n_max = ncomp == 2 ? tcp::N_C : tcp::N_M;
+  if ((ncomp != 1 && ncomp != 2) || cin % 8 != 0 || tot % 16 != 0 ||
+      cin <= 0 || tot <= 0 || tot > n_max || misaligned(x) || misaligned(y))
+    return (int)cudaErrorInvalidValue;
+  const long M = (long)B * T * F;
+  if (M == 0) return 0;
+  const tcp::BranchBf p{w1, g1, b1, bb1, alpha, wd1, bd1,
+                        wd2, bd2, g2, b2, ws, bs};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (ncomp == 2)
+    return block_bf16<tcp::NT_C>(x, p, y, out, M, T, F, cin, tot, d1, d2,
+                                 st);
+  return block_bf16<tcp::NT_M>(x, p, y, out, M, T, F, cin, tot, d1, d2, st);
 }
 
 // The bf16 block's two kernels' resources at (ncomp, tot) (tc_common.cuh
-// kernel_resources): out[0..3] dsconv_block_pre_tc's, out[4..7]
-// dsconv_block_post_tc's.
+// kernel_resources): out[0..3] dsconv_block_pre_bf16's, out[4..7]
+// dsconv_block_post_bf16's.
 extern "C" int se_dsconv_block_tc_bf16_resources(int ncomp, int tot,
                                                  int* out) {
-  const int pre = (tcp::ring_floats(tcp::PRE_STAGES) + 4 * tcp::TM) *
-                  (int)sizeof(float);
-  const int post = tcp::block_post_smem_floats(tot) * (int)sizeof(float);
+  const int pre = tcp::block_pre_bf_smem();
+  const int post = tcp::block_post_bf_smem(tot);
   const int err =
       ncomp == 2
-          ? kernel_resources(tcp::dsconv_block_pre_tc<tcp::NT_C, bf16>,
+          ? kernel_resources(tcp::dsconv_block_pre_bf16<tcp::NT_C>,
                              tcp::THREADS, pre, out)
-          : kernel_resources(tcp::dsconv_block_pre_tc<tcp::NT_M, bf16>,
+          : kernel_resources(tcp::dsconv_block_pre_bf16<tcp::NT_M>,
                              tcp::THREADS, pre, out);
   if (err != 0) return err;
   return ncomp == 2
-             ? kernel_resources(tcp::dsconv_block_post_tc<tcp::NT_C, bf16>,
+             ? kernel_resources(tcp::dsconv_block_post_bf16<tcp::NT_C>,
                                 tcp::THREADS, post, out + 4)
-             : kernel_resources(tcp::dsconv_block_post_tc<tcp::NT_M, bf16>,
+             : kernel_resources(tcp::dsconv_block_post_bf16<tcp::NT_M>,
                                 tcp::THREADS, post, out + 4);
 }
 

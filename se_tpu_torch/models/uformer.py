@@ -337,7 +337,9 @@ class _DSConv(nn.Module):
 
     def weights(self):
         """The 13-tuple and, on the card, its pack for the tensor-core
-        block; kept as `_cached` says."""
+        block (in `pack_dtype` for the block's design, `block_design`:
+        bf16 weights stay bf16 at the conformer's widths); kept as
+        `_cached` says."""
 
         def make():
             params = self.params()

@@ -50,9 +50,9 @@ def promoted(*tensors: torch.Tensor) -> tuple:
 def pack_dtype(weight: torch.Tensor, design: str = "tc") -> torch.dtype:
     """The dtype a conv weight keeps in a tensor-core pack for `design`:
     bf16 stays bf16 on "tc" (the B operand of the bf16 kernels'
-    `mma.m16n8k16`: the encoder and decoder levels' and the DSConv pair
-    stage's); the widened route ("tc_widened", the fp32 kernel) and any
-    other weight pack as fp32."""
+    `mma.m16n8k16`: the encoder and decoder levels', the DSConv pair
+    stage's and the single block's); the widened route ("tc_widened",
+    the fp32 kernel) and any other weight pack as fp32."""
     return torch.bfloat16 if weight.dtype == torch.bfloat16 \
         and design == "tc" else torch.float32
 
@@ -85,28 +85,32 @@ def widened(twin):
     return run
 
 
-def widened_launch(kernel: str, run, xc, xm, params, weights, packed,
-                   pack):
-    """A bf16 U-net level or conformer stage on its kernel's fp32 design
-    ("tc_widened", where the bf16 design cannot copy its widths): the bf16
-    conv weights (indices `weights` of the flat `params`) checked, xc, xm
-    and `params` widened to fp32, `run(xc, xm, params, packed)` the fp32
-    launches (uncounted) on the caller's fp32 packs (`pack(params,
-    torch.float32)`, made once where the caller keeps them; here
-    otherwise), the outputs rounded to bf16 once: the rounding points of
+def widened_launch(kernel: str, run, *args):
+    """A bf16 U-net level, conformer stage or DSConv block on its kernel's
+    fp32 design ("tc_widened", where the bf16 design cannot copy its
+    widths). `args`: the activations (one or more), then `params`,
+    `weights`, `packed` and `pack`. The bf16 conv weights (indices
+    `weights` of the flat `params`) checked, the activations and `params`
+    widened to fp32, `run(*activations, params, packed)` the fp32 launches
+    (uncounted) on the caller's fp32 packs (`pack(params, torch.float32)`,
+    made once where the caller keeps them; here otherwise), the output (a
+    tensor or a tuple) rounded to bf16 once: the rounding points of
     `widened`. Counted as `kernel`_bf16 and `kernel`_bf16_widened."""
-    if _build.launch_dtype(kernel, xc, xm) != torch.bfloat16:
+    *xs, params, weights, packed, pack = args
+    if _build.launch_dtype(kernel, *xs) != torch.bfloat16:
         raise ValueError(f"{kernel} kernel: the tc_widened design takes "
-                         f"bf16 activations, got {xc.dtype}")
+                         f"bf16 activations, got {xs[0].dtype}")
     for i in weights:
         if params[i].dtype != torch.bfloat16:
             raise TypeError(f"{kernel} kernel: a bf16 launch takes bf16 "
                             f"conv weights, got {params[i].dtype}")
     if packed is None:
         packed = pack(params, torch.float32)
-    out = run(xc.float(), xm.float(), to_float(tuple(params)), packed)
+    out = run(*(x.float() for x in xs), to_float(tuple(params)), packed)
     _build.LAUNCHES[f"{kernel}_bf16"] += 1
     _build.LAUNCHES[f"{kernel}_bf16_widened"] += 1
+    if isinstance(out, torch.Tensor):
+        return out.to(torch.bfloat16)
     return tuple(o.to(torch.bfloat16) for o in out)
 
 

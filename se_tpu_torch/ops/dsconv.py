@@ -38,13 +38,13 @@ and `se_dsconv_pair_tc_bf16`, counted as `dsconv_bf16` and
 `dsconv_pair_bf16`): bf16 parameters, every intermediate fp32 (the scratch
 y between the two launches too), the outputs rounded once, as se_tpu's
 Pallas kernels; `_reference` and `_pair_reference` mirror that
-(`_dtype.widened`). The block packs its bf16 weights in fp32 holding their
-values (two TF32 passes); the pair stage keeps them bf16 (bf16
-`mma.m16n8k16`, each fp32 operand in three bf16 pieces) where the stage's
-C is a multiple of 8 and both blocks' widths multiples of 16 (the
-conformer's: 128; 64 and 32), and otherwise takes "tc_widened"
-(`pair_design`, `_dtype.widened_launch`): the fp32 stage on the widened
-inputs and fp32 packs, its outputs rounded to bf16 once, counted also as
+(`_dtype.widened`). Both keep their packed weights bf16 (bf16
+`mma.m16n8k16`, each fp32 operand in three bf16 pieces) where x's
+channels are a multiple of 8 and the blocks' widths multiples of 16 (the
+conformer's: Cin 256 and 128, Cm 64 and 32), and otherwise take
+"tc_widened" (`block_design`, `pair_design`, `_dtype.widened_launch`):
+the fp32 kernels on the widened inputs and fp32 packs, the outputs
+rounded to bf16 once, counted also as `dsconv_bf16_widened` and
 `dsconv_pair_bf16_widened`.
 """
 
@@ -137,7 +137,7 @@ def _check_block(x, params, ncomp: int, what: str) -> int:
     1 or 2, Cin and Cm multiples of 4 (16-byte copies), Cm <= 64 for ncomp
     2 and <= 32 for ncomp 1 (a block's N, `PAIR_N`), every tensor a
     contiguous CUDA tensor of the tuple's shape and of x's dtype (fp32, or
-    bf16 for the pair stage's bf16 variant). Return Cm."""
+    bf16 for the bf16 variants). Return Cm."""
     (g1, b1, w1, bb1, alpha, wd1, bd1, wd2, bd2, g2, b2, ws, bs) = params
     cin, tot = x.shape[-1], w1.shape[-1]
     if (ncomp not in (1, 2) or cin % 4 or tot % 4 or tot % ncomp
@@ -171,20 +171,35 @@ def _check_packed(pk, cin: int, tot: int, ncomp: int, ws_rows: int,
                      weights if i in (0, 5, 7, 11) else torch.float32)
 
 
-def pack_block_weights(params, ncomp: int):
-    """One block's 13-tuple as csrc/dsconv.cu's `se_dsconv_block_tc` takes
-    it, on its device: `_pack_branch`'s (N = 64 for ncomp 2, 32 for ncomp
-    1), and ws (Cm, Cin) K-major: (Cin, round_up(Cm, 8)), row c = column c
-    of ws, zero past Cm, all in fp32 (bf16 weights too: the block's bf16
-    variant widens them). Done once a module (DSConvCplx and DSConvReal
-    keep it), not once a call."""
+def pack_block_weights(params, ncomp: int, dtype: torch.dtype | None = None):
+    """One block's 13-tuple as csrc/dsconv.cu's `se_dsconv_block_tc` (or,
+    from bf16 weights, `se_dsconv_block_tc_bf16`) takes it, on its device:
+    `_pack_branch`'s (N = 64 for ncomp 2, 32 for ncomp 1), and ws (Cm, Cin)
+    K-major: (Cin, round_up(Cm, 8)), row c = column c of ws, zero past Cm.
+    The weights w1, wd1, wd2 and ws in `dtype`, by default `pack_dtype`'s
+    for the block's design (`block_design`: bf16 on "tc", fp32 on the
+    widened route), the vectors fp32. Done once a module (DSConvCplx and
+    DSConvReal keep it), not once a call."""
     params = tuple(params)
-    packed = _pack_branch(params, PAIR_N[ncomp == 1], torch.float32)
-    ws = params[11]
-    tot = ws.shape[0]
+    w1, ws = params[2], params[11]
+    cin, tot = w1.shape
+    dtype = dtype or pack_dtype(w1, block_design(cin, tot, w1.dtype))
+    packed = _pack_branch(params, PAIR_N[ncomp == 1], dtype)
     packed[11] = F.pad(ws, (0, 0, 0, _round_up(tot, 8) - tot)).t() \
-        .float().contiguous()
+        .to(dtype).contiguous()
     return tuple(packed)
+
+
+def block_design(cin: int, tot: int,
+                 dtype: torch.dtype = torch.float32) -> str:
+    """The design a block of `dtype` runs with, Cin its channels and tot
+    its width: "tc" (the tensor-core kernels; in bf16
+    `se_dsconv_block_tc_bf16`, which copies 8 channels of x at a time and
+    steps the output GEMM by k16: Cin % 8 == 0, tot % 16 == 0); in bf16
+    "tc_widened" otherwise (the fp32 block on widened inputs)."""
+    if dtype == torch.bfloat16 and (cin % 8 or tot % 16):
+        return "tc_widened"
+    return "tc"
 
 
 def dsconv_block(x: torch.Tensor, params, d1: int, d2: int, ncomp: int,
@@ -205,19 +220,29 @@ def _block(x, params, d1: int, d2: int, ncomp: int, packed):
         lambda x, params: _reference(x, params, d1, d2, ncomp), x, params)
 
 
-def _block_launch(x, params, d1: int, d2: int, ncomp: int, packed):
-    """The block's two launches, fp32 or bf16 by x's dtype; the scratch y
-    between them is fp32 either way."""
+def _block_launch(x, params, d1: int, d2: int, ncomp: int, packed,
+                  count=True):
+    """The block's two launches, fp32 or bf16 by x's dtype
+    (`block_design`'s "tc_widened": the fp32 launches on the widened
+    input); the scratch y between them is fp32 either way. `count` as the
+    encoder's `_launch`."""
     dtype = _build.launch_dtype("dsconv", x)
     b, t, f, cin = x.shape
     tot = _check_block(x, params, ncomp, "dsconv")
+    if block_design(cin, tot, dtype) == "tc_widened":
+        return widened_launch(
+            "dsconv",
+            lambda x, p, pk: _block_launch(x, p, d1, d2, ncomp, pk, False),
+            x, params, PAIR_WEIGHTS, packed,
+            lambda p, dtype: pack_block_weights(p, ncomp, dtype))
     pk = pack_block_weights(params, ncomp) if packed is None else packed
-    _check_packed(pk, cin, tot, ncomp, cin, "block")
+    _check_packed(pk, cin, tot, ncomp, cin, "block", dtype)
     y = torch.empty((b, t, f, tot), device=x.device, dtype=torch.float32)
     out = torch.empty_like(x)
     _build.launch(_build.variant("se_dsconv_block_tc", dtype), _aligned(x),
                   *pk, y, out, b, t, f, cin, tot, ncomp, d1, d2)
-    _build.LAUNCHES[_build.variant("dsconv", dtype)] += 1
+    if count:
+        _build.LAUNCHES[_build.variant("dsconv", dtype)] += 1
     return out
 
 

@@ -1,4 +1,4 @@
-"""The last two bf16 kernel variants on the CPU: the single DSConv block
+"""Two bf16 kernel variants on the CPU: the single DSConv block
 (csrc/dsconv.cu `se_dsconv_block_tc_bf16`) and the STFT's basis product
 (csrc/stft.cu `se_stft_basis_bf16`). The kernels run only on the card
 (tests/test_torch_cuda.py); here their plain twins are held to se_tpu and
@@ -11,10 +11,16 @@ their arithmetic is formed in plain torch.
   plus 1e-6 of the largest output). DSConvCplx / DSConvReal in eval on a
   bf16 input with bf16 parameters against se_tpu's modules from the same
   weights (the same rule). The bf16 design's arithmetic: the fp32 block's
-  emulation (tests/test_torch_dsconv_block_tc.py) with each product in two
-  TF32 passes, fp32 packs holding the bf16 weights, within 1e-5 * max(1,
-  max|twin|) of the fp32 twin on the widened inputs before the output
-  rounding and within the bf16 rule of the bf16 twin after it.
+  emulation (tests/test_torch_dsconv_block_tc.py) on the bf16 packs, each
+  fp32 operand in three bf16 pieces (`three_pieces`), at the conformer's
+  widths and all eight dilation pairs; the widened route's on fp32 packs
+  of the bf16 weights, each product two TF32 passes (the fp32 kernel's
+  3xTF32, bit for bit). Each within 1e-5 * max(1, max|twin|) of the fp32
+  twin on the widened inputs before the output rounding and within the
+  bf16 rule of the bf16 twin (the three pieces also of se_tpu's Pallas
+  block) after it. `block_design` by dtype and width, the bf16 pack the
+  fp32 pack in bf16 (fp32 on the widened route), and `widened_launch`
+  with the block's one activation.
 - The STFT's twin (`stft_fused._reference`: the frames times the window x
   DFT basis rounded to bf16, the products summed in fp32, the spectrum
   fp32) against se_tpu's `stft_pallas` in interpret mode (pallas_call
@@ -45,18 +51,20 @@ from se_tpu.ops.stft import StftConfig as JStftConfig
 from se_tpu.ops.stft import stft as jnp_stft
 from se_tpu_torch.models import jax_tree as jt
 from se_tpu_torch.models import uformer
-from se_tpu_torch.ops import dsconv, stft_fused
-from se_tpu_torch.ops._dtype import to_float
+from se_tpu_torch.ops import _build, dsconv, stft_fused
+from se_tpu_torch.ops._dtype import to_float, widened_launch
 from se_tpu_torch.ops.stft import (
     PRESET_512_128, PRESET_UFORMER, StftConfig, stft,
 )
-from test_torch_bf16_kernels import to_jax, two_pass
+from test_torch_bf16_kernels import three_pieces, to_jax, two_pass
 from test_torch_dsconv_block_tc import block_emulated
+from test_torch_lstm_tc import matmul_3xtf32
 from torch_kernel_inputs import (
     bf16_close, dsconv_params, fill_tree, rand, to_bf16,
 )
 
 BF16 = torch.bfloat16
+BLOCK_WEIGHTS = (0, 5, 7, 11)  # w1, wd1, wd2, ws in a packed tuple
 RTOL = 1e-5
 STFT_RTOL = 1e-5
 CONVENTIONS = {
@@ -109,19 +117,105 @@ def test_block_twin_widens_and_rounds_once(rng):
 
 @pytest.mark.parametrize("ncomp,cin", [(2, 256), (1, 128)])
 def test_block_two_passes_match_twin(rng, ncomp, cin):
-    """The bf16 design at the conformer's widths (Cm 32 a component), T =
-    9: every product an fp32 operand (LN1's output, y's taps, z) against a
-    bf16-valued weight in two TF32 passes, from `pack_block_weights`' fp32
-    packs of the bf16 parameters."""
+    """The widened route's arithmetic ("tc_widened": the fp32 block on the
+    widened inputs) at the conformer's widths (Cm 32 a component), T = 9,
+    from the fp32 packs of the bf16 parameters it takes: every product an
+    fp32 operand (LN1's output, y's taps, z) against a bf16-valued weight,
+    where the fp32 kernel's 3xTF32 is two TF32 passes bit for bit."""
     params = to_bf16(dsconv_params(rng, cin, 32, ncomp))
     (x,) = to_bf16((rand(rng, 1, 9, 4, cin, scale=0.5),))
-    pk = dsconv.pack_block_weights(params, ncomp)
+    pk = dsconv.pack_block_weights(params, ncomp, torch.float32)
     assert all(t.dtype == torch.float32 for t in pk)
     got = block_emulated(x.float(), pk, ncomp, 128, 1, two_pass)
+    assert torch.equal(got, block_emulated(x.float(), pk, ncomp, 128, 1,
+                                           matmul_3xtf32))
     _close32(got, dsconv._reference.__wrapped__(
         x.float(), to_float(params), 128, 1, ncomp))
     bf16_close([got.to(BF16)], [dsconv._reference(x, params, 128, 1,
                                                    ncomp)])
+
+
+@pytest.mark.parametrize("cin,tot,bf16", [
+    (256, 64, "tc"), (128, 32, "tc"), (24, 16, "tc"),
+    (12, 8, "tc_widened"), (12, 16, "tc_widened"), (16, 8, "tc_widened"),
+    (64, 36, "tc_widened")])
+def test_block_design_by_dtype_and_width(cin, tot, bf16):
+    """The bf16 block copies 8 channels of x at a time and steps the
+    output GEMM by k16; fp32 runs every width its checks take."""
+    assert dsconv.block_design(cin, tot) == "tc"
+    assert dsconv.block_design(cin, tot, BF16) == bf16
+
+
+@pytest.mark.parametrize("cin,cm,ncomp,design", [
+    (256, 32, 2, "tc"), (128, 32, 1, "tc"), (24, 8, 2, "tc"),
+    (12, 8, 1, "tc_widened"), (16, 4, 2, "tc_widened")])
+def test_block_bf16_pack_is_the_fp32_pack_in_bf16(rng, cin, cm, ncomp,
+                                                 design):
+    """From bf16 weights the block packs for its design: on "tc" the
+    weights w1, wd1, wd2 and ws in bf16 (the fp32 pack of the same values,
+    bit for bit), on the widened route in fp32 (the same pack widened);
+    the vectors fp32 either way."""
+    params = to_bf16(dsconv_params(rng, cin, cm, ncomp))
+    assert dsconv.block_design(cin, cm * ncomp, BF16) == design
+    packed = dsconv.pack_block_weights(params, ncomp)
+    want = dsconv.pack_block_weights(to_float(params), ncomp)
+    weights = BF16 if design == "tc" else torch.float32
+    for i, (got, ref) in enumerate(zip(packed, want)):
+        assert got.dtype == (weights if i in BLOCK_WEIGHTS
+                             else torch.float32)
+        assert torch.equal(got.float(), ref)
+    assert [t.dtype for t in dsconv.pack_block_weights(
+        params, ncomp, torch.float32)] == [torch.float32] * 13
+
+
+@pytest.mark.parametrize("d1,d2", [(2 ** i, 2 ** (7 - i)) for i in range(8)])
+@pytest.mark.parametrize("ncomp,cin", [(2, 256), (1, 128)])
+def test_block_three_pieces_match_twin(rng, ncomp, cin, d1, d2):
+    """se_dsconv_block_tc_bf16's arithmetic on the bf16 pack, at the
+    conformer's widths (Cm 32 a component) and every dilation pair of its
+    eight stages, T = 9 (d >= 16 reaches past both ends): each fp32
+    operand (LN1's output, y's taps, z) in three bf16 pieces against the
+    bf16 weights (`three_pieces`). Before the output rounding within 1e-5
+    * max(1, max|twin|) of the fp32 twin on the widened inputs, after it
+    within the bf16 rule of the bf16 twin and of se_tpu's Pallas block in
+    interpret mode on the same bf16 x and parameters."""
+    params = to_bf16(dsconv_params(rng, cin, 32, ncomp))
+    (x,) = to_bf16((rand(rng, 1, 9, 4, cin, scale=0.5),))
+    pk = dsconv.pack_block_weights(params, ncomp)
+    assert [t.dtype for t in pk] == [
+        BF16 if i in BLOCK_WEIGHTS else torch.float32 for i in range(13)]
+    got = block_emulated(x.float(), pk, ncomp, d1, d2, three_pieces)
+    _close32(got, dsconv._reference.__wrapped__(
+        x.float(), to_float(params), d1, d2, ncomp))
+    bf16_close([got.to(BF16)], [dsconv._reference(x, params, d1, d2,
+                                                   ncomp)])
+    bf16_close([got.to(BF16)], [jds.dsconv_block(
+        *to_jax((x,)), to_jax(params), d1, d2, ncomp, interpret=True)])
+
+
+def test_block_widened_launch_rounds_once_and_counts(rng):
+    """`_dtype.widened_launch` with one activation, the block's fp32 twin
+    standing in for the fp32 kernel: the bf16 twin bit for bit, from an
+    fp32 pack made of the bf16 weights, counted as dsconv_bf16 and
+    dsconv_bf16_widened."""
+    params = to_bf16(dsconv_params(rng, 12, 8, 1))
+    (x,) = to_bf16((rand(rng, 1, 5, 4, 12, scale=0.5),))
+    seen = []
+
+    def run(x, params, packed):
+        seen.append({t.dtype for t in (x, *params, *packed)})
+        return dsconv._reference(x, params, 2, 1, 1)
+
+    before = dict(_build.LAUNCHES)
+    got = widened_launch("dsconv", run, x, params, dsconv.PAIR_WEIGHTS,
+                         None, lambda p, dtype: dsconv.pack_block_weights(
+                             p, 1, dtype))
+    assert seen == [{torch.float32}]
+    assert got.dtype == BF16
+    assert torch.equal(got, dsconv._reference(x, params, 2, 1, 1))
+    assert {n: _build.LAUNCHES[n] - before.get(n, 0) for n in (
+        "dsconv", "dsconv_bf16", "dsconv_bf16_widened")} == {
+            "dsconv": 0, "dsconv_bf16": 1, "dsconv_bf16_widened": 1}
 
 
 def _module_pair(kind: str, cin: int, seed: int):

@@ -9,7 +9,8 @@ modules, against se_tpu, on the CPU.
   CSV and average.csv against se_tpu's CLI on the same directories, to
   1e-6 relative; `train` writes the checkpoints, the pointer and the loss
   curve that `enhance` restores; `train --data-parallel --device cpu`
-  (one gloo rank) writes the plain `train`'s checkpoint; without
+  (one gloo rank) writes the plain `train`'s checkpoint, and so does
+  chip_smoke.py's `CLI_DETERMINISTIC` launcher of `main`; without
   `--device` on a box without CUDA the command raises. A written wav holds 16-bit
   samples: outputs are compared within 1e-4 * max + one 16-bit step.
 - The copies: PESQ, the composite measures and HASQI / HASPI equal
@@ -400,6 +401,44 @@ def test_train_data_parallel_equals_plain_train(tmp_path, capsys):
         for key, m in plain["opt_state"][part].items():
             assert torch.equal(sharded["opt_state"][part][key], m), key
     assert torch.equal(plain["generator"], sharded["generator"])
+
+
+def test_deterministic_launcher_is_the_cli(tmp_path):
+    """chip_smoke.py's `CLI_DETERMINISTIC` (its phase 9 trains: the CLI's
+    `main` under cuDNN's deterministic algorithms) run as `python -c` on
+    the CPU writes the checkpoint `python -m se_tpu_torch` writes, bit for
+    bit."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    sys.path.insert(0, str(root))
+    try:
+        from chip_smoke import CLI_DETERMINISTIC
+    finally:
+        sys.path.remove(str(root))
+    _corpus(str(tmp_path), n_utts=2, n=3200)
+    args = ["train", "--model", "dpcrn", "--mix-dir", "noisy", "--clean-dir",
+            "clean", "--manifest", "files.json", "--batch-size", "2",
+            "--device", "cpu", "--checkpoint-dir"]
+    env = dict(os.environ, PYTHONPATH=str(root), OMP_NUM_THREADS="1")
+    for entry, ckpt in ((["-m", "se_tpu_torch"], "CP"),
+                        (["-c", CLI_DETERMINISTIC], "CP_launcher")):
+        run = subprocess.run([sys.executable, *entry, *args, ckpt],
+                             cwd=tmp_path, env=env, capture_output=True,
+                             text=True)
+        assert run.returncode == 0, run.stderr[-2000:]
+    plain, launched = (torch.load(tmp_path / d / "model.ckpt-0-1",
+                                  weights_only=False)
+                       for d in ("CP", "CP_launcher"))
+    assert plain["step"] == launched["step"] == 1
+    for key, w in plain["model"].items():
+        assert torch.equal(launched["model"][key], w), key
+    for part in ("mu", "nu"):
+        for key, m in plain["opt_state"][part].items():
+            assert torch.equal(launched["opt_state"][part][key], m), key
+    assert torch.equal(plain["generator"], launched["generator"])
 
 
 # --------------------------------------------------------------------- copies

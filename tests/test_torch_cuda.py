@@ -1009,6 +1009,95 @@ def test_block_bf16_matches_twin(gen, dev, ncomp, cin, cm, d1, d2):
     bf16_close([got], [want])
 
 
+def _block_bf16_case(gen, dev, b, t, cin, cm, ncomp, d1, d2, packed=False):
+    """The bf16 block on b x t x 4 rows against its bf16 twin, and its
+    launch counts: dsconv, dsconv_bf16, dsconv_bf16_widened."""
+    params = to_bf16(dsconv_params(gen, cin, cm, ncomp), device=dev)
+    (x,) = to_bf16((rand(gen, b, t, 4, cin, scale=0.5),), device=dev)
+    want = dsconv._reference(x, params, d1, d2, ncomp)
+    pk = dsconv.pack_block_weights(params, ncomp) if packed else None
+    before = dict(_build.LAUNCHES)
+    got = dsconv.dsconv_block(x, params, d1, d2, ncomp, packed=pk)
+    torch.cuda.synchronize()
+    assert got.dtype == BF16
+    bf16_close([got], [want])
+    return _bf16_counts(before, ("dsconv", "dsconv_bf16",
+                                 "dsconv_bf16_widened"))
+
+
+TC_BF16 = {"dsconv": 0, "dsconv_bf16": 1, "dsconv_bf16_widened": 0}
+
+
+@pytest.mark.parametrize("d1,d2", [(2 ** i, 2 ** (7 - i)) for i in range(8)])
+@pytest.mark.parametrize("ncomp,cin", [(2, 256), (1, 128)])
+def test_block_bf16_tc_matches_twin(gen, dev, ncomp, cin, d1, d2):
+    """The bf16 tensor-core block (`block_design` "tc") at the conformer's
+    widths, Cin 256 / Cm 64 and Cin 128 / Cm 32, on 2 x 50 x 4 rows, every
+    dilation pair of its eight stages."""
+    assert dsconv.block_design(cin, 32 * ncomp, BF16) == "tc"
+    assert _block_bf16_case(gen, dev, 2, 50, cin, 32, ncomp, d1,
+                            d2) == TC_BF16
+
+
+@pytest.mark.parametrize("b,t", [(3, 7), (32, 401)])
+@pytest.mark.parametrize("ncomp,cin", [(2, 256), (1, 128)])
+def test_block_bf16_ragged_and_b32_matches_twin(gen, dev, ncomp, cin, b, t):
+    """84 rows (the second 64-row tile part empty), and a block at B =
+    32 x 4 s (51,328 rows), with the pack passed as DSConvCplx and
+    DSConvReal pass theirs."""
+    assert _block_bf16_case(gen, dev, b, t, cin, 32, ncomp, 1, 128,
+                            packed=True) == TC_BF16
+
+
+def test_block_bf16_widened_route_matches_twin(gen, dev):
+    """Cin 12 (not a multiple of 8) and Cm 8 (not a multiple of 16):
+    `block_design` picks the widened route, within the bf16 rule of the
+    bf16 twin, from the caller's fp32 pack and without one; the fp32 block
+    runs the width as before."""
+    assert dsconv.block_design(12, 8, BF16) == "tc_widened"
+    widened = {"dsconv": 0, "dsconv_bf16": 1, "dsconv_bf16_widened": 1}
+    for packed in (False, True):
+        assert _block_bf16_case(gen, dev, 1, 5, 12, 8, 1, 1, 2,
+                                packed) == widened
+    params = to_bf16(dsconv_params(gen, 12, 8, 1), device=dev)
+    assert all(t.dtype == torch.float32
+               for t in dsconv.pack_block_weights(params, 1))
+    (x,) = to_torch((rand(gen, 1, 5, 4, 12, scale=0.5),), device=dev)
+    got = dsconv.dsconv_block(x, to_torch(dsconv_params(gen, 12, 8, 1),
+                                          device=dev), 1, 2, 1)
+    assert got.dtype == torch.float32
+
+
+def test_dsconv_modules_bf16_run_the_kernel_with_their_pack(gen, dev):
+    """bf16 DSConvCplx / DSConvReal at the conformer's widths on the card:
+    their pack made once from the bf16 weights, in bf16 (the vectors
+    fp32), one dsconv_bf16 launch a forward and no widened one, the output
+    within the bf16 rule of the bf16 twin."""
+    from se_tpu_torch.models.uformer import DSConvCplx, DSConvReal
+
+    torch.manual_seed(0)
+    for cls, cin in ((DSConvCplx, 256), (DSConvReal, 128)):
+        blk = cls(cin // cls.ncomp, 32, 4, 32).eval()
+        with torch.no_grad():
+            for prm in blk.parameters():
+                prm.normal_(0.0, 0.1)
+        card = blk.to(dev).to(BF16)
+        (x,) = to_bf16((rand(gen, 2, 40, 4, cin, scale=0.5),), device=dev)
+        with torch.no_grad():
+            params, packed = card.weights()
+            assert [t.dtype for t in packed] == [
+                BF16 if i in (0, 5, 7, 11) else torch.float32
+                for i in range(13)]
+            before = dict(_build.LAUNCHES)
+            got = card(x)
+            torch.cuda.synchronize()
+            assert card.weights()[1] is packed
+            want = dsconv._reference(x, params, 4, 32, cls.ncomp)
+        assert _bf16_counts(before, ("dsconv", "dsconv_bf16",
+                                     "dsconv_bf16_widened")) == TC_BF16
+        bf16_close([got], [want])
+
+
 @pytest.mark.parametrize("cfg", [
     plain_stft.PRESET_512_128, plain_stft.PRESET_320,
     plain_stft.StftConfig(512, 256, 512, window="hamming",
