@@ -50,6 +50,7 @@ from se_tpu_torch.parallel.collectives import all_gather_rows
 from se_tpu_torch.parallel.mesh import (
     activation_mesh, check_replicated, shard_batch,
 )
+from se_tpu_torch.utils.profiling import span
 
 # why a family whose entry has no `bf16` (DeepXi, the hybrid io-kind)
 # decodes in fp32 only: se_tpu's has no bf16 decode to port
@@ -212,32 +213,45 @@ def enhance_waveform(name: str, model: torch.nn.Module, wav: np.ndarray,
     the rows are gathered to every rank and trimmed: every rank returns
     what one device returns
     for the whole batch (se_tpu/eval/enhance.py's mesh path; tests hold
-    it to the one-process decode and to se_tpu's)."""
-    entry = get_model(name)
-    dtype = compute_dtype(entry, dtype)
-    dev = model_device(model, device)
-    single = wav.ndim == 1
-    x = np.atleast_2d(np.asarray(wav, np.float32))
-    n = x.shape[-1]
+    it to the one-process decode and to se_tpu's).
 
-    # per-utterance RMS gain; a family may invert it (entry.inverted_gain)
-    energy = np.sum(np.square(x), axis=-1, keepdims=True)
-    c = np.sqrt(n / np.maximum(energy, 1e-12)).astype(np.float32)
-    inverted = entry.inverted_gain
-    x_in = x / c if inverted else x * c
-    model.eval()
-    net = model if dtype is None else bf16_model(entry, model)
-    if mesh is None:
-        est = _enhance(entry, net, torch.from_numpy(x_in).to(dev), n,
-                       compressed, dtype)
-    else:
-        check_replicated(model, mesh)
-        pad = (-x_in.shape[0]) % mesh.data
-        rows = shard_batch(np.pad(x_in, ((0, pad), (0, 0))), mesh)
-        with activation_mesh(mesh):  # the kernels split over "model"
-            est = _enhance(entry, net, torch.from_numpy(rows).to(dev), n,
-                           compressed, dtype)
-        est = all_gather_rows(est, mesh)[:x_in.shape[0]]
-    est = est.cpu().numpy()
-    est = est * c if inverted else est / c
-    return est[0] if single else est
+    Spans (utils/profiling.py): `enhance` around the whole, holding
+    `enhance.gain`, `enhance.h2d`, `enhance.model` (`_enhance`; under
+    `mesh` also the gather), `enhance.d2h` and `enhance.ungain` in that
+    order."""
+    with span("enhance"):
+        entry = get_model(name)
+        dtype = compute_dtype(entry, dtype)
+        dev = model_device(model, device)
+        single = wav.ndim == 1
+        x = np.atleast_2d(np.asarray(wav, np.float32))
+        n = x.shape[-1]
+
+        # per-utterance RMS gain; a family may invert it
+        # (entry.inverted_gain)
+        with span("enhance.gain"):
+            energy = np.sum(np.square(x), axis=-1, keepdims=True)
+            c = np.sqrt(n / np.maximum(energy, 1e-12)).astype(np.float32)
+            inverted = entry.inverted_gain
+            x_in = x / c if inverted else x * c
+        model.eval()
+        net = model if dtype is None else bf16_model(entry, model)
+        rows = x_in
+        if mesh is not None:
+            check_replicated(model, mesh)
+            pad = (-x_in.shape[0]) % mesh.data
+            rows = shard_batch(np.pad(x_in, ((0, pad), (0, 0))), mesh)
+        with span("enhance.h2d"):
+            rows = torch.from_numpy(rows).to(dev)
+        with span("enhance.model"):
+            if mesh is None:
+                est = _enhance(entry, net, rows, n, compressed, dtype)
+            else:
+                with activation_mesh(mesh):  # the kernels split over "model"
+                    est = _enhance(entry, net, rows, n, compressed, dtype)
+                est = all_gather_rows(est, mesh)[:x_in.shape[0]]
+        with span("enhance.d2h"):
+            est = est.cpu().numpy()
+        with span("enhance.ungain"):
+            est = est * c if inverted else est / c
+            return est[0] if single else est

@@ -12,6 +12,9 @@ backward re-runs the plain twin on detached copies under
 kernel and the twin close over (packed weights, dilations, designs,
 `has_bn`, the attention scale) is no input of the Function and gets no
 gradient: packs are constants to it, so build them under `torch.no_grad()`.
+The Function's forward is the span `autograd.kernel`, the twin's
+recompute and VJP in its backward the span `autograd.twin`
+(utils/profiling.py); a call without grad records neither.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+
+from se_tpu_torch.utils.profiling import span
 
 _SLOT = object()  # where a tensor stood in a nest
 
@@ -59,7 +64,8 @@ class _Spec:
 class _KernelFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, spec, *tensors):
-        out = spec.kernel(*_fill(spec.inputs, iter(tensors)))
+        with span("autograd.kernel"):
+            out = spec.kernel(*_fill(spec.inputs, iter(tensors)))
         spec.outputs = _skeleton(out)
         flat = _flatten(out)
         ctx.spec = spec
@@ -73,14 +79,16 @@ class _KernelFunction(torch.autograd.Function):
         needs = ctx.needs_input_grad[1:]
         leaves = [t.detach().requires_grad_(n)
                   for t, n in zip(ctx.saved_tensors, needs)]
-        with torch.enable_grad():
-            outs = _flatten(spec.twin(*_fill(spec.inputs, iter(leaves))))
-        pairs = [(o, g) for i, (o, g) in enumerate(zip(outs, grads))
-                 if i not in spec.no_grad_outputs and o.requires_grad]
-        wanted = [t for t, n in zip(leaves, needs) if n]
-        got = iter(torch.autograd.grad([o for o, _ in pairs], wanted,
-                                       [g for _, g in pairs],
-                                       allow_unused=True))
+        with span("autograd.twin"):
+            with torch.enable_grad():
+                outs = _flatten(spec.twin(*_fill(spec.inputs,
+                                                 iter(leaves))))
+            pairs = [(o, g) for i, (o, g) in enumerate(zip(outs, grads))
+                     if i not in spec.no_grad_outputs and o.requires_grad]
+            wanted = [t for t, n in zip(leaves, needs) if n]
+            got = iter(torch.autograd.grad([o for o, _ in pairs], wanted,
+                                           [g for _, g in pairs],
+                                           allow_unused=True))
         return (None, *(next(got) if n else None for n in needs))
 
 

@@ -14,12 +14,16 @@ library (which links its own CUDA runtime, so `torch.cuda.device` does not
 reach it) before the call. `LAUNCHES` counts the wrapper calls that
 launched a kernel, by kernel name; a bf16 variant counts under its own
 name (`variant`: attention_bf16, ...), never under the fp32 kernel's.
+`LAUNCHES` counts whether or not the span recorder is on. A launch's host
+work is the span `kernel.launch`, a weight pack's (`packs`) the span named
+by its pack function.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -27,6 +31,8 @@ import subprocess
 from pathlib import Path
 
 import torch
+
+from se_tpu_torch.utils.profiling import span
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -199,29 +205,46 @@ def _check(lib, entry: str, err: int) -> None:
         raise RuntimeError(f"{entry}: CUDA error {err}: {msg}")
 
 
+def packs(fn):
+    """Make the weight-pack function `fn` record each pack it makes as a
+    span named by the function."""
+    name = fn.__name__
+
+    @functools.wraps(fn)
+    def pack(*args, **kw):
+        with span(name):
+            return fn(*args, **kw)
+
+    return pack
+
+
 def launch(entry: str, *args) -> None:
     """Call C entry `entry` with tensors as pointers (None as NULL), ints
     as int and floats as float, plus the current stream of the tensors'
-    device, made current first; raise if it reports an error."""
-    dev = launch_device(a.device for a in args if isinstance(a, torch.Tensor))
-    lib = library()
-    fn = getattr(lib, entry)
-    conv = []
-    for a in args:
-        if isinstance(a, torch.Tensor):
-            conv.append(ctypes.c_void_p(a.data_ptr()))
-        elif a is None:  # a NULL pointer
-            conv.append(ctypes.c_void_p(None))
-        elif isinstance(a, int):  # bool included
-            conv.append(ctypes.c_int(int(a)))
-        elif isinstance(a, float):
-            conv.append(ctypes.c_float(a))
-        else:
-            raise TypeError(f"{entry}: cannot pass {type(a).__name__}")
-    conv.append(ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    if entry not in _declared:
-        fn.argtypes = [type(c) for c in conv]
-        fn.restype = ctypes.c_int
-        _declared.add(entry)
-    _check(lib, "se_set_device", lib.se_set_device(dev.index))
-    _check(lib, entry, fn(*conv))
+    device, made current first; raise if it reports an error. The whole
+    is the span `kernel.launch`."""
+    with span("kernel.launch"):
+        dev = launch_device(a.device for a in args
+                            if isinstance(a, torch.Tensor))
+        lib = library()
+        fn = getattr(lib, entry)
+        conv = []
+        for a in args:
+            if isinstance(a, torch.Tensor):
+                conv.append(ctypes.c_void_p(a.data_ptr()))
+            elif a is None:  # a NULL pointer
+                conv.append(ctypes.c_void_p(None))
+            elif isinstance(a, int):  # bool included
+                conv.append(ctypes.c_int(int(a)))
+            elif isinstance(a, float):
+                conv.append(ctypes.c_float(a))
+            else:
+                raise TypeError(f"{entry}: cannot pass {type(a).__name__}")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        conv.append(ctypes.c_void_p(stream))
+        if entry not in _declared:
+            fn.argtypes = [type(c) for c in conv]
+            fn.restype = ctypes.c_int
+            _declared.add(entry)
+        _check(lib, "se_set_device", lib.se_set_device(dev.index))
+        _check(lib, entry, fn(*conv))

@@ -134,6 +134,7 @@ def _pack_branch(w_even, w_odd, parts: int, dtype: torch.dtype):
     return packed.reshape(-1, 6 * cinp).to(dtype).contiguous()
 
 
+@_build.packs
 def pack_decoder_weights(params, dtype: torch.dtype | None = None):
     """The 12-tuple's phase weights packed for the tensor-core design, on
     their device: complex (4 Coutp, 6 Cinp_c) and real (2 Coutp, 6

@@ -171,6 +171,7 @@ def _check_packed(pk, cin: int, tot: int, ncomp: int, ws_rows: int,
                      weights if i in (0, 5, 7, 11) else torch.float32)
 
 
+@_build.packs
 def pack_block_weights(params, ncomp: int, dtype: torch.dtype | None = None):
     """One block's 13-tuple as csrc/dsconv.cu's `se_dsconv_block_tc` (or,
     from bf16 weights, `se_dsconv_block_tc_bf16`) takes it, on its device:
@@ -279,6 +280,7 @@ def _pack_out(wsc, wsm, dtype: torch.dtype):
             wm.to(dtype).contiguous())
 
 
+@_build.packs
 def pack_pair_weights(params_c, params_m, dtype: torch.dtype | None = None):
     """Both blocks' 13-tuples as csrc/dsconv.cu's `se_dsconv_pair_tc` (or,
     from bf16 weights, `se_dsconv_pair_tc_bf16`) takes them, on their

@@ -118,6 +118,7 @@ def _pack_branch(w, parts: int, dtype: torch.dtype):
     return packed.reshape(-1, TAPS * cinp).to(dtype).contiguous()
 
 
+@_build.packs
 def pack_encoder_weights(params, dtype: torch.dtype | None = None):
     """The 10-tuple's kernels packed for the tensor-core design, on their
     device: complex (2 Coutp, 10 Cinp_c) and real (Coutp, 10 Cinp_m),

@@ -240,6 +240,7 @@ def _interleave(w: torch.Tensor, h_dim: int, hp: int, kp: int):
     return F.pad(w.reshape(4 * hp, k), (0, kp - k)).contiguous()
 
 
+@_build.packs
 def pack_weights(wx: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
     """[Wx; Wh] (K = In + H, 4H) -> (4Hp, Kp), K-major, for the tensor-core
     step: each 32 packed columns hold the i, f, g, o columns of 8 units.
@@ -249,6 +250,7 @@ def pack_weights(wx: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
                        _ceil_to(in_dim + h_dim, K_TILE))
 
 
+@_build.packs
 def pack_weights_bf16(wx: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
     """[Wx; Wh] -> (4Hp, Kx + Kh), K-major and interleaved as
     `pack_weights`, for the bf16 step: Wx's rows zero-padded to Kx = In
@@ -261,6 +263,7 @@ def pack_weights_bf16(wx: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
                      dim=1)
 
 
+@_build.packs
 def pack_recurrent(wh: torch.Tensor) -> torch.Tensor:
     """Wh (H, 4H) -> (4Hk, Hk) in Wh's dtype, K-major and interleaved as
     `pack_weights`, for the persistent recurrence: Hk = H rounded up to 8
@@ -271,6 +274,7 @@ def pack_recurrent(wh: torch.Tensor) -> torch.Tensor:
     return _interleave(wh, h_dim, hk, hk)
 
 
+@_build.packs
 def pack_input(wx: torch.Tensor) -> torch.Tensor:
     """Wx (In, 4H) -> (Np, Kp) = Wx^T zero-padded, torch's column order, for
     the projection: Np = 4H and Kp = In rounded up to COL_TILE and

@@ -51,6 +51,12 @@ statistics equal by computing them globally. The hybrid io-kind
 (DeepXi) trains through its own driver,
 `models.deepxi_driver.DeepXiDriver.train`, as in se_tpu (whose
 `make_train_step` has no DeepXi branch either).
+
+Spans (utils/profiling.py): `train.step` around `step_fn`, holding
+`train.forward` (the forward and the loss, `train.prep` around `_prep`
+inside it), `train.backward` (`loss.backward()`; under remat also the
+checkpointed forward's rerun) and `train.optimizer` (the gradients, the
+mesh's all-reduce, the clip and Adam).
 """
 
 from __future__ import annotations
@@ -77,6 +83,7 @@ from se_tpu_torch.parallel.mesh import (
 )
 from se_tpu_torch.train import losses as L
 from se_tpu_torch.train.checkpoint import save_checkpoint
+from se_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -202,7 +209,9 @@ def make_train_step(cfg: TrainConfig, device=None, mesh=None):
                     + L.uformer_cplx_mse_loss(e, s)
                     + L.uformer_mag_mse_loss(e, s))
 
-        mag, lmag, spec, lspec = _prep(entry, mix, clean, cfg.compressed)
+        with span("train.prep"):
+            mag, lmag, spec, lspec = _prep(entry, mix, clean,
+                                           cfg.compressed)
         if entry.io_kind == "mag_mask":
             return L.mag_mse_loss(net(mag), lmag, frames)
 
@@ -271,8 +280,10 @@ def make_train_step(cfg: TrainConfig, device=None, mesh=None):
         the generator are left as the first run left them (updated once a
         step)."""
         if cfg.remat == "none":
-            loss = forward_loss(batch, generator)
-            loss.backward()
+            with span("train.forward"):
+                loss = forward_loss(batch, generator)
+            with span("train.backward"):
+                loss.backward()
             return loss
         from torch.utils.checkpoint import checkpoint
 
@@ -282,10 +293,13 @@ def make_train_step(cfg: TrainConfig, device=None, mesh=None):
             generator.set_state(start)
             return forward_loss(batch, generator)
 
-        loss = checkpoint(run, use_reentrant=False, context_fn=context_fn)
+        with span("train.forward"):
+            loss = checkpoint(run, use_reentrant=False,
+                              context_fn=context_fn)
         kept = {n: b.clone() for n, b in model.named_buffers()}
         after = generator.get_state()
-        loss.backward()
+        with span("train.backward"):  # the checkpointed run's too
+            loss.backward()
         with torch.no_grad():  # by name: BN replaces its statistics
             for n, b in model.named_buffers():
                 b.copy_(kept[n])
@@ -297,27 +311,30 @@ def make_train_step(cfg: TrainConfig, device=None, mesh=None):
         statistics and `state` in place; returns (state, loss), the loss
         a 0-d tensor on the model's device. The step's gradients (before
         the clip) stay in the parameters' `.grad` until the next step."""
-        model.train()
-        params = dict(model.named_parameters())
-        for p in params.values():
-            p.grad = None
-        if mesh is None:
-            loss = loss_and_grads(batch, state["generator"])
-        else:
-            with activation_mesh(mesh):
-                loss = loss_and_grads(shard_batch(batch, mesh),
-                                      state["generator"])
-            loss = C.all_reduce_sum(loss, mesh)
-        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for n, p in params.items()}
-        if mesh is not None:
-            grads = _all_reduce_grads(params, grads, mesh)
-        with torch.no_grad():
-            adam_update(params, grads, state["opt_state"],
-                        cfg.learning_rate * state["lr_scale"],
-                        cfg.grad_clip)
-        state["step"] += 1
-        return state, loss.detach()
+        with span("train.step"):
+            model.train()
+            params = dict(model.named_parameters())
+            for p in params.values():
+                p.grad = None
+            if mesh is None:
+                loss = loss_and_grads(batch, state["generator"])
+            else:
+                with activation_mesh(mesh):
+                    loss = loss_and_grads(shard_batch(batch, mesh),
+                                          state["generator"])
+                loss = C.all_reduce_sum(loss, mesh)
+            with span("train.optimizer"):
+                grads = {n: p.grad if p.grad is not None
+                         else torch.zeros_like(p)
+                         for n, p in params.items()}
+                if mesh is not None:
+                    grads = _all_reduce_grads(params, grads, mesh)
+                with torch.no_grad():
+                    adam_update(params, grads, state["opt_state"],
+                                cfg.learning_rate * state["lr_scale"],
+                                cfg.grad_clip)
+            state["step"] += 1
+            return state, loss.detach()
 
     def eval_fn(state: dict, batch: dict):
         """The loss in eval mode (running statistics, no dropout); under

@@ -17,7 +17,7 @@ modules, against se_tpu, on the CPU.
   se_tpu's; every preset equals se_tpu's and builds the port's model;
   `num_params` equals se_tpu's count for every family; `flops_estimate`
   of LSTMNet falls in se_tpu's band at 2 FLOPs a multiply-add; `trace`
-  writes a Chrome trace.
+  writes a Chrome trace with the port's spans on the profiler's clock.
 """
 
 import argparse
@@ -528,9 +528,18 @@ def test_flops_estimate_lstmnet_in_se_tpu_band():
 
 def test_trace_writes_a_chrome_trace(tmp_path):
     with profiling.trace(str(tmp_path)):
-        torch.ones(64, 64).sum()
+        with profiling.span("test.sum"):
+            torch.ones(64, 64).sum()
     with open(tmp_path / "trace.json") as f:
-        assert "traceEvents" in json.load(f)
+        events = json.load(f)["traceEvents"]
+    # the span on its own track, on the profiler's clock: around the op
+    (span,) = [e for e in events if e.get("cat") == "se_tpu_torch"]
+    assert span["name"] == "test.sum" and span["ph"] == "X"
+    ops = [e for e in events if e.get("name") == "aten::sum"]
+    assert ops
+    for op in ops:
+        assert span["ts"] <= op["ts"]
+        assert op["ts"] + op["dur"] <= span["ts"] + span["dur"]
     text = profiling.summary("lstm", get_model("lstm").make(
         hidden=8, device="cpu"))
     assert text.splitlines()[0] == "model: lstm"
